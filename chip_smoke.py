@@ -8,8 +8,10 @@ Phases, each of which must pass:
      the port from csrc/ (one nvcc per source, started together), with
      ptxas's register and shared-memory report;
   2. each kernel against its plain PyTorch version on the card, bit for
-     bit, at the main path's shapes and edge cases, a subsample against
-     the host Myers scan, and timings (CUDA events) beside the bound;
+     bit, at the main path's shapes and edge cases (lengths at 32-bit word
+     boundaries, alphabets beyond ACGT, a batch mixing 60 bp and 4,095 bp
+     pairs), a subsample against the host Myers scan, and timings (CUDA
+     events) beside the bound;
   3. the main path: a 256-sample cohort written by sniffles_tpu_torch.sim,
      combined into a multi-sample VCF on the card (the device greedy and
      the edit-distance kernel) and again on the host path (--no-tpu); the
@@ -36,7 +38,12 @@ import torch
 # architecture white paper). Both assume the full 700 W power limit.
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 64 * 132 * 1.98e9
-ED_OPS_PER_CELL = 6          # one compare, three adds, two mins
+# int32 operations per 32-bit word and text column of the bit-vector
+# recurrence in csrc/edit_distance.cu, counted from the source (a LOP3, an
+# add with carry or a funnel shift is one): 10 for the recurrence, 2 or
+# more for the match mask
+ED_OPS_PER_WORD = 12
+ED_OPS_PER_CELL_WAVEFRONT = 6  # the earlier wavefront kernel: a compare, 3 adds, 2 mins
 COHORT_SAMPLES = 256
 COHORT_SEED = 2024
 
@@ -89,76 +96,139 @@ def edge_pairs(L):
             ("A" * top, "A" * (top - 1) + "T"), ("GATTACA", "GCATGCT")]
 
 
+def related_bytes(rng, a, alphabet, n, edits):
+    """a cut or extended to n bytes from alphabet, then `edits` substitutions."""
+    t = bytearray(a[:n]) + bytes(rng.choice(list(alphabet), max(0, n - len(a))).tolist())
+    for _ in range(edits):
+        if t:
+            t[int(rng.integers(0, len(t)))] = int(rng.choice(list(alphabet)))
+    return bytes(t)
+
+
+def special_pairs(rng):
+    """Byte pairs for L = 4096: every pair of lengths at 32-bit word
+    boundaries; DNA with N (5 symbols: the kernel's 3-plane path);
+    patterns with more than 8 distinct bytes (lowercase, N, IUPAC) and
+    arbitrary bytes; one batch share of 60 bp and 4,095 bp pairs mixed."""
+    def rand(alphabet, n):
+        return bytes(rng.choice(list(alphabet), n).tolist())
+
+    bounds = (31, 32, 33, 63, 64, 65, 1023, 1024, 4095)
+    pairs = []
+    for x in bounds:
+        for y in bounds:
+            a = rand(b"ACGT", x)
+            pairs.append((a, related_bytes(rng, a, b"ACGT", y, 5)))
+    for x, y in ((2500, 2500), (700, 690), (64, 65)):
+        a = rand(b"ACGTN", x)
+        pairs += [(a, related_bytes(rng, a, b"ACGTN", y, 20)),
+                  (rand(b"ACGT", x), rand(b"ACGTN", y))]
+    iupac = b"ACGTNacgtnRYKMSWBDHV"
+    for x, y in ((2500, 2480), (4095, 4095), (300, 60), (33, 4095)):
+        a = rand(iupac, x)
+        pairs += [(a, related_bytes(rng, a, iupac, y, 20)), (a, rand(b"ACGT", y)),
+                  (rand(bytes(range(256)), x), rand(bytes(range(256)), y))]
+    for k in range(64):
+        x, y = (60, 60) if k % 4 == 0 else (4095, 4095) if k % 4 == 1 else \
+            (60, 4095) if k % 4 == 2 else (4095, 60)
+        a = rand(b"ACGT", x)
+        pairs.append((a, related_bytes(rng, a, b"ACGT", y, 30)))
+    return pairs
+
+
 def on_card(pairs, L):
-    from sniffles_tpu_torch.ops.edit_distance_batch import encode_pairs
-    return [torch.from_numpy(x).cuda() for x in encode_pairs(pairs, L)]
+    """Padded [B, L] uint8 arrays and [B] int32 lengths of byte pairs, on
+    the card."""
+    B = len(pairs)
+    a = np.zeros((B, L), dtype=np.uint8)
+    b = np.zeros((B, L), dtype=np.uint8)
+    for i, (x, y) in enumerate(pairs):
+        a[i, :len(x)] = np.frombuffer(x, dtype=np.uint8)
+        b[i, :len(y)] = np.frombuffer(y, dtype=np.uint8)
+    la = np.array([len(x) for x, _ in pairs], dtype=np.int32)
+    lb = np.array([len(y) for _, y in pairs], dtype=np.int32)
+    return [torch.from_numpy(v).cuda() for v in (a, b, la, lb)]
 
 
-def check_ed_kernel(rng, L, B):
-    """Kernel == plain version on the card, bit for bit; a subsample ==
-    host Myers. Returns the max |kernel - plain|."""
+def check_ed_kernel(pairs, L, label, host_every):
+    """Kernel == plain version on the card, bit for bit; every
+    host_every-th pair and the last 9 == host Myers. Returns the max
+    |kernel - plain|."""
     from sniffles_tpu_torch.ops.edit_distance import edit_distance
     from sniffles_tpu_torch.ops.edit_distance_batch import (
         edit_distance_batch_device, edit_distance_batch_plain)
-    pairs = (random_pairs(rng, B // 2, L, related=False)
-             + random_pairs(rng, B - B // 2, L, related=True) + edge_pairs(L))
     inputs = on_card(pairs, L)
     kernel = edit_distance_batch_device(*inputs)
     torch.cuda.synchronize()
     plain = edit_distance_batch_plain(*inputs)
     err = int((kernel - plain).abs().max())
     if err != 0 or not torch.equal(kernel, plain):
-        fail(f"ED kernel differs from its plain version at L={L} (max err {err})")
-    pick = list(range(0, len(pairs), max(1, len(pairs) // 100))) + \
-        list(range(len(pairs) - len(edge_pairs(L)), len(pairs)))
+        fail(f"ED kernel differs from its plain version on {label} (max err {err})")
+    pick = sorted(set(range(0, len(pairs), host_every)) |
+                  set(range(max(0, len(pairs) - 9), len(pairs))))
     got = kernel.cpu().numpy()
     for k in pick:
-        if int(got[k]) != edit_distance(*pairs[k]):
-            fail(f"ED kernel differs from host Myers at L={L}, pair {k}")
-    print(f"  L={L} B={len(pairs)}: kernel == plain (bit-exact), "
+        x, y = pairs[k]
+        if int(got[k]) != edit_distance(x.decode("latin-1"), y.decode("latin-1")):
+            fail(f"ED kernel differs from host Myers on {label}, pair {k}")
+    print(f"  {label} B={len(pairs)}: kernel == plain (bit-exact), "
           f"{len(pick)} pairs == host Myers", flush=True)
     return err
 
 
 def time_ed_kernel(inputs):
     """Kernel, plain version and bound on one batch the main path gave the
-    kernel (inputs: its a, b, la, lb on the card). The bound counts the
-    (la + 1)(lb + 1) DP cells of these pairs at ED_OPS_PER_CELL int32
+    kernel (inputs: its a, b, la, lb on the card). The kernel's time is
+    that of its launch alone, in the wrapper's order; the wrapper (checks,
+    sort, counts, launch) and a launch in index order are timed beside it.
+    The bound counts the 32-bit word-columns these pairs need,
+    ceil(min(la, lb) / 32) * max(la, lb) a pair, at ED_OPS_PER_WORD int32
     operations each, and each input byte read once, each output written
     once."""
     from sniffles_tpu_torch.ops.edit_distance_batch import (
-        edit_distance_batch_device, edit_distance_batch_plain)
+        edit_distance_batch_device, edit_distance_batch_plain, launch_myers)
     B, L = inputs[0].shape
     la = inputs[2].to(torch.int64)
     lb = inputs[3].to(torch.int64)
     dp_cells = int(((la + 1) * (lb + 1)).sum())
+    word_cols = int(((torch.minimum(la, lb) + 31) // 32 * torch.maximum(la, lb)).sum())
     in_bytes = 2 * B * L + 8 * B
     out_bytes = 4 * B
-    bound_ops_ms = ED_OPS_PER_CELL * dp_cells / INT32_OPS_PER_S * 1e3
+    bound_ops_ms = ED_OPS_PER_WORD * word_cols / INT32_OPS_PER_S * 1e3
     bound_bytes_ms = (in_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3
     bound_ms = max(bound_ops_ms, bound_bytes_ms)
+    wavefront_bound_ms = ED_OPS_PER_CELL_WAVEFRONT * dp_cells / INT32_OPS_PER_S * 1e3
+    order = torch.argsort(la * lb, descending=True).to(torch.int32)
+    index_order = torch.arange(B, dtype=torch.int32, device=order.device)
+    launches = {"sorted": lambda: launch_myers(*inputs, order),
+                "index order": lambda: launch_myers(*inputs, index_order),
+                "wrapper": lambda: edit_distance_batch_device(*inputs)}
 
-    def kernel():
-        return edit_distance_batch_device(*inputs)
-
-    def plain():
-        return edit_distance_batch_plain(*inputs)
-
-    kernel()
-    torch.cuda.synchronize()
-    kernel_ms = cuda_ms(kernel, 10)
-    plain_ms = cuda_ms(plain, 1)
-    err = int((kernel() - plain()).abs().max())
-    if err != 0:
-        fail(f"ED kernel differs from its plain version on the main path's batch "
-             f"({B}, {L}) (max err {err})")
+    plain_ms = cuda_ms(lambda: edit_distance_batch_plain(*inputs), 1)
+    plain = edit_distance_batch_plain(*inputs)
+    err = 0
+    for name, fn in launches.items():
+        out = fn()
+        err = max(err, int((out - plain).abs().max()))
+        if not torch.equal(out, plain):
+            fail(f"ED kernel ({name}) differs from its plain version on the main "
+                 f"path's batch ({B}, {L}) (max err {err})")
+    ms = {name: cuda_ms(fn, 20) for name, fn in launches.items()}
+    kernel_ms = ms["sorted"]
     real = int(((la + lb) > 0).sum())
-    print(f"  main-path batch B={B} L={L}, {real} non-empty pairs: {dp_cells} DP cells; kernel {kernel_ms:.3f} ms "
-          f"({dp_cells / kernel_ms / 1e9:.3f} Tcells/s), plain {plain_ms:.1f} ms, "
-          f"kernel == plain (bit-exact); bound {bound_ms:.3f} ms "
-          f"({ED_OPS_PER_CELL} int32 ops/cell at {INT32_OPS_PER_S / 1e12:.1f} Tops/s: "
+    unequal = int((la != lb).sum())
+    print(f"  main-path batch B={B} L={L}, {real} non-empty pairs ({unequal} with "
+          f"la != lb): {dp_cells} DP cells, "
+          f"{word_cols} word-columns; kernel {kernel_ms:.3f} ms "
+          f"({dp_cells / kernel_ms / 1e9:.3f} Tcells/s), in index order "
+          f"{ms['index order']:.3f} ms, through the wrapper {ms['wrapper']:.3f} ms; "
+          f"plain {plain_ms:.1f} ms; all == plain (bit-exact); bound {bound_ms:.3f} ms "
+          f"({ED_OPS_PER_WORD} int32 ops/word-column at {INT32_OPS_PER_S / 1e12:.1f} Tops/s: "
           f"{bound_ops_ms:.3f} ms; {in_bytes + out_bytes} bytes at "
-          f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s: {bound_bytes_ms:.5f} ms)", flush=True)
+          f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s: {bound_bytes_ms:.5f} ms), "
+          f"{bound_ms / kernel_ms:.1%} of it; the wavefront kernel's bound "
+          f"({ED_OPS_PER_CELL_WAVEFRONT} int32 ops/DP cell) {wavefront_bound_ms:.3f} ms",
+          flush=True)
     return {"ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": "operations" if bound_ops_ms >= bound_bytes_ms else "bytes",
             "max_abs_err": err}
@@ -225,7 +295,12 @@ def main() -> int:
     rng = np.random.default_rng(7)
     max_err = 0
     for L, B in ((128, 4096), (1024, 4096), (2560, 2048), (4096, 2048)):
-        max_err = max(max_err, check_ed_kernel(rng, L, B))
+        pairs = (random_pairs(rng, B // 2, L, related=False)
+                 + random_pairs(rng, B - B // 2, L, related=True) + edge_pairs(L))
+        pairs = [(x.encode(), y.encode()) for x, y in pairs]
+        max_err = max(max_err, check_ed_kernel(pairs, L, f"L={L}", len(pairs) // 100))
+    max_err = max(max_err, check_ed_kernel(special_pairs(rng), 4096,
+                                           "word boundaries, alphabets, 60/4095 mix", 1))
 
     print(f"[3] main path: {COHORT_SAMPLES}-sample cohort, 2 contigs of 1 Mb", flush=True)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
@@ -276,7 +351,7 @@ def main() -> int:
     timing = time_ed_kernel([x.cuda() for x in largest])
     max_err = max(max_err, timing["max_abs_err"])
     kernels = [{
-        "name": "edit_distance_wavefront", "route": "cuda",
+        "name": "edit_distance_myers", "route": "cuda",
         "source": "sniffles_tpu_torch/csrc/edit_distance.cu",
         "replaces": "sniffles_tpu/ops/edit_distance_jax.py:37",
         "launches": launches, "max_abs_err": max_err,

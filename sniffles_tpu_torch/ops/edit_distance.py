@@ -9,9 +9,9 @@ Two implementations:
   * `edit_distance` — host-side Myers bit-parallel algorithm: the native
     uint64-blocked scan of native/libbamcore.so when that library loads,
     else Python big ints; O(n*m/w), exact, used by the host pipeline.
-  * `edit_distance_batch` — the batched anti-diagonal wavefront on the
-    card (ops/edit_distance_batch.py), operating on padded uint8
-    sequence tensors.
+  * `edit_distance_batch` — the same bit-vector recurrence on the card,
+    one warp per pair (ops/edit_distance_batch.py), operating on padded
+    uint8 sequence tensors.
 
 A copy of sniffles_tpu/ops/edit_distance.py with its own loader for the
 native library (the loading logic of sniffles_tpu/io/native.py, reduced

@@ -7,17 +7,12 @@ snfp.py:103 gate INS merges by pairwise alt-sequence distance; combine
 over thousands of blocks evaluates many pairs).
 
 * `edit_distance_batch_device` is the kernel wrapper: on a CUDA tensor it
-  launches csrc/edit_distance.cu (one block per pair, an anti-diagonal
-  wavefront) or raises; on a CPU tensor it takes the plain version.
+  launches csrc/edit_distance.cu (Myers/Hyyrö bit-vectors, one warp per
+  pair) or raises; on a CPU tensor it takes the plain version.
 * `edit_distance_batch_plain` is the plain PyTorch version: the same
-  recurrence as the JAX package's edit_distance_batch_jnp, vectorised
-  over the batch,
-
-      diag_t[i] = min(diag_{t-1}[i-1] + 1,
-                      diag_{t-1}[i]   + 1,
-                      diag_{t-2}[i-1] + cost(a[i-1], b[t-i-1])),
-
-  with b read through a per-step roll of its reverse.
+  bit-vector recurrence (the global form of native/bamcore.cc's blocked
+  Myers scan) in 32-bit words, vectorised over pairs and words with the
+  kernel's one-step skew between neighbouring words.
 * `edit_distance_batch` is the dispatcher: host Myers below
   DEVICE_MIN_CELLS, the wrapper above it.
 
@@ -32,8 +27,6 @@ import numpy as np
 import torch
 
 from sniffles_tpu_torch.ops._greedy_consts import ED_DEVICE_MIN_CELLS
-
-BIG = 1 << 20
 
 # Only batches of at least this many DP cells (sum of len(a) * len(b)) go
 # to the device; smaller ones run the host Myers scan. The value equals
@@ -57,46 +50,91 @@ def reset_counts() -> None:
 # Plain PyTorch version
 # ---------------------------------------------------------------------------
 
+M32 = 0xFFFFFFFF
+
+# Longest string the kernel takes: at most 4 words of 32 bits on each of
+# a warp's 32 lanes.
+MAX_LEN = 4096
+
+
+def _popcount32(x: torch.Tensor) -> torch.Tensor:
+    """Set bits of each 32-bit word held in an int64 tensor."""
+    x = x - ((x >> 1) & 0x55555555)
+    x = (x & 0x33333333) + ((x >> 2) & 0x33333333)
+    x = (x + (x >> 4)) & 0x0F0F0F0F
+    return ((x * 0x01010101) & M32) >> 24
+
+
 def edit_distance_batch_plain(a: torch.Tensor, b: torch.Tensor,
                               la: torch.Tensor, lb: torch.Tensor) -> torch.Tensor:
     """a, b: [B, L] uint8 (padded); la, lb: [B] int32 with
     max(la, lb) <= L - 1. Returns [B] int32 edit distances.
 
-    The wavefront of edit_distance_batch_jnp, written out over the batch.
-    The loop stops after the last step any pair reads (max(la + lb));
-    later steps leave every answer unchanged."""
+    Myers/Hyyrö bit-vectors in the global form, with a as the pattern:
+    32-bit words held in int64 tensors, so a carry is a shift and a mask.
+    Word g processes text column j = s - g at step s, with the carries
+    word g - 1 produced for that column at step s - 1 (the kernel's skew,
+    one word per lane). The pattern masks are built once per distinct byte
+    value of the batch and gathered per step. At the end D(la, lb) = lb +
+    popc(pv) - popc(mv) over the la pattern bits: the last column's
+    vertical deltas."""
     B, L = a.shape
     dev = a.device
-    i32 = torch.int32
-    lane = torch.arange(L + 1, dtype=i32, device=dev)[None, :]
-    zero_col = torch.zeros((B, 1), dtype=i32, device=dev)
-    big_col = torch.full((B, 1), BIG, dtype=i32, device=dev)
-    m = la.to(i32)[:, None]
-    n = lb.to(i32)[:, None]
-    a_sh = torch.cat([zero_col, a.to(i32)], dim=1)
-    b_roll = torch.flip(b.to(i32), dims=[1])
+    i64 = torch.int64
+    if B == 0:
+        return torch.empty(0, dtype=torch.int32, device=dev)
+    m = la.to(i64)
+    n = lb.to(i64)
+    kw = (m + 31) // 32
+    W = max(1, int(kw.max()))
+    width = 32 * W
 
-    d_prev2 = torch.where(lane == 0, 0, BIG).to(i32).expand(B, L + 1)
-    d_prev1 = torch.where(lane <= 1, 1, BIG).to(i32).expand(B, L + 1)
-    total = m + n
-    ans = torch.where(total == 0, 0, torch.where(total == 1, 1, BIG)).to(i32)
-    t_end = int(total.max()) if B else 0
+    values = torch.unique(torch.cat([a.reshape(-1), b.reshape(-1)]))
+    lut = torch.zeros(256, dtype=i64, device=dev)
+    lut[values.long()] = torch.arange(len(values), dtype=i64, device=dev)
+    a_w = torch.zeros((B, width), dtype=torch.uint8, device=dev)
+    a_w[:, :min(L, width)] = a[:, :min(L, width)]
+    pos = torch.arange(width, device=dev)[None, :]
+    code_a = torch.where(pos < m[:, None], lut[a_w.long()], -1).view(B, W, 32)
+    weight = torch.ones(32, dtype=i64, device=dev) << torch.arange(32, device=dev)
+    peq = torch.stack([((code_a == u).to(i64) * weight).sum(-1)
+                       for u in range(len(values))], dim=-1)      # [B, W, U]
+    code_b = lut[b.long()]
 
-    for t in range(2, min(t_end, 2 * L) + 1):
-        b_roll = torch.roll(b_roll, 1, dims=1)
-        bchar = torch.cat([zero_col, b_roll], dim=1)
-        cost = (a_sh != bchar).to(i32)
-        up = d_prev1 + 1
-        left = torch.cat([big_col, d_prev1[:, :-1]], dim=1) + 1
-        diagv = torch.cat([big_col, d_prev2[:, :-1]], dim=1) + cost
-        d = torch.minimum(torch.minimum(up, left), diagv)
-        d = torch.where(lane == 0, t, d)
-        d = torch.where(lane == t, torch.clamp(d, max=t), d)
-        valid = (lane <= t) & (lane <= m) & ((t - lane) <= n)
-        d = torch.where(valid, d, BIG).to(i32)
-        ans = torch.where(total == t, torch.gather(d, 1, m.long()), ans)
-        d_prev2, d_prev1 = d_prev1, d
-    return ans[:, 0]
+    g = torch.arange(W, device=dev)[None, :]
+    zero = torch.zeros((B, 1), dtype=i64, device=dev)
+    one = torch.ones((B, 1), dtype=i64, device=dev)
+    pv = torch.full((B, W), M32, dtype=i64, device=dev)
+    mv = torch.zeros_like(pv)
+    add_c = torch.zeros_like(pv)    # carries out of each word, last step
+    ph_c = torch.zeros_like(pv)
+    mh_c = torch.zeros_like(pv)
+    live = (m > 0) & (n > 0)
+    steps = int(torch.where(live, n + kw - 1, 0).max())
+    for s in range(steps):
+        j = s - g
+        active = (j >= 0) & (j < n[:, None]) & (g < kw[:, None])
+        x = torch.gather(code_b, 1, j.clamp(0, L - 1).expand(B, W))
+        eq = torch.gather(peq, 2, x.unsqueeze(-1)).squeeze(-1)
+        ep = eq & pv
+        total = ep + pv + torch.cat([zero, add_c[:, :-1]], dim=1)
+        add_c = total >> 32
+        total = total & M32
+        ph = (mv | ~(total | pv | eq)) & M32
+        mh = pv & ((total ^ pv) | eq)
+        # word 0 shifts in ph = 1: D(0, j) = j
+        ph_sh = ((ph << 1) & M32) | torch.cat([one, ph_c[:, :-1]], dim=1)
+        mh_sh = ((mh << 1) & M32) | torch.cat([zero, mh_c[:, :-1]], dim=1)
+        ph_c = ph >> 31
+        mh_c = mh >> 31
+        xv = eq | mv
+        mv = torch.where(active, ph_sh & xv, mv)
+        pv = torch.where(active, (mh_sh | ~(xv | ph_sh)) & M32, pv)
+
+    bits = (m[:, None] - 32 * g).clamp(0, 32)
+    keep = (torch.ones_like(bits) << bits) - 1
+    delta = (_popcount32(pv & keep) - _popcount32(mv & keep)).sum(dim=1)
+    return (n + delta).to(torch.int32)
 
 
 # ---------------------------------------------------------------------------
@@ -124,7 +162,10 @@ def _check_inputs(a, b, la, lb) -> None:
 def edit_distance_batch_device(a: torch.Tensor, b: torch.Tensor,
                                la: torch.Tensor, lb: torch.Tensor) -> torch.Tensor:
     """Edit distances of a padded batch: the CUDA kernel on a CUDA tensor,
-    the plain version on a CPU tensor. Shapes as edit_distance_batch_plain."""
+    the plain version on a CPU tensor. Shapes as edit_distance_batch_plain;
+    on the card the lengths must also be at most MAX_LEN. The kernel takes
+    the pairs in descending order of la * lb, so the long pairs start
+    first."""
     _check_inputs(a, b, la, lb)
     if a.device.type == "cpu":
         return edit_distance_batch_plain(a, b, la, lb)
@@ -133,26 +174,38 @@ def edit_distance_batch_device(a: torch.Tensor, b: torch.Tensor,
     B, L = a.shape
     if B == 0:
         return torch.empty(0, dtype=torch.int32, device=a.device)
-    lo, hi = (int(v) for v in torch.stack([torch.minimum(la.min(), lb.min()),
-                                           torch.maximum(la.max(), lb.max())]).tolist())
-    if lo < 0 or hi > L - 1:
-        raise ValueError(f"lengths must lie in [0, L - 1] = [0, {L - 1}], "
-                         f"got [{lo}, {hi}]")
-    cells = int((la.to(torch.int64) * lb.to(torch.int64)).sum())
+    work = la.to(torch.int64) * lb.to(torch.int64)
+    order = torch.argsort(work, descending=True).to(torch.int32)
+    lo, hi, cells = torch.stack([torch.minimum(la.min(), lb.min()).to(torch.int64),
+                                 torch.maximum(la.max(), lb.max()).to(torch.int64),
+                                 work.sum()]).tolist()
+    top = min(L - 1, MAX_LEN)
+    if lo < 0 or hi > top:
+        raise ValueError(f"lengths must lie in [0, {top}], got [{lo}, {hi}]")
+    out = launch_myers(a, b, la, lb, order)
+    COUNTS["launches"] += 1
+    COUNTS["cells"] += cells
+    return out
+
+
+def launch_myers(a, b, la, lb, order) -> torch.Tensor:
+    """One launch of the kernel's entry point ed_myers on CUDA inputs that
+    edit_distance_batch_device has checked; `order` is an int32 [B]
+    permutation, the order the warps take the pairs in. Counts nothing;
+    raises when the launch fails."""
+    B, L = a.shape
     from sniffles_tpu_torch.ops import _build
-    lib = _build.load("edit_distance")
-    fn = lib.ed_wavefront
+    fn = _build.load("edit_distance").ed_myers
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     out = torch.empty(B, dtype=torch.int32, device=a.device)
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
         rc = fn(a.data_ptr(), b.data_ptr(), la.data_ptr(), lb.data_ptr(),
-                out.data_ptr(), B, L, stream)
+                order.data_ptr(), out.data_ptr(),
+                B, L, stream)
     if rc != 0:
-        raise RuntimeError(f"ed_wavefront launch failed with CUDA error {rc}")
-    COUNTS["launches"] += 1
-    COUNTS["cells"] += cells
+        raise RuntimeError(f"ed_myers launch failed with CUDA error {rc}")
     return out
 
 
@@ -213,7 +266,7 @@ def edit_distance_batch(pairs: list[tuple[str, str]], max_len: int | None = None
 
     Dispatch: the host Myers scan (native blocked Myers when the library
     loads) handles everything below DEVICE_MIN_CELLS; a larger batch goes
-    to the wavefront kernel on `device` ("cuda"), or to its plain version
+    to the bit-vector kernel on `device` ("cuda"), or to its plain version
     when the CPU was asked for ("cpu"). The batch dimension is padded to
     a power of two, with empty padding pairs, as in the JAX package.
     Each route is counted in `counters`."""

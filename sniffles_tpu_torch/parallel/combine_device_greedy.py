@@ -284,7 +284,7 @@ def _build_task_ed_table(cands, cand_seg, row_of_seg, dev_row, dev_col,
         return (z, z, z, z, uniform)
 
     pairs = list(pair_keys)
-    # host Myers under DEVICE_MIN_CELLS, the wavefront kernel above it
+    # host Myers under DEVICE_MIN_CELLS, the bit-vector kernel above it
     from sniffles_tpu_torch.ops.edit_distance_batch import edit_distance_batch
     dists = edit_distance_batch(pairs, device=device, counters=counters)
     dist_of = {p: int(d) for p, d in zip(pairs, dists)}

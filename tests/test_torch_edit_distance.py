@@ -1,9 +1,10 @@
 """The port's batched edit distance (sniffles_tpu_torch/ops/edit_distance_batch.py)
 against the JAX package's: encode_pairs byte for byte, the plain PyTorch
-wavefront against edit_distance_batch_jnp (the CPU form of the Pallas
-kernel) and against the host Myers scan. Every output is an integer, so
-every comparison is exact. The CUDA kernel itself runs only on the card
-(tests/test_torch_gpu.py)."""
+bit-vector version against edit_distance_batch_jnp (the CPU form of the
+Pallas kernel) and against the host Myers scan, on random pairs, word
+boundaries, alphabets beyond ACGT, mixed lengths and padding. Every
+output is an integer, so every comparison is exact. The CUDA kernel
+itself runs only on the card (tests/test_torch_gpu.py)."""
 import numpy as np
 import pytest
 import torch
@@ -48,6 +49,77 @@ def seeded_pairs(n, max_len, seed):
     return out
 
 
+# lengths around the 32-bit words of the bit-vector scan
+WORD_BOUNDS = (0, 1, 31, 32, 33, 63, 64, 65, 1023, 1024, 4095)
+
+
+def mutated(rng, s: bytes, alphabet: bytes, length: int, edits: int) -> bytes:
+    """s cut or extended to `length` from `alphabet`, then `edits`
+    substitutions: a related string of another length."""
+    t = bytearray(s[:length])
+    t += bytes(rng.choice(list(alphabet), max(0, length - len(s))).tolist())
+    for _ in range(edits):
+        if t:
+            t[int(rng.integers(0, len(t)))] = int(rng.choice(list(alphabet)))
+    return bytes(t)
+
+
+def byte_pairs(kind, max_len, seed):
+    """Pairs of byte strings of one kind, all of length <= max_len - 1."""
+    rng = np.random.default_rng(seed)
+
+    def rand(alphabet, n):
+        return bytes(rng.choice(list(alphabet), n).tolist())
+
+    if kind == "word_bounds":
+        out = []
+        for x in WORD_BOUNDS:
+            for y in WORD_BOUNDS:
+                a = rand(b"ACGT", x)
+                out.append((a, mutated(rng, a, b"ACGT", y, 3)))
+        return out
+    if kind == "alphabets":
+        # DNA with lowercase, N and IUPAC codes (more than 8 distinct
+        # bytes), and arbitrary bytes 0..255 against them
+        iupac = b"ACGTNacgtnRYKMSWBDHV"
+        out = []
+        for x, y in ((200, 190), (33, 64), (64, 33), (1, 200), (0, 5), (150, 150)):
+            a = rand(iupac, x)
+            out += [(a, mutated(rng, a, iupac, y, 4)), (a, rand(b"ACGT", y)),
+                    (rand(bytes(range(256)), x), rand(bytes(range(256)), y)),
+                    (a, rand(b"xyz", y))]
+        return out + [(b"\x00" * 40, b"\x00" * 39 + b"A"), (b"\xff\x00A", b"A\x00\xff")]
+    if kind == "mixed_lengths":
+        # 60 bp against long alleles, in one batch: the skew and the masks
+        # of the last word differ pair by pair
+        long = max_len - 1
+        out = []
+        for x, y in ((60, long), (long, 60), (60, 60), (long, long), (0, long),
+                     (long, 0), (61, 1000), (1000, 61), (5, 3)):
+            a = rand(b"ACGT", x)
+            out.append((a, mutated(rng, a, b"ACGT", y, 8)))
+        return out
+    if kind == "padding":
+        return [(b"", b"")] * 16
+    if kind == "empty_sides":
+        return [(b"", b""), (b"A", b""), (b"", b"C"), (rand(b"ACGT", 100), b""),
+                (b"", rand(b"ACGT", 127)), (b"", b""), (rand(b"ACGT", 40), b"")]
+    raise ValueError(kind)
+
+
+def encode_bytes(pairs, L):
+    """encode_pairs for byte strings of any values (it takes ASCII text)."""
+    B = len(pairs)
+    a = np.zeros((B, L), dtype=np.uint8)
+    b = np.zeros((B, L), dtype=np.uint8)
+    la = np.array([len(x) for x, _ in pairs], dtype=np.int32)
+    lb = np.array([len(y) for _, y in pairs], dtype=np.int32)
+    for i, (x, y) in enumerate(pairs):
+        a[i, :len(x)] = np.frombuffer(x, dtype=np.uint8)
+        b[i, :len(y)] = np.frombuffer(y, dtype=np.uint8)
+    return a, b, la, lb
+
+
 def run_plain(a, b, la, lb):
     return ted.edit_distance_batch_plain(
         *(torch.from_numpy(x) for x in (a, b, la, lb))).numpy()
@@ -68,14 +140,26 @@ def test_encode_pairs_matches_jax(max_len, seed):
         assert x.tobytes() == y.tobytes()
 
 
-@pytest.mark.parametrize("max_len,seed", [(128, 3), (256, 4)])
-def test_plain_matches_jnp_and_host(max_len, seed):
-    pairs = seeded_pairs(48, max_len, seed)
-    a, b, la, lb = ted.encode_pairs(pairs, max_len)
+@pytest.mark.parametrize("max_len,seed,kind", [
+    pytest.param(128, 3, "random", id="128-3"),
+    pytest.param(256, 4, "random", id="256-4"),
+    pytest.param(4096, 5, "word_bounds", id="word_bounds"),
+    pytest.param(256, 6, "alphabets", id="alphabets"),
+    pytest.param(1152, 7, "mixed_lengths", id="mixed_lengths"),
+    pytest.param(128, 8, "padding", id="padding"),
+    pytest.param(128, 9, "empty_sides", id="empty_sides"),
+])
+def test_plain_matches_jnp_and_host(max_len, seed, kind):
+    if kind == "random":
+        pairs = [(x.encode(), y.encode()) for x, y in seeded_pairs(48, max_len, seed)]
+    else:
+        pairs = byte_pairs(kind, max_len, seed)
+    a, b, la, lb = encode_bytes(pairs, max_len)
     ours = run_plain(a, b, la, lb)
     theirs = np.asarray(jed.edit_distance_batch_jnp(
         jnp.asarray(a), jnp.asarray(b), jnp.asarray(la), jnp.asarray(lb)))
-    host = np.array([edit_distance(x, y) for x, y in pairs], dtype=np.int32)
+    host = np.array([edit_distance(x.decode("latin-1"), y.decode("latin-1"))
+                     for x, y in pairs], dtype=np.int32)
     assert ours.dtype == np.int32
     assert (ours == theirs).all()
     assert (ours == host).all()

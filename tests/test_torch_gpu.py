@@ -34,16 +34,74 @@ def seeded_pairs(n, max_len, seed):
                     ("A" * top, "A" * top), ("A" * top, "T" * top)]
 
 
-@pytest.mark.parametrize("max_len,seed", [(128, 11), (1024, 12), (4096, 13)])
-def test_cuda_kernel_matches_plain_version(card, max_len, seed):
-    pairs = seeded_pairs(64, max_len, seed)
-    tensors = [torch.from_numpy(x).to(card) for x in ted.encode_pairs(pairs, max_len)]
+def case_pairs(kind, max_len, seed):
+    """Byte-string pairs: random DNA, lengths at the 32-bit word
+    boundaries of the bit-vector scan, or alphabets beyond ACGT (DNA
+    with N, more than 8 distinct bytes, and arbitrary bytes)."""
+    if kind == "random":
+        return [(x.encode(), y.encode()) for x, y in seeded_pairs(64, max_len, seed)]
+    rng = np.random.default_rng(seed)
+
+    def rand(alphabet, n):
+        return bytes(rng.choice(list(alphabet), n).tolist())
+
+    def related(a, alphabet, n):
+        t = bytearray(a[:n]) + rand(alphabet, max(0, n - len(a)))
+        for _ in range(4):
+            if t:
+                t[int(rng.integers(0, len(t)))] = int(rng.choice(list(alphabet)))
+        return bytes(t)
+
+    if kind == "word_bounds":
+        lens = (0, 1, 31, 32, 33, 63, 64, 65, 1023, 1024, 4095)
+        out = []
+        for x in lens:
+            for y in lens:
+                a = rand(b"ACGT", x)
+                out.append((a, related(a, b"ACGT", y)))
+        return out
+    # 5 symbols (DNA with N), more than 8 (lowercase, N, IUPAC), any bytes
+    iupac = b"ACGTNacgtnRYKMSWBDHV"
+    out = [(rand(b"ACGT", 900), rand(b"ACGTN", 880))]
+    for x, y in ((1000, 990), (33, 64), (64, 33), (1, 200), (0, 5), (4095, 4000)):
+        x, y = min(x, max_len - 1), min(y, max_len - 1)
+        a = rand(b"ACGTN", x)
+        out.append((a, related(a, b"ACGTN", y)))
+        a = rand(iupac, x)
+        out += [(a, related(a, iupac, y)), (a, rand(b"ACGT", y)),
+                (rand(bytes(range(256)), x), rand(bytes(range(256)), y))]
+    return out
+
+
+def encode_bytes(pairs, L):
+    B = len(pairs)
+    a = np.zeros((B, L), dtype=np.uint8)
+    b = np.zeros((B, L), dtype=np.uint8)
+    for i, (x, y) in enumerate(pairs):
+        a[i, :len(x)] = np.frombuffer(x, dtype=np.uint8)
+        b[i, :len(y)] = np.frombuffer(y, dtype=np.uint8)
+    la = np.array([len(x) for x, _ in pairs], dtype=np.int32)
+    lb = np.array([len(y) for _, y in pairs], dtype=np.int32)
+    return a, b, la, lb
+
+
+@pytest.mark.parametrize("max_len,seed,kind", [
+    pytest.param(128, 11, "random", id="128-11"),
+    pytest.param(1024, 12, "random", id="1024-12"),
+    pytest.param(4096, 13, "random", id="4096-13"),
+    pytest.param(4096, 14, "word_bounds", id="word_bounds"),
+    pytest.param(4096, 15, "alphabets", id="alphabets"),
+])
+def test_cuda_kernel_matches_plain_version(card, max_len, seed, kind):
+    pairs = case_pairs(kind, max_len, seed)
+    tensors = [torch.from_numpy(x).to(card) for x in encode_bytes(pairs, max_len)]
     launches = ted.COUNTS["launches"]
     out = ted.edit_distance_batch_device(*tensors)
     torch.cuda.synchronize()
     assert ted.COUNTS["launches"] == launches + 1
     assert torch.equal(out, ted.edit_distance_batch_plain(*tensors))
-    host = np.array([edit_distance(x, y) for x, y in pairs], dtype=np.int32)
+    host = np.array([edit_distance(x.decode("latin-1"), y.decode("latin-1"))
+                     for x, y in pairs], dtype=np.int32)
     assert (out.cpu().numpy() == host).all()
 
 
