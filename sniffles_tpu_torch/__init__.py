@@ -1,6 +1,7 @@
 """
-sniffles-tpu, PyTorch/CUDA port: the multi-sample combine mode (.snf
-inputs -> multi-sample VCF) on an NVIDIA Hopper card.
+sniffles-tpu, PyTorch/CUDA port on an NVIDIA Hopper card: the
+single-sample call mode (call_sample, .bam -> VCF) and the multi-sample
+combine mode (.snf inputs -> multi-sample VCF).
 
 The JAX package `sniffles_tpu` beside this one is the reference; this
 package keeps its module names, CLI flags and SNF/VCF formats, so that a

@@ -1,17 +1,19 @@
-"""CLI entry point for the combine mode, organized as a pipeline of stages:
-mode detection, input validation, output opening, task planning, inline
-execution, and ordered result emission (reference:
-src/sniffles/sniffles:64-650).
+"""CLI entry point, organized as a pipeline of stages: mode detection,
+input validation, output opening, task planning, inline execution, and
+ordered result emission (reference: src/sniffles/sniffles:64-650).
 
-Copied from sniffles_tpu/cli.py, combine mode only. The other run modes
-and the options this slice has not ported stop with an error that says
-so. The device path (on unless --no-tpu) runs on the card, or on the
-CPU when SNIFFLES_TPU_FORCE_CPU=1 asks for it (config.torch_device).
+Copied from sniffles_tpu/cli.py: the call_sample mode (one .bam ->
+VCF) and the combine mode (.snf inputs -> multi-sample VCF). Force
+calling (--genotype-vcf), .cram input, --snf output and the other
+options this package has not ported stop with an error that says so.
+The device path (on unless --no-tpu) runs on the card, or on the CPU
+when SNIFFLES_TPU_FORCE_CPU=1 asks for it (config.torch_device).
 """
 from __future__ import annotations
 
 import logging.config
 import logging
+import math
 import os
 import time
 import sys
@@ -45,7 +47,15 @@ def _detect_mode(config: SnifflesConfig) -> list[str]:
             f"input. (supplied were: {list(distinct)})")
 
     if distinct & {"bam", "cram"}:
-        _not_ported("The call_sample and genotype_vcf modes (.bam/.cram input)")
+        if len(config.input) > 1:
+            util.fatal_error_main("Please specify max 1 .bam/.cram file as input")
+        if "cram" in distinct:
+            _not_ported(".cram input")
+        if config.genotype_vcf is not None:
+            _not_ported("The genotype_vcf mode (--genotype-vcf)")
+        config.input = config.input[0]
+        config.mode = "call_sample"
+        config.input_mode = "rb"
     elif distinct & {"snf", "tsv"}:
         config.mode = "combine"
     else:
@@ -53,18 +63,23 @@ def _detect_mode(config: SnifflesConfig) -> list[str]:
             "Failed to determine run mode from input. Please specify either: A single .bam file "
             "- OR - one or more .snf files - OR - a single .tsv file as input.")
 
-    if config.snf is not None:
+    if config.mode != "call_sample" and config.snf is not None:
         util.fatal_error_main(f"--snf cannot be used with run mode {config.mode}")
-    if config.vcf is None:
+    if config.vcf is None and config.snf is None:
         util.fatal_error_main("Please specify at least one of: --vcf or --snf for output")
+    if config.snf is not None:
+        _not_ported("--snf output from call_sample")
 
-    config.sample_id = None
-    config.sample_ids_vcf = [(0, "CONSENSUS")] if config.combine_consensus else []
+    if config.mode == "call_sample":
+        config.sample_ids_vcf = [(0, config.sample_id or "SAMPLE")]
+    else:
+        config.sample_id = None
+        config.sample_ids_vcf = [(0, "CONSENSUS")] if config.combine_consensus else []
     return exts
 
 
 def _refuse_unported(config: SnifflesConfig) -> None:
-    """Options of the combine mode that this slice has not ported."""
+    """Options that this package has not ported."""
     if config.vcf_output_bgz:
         _not_ported(".vcf.gz (bgzip + tabix) output")
     if config.combine_population or config.dev_population_snf:
@@ -73,9 +88,30 @@ def _refuse_unported(config: SnifflesConfig) -> None:
         _not_ported("--tpu-mesh")
     if config.dev_monitor_memory:
         _not_ported("--dev-monitor-memory")
-    if config.threads and config.tpu_combine:
+    if config.dev_locasm_do:
+        _not_ported("--dev-locasm-do (local assembly rescue)")
+    if config.dev_cache:
+        _not_ported("--dev-cache")
+    if config.threads and (config.tpu_call or config.tpu_combine):
         _not_ported("--threads N with the device path (the parent-owned device "
                     "service); use --threads 0, or --no-tpu for the host path,")
+
+
+def _open_alignments(config: SnifflesConfig):
+    """Open + index-check the BAM input (reference: sniffles:170-186)."""
+    from sniffles_tpu_torch.io.bam import AlignmentFile
+    log.info(f"Opening for reading: {config.input}")
+    try:
+        bam_in = AlignmentFile(config.input, config.input_mode)
+    except FileNotFoundError:
+        util.fatal_error_main(f"Input file '{config.input}' not found.")
+    except (ValueError, NotImplementedError) as e:
+        util.fatal_error_main(f"Unable to open input file '{config.input}': {e}")
+    if not bam_in.check_index():
+        util.fatal_error_main(
+            f"Unable to load index for input file '{config.input}'. Please verify that your "
+            f"input file is sorted + indexed.")
+    return bam_in
 
 
 # --------------------------------------------------------------------------
@@ -103,6 +139,61 @@ def _open_vcf_out(config: SnifflesConfig):
 
 # --------------------------------------------------------------------------
 # Stage 3: task planning
+
+
+def _plan_interval_tasks(config, bam_in, tandem_repeats):
+    """Split each kept contig into read-count-balanced interval tasks
+    (reference: sniffles:289-358).  Returns (tasks, contig_lengths)."""
+    from sniffles_tpu_torch.pipeline import tasks as taskmod
+
+    total_mapped = bam_in.mapped
+    single_task_per_contig = ((config.threads == 1 and not config.low_memory)
+                              or config.task_count_multiplier == 0)
+    if single_task_per_contig:
+        task_max_reads = total_mapped
+    else:
+        task_max_reads = max(1, math.floor(
+            total_mapped / (config.threads * config.task_count_multiplier)))
+
+    config.task_read_id_offset_mult = (
+        10 ** 9 if total_mapped == 0
+        else 10 ** math.ceil(math.log(total_mapped) + 1))
+
+    tasks = deque()
+    contig_lengths = []
+    task_id = 0
+    tr_annotated = 0
+    for stat in bam_in.get_index_statistics():
+        contig = str(stat.contig)
+        length = bam_in.get_reference_length(contig)
+        if not util.should_process_contig(contig, length, config):
+            continue
+
+        contig_lengths.append((contig, length))
+        tr_annotated += contig in tandem_repeats
+
+        pieces = 1 if task_max_reads == 0 else max(
+            1, math.ceil(stat.mapped / float(task_max_reads)))
+        step = math.floor(length / float(pieces))
+
+        lo = 0
+        while lo < length - 1:
+            hi = min(length - 1, lo + step)
+            tasks.append(taskmod.CallTask(
+                id=task_id, contig=contig, start=lo, end=hi,
+                assigned_process_id=None,
+                tandem_repeats=tandem_repeats.get(contig),
+                sv_id=0, config=config,
+                regions=config.regions_by_contig.get(contig)))
+            lo += step
+            task_id += 1
+
+    if config.tandem_repeats is not None and tr_annotated < len(contig_lengths):
+        if tr_annotated == 0:
+            util.fatal_error_main(
+                "A tandem repeat annotations file was provided, but no matching annotations "
+                "were found for any contig in the sample input file.")
+    return tasks, contig_lengths
 
 
 def _resolve_snf_inputs(config, exts) -> list[tuple[str, Optional[str]]]:
@@ -210,9 +301,11 @@ def _run_pool(config, tasks, processes):
 
 
 def _report_engine_counters(finished_tasks) -> None:
-    """Aggregate the per-task combine counters (device greedy dispatches,
-    flagged segments, edit-distance batch routes) across the run; logged,
-    and written as JSON when SNIFFLES_TPU_COUNTERS_JSON names a path."""
+    """Aggregate the per-task device counters across the run (call path:
+    engine-stat consumption and its exactness routes; combine: device
+    greedy dispatches, flagged segments, edit-distance batch routes);
+    logged, and written as JSON when SNIFFLES_TPU_COUNTERS_JSON names a
+    path."""
     totals: dict = {}
     seen = False
     for t in finished_tasks:
@@ -224,7 +317,7 @@ def _report_engine_counters(finished_tasks) -> None:
             totals[k] = totals.get(k, 0) + v
     if not seen:
         return
-    log.info(f"Combine counters: {totals}")
+    log.info(f"Device counters: {totals}")
     path = os.environ.get("SNIFFLES_TPU_COUNTERS_JSON")
     if path:
         try:
@@ -233,6 +326,20 @@ def _report_engine_counters(finished_tasks) -> None:
                 json.dump(totals, f)
         except OSError:
             log.warning(f"could not write engine counters to {path}")
+
+
+def _merge_candidate_csvs(config, finished_tasks):
+    """Concatenate per-task candidate CSVs (reference: sniffles:549-558)."""
+    from shutil import copyfileobj
+    with open(config.dev_output_candidates, "w") as merged:
+        merged.write('svtype,orientation_start,contig_start,pos_start,orientation_end,contig_end,'
+                     'pos_end,filter,support_inline,support_split,support_ref\n')
+        for t in finished_tasks:
+            part = t.result.candidate_filename
+            if part and os.path.exists(part):
+                with open(part, "r") as f:
+                    copyfileobj(f, merged)
+                os.unlink(part)
 
 
 def main_with_config(config: SnifflesConfig, processes: list) -> int:
@@ -245,18 +352,33 @@ def main_with_config(config: SnifflesConfig, processes: list) -> int:
     _refuse_unported(config)
     log.info(f"Running {config.version}, build {config.build}")
     log.info(f"  Run Mode: {config.mode}")
-    if config.tpu_combine:
+    use_device = config.tpu_call if config.mode == "call_sample" else config.tpu_combine
+    if use_device:
         config.device = torch_device()
         log.info(f"  Device: {config.device}")
 
+    bam_in = None
+    tandem_repeats = {}
+    if config.mode == "call_sample":
+        bam_in = _open_alignments(config)
+        if config.tandem_repeats is not None:
+            tandem_repeats = util.load_tandem_repeats(
+                config.tandem_repeats, config.tandem_repeat_region_pad)
+
     vcf_out = _open_vcf_out(config)
-    tasks, contig_lengths = _plan_combine_tasks(config, exts, start_task_id=0)
+    if config.mode == "combine":
+        tasks, contig_lengths = _plan_combine_tasks(config, exts, start_task_id=0)
+    else:
+        tasks, contig_lengths = _plan_interval_tasks(config, bam_in, tandem_repeats)
     vcf_out.write_header(contig_lengths)
 
     finished_tasks = _run_pool(config, tasks, processes)
 
     for t in finished_tasks:
         t.result.emit(vcf_out=vcf_out)
+
+    if config.dev_output_candidates and config.mode == "call_sample":
+        _merge_candidate_csvs(config, finished_tasks)
 
     vcf_out.close()
     log.info(f"Wrote {vcf_out.call_count} called SVs to {config.vcf}")

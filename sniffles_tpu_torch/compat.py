@@ -6,10 +6,11 @@ class as a (module, qualname) global reference. Reference Sniffles2
 (reference: snf.py:116-119) unpickles with the stdlib loader, so the
 only class paths it can resolve are its own ("sniffles.sv.SVCall", ...).
 Our data-model classes mirror the reference's names and field layouts
-one-to-one (svcall.py, region.py); registering them under the reference
-module paths makes every SNF this tool writes directly loadable by
-reference Sniffles2 and by the JAX package `sniffles_tpu` — the
-write-side counterpart of the read-side _CompatUnpickler in io/snf.py.
+one-to-one (svcall.py, leads.py, cluster.py, region.py); registering
+them under the reference module paths makes every SNF this tool writes
+directly loadable by reference Sniffles2 and by the JAX package
+`sniffles_tpu` — the write-side counterpart of the read-side
+_CompatUnpickler in io/snf.py.
 A copy of sniffles_tpu/compat.py.
 
 Both packages register the same alias names, so a process that imports

@@ -278,11 +278,11 @@ _TPU_FLAGS = (
     _f("--tpu-device-pipeline", text="Run clustering/genotyping statistics on the TPU device pipeline (False: host-only numpy path)", metavar="True", type=tobool, default=True),
     _f("--tpu-mesh-shape", text="Device mesh shape for multi-chip sharding, e.g. '8' for 8-way genome-bin data parallelism, or 'auto'", metavar="dp", type=str, default="auto"),
     _f("--tpu-interpret", text="No effect in this package (its kernels are CUDA; on the CPU each takes its plain PyTorch version); accepted for flag compatibility", default=False, action="store_true"),
-    _f("--no-native", text="Disable the native C++ BAM decoder, use the pure-Python decoder", default=False, action="store_true"),
-    _f("--tpu-call", text="Use the device sort-and-segment clustering for candidate grouping in call_sample. Composes with --threads N: workers decode and ship signature batches to the parent-owned TPU client (host sweep otherwise)", default=False, action="store_true"),
+    _f("--no-native", text="No effect in this package (it has only the pure-Python BAM decoder, whose output equals the native one's); accepted for flag compatibility", default=False, action="store_true"),
+    _f("--tpu-call", text="Use the device sort-and-segment clustering (the merge sweep kernel) for candidate grouping in call_sample (on by default; --no-tpu gives the host sweep). Needs --threads 0 in this package", default=False, action="store_true"),
     _f("--tpu-combine", text="Use the segmented exact greedy + device edit-distance batching for multi-sample combine (on by default; --no-tpu gives the host greedy). Needs --threads 0 in this package", default=False, action="store_true"),
     _f("--tpu-mesh", text="Shard device work over N devices; not yet ported to this package (only 0 = single device is accepted)", metavar="N", type=int, default=0),
-    _f("--no-tpu", text="Never use the device: host greedy and host edit distance (the device path is on by default, on the CUDA card, or on the CPU with SNIFFLES_TPU_FORCE_CPU=1)", default=False, action="store_true"),
+    _f("--no-tpu", text="Never use the device: host cluster sweep (call_sample), host greedy and host edit distance (combine). The device path is on by default, on the CUDA card, or on the CPU with SNIFFLES_TPU_FORCE_CPU=1", default=False, action="store_true"),
 )
 
 _FLAG_GROUPS = (
@@ -491,16 +491,17 @@ class SnifflesConfig(argparse.Namespace):
         if self.dev_min_leads_cluster == -1:
             self.dev_min_leads_cluster = 1 if self.no_qc else 2
 
-        # The card by default: combine's device path is on unless --no-tpu
-        # is given, as if --tpu-combine were set. The device itself is
-        # resolved by the entry point (torch_device), which raises when no
-        # card is visible and the CPU was not asked for.
+        # The card by default: the device path of both modes is on unless
+        # --no-tpu is given, as if --tpu-call and --tpu-combine were set.
+        # The device itself is resolved by the entry point (torch_device),
+        # which raises when no card is visible and the CPU was not asked for.
         self.device = None
         if self.no_tpu:
             self.tpu_call = False
             self.tpu_combine = False
             self.tpu_mesh = 0
         else:
+            self.tpu_call = True
             self.tpu_combine = True
 
         if self.dev_trace_read or not isinstance(self.dev_trace_read, bool):

@@ -2,7 +2,8 @@
 FASTA random access with .fai index (pysam.FastaFile work-alike).
 
 Used for DEL sequence resolution and anchor bases in VCF output
-(reference: vcf.py:108-119, 304-342). Supports plain FASTA; generates a
+(reference: vcf.py:108-119, 304-342) and N-region coverage masking
+(reference: leadprov.py:420-443). Supports plain FASTA; generates a
 .fai on demand like pysam.faidx. Copied from sniffles_tpu/io/fasta.py.
 """
 from __future__ import annotations

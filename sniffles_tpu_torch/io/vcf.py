@@ -7,7 +7,7 @@ cleanup) -> line write.  Byte-level output matches the reference writer
 (reference: vcf.py:25-481).  Reference FASTA access goes through the
 built-in io/fasta.py rather than pysam.  Copied from
 sniffles_tpu/io/vcf.py; the force-calling reader and re-writer belong to
-the genotype_vcf mode, which is not part of the combine slice.
+the genotype_vcf mode, which is not ported yet.
 """
 from __future__ import annotations
 

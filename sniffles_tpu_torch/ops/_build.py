@@ -21,7 +21,7 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "torch_kernels")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
-KERNEL_SOURCES = ("edit_distance",)
+KERNEL_SOURCES = ("edit_distance", "merge_sweep")
 
 
 def nvcc() -> str:

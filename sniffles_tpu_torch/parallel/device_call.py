@@ -1,0 +1,404 @@
+"""
+Device-backed candidate grouping for the call path (on unless --no-tpu):
+the sort-and-segment clustering (ops/clustering.call_task_packed) assigns
+leads to clusters on the device; Cluster objects are materialized from
+the assignment and flow through the exact host call/QC/genotype chain
+(sv.call_from onward), so output semantics are the host's.
+
+This replaces the sequential merge sweep of cluster.resolve
+(reference: cluster.py:219-353) for INS/DEL/DUP/INV/BND; BND's
+mate-geometry resplit and the single-break types stay on the host path.
+
+Copied from sniffles_tpu/parallel/device_call.py: the packer and the
+in-process consumer. The JAX package's device service, mesh, hedge and
+wire-compression branches are not ported. Unlike the JAX package, a
+failure here raises; the routes that exist for exactness (the
+per-child consumption gate, BND's host resplit, and the stats-capacity
+route of a task to the host sweep) stay, each counted in `counters`.
+"""
+from __future__ import annotations
+
+import logging
+import zlib
+
+import numpy as np
+
+from sniffles_tpu_torch.cluster import Cluster, merge_inner, resplit, resplit_bnd
+from sniffles_tpu_torch.ops.clustering import (SVTYPE_CODES, STATS_NC_ROW,
+                                               STATS_PARENT_ROW, STATS_UNCERTAIN_ROW,
+                                               split_call_task_output)
+
+log = logging.getLogger(__name__)
+
+# BND stage-1 merging (cluster_merge_bnd distance) runs on device; the
+# mate-geometry resplit stays host-exact (reference: cluster.py:164-216).
+_DEVICE_TYPES = ("INS", "DEL", "DUP", "INV", "BND")
+
+# floor of the padded batch width: most tasks share one padded size (the
+# JAX package compiles once per shape; kept so both packages pad alike)
+DEVICE_BATCH_FLOOR = 8192
+
+# packed batch rows (see pack_task_batch)
+PACKED_ROWS = 15
+
+
+def qname_hash31(qnames) -> np.ndarray:
+    """Deterministic 31-bit read-name hash (zlib.crc32): stable across
+    processes and PYTHONHASHSEED, capped below INT32_MAX (the invalid-slot
+    sentinel of the masked sorts). A collision between two distinct reads
+    in one cluster would undercount ``support`` (the unique-read count,
+    reference: sv.py:520); the consumption gate in device_clusters
+    therefore verifies the device count against the host's unique-NAME
+    count before consuming it."""
+    n = len(qnames)
+    arr = np.fromiter((zlib.crc32(q.encode()) for q in qnames),
+                      dtype=np.int64, count=n)
+    return np.minimum(arr & 0x7FFFFFFF, 0x7FFFFFFE).astype(np.int32)
+
+
+# the full hap domain: any other value (None, unparseable, out of range)
+# maps to -9, so the device's hp_other tally forces the exact host vote
+_HAP_MAP = {"0": 0, "1": 1, "2": 2}
+
+
+def _ps_int(p) -> int:
+    """Lead.phase_set (str(ps) or "NULL"/None) -> int; -1 = NULL, -9 =
+    out-of-domain (a negative or non-integer PS string is a legitimate
+    VOTE VALUE host-side, not a NULL — the packer downgrades the lead's
+    hap to -9 as well, so hp_other forces the exact host vote)."""
+    if p is None or p == "NULL":
+        return -1
+    try:
+        v = int(p)
+    except (TypeError, ValueError):
+        return -9
+    return v if v >= 0 else -9
+
+
+def padded_width(n: int) -> int:
+    """Kernel batch width for a task with n signatures: the floor, then
+    powers of two."""
+    size = DEVICE_BATCH_FLOOR
+    while size < n:
+        size *= 2
+    return size
+
+
+def pad_packed(packed: np.ndarray) -> np.ndarray:
+    """Zero-pad a trimmed (PACKED_ROWS, n) batch to its kernel width."""
+    n = packed.shape[1]
+    size = padded_width(n)
+    if size == n:
+        return packed
+    out = np.zeros((packed.shape[0], size), dtype=np.int32)
+    out[:, :n] = packed
+    return out
+
+
+def standard_call_meta(config) -> dict:
+    """The scalar parameters of call_task_packed for a run (a copy of
+    sniffles_tpu/parallel/device_service.py::standard_call_meta)."""
+    return dict(
+        cluster_r=float(config.cluster_r),
+        cluster_repeat_h=float(config.cluster_repeat_h),
+        cluster_repeat_h_max=float(config.cluster_repeat_h_max),
+        cluster_merge_bnd=int(config.cluster_merge_bnd),
+        cluster_merge_len=float(config.cluster_merge_len),
+        minsvlen=int(config.minsvlen),
+        cluster_merge_pos=int(config.cluster_merge_pos),
+        global_repeat=bool(config.repeat),
+        binsize=int(config.cluster_binsize),
+        resplit_binsize=int(config.cluster_resplit_binsize),
+    )
+
+
+def pack_task_batch(lead_provider, config, tr):
+    """Flatten the leadtab (reference layout: leadprov.py:400-418) into
+    the packed (15, n) int32 signature batch the call_task step consumes,
+    plus the host-side context needed to materialize clusters from its
+    output. Returns None when the task has no device-eligible leads."""
+    leads = []
+    lead_bins = []
+    for svtype in _DEVICE_TYPES:
+        for bin_pos, bin_leads in lead_provider.leadtab[svtype].items():
+            # seeds below the minimum never form clusters (cluster.py:262);
+            # for INS the host counts only svlen-carrying leads (soft-clip
+            # evidence is the leads_long side channel, cluster.py:231-235)
+            if svtype == "INS":
+                n_countable = sum(1 for ld in bin_leads if ld.svlen is not None)
+            else:
+                n_countable = len(bin_leads)
+            if n_countable < config.dev_min_leads_cluster:
+                continue
+            for ld in bin_leads:
+                if ld.svlen is None:
+                    continue
+                leads.append(ld)
+                lead_bins.append(bin_pos)
+    if not leads:
+        return None
+
+    n = len(leads)
+
+    tr_sorted = sorted(tr) if tr else []
+    tr_starts = np.array([s for s, e in tr_sorted], dtype=np.int64)
+    tr_ends = np.array([e for s, e in tr_sorted], dtype=np.int64)
+
+    # one packed (15, n) int32 buffer, TRIMMED to the real signature
+    # count (the caller pads it to padded_width(n)). Rows: pos, svlen,
+    # svtype, orig_idx, repeat, valid, strand, mapq, read_id (name hash —
+    # support = unique reads), is_sa (split-read evidence), ref_end,
+    # qry_start, qry_end (the merge_inner fold anchors, reference:
+    # cluster.py:105-119), hap, ps (the phase-vote inputs, reference:
+    # postprocessing.py:626-654).
+    packed = np.zeros((PACKED_ROWS, n), dtype=np.int32)
+    packed[0, :n] = [ld.ref_start for ld in leads]
+    packed[1, :n] = [ld.svlen for ld in leads]
+    packed[2, :n] = [SVTYPE_CODES[ld.svtype] for ld in leads]
+    packed[3, :n] = np.arange(n, dtype=np.int32)
+    packed[5, :n] = 1
+    packed[6, :n] = [1 if ld.strand == "+" else -1 for ld in leads]
+    packed[7, :n] = [ld.mapq if ld.mapq is not None else 0 for ld in leads]
+    packed[8, :n] = qname_hash31([ld.read_qname for ld in leads])
+    packed[9, :n] = [ld.source != "INLINE" for ld in leads]
+    packed[10, :n] = [ld.ref_end if ld.ref_end is not None else 0 for ld in leads]
+    packed[11, :n] = [ld.qry_start if ld.qry_start is not None else 0 for ld in leads]
+    packed[12, :n] = [ld.qry_end if ld.qry_end is not None else 0 for ld in leads]
+    # hap/ps are STRINGS on the Lead ('0'/'1'/'2', str(ps) or "NULL");
+    # encode: hap int (-9 for None/unparseable -> device hp_other ->
+    # host phase vote), ps int with -1 = NULL. Dict lookups memoize the
+    # int parses (PS strings repeat massively within a task).
+    ps_cache: dict = {None: -1, "NULL": -1}
+    packed[13, :n] = [_HAP_MAP.get(ld.hap, -9) for ld in leads]
+    packed[14, :n] = [ps_cache[p] if p in ps_cache
+                      else ps_cache.setdefault(p, _ps_int(p))
+                      for p in (ld.phase_set for ld in leads)]
+    # out-of-domain ps: poison hap too so hp_other forces the host vote
+    bad_ps = packed[14, :n] == -9
+    if bad_ps.any():
+        packed[13, :n][bad_ps] = -9
+    if len(tr_starts):
+        idx = np.searchsorted(tr_starts, packed[0, :n], side="right") - 1
+        packed[4, :n] = ((idx >= 0) & (packed[0, :n] < tr_ends[np.clip(idx, 0, len(tr_ends) - 1)]))
+
+    return packed, standard_call_meta(config), leads, lead_bins
+
+
+def _rebuild_groups(cids: np.ndarray, ridx: np.ndarray) -> list:
+    """(cluster_id, member_index_list) per cluster, ascending cluster id
+    == (svtype, pos) sort order == the host sweep's cluster order (seed
+    bins ascending per svtype). Members keep element order within a
+    cluster (stable sort), matching the host's per-cluster lead order."""
+    if len(cids) == 0:
+        return []
+    order = np.argsort(cids, kind="stable")
+    sc = cids[order]
+    sr = ridx[order]
+    bounds = np.flatnonzero(np.diff(sc)) + 1
+    starts = np.concatenate(([0], bounds))
+    uniq = sc[starts]
+    members = np.split(sr, bounds)
+    return [(int(c), m.tolist()) for c, m in zip(uniq, members)]
+
+
+def _children_by_parent(stats: np.ndarray, n_children: int) -> dict:
+    """Child-indexed stats block (call_task_packed rows: 0-17 calling
+    stats + phase tallies, 18 parent cluster id, 19 resplit-ambiguity
+    flag) -> {parent_cluster_id: [(stats18, uncertain), ...] in
+    ascending child-id order}. Both the device resplit and the host's
+    cluster.resplit order a parent's children by ascending svlen bin,
+    so the k-th device child corresponds to the k-th host child."""
+    out: dict[int, list] = {}
+    k = min(max(n_children, 0), stats.shape[1])
+    if k == 0:
+        return out
+    parents = stats[STATS_PARENT_ROW, :k].tolist()
+    uncertain = stats[STATS_UNCERTAIN_ROW, :k].tolist()
+    cols = stats[:18, :k].T.tolist()
+    for parent, unc, col in zip(parents, uncertain, cols):
+        out.setdefault(int(parent), []).append((tuple(col), bool(unc)))
+    return out
+
+
+def _bump(counters, key, d=1):
+    if counters is not None:
+        counters[key] = counters.get(key, 0) + d
+
+
+def run_call_task(packed: np.ndarray, meta: dict, device) -> np.ndarray:
+    """call_task_packed of one padded batch on `device`; the flat int32
+    result on the host."""
+    import torch
+    from sniffles_tpu_torch.ops.clustering import call_task_packed
+    batch = torch.from_numpy(pad_packed(packed)).to(device)
+    return call_task_packed(batch, **meta).cpu().numpy()
+
+
+def device_clusters(lead_provider, config, tr, counters=None):
+    """
+    Clusters of one task for INS/DEL/DUP/INV/BND, built from the device
+    clustering assignment (run on config.device); the caller handles the
+    single-break types with the host path. An empty list when the task
+    has no device-eligible leads; None when the task has more resplit
+    children than the stats block holds, and then the caller runs the
+    exact host sweep for every type (counted as fb_capacity).
+
+    `counters`: optional dict accumulating the engine-stat consumption
+    split per task — device_tasks, clusters_total, children_total,
+    engine_consumed, and the exactness routes (fb_bnd, fb_resplit,
+    fb_multi_fragment, fb_support_collision, fb_capacity).
+    """
+    pack = pack_task_batch(lead_provider, config, tr)
+    if pack is None:
+        return []
+    packed, meta, leads, lead_bins = pack
+    n = len(leads)
+    out = run_call_task(packed, meta, config.device)
+    _bump(counters, "device_tasks")
+
+    elements, dev_stats = split_call_task_output(out, padded_width(n))
+    # the stats block holds max(1024, N//8) child slots; a task with more
+    # resplit children than slots goes to the exact host sweep
+    n_children = int(dev_stats[STATS_NC_ROW][0])
+    if n_children > dev_stats.shape[1]:
+        log.info(f"device stats capacity exceeded ({n_children} children > "
+                 f"{dev_stats.shape[1]} slots); host sweep for this task")
+        _bump(counters, "fb_capacity")
+        return None
+    return list(_materialize(lead_provider, config, packed, leads, lead_bins,
+                             elements, dev_stats, n_children, counters))
+
+
+def _materialize(lead_provider, config, packed, leads, lead_bins, elements,
+                 dev_stats, n_children, counters):
+    """Cluster objects from the device assignment, with the device's
+    per-child statistics attached where the host verifies them."""
+    n = len(leads)
+    repeat_flags = packed[4, :n] > 0
+    valid = elements[2] != 0
+    normalized = _rebuild_groups(elements[0][valid], elements[1][valid])
+    child_stats = _children_by_parent(dev_stats, n_children)
+
+    # leads_long per INS cluster: long-INS soft clips from the bins the
+    # cluster's leads came from (reference: cluster.py:248-250)
+    long_by_bin: dict[int, list] = {}
+    for bin_pos, bin_leads in lead_provider.leadtab["INS"].items():
+        longs = [ld for ld in bin_leads if ld.svlen is None]
+        if longs:
+            long_by_bin[bin_pos] = longs
+
+    hap_ref = lead_provider.leadhapcount["REF"]
+
+    for cid, member_idx in normalized:
+        cluster_leads = [leads[i] for i in member_idx]
+        if len(cluster_leads) < config.dev_min_leads_cluster:
+            continue
+        svtype = cluster_leads[0].svtype
+        bins = sorted({lead_bins[i] for i in member_idx})
+        seed = bins[0]
+
+        leads_long = None
+        if svtype == "INS":
+            leads_long = []
+            for b in bins:
+                leads_long.extend(long_by_bin.get(b, []))
+
+        # host-exact hap counts: the SEED BIN's tallies on both the SV and
+        # REF sides (reference semantics via _seed_clusters, cluster.py:238-244
+        # — the sweep does not re-fold counts when absorbing neighbors), NOT
+        # a recount over the merged cluster. rescue_phasing's in-phase ratio
+        # (tasks.py) is computed from these, so a recount flips rescues.
+        sv_h = lead_provider.leadhapcount[svtype].get(seed, (0, 0, 0))
+        hp_counts = hap_ref.get(seed, [0, 0, 0])
+        hap_counts_full = (sv_h[0], sv_h[1], sv_h[2],
+                           hp_counts[0], hp_counts[1], hp_counts[2])
+
+        within_repeat = any(repeat_flags[i] for i in member_idx)
+        cluster = Cluster(
+            id=f"CL.{svtype}.{lead_provider.contig}.{lead_provider.start}.D{seed}",
+            svtype=svtype,
+            contig=lead_provider.contig,
+            start=seed,
+            end=bins[-1] + config.cluster_binsize,
+            seed=seed,
+            leads=cluster_leads,
+            repeat=within_repeat or config.repeat,
+            leads_long=leads_long,
+            hap_counts=hap_counts_full,
+        )
+
+        _bump(counters, "clusters_total")
+        if svtype == "BND":
+            # host-exact resplit by (mate contig, orientation, mate pos bin)
+            _bump(counters, "fb_bnd")
+            if config.dev_no_resplit:
+                yield cluster
+            else:
+                yield from resplit_bnd(cluster, merge_threshold=config.cluster_merge_bnd)
+            continue
+
+        # per-read inner merge of fragmented INS/DEL, host-exact
+        # (reference: cluster.py:337-343)
+        if svtype in ("INS", "DEL"):
+            threshold = -1 if cluster.repeat else config.cluster_merge_pos
+            merge_inner(cluster, threshold)
+
+        # svlen-histogram resplit, host-exact and in reference order
+        # (reference: cluster.py:330-339)
+        if config.dev_no_resplit_repeat or config.dev_no_resplit:
+            children = [cluster]
+        else:
+            children = list(resplit(cluster,
+                                    prop=lambda lead: lead.svlen,
+                                    binsize=config.cluster_resplit_binsize,
+                                    merge_threshold_min=config.minsvlen,
+                                    merge_threshold_frac=config.cluster_merge_len))
+        _bump(counters, "children_total", len(children))
+
+        # Device-computed calling statistics (integer-exact robust centers
+        # and counts), computed on the device AFTER its merge_inner fold
+        # and its svlen resplit — one stats column PER RESPLIT CHILD. The
+        # host still materializes the merged Lead objects, runs its own
+        # exact resplit, and VERIFIES per child that the device produced
+        # the same grouping before consuming the stats: child count per
+        # parent, folded lead count, the int32-wrapping sum of folded head
+        # positions, and the unique read-NAME count vs the device's
+        # unique-hash `support` must all match — any divergence (or the
+        # float32 resplit-ambiguity flag) leaves the affected children to
+        # the exact host computation.
+        dev_children = child_stats.get(cid)
+        if dev_children is not None and len(dev_children) != len(children):
+            dev_children = None
+        if dev_children is None or any(unc for _, unc in dev_children):
+            _bump(counters, "fb_resplit", len(children))
+            yield from children
+            continue
+
+        for host_child, (st, _unc) in zip(children, dev_children):
+            (raw_pos_center, svlen_center, support, lead_count, fwd, rev,
+             sum_mapq, pos_sum, support_sa) = st[:9]
+            host_pos_sum = sum(ld.ref_start for ld in host_child.leads)
+            fold_ok = (lead_count == len(host_child.leads)
+                       and (host_pos_sum - pos_sum) % (1 << 32) == 0)
+            support_ok = (fold_ok and support ==
+                          len({ld.read_qname for ld in host_child.leads}))
+            if fold_ok and support_ok:
+                host_child.engine = {
+                    "raw_pos_center": raw_pos_center,
+                    "svlen_center": svlen_center,
+                    "support": support,
+                    "lead_count": lead_count,
+                    "fwd": fwd,
+                    "rev": rev,
+                    "qual": sum_mapq // lead_count,
+                    # DEL genotyper split-read support (reference:
+                    # sv.py:580-581)
+                    "support_sa": support_sa,
+                    # phase-vote tallies (postprocess.phase_sv consumes
+                    # these instead of iterating the leads)
+                    "phase": st[9:18],
+                }
+                _bump(counters, "engine_consumed")
+            else:
+                _bump(counters, "fb_support_collision" if fold_ok else "fb_multi_fragment")
+        yield from children

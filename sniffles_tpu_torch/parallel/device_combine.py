@@ -13,7 +13,7 @@ note below), while the quadratic candidate×group scan is confined to
 tiny per-segment populations.
 
 Copied from sniffles_tpu/parallel/device_combine.py; the mesh-sharded
-segmentation (--tpu-mesh) is not part of the combine slice.
+segmentation (--tpu-mesh) is not ported yet.
 """
 from __future__ import annotations
 

@@ -1,8 +1,8 @@
 """Result transport: task results, each knowing how to emit itself into
 the output VCF (reference: result.py:23-299). Copied from
-sniffles_tpu/pipeline/result.py: the combine results; the call-path,
-force-calling and population-SNF results are not part of the combine
-slice.
+sniffles_tpu/pipeline/result.py: the call and combine results; the
+force-calling and population-SNF results and the call path's temp-SNF
+parts are not ported yet.
 """
 from __future__ import annotations
 
@@ -37,6 +37,39 @@ class Result:
         for call in self.svcalls:
             vcf_out.write_call(call)
         return len(self.svcalls)
+
+
+class CallResult(Result):
+    """call_sample result: calls + optional candidate CSV
+    (reference: result.py:68-110)."""
+
+    coverage_average_total: float
+    candidate_filename = None
+    # per-task device engine-stat consumption split, set by
+    # CallTask.execute; None on host-path runs
+    engine_counters: dict = None
+
+    @staticmethod
+    def _write_csv_rows(handle, candidates, attr):
+        for cand in candidates:
+            row = getattr(cand, attr)
+            if not row:
+                continue
+            try:
+                handle.write(','.join(row) + '\n')
+            except Exception:
+                kind = ' for single break' if attr == 'csv_line_single' else ''
+                log.exception(f'Error writing CSV line{kind} for {cand}')
+
+    def store_candidates(self, candidates: list[SVCall]) -> None:
+        cfg = SnifflesConfig.GLOBAL
+        if not cfg.dev_output_candidates:
+            return
+        self.candidate_filename = os.path.join(
+            cfg.tmp_dir, f'candidates.tmp-{self.run_id}-{self.task_id}.csv')
+        with open(self.candidate_filename, "w") as f:
+            self._write_csv_rows(f, candidates, 'csv_line')
+            self._write_csv_rows(f, candidates, 'csv_line_single')
 
 
 class CombineResult(Result):

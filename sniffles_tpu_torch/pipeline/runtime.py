@@ -2,8 +2,8 @@
 Inline runtime: all tasks run in this process, in order (--threads 0;
 reference: parallel.py:777-807). Copied from
 sniffles_tpu/pipeline/runtime.py: SnifflesParentWorker only. The worker
-pool and its parent-owned device service for --threads N are not part
-of the combine slice; the CLI refuses --threads N with the device path.
+pool and its parent-owned device service for --threads N are not ported
+yet; the CLI refuses --threads N with the device path.
 """
 from __future__ import annotations
 

@@ -1,33 +1,46 @@
-"""Task types: CombineTask (multi-sample SNF merge).
+"""Task types: CallTask (single-sample calling) and CombineTask
+(multi-sample SNF merge).
 
-Tasks are the unit of genome-space sharding — one per SNF-block shard
-of a contig.  Behavior matches the reference task semantics (reference:
-parallel.py:372-572).  Copied from sniffles_tpu/pipeline/tasks.py: the
-Task base and CombineTask; the call-path tasks are not part of the
-combine slice.
+Tasks are the unit of genome-space sharding — one per contig interval
+(call) or per SNF-block shard (combine).  Behavior matches the reference
+task semantics (reference: parallel.py:42-572).  Copied from
+sniffles_tpu/pipeline/tasks.py: the Task base, CallTask and CombineTask;
+force calling (GenotypeTask), --snf output of the call path and the
+leadtab cache (--dev-cache) are not ported yet.
 
 Unlike the JAX package, a failure of the device path raises here: it is
-never caught and replaced by the host greedy. The exactness routes stay
-(segments the device greedy flags are replayed on the host, a packer
+never caught and replaced by the host path. The exactness routes stay
+(in the call path: the per-child consumption gate, BND's host resplit
+and the stats-capacity route of a task to the host sweep; in combine:
+segments the device greedy flags are replayed on the host, a packer
 guard returns None, an edit-distance batch under DEVICE_MIN_CELLS runs
-the host Myers scan), and each is counted in the task's combine
-counters.
+the host Myers scan), and each is counted in the task's engine or
+combine counters.
 """
 from __future__ import annotations
 
 import copy
+import logging
 from dataclasses import dataclass
 from typing import Optional, TYPE_CHECKING
 
 from sniffles_tpu_torch import cluster
+from sniffles_tpu_torch import leads as leadprov
 from sniffles_tpu_torch import postprocess as postprocessing
 from sniffles_tpu_torch import svcall as sv
 from sniffles_tpu_torch.io import snf
 from sniffles_tpu_torch.region import Region
-from sniffles_tpu_torch.pipeline.result import Result, CombineResult
+from sniffles_tpu_torch.pipeline.result import Result, CallResult, CombineResult
 
 if TYPE_CHECKING:
     from sniffles_tpu_torch.config import SnifflesConfig
+
+log = logging.getLogger(__name__)
+
+
+def _traced_reads(leads_list, config):
+    """Read names among `leads_list` selected by --dev-trace-read."""
+    return [ld.read_qname for ld in leads_list if ld.read_qname in config.dev_trace_read]
 
 
 @dataclass
@@ -41,8 +54,13 @@ class Task:
     config: 'SnifflesConfig'
 
     assigned_process_id: Optional[int] = None
+    tandem_repeats: list = None
     regions: list[Region] = None
+    lead_provider: leadprov.LeadProvider = None
+    bam: object = None
     result: Result = None
+
+    _nm_threshold: Optional[float] = None
 
     def __str__(self):
         return f'Task #{self.id}'
@@ -58,6 +76,183 @@ class Task:
 
     def execute(self, worker=None) -> Optional[Result]:
         raise NotImplementedError
+
+    def build_leadtab(self):
+        config = self.config
+        from sniffles_tpu_torch.io.bam import AlignmentFile
+        self.bam = AlignmentFile(config.input, config.input_mode, require_index=True,
+                                 reference_filename=config.reference)
+        self.lead_provider = leadprov.LeadProvider(
+            config, self.id * config.task_read_id_offset_mult, self.contig)
+        span = self.regions if self.regions else [Region(self.contig, self.start, self.end)]
+        externals = self.lead_provider.build_leadtab(span, self.bam)
+        # snapshot the per-task regional NM statistic: the scan writes it
+        # to the shared config (reference: leadprov.py:577-578)
+        self._nm_threshold = config.qc_nm_threshold
+        return externals, self.lead_provider.read_count
+
+    # -- candidate generation ----------------------------------------------
+
+    def _iter_clusters(self, config):
+        """Device sort-and-segment clusters on the device path, host sweep
+        for the rest (and for a task past the device stats capacity)."""
+        host_types = sv.ALL_TYPES
+        if config.tpu_call:
+            from sniffles_tpu_torch.parallel.device_call import device_clusters, _DEVICE_TYPES
+            counters = self.engine_counters = {}
+            made = device_clusters(self.lead_provider, config, self.tandem_repeats,
+                                   counters=counters)
+            if made is not None:
+                yield from made
+                host_types = [t for t in sv.ALL_TYPES if t not in _DEVICE_TYPES]
+                log.debug(
+                    f"{self}: device engine stats consumed by "
+                    f"{counters.get('engine_consumed', 0)}/"
+                    f"{counters.get('children_total', 0)} children of "
+                    f"{counters.get('clusters_total', 0)} clusters "
+                    f"(fallbacks: bnd={counters.get('fb_bnd', 0)}, "
+                    f"multi_fragment={counters.get('fb_multi_fragment', 0)}, "
+                    f"resplit={counters.get('fb_resplit', 0)}, "
+                    f"collision={counters.get('fb_support_collision', 0)})")
+        for svtype in host_types:
+            yield from cluster.resolve(svtype, self.lead_provider, config, self.tandem_repeats)
+
+    def call_candidates(self, keep_qc_fails, config) -> list[sv.SVCall]:
+        """Clusters -> preliminary calls + span coverage
+        (reference: parallel.py:104-127)."""
+        candidates = []
+        for svcluster in self._iter_clusters(config):
+            svcluster.get_sa_count()
+            for svc in sv.call_from(svcluster, config, keep_qc_fails, self):
+                if config.dev_trace_read:
+                    if traced := _traced_reads(svcluster.leads, config):
+                        print(f"[DEV_TRACE_READ] [3/4] [Task.call_candidates] Read "
+                              f"{','.join(traced)} -> Cluster {svcluster.id} -> "
+                              f"preliminary SVCall {svc.svtype} {svc.contig}:{svc.pos} "
+                              f"svlen={svc.svlen} support={svc.support}")
+                candidates.append(svc)
+
+        self.coverage_average_total = postprocessing.coverage(candidates, self.lead_provider)
+        return candidates
+
+    # -- finalization -------------------------------------------------------
+
+    def _snapshot_csv_lines(self, svc):
+        try:
+            # snapshot CSV lines while postprocess info is attached
+            svc.csv_line = svc._to_csv_line()
+            svc.csv_line_single = svc._to_csv_line(single_break=True)
+        except Exception:
+            log.exception(f'Error generating CSV line for {svc}')
+
+    def _try_phasing_rescue(self, svc, config):
+        """Allelic-imbalance HET rescue gate (reference: parallel.py:178-184)."""
+        eligible = (svc.svtype not in ("BND",)
+                    and abs(svc.svlen) <= config.dev_maxsvlen_extra
+                    and svc.support >= int(config.dev_minreads_extra * 0.60))
+        if config.phase and not svc.qc and eligible:
+            try:
+                self.rescue_phasing(svc)
+            except Exception:
+                log.warning(f'Error while rescue phasing for {svc}')
+
+    def finalize_candidates(self, candidates: list['sv.SVCall'], keep_qc_fails, config):
+        """QC screens, annotation, genotype, rescue passes
+        (reference: parallel.py:129-201)."""
+        finalized = []
+        for svc in candidates:
+            svc.qc = svc.qc and postprocessing.qc_sv(svc, config)
+            if not config.mosaic and svc.qc:
+                svc.qc = svc.qc and postprocessing.qc_sv_support(
+                    svc, self.coverage_average_total, config)
+
+            postprocessing.annotate_sv(svc, config)
+            svc.qc = svc.qc and postprocessing.qc_sv_post_annotate(
+                svc, config, self.coverage_average_total, nm_threshold=self._nm_threshold)
+
+            if config.dev_trace_read and svc.postprocess is not None:
+                if traced := _traced_reads(svc.postprocess.cluster.leads, config):
+                    print(f"[DEV_TRACE_READ] [4/4] [Task.finalize_candidates] Read "
+                          f"{','.join(traced)} -> Cluster {svc.postprocess.cluster.id} -> "
+                          f"finalized SVCall, QC={svc.qc}: {svc.svtype} {svc.contig}:"
+                          f"{svc.pos} filter={svc.filter}")
+
+            if config.dev_output_candidates:
+                self._snapshot_csv_lines(svc)
+
+            self._try_phasing_rescue(svc, config)
+
+            svc.finalize()
+            finalized.append(svc)
+        return finalized
+
+    def rescue_phasing(self, svc: sv.SVCall, min_rnames_in_phase: float = 0.75,
+                       min_reads_cover: int = 3) -> bool:
+        """Rescue a mosaic-VAF-filtered call whose supporting reads nearly
+        all share one haplotype (reference: parallel.py:203-249)."""
+        if self.config.mode != "call_sample":
+            return False
+        import numpy as np
+        nm_vals = [ld.nm for ld in svc.postprocess.cluster.leads]
+        if np.nanmean(nm_vals) > self.config.genotype_error or len(nm_vals) <= min_reads_cover:
+            return False
+
+        phase_info = svc.info.get("PHASE")
+        if phase_info is None:
+            return False
+        hp, _, hp_reads, _, hp_filter, _ = phase_info.split(",")
+        if hp_filter != "PASS":
+            return False
+
+        # hap_counts = (sv hap0/1/2, all-reads hap0/1/2)
+        _, sv1, sv2, _, all1, all2 = svc.postprocess.cluster.hap_counts
+        by_hap = {1: (all1, sv1), 2: (all2, sv2)}
+        if int(hp) not in by_hap:
+            return False
+        total_in_phase, sv_in_phase = by_hap[int(hp)]
+        if total_in_phase == 0:
+            return False
+
+        if sv_in_phase / float(total_in_phase) >= min_rnames_in_phase:
+            if svc.filter == "MOSAIC_VAF":
+                svc.filter = "PASS"
+                a, b, gq, dr, dv, p = svc.genotypes[0]
+                svc.genotypes[0] = (a, 1, gq, dr, dv, p)
+                svc.qc = True
+                return True
+        return False
+
+
+class CallTask(Task):
+    """Single-sample SV calling for one contig interval
+    (reference: parallel.py:252-297)."""
+
+    def execute(self, worker=None) -> CallResult:
+        config = self.config
+        qc = not config.no_qc
+
+        read_count = self.build_leadtab()[1]
+        phase_before = dict(postprocessing.PHASE_COUNTERS)
+        svcandidates = self.call_candidates(qc, config)
+        svcalls = self.finalize_candidates(svcandidates, not qc, config)
+        if not config.no_qc:
+            svcalls = [call for call in svcalls if call.qc]
+        if config.sort:
+            svcalls.sort(key=lambda call: call.pos)
+
+        result = CallResult(self, svcalls, read_count)
+        result.engine_counters = getattr(self, "engine_counters", None)
+        if result.engine_counters is not None:
+            # device phase-tally consumption during THIS task's annotate
+            # (module counters; per-task delta)
+            for k, v in postprocessing.PHASE_COUNTERS.items():
+                d = v - phase_before.get(k, 0)
+                if d:
+                    result.engine_counters[k] = result.engine_counters.get(k, 0) + d
+        if config.dev_output_candidates:
+            result.store_candidates(svcandidates)
+        result.coverage_average_total = self.coverage_average_total
+        return result
 
 
 class CombineTask(Task):

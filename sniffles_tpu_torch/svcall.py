@@ -1,23 +1,36 @@
-"""SV data model and multi-sample group merging (combine mode).
+"""SV data model, cluster-to-call conversion, and split-pair classification.
 
-Behavior matches the reference data model (reference: sv.py:87-481).
-The classes keep the JAX package's slot layout and pickle under the same
-reference aliases ("sniffles.sv.*"), so SNF blocks written by either
-package load in the other. Copied from sniffles_tpu/svcall.py; the
-call-path helpers (cluster-to-call conversion, split classification)
-are not part of the combine slice.
+Behavior matches the reference data model and calling step (reference:
+sv.py:87-782): robust center statistics, PRECISE determination, BND alt
+resolution, multi-sample group merging, and the adjacent-split geometry
+rules.  The classes keep the JAX package's slot layout and pickle under
+the same reference aliases ("sniffles.sv.*"), so SNF blocks written by
+either package load in the other. Copied from sniffles_tpu/svcall.py.
+The per-candidate statistics (center/trim/stdev) also have batched
+device implementations in ops/stats.py; this module is the exact
+host-side ground truth.
 """
 from __future__ import annotations
 
+import logging
 import math
 from dataclasses import dataclass, field
-from typing import Optional
+
+from typing import Optional, TYPE_CHECKING
 
 from sniffles_tpu_torch import util
 from sniffles_tpu_torch.compat import _apply_pickle_state
 from sniffles_tpu_torch.ops.edit_distance import edit_distance
 
+if TYPE_CHECKING:
+    from sniffles_tpu_torch.cluster import Cluster
+    from sniffles_tpu_torch.config import SnifflesConfig
+
+log = logging.getLogger(__name__)
+
 TYPES = ["INS", "DEL", "DUP", "INV", "BND"]
+SINGLE_TYPES = ["SINGLE_LEFT", "SINGLE_RIGHT"]
+ALL_TYPES = TYPES + SINGLE_TYPES
 
 
 @dataclass
@@ -32,16 +45,22 @@ class SVCallBNDInfo:
 
 @dataclass
 class SVCallPostprocessingInfo:
-    cluster: object
+    cluster: 'Cluster'
 
 
 class ForwardDifferenceWelford:
-    """State of the call path's streaming coverage-smoothness screen
-    (reference: sv.py:51-85); combine only carries it through SNF
-    pickles, so the update methods are not carried over."""
+    """Streaming mean/variance of relative forward differences, the state
+    of the large-event coverage-smoothness screen (reference: sv.py:51-85).
+    Nothing feeds it samples (the JAX package's update method has no
+    caller either), so its variance stays None and the screen passes."""
 
     def __init__(self):
         self.n, self.m1, self.m2, self.last = 0, 0, 0, None
+
+    @property
+    def variance(self):
+        # population variance (ddof=0)
+        return self.m2 / self.n if self.n >= 2 else None
 
 
 @dataclass(slots=True)
@@ -101,8 +120,10 @@ class SVCall:
     genotype_match_sv: Optional['SVCall'] = None
     genotype_match_dist: float = 0.0
 
-    # snapshotted candidate-CSV lines of the call path (kept so the slot
-    # layout equals the JAX package's)
+    # snapshotted candidate-CSV lines (see Task.finalize_candidates:
+    # computed while postprocess info is still attached, consumed by
+    # CallResult.store_candidates); plain fields instead of
+    # cached_property so the class can use slots
     csv_line: Optional[tuple] = None
     csv_line_single: Optional[tuple] = None
 
@@ -125,6 +146,55 @@ class SVCall:
     def is_single_break(self) -> bool:
         return self.svtype.startswith('SINGLE')
 
+    def _csv_orientations(self):
+        """Orientation pair for candidate-CSV output (reference: sv.py:183-193)."""
+        if self.svtype == "DEL":
+            return '+', '-'
+        if self.svtype == "DUP":
+            return '-', '+'
+        if self.svtype == "BND":
+            return ('+' if self.bnd_info.is_first else '-',
+                    '+' if self.bnd_info.is_reverse else '-')
+        return '=', '='
+
+    def _to_csv_line(self, single_break: bool = False) -> tuple | None:
+        """Candidate CSV emission (reference: sv.py:180-214)."""
+        vaf = self.get_info('VAF')
+        ref_reads = str(int(self.support / vaf) if vaf else 0)
+        o1, o2 = self._csv_orientations()
+
+        cluster = self.postprocess.cluster
+        inline = len({ld.read_qname for ld in cluster.leads if ld.source == "INLINE"})
+        counts = (str(inline), str(self.support - inline), ref_reads)
+
+        if single_break:
+            # Half-calls: unclassified single breaks and the break side of an INS.
+            masked = self.filter if self.filter != 'SINGLE_BREAK' else ''
+            if self.svtype == 'INS' and (loc := cluster.get_break()):
+                return (self.svtype, '-', self.contig, str(loc), '', '', '', self.filter) + counts
+            if self.svtype == 'SINGLE_LEFT':
+                return (self.svtype, '-', self.contig, str(self.pos), '', '', '', masked) + counts
+            if self.svtype == 'SINGLE_RIGHT':
+                return (self.svtype, '+', self.contig, str(self.pos), '', '', '', masked) + counts
+            return None
+        if self.is_single_break:
+            return None
+
+        if self.svtype == 'BND':
+            mate = (self.bnd_info.mate_contig, str(self.bnd_info.mate_ref_start))
+        else:
+            mate = (self.contig, str(self.end))
+        return (self.svtype, o1, self.contig, str(self.pos), o2) + mate + (self.filter,) + counts
+
+    def finalize(self):
+        self.postprocess = None
+
+    # variance ceiling for the coverage-smoothness screen (COV_VAR)
+    _COVERAGE_VAR_MAX = 0.3
+
+    def qc_coverage_samples(self) -> tuple[bool, float | None]:
+        var = self.forward_difference_sampler.variance
+        return (True, None) if var is None else (var < self._COVERAGE_VAR_MAX, float(var))
 
 
 # --------------------------------------------------------------------------
@@ -400,10 +470,232 @@ class SVGroup:
         return svcall
 
 
+# --------------------------------------------------------------------------
+# Cluster -> candidate conversion (call path)
+
+
+def calculate_bounds(svtype, ref_start_mode, svlen_mode):
+    """Start/end of the event interval from its robust center statistics
+    (reference: sv.py:484-494)."""
+    if svtype == "INS":
+        return ref_start_mode, ref_start_mode
+    if svtype == "DEL":
+        return ref_start_mode + svlen_mode, ref_start_mode
+    return ref_start_mode, ref_start_mode + abs(svlen_mode)
+
+
+def call_from(cluster, config, keep_qc_fails, task):
+    """Convert one lead cluster into an SV candidate; yields at most one
+    call (reference: sv.py:497-598)."""
+    leads = cluster.leads
+    svtype = cluster.svtype
+    qc = True
+
+    # device-computed statistics from the fused --tpu-call step
+    # (parallel/device_call.py): integer-exact robust centers and counts
+    # over this cluster's MERGED leads (the device applies the
+    # merge_inner fold before computing them, and the host verified the
+    # fold grouping before attaching the dict), so they equal the host
+    # computations below. Float statistics (stdevs, NM mean) and
+    # set-carrying fields (rnames) stay host-side: they feed formatted
+    # output and downstream object paths, and host f64 keeps them
+    # byte-stable.
+    eng = getattr(cluster, "engine", None)
+
+    svlen = eng["svlen_center"] if eng else util.center(ld.svlen for ld in leads)
+    lengths = [ld.svlen for ld in leads] if config.dev_emit_sv_lengths else None
+
+    if not svtype.startswith("SINGLE_") and svtype != 'BND':
+        if abs(svlen) < config.minsvlen_screen:
+            return
+
+    supporting = {ld.read_qname for ld in leads}
+    support_long = 0
+    if svtype == "INS" and svlen >= config.long_ins_length:
+        # soft-clip evidence counts toward long-INS support
+        long_reads = {ld.read_qname for ld in cluster.leads_long}
+        support_long = len(long_reads)
+        supporting |= long_reads
+    support = len(supporting)
+
+    ref_start = eng["raw_pos_center"] if eng else util.center(ld.ref_start for ld in leads)
+    stdev_pos = util.stdev(util.trim(ld.ref_start for ld in leads))
+    if svtype == "BND":
+        stdev_len = None
+        precise = stdev_pos < config.precise
+    else:
+        stdev_len = util.stdev(util.trim(ld.svlen for ld in leads))
+        precise = stdev_pos + stdev_len < config.precise
+
+    svstart, svend = calculate_bounds(svtype, ref_start, svlen)
+    fwd_count = eng["fwd"] if eng else sum(ld.strand == "+" for ld in leads)
+    nm_mean = util.mean(ld.nm for ld in leads) if config.qc_nm_measure else -1
+
+    if not keep_qc_fails and not qc:
+        return
+
+    svcall = SVCall(
+        contig=cluster.contig,
+        pos=svstart,
+        id=f"{svtype}.{task.sv_id:X}S{task.id:X}",
+        ref="N",
+        alt=f"<{svtype}>",
+        qual=eng["qual"] if eng else int(util.mean(ld.mapq for ld in leads)),
+        filter="PASS",
+        info={},
+        svtype=svtype,
+        svlen=svlen,
+        svlens=lengths,
+        end=svend,
+        genotypes={},
+        precise=precise,
+        support=support,  # set-based (needs rnames anyway); equals eng["support"]
+        # sorted, not set order: the reference emits RNAMES in hash-seed-
+        # dependent set order (reference sv.py:555 via list(support_set)),
+        # so its output varies run to run under --output-rnames; ours is
+        # deterministic (docs/migration.md, known differences)
+        rnames=sorted(supporting),
+        postprocess=SVCallPostprocessingInfo(cluster=cluster),
+        qc=qc,
+        nm=nm_mean,
+        fwd=fwd_count,
+        rev=len(leads) - fwd_count)
+
+    type_extras = {
+        "BND": lambda: resolve_bnd(svcall, cluster, config),
+        "INS": lambda: svcall.set_info("SUPPORT_LONG", support_long),
+        # split-read support for the DEL genotyper; the device counts it
+        # per cluster in the fused step (sa flag row, call_task_packed)
+        "DEL": lambda: svcall.set_info("SUPPORT_SA",
+                                       eng["support_sa"] if eng else
+                                       sum(ld.source != "INLINE" for ld in leads)),
+    }
+    if svtype in type_extras:
+        type_extras[svtype]()
+
+    for tag, scatter in (("STDEV_POS", stdev_pos), ("STDEV_LEN", stdev_len)):
+        if scatter is not None:
+            svcall.set_info(tag, scatter)
+
+    task.sv_id += 1
+    yield svcall
+
+
+def resolve_bnd(svcall: 'SVCall', cluster: 'Cluster', config=None) -> None:
+    """Resolve the dominant mate locus/orientation of a BND cluster into
+    VCF 4.2 bracket syntax (reference: sv.py:625-639)."""
+    mate_contig = util.most_common_top([ld.bnd_info.mate_contig for ld in cluster.leads])
+    mates = [ld for ld in cluster.leads if ld.bnd_info.mate_contig == mate_contig]
+    mate_pos = util.center([ld.bnd_info.mate_ref_start for ld in mates])
+    is_first = util.most_common_top([ld.bnd_info.is_first for ld in mates])
+    is_reverse = util.most_common_top([ld.bnd_info.is_reverse for ld in mates])
+
+    bracket = "]" if is_reverse else "["
+    locus = f"{bracket}{mate_contig}:{mate_pos}{bracket}"
+    svcall.alt = f"N{locus}" if is_first else f"{locus}N"
+    svcall.support = len({ld.read_qname for ld in mates})
+    svcall.bnd_info = SVCallBNDInfo(mate_contig, mate_pos, is_first, is_reverse)
+    svcall.set_info("CHR2", mate_contig)
+    cluster.leads = mates
+
+
 def call_groups(svgroups: list[SVGroup], config, task):
     """Yield the merged call of every group that survives combine QC."""
     calls = (group.call(config, task) for group in svgroups)
     yield from (c for c in calls if c is not None)
+
+
+# --------------------------------------------------------------------------
+# Split-read pair classification
+
+
+def _same_strand_event(read, last, curr, minlen, seq_cap):
+    """INS/DEL/DUP geometry for an adjacent same-strand pair; returns the
+    (svtype, start, svlen) hint or None and sets curr.seq for INS
+    (reference: sv.py:665-721).
+
+    Gap convention: query gap is read-bases skipped between alignments;
+    reference gap runs forward or backward with strand.
+    """
+    forward = curr.strand != "-"
+    qry_gap = curr.qry_start - last.qry_end
+    ref_gap = (curr.ref_start - last.ref_end) if forward else (last.ref_start - curr.ref_end)
+    anchor = curr.ref_start if forward else last.ref_start
+
+    if qry_gap >= minlen and qry_gap - ref_gap >= minlen:
+        # inserted sequence between the two alignments
+        curr.seq = (read.query_sequence[last.qry_end:curr.qry_start]
+                    if qry_gap <= seq_cap else None)
+        return "INS", anchor, qry_gap
+    if ref_gap >= minlen and ref_gap - qry_gap >= minlen:
+        return "DEL", anchor, -ref_gap
+    # re-visited reference span -> duplication
+    if forward and curr.ref_start <= last.ref_end:
+        span = last.ref_end - curr.ref_start
+        if span >= minlen:
+            return "DUP", curr.ref_start, span
+    elif not forward and last.ref_start <= curr.ref_end:
+        span = curr.ref_end - last.ref_start
+        if span >= minlen:
+            return "DUP", last.ref_start, span
+    return None
+
+
+def _strand_flip_event(last, curr, minlen):
+    """INV geometry for an adjacent opposite-strand pair; the breakpoint
+    pair is taken on ref starts (current read forward) or ref ends
+    (current read reverse) (reference: sv.py:723-755)."""
+    if curr.strand != "-":
+        a, b = curr.ref_start, last.ref_start
+    else:
+        a, b = curr.ref_end, last.ref_end
+    span = abs(a - b)
+    if span >= minlen:
+        return "INV", min(a, b), span
+    return None
+
+
+def classify_splits(read, leads: list, config, main_contig: str) -> list:
+    """Order a read's alignments by query position and classify each
+    adjacent pair into an SV hint (reference: sv.py:649-782).
+
+    Inter-contig pairs are not handled here — they become BNDs via
+    Lead.for_bnd.  When no pair yields a hint, retry once on the
+    alignments matching the first alignment's contig+strand (the
+    short-pseudo-BND filter).
+    """
+    minlen = config.minsvlen_screen
+    leads.sort(key=lambda ld: ld.qry_start)
+
+    head = leads[0]
+    head.svtypes_starts_lens = []
+    # A long unaligned prefix is a putative long-INS half-signal.
+    if head.qry_start >= config.long_ins_length * 0.5:
+        head.svtypes_starts_lens.append(("INS", head.ref_start, None))
+
+    hints = 0
+    last = head
+    for curr in leads[1:]:
+        curr.svtypes_starts_lens = []
+        if curr.contig == last.contig:
+            if curr.strand == last.strand:
+                hint = _same_strand_event(read, last, curr, minlen,
+                                          config.dev_seq_cache_maxlen)
+            else:
+                hint = _strand_flip_event(last, curr, minlen)
+            if hint is not None:
+                curr.svtypes_starts_lens.append(hint)
+                hints += 1
+        last = curr
+
+    if not hints and len(leads) > 2:
+        # filter out short pseudo BND hints
+        anchor = leads[0]
+        leads = [ld for ld in leads
+                 if ld.contig == anchor.contig and ld.strand == anchor.strand]
+        if len(leads) == 2:
+            return classify_splits(read, leads, config, main_contig)
+    return leads
 
 
 from sniffles_tpu_torch.compat import alias_module_for_pickle

@@ -1,7 +1,8 @@
-"""Card-only tests of the PyTorch/CUDA port: the hand-written CUDA kernel
-against its plain PyTorch version and the host Myers scan, and the
-combine device path on the card against the host path. They skip where
-no CUDA card is visible. This file imports neither JAX nor the JAX
+"""Card-only tests of the PyTorch/CUDA port: the hand-written CUDA kernels
+(edit distance, merge sweep) against their plain PyTorch versions (and
+the host Myers scan), and the combine and call_sample device paths on
+the card against their host paths. They skip where no CUDA card is
+visible. This file imports neither JAX nor the JAX
 package, so on the card it runs without them:
 
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
@@ -10,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+from sniffles_tpu_torch.ops import clustering as tc
 from sniffles_tpu_torch.ops import edit_distance_batch as ted
 from sniffles_tpu_torch.ops.edit_distance import edit_distance
 
@@ -131,4 +133,60 @@ def test_combine_on_cuda_matches_host(card, monkeypatch, tmp_path):
     dev = tmp_path / "dev.vcf"
     assert cli.main(["--input", *snfs, "--vcf", str(dev), "--threads", "0"]) == 0
     assert ted.COUNTS["launches"] >= 1
+    assert records(dev) == records(host)
+
+
+SWEEP = dict(cluster_r=2.5, cluster_repeat_h=1.5, cluster_repeat_h_max=1000.0,
+             cluster_merge_bnd=1000, global_repeat=False)
+
+
+@pytest.mark.parametrize("seed,size,svtypes", [
+    pytest.param(1, 32768, (0, 1, 2, 3, 4), id="32768"),
+    pytest.param(2, 2048, (0, 1, 2, 3, 4), id="2048"),
+    pytest.param(3, 2048, (4,), id="bnd-chains"),
+    pytest.param(4, 512, (1,), id="del-chain"),
+])
+def test_merge_sweep_kernel_matches_plain_version(card, seed, size, svtypes):
+    from sniffles_tpu_torch.sim import fuzz_call_batch
+    packed = torch.from_numpy(fuzz_call_batch(seed, size, svtypes=svtypes)).to(card)
+    inputs, state = tc.sweep_inputs(*tc.sort_and_seed(tc.packed_signatures(packed), 100), 100)
+    kernel = {k: v.clone() for k, v in state.items()}
+    launches = tc.COUNTS["launches"]
+    iters = tc.merge_sweep(inputs, kernel, **SWEEP)
+    torch.cuda.synchronize()
+    assert tc.COUNTS["launches"] == launches + 1
+    plain = {k: v.cpu().clone() for k, v in state.items()}
+    assert int(iters[0]) == tc.merge_sweep_plain({k: v.cpu() for k, v in inputs.items()},
+                                                 plain, **SWEEP)
+    for k in tc.SWEEP_STATE:
+        got = kernel[k].cpu()
+        if got.dtype == torch.float32:
+            got, plain[k] = got.view(torch.int32), plain[k].view(torch.int32)
+        assert torch.equal(got, plain[k]), k
+    assert int(kernel["alive"].sum()) < int(inputs["nseeds"][0])
+
+
+def test_call_sample_on_cuda_matches_host(card, monkeypatch, tmp_path):
+    from sniffles_tpu_torch import cli
+    from sniffles_tpu_torch.sim import PlantedSV, write_dataset
+
+    svs = [PlantedSV(pos=p, svtype=k, svlen=ln) for p, k, ln in
+           ((30_000, "DEL", 120), (60_000, "INS", 150), (90_000, "DUP", 900),
+            (120_000, "INV", 700), (150_000, "DEL", 2000))]
+    bam, fa = write_dataset(str(tmp_path), ref_len=200_000, depth=24, read_len=12_000,
+                            seed=11, svs=svs)
+
+    def records(path):
+        with open(path) as f:
+            return [line for line in f if not line.startswith("#")]
+
+    args = ["--input", bam, "--reference", fa, "--threads", "0"]
+    host = tmp_path / "host.vcf"
+    assert cli.main([*args, "--vcf", str(host), "--no-tpu"]) == 0
+    monkeypatch.delenv("SNIFFLES_TPU_FORCE_CPU", raising=False)
+    tc.reset_counts()
+    dev = tmp_path / "dev.vcf"
+    assert cli.main([*args, "--vcf", str(dev)]) == 0
+    assert tc.COUNTS["launches"] == 1
+    assert len(records(host)) == len(svs)
     assert records(dev) == records(host)
