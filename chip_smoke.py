@@ -11,11 +11,15 @@ Phases, each of which must pass:
      card, bit for bit, at the main path's shapes and edge cases (lengths
      at 32-bit word boundaries, alphabets beyond ACGT, a batch mixing
      60 bp and 4,095 bp pairs), a subsample against the host Myers scan;
-  2b. the merge-sweep kernel against its plain PyTorch version (run on the
-     CPU copies of the same inputs), in every state array, bit for bit:
-     fuzz batches whose seeds merge, at the dense call tasks' padded
-     widths n = 32,768 and n = 65,536 and at n = 512, and the edges
-     nseeds = 0, one seed, one fragmented read and a single-svtype chain;
+  2b. the merge sweep's two kernels (the sound-cut partition, sweep_cuts,
+     then a thread per segment, merge_sweep) against their plain PyTorch
+     versions (run on the CPU copies of the same inputs), bit for bit in
+     the cut flags, the counts and every state array: fuzz batches whose
+     seeds merge, at the dense call tasks' padded widths n = 32,768 and
+     n = 65,536 and at n = 512, the edges nseeds = 0, one seed, one
+     fragmented read and a single-svtype chain, and the partition's
+     layouts (a head seed alone, BND chains, a cascade that collapses
+     the fixpoint);
   3. combine on the card: a 256-sample cohort written by
      sniffles_tpu_torch.sim, combined into a multi-sample VCF on the card
      (the device greedy and the edit-distance kernel) and again on the
@@ -26,13 +30,14 @@ Phases, each of which must pass:
      sniffles_tpu_torch.sim and called on the device path (--threads 0)
      and on the host path (--no-tpu): identical records, at least 1,500
      of them, every device child's statistics consumed, no exactness
-     route taken but BND's, one sweep-kernel launch per task, and the
-     state of every one of those launches == the plain version's on the
-     same inputs, bit for bit; the device time of call_task_packed per
-     task (CUDA events), the wall time of both paths and the peak device
-     memory are printed.
-Then the kernels' timings on the inputs of the main paths' largest
-launches (CUDA events) beside their bounds and plain versions, one JSON
+     route taken but BND's, one launch of each sweep kernel per task,
+     and the state and counts of every one of those sweeps == the plain
+     version's on the same inputs, bit for bit; the device time of
+     call_task_packed per task (CUDA events), the wall time of both
+     paths and the peak device memory are printed.
+Then (5) the kernels' timings on the inputs of the main paths' largest
+launches (CUDA events) beside their bounds and plain versions, the
+sweep's device time on phase 2b's fuzz batches and chain, one JSON
 line of kernel figures, the nvidia-smi name and power-limit line, and,
 last, {"ok": true, "device": {...}}. Without a card it exits non-zero
 before any of that.
@@ -74,6 +79,15 @@ SWEEP_CRITERIA_ARRAYS = 7
 # pointer move), counted from csrc/merge_sweep.cu; the stride picks of a
 # merge's range_metrics come on top
 SWEEP_OPS_PER_ITERATION = 40
+# phase-2b cases whose sweep phase 5 times beside the main path's largest
+SWEEP_TIMED = ("fuzz n=32768 seed 1", "fuzz n=32768 seed 2", "fuzz n=65536 seed 5",
+               "single-svtype chain n=4096")
+# cycles of the device sleep queued ahead of a timed sweep (about 1 ms)
+SLEEP_CYCLES = 2_000_000
+# int32 operations a live seed and pass of the partition's walk (the cut
+# test: a compare of types, three differences, a min, a multiply, two
+# compares), counted from csrc/merge_sweep.cu
+CUTS_OPS_PER_SEED = 8
 
 
 def fail(msg: str) -> None:
@@ -277,26 +291,44 @@ def sweep_case(packed, meta):
     return tc.sweep_inputs(*tc.sort_and_seed(sig, meta["binsize"]), meta["binsize"])
 
 
+def cuts_params(meta):
+    return {k: meta[k] for k in ("cluster_r", "cluster_repeat_h_max", "cluster_merge_bnd")}
+
+
 def check_sweep_kernel(inputs, state, meta, label):
-    """One launch of the kernel on the card from `state`, held against the
-    plain version (hold_against_plain). Returns the max |kernel - plain|
-    over the float arrays."""
+    """The partition kernel's cut flags (the nseeds live ones, all it
+    writes) and counts == its plain version's; then one sweep on the card
+    from `state` (both kernels), held against the plain version
+    (hold_against_plain). Returns the max |kernel - plain| over the float
+    arrays."""
     from sniffles_tpu_torch.ops import clustering as tc
+    n = inputs["seed_type"].shape[0]
+    nseeds = int(inputs["nseeds"][0])
+    cut, _, cut_counts = tc.launch_sweep_cuts(inputs, state, n, **cuts_params(meta))
+    cut = cut.cpu()[:nseeds]
+    plain_cut, _, plain_counts = tc.sweep_cuts_plain(
+        {k: v.cpu() for k, v in inputs.items()}, {k: v.cpu() for k, v in state.items()},
+        **cuts_params(meta))
+    plain_cut = plain_cut[:nseeds]
+    if not torch.equal(cut, plain_cut) or not torch.equal(cut_counts.cpu(), plain_counts):
+        fail(f"sweep_cuts kernel differs from its plain version on {label}: counts "
+             f"{cut_counts.tolist()} plain {plain_counts.tolist()}, "
+             f"{int((cut != plain_cut).sum())} cut flags differ")
     kernel_state = {k: v.clone() for k, v in state.items()}
-    iters = int(tc.merge_sweep(inputs, kernel_state, **sweep_params(meta))[0])
+    counts = tc.merge_sweep(inputs, kernel_state, **sweep_params(meta)).tolist()
     torch.cuda.synchronize()
-    return hold_against_plain(inputs, state, kernel_state, iters, meta, label)
+    return hold_against_plain(inputs, state, kernel_state, counts, meta, label)
 
 
-def hold_against_plain(inputs, state, kernel_state, iters, meta, label):
-    """The kernel's state and iteration count after a launch from `state`
-    == the plain version's on CPU copies of the same inputs, in every
-    state array, floats bit for bit. Returns the max |kernel - plain| over
-    the float arrays."""
+def hold_against_plain(inputs, state, kernel_state, counts, meta, label):
+    """The kernel's state and counts after a sweep from `state` == the
+    plain version's on CPU copies of the same inputs, in every state
+    array, floats bit for bit. Returns the max |kernel - plain| over the
+    float arrays."""
     from sniffles_tpu_torch.ops import clustering as tc
     plain_state = {k: v.cpu().clone() for k, v in state.items()}
-    plain_iters = tc.merge_sweep_plain({k: v.cpu() for k, v in inputs.items()},
-                                       plain_state, **sweep_params(meta))
+    plain_counts = tc.merge_sweep_plain({k: v.cpu() for k, v in inputs.items()},
+                                        plain_state, **sweep_params(meta)).tolist()
     err = 0.0
     for k in tc.SWEEP_STATE:
         got, want = kernel_state[k].cpu(), plain_state[k]
@@ -309,14 +341,16 @@ def hold_against_plain(inputs, state, kernel_state, iters, meta, label):
             bad = torch.nonzero(got != want).flatten()[:5].tolist()
             fail(f"merge-sweep kernel differs from its plain version in {k} on {label} "
                  f"at slots {bad}: kernel {got[bad].tolist()} plain {want[bad].tolist()}")
-    if iters != plain_iters:
-        fail(f"merge-sweep kernel ran {iters} iterations, its plain version "
-             f"{plain_iters}, on {label}")
+    named = dict(zip(tc.SWEEP_COUNTS, counts))
+    if counts != plain_counts:
+        fail(f"merge-sweep kernel counted {named}, its plain version "
+             f"{dict(zip(tc.SWEEP_COUNTS, plain_counts))}, on {label}")
     nseeds = int(inputs["nseeds"][0])
     merged = nseeds - int(kernel_state["alive"].cpu().sum())
-    print(f"  {label}: {nseeds} seeds, {merged} merges, {iters} iterations; "
-          f"kernel == plain in all {len(tc.SWEEP_STATE)} state arrays (bit-exact)",
-          flush=True)
+    print(f"  {label}: {nseeds} seeds, {merged} merges, "
+          + ", ".join(f"{k} {v}" for k, v in named.items())
+          + f"; kernels == plain in the cut flags, the counts and all "
+          f"{len(tc.SWEEP_STATE)} state arrays (bit-exact)", flush=True)
     return err
 
 
@@ -344,38 +378,147 @@ def sweep_bytes(inputs, state, final):
 
 def sweep_edge_batches():
     """(label, packed) edge cases: no seed, one seed, one fragmented read,
-    one svtype chain."""
-    from sniffles_tpu_torch.sim import edge_call_batches, fuzz_call_batch
+    one svtype chain, and the partition's layouts (a head seed alone, BND
+    chains, a cascade that collapses the fixpoint)."""
+    from sniffles_tpu_torch.sim import edge_call_batches, fuzz_call_batch, sweep_layout_batches
     edges = [(name, packed) for name, packed in edge_call_batches().items()]
-    return edges + [("single-svtype chain n=4096", fuzz_call_batch(99, 4096, svtypes=(1,)))]
+    layouts = [(f"layout {name}", packed) for name, packed in sweep_layout_batches().items()]
+    return (edges + [("single-svtype chain n=4096", fuzz_call_batch(99, 4096, svtypes=(1,)))]
+            + layouts)
+
+
+def cuts_bytes(inputs, counts):
+    """The global-memory bytes the partition must move: seed_type,
+    start_bp and end_bp of every live seed and nseeds read once; the cut
+    flags of the live seeds (all the sweep reads), a head slot a segment
+    and the counts written once."""
+    nseeds = int(inputs["nseeds"][0])
+    return 12 * nseeds + 4 + nseeds + 4 * counts["segments"] + 4 * len(counts)
+
+
+def device_ms(launch, state, prepare=lambda st: None, reps=10):
+    """Device time of launch(st, prepare(st)), from a fresh copy st of
+    `state` each time, between two CUDA events; the mean of `reps` runs
+    after one that warms up. prepare's launches come ahead of the start
+    event. The card sleeps ahead of that event, so the timed launches are
+    queued before it reaches them and the host's launch time stays out.
+    Returns (ms, what the last launch returned, its final st)."""
+    st = {k: torch.empty_like(v) for k, v in state.items()}
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    total = 0.0
+    for rep in range(reps + 1):
+        for k, v in state.items():
+            st[k].copy_(v)
+        ready = prepare(st)
+        torch.cuda._sleep(SLEEP_CYCLES)
+        start.record()
+        out = launch(st, ready)
+        stop.record()
+        torch.cuda.synchronize()
+        if rep:
+            total += start.elapsed_time(stop)
+    return total / reps, out, st
+
+
+def sweep_device_ms(inputs, state, meta):
+    """Device time of one sweep (device_ms), both launches of
+    launch_merge_sweep, from sweep_inputs' state to the final state.
+    Returns (ms, the counts the sweep returned by name, the final
+    state)."""
+    from sniffles_tpu_torch.ops import clustering as tc
+    n = inputs["seed_type"].shape[0]
+    ms, out, st = device_ms(
+        lambda st, _: tc.launch_merge_sweep(inputs, st, n, **sweep_params(meta)), state)
+    return ms, dict(zip(tc.SWEEP_COUNTS, out.cpu().tolist())), st
+
+
+def segments_device_ms(inputs, state, meta):
+    """Device time of the kernel merge_sweep alone (device_ms of
+    launch_segment_sweep, the partition launched ahead of the start
+    event). Returns (ms, the counts by name, the final state)."""
+    from sniffles_tpu_torch.ops import clustering as tc
+    n = inputs["seed_type"].shape[0]
+    ms, out, st = device_ms(
+        lambda st, part: tc.launch_segment_sweep(inputs, st, n, *part, **sweep_params(meta)),
+        state, lambda st: tc.launch_sweep_cuts(inputs, st, n, **cuts_params(meta)))
+    return ms, dict(zip(tc.SWEEP_COUNTS, out.cpu().tolist())), st
+
+
+def cuts_device_ms(inputs, state, meta):
+    """Device time of the partition alone (device_ms of
+    launch_sweep_cuts); returns (ms, cut flags, counts by name)."""
+    from sniffles_tpu_torch.ops import clustering as tc
+    n = inputs["seed_type"].shape[0]
+    ms, (cut, _, counts), _ = device_ms(
+        lambda st, _: tc.launch_sweep_cuts(inputs, st, n, **cuts_params(meta)), state)
+    return ms, cut, dict(zip(tc.SWEEP_COUNTS, counts.cpu().tolist()))
+
+
+def time_sweep_case(inputs, state, meta, label):
+    """Prints the device time of one sweep over a case (both launches)
+    beside its seeds, merges and the counts the sweep returned, and the
+    times of the partition and of the segment kernel, each alone."""
+    ms, counts, final = sweep_device_ms(inputs, state, meta)
+    nseeds = int(inputs["nseeds"][0])
+    merged = nseeds - int(final["alive"].sum())
+    print(f"  {label}: {nseeds} seeds, {merged} merges, "
+          + ", ".join(f"{k} {v}" for k, v in counts.items())
+          + f"; sweep {ms:.4f} ms ({ms * 1e3 / max(counts['depth'], 1):.3f} us a step of "
+          f"its longest chain): sweep_cuts alone {cuts_device_ms(inputs, state, meta)[0]:.4f} "
+          f"ms, merge_sweep alone {segments_device_ms(inputs, state, meta)[0]:.4f} ms",
+          flush=True)
+
+
+def time_cuts_kernel(inputs, state, meta):
+    """The partition kernel and its plain version (on the card) on the
+    inputs of the main path's largest sweep, and its bound: the bytes it
+    must move (cuts_bytes) over the card's memory rate, against
+    CUTS_OPS_PER_SEED int32 operations a live seed and pass."""
+    from sniffles_tpu_torch.ops import clustering as tc
+    n = inputs["seed_type"].shape[0]
+    nseeds = int(inputs["nseeds"][0])
+    ms, cut, counts = cuts_device_ms(inputs, state, meta)
+    plain_ms = cuda_ms(lambda: tc.sweep_cuts_plain(inputs, state, **cuts_params(meta)), 1)
+    plain_cut, _, plain_counts = tc.sweep_cuts_plain(inputs, state, **cuts_params(meta))
+    if (not torch.equal(cut[:nseeds], plain_cut[:nseeds])
+            or list(counts.values()) != plain_counts.tolist()):
+        fail("sweep_cuts kernel differs from its plain version on the main path's task")
+    n_bytes = cuts_bytes(inputs, counts)
+    bound_bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    bound_ops_ms = CUTS_OPS_PER_SEED * nseeds * counts["passes"] / INT32_OPS_PER_S * 1e3
+    bound_ms = max(bound_bytes_ms, bound_ops_ms)
+    print(f"  main-path partition n={n}: {nseeds} seeds, {counts['segments']} segments, "
+          f"{counts['passes']} passes, collapsed {counts['collapsed']}; kernel {ms:.4f} ms, "
+          f"plain {plain_ms:.1f} ms; == plain (bit-exact); bound {bound_ms * 1e3:.4f} us "
+          f"({n_bytes} bytes at {HBM_BYTES_PER_S / 1e12:.2f} TB/s; {CUTS_OPS_PER_SEED} ops "
+          f"a seed and pass: {bound_ops_ms * 1e3:.5f} us), {bound_ms / ms:.5%} of it",
+          flush=True)
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": "bytes" if bound_bytes_ms >= bound_ops_ms else "operations",
+            "max_abs_err": 0}
 
 
 def time_sweep_kernel(inputs, state, meta):
-    """Kernel and plain version on the inputs of the main path's largest
-    sweep (on the card; each launch from a fresh copy of the state), and
-    the bound: the bytes this sweep must move (sweep_bytes) over the
-    card's memory rate, against its iterations' operations over the int32
-    rate."""
+    """The kernel merge_sweep alone (the partition launched ahead of its
+    timing) and its plain version, segment_sweep_plain (on the card, from
+    the plain partition, which is not timed), on the inputs of the main
+    path's largest sweep, each from a fresh copy of the state; and the
+    bound: the bytes this sweep must move (sweep_bytes) over the card's
+    memory rate, against its iterations' operations over the int32 rate.
+    The sweep's time with both launches is printed on a line of its own."""
     from sniffles_tpu_torch.ops import clustering as tc
     params = sweep_params(meta)
     n = inputs["seed_type"].shape[0]
-    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    total, reps, iters = 0.0, 10, 0
-    for _ in range(reps + 1):
-        st = {k: v.clone() for k, v in state.items()}
-        torch.cuda.synchronize()
-        start.record()
-        out = tc.launch_merge_sweep(inputs, st, n, **params)
-        stop.record()
-        torch.cuda.synchronize()
-        if iters:                              # the first launch warms up
-            total += start.elapsed_time(stop)
-        iters = int(out[0])
-    kernel_ms = total / reps
+    kernel_ms, counts, st = segments_device_ms(inputs, state, meta)
+    both_ms = sweep_device_ms(inputs, state, meta)[0]
+    iters = counts["iterations"]
     plain_state = {k: v.clone() for k, v in state.items()}
-    plain_ms = cuda_ms(lambda: tc.merge_sweep_plain(inputs, plain_state, **params), 1)
+    partition = tc.sweep_cuts_plain(inputs, plain_state, **cuts_params(meta))
+    plain_ms = cuda_ms(lambda: tc.segment_sweep_plain(inputs, plain_state, *partition,
+                                                      **params), 1)
     err = max(float((st[k] - plain_state[k]).abs().max()) for k in ("msv", "sd"))
-    if any(not torch.equal(st[k], plain_state[k]) for k in tc.SWEEP_STATE):
+    if (any(not torch.equal(st[k], plain_state[k]) for k in tc.SWEEP_STATE)
+            or list(counts.values()) != partition[2].tolist()):
         fail("merge-sweep kernel differs from its plain version on the main path's task")
     nseeds = int(inputs["nseeds"][0])
     merged = nseeds - int(st["alive"].sum())
@@ -384,12 +527,14 @@ def time_sweep_kernel(inputs, state, meta):
     bound_ops_ms = SWEEP_OPS_PER_ITERATION * iters / INT32_OPS_PER_S * 1e3
     bound_ms = max(bound_bytes_ms, bound_ops_ms)
     print(f"  main-path sweep n={n}: {nseeds} seeds, {merged} merges, "
-          f"{iters} iterations; kernel {kernel_ms:.3f} ms "
-          f"({kernel_ms * 1e3 / max(iters, 1):.2f} us an iteration), plain {plain_ms:.1f} ms; "
+          + ", ".join(f"{k} {v}" for k, v in counts.items())
+          + f"; merge_sweep kernel {kernel_ms:.4f} ms, plain {plain_ms:.1f} ms; "
           f"bound {bound_ms * 1e3:.4f} us ({n_bytes} bytes at "
           f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s; {SWEEP_OPS_PER_ITERATION} ops an iteration "
           f"at {INT32_OPS_PER_S / 1e12:.1f} Tops/s: {bound_ops_ms * 1e3:.5f} us), "
           f"{bound_ms / kernel_ms:.5%} of it", flush=True)
+    print(f"  main-path sweep n={n}, both launches (sweep_cuts, then merge_sweep): "
+          f"{both_ms:.4f} ms", flush=True)
     return {"ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": "bytes" if bound_bytes_ms >= bound_ops_ms else "operations",
             "max_abs_err": err}
@@ -472,9 +617,9 @@ def stage_times(totals):
 def run_dense_call(tmp, meta):
     """call_sample on the dense leg, device path then host path, and every
     sweep launch of the device path held against the plain version.
-    Returns (the inputs and initial state of the launch with the most
-    seeds, the sweep launches, the max |kernel - plain| of the float
-    state)."""
+    Returns (the inputs and initial state of the sweep with the most
+    seeds, the kernel launches by count name, the max |kernel - plain| of
+    the float state)."""
     from sniffles_tpu_torch.ops import clustering as tc
     from sniffles_tpu_torch.sim import dense_layout, write_dataset
     t0 = time.perf_counter()
@@ -492,10 +637,10 @@ def run_dense_call(tmp, meta):
 
     def keep_every(inputs, state, **params):
         before = {k: v.cpu() for k, v in state.items()}
-        iters = sweep(inputs, state, **params)
+        counts = sweep(inputs, state, **params)
         kept.append(({k: v.cpu() for k, v in inputs.items()}, before,
-                     {k: v.cpu() for k, v in state.items()}, int(iters[0])))
-        return iters
+                     {k: v.cpu() for k, v in state.items()}, counts.tolist()))
+        return counts
 
     def timed_step(packed, **meta):
         start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -516,7 +661,7 @@ def run_dense_call(tmp, meta):
                                              [], os.path.join(tmp, "k1.json"), "call_sample")
     finally:
         tc.merge_sweep, tc.call_task_packed = sweep, task_step
-    launches = tc.COUNTS["launches"]
+    launches = dict(tc.COUNTS)
     peak = torch.cuda.max_memory_allocated()
     task_ms = [(n, start.elapsed_time(stop)) for n, start, stop in task_events]
     with stage_times(host_stages):
@@ -534,7 +679,7 @@ def run_dense_call(tmp, meta):
             f"{k} {v:.3f}" for k, v in stages.items()) +
               f", rest {wall - sum(stages.values()):.3f}", flush=True)
     print(f"    call_task_packed per task (width, ms): "
-          f"{[(n, round(ms, 3)) for n, ms in task_ms]}; sweep-kernel launches {launches}",
+          f"{[(n, round(ms, 3)) for n, ms in task_ms]}; kernel launches {launches}",
           flush=True)
     if dev_parts != host_parts:
         fail("call_sample: device-path VCF differs from the host-path VCF")
@@ -547,13 +692,13 @@ def run_dense_call(tmp, meta):
     if any(routes.values()):
         fail(f"call_sample: exactness routes taken {routes}")
     tasks = dev_counters.get("device_tasks", 0)
-    if tasks != DENSE_CONTIGS or launches != tasks:
-        fail(f"call_sample: {launches} sweep-kernel launches for {tasks} device tasks")
+    if tasks != DENSE_CONTIGS or any(v != tasks for v in launches.values()):
+        fail(f"call_sample: kernel launches {launches} for {tasks} device tasks")
     print("    device VCF == host VCF", flush=True)
     err = 0.0
-    for j, (inputs, before, after, iters) in enumerate(kept):
+    for j, (inputs, before, after, counts) in enumerate(kept):
         n = inputs["seed_type"].shape[0]
-        err = max(err, hold_against_plain(inputs, before, after, iters, meta,
+        err = max(err, hold_against_plain(inputs, before, after, counts, meta,
                                           f"main-path sweep {j} n={n}"))
     largest = max(kept, key=lambda launch: int(launch[0]["nseeds"][0]))
     return largest[:2], launches, err
@@ -599,8 +744,12 @@ def main() -> int:
     sweep_err = 0.0
     cases = [(f"fuzz n={n} seed {seed}", fuzz_call_batch(seed, n))
              for n, seed in ((32768, 1), (32768, 2), (65536, 5), (512, 3), (512, 4))]
+    timed_cases = {}
     for label, packed in cases + sweep_edge_batches():
-        sweep_err = max(sweep_err, check_sweep_kernel(*sweep_case(packed, meta), meta, label))
+        inputs, state = sweep_case(packed, meta)
+        sweep_err = max(sweep_err, check_sweep_kernel(inputs, state, meta, label))
+        if label in SWEEP_TIMED:
+            timed_cases[label] = (inputs, state)
 
     print(f"[3] combine: {COHORT_SAMPLES}-sample cohort, 2 contigs of 1 Mb", flush=True)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
@@ -661,6 +810,10 @@ def main() -> int:
     sweep_timing = time_sweep_kernel(*({k: v.cuda() for k, v in d.items()}
                                        for d in sweep_largest), meta)
     sweep_err = max(sweep_err, sweep_timing["max_abs_err"])
+    cuts_timing = time_cuts_kernel(*({k: v.cuda() for k, v in d.items()}
+                                     for d in sweep_largest), meta)
+    for label, (inputs, state) in timed_cases.items():
+        time_sweep_case(inputs, state, meta, label)
     kernels = [{
         "name": "edit_distance_myers", "route": "cuda",
         "source": "sniffles_tpu_torch/csrc/edit_distance.cu",
@@ -672,9 +825,16 @@ def main() -> int:
         "name": "merge_sweep", "route": "cuda",
         "source": "sniffles_tpu_torch/csrc/merge_sweep.cu",
         "replaces": "sniffles_tpu/ops/clustering.py:90",
-        "launches": sweep_launches, "max_abs_err": sweep_err,
+        "launches": sweep_launches["launches"], "max_abs_err": sweep_err,
         "ms": sweep_timing["ms"], "plain_ms": sweep_timing["plain_ms"],
         "bound_ms": sweep_timing["bound_ms"], "bound_by": sweep_timing["bound_by"],
+        "library_ms": None}, {
+        "name": "sweep_cuts", "route": "cuda",
+        "source": "sniffles_tpu_torch/csrc/merge_sweep.cu",
+        "replaces": "sniffles_tpu/ops/clustering.py:339",
+        "launches": sweep_launches["sweep_cuts"], "max_abs_err": cuts_timing["max_abs_err"],
+        "ms": cuts_timing["ms"], "plain_ms": cuts_timing["plain_ms"],
+        "bound_ms": cuts_timing["bound_ms"], "bound_by": cuts_timing["bound_by"],
         "library_ms": None}]
     print(json.dumps({"kernels": kernels}))
     print(smi)

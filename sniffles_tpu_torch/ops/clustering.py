@@ -11,21 +11,25 @@ path's `call_task_packed` reaches, as torch ops on `config.device`:
   2. seed one segment per cluster_binsize bin
   3. the EXACT merge sweep (`merge_sweep`): the host's sequential
      backtracking sweep (cluster.py:277-308) with linked-list cluster
-     state and the `i = max(0, i-2) + 1` pointer semantics. On the card
-     it is the hand-written kernel csrc/merge_sweep.cu, one thread
-     walking the loop on the device (the JAX package's lax.while_loop);
-     `merge_sweep_plain` is its plain PyTorch version, and what a CPU
-     tensor gets
+     state and the `i = max(0, i-2) + 1` pointer semantics, split at the
+     JAX package's sound cuts (the cut fixpoint of its grid sweep,
+     `sweep_cuts`) and walked one segment at a time with the sequential
+     sweep's own arithmetic, which gives the sequential sweep's state
+     bit for bit. On the card these are the hand-written kernels of
+     csrc/merge_sweep.cu (the partition in one block, then a thread per
+     segment); `sweep_cuts_plain` and `merge_sweep_plain` are their plain
+     PyTorch versions, and what a CPU tensor gets
   4. the per-read inner merge fold, the svlen-histogram resplit, and the
      per-child calling statistics and phase tallies
 
-The JAX package's other formulations stay there: the segment-lockstep
-grid sweep and its auto switch, the parallel relaxation of the fused
-engine path, cluster_assign_packed and the vmapped batched_call_task.
-This module implements the sequential formulation only; the tests hold
-it to the JAX package's sequential sweep on every batch, and to its
-default (the auto switch) where the JAX package's two formulations
-agree.
+The JAX package's other formulations stay there: the grid sweep's
+lockstep lanes (whose float32 range metrics round otherwise) and its
+auto switch, the parallel relaxation of the fused engine path,
+cluster_assign_packed and the vmapped batched_call_task. The tests hold
+the segmented sweep to a copy of the sequential one in every state word,
+call_task_packed to the JAX package's sequential sweep on every batch,
+and to its default (the auto switch) where the JAX package's two
+formulations agree.
 
 Where JAX and torch differ, the JAX semantics are kept: `jnp.lexsort`
 (last key primary) is a chain of stable sorts (ops/segments.lexsort);
@@ -55,13 +59,15 @@ SVTYPE_CODES = {name: i for i, name in enumerate(SVTYPE_NAMES)}
 # [100, 199], stride 1), so this cap never binds
 PICK_CAP = 256
 
-# Launches of the CUDA sweep kernel; the wrapper adds to it only where
-# it launches the kernel.
-COUNTS = {"launches": 0}
+# Launches of the CUDA kernels by the sweep wrapper (merge_sweep):
+# "launches" counts the segment sweeps, "sweep_cuts" the partitions; it
+# adds to them only where it launches the kernels.
+COUNTS = {"launches": 0, "sweep_cuts": 0}
 
 
 def reset_counts() -> None:
-    COUNTS["launches"] = 0
+    for k in COUNTS:
+        COUNTS[k] = 0
 
 
 def _clamped(v: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -112,7 +118,7 @@ def _segment_metrics(seg, valid, pos, svlen, arange_n, n):
 
 
 # ---------------------------------------------------------------------------
-# The exact merge sweep: slot state, plain version, kernel wrapper
+# The exact merge sweep: slot state, plain versions, kernel wrapper
 # ---------------------------------------------------------------------------
 
 SWEEP_STATE = ("nxt", "prv", "hi", "end_bp", "rep", "msv", "sd", "alive")
@@ -190,29 +196,121 @@ def _range_metrics_plain(posf, svlenf, lo_c: int, hi_c: int):
     return mean_sv, sd
 
 
+SWEEP_COUNTS = ("iterations", "depth", "segments", "passes", "collapsed")
+# the cut fixpoint's pass cap (the JAX package's)
+MAX_CUT_PASSES = 24
+
+
+def sweep_cuts_plain(inputs: dict, state: dict, *, cluster_r, cluster_repeat_h_max,
+                     cluster_merge_bnd):
+    """The plain PyTorch version of the kernel sweep_cuts in
+    csrc/merge_sweep.cu: the sound-cut partition of the seed slots (the
+    cut fixpoint of the JAX package's _exact_merge_sweep_grid, :339-373),
+    from the initial `end_bp` of `state`, so it runs before the sweep.
+
+    Initial cuts: a svtype's first seed, or a gap beyond both merge caps
+    (float32). A pass keeps a non-type cut while gap > cluster_r *
+    min(span of the segment left of it, span of its own) in float32, all
+    cuts judged on the previous pass's partition; a segment's span is
+    end_bp of its last seed minus start_bp of its first (within a svtype
+    the seeds are one bin each, in bin order). The JAX lines take the
+    left span from the per-slot span array at index segid - 1; the left
+    segment's span, which the soundness proof needs, is taken here (the
+    two agree where every earlier segment is one seed). A partition still
+    changing after MAX_CUT_PASSES passes collapses to the type cuts.
+    Returns (cut flags, uint8 [n], of which the first nseeds are the
+    partition (the kernel writes no other; here slot 0 is always set and
+    the rest are 0); the cut slots in order, int64; counts, int32
+    [len(SWEEP_COUNTS)] with zero iterations and depth)."""
+    seed_type, start_bp = inputs["seed_type"], inputs["start_bp"]
+    end_bp = state["end_bp"]
+    n = seed_type.shape[0]
+    arange_n = torch.arange(n, device=seed_type.device)
+    live = arange_n < inputs["nseeds"][0]
+    prev_slot = (arange_n - 1).clamp(min=0)
+    type_change = (arange_n == 0) | (seed_type != seed_type[prev_slot])
+    f32 = torch.float32
+    gap = (start_bp - end_bp[prev_slot]).to(f32)
+    const_ok = gap > torch.tensor(max(float(cluster_merge_bnd), float(cluster_repeat_h_max)),
+                                  dtype=f32)
+    r_f = torch.tensor(cluster_r, dtype=f32)
+    nseeds = inputs["nseeds"][0].long()
+
+    def heads_of(cut):
+        return torch.nonzero(cut & live).flatten()
+
+    cut = live & (type_change | const_ok)
+    cut[0] = True
+    passes, changed = 0, True
+    while changed and passes < MAX_CUT_PASSES:
+        passes += 1
+        heads = heads_of(cut)
+        last = torch.cat([heads[1:] - 1, (nseeds - 1).reshape(1)])
+        span = (end_bp[last] - start_bp[heads]).to(f32)
+        span_left = torch.cat([span[:1], span[:-1]])
+        m1_ok = gap[heads] > r_f * torch.minimum(span_left, span)
+        new_cut = cut.clone()
+        new_cut[heads] = type_change[heads] | (const_ok[heads] & m1_ok)
+        new_cut[0] = True
+        changed = bool((new_cut != cut).any())
+        cut = new_cut
+    if changed:
+        cut = live & type_change
+        cut[0] = True
+    heads = heads_of(cut)
+    counts = torch.tensor([0, 0, heads.numel(), passes, int(changed)], dtype=torch.int32)
+    return cut.to(torch.uint8), heads, counts
+
+
 def merge_sweep_plain(inputs: dict, state: dict, *, cluster_r, cluster_repeat_h,
                       cluster_repeat_h_max, cluster_merge_bnd,
-                      global_repeat) -> int:
+                      global_repeat) -> torch.Tensor:
     """The plain PyTorch version of csrc/merge_sweep.cu: EXACT emulation of
-    the host cluster merge sweep (reference: cluster.py:277-308), one
-    pointer move or merge per iteration, updating `state` in place.
-    Returns the number of iterations.
+    the host cluster merge sweep (reference: cluster.py:277-308), updating
+    `state` in place: the partition (sweep_cuts_plain), then each segment
+    walked on its own, one pointer move or merge per iteration. Returns
+    the counts of SWEEP_COUNTS as an int32 tensor: total iterations, the
+    longest segment's iterations (depth), segments, passes, collapsed.
 
-    The sweep is sequential with `i = max(0, i-2) + 1` pointer arithmetic:
+    The sequential sweep runs `i = max(0, i-2) + 1` pointer arithmetic:
     clusters accrete left-to-right, each merge re-evaluates the boundary
     LEFT of the merged cluster (for i >= 2), and the boundary after a
     svtype's first cluster is evaluated exactly once (the i=0 quirk — the
-    head cluster can never absorb a third seed). Every svtype's head is
-    the task's (no mesh shards here), so each svtype's pointer starts at
-    i = 0. The criteria are evaluated in float32 as in the JAX package;
-    metrics are recomputed per merge from the merged cluster's contiguous
-    element range (_range_metrics_plain)."""
+    head cluster can never absorb a third seed). A segment's walk follows
+    the JAX grid sweep's lane rules (:489-562): `i` starts at 0 at a
+    svtype's first seed (no mesh shards here) and at 2 elsewhere; a pair
+    whose right cluster heads the next segment is not evaluated, and the
+    walk ends when the pointer leaves the segment; a backtrack from the
+    segment's head stays put. By the cut proof (:281-311) no merge crosses
+    a cut, so the sequential sweep's evaluations there change nothing and
+    the final state is the sequential sweep's. The criteria are evaluated
+    in float32 as in the JAX package; metrics are recomputed per merge
+    from the merged cluster's contiguous element range
+    (_range_metrics_plain)."""
+    cut, heads, counts = sweep_cuts_plain(inputs, state, cluster_r=cluster_r,
+                                          cluster_repeat_h_max=cluster_repeat_h_max,
+                                          cluster_merge_bnd=cluster_merge_bnd)
+    return segment_sweep_plain(inputs, state, cut, heads, counts, cluster_r=cluster_r,
+                               cluster_repeat_h=cluster_repeat_h,
+                               cluster_repeat_h_max=cluster_repeat_h_max,
+                               cluster_merge_bnd=cluster_merge_bnd,
+                               global_repeat=global_repeat)
+
+
+def segment_sweep_plain(inputs: dict, state: dict, cut: torch.Tensor, heads: torch.Tensor,
+                        counts: torch.Tensor, *, cluster_r, cluster_repeat_h,
+                        cluster_repeat_h_max, cluster_merge_bnd,
+                        global_repeat) -> torch.Tensor:
+    """The plain PyTorch version of the kernel merge_sweep: the walk of
+    each segment of a partition (sweep_cuts_plain's cut flags, heads and
+    counts), updating `state` in place; sets the iterations and the
+    depth in `counts` and returns it."""
     f32 = torch.float32
+    cut = cut.tolist()
     seed_type = inputs["seed_type"].tolist()
     start_bp = inputs["start_bp"].tolist()
     lo = inputs["lo"].tolist()
     posf, svlenf = inputs["posf"], inputs["svlenf"]
-    nseeds = int(inputs["nseeds"][0])
     n = len(seed_type)
     sent = n
     nxt, prv, hi = state["nxt"], state["prv"], state["hi"]
@@ -222,61 +320,61 @@ def merge_sweep_plain(inputs: dict, state: dict, *, cluster_r, cluster_repeat_h,
     h_f = torch.tensor(cluster_repeat_h, dtype=f32)
     hmax_f = torch.tensor(cluster_repeat_h_max, dtype=f32)
     bnd_f = torch.tensor(cluster_merge_bnd, dtype=f32)
-
-    def clip(x):
-        return min(max(x, 0), n - 1)
-
-    if nseeds <= 0:
-        return 0
-    c, i, cur_t, it = 0, 0, seed_type[0], 0
     max_iters = 4 * n + 8
-    while c < sent and it < max_iters:
-        ct = seed_type[c]
-        if ct != cur_t:
-            i = 0
-        r = int(nxt[c])
-        rc = clip(r)
-        merge = False
-        if r < sent and seed_type[rc] == ct:
-            # criteria, as the host evaluates them (cluster.py:266-275)
-            inner = torch.tensor(start_bp[rc] - int(end_bp[c]), dtype=f32)
-            outer = torch.tensor(int(end_bp[rc]) - start_bp[c], dtype=f32)
-            m1 = bool(inner <= torch.minimum(sd[c].cpu(), sd[rc].cpu()) * r_f)
-            rep_pair = int(rep[c]) > 0 or int(rep[rc]) > 0 or bool(global_repeat)
-            h_lim = torch.minimum(hmax_f, (msv[c].cpu().abs() + msv[rc].cpu().abs()) * h_f)
-            m2 = rep_pair and bool(outer <= h_lim)
-            m3 = ct == SVTYPE_BND and bool(inner <= bnd_f)
-            merge = m1 or m2 or m3
-        if merge:
-            new_hi = int(hi[rc])
+
+    def walk(head: int) -> int:
+        ct = seed_type[head]
+        c, i, it = head, 0 if head == 0 or seed_type[head - 1] != ct else 2, 0
+        while it < max_iters:
+            it += 1
+            r = int(nxt[c])
+            in_seg = r < sent and not cut[r]
+            merge = False
+            if in_seg:
+                # criteria, as the host evaluates them (cluster.py:266-275)
+                inner = torch.tensor(start_bp[r] - int(end_bp[c]), dtype=f32)
+                outer = torch.tensor(int(end_bp[r]) - start_bp[c], dtype=f32)
+                m1 = bool(inner <= torch.minimum(sd[c].cpu(), sd[r].cpu()) * r_f)
+                rep_pair = int(rep[c]) > 0 or int(rep[r]) > 0 or bool(global_repeat)
+                h_lim = torch.minimum(hmax_f, (msv[c].cpu().abs() + msv[r].cpu().abs()) * h_f)
+                m2 = rep_pair and bool(outer <= h_lim)
+                m3 = ct == SVTYPE_BND and bool(inner <= bnd_f)
+                merge = m1 or m2 or m3
+            if not merge:
+                if not in_seg:
+                    return it
+                c, i = r, i + 1
+                continue
+            new_hi = int(hi[r])
             mean_new, sd_new = _range_metrics_plain(posf, svlenf, lo[c], new_hi)
-            rn = int(nxt[rc])
+            rn = int(nxt[r])
             hi[c] = new_hi
-            end_bp[c] = end_bp[rc]
-            rep[c] = rep[c] | rep[rc]
+            end_bp[c] = end_bp[r]
+            rep[c] = rep[c] | rep[r]
             msv[c] = mean_new
             sd[c] = sd_new
             nxt[c] = rn
             if rn < sent:
                 prv[rn] = c
-            alive[rc] = 0
+            alive[r] = 0
             # pointer transition (host: i = max(0, i-2) + 1 after a merge):
             #   merge at i == 0 -> the node AFTER the merged head (the
             #     head boundary is never revisited);
             #   merge at i == 1 -> the merged node itself;
-            #   merge at i >= 2 -> the node BEFORE it (backtrack)
-            p = int(prv[c])
-            p_ok = p < sent and seed_type[clip(p)] == ct
+            #   merge at i >= 2 -> the node BEFORE it (backtrack), unless c
+            #     heads the segment: then the pointer stays put
             if i == 0:
-                c2, i2 = rn, 1
-            elif i == 1:
-                c2, i2 = c, 1
-            else:
-                c2, i2 = (p, i - 1) if p_ok else (c, i)
-        else:
-            c2, i2 = r, i + 1
-        c, i, cur_t, it = c2, i2, ct, it + 1
-    return it
+                c, i = rn, 1
+                if rn >= sent or cut[rn]:
+                    return it
+            elif i >= 2 and not cut[c]:
+                c, i = int(prv[c]), i - 1
+        return it
+
+    iters = [walk(h) for h in heads.tolist()]
+    counts[0] = sum(iters)
+    counts[1] = max(iters, default=0)
+    return counts
 
 
 def _check_sweep_tensors(inputs: dict, state: dict) -> int:
@@ -298,55 +396,102 @@ def _check_sweep_tensors(inputs: dict, state: dict) -> int:
             raise ValueError(f"{name} lies on {t.device}, the others on {device}")
     if n < 1:
         raise ValueError("the sweep needs at least one slot")
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no merge-sweep kernel for device {device}")
     return n
 
 
 def merge_sweep(inputs: dict, state: dict, *, cluster_r, cluster_repeat_h,
                 cluster_repeat_h_max, cluster_merge_bnd, global_repeat) -> torch.Tensor:
     """The exact merge sweep over the slot state of `sweep_inputs`,
-    updating `state` in place: on CUDA tensors one launch of the kernel
-    csrc/merge_sweep.cu (or an exception), on CPU tensors the plain
-    version. Returns the iteration count as a [1] int32 tensor on the
-    inputs' device (no host synchronisation on the card)."""
-    n = _check_sweep_tensors(inputs, state)
+    updating `state` in place: on CUDA tensors the kernels of
+    csrc/merge_sweep.cu, sweep_cuts then merge_sweep, on one stream (or
+    an exception), on CPU tensors the plain version. Returns the counts of
+    SWEEP_COUNTS as an int32 tensor on the inputs' device (no host
+    synchronisation on the card)."""
+    _check_sweep_tensors(inputs, state)
     params = dict(cluster_r=cluster_r, cluster_repeat_h=cluster_repeat_h,
                   cluster_repeat_h_max=cluster_repeat_h_max,
                   cluster_merge_bnd=cluster_merge_bnd, global_repeat=global_repeat)
-    device = inputs["seed_type"].device
-    if device.type == "cpu":
-        it = merge_sweep_plain(inputs, state, **params)
-        return torch.tensor([it], dtype=torch.int32)
-    if device.type != "cuda":
-        raise ValueError(f"no merge-sweep kernel for device {device}")
-    iters = launch_merge_sweep(inputs, state, n, **params)
+    if not inputs["seed_type"].is_cuda:
+        return merge_sweep_plain(inputs, state, **params)
+    counts = launch_merge_sweep(inputs, state, inputs["seed_type"].shape[0], **params)
+    COUNTS["sweep_cuts"] += 1
     COUNTS["launches"] += 1
-    return iters
+    return counts
+
+
+def _kernel(name: str, argtypes: list):
+    from sniffles_tpu_torch.ops import _build
+    fn = getattr(_build.load("merge_sweep"), name)
+    fn.restype = ctypes.c_int
+    fn.argtypes = argtypes
+    return fn
+
+
+def _stream(device) -> int:
+    with torch.cuda.device(device):
+        return torch.cuda.current_stream(device).cuda_stream
+
+
+def launch_sweep_cuts(inputs: dict, state: dict, n: int, *, cluster_r,
+                      cluster_repeat_h_max, cluster_merge_bnd):
+    """One launch of the kernel's entry point sweep_cuts on CUDA tensors
+    that merge_sweep has checked. Returns (cut flags, uint8 [n], of which
+    the first nseeds are set; the segment heads, int32 [n], of which the
+    first `segments` are set; counts). Counts nothing; raises when the
+    launch fails."""
+    fn = _kernel("sweep_cuts", [ctypes.c_void_p] * 8 + [ctypes.c_int] + [ctypes.c_float] * 2
+                 + [ctypes.c_void_p])
+    device = inputs["seed_type"].device
+    cut = torch.empty(n, dtype=torch.uint8, device=device)
+    spare = torch.empty_like(cut)
+    heads = torch.empty(n, dtype=torch.int32, device=device)
+    counts = torch.empty(len(SWEEP_COUNTS), dtype=torch.int32, device=device)
+    rc = fn(inputs["seed_type"].data_ptr(), inputs["start_bp"].data_ptr(),
+            state["end_bp"].data_ptr(), inputs["nseeds"].data_ptr(), cut.data_ptr(),
+            spare.data_ptr(), heads.data_ptr(), counts.data_ptr(), n, float(cluster_r),
+            max(float(cluster_merge_bnd), float(cluster_repeat_h_max)), _stream(device))
+    if rc != 0:
+        raise RuntimeError(f"sweep_cuts launch failed with CUDA error {rc}")
+    return cut, heads, counts
 
 
 def launch_merge_sweep(inputs: dict, state: dict, n: int, *, cluster_r,
                        cluster_repeat_h, cluster_repeat_h_max, cluster_merge_bnd,
                        global_repeat) -> torch.Tensor:
-    """One launch of the kernel's entry point merge_sweep on CUDA tensors
-    that merge_sweep has checked. Counts nothing; raises when the launch
-    fails."""
-    from sniffles_tpu_torch.ops import _build
-    fn = _build.load("merge_sweep").merge_sweep
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 15 + [ctypes.c_int] + [ctypes.c_float] * 4
-                   + [ctypes.c_int, ctypes.c_void_p])
-    device = inputs["seed_type"].device
-    iters = torch.zeros(1, dtype=torch.int32, device=device)
-    ptrs = [inputs[k].data_ptr() for k in ("seed_type", "start_bp", "lo", "posf",
-                                           "svlenf", "nseeds")]
-    ptrs += [state[k].data_ptr() for k in SWEEP_STATE] + [iters.data_ptr()]
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        rc = fn(*ptrs, n, float(cluster_r), float(cluster_repeat_h),
-                float(cluster_repeat_h_max), float(cluster_merge_bnd),
-                int(bool(global_repeat)), stream)
+    """The sweep on CUDA tensors that merge_sweep has checked: a launch of
+    sweep_cuts, then one of merge_sweep, a thread per segment, on the
+    same stream. Returns the counts; counts no launch; raises when a
+    launch fails."""
+    cut, heads, counts = launch_sweep_cuts(inputs, state, n, cluster_r=cluster_r,
+                                           cluster_repeat_h_max=cluster_repeat_h_max,
+                                           cluster_merge_bnd=cluster_merge_bnd)
+    return launch_segment_sweep(inputs, state, n, cut, heads, counts, cluster_r=cluster_r,
+                                cluster_repeat_h=cluster_repeat_h,
+                                cluster_repeat_h_max=cluster_repeat_h_max,
+                                cluster_merge_bnd=cluster_merge_bnd,
+                                global_repeat=global_repeat)
+
+
+def launch_segment_sweep(inputs: dict, state: dict, n: int, cut: torch.Tensor,
+                         heads: torch.Tensor, counts: torch.Tensor, *, cluster_r,
+                         cluster_repeat_h, cluster_repeat_h_max, cluster_merge_bnd,
+                         global_repeat) -> torch.Tensor:
+    """One launch of the kernel's entry point merge_sweep, a thread per
+    segment of the partition that launch_sweep_cuts returned. Returns the
+    counts; counts no launch; raises when the launch fails."""
+    fn = _kernel("merge_sweep", [ctypes.c_void_p] * 16 + [ctypes.c_int]
+                 + [ctypes.c_float] * 4 + [ctypes.c_int, ctypes.c_void_p])
+    ptrs = [inputs[k].data_ptr() for k in ("seed_type", "start_bp", "lo", "posf", "svlenf")]
+    ptrs += [cut.data_ptr(), heads.data_ptr(), counts.data_ptr()]
+    ptrs += [state[k].data_ptr() for k in SWEEP_STATE]
+    rc = fn(*ptrs, n, float(cluster_r), float(cluster_repeat_h), float(cluster_repeat_h_max),
+            float(cluster_merge_bnd), int(bool(global_repeat)),
+            _stream(inputs["seed_type"].device))
     if rc != 0:
         raise RuntimeError(f"merge_sweep launch failed with CUDA error {rc}")
-    return iters
+    return counts
 
 
 def _exact_merge_sweep(s: dict, seed_boundary, bin_, *, cluster_r,

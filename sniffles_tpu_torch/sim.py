@@ -451,3 +451,61 @@ def edge_call_batches() -> dict[str, np.ndarray]:
     frag[11, :5] = np.arange(5) * 20
     frag[12, :5] = frag[11, :5] + 10
     return {"nseeds-0": empty, "one-seed": one, "fragmented-read": frag}
+
+
+def _layout_batch(leads, size: int = 2048) -> np.ndarray:
+    """A packed (15, size) call-task batch of (pos, svtype, repeat) leads:
+    svlen 300 (-300 for DEL, 0 for BND), one read each, forward strand."""
+    n = len(leads)
+    packed = np.zeros((15, size), dtype=np.int32)
+    pos, kind, rep = (np.array(col, dtype=np.int32) for col in zip(*leads))
+    packed[0, :n] = pos
+    packed[1, :n] = np.where(kind == 1, -300, np.where(kind == 4, 0, 300))
+    packed[2, :n] = kind
+    packed[3, :n] = np.arange(n)
+    packed[4, :n] = rep
+    packed[5, :n] = 1
+    packed[6, :n] = 1
+    packed[8, :n] = np.arange(n)
+    packed[10, :n] = pos
+    return packed
+
+
+def sweep_layout_batches() -> dict[str, np.ndarray]:
+    """Packed call-task batches laid out for the merge sweep's partition:
+      - "head-alone": a DEL whose first seed stands alone in the first
+        segment, then a segment of repeat-flagged seeds 300 bp apart that
+        merge (the svtype's pointer reaches that segment's head at i = 1,
+        the segment's own walk starts it at 2);
+      - "bnd-chains": BND seeds 600-900 bp apart (merging by m3) in chains
+        1,100-6,000 bp apart;
+      - "cascade": 30 INS segments of spans 500, 600, 700, ... bp (seeds
+        every 500 bp, all in a tandem repeat), the first gap 1,200 bp and
+        each later one the largest bin gap under 2.5 x the span to its
+        right: each pass of the cut fixpoint removes one cut, and each
+        removal lets the next cut go, so the partition still changes
+        after 24 passes and collapses."""
+    head = [(10_050, 1, 0)]
+    p = 11_450
+    for k in range(6):
+        head += [(p + 10 * j, 1, 1) for j in range(4)]
+        p += 300 if k != 3 else 700
+    rng = np.random.default_rng(5)
+    bnd, p = [], 20_000
+    for _ in range(40):
+        for _ in range(int(rng.integers(2, 5))):
+            bnd += [(p + int(x), 4, 0) for x in rng.integers(0, 100, size=3)]
+            p += int(rng.choice((600, 700, 800, 900)))
+        p += int(rng.choice((1_100, 1_500, 2_500, 6_000)))
+    cascade, p = [], 50_000
+    for k in range(30):
+        span = 500 + 100 * k
+        if k:
+            p += 1_200 if k == 1 else (5 * span // 2 - 1) // 100 * 100
+        for x in range(0, span - 99, 500):
+            cascade += [(p + x + 17, 0, 1), (p + x + 60, 0, 1)]
+        last = p + (span - 100) // 100 * 100
+        cascade += [(last + 50, 0, 1)]
+        p = last + 100
+    return {"head-alone": _layout_batch(head), "bnd-chains": _layout_batch(bnd),
+            "cascade": _layout_batch(cascade)}

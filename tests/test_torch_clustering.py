@@ -16,7 +16,14 @@ where they disagree are counted and reported. Batches: fuzz batches
 whose seeds merge (sniffles_tpu_torch.sim.fuzz_call_batch: sub-threshold
 gaps, repeat flags, BND and single-svtype chains, fragmented reads) and
 batches packed from simulated BAMs (write_dataset), where the port's
-pack_task_batch must also give the JAX package's buffer and meta."""
+pack_task_batch must also give the JAX package's buffer and meta.
+
+The merge sweep's segmented plain version (the sound-cut partition, then
+a walk per segment) is held to a copy of the sequential sweep
+(`sequential_sweep` below) in every state array, floats bit for bit, on
+all of those batches, with global_repeat on, and on the layouts of
+sim.sweep_layout_batches (a head seed alone, BND chains, a cascade that
+collapses the cut fixpoint); its partition is checked for soundness."""
 import numpy as np
 import pytest
 import torch
@@ -31,7 +38,7 @@ from sniffles_tpu_torch.ops import clustering as tc  # noqa: E402
 from sniffles_tpu_torch.ops import segments as tseg  # noqa: E402
 from sniffles_tpu_torch.ops import stats as tstats  # noqa: E402
 from sniffles_tpu_torch.sim import (PlantedSV, edge_call_batches, fuzz_call_batch,  # noqa: E402
-                                   write_dataset)
+                                   sweep_layout_batches, write_dataset)
 
 # the default configuration's call_task_packed parameters
 META = dict(cluster_r=2.5, cluster_repeat_h=1.5, cluster_repeat_h_max=1000.0,
@@ -185,6 +192,11 @@ FUZZ = [
     pytest.param(dict(seed=16, size=2048, svtypes=(1,)), id="del-chain"),
     pytest.param(dict(seed=17, size=512, svtypes=(0, 1)), id="ins-del"),
     pytest.param(dict(seed=18, size=8192), id="fuzz-8192"),
+    # BND chains on which the JAX grid sweep's cut rule, which reads the
+    # left span at slot segid - 1, keeps a cut that a merge crosses
+    pytest.param(dict(seed=6, size=2048, svtypes=(4,)), id="bnd-chains-6"),
+    pytest.param(dict(seed=22, size=2048, svtypes=(4,)), id="bnd-chains-22"),
+    pytest.param(dict(seed=27, size=2048, svtypes=(4,)), id="bnd-chains-27"),
 ]
 
 def check_call_task(packed, monkeypatch):
@@ -301,34 +313,217 @@ def test_call_task_packed_matches_jax_on_sim_batches(name, sim_bams, monkeypatch
 
 
 # ---------------------------------------------------------------------------
-# the merge-sweep wrapper
+# the merge sweep: the segmented sweep against the sequential one
 
 
-def sweep_case(seed=21, size=1024):
-    packed = fuzz_call_batch(seed, size)
-    s, b, bin_ = tc.sort_and_seed(tc.packed_signatures(torch.from_numpy(packed)), 100)
-    return tc.sweep_inputs(s, b, bin_, 100)
+def sequential_sweep(inputs: dict, state: dict, *, cluster_r, cluster_repeat_h,
+                     cluster_repeat_h_max, cluster_merge_bnd, global_repeat) -> int:
+    """The sequential sweep, the reference the segmented one is held to:
+    EXACT emulation of the host cluster merge sweep (reference:
+    cluster.py:277-308) over the whole task, one pointer move or merge per
+    iteration, updating `state` in place; the JAX package's
+    _exact_merge_sweep loop (:194-252) with its float32 criteria and the
+    port's range metrics. Every svtype's head is the task's, so each
+    svtype's pointer starts at i = 0. Returns the number of iterations."""
+    f32 = torch.float32
+    seed_type = inputs["seed_type"].tolist()
+    start_bp = inputs["start_bp"].tolist()
+    lo = inputs["lo"].tolist()
+    posf, svlenf = inputs["posf"], inputs["svlenf"]
+    nseeds = int(inputs["nseeds"][0])
+    n = len(seed_type)
+    sent = n
+    nxt, prv, hi = state["nxt"], state["prv"], state["hi"]
+    end_bp, rep, msv, sd, alive = (state["end_bp"], state["rep"], state["msv"],
+                                   state["sd"], state["alive"])
+    r_f = torch.tensor(cluster_r, dtype=f32)
+    h_f = torch.tensor(cluster_repeat_h, dtype=f32)
+    hmax_f = torch.tensor(cluster_repeat_h_max, dtype=f32)
+    bnd_f = torch.tensor(cluster_merge_bnd, dtype=f32)
+
+    def clip(x):
+        return min(max(x, 0), n - 1)
+
+    if nseeds <= 0:
+        return 0
+    c, i, cur_t, it = 0, 0, seed_type[0], 0
+    max_iters = 4 * n + 8
+    while c < sent and it < max_iters:
+        ct = seed_type[c]
+        if ct != cur_t:
+            i = 0
+        r = int(nxt[c])
+        rc = clip(r)
+        merge = False
+        if r < sent and seed_type[rc] == ct:
+            inner = torch.tensor(start_bp[rc] - int(end_bp[c]), dtype=f32)
+            outer = torch.tensor(int(end_bp[rc]) - start_bp[c], dtype=f32)
+            m1 = bool(inner <= torch.minimum(sd[c], sd[rc]) * r_f)
+            rep_pair = int(rep[c]) > 0 or int(rep[rc]) > 0 or bool(global_repeat)
+            h_lim = torch.minimum(hmax_f, (msv[c].abs() + msv[rc].abs()) * h_f)
+            m2 = rep_pair and bool(outer <= h_lim)
+            m3 = ct == tc.SVTYPE_BND and bool(inner <= bnd_f)
+            merge = m1 or m2 or m3
+        if merge:
+            new_hi = int(hi[rc])
+            mean_new, sd_new = tc._range_metrics_plain(posf, svlenf, lo[c], new_hi)
+            rn = int(nxt[rc])
+            hi[c] = new_hi
+            end_bp[c] = end_bp[rc]
+            rep[c] = rep[c] | rep[rc]
+            msv[c] = mean_new
+            sd[c] = sd_new
+            nxt[c] = rn
+            if rn < sent:
+                prv[rn] = c
+            alive[rc] = 0
+            # i == 0 -> the node after the merged head; i == 1 -> the merged
+            # node itself; i >= 2 -> the node before it (backtrack)
+            p = int(prv[c])
+            p_ok = p < sent and seed_type[clip(p)] == ct
+            if i == 0:
+                c2, i2 = rn, 1
+            elif i == 1:
+                c2, i2 = c, 1
+            else:
+                c2, i2 = (p, i - 1) if p_ok else (c, i)
+        else:
+            c2, i2 = r, i + 1
+        c, i, cur_t, it = c2, i2, ct, it + 1
+    return it
 
 
 SWEEP = {k: META[k] for k in ("cluster_r", "cluster_repeat_h", "cluster_repeat_h_max",
                               "cluster_merge_bnd", "global_repeat")}
+CUTS = {k: META[k] for k in ("cluster_r", "cluster_repeat_h_max", "cluster_merge_bnd")}
+
+# (kind, key, global_repeat): every FUZZ batch, the edges, both sim-packed
+# batches, global_repeat on, and the layouts of sim.sweep_layout_batches
+SWEEP_CASES = (
+    [pytest.param("fuzz", p.values[0], False, id=p.id) for p in FUZZ]
+    + [pytest.param("edge", name, False, id=name)
+       for name in ("nseeds-0", "one-seed", "fragmented-read")]
+    + [pytest.param("sim", name, False, id=name) for name in BAMS]
+    + [pytest.param("fuzz", dict(seed=13, size=2048), True, id="fuzz-2048-global-repeat"),
+       pytest.param("fuzz", dict(seed=15, size=2048, svtypes=(4,)), True,
+                    id="bnd-chains-global-repeat")]
+    + [pytest.param("layout", name, False, id=f"layout-{name}")
+       for name in ("head-alone", "bnd-chains", "cascade")])
+
+
+def sweep_batch(kind, key, request) -> np.ndarray:
+    if kind == "fuzz":
+        return fuzz_call_batch(**key)
+    if kind == "edge":
+        return edge_call_batches()[key]
+    if kind == "layout":
+        return sweep_layout_batches()[key]
+    from sniffles_tpu_torch.parallel import device_call as tdc
+    bam, fa, tr = request.getfixturevalue("sim_bams")[key]
+    _, (tprov, tconf) = leadtabs(bam, fa, tr)
+    return tdc.pad_packed(tdc.pack_task_batch(tprov, tconf, tr)[0])
+
+
+def sweep_case(packed):
+    s, b, bin_ = tc.sort_and_seed(tc.packed_signatures(torch.from_numpy(packed)), 100)
+    return tc.sweep_inputs(s, b, bin_, 100)
+
+
+def bits(t: torch.Tensor) -> list:
+    return (t.view(torch.int32) if t.dtype == torch.float32 else t).tolist()
+
+
+@pytest.mark.parametrize("kind,key,global_repeat", SWEEP_CASES)
+def test_segmented_sweep_equals_the_sequential_sweep(kind, key, global_repeat, request):
+    """merge_sweep_plain (the partition, then a walk per segment) leaves
+    every state array as the sequential sweep does, floats bit for bit,
+    in no more iterations."""
+    inputs, state = sweep_case(sweep_batch(kind, key, request))
+    params = dict(SWEEP, global_repeat=global_repeat)
+    seq = {k: v.clone() for k, v in state.items()}
+    seg = {k: v.clone() for k, v in state.items()}
+    seq_iters = sequential_sweep(inputs, seq, **params)
+    counts = dict(zip(tc.SWEEP_COUNTS, tc.merge_sweep_plain(inputs, seg, **params).tolist()))
+    for k in tc.SWEEP_STATE:
+        assert bits(seg[k]) == bits(seq[k]), k
+    nseeds = int(inputs["nseeds"][0])
+    assert counts["depth"] <= counts["iterations"] <= seq_iters
+    assert (counts["segments"] > 0) == (nseeds > 0)
+    assert counts["segments"] <= nseeds and 1 <= counts["passes"] <= tc.MAX_CUT_PASSES
+
+
+@pytest.mark.parametrize("kind,key,global_repeat", SWEEP_CASES)
+def test_sweep_partition_is_sound(kind, key, global_repeat, request):
+    """No cluster that survives the sweep spans a kept cut, and, unless the
+    fixpoint collapsed, every kept cut that is not a svtype's first seed
+    has a gap beyond both caps and beyond cluster_r times the smaller span
+    of the two segments beside it (float32, recomputed here with numpy)."""
+    inputs, state = sweep_case(sweep_batch(kind, key, request))
+    cut, _, counts = tc.sweep_cuts_plain(inputs, state, **CUTS)
+    end_bp0 = state["end_bp"].numpy().copy()
+    tc.merge_sweep_plain(inputs, state, **dict(SWEEP, global_repeat=global_repeat))
+    nseeds = int(inputs["nseeds"][0])
+    cut = cut.numpy().astype(bool)
+    assert cut[0] and not cut[max(nseeds, 1):].any()
+    nxt, alive = state["nxt"].numpy(), state["alive"].numpy()
+    for c in np.flatnonzero(alive[:nseeds]):
+        assert not cut[c + 1:min(nxt[c], nseeds)].any(), c
+    seed_type = inputs["seed_type"].numpy()[:nseeds]
+    type_cut = np.ones(nseeds, dtype=bool)
+    type_cut[1:] = seed_type[1:] != seed_type[:-1]
+    if counts[4]:
+        assert cut[:nseeds].tolist() == type_cut.tolist()
+        return
+    start_bp = inputs["start_bp"].numpy()
+    heads = np.flatnonzero(cut[:nseeds])
+    ends = np.append(heads[1:], nseeds) - 1
+    span = (end_bp0[ends] - start_bp[heads]).astype(np.float32)
+    for k, c in enumerate(heads):
+        if type_cut[c]:
+            continue
+        gap = np.float32(start_bp[c] - end_bp0[c - 1])
+        assert gap > np.float32(max(META["cluster_merge_bnd"], META["cluster_repeat_h_max"]))
+        assert gap > np.float32(META["cluster_r"]) * min(span[k - 1], span[k]), c
+
+
+def test_sweep_layouts_take_their_paths():
+    """head-alone: the DEL's head seed is a segment of its own and the next
+    segment merges; bnd-chains: BND merges, within and across the 1 kb m3
+    reach; cascade: the fixpoint runs its 24 passes and collapses."""
+    layouts = sweep_layout_batches()
+    found = {}
+    for name, packed in layouts.items():
+        inputs, state = sweep_case(packed)
+        cut, _, _ = tc.sweep_cuts_plain(inputs, state, **CUTS)
+        counts = dict(zip(tc.SWEEP_COUNTS, tc.merge_sweep_plain(inputs, state, **SWEEP).tolist()))
+        found[name] = (cut.tolist(), counts, state["alive"].tolist(), int(inputs["nseeds"][0]))
+    cut, counts, alive, nseeds = found["head-alone"]
+    assert cut[:2] == [1, 1] and alive[0] == 1 and sum(alive[1:nseeds]) < nseeds - 1
+    assert not counts["collapsed"]
+    cut, counts, alive, nseeds = found["bnd-chains"]
+    assert sum(alive[:nseeds]) < nseeds and counts["segments"] > 1
+    cut, counts, alive, nseeds = found["cascade"]
+    assert counts["collapsed"] == 1 and counts["passes"] == tc.MAX_CUT_PASSES
+    assert counts["segments"] == 1
 
 
 def test_merge_sweep_wrapper_takes_the_plain_version_on_the_cpu():
-    inputs, state = sweep_case()
+    inputs, state = sweep_case(fuzz_call_batch(21, 1024))
     a = {k: v.clone() for k, v in state.items()}
     b = {k: v.clone() for k, v in state.items()}
-    launches = tc.COUNTS["launches"]
-    iters = tc.merge_sweep(inputs, a, **SWEEP)
-    assert tc.COUNTS["launches"] == launches      # no kernel on the CPU
-    assert int(iters[0]) == tc.merge_sweep_plain(inputs, b, **SWEEP) > 0
+    launches = dict(tc.COUNTS)
+    counts = tc.merge_sweep(inputs, a, **SWEEP)
+    assert tc.COUNTS == launches                  # no kernel on the CPU
+    assert counts.dtype == torch.int32 and counts.shape == (len(tc.SWEEP_COUNTS),)
+    assert torch.equal(counts, tc.merge_sweep_plain(inputs, b, **SWEEP))
+    assert int(counts[0]) > 0
     for k in tc.SWEEP_STATE:
         assert torch.equal(a[k], b[k]), k
     assert int(a["alive"].sum()) < int(inputs["nseeds"][0])   # merges happened
 
 
 def test_merge_sweep_wrapper_rejects_bad_inputs():
-    inputs, state = sweep_case()
+    inputs, state = sweep_case(fuzz_call_batch(21, 1024))
     bad = dict(state, sd=state["sd"].double())
     with pytest.raises(ValueError, match="sd"):
         tc.merge_sweep(inputs, bad, **SWEEP)
@@ -373,6 +568,32 @@ def test_exact_sweep_matches_the_host_sweep():
         if ok:
             groups.setdefault(cid, []).append(orig)
     assert sorted(sorted(g) for g in groups.values()) == host
+
+
+def test_jax_grid_sweep_disagreement_is_reported(capsys):
+    """The JAX grid sweep called directly (its auto switch takes the
+    sequential sweep on these batches) against the JAX sequential sweep
+    on the BND FUZZ batches: where its pass rule reads the left span at
+    slot segid - 1, it can keep a cut that a merge crosses and split a
+    cluster. The count is reported; the port's segmented sweep must give
+    the sequential sweep's boundaries on every one of them."""
+    kw = dict(SWEEP, binsize=100, head_freeze=True)
+    batches = [p for p in FUZZ if p.values[0].get("svtypes") == (4,)]
+    disagree = 0
+    for p in batches:
+        s, b, bin_ = tc.sort_and_seed(
+            tc.packed_signatures(torch.from_numpy(fuzz_call_batch(**p.values[0]))), 100)
+        ours = tc._exact_merge_sweep(s, b, bin_, binsize=100, **SWEEP).numpy()
+        js = {k: jnp.asarray(s[k].numpy()) for k in ("pos", "svlen", "svtype", "repeat",
+                                                      "valid")}
+        jb, jbin = jnp.asarray(b.numpy()), jnp.asarray(bin_.numpy())
+        seq = np.asarray(jc._exact_merge_sweep(js, jb, jbin, **kw))
+        grid = np.asarray(jc._exact_merge_sweep_grid(js, jb, jbin, **kw))
+        assert ours.tolist() == seq.tolist(), p.id
+        disagree += not np.array_equal(seq, grid)
+    with capsys.disabled():
+        print(f"\n[test_torch_clustering] {len(batches)} BND batches, JAX grid sweep vs "
+              f"sequential disagree on {disagree}")
 
 
 def test_jax_formulation_agreement_is_reported(sim_bams, monkeypatch, capsys):

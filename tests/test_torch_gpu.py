@@ -1,9 +1,9 @@
 """Card-only tests of the PyTorch/CUDA port: the hand-written CUDA kernels
-(edit distance, merge sweep) against their plain PyTorch versions (and
-the host Myers scan), and the combine and call_sample device paths on
-the card against their host paths. They skip where no CUDA card is
-visible. This file imports neither JAX nor the JAX
-package, so on the card it runs without them:
+(edit distance; the merge sweep's partition and segment walks) against
+their plain PyTorch versions (and the host Myers scan), and the combine
+and call_sample device paths on the card against their host paths. They
+skip where no CUDA card is visible. This file imports neither JAX nor
+the JAX package, so on the card it runs without them:
 
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
 """
@@ -138,6 +138,7 @@ def test_combine_on_cuda_matches_host(card, monkeypatch, tmp_path):
 
 SWEEP = dict(cluster_r=2.5, cluster_repeat_h=1.5, cluster_repeat_h_max=1000.0,
              cluster_merge_bnd=1000, global_repeat=False)
+CUTS = {k: SWEEP[k] for k in ("cluster_r", "cluster_repeat_h_max", "cluster_merge_bnd")}
 
 
 @pytest.mark.parametrize("seed,size,svtypes", [
@@ -145,25 +146,41 @@ SWEEP = dict(cluster_r=2.5, cluster_repeat_h=1.5, cluster_repeat_h_max=1000.0,
     pytest.param(2, 2048, (0, 1, 2, 3, 4), id="2048"),
     pytest.param(3, 2048, (4,), id="bnd-chains"),
     pytest.param(4, 512, (1,), id="del-chain"),
+    pytest.param("head-alone", 2048, None, id="layout-head-alone"),
+    pytest.param("bnd-chains", 2048, None, id="layout-bnd-chains"),
+    pytest.param("cascade", 2048, None, id="layout-cascade"),
 ])
 def test_merge_sweep_kernel_matches_plain_version(card, seed, size, svtypes):
-    from sniffles_tpu_torch.sim import fuzz_call_batch
-    packed = torch.from_numpy(fuzz_call_batch(seed, size, svtypes=svtypes)).to(card)
+    """Both kernels against their plain versions: the state arrays bit for
+    bit and the counts (iterations, depth, segments, passes, collapse) of
+    the sweep, and the cut flags of sweep_cuts; the sweep launches each
+    kernel once. The cascade layout takes the fixpoint's collapse."""
+    from sniffles_tpu_torch.sim import fuzz_call_batch, sweep_layout_batches
+    batch = (sweep_layout_batches()[seed] if svtypes is None
+             else fuzz_call_batch(seed, size, svtypes=svtypes))
+    packed = torch.from_numpy(batch).to(card)
     inputs, state = tc.sweep_inputs(*tc.sort_and_seed(tc.packed_signatures(packed), 100), 100)
+    host_inputs = {k: v.cpu() for k, v in inputs.items()}
+    cut, _, cut_counts = tc.launch_sweep_cuts(inputs, state, packed.shape[1], **CUTS)
+    plain_cut, _, plain_cut_counts = tc.sweep_cuts_plain(
+        host_inputs, {k: v.cpu() for k, v in state.items()}, **CUTS)
+    nseeds = int(host_inputs["nseeds"][0])     # the kernel writes the live flags only
+    assert torch.equal(cut.cpu()[:nseeds], plain_cut[:nseeds])
+    assert torch.equal(cut_counts.cpu(), plain_cut_counts)
     kernel = {k: v.clone() for k, v in state.items()}
-    launches = tc.COUNTS["launches"]
-    iters = tc.merge_sweep(inputs, kernel, **SWEEP)
+    launches = dict(tc.COUNTS)
+    counts = tc.merge_sweep(inputs, kernel, **SWEEP)
     torch.cuda.synchronize()
-    assert tc.COUNTS["launches"] == launches + 1
+    assert tc.COUNTS == {k: v + 1 for k, v in launches.items()}
     plain = {k: v.cpu().clone() for k, v in state.items()}
-    assert int(iters[0]) == tc.merge_sweep_plain({k: v.cpu() for k, v in inputs.items()},
-                                                 plain, **SWEEP)
+    assert torch.equal(counts.cpu(), tc.merge_sweep_plain(host_inputs, plain, **SWEEP))
     for k in tc.SWEEP_STATE:
         got = kernel[k].cpu()
         if got.dtype == torch.float32:
             got, plain[k] = got.view(torch.int32), plain[k].view(torch.int32)
         assert torch.equal(got, plain[k]), k
     assert int(kernel["alive"].sum()) < int(inputs["nseeds"][0])
+    assert bool(counts[4]) == (seed == "cascade")
 
 
 def test_call_sample_on_cuda_matches_host(card, monkeypatch, tmp_path):
@@ -187,6 +204,6 @@ def test_call_sample_on_cuda_matches_host(card, monkeypatch, tmp_path):
     tc.reset_counts()
     dev = tmp_path / "dev.vcf"
     assert cli.main([*args, "--vcf", str(dev)]) == 0
-    assert tc.COUNTS["launches"] == 1
+    assert tc.COUNTS == {"launches": 1, "sweep_cuts": 1}
     assert len(records(host)) == len(svs)
     assert records(dev) == records(host)
