@@ -35,12 +35,40 @@ Phases, each of which must pass:
      version's on the same inputs, bit for bit; the device time of
      call_task_packed per task (CUDA events), the wall time of both
      paths and the peak device memory are printed.
+  3b. combine with --threads 4, the worker pool and the parent's device
+     service, in a child process (`python -m sniffles_tpu_torch`, the
+     parent users run, which refuses to fork with a CUDA context):
+     its VCF == phase 3's device and host VCFs, the edit-distance kernel
+     launched by the parent at least once; the service's counters and
+     the edit-distance batches of --threads 0 and --threads 4 are printed;
+  4b. call_sample on the dense leg with the default command line (no
+     --threads: 4 workers) in a child process (`python -m
+     sniffles_tpu_torch`): records == phase 4's, every child's statistics
+     consumed, no route but BND's; its service counters, its parent's
+     kernel launches and its wall beside that of --threads 0 (another
+     child) are printed. Then again in a child that runs the CLI the same
+     way and keeps every merge-sweep launch of its device service (a host
+     copy before and after each): every launch, solo and fused, held
+     against the plain version bit for bit;
+  2c. the batched sweep: stacks of k = 2 and k = 4 tasks of one width
+     (phase 2b's fuzz batches at n = 32,768, the dense leg's two tasks of
+     that width, a zero pad slot), one launch of each kernel a stack,
+     every slice's cut flags, counts and state == the single-task
+     kernel's and the plain version's, bit for bit.
 Then (5) the kernels' timings on the inputs of the main paths' largest
 launches (CUDA events) beside their bounds and plain versions, the
-sweep's device time on phase 2b's fuzz batches and chain, one JSON
-line of kernel figures, the nvidia-smi name and power-limit line, and,
-last, {"ok": true, "device": {...}}. Without a card it exits non-zero
-before any of that.
+sweep's device time on phase 2b's fuzz batches and chain, the fused
+sweep of phase 2c's k = 4 stack against its k single sweeps, the host
+synchronisations of call_task_packed and batched_call_task on the card
+(torch.cuda.set_sync_debug_mode), one JSON line of kernel figures (the
+launches are those of the threaded paths, 3b and 4b), the nvidia-smi
+name and power-limit line, and, last, {"ok": true, "device": {...}}.
+Without a card it exits non-zero before any of that.
+
+    python3 chip_smoke.py --cli-child KEEP ARGS...
+
+is the child of phase 4b: the CLI with ARGS, every merge-sweep launch
+kept and saved to KEEP (torch.save) when the CLI ends.
 """
 import contextlib
 import io
@@ -619,7 +647,8 @@ def run_dense_call(tmp, meta):
     sweep launch of the device path held against the plain version.
     Returns (the inputs and initial state of the sweep with the most
     seeds, the kernel launches by count name, the max |kernel - plain| of
-    the float state)."""
+    the float state, the CLI's input arguments, every sweep launch kept
+    (inputs, state before and after, counts), the device path's wall)."""
     from sniffles_tpu_torch.ops import clustering as tc
     from sniffles_tpu_torch.sim import dense_layout, write_dataset
     t0 = time.perf_counter()
@@ -673,11 +702,16 @@ def run_dense_call(tmp, meta):
     print(f"    device path {dev_wall:.2f} s, host path {host_wall:.2f} s, {n_records} "
           f"records, peak device memory {peak / 2**20:.1f} MiB", flush=True)
     print(f"    device counters {json.dumps(dev_counters, sort_keys=True)}")
+    # the decode of every task but the first runs on the decode-ahead
+    # thread, beside the other stages of the task before it; "rest" is the
+    # wall less the other stages
     for label, stages, wall in (("device", dev_stages, dev_wall), ("host", host_stages,
                                                                  host_wall)):
-        print(f"    {label} path stages (s): " + ", ".join(
-            f"{k} {v:.3f}" for k, v in stages.items()) +
-              f", rest {wall - sum(stages.values()):.3f}", flush=True)
+        inline = {k: v for k, v in stages.items() if k != "decode+leads"}
+        print(f"    {label} path stages (s): decode+leads {stages['decode+leads']:.3f} "
+              f"(mostly on the decode-ahead thread, overlapped), " + ", ".join(
+                  f"{k} {v:.3f}" for k, v in inline.items()) +
+              f", rest {wall - sum(inline.values()):.3f}", flush=True)
     print(f"    call_task_packed per task (width, ms): "
           f"{[(n, round(ms, 3)) for n, ms in task_ms]}; kernel launches {launches}",
           flush=True)
@@ -701,7 +735,261 @@ def run_dense_call(tmp, meta):
         err = max(err, hold_against_plain(inputs, before, after, counts, meta,
                                           f"main-path sweep {j} n={n}"))
     largest = max(kept, key=lambda launch: int(launch[0]["nseeds"][0]))
-    return largest[:2], launches, err
+    return largest[:2], launches, err, args, kept, dev_wall
+
+
+# -- phases 3b and 4b: the worker pool in a child process --------------------
+
+def run_child(cli_args, counters_path, what, keep_path=None):
+    """The port's CLI in a child process: `python -m sniffles_tpu_torch`,
+    or, with keep_path, this script's --cli-child, which runs the CLI the
+    same way and keeps every merge-sweep launch. Its log is printed only
+    when the run fails. Returns (the wall from the start of the process
+    to its end, its counters, the lines of its log that give the time of
+    its analysis and of the device service's warmup)."""
+    env = dict(os.environ)
+    here = os.path.dirname(os.path.abspath(__file__))
+    env["PYTHONPATH"] = here + os.pathsep + env.get("PYTHONPATH", "")
+    env["SNIFFLES_TPU_COUNTERS_JSON"] = counters_path
+    env.pop("SNIFFLES_TPU_FORCE_CPU", None)
+    if os.path.exists(counters_path):
+        os.unlink(counters_path)
+    cmd = ([sys.executable, os.path.abspath(__file__), "--cli-child", keep_path] if keep_path
+           else [sys.executable, "-m", "sniffles_tpu_torch"])
+    cmd += [*cli_args, "--allow-overwrite"]
+    t0 = time.perf_counter()
+    with tempfile.TemporaryFile("w+") as log:
+        rc = subprocess.run(cmd, stdout=log, stderr=subprocess.STDOUT, env=env,
+                            timeout=400).returncode
+        wall = time.perf_counter() - t0
+        log.seek(0)
+        text = log.read()
+    if rc != 0:
+        print(text[-6000:])
+        fail(f"{what} in a child process exited {rc}")
+    timing = [line.split(": ", 1)[-1] for line in text.splitlines()
+              if "Analysis took" in line or "device warmup on" in line]
+    with open(counters_path) as f:
+        return wall, json.load(f), "; ".join(timing)
+
+
+def cli_child(keep_path, cli_args):
+    """Phase 4b's child: the CLI as `python -m sniffles_tpu_torch ARGS`
+    runs it, in this process, which has no CUDA context of its own; every
+    merge-sweep launch of its device service is kept on the host (inputs,
+    state before and after, counts; [k, n] tensors for a fused dispatch)
+    and saved to keep_path when the CLI ends. The workers it forks never
+    run a sweep."""
+    import runpy
+    from sniffles_tpu_torch.ops import clustering as tc
+    sweep, kept = tc.merge_sweep, []
+
+    def keep_every(inputs, state, **params):
+        before = {k: v.cpu() for k, v in state.items()}
+        counts = sweep(inputs, state, **params)
+        kept.append(({k: v.cpu() for k, v in inputs.items()}, before,
+                     {k: v.cpu() for k, v in state.items()}, counts.cpu()))
+        return counts
+
+    tc.merge_sweep = keep_every
+    sys.argv = ["sniffles_tpu_torch", *cli_args]
+    try:
+        runpy.run_module("sniffles_tpu_torch", run_name="__main__", alter_sys=True)
+    finally:
+        torch.save(kept, keep_path)
+
+
+def hold_launch(inputs, before, after, counts, meta, label):
+    """A kept sweep launch, one task or a fused stack, against the plain
+    version: each task's state and counts (hold_against_plain); a zero
+    pad slot's state untouched. Returns the max |kernel - plain|."""
+    from sniffles_tpu_torch.ops import clustering as tc
+    if inputs["seed_type"].dim() == 1:
+        return hold_against_plain(inputs, before, after, counts.tolist(), meta, label)
+    err = 0.0
+    for t in range(inputs["seed_type"].shape[0]):
+        row_in, row_before, row_after = (tc._task_row(d, t) for d in (inputs, before, after))
+        if int(row_in["nseeds"][0]) == 0:
+            if any(not torch.equal(row_after[k], row_before[k]) for k in tc.SWEEP_STATE):
+                fail(f"the sweep changed the state of the zero pad slot {t} of {label}")
+            continue
+        err = max(err, hold_against_plain(row_in, row_before, row_after, counts[t].tolist(),
+                                          meta, f"{label}, slot {t}"))
+    return err
+
+
+def check_threaded_counters(c, what):
+    """A threaded dense run's counters: every child's statistics consumed,
+    no route but BND's, one device task a contig, and one launch of each
+    sweep kernel a dispatch (a solo request, or a fused batch) plus one
+    for the warmup's step on a zero batch. Returns the launches."""
+    if c.get("engine_consumed", -1) != c.get("children_total", -2):
+        fail(f"{what}: device statistics were not consumed by every child")
+    routes = {k: c.get(k, 0) for k in ("fb_resplit", "fb_multi_fragment",
+                                        "fb_support_collision", "fb_capacity")}
+    if any(routes.values()):
+        fail(f"{what}: exactness routes taken {routes}")
+    launches = {"launches": c["kernel_merge_sweep"], "sweep_cuts": c["kernel_sweep_cuts"]}
+    dispatches = (c["service_requests"] - c["service_fusion_fused_requests"]
+                  + c["service_fusion_batches"])
+    if c.get("device_tasks", 0) != DENSE_CONTIGS or not (
+            launches["launches"] == launches["sweep_cuts"] == dispatches + 1):
+        fail(f"{what}: launches {launches}, {dispatches} dispatches, "
+             f"{c.get('device_tasks')} device tasks")
+    return launches, dispatches
+
+
+def run_dense_threaded(tmp, args, meta, threads0_wall):
+    """Phase 4b: the dense leg with the default command line (4 workers)
+    in a child process as users run it, for the records, the counters and
+    the wall; again in a child that keeps every sweep launch of its parent
+    (copied to the host before and after each launch), each held against
+    the plain version; and with --threads 0 for the wall beside it.
+    Returns (the parent's kernel launches in the first child, the max
+    |kernel - plain|)."""
+    reference = vcf_parts(os.path.join(tmp, "device.vcf"))
+    if vcf_parts(os.path.join(tmp, "host.vcf")) != reference:
+        fail("call_sample: phase 4's host VCF differs from its device VCF")
+    t4 = os.path.join(tmp, "threads4.vcf")
+    wall4, c4, timing4 = run_child([*args, "--vcf", t4], os.path.join(tmp, "k3.json"),
+                                   "call_sample (default --threads)")
+    t0 = os.path.join(tmp, "threads0.vcf")
+    wall0, _, timing0 = run_child([*args, "--vcf", t0, "--threads", "0"],
+                                  os.path.join(tmp, "k4.json"), "call_sample --threads 0")
+    keep, tk = os.path.join(tmp, "kept.pt"), os.path.join(tmp, "threads4_kept.vcf")
+    wallk, ck, _ = run_child([*args, "--vcf", tk], os.path.join(tmp, "k5.json"),
+                             "call_sample (default --threads), every sweep kept",
+                             keep_path=keep)
+    service = {k: v for k, v in c4.items() if k.startswith(("service_", "kernel_"))}
+    print(f"    threads 4 (default) {wall4:.2f} s ({timing4}), threads 0 {wall0:.2f} s "
+          f"({timing0}), each a child process from start to end (the in-process device "
+          f"path of phase 4: {threads0_wall:.2f} s)", flush=True)
+    print(f"    service and parent {json.dumps(service, sort_keys=True)}", flush=True)
+    print(f"    engine counters (threads 4) "
+          + json.dumps({k: v for k, v in c4.items() if k not in service}, sort_keys=True))
+    for vcf, what in ((t4, "--threads 4"), (t0, "--threads 0"),
+                      (tk, "--threads 4 with every sweep kept")):
+        if vcf_parts(vcf) != reference:
+            fail(f"call_sample {what} in a child process: VCF differs from phase 4's "
+                 f"device and host VCFs")
+    launches, dispatches = check_threaded_counters(c4, "call_sample --threads 4")
+    kept_launches, _ = check_threaded_counters(ck, "call_sample --threads 4, sweeps kept")
+    kept = torch.load(keep)
+    if kept_launches["launches"] != len(kept):
+        fail(f"the child that keeps every sweep launched {kept_launches}, kept {len(kept)}")
+    fused = sum(1 for launch in kept if launch[0]["seed_type"].dim() == 2)
+    print(f"    {c4['children_total']} of {c4['children_total']} children consumed; "
+          f"{launches['launches']} launches of each sweep kernel in the parent: "
+          f"{dispatches} dispatches ({service['service_fusion_batches']} fused) and the "
+          f"warmup's; threaded VCFs == phase 4's device and host VCFs", flush=True)
+    print(f"    the child that keeps every sweep: {wallk:.2f} s (its host copies "
+          f"included), {len(kept)} launches kept ({fused} fused), service "
+          + json.dumps({k: v for k, v in ck.items() if k.startswith("service_")},
+                       sort_keys=True), flush=True)
+    err = 0.0
+    for j, (inputs, before, after, counts) in enumerate(kept):
+        err = max(err, hold_launch(inputs, before, after, counts, meta,
+                                   f"threaded sweep {j} {tuple(inputs['seed_type'].shape)}"))
+    return launches, err
+
+
+# -- phase 2c ---------------------------------------------------------------
+
+def check_batched_sweep(tasks, meta, label):
+    """One launch of each kernel over a stack of k tasks of one width
+    (`tasks`: [(inputs, state)] on the card): each slice's cut flags (its
+    nseeds live ones), counts and 8 state arrays == the single-task
+    kernel's and the plain version's, bit for bit; a zero pad slot's state
+    untouched. Returns the max |kernel - plain|."""
+    from sniffles_tpu_torch.ops import clustering as tc
+    n = tasks[0][0]["seed_type"].shape[0]
+    inputs = tc._stack_tasks([t[0] for t in tasks])
+    state = tc._stack_tasks([t[1] for t in tasks])
+    cut, _, cut_counts = tc.launch_sweep_cuts(inputs, state, n, **cuts_params(meta))
+    fused = {k: v.clone() for k, v in state.items()}
+    before = dict(tc.COUNTS)
+    counts = tc.merge_sweep(inputs, fused, **sweep_params(meta))
+    torch.cuda.synchronize()
+    if tc.COUNTS != {k: v + 1 for k, v in before.items()}:
+        fail(f"the batched sweep of {label} launched {tc.COUNTS} after {before}")
+    err = 0.0
+    for t, (task_inputs, task_state) in enumerate(tasks):
+        nseeds = int(task_inputs["nseeds"][0])
+        single_cut, _, single_cut_counts = tc.launch_sweep_cuts(task_inputs, task_state, n,
+                                                                **cuts_params(meta))
+        plain_cut, _, plain_cut_counts = tc.sweep_cuts_plain(
+            {k: v.cpu() for k, v in task_inputs.items()},
+            {k: v.cpu() for k, v in task_state.items()}, **cuts_params(meta))
+        row_cut = cut[t, :nseeds].cpu()
+        if (not torch.equal(row_cut, single_cut[:nseeds].cpu())
+                or not torch.equal(row_cut, plain_cut[:nseeds])
+                or not torch.equal(cut_counts[t].cpu(), single_cut_counts.cpu())
+                or not torch.equal(cut_counts[t].cpu(), plain_cut_counts)):
+            fail(f"batched sweep_cuts differs on slot {t} of {label}")
+        single = {k: v.clone() for k, v in task_state.items()}
+        single_counts = tc.merge_sweep(task_inputs, single, **sweep_params(meta))
+        row = tc._task_row(fused, t)
+        for k in tc.SWEEP_STATE:
+            if not torch.equal(row[k].view(torch.int32), single[k].view(torch.int32)):
+                fail(f"batched merge_sweep differs from the single-task kernel in {k} on "
+                     f"slot {t} of {label}")
+        if not torch.equal(counts[t], single_counts):
+            fail(f"batched merge_sweep counted {counts[t].tolist()}, the single-task kernel "
+                 f"{single_counts.tolist()}, on slot {t} of {label}")
+        if nseeds == 0:
+            if any(not torch.equal(row[k], task_state[k]) for k in tc.SWEEP_STATE):
+                fail(f"the batched sweep changed the zero pad slot {t} of {label}")
+            print(f"  {label}, slot {t}: zero pad slot, state untouched, counts "
+                  f"{counts[t].tolist()}", flush=True)
+            continue
+        err = max(err, hold_against_plain(task_inputs, task_state, row, counts[t].tolist(),
+                                          meta, f"{label}, slot {t}"))
+    print(f"  {label}: one launch of each kernel; every slot == the single-task kernel "
+          f"(bit-exact)", flush=True)
+    return err
+
+
+def time_batched_sweep(tasks, meta, label):
+    """Device time (device_ms) of the fused sweep of a stack of k tasks,
+    both launches, against the k single-task sweeps, 2k launches back to
+    back, from the same state."""
+    from sniffles_tpu_torch.ops import clustering as tc
+    n = tasks[0][0]["seed_type"].shape[0]
+    inputs = tc._stack_tasks([t[0] for t in tasks])
+    state = tc._stack_tasks([t[1] for t in tasks])
+    params = sweep_params(meta)
+    fused_ms, _, fused = device_ms(
+        lambda st, _: tc.launch_merge_sweep(inputs, st, n, **params), state)
+    singles_ms, _, singles = device_ms(
+        lambda st, _: [tc.launch_merge_sweep(tc._task_row(inputs, t), tc._task_row(st, t), n,
+                                             **params) for t in range(len(tasks))], state)
+    if any(not torch.equal(fused[k].view(torch.int32), singles[k].view(torch.int32))
+           for k in tc.SWEEP_STATE):
+        fail(f"the fused sweep of {label} differs from its single sweeps")
+    print(f"  fused sweep of {label} (one launch of each kernel) {fused_ms:.4f} ms; the "
+          f"{len(tasks)} single sweeps ({2 * len(tasks)} launches) {singles_ms:.4f} ms",
+          flush=True)
+    return fused_ms, singles_ms
+
+
+def sync_sites(fn):
+    """Runs fn() on the card with torch.cuda.set_sync_debug_mode("warn")
+    and returns the synchronising operations it reached, counted by the
+    line of the port that called them."""
+    import warnings
+    from collections import Counter
+    here = os.path.dirname(os.path.abspath(__file__))
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return Counter(f"{os.path.relpath(w.filename, here)}:{w.lineno}" for w in caught
+                   if "synchroniz" in str(w.message))
 
 
 def main() -> int:
@@ -798,11 +1086,56 @@ def main() -> int:
             fail("the device greedy never ran")
         print("    device VCF == host VCF", flush=True)
 
+        print("[3b] combine with --threads 4 in a child process (the worker pool and the "
+              "parent's device service)", flush=True)
+        t4_vcf, t0_vcf = os.path.join(tmp, "threads4.vcf"), os.path.join(tmp, "threads0.vcf")
+        wall4, c4, timing4 = run_child(["--input", *snfs, "--vcf", t4_vcf, "--threads", "4"],
+                                       os.path.join(tmp, "c3.json"), "combine --threads 4")
+        ed_launches = c4.get("kernel_ed_myers", 0)
+        wall0, _, timing0 = run_child(["--input", *snfs, "--vcf", t0_vcf, "--threads", "0"],
+                                      os.path.join(tmp, "c4.json"), "combine --threads 0")
+        print(f"    threads 4 {wall4:.2f} s ({timing4}), threads 0 {wall0:.2f} s ({timing0}), "
+              f"each a child process from start to end (threads 0 in process: "
+              f"{dev_wall:.2f} s)", flush=True)
+        print(f"    service and parent " + json.dumps(
+            {k: v for k, v in c4.items() if k.startswith(("service_", "kernel_"))},
+            sort_keys=True), flush=True)
+        print("    edit-distance batches, threads 0 | threads 4: " + ", ".join(
+            f"{k} {dev_counters.get(k, 0)} | {c4.get(k, 0)}"
+            for k in ("ed_device_batches", "ed_device_pairs", "ed_device_cells",
+                      "ed_host_batches", "ed_host_pairs", "combine_greedy_dispatches")),
+            flush=True)
+        if vcf_parts(t4_vcf) != dev_parts or vcf_parts(t0_vcf) != dev_parts:
+            fail("combine --threads 4 or 0 in a child process: VCF differs from the device "
+                 "and host VCFs")
+        if ed_launches < 1:
+            fail("combine --threads 4: the parent never launched the edit-distance kernel")
+        print("    threads-4 VCF == device VCF == host VCF", flush=True)
+
     print(f"[4] call_sample: {DENSE_CONTIGS} contigs of {DENSE_REF_LEN // 1_000_000} Mb, "
           f"depth {DENSE_DEPTH}, seed {DENSE_SEED} (the dense bench leg)", flush=True)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_call_") as tmp:
-        sweep_largest, sweep_launches, err = run_dense_call(tmp, meta)
+        sweep_largest, _, err, dense_args, dense_kept, dense_wall = run_dense_call(tmp, meta)
+        sweep_err = max(sweep_err, err)
+        print("[4b] call_sample, the default command line (--threads 4), in a child "
+              "process", flush=True)
+        sweep_launches, err = run_dense_threaded(tmp, dense_args, meta, dense_wall)
     sweep_err = max(sweep_err, err)
+
+    print("[2c] the batched merge sweep (k tasks of one width, one launch of each kernel) "
+          "against the single-task kernel and the plain version", flush=True)
+    dense32 = [tuple({k: v.cuda() for k, v in d.items()} for d in launch[:2])
+               for launch in dense_kept if launch[0]["seed_type"].shape[0] == 32768]
+    fuzz32 = [sweep_case(fuzz_call_batch(seed, 32768), meta) for seed in (1, 2)]
+    pad32 = sweep_case(np.zeros((15, 32768), dtype=np.int32), meta)
+    if len(dense32) != 2:
+        fail(f"the dense leg gave {len(dense32)} sweeps of width 32768, not 2")
+    stacks = {"k=2 fuzz seeds 1, 2": fuzz32,
+              "k=2 dense tasks 0, 1": dense32,
+              "k=4 fuzz seed 1, dense tasks 0, 1, zero pad": [fuzz32[0], *dense32, pad32],
+              "k=4 fuzz seeds 1, 2, dense tasks 0, 1": [*fuzz32, *dense32]}
+    for label, tasks in stacks.items():
+        sweep_err = max(sweep_err, check_batched_sweep(tasks, meta, label))
 
     print("[5] kernel timings on the main paths' largest launches", flush=True)
     timing = time_ed_kernel([x.cuda() for x in largest])
@@ -814,11 +1147,25 @@ def main() -> int:
                                      for d in sweep_largest), meta)
     for label, (inputs, state) in timed_cases.items():
         time_sweep_case(inputs, state, meta, label)
+    fused_label = "k=4 fuzz seeds 1, 2, dense tasks 0, 1"
+    time_batched_sweep(stacks[fused_label], meta, fused_label)
+    from sniffles_tpu_torch.ops import clustering as tc
+    from sniffles_tpu_torch.ops.transfer import to_device
+    packed = [fuzz_call_batch(seed, 32768) for seed in (1, 2)]
+    for what, fn in (("call_task_packed (fuzz n=32768 seed 1)",
+                      lambda: tc.call_task_packed(to_device(packed[0], "cuda"), **meta)),
+                     ("batched_call_task (k=2, fuzz seeds 1, 2)",
+                      lambda: tc.batched_call_task(tuple(sorted(meta.items())),
+                                                   to_device(np.stack(packed), "cuda")))):
+        sites = sync_sites(fn)
+        print(f"  host synchronisations of {what}: {sum(sites.values())}"
+              + "".join(f"; {site} x{count}" for site, count in sorted(sites.items())),
+              flush=True)
     kernels = [{
         "name": "edit_distance_myers", "route": "cuda",
         "source": "sniffles_tpu_torch/csrc/edit_distance.cu",
         "replaces": "sniffles_tpu/ops/edit_distance_jax.py:37",
-        "launches": launches, "max_abs_err": max_err,
+        "launches": ed_launches, "max_abs_err": max_err,
         "ms": timing["ms"], "plain_ms": timing["plain_ms"],
         "bound_ms": timing["bound_ms"], "bound_by": timing["bound_by"],
         "library_ms": None}, {
@@ -844,4 +1191,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--cli-child"]:
+        cli_child(sys.argv[2], sys.argv[3:])
     sys.exit(main())

@@ -3,4 +3,6 @@ import sys
 
 from sniffles_tpu_torch.cli import main
 
-sys.exit(main())
+# guarded: a spawned worker process imports this module as __mp_main__
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,19 +1,24 @@
 """CLI entry point, organized as a pipeline of stages: mode detection,
-input validation, output opening, task planning, inline execution, and
-ordered result emission (reference: src/sniffles/sniffles:64-650).
+input validation, output opening, task planning, execution (the worker
+pool for --threads N, inline for --threads 0), and ordered result
+emission (reference: src/sniffles/sniffles:64-650).
 
 Copied from sniffles_tpu/cli.py: the call_sample mode (one .bam ->
 VCF) and the combine mode (.snf inputs -> multi-sample VCF). Force
 calling (--genotype-vcf), .cram input, --snf output and the other
 options this package has not ported stop with an error that says so.
 The device path (on unless --no-tpu) runs on the card, or on the CPU
-when SNIFFLES_TPU_FORCE_CPU=1 asks for it (config.torch_device).
+when SNIFFLES_TPU_FORCE_CPU=1 asks for it (config.torch_device). With
+--threads N (4 by default) the workers reach it through the device
+service the parent owns (parallel/device_service.py), whose context is
+created after every worker has forked.
 """
 from __future__ import annotations
 
 import logging.config
 import logging
 import math
+import multiprocessing
 import os
 import time
 import sys
@@ -86,15 +91,10 @@ def _refuse_unported(config: SnifflesConfig) -> None:
         _not_ported("Population SNF input/output")
     if int(config.tpu_mesh or 0) > 1:
         _not_ported("--tpu-mesh")
-    if config.dev_monitor_memory:
-        _not_ported("--dev-monitor-memory")
     if config.dev_locasm_do:
         _not_ported("--dev-locasm-do (local assembly rescue)")
     if config.dev_cache:
         _not_ported("--dev-cache")
-    if config.threads and (config.tpu_call or config.tpu_combine):
-        _not_ported("--threads N with the device path (the parent-owned device "
-                    "service); use --threads 0, or --no-tpu for the host path,")
 
 
 def _open_alignments(config: SnifflesConfig):
@@ -277,16 +277,55 @@ def _plan_combine_tasks(config, exts, start_task_id):
 # Stage 4: execution + emission
 
 
-def _run_pool(config, tasks, processes):
-    """Run every task inline (reference: sniffles:495-542). Without the
-    device path, --threads N runs inline too: the worker pool is not
-    ported, and its output is the inline output by construction."""
-    from sniffles_tpu_torch.pipeline import runtime
-    processes.append(runtime.SnifflesParentWorker(config=config, tasks=tasks))
+def _cuda_initialized() -> bool:
+    torch = sys.modules.get("torch")
+    return bool(torch is not None and torch.cuda.is_initialized())
 
+
+def _run_pool(config, tasks, processes, monitor):
+    """Run the worker pool (or the inline parent worker for --threads 0)
+    to completion (reference: sniffles:495-542). With the device path, the
+    pool's workers reach the device through one DeviceServer of this
+    process; its dispatcher thread creates the device context only after
+    every worker has forked."""
+    from sniffles_tpu_torch.ops import clustering, edit_distance_batch
+    from sniffles_tpu_torch.pipeline import runtime
+    device_server = None
+    use_device = config.tpu_call if config.mode == "call_sample" else config.tpu_combine
+    if config.threads:
+        if use_device:
+            from sniffles_tpu_torch.parallel.device_service import DeviceServer
+            device_server = DeviceServer(config.device)
+            # the workers are forked from this process: it must not hold a
+            # CUDA context (torch_device asks NVML, which creates none)
+            if _cuda_initialized():
+                raise RuntimeError("this process holds a CUDA context before forking its "
+                                   "workers; run the CLI in a process of its own")
+        for pnum in range(config.threads):
+            processes.append(runtime.SnifflesWorker(
+                process_id=pnum, config=config, tasks=tasks,
+                recycle_hint=monitor, peers=processes,
+                device_server=device_server))
+    else:
+        processes.append(runtime.SnifflesParentWorker(config=config, tasks=tasks))
+
+    launches = (dict(clustering.COUNTS), dict(edit_distance_batch.COUNTS))
     started = time.monotonic()
-    while any([p.run_parent() for p in processes if p.running]):
-        time.sleep(0.01)
+    for p in processes:
+        p.start()
+
+    if device_server is not None:
+        # all workers are forked: build the kernels and create the context
+        # on the dispatcher thread now, overlapping the workers' first
+        # BAM decode
+        device_server.warm_async(config)
+
+    try:
+        while any([p.run_parent() for p in processes if p.running]):
+            time.sleep(0.01)
+    finally:
+        if device_server is not None:
+            device_server.stop()
 
     finished_tasks = []
     for p in processes:
@@ -296,16 +335,27 @@ def _run_pool(config, tasks, processes):
 
     # Deterministic emission in task-id order (reference: sniffles:544-547)
     finished_tasks.sort(key=lambda task: task.id)
-    _report_engine_counters(finished_tasks)
+    service = None
+    if device_server is not None:
+        # the parent's own device work: the service's counters and the
+        # kernel launches of its dispatcher
+        service = {f"service_{k}": v for k, v in device_server.counters.items()}
+        service.update({
+            "kernel_sweep_cuts": clustering.COUNTS["sweep_cuts"] - launches[0]["sweep_cuts"],
+            "kernel_merge_sweep": clustering.COUNTS["launches"] - launches[0]["launches"],
+            "kernel_ed_myers": (edit_distance_batch.COUNTS["launches"]
+                                - launches[1]["launches"])})
+    _report_engine_counters(finished_tasks, service)
     return finished_tasks
 
 
-def _report_engine_counters(finished_tasks) -> None:
+def _report_engine_counters(finished_tasks, service=None) -> None:
     """Aggregate the per-task device counters across the run (call path:
     engine-stat consumption and its exactness routes; combine: device
-    greedy dispatches, flagged segments, edit-distance batch routes);
-    logged, and written as JSON when SNIFFLES_TPU_COUNTERS_JSON names a
-    path."""
+    greedy dispatches, flagged segments, edit-distance batch routes),
+    plus, for a worker pool on the device path, the device service's
+    counters and its kernel launches (`service`); logged, and written as
+    JSON when SNIFFLES_TPU_COUNTERS_JSON names a path."""
     totals: dict = {}
     seen = False
     for t in finished_tasks:
@@ -315,8 +365,9 @@ def _report_engine_counters(finished_tasks) -> None:
         seen = True
         for k, v in counters.items():
             totals[k] = totals.get(k, 0) + v
-    if not seen:
+    if not seen and service is None:
         return
+    totals.update(service or {})
     log.info(f"Device counters: {totals}")
     path = os.environ.get("SNIFFLES_TPU_COUNTERS_JSON")
     if path:
@@ -343,10 +394,18 @@ def _merge_candidate_csvs(config, finished_tasks):
 
 
 def main_with_config(config: SnifflesConfig, processes: list) -> int:
+    from sniffles_tpu_torch.resmon import ResourceMonitor
+
     if config.no_progress:
         logging.getLogger('sniffles_tpu_torch.progress').setLevel(logging.CRITICAL)
     if config.dev_debug_log:
         logging.getLogger().setLevel(logging.DEBUG)
+
+    if sys.platform in ("darwin", "linux"):
+        try:
+            multiprocessing.set_start_method("fork")
+        except RuntimeError:
+            pass
 
     exts = _detect_mode(config)
     _refuse_unported(config)
@@ -372,7 +431,11 @@ def main_with_config(config: SnifflesConfig, processes: list) -> int:
         tasks, contig_lengths = _plan_interval_tasks(config, bam_in, tandem_repeats)
     vcf_out.write_header(contig_lengths)
 
-    finished_tasks = _run_pool(config, tasks, processes)
+    monitor = ResourceMonitor(config)
+    try:
+        finished_tasks = _run_pool(config, tasks, processes, monitor)
+    finally:
+        monitor.stop()
 
     for t in finished_tasks:
         t.result.emit(vcf_out=vcf_out)
@@ -382,8 +445,13 @@ def main_with_config(config: SnifflesConfig, processes: list) -> int:
 
     vcf_out.close()
     log.info(f"Wrote {vcf_out.call_count} called SVs to {config.vcf}")
-    if len(tasks) > 0:
-        log.error(f"{len(tasks)} task(s) unprocessed; output is partial.")
+    # A task that failed in a worker (a device error included) ends as an
+    # ErrorResult; the reference only logs it, and so does the JAX
+    # package's runtime, but the run must not look like a success.
+    n_errors = sum(1 for t in finished_tasks if getattr(t.result, "error", False))
+    if n_errors or len(tasks) > 0:
+        log.error(f"{n_errors} task(s) failed, {len(tasks)} task(s) unprocessed; "
+                  f"output is partial.")
         return 1
     return 0
 
@@ -403,7 +471,8 @@ _LOGGING_CONFIG = {
 
 def main(args: list[str] = None) -> int:
     """Run the CLI. Usage errors return their exit code; any other
-    failure (a missing card included) propagates."""
+    failure (a missing card included) propagates. Worker processes still
+    running on the way out are stopped."""
     processes: list = []
     logging.config.dictConfig(_LOGGING_CONFIG)
     try:
@@ -411,6 +480,12 @@ def main(args: list[str] = None) -> int:
         return main_with_config(config, processes) or 0
     except (util.SnifflesTPUExit, SystemExit) as exit_code:
         return getattr(exit_code, 'code', 1) or 0
+    finally:
+        for proc in processes:
+            process = getattr(proc, "process", None)
+            if process is not None and process.is_alive():
+                process.terminate()
+                process.join(2)
 
 
 if __name__ == "__main__":

@@ -210,9 +210,9 @@ _DEV_FLAGS = (
     _f("--dev-merge-inline", default=False, action="store_true"),
     _f("--dev-seq-cache-maxlen", metavar="N", type=int, default=50000),
     _f("--dev-device-hedge-s", metavar="S", type=float, default=3.0,
-       text="Hedged device dispatch: when a --tpu-call kernel response has "
-            "not arrived S seconds after the task needed it, run the exact "
-            "host sweep for that task instead. 0 disables the hedge."),
+       text="Accepted for compatibility with the sniffles_tpu package; no "
+            "effect in this package, which never reroutes a slow device "
+            "response to the host."),
     _f("--dev-combine-greedy-min", metavar="N", type=int, default=8,
        text="Minimum candidates per (block, svtype) before --tpu-combine "
             "dispatches the device greedy kernel (smaller blocks run the "
@@ -279,8 +279,8 @@ _TPU_FLAGS = (
     _f("--tpu-mesh-shape", text="Device mesh shape for multi-chip sharding, e.g. '8' for 8-way genome-bin data parallelism, or 'auto'", metavar="dp", type=str, default="auto"),
     _f("--tpu-interpret", text="No effect in this package (its kernels are CUDA; on the CPU each takes its plain PyTorch version); accepted for flag compatibility", default=False, action="store_true"),
     _f("--no-native", text="No effect in this package (it has only the pure-Python BAM decoder, whose output equals the native one's); accepted for flag compatibility", default=False, action="store_true"),
-    _f("--tpu-call", text="Use the device sort-and-segment clustering (the merge sweep kernel) for candidate grouping in call_sample (on by default; --no-tpu gives the host sweep). Needs --threads 0 in this package", default=False, action="store_true"),
-    _f("--tpu-combine", text="Use the segmented exact greedy + device edit-distance batching for multi-sample combine (on by default; --no-tpu gives the host greedy). Needs --threads 0 in this package", default=False, action="store_true"),
+    _f("--tpu-call", text="Use the device sort-and-segment clustering (the merge sweep kernel) for candidate grouping in call_sample (on by default; --no-tpu gives the host sweep)", default=False, action="store_true"),
+    _f("--tpu-combine", text="Use the segmented exact greedy + device edit-distance batching for multi-sample combine (on by default; --no-tpu gives the host greedy)", default=False, action="store_true"),
     _f("--tpu-mesh", text="Shard device work over N devices; not yet ported to this package (only 0 = single device is accepted)", metavar="N", type=int, default=0),
     _f("--no-tpu", text="Never use the device: host cluster sweep (call_sample), host greedy and host edit distance (combine). The device path is on by default, on the CUDA card, or on the CPU with SNIFFLES_TPU_FORCE_CPU=1", default=False, action="store_true"),
 )
@@ -508,21 +508,27 @@ class SnifflesConfig(argparse.Namespace):
             wanted = [name for name in self.dev_trace_read.split(",") if name]
             self.dev_trace_read = wanted if wanted else False
 
-        # Per-task mutable QC state (reference: leadprov.py:577-578 mutates these)
-        self.average_regional_nm = 0.0
-        self.qc_nm_threshold = 0.0
-
 
 FORCE_CPU_ENV = "SNIFFLES_TPU_FORCE_CPU"
+
+
+# config.device in a worker process (--threads N): the device belongs to
+# the parent's device service, and torch refuses this device string, so a
+# device call that reaches a worker without its client raises instead of
+# creating a CUDA context in a forked child
+WORKER_DEVICE = "none: a worker process reaches the device through the parent's service"
 
 
 def torch_device() -> str:
     """The device of the port's device path: "cuda", or "cpu" when
     SNIFFLES_TPU_FORCE_CPU asks for it (the tests do; the same switch as
     the JAX package's). With no card and no such request this raises:
-    the port never carries on on the CPU by itself."""
+    the port never carries on on the CPU by itself. The check asks NVML,
+    so it initialises no CUDA runtime and creates no context in a parent
+    that forks workers afterwards."""
     if os.environ.get(FORCE_CPU_ENV):
         return "cpu"
+    os.environ.setdefault("PYTORCH_NVML_BASED_CUDA_CHECK", "1")
     import torch
     if not torch.cuda.is_available():
         raise RuntimeError(

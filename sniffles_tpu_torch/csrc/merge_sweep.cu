@@ -1,8 +1,17 @@
-// The exact cluster merge sweep of one call task on Hopper (sm_90a), as two
-// kernels on one stream: sweep_cuts partitions the task's seed clusters at
+// The exact cluster merge sweep of k call tasks on Hopper (sm_90a), as two
+// kernels on one stream: sweep_cuts partitions each task's seed clusters at
 // sound cuts, then merge_sweep walks each segment with a thread of its own.
-// The result is the host's sequential backtracking sweep (reference:
-// cluster.py:277-308), every state word bit for bit.
+// The result is, per task, the host's sequential backtracking sweep
+// (reference: cluster.py:277-308), every state word bit for bit.
+//
+// Tasks: every array below is [k, n], task t's row at offset t * n (nseeds
+// [k], counts [k, 5]); the device service fuses up to 4 tasks of one padded
+// width into one dispatch (the vmap of sniffles_tpu/ops/clustering.py:1155,
+// batched_call_task), and a single task is the case k = 1 of the same
+// kernels. sweep_cuts runs one block per task (blockIdx.x = t), merge_sweep
+// a grid row of blocks per task (blockIdx.y = t). A task with nseeds = 0 (a
+// fused dispatch's zero pad slot) writes no cut flag and no head, counts 0
+// segments, and its sweep threads exit, so its state stays as it was.
 //
 // Replaces two XLA programs of sniffles_tpu/ops/clustering.py:
 //   - _exact_merge_sweep (:90), the sequential lax.while_loop (body
@@ -14,8 +23,8 @@
 //     roundings) are not ported; each segment gets the sequential sweep's
 //     own arithmetic instead, so there is one formulation and no switch.
 //
-// State, in the JAX package's layout (one slot per seed cluster, n slots,
-// the first nseeds live; ops/clustering.py::sweep_inputs builds it with
+// State of a task, in the JAX package's layout (one slot per seed cluster,
+// n slots, the first nseeds live; ops/clustering.py::sweep_inputs builds it with
 // torch ops and the threads update it in place in global memory):
 //   nxt, prv      the doubly linked list of surviving clusters (n = none)
 //   hi, end_bp    the cluster's element range end and its last bin's end
@@ -23,11 +32,11 @@
 //   msv, sd       compute_metrics of the cluster: subsampled mean svlen,
 //                 sample stdev of the subsampled start positions
 //   alive         0 once the cluster was merged into its left neighbour
-// counts (int32[5], the layout of SWEEP_COUNTS in ops/clustering.py):
+// counts (int32[5] a task, the layout of SWEEP_COUNTS in ops/clustering.py):
 // total iterations, the longest segment's iterations (depth), segments,
 // fixpoint passes, and 1 if the fixpoint collapsed.
 //
-// The partition (sweep_cuts, one block of 1,024 threads; any n). A cut
+// The partition (sweep_cuts, one block of 1,024 threads a task; any n). A cut
 // before seed j is sound when no merge can cross it at any stage of
 // accretion (the JAX package's proof, clustering.py:281-311): the pair's
 // inner distance at the cut stays the raw gap between the two seeds' bins;
@@ -52,8 +61,8 @@
 // host synchronisation. Only the nseeds live flags are written: the sweep
 // reads a flag only at a live slot.
 //
-// The sweep (merge_sweep, a thread per segment, the grid sized from n;
-// threads past the segment count exit). Each thread runs the sequential
+// The sweep (merge_sweep, a thread per segment, each task's grid row sized
+// from n; threads past the task's segment count exit). Each thread runs the sequential
 // loop body from its segment's head, with the grid's lane rules
 // (clustering.py:489-562), which give the sequential sweep's states:
 //   - i starts at 0 only at a svtype's first seed (there is no mesh here,
@@ -105,11 +114,12 @@ namespace {
 
 constexpr int kSvtypeBnd = 4;
 constexpr int kPickCap = 256;       // stride picks top out at 199
-constexpr int kCutThreads = 1024;   // the one block of sweep_cuts
+constexpr int kCutThreads = 1024;   // sweep_cuts' block, one a task
 constexpr int kMaxPasses = 24;
 constexpr int kSweepThreads = 128;
 // the slots of counts (SWEEP_COUNTS in ops/clustering.py)
 constexpr int kIterations = 0, kDepth = 1, kSegments = 2, kPasses = 3, kCollapsed = 4;
+constexpr int kCounts = 5;
 
 using BlockScan = cub::BlockScan<int, kCutThreads>;
 
@@ -146,6 +156,16 @@ __global__ void __launch_bounds__(kCutThreads) sweep_cuts_kernel(
     const int32_t* __restrict__ end_bp, const int32_t* __restrict__ nseeds_ptr,
     uint8_t* cut, uint8_t* spare, int32_t* heads, int32_t* counts, int n, float cluster_r,
     float const_gap) {
+  // this block's task
+  const size_t row = static_cast<size_t>(blockIdx.x) * n;
+  seed_type += row;
+  start_bp += row;
+  end_bp += row;
+  nseeds_ptr += blockIdx.x;
+  cut += row;
+  spare += row;
+  heads += row;
+  counts += blockIdx.x * kCounts;
   __shared__ typename BlockScan::TempStorage scan;
   __shared__ int mirror[kCutThreads];
   const int t = threadIdx.x;
@@ -281,6 +301,24 @@ __global__ void __launch_bounds__(kSweepThreads) merge_sweep_kernel(
     int32_t* hi, int32_t* end_bp, int32_t* rep, float* msv, float* sd, int32_t* alive,
     int n, float cluster_r, float repeat_h, float repeat_h_max, float merge_bnd,
     int global_repeat) {
+  // this grid row's task
+  const size_t row = static_cast<size_t>(blockIdx.y) * n;
+  seed_type += row;
+  start_bp += row;
+  lo += row;
+  posf += row;
+  svlenf += row;
+  cut += row;
+  heads += row;
+  counts += blockIdx.y * kCounts;
+  nxt += row;
+  prv += row;
+  hi += row;
+  end_bp += row;
+  rep += row;
+  msv += row;
+  sd += row;
+  alive += row;
   const int g = blockIdx.x * blockDim.x + threadIdx.x;
   if (g >= counts[kSegments]) return;
   const int sent = n;
@@ -344,12 +382,14 @@ __global__ void __launch_bounds__(kSweepThreads) merge_sweep_kernel(
 
 }  // namespace
 
+// Both entry points take k tasks of n slots each ([k, n] arrays, nseeds
+// [k], counts [k, 5]); k = 1 is a single task.
 extern "C" int sweep_cuts(const int32_t* seed_type, const int32_t* start_bp,
                           const int32_t* end_bp, const int32_t* nseeds, uint8_t* cut,
-                          uint8_t* spare, int32_t* heads, int32_t* counts, int n,
+                          uint8_t* spare, int32_t* heads, int32_t* counts, int n, int k,
                           float cluster_r, float const_gap, cudaStream_t s) {
-  if (n <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  sweep_cuts_kernel<<<1, kCutThreads, 0, s>>>(seed_type, start_bp, end_bp, nseeds, cut, spare,
+  if (n <= 0 || k <= 0 || k > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  sweep_cuts_kernel<<<k, kCutThreads, 0, s>>>(seed_type, start_bp, end_bp, nseeds, cut, spare,
                                               heads, counts, n, cluster_r, const_gap);
   return static_cast<int>(cudaGetLastError());
 }
@@ -359,11 +399,11 @@ extern "C" int merge_sweep(const int32_t* seed_type, const int32_t* start_bp,
                            const uint8_t* cut, const int32_t* heads, int32_t* counts,
                            int32_t* nxt, int32_t* prv, int32_t* hi, int32_t* end_bp,
                            int32_t* rep, float* msv, float* sd, int32_t* alive, int n,
-                           float cluster_r, float repeat_h, float repeat_h_max,
+                           int k, float cluster_r, float repeat_h, float repeat_h_max,
                            float merge_bnd, int global_repeat, cudaStream_t s) {
-  if (n <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const int blocks = (n + kSweepThreads - 1) / kSweepThreads;
-  merge_sweep_kernel<<<blocks, kSweepThreads, 0, s>>>(
+  if (n <= 0 || k <= 0 || k > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid((n + kSweepThreads - 1) / kSweepThreads, k);
+  merge_sweep_kernel<<<grid, kSweepThreads, 0, s>>>(
       seed_type, start_bp, lo, posf, svlenf, cut, heads, counts, nxt, prv, hi, end_bp, rep,
       msv, sd, alive, n, cluster_r, repeat_h, repeat_h_max, merge_bnd, global_repeat);
   return static_cast<int>(cudaGetLastError());

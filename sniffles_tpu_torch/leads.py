@@ -374,6 +374,7 @@ class LeadProvider:
         self.read_id = read_id_offset
         self.read_count = 0
         self.overflow = 0
+        self.average_regional_nm = 0.0
 
     # -- accumulators -------------------------------------------------------
 
@@ -565,9 +566,11 @@ class LeadProvider:
         log.debug(f'Processed {self.read_count} reads in region '
                   f'{region.contig}:{region.start}-{region.end}')
 
-        # Per-task regional NM statistic (reference: leadprov.py:577-578 mutates config).
-        config.average_regional_nm = nm_sum / float(max(1, nm_count))
-        config.qc_nm_threshold = config.average_regional_nm
+        # Per-task regional NM statistic of the last region scanned. The
+        # reference writes it into the shared config (leadprov.py:577-578);
+        # here it stays on this provider, so a decode-ahead scan of the next
+        # task cannot change the threshold this task's QC reads.
+        self.average_regional_nm = nm_sum / float(max(1, nm_count))
 
     def read_iterindels(self, read_id: int, read: BamRead, contig, use_clips,
                         read_nm, read_hap, read_ps) -> Iterator[Lead]:

@@ -16,20 +16,23 @@ path's `call_task_packed` reaches, as torch ops on `config.device`:
      `sweep_cuts`) and walked one segment at a time with the sequential
      sweep's own arithmetic, which gives the sequential sweep's state
      bit for bit. On the card these are the hand-written kernels of
-     csrc/merge_sweep.cu (the partition in one block, then a thread per
-     segment); `sweep_cuts_plain` and `merge_sweep_plain` are their plain
-     PyTorch versions, and what a CPU tensor gets
+     csrc/merge_sweep.cu (the partition in one block a task, then a
+     thread per segment); `sweep_cuts_plain` and `merge_sweep_plain` are
+     their plain PyTorch versions, and what a CPU tensor gets
   4. the per-read inner merge fold, the svlen-histogram resplit, and the
      per-child calling statistics and phase tallies
 
+`batched_call_task` is the counterpart of the JAX package's vmapped
+batched_call_task, which the device service runs on up to 4 fused tasks
+of one padded width: steps 1, 2 and 4 run task after task, step 3 is one
+sweep over the stacked state of all of them (one launch of each kernel).
 The JAX package's other formulations stay there: the grid sweep's
 lockstep lanes (whose float32 range metrics round otherwise) and its
-auto switch, the parallel relaxation of the fused engine path,
-cluster_assign_packed and the vmapped batched_call_task. The tests hold
-the segmented sweep to a copy of the sequential one in every state word,
-call_task_packed to the JAX package's sequential sweep on every batch,
-and to its default (the auto switch) where the JAX package's two
-formulations agree.
+auto switch, the parallel relaxation of the fused engine path and
+cluster_assign_packed. The tests hold the segmented sweep to a copy of
+the sequential one in every state word, call_task_packed to the JAX
+package's sequential sweep on every batch, and to its default (the auto
+switch) where the JAX package's two formulations agree.
 
 Where JAX and torch differ, the JAX semantics are kept: `jnp.lexsort`
 (last key primary) is a chain of stable sorts (ops/segments.lexsort);
@@ -60,8 +63,9 @@ SVTYPE_CODES = {name: i for i, name in enumerate(SVTYPE_NAMES)}
 PICK_CAP = 256
 
 # Launches of the CUDA kernels by the sweep wrapper (merge_sweep):
-# "launches" counts the segment sweeps, "sweep_cuts" the partitions; it
-# adds to them only where it launches the kernels.
+# "launches" counts the segment sweeps, "sweep_cuts" the partitions, one
+# each for a single task and for a fused batch of tasks alike; it adds to
+# them only where it launches the kernels.
 COUNTS = {"launches": 0, "sweep_cuts": 0}
 
 
@@ -377,8 +381,13 @@ def segment_sweep_plain(inputs: dict, state: dict, cut: torch.Tensor, heads: tor
     return counts
 
 
-def _check_sweep_tensors(inputs: dict, state: dict) -> int:
-    n = inputs["seed_type"].shape[0]
+def _check_sweep_tensors(inputs: dict, state: dict) -> tuple[int, int]:
+    """Checks the sweep's tensors: one task ([n] arrays, nseeds [1]) or k
+    tasks ([k, n] arrays, nseeds [k]). Returns (k, n)."""
+    shape = tuple(inputs["seed_type"].shape)
+    if len(shape) not in (1, 2):
+        raise ValueError(f"seed_type must be [n] or [k, n], got {shape}")
+    k, n = (1, shape[0]) if len(shape) == 1 else shape
     want = {"seed_type": torch.int32, "start_bp": torch.int32, "lo": torch.int32,
             "posf": torch.float32, "svlenf": torch.float32, "nseeds": torch.int32,
             "nxt": torch.int32, "prv": torch.int32, "hi": torch.int32,
@@ -388,37 +397,49 @@ def _check_sweep_tensors(inputs: dict, state: dict) -> int:
     device = inputs["seed_type"].device
     for name, dtype in want.items():
         t = tensors[name]
-        size = 1 if name == "nseeds" else n
-        if t.dtype != dtype or t.shape != (size,) or not t.is_contiguous():
-            raise ValueError(f"{name} must be a contiguous [{size}] {dtype} tensor, got "
+        size = (k,) if name == "nseeds" else shape
+        if t.dtype != dtype or tuple(t.shape) != size or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous {list(size)} {dtype} tensor, got "
                              f"{tuple(t.shape)} {t.dtype}")
         if t.device != device:
             raise ValueError(f"{name} lies on {t.device}, the others on {device}")
-    if n < 1:
-        raise ValueError("the sweep needs at least one slot")
+    if n < 1 or k < 1:
+        raise ValueError("the sweep needs at least one slot and one task")
     if device.type not in ("cpu", "cuda"):
         raise ValueError(f"no merge-sweep kernel for device {device}")
-    return n
+    return k, n
 
 
 def merge_sweep(inputs: dict, state: dict, *, cluster_r, cluster_repeat_h,
                 cluster_repeat_h_max, cluster_merge_bnd, global_repeat) -> torch.Tensor:
     """The exact merge sweep over the slot state of `sweep_inputs`,
-    updating `state` in place: on CUDA tensors the kernels of
-    csrc/merge_sweep.cu, sweep_cuts then merge_sweep, on one stream (or
-    an exception), on CPU tensors the plain version. Returns the counts of
-    SWEEP_COUNTS as an int32 tensor on the inputs' device (no host
-    synchronisation on the card)."""
-    _check_sweep_tensors(inputs, state)
+    updating `state` in place, for one task ([n] tensors) or for k tasks
+    stacked ([k, n] tensors, nseeds [k]; a task with nseeds 0 keeps its
+    state): on CUDA tensors the kernels of csrc/merge_sweep.cu, one launch
+    of sweep_cuts then one of merge_sweep for all the tasks, on one stream
+    (or an exception); on CPU tensors the plain version, task after task.
+    Returns the counts of SWEEP_COUNTS as an int32 tensor ([5], or [k, 5])
+    on the inputs' device (no host synchronisation on the card)."""
+    k, n = _check_sweep_tensors(inputs, state)
     params = dict(cluster_r=cluster_r, cluster_repeat_h=cluster_repeat_h,
                   cluster_repeat_h_max=cluster_repeat_h_max,
                   cluster_merge_bnd=cluster_merge_bnd, global_repeat=global_repeat)
     if not inputs["seed_type"].is_cuda:
-        return merge_sweep_plain(inputs, state, **params)
-    counts = launch_merge_sweep(inputs, state, inputs["seed_type"].shape[0], **params)
+        if inputs["seed_type"].dim() == 1:
+            return merge_sweep_plain(inputs, state, **params)
+        # each row of a contiguous [k, n] tensor is a view: the plain
+        # version updates the stacked state in place
+        return torch.stack([merge_sweep_plain(_task_row(inputs, t), _task_row(state, t),
+                                              **params) for t in range(k)])
+    counts = launch_merge_sweep(inputs, state, n, **params)
     COUNTS["sweep_cuts"] += 1
     COUNTS["launches"] += 1
     return counts
+
+
+def _task_row(tensors: dict, t: int) -> dict:
+    """Task t's [n] views of stacked [k, n] sweep tensors (nseeds [1])."""
+    return {key: v[t:t + 1] if key == "nseeds" else v[t] for key, v in tensors.items()}
 
 
 def _kernel(name: str, argtypes: list):
@@ -434,24 +455,33 @@ def _stream(device) -> int:
         return torch.cuda.current_stream(device).cuda_stream
 
 
+def _tasks(inputs: dict) -> int:
+    seed_type = inputs["seed_type"]
+    return 1 if seed_type.dim() == 1 else seed_type.shape[0]
+
+
 def launch_sweep_cuts(inputs: dict, state: dict, n: int, *, cluster_r,
                       cluster_repeat_h_max, cluster_merge_bnd):
     """One launch of the kernel's entry point sweep_cuts on CUDA tensors
-    that merge_sweep has checked. Returns (cut flags, uint8 [n], of which
-    the first nseeds are set; the segment heads, int32 [n], of which the
-    first `segments` are set; counts). Counts nothing; raises when the
-    launch fails."""
-    fn = _kernel("sweep_cuts", [ctypes.c_void_p] * 8 + [ctypes.c_int] + [ctypes.c_float] * 2
-                 + [ctypes.c_void_p])
-    device = inputs["seed_type"].device
-    cut = torch.empty(n, dtype=torch.uint8, device=device)
+    that merge_sweep has checked, one block a task. Returns (cut flags,
+    uint8 shaped as seed_type, of which each task's first nseeds are set;
+    the segment heads, int32 of that shape, of which each task's first
+    `segments` are set; counts, [5] or [k, 5]). Counts nothing; raises
+    when the launch fails."""
+    fn = _kernel("sweep_cuts", [ctypes.c_void_p] * 8 + [ctypes.c_int] * 2
+                 + [ctypes.c_float] * 2 + [ctypes.c_void_p])
+    seed_type = inputs["seed_type"]
+    k = _tasks(inputs)
+    cut = torch.empty(seed_type.shape, dtype=torch.uint8, device=seed_type.device)
     spare = torch.empty_like(cut)
-    heads = torch.empty(n, dtype=torch.int32, device=device)
-    counts = torch.empty(len(SWEEP_COUNTS), dtype=torch.int32, device=device)
-    rc = fn(inputs["seed_type"].data_ptr(), inputs["start_bp"].data_ptr(),
+    heads = torch.empty(seed_type.shape, dtype=torch.int32, device=seed_type.device)
+    counts = torch.empty(seed_type.shape[:-1] + (len(SWEEP_COUNTS),), dtype=torch.int32,
+                         device=seed_type.device)
+    rc = fn(seed_type.data_ptr(), inputs["start_bp"].data_ptr(),
             state["end_bp"].data_ptr(), inputs["nseeds"].data_ptr(), cut.data_ptr(),
-            spare.data_ptr(), heads.data_ptr(), counts.data_ptr(), n, float(cluster_r),
-            max(float(cluster_merge_bnd), float(cluster_repeat_h_max)), _stream(device))
+            spare.data_ptr(), heads.data_ptr(), counts.data_ptr(), n, k, float(cluster_r),
+            max(float(cluster_merge_bnd), float(cluster_repeat_h_max)),
+            _stream(seed_type.device))
     if rc != 0:
         raise RuntimeError(f"sweep_cuts launch failed with CUDA error {rc}")
     return cut, heads, counts
@@ -462,8 +492,8 @@ def launch_merge_sweep(inputs: dict, state: dict, n: int, *, cluster_r,
                        global_repeat) -> torch.Tensor:
     """The sweep on CUDA tensors that merge_sweep has checked: a launch of
     sweep_cuts, then one of merge_sweep, a thread per segment, on the
-    same stream. Returns the counts; counts no launch; raises when a
-    launch fails."""
+    same stream, for all the tasks. Returns the counts; counts no launch;
+    raises when a launch fails."""
     cut, heads, counts = launch_sweep_cuts(inputs, state, n, cluster_r=cluster_r,
                                            cluster_repeat_h_max=cluster_repeat_h_max,
                                            cluster_merge_bnd=cluster_merge_bnd)
@@ -479,15 +509,16 @@ def launch_segment_sweep(inputs: dict, state: dict, n: int, cut: torch.Tensor,
                          cluster_repeat_h, cluster_repeat_h_max, cluster_merge_bnd,
                          global_repeat) -> torch.Tensor:
     """One launch of the kernel's entry point merge_sweep, a thread per
-    segment of the partition that launch_sweep_cuts returned. Returns the
-    counts; counts no launch; raises when the launch fails."""
-    fn = _kernel("merge_sweep", [ctypes.c_void_p] * 16 + [ctypes.c_int]
+    segment of the partition that launch_sweep_cuts returned, a grid row
+    a task. Returns the counts; counts no launch; raises when the launch
+    fails."""
+    fn = _kernel("merge_sweep", [ctypes.c_void_p] * 16 + [ctypes.c_int] * 2
                  + [ctypes.c_float] * 4 + [ctypes.c_int, ctypes.c_void_p])
     ptrs = [inputs[k].data_ptr() for k in ("seed_type", "start_bp", "lo", "posf", "svlenf")]
     ptrs += [cut.data_ptr(), heads.data_ptr(), counts.data_ptr()]
     ptrs += [state[k].data_ptr() for k in SWEEP_STATE]
-    rc = fn(*ptrs, n, float(cluster_r), float(cluster_repeat_h), float(cluster_repeat_h_max),
-            float(cluster_merge_bnd), int(bool(global_repeat)),
+    rc = fn(*ptrs, n, _tasks(inputs), float(cluster_r), float(cluster_repeat_h),
+            float(cluster_repeat_h_max), float(cluster_merge_bnd), int(bool(global_repeat)),
             _stream(inputs["seed_type"].device))
     if rc != 0:
         raise RuntimeError(f"merge_sweep launch failed with CUDA error {rc}")
@@ -500,20 +531,25 @@ def _exact_merge_sweep(s: dict, seed_boundary, bin_, *, cluster_r,
     """The exact sweep (sniffles_tpu/ops/clustering.py:90 formulation):
     slot state as torch ops, the sweep itself through `merge_sweep`,
     then the element boundaries from the surviving clusters."""
-    n = s["pos"].shape[0]
-    valid = s["valid"]
     inputs, state = sweep_inputs(s, seed_boundary, bin_, binsize)
     merge_sweep(inputs, state, cluster_r=cluster_r, cluster_repeat_h=cluster_repeat_h,
                 cluster_repeat_h_max=cluster_repeat_h_max,
                 cluster_merge_bnd=cluster_merge_bnd, global_repeat=global_repeat)
-    # final element boundaries: the lo of every alive cluster, plus the
-    # original seed boundaries of the invalid tail (padding elements keep
-    # any segmentation — they are masked everywhere downstream)
+    return _sweep_boundaries(s, seed_boundary, inputs, state)
+
+
+def _sweep_boundaries(s: dict, seed_boundary, inputs: dict, state: dict):
+    """The element boundaries after a sweep: the lo of every alive
+    cluster, plus the original seed boundaries of the invalid tail
+    (padding elements keep any segmentation — they are masked everywhere
+    downstream)."""
+    n = s["pos"].shape[0]
+    valid = s["valid"]
     alive_lo = torch.where(state["alive"] > 0, inputs["lo"], n)
     scat = torch.zeros((n + 1,), dtype=torch.bool, device=valid.device)
-    scat[alive_lo.long().clamp(0, n)] = True
+    scat.index_fill_(0, alive_lo.long().clamp(0, n), True)
     boundary = scat[:n] | (seed_boundary & ~valid)
-    boundary[0] = True
+    boundary[:1].fill_(True)
     return boundary
 
 
@@ -539,34 +575,6 @@ def sort_and_seed(sig: dict, binsize: int):
     change = ((svtype[1:] != svtype[:-1]) | (bin_[1:] != bin_[:-1])
               | (~valid[1:] & valid[:-1]))
     return s, torch.cat([first, change]), bin_
-
-
-def _cluster_body(sig: dict, *, cluster_r: float, cluster_repeat_h: float,
-                  cluster_repeat_h_max: float, cluster_merge_bnd: int,
-                  binsize: int = 100, global_repeat: bool = False) -> dict:
-    """
-    Cluster a signature batch (the JAX package's _cluster_body with
-    exact_sweep=True, do_resplit=False: the call path resplits after the
-    inner merge fold). `sig` is a dict of equal-length tensors: pos, svlen,
-    svtype, read_id (int32), repeat, valid (bool), orig_idx and further
-    int32 columns that ride along through the sort.
-
-    Returns the sorted signature tensors plus `cluster_id` per element
-    and `n_clusters`.
-    """
-    s, boundary, bin_ = sort_and_seed(sig, binsize)
-    boundary = _exact_merge_sweep(
-        s, boundary, bin_, cluster_r=cluster_r,
-        cluster_repeat_h=cluster_repeat_h,
-        cluster_repeat_h_max=cluster_repeat_h_max,
-        cluster_merge_bnd=cluster_merge_bnd,
-        global_repeat=global_repeat, binsize=binsize)
-
-    seg = segment_ids_from_boundaries(boundary)
-    out = dict(s)
-    out["cluster_id"] = seg
-    out["n_clusters"] = torch.max(torch.where(s["valid"], seg, -1)) + 1
-    return out
 
 
 def merge_inner_fold(clustered: dict, *, cluster_merge_pos: int,
@@ -626,7 +634,7 @@ def merge_inner_fold(clustered: dict, *, cluster_merge_pos: int,
     rep_s = rep_here[order]
     merge = (same_key & foldable
              & (rep_s | (near & (s["strand"] == prev["strand"]))))
-    merge[0] = False
+    merge[:1].fill_(False)
 
     fold_id = segment_ids_from_boundaries(~merge)
     svlen_f = seg_sum(torch.where(valid, s["svlen"], 0), fold_id, n)
@@ -688,12 +696,12 @@ def resplit_child_ids(folded: dict, *, resplit_binsize: int, minsvlen: int,
     same_cluster = cid_s == prev_cid
     f32 = torch.float32
     gap = (bin_s - prev_bin).to(f32)
-    thr = torch.maximum(torch.tensor(float(minsvlen), dtype=f32, device=gap.device),
+    thr = torch.maximum(torch.full((), float(minsvlen), dtype=f32, device=gap.device),
                         prev_bin.to(f32) * torch.tensor(cluster_merge_len, dtype=f32))
     no_resplit = type_s == SVTYPE_BND
     boundary = ((~same_cluster) | ((gap > thr) & ~no_resplit)
                 | (~valid_s & _shift_prev(valid_s)))
-    boundary[0] = True
+    boundary[:1].fill_(True)
     child_sorted = segment_ids_from_boundaries(boundary)
     n_children = torch.max(torch.where(valid_s, child_sorted, -1)) + 1
     child = torch.zeros((n,), dtype=child_sorted.dtype, device=child_sorted.device)
@@ -731,6 +739,10 @@ def packed_signatures(packed: torch.Tensor) -> dict:
         "hap": packed[13],
         "ps": packed[14],
     }
+
+
+SWEEP_PARAMS = ("cluster_r", "cluster_repeat_h", "cluster_repeat_h_max",
+                "cluster_merge_bnd", "global_repeat")
 
 
 def call_task_packed(packed: torch.Tensor, *,
@@ -776,23 +788,78 @@ def call_task_packed(packed: torch.Tensor, *,
         children reports n_children > SLOTS and the caller routes the
         task to the exact host sweep (capacity, not correctness).
     """
-    sig = packed_signatures(packed)
-    clustered = _cluster_body(sig, cluster_r=cluster_r, cluster_repeat_h=cluster_repeat_h,
-                              cluster_repeat_h_max=cluster_repeat_h_max,
-                              cluster_merge_bnd=cluster_merge_bnd,
-                              binsize=binsize, global_repeat=global_repeat)
+    meta = dict(cluster_r=cluster_r, cluster_repeat_h=cluster_repeat_h,
+                cluster_repeat_h_max=cluster_repeat_h_max,
+                cluster_merge_bnd=cluster_merge_bnd, cluster_merge_len=cluster_merge_len,
+                minsvlen=minsvlen, cluster_merge_pos=cluster_merge_pos,
+                global_repeat=global_repeat, binsize=binsize,
+                resplit_binsize=resplit_binsize)
+    return _call_tasks([packed], meta)[0]
+
+
+def batched_call_task(meta_items: tuple, stacked: torch.Tensor) -> torch.Tensor:
+    """call_task_packed of k stacked task batches, the counterpart of the
+    JAX package's vmapped batched_call_task (sniffles_tpu/ops/clustering.py
+    :1155): `stacked` is a (k, 15, W) int32 tensor (a zero slot is a task
+    with no signature), `meta_items` the sorted items of every keyword
+    parameter of call_task_packed (standard_call_meta gives them all).
+    Returns the (k, flat) int32 results, row t equal bit for bit to
+    call_task_packed of task t. The torch stages run task after task on
+    the current stream; the merge sweep is one launch of each kernel for
+    all k tasks."""
+    if stacked.dim() != 3:
+        raise ValueError(f"stacked must be (k, 15, W), got {tuple(stacked.shape)}")
+    return torch.stack(_call_tasks(list(stacked), dict(meta_items)))
+
+
+def _call_tasks(batches: list, meta: dict) -> list:
+    """call_task_packed of each packed batch: the sort and seed stages and
+    the slot state per task, ONE merge sweep over all of them (the [n]
+    state of a single task, the stacked [k, n] state of several), then the
+    cluster statistics per task."""
+    binsize = meta["binsize"]
+    staged = []
+    for packed in batches:
+        s, seed_boundary, bin_ = sort_and_seed(packed_signatures(packed), binsize)
+        staged.append((s, seed_boundary, *sweep_inputs(s, seed_boundary, bin_, binsize)))
+    params = {k: meta[k] for k in SWEEP_PARAMS}
+    if len(staged) == 1:
+        merge_sweep(staged[0][2], staged[0][3], **params)
+    else:
+        inputs, state = (_stack_tasks([st[j] for st in staged]) for j in (2, 3))
+        merge_sweep(inputs, state, **params)
+        staged = [(s, b, _task_row(inputs, t), _task_row(state, t))
+                  for t, (s, b, _, _) in enumerate(staged)]
+    return [_task_statistics(s, b, inputs, state, meta) for s, b, inputs, state in staged]
+
+
+def _stack_tasks(tensors: list) -> dict:
+    """[n] sweep tensors of k tasks stacked into [k, n] (nseeds [k])."""
+    return {key: torch.cat([t[key] for t in tensors]) if key == "nseeds"
+            else torch.stack([t[key] for t in tensors]) for key in tensors[0]}
+
+
+def _task_statistics(s: dict, seed_boundary, inputs: dict, state: dict,
+                     meta: dict) -> torch.Tensor:
+    """The rest of call_task_packed after the sweep: the cluster ids from
+    the surviving clusters, the inner merge fold, the resplit, the
+    statistics, packed into the flat int32 result."""
+    seg = segment_ids_from_boundaries(_sweep_boundaries(s, seed_boundary, inputs, state))
+    clustered = dict(s)
+    clustered["cluster_id"] = seg
+    clustered["n_clusters"] = torch.max(torch.where(s["valid"], seg, -1)) + 1
     i32 = torch.int32
     elements = torch.stack([clustered["cluster_id"].to(i32),
                             clustered["orig_idx"].to(i32),
                             clustered["valid"].to(i32)])
 
-    folded = merge_inner_fold(clustered, cluster_merge_pos=cluster_merge_pos,
-                              global_repeat=global_repeat)
+    folded = merge_inner_fold(clustered, cluster_merge_pos=meta["cluster_merge_pos"],
+                              global_repeat=meta["global_repeat"])
     # svlen-histogram resplit on device (reference: cluster.py:125-161):
     # all statistics below segment by the RESPLIT CHILD
     child, n_children, uncertain_parent = resplit_child_ids(
-        folded, resplit_binsize=resplit_binsize, minsvlen=minsvlen,
-        cluster_merge_len=cluster_merge_len)
+        folded, resplit_binsize=meta["resplit_binsize"], minsvlen=meta["minsvlen"],
+        cluster_merge_len=meta["cluster_merge_len"])
     folded_child = dict(folded)
     folded_child["cluster_id"] = child
     folded_child["n_clusters"] = n_children
@@ -812,7 +879,7 @@ def call_task_packed(packed: torch.Tensor, *,
     child_uncertain = _clamped(uncertain_parent, parent)
 
     slots = max(1024, n // 8)
-    counts = torch.zeros((n,), dtype=i32, device=packed.device)
+    counts = torch.zeros((n,), dtype=i32, device=seg.device)
     counts[0] = n_children.to(i32)
     counts[1] = clustered["n_clusters"].to(i32)
     full = torch.stack([
@@ -873,7 +940,7 @@ def phase_tallies(clustered: dict, n: int) -> dict:
 
     same_run = (valid_r & _shift_prev(valid_r) & (cid_r == _shift_prev(cid_r))
                 & (read_r == _shift_prev(read_r)))
-    same_run[0] = False
+    same_run[:1].fill_(False)
     first = valid_r & ~same_run   # representative element per (cluster, read)
     mixed_e = same_run & ((hap_r != _shift_prev(hap_r)) | (ps_r != _shift_prev(ps_r)))
     seg = torch.where(valid_r, cid_r, 0)

@@ -31,8 +31,9 @@ evolve as candidates join (sv.py:303-313).
   probe whose pair is missing raises the `ed_miss` flag.
 
 The loop runs one step per candidate of the longest segment (a Python
-loop of tensor ops; the bound is read to the host once, before it). A
-hand-written kernel with one block per segment is later work.
+loop of tensor ops; the dispatch takes the bound from the host's counts,
+so the loop never waits for the card). A hand-written kernel with one
+block per segment is later work.
 """
 from __future__ import annotations
 
@@ -54,7 +55,7 @@ def _pow2(x: int, floor: int) -> int:
 
 
 def _greedy_grid_loop(c_pos, c_len, c_alt, c_hord, counts, ed,
-                      *, cm: int, cmm: int, limit: float):
+                      *, cm: int, cmm: int, limit: float, max_count: int = None):
     """Whole-task greedy as a SEGMENT-GRID lockstep loop.
 
     Combine tasks start with an empty frontier, and position gaps >
@@ -73,6 +74,9 @@ def _greedy_grid_loop(c_pos, c_len, c_alt, c_hord, counts, ed,
     (S,) per-segment candidate counts, and ed (S, K, W) exact edit
     distances (head table row x candidate, -1 = missing; W = L, or 1 for
     an all-missing table, whose one column every step reads).
+
+    max_count: the largest count, when the caller has it on the host
+    (else it is read from the device once, before the loop).
 
     Returns (assign (S, L) segment-local slot ids, segflags (S,) SEGF_*
     bitmasks).
@@ -103,7 +107,8 @@ def _greedy_grid_loop(c_pos, c_len, c_alt, c_hord, counts, ed,
     assign = torch.full((S, L), -1, dtype=i32, device=dev)
     segflags = torch.zeros((S,), dtype=i32, device=dev)
 
-    max_count = int(counts.max()) if S else 0   # the one host read
+    if max_count is None:
+        max_count = int(counts.max()) if S else 0   # the one host read
     for i in range(max_count):
         upd = i < counts                                     # (S,)
         pos = c_pos[:, i:i + 1]                              # (S, 1)
@@ -177,9 +182,13 @@ def _greedy_grid_loop(c_pos, c_len, c_alt, c_hord, counts, ed,
     return assign, segflags
 
 
-def run_combine_greedy_task(payload: dict, meta: dict, device) -> dict:
-    """Run the whole-task grid greedy for one (combine task, svtype) on
-    `device` ("cuda", or "cpu" when the CPU was asked for).
+def start_combine_greedy_task(payload: dict, meta: dict, device):
+    """Start the whole-task grid greedy for one (combine task, svtype) on
+    `device` ("cuda", or "cpu" when the CPU was asked for) and return a
+    finish() that waits for it and returns its result: on the card the
+    loop's kernels and the copy of the result into pinned memory are
+    queued on the current stream with no host synchronisation, so the
+    device service can start the next request before it finishes this one.
 
     payload: the JAX package's dict — c_pos/c_len/c_alt/c_hord (S, L)
     int32 grids in segment-row layout (trimmed; padded to powers of two
@@ -187,9 +196,10 @@ def run_combine_greedy_task(payload: dict, meta: dict, device) -> dict:
     table row), ed_cols, ed_vals (sparse exact ED entries).
     meta: cm, cmm, limit.
 
-    Returns {"assign": (S, L) int32 segment-local slot ids,
+    finish() returns {"assign": (S, L) int32 segment-local slot ids,
     "seg_flags": (S,) int32 SEGF_* bitmasks} as numpy arrays.
     """
+    from sniffles_tpu_torch.ops.transfer import to_device, to_host_async
     c_pos = np.asarray(payload["c_pos"], dtype=np.int32)
     S, L = c_pos.shape
     Sp = _pow2(max(S, 1), 16)
@@ -212,15 +222,22 @@ def run_combine_greedy_task(payload: dict, meta: dict, device) -> dict:
         # all-missing table: a width-1 grid reads the same -1 everywhere
         ed = np.full((Sp, TASK_ED_HEADS, 1), -1, dtype=np.int32)
 
-    def on_dev(x):
-        return torch.from_numpy(x).to(device)
-
     assign, segflags = _greedy_grid_loop(
-        on_dev(pad_g(c_pos)),
-        on_dev(pad_g(np.asarray(payload["c_len"], dtype=np.int32))),
-        on_dev(pad_g(np.asarray(payload["c_alt"], dtype=np.int32))),
-        on_dev(pad_g(np.asarray(payload["c_hord"], dtype=np.int32), fill=-1)),
-        on_dev(counts), on_dev(ed),
-        cm=int(meta["cm"]), cmm=int(meta["cmm"]), limit=float(meta["limit"]))
-    return {"assign": assign.cpu().numpy()[:S, :L],
-            "seg_flags": segflags.cpu().numpy()[:S]}
+        to_device(pad_g(c_pos), device),
+        to_device(pad_g(np.asarray(payload["c_len"], dtype=np.int32)), device),
+        to_device(pad_g(np.asarray(payload["c_alt"], dtype=np.int32)), device),
+        to_device(pad_g(np.asarray(payload["c_hord"], dtype=np.int32), fill=-1), device),
+        to_device(counts, device), to_device(ed, device),
+        cm=int(meta["cm"]), cmm=int(meta["cmm"]), limit=float(meta["limit"]),
+        max_count=int(counts.max()))
+    fetch = to_host_async(assign, segflags)
+
+    def finish():
+        assign_h, segflags_h = fetch()
+        return {"assign": assign_h[:S, :L], "seg_flags": segflags_h[:S]}
+    return finish
+
+
+def run_combine_greedy_task(payload: dict, meta: dict, device) -> dict:
+    """start_combine_greedy_task, waited for."""
+    return start_combine_greedy_task(payload, meta, device)()

@@ -261,23 +261,39 @@ def _bump(counters, key, d=1):
 
 
 def edit_distance_batch(pairs: list[tuple[str, str]], max_len: int | None = None,
-                        device=None, counters=None) -> np.ndarray:
+                        device=None, counters=None, service=None) -> np.ndarray:
     """Edit distances for a batch of string pairs.
 
     Dispatch: the host Myers scan (native blocked Myers when the library
     loads) handles everything below DEVICE_MIN_CELLS; a larger batch goes
     to the bit-vector kernel on `device` ("cuda"), or to its plain version
-    when the CPU was asked for ("cpu"). The batch dimension is padded to
-    a power of two, with empty padding pairs, as in the JAX package.
-    Each route is counted in `counters`."""
+    when the CPU was asked for ("cpu"), or, in a worker process, as an
+    ed_batch request to the parent's device service (`service`, a
+    DeviceClient). Each route is counted in `counters`."""
     cells = sum(len(x) * len(y) for x, y in pairs)
     if cells < DEVICE_MIN_CELLS:
         from sniffles_tpu_torch.ops.edit_distance import edit_distance as ed_host
         _bump(counters, "ed_host_batches")
         _bump(counters, "ed_host_pairs", len(pairs))
         return np.array([ed_host(x, y) for x, y in pairs], dtype=np.int32)
-    if device is None:
+    if service is not None:
+        out = np.asarray(service.request("ed_batch", pairs, {"max_len": max_len}))
+    elif device is None:
         raise ValueError("a batch of at least DEVICE_MIN_CELLS cells needs a device")
+    else:
+        out = device_edit_distance_batch(pairs, max_len, device)
+    _bump(counters, "ed_device_batches")
+    _bump(counters, "ed_device_pairs", len(pairs))
+    _bump(counters, "ed_device_cells", cells)
+    return out
+
+
+def device_edit_distance_batch(pairs: list[tuple[str, str]], max_len: int | None = None,
+                               device=None) -> np.ndarray:
+    """The device route of edit_distance_batch, whatever the batch's size:
+    the pairs encoded, the batch dimension padded to a power of two with
+    empty pairs (as in the JAX package), through edit_distance_batch_device
+    on `device`. The device service answers ed_batch requests with it."""
     a, b, la, lb = encode_pairs(pairs, max_len)
     n = a.shape[0]
     n_pad = 16
@@ -291,7 +307,4 @@ def edit_distance_batch(pairs: list[tuple[str, str]], max_len: int | None = None
         lb = np.pad(lb, (0, n_pad - n))
     out = edit_distance_batch_device(*(torch.from_numpy(x).to(device)
                                        for x in (a, b, la, lb)))
-    _bump(counters, "ed_device_batches")
-    _bump(counters, "ed_device_pairs", n)
-    _bump(counters, "ed_device_cells", cells)
     return out.cpu().numpy()[:n]

@@ -22,8 +22,9 @@ cluster.py:356-390.
 Copied from sniffles_tpu/parallel/combine_device_greedy.py: the
 whole-task packer and replay. The per-block packer and its replay have
 no caller on the combine path and are not carried over. The device is
-the run's torch device (config.device); the payload dicts are the JAX
-package's, byte for byte.
+the run's torch device (config.device), or in a worker process the
+parent's device service; the payload dicts are the JAX package's, byte
+for byte.
 """
 from __future__ import annotations
 
@@ -48,12 +49,14 @@ def _bump(counters, key, d=1):
         counters[key] = counters.get(key, 0) + d
 
 
-def pack_task_assignments(svtype, flushes, config, counters=None):
+def pack_task_assignments(svtype, flushes, config, counters=None, service=None):
     """Whole-task device greedy: build ONE payload covering every flush of
     every block of a (combine task, svtype) and run the greedy on the
-    run's device (config.device). Returns a replay
-    context consumed flush-by-flush via `replay_flush_task`, or None
-    when a global guard fails (caller keeps the per-flush host paths).
+    run's device (config.device), or, in a worker process, post it to
+    the parent's device service (`service`, a DeviceClient) as a
+    combine_greedy_task request that the first replay waits for. Returns
+    a replay context consumed flush-by-flush via `replay_flush_task`, or
+    None when a global guard fails (caller keeps the per-flush host paths).
 
     Exactness: combine tasks start with an empty frontier, and
     position gaps > combine_match_max partition the candidates into
@@ -166,7 +169,8 @@ def pack_task_assignments(svtype, flushes, config, counters=None):
                                       dev_col, pos, lens, cmm,
                                       c_alt, c_hord, device, counters,
                                       with_table=(svtype == "INS"),
-                                      grid=(row_sorted, col_sorted, order_dev))
+                                      grid=(row_sorted, col_sorted, order_dev),
+                                      service=service)
         if packed is None:
             _bump(counters, "combine_greedy_guard_fallbacks")
             return None
@@ -191,22 +195,26 @@ def pack_task_assignments(svtype, flushes, config, counters=None):
     if host_segs:
         _bump(counters, "combine_greedy_host_segments", len(host_segs))
 
-    from sniffles_tpu_torch.ops.combine_greedy import run_combine_greedy_task
     ctx = {"per_flush": [], "slots": {}, "closed": set(),
            "dev_row": dev_row, "dev_col": dev_col, "cand_seg": cand_seg,
            "host_segs": host_segs, "dev_seg_ids": dev_seg_ids,
            "counters": counters, "next_fi": 0,
-           "result": run_combine_greedy_task(payload, meta, device)}
+           "result": None, "req": None, "service": service}
     t = 0
     for fc in per_flush_cands:
         ctx["per_flush"].append([(c, t + j) for j, c in enumerate(fc)])
         t += len(fc)
+    if service is not None:
+        ctx["req"] = service.post("combine_greedy_task", payload, meta)
+    else:
+        from sniffles_tpu_torch.ops import combine_greedy
+        ctx["result"] = combine_greedy.run_combine_greedy_task(payload, meta, device)
     return ctx
 
 
 def _build_task_ed_table(cands, cand_seg, row_of_seg, dev_row, dev_col,
                          pos, lens, cmm, c_alt_out, c_hord_out, device,
-                         counters=None, with_table=True, grid=None):
+                         counters=None, with_table=True, grid=None, service=None):
     """Alt ids, head ordinals, and (INS only) the sparse exact ED table
     for the grid kernel. Alt ids are GLOBAL (equality is only ever
     compared within a segment, so any bijection works — a global
@@ -285,8 +293,9 @@ def _build_task_ed_table(cands, cand_seg, row_of_seg, dev_row, dev_col,
 
     pairs = list(pair_keys)
     # host Myers under DEVICE_MIN_CELLS, the bit-vector kernel above it
+    # (through the device service in a worker process)
     from sniffles_tpu_torch.ops.edit_distance_batch import edit_distance_batch
-    dists = edit_distance_batch(pairs, device=device, counters=counters)
+    dists = edit_distance_batch(pairs, device=device, counters=counters, service=service)
     dist_of = {p: int(d) for p, d in zip(pairs, dists)}
 
     segs, rows, cols, vals = [], [], [], []
@@ -301,8 +310,12 @@ def _build_task_ed_table(cands, cand_seg, row_of_seg, dev_row, dev_col,
 
 
 def _resolve_task_ctx(ctx):
-    """On first replay use, fold the segments the device greedy flagged
-    into the host-replay set and precompute per-candidate slot keys."""
+    """On first replay use, wait for the device service's result when the
+    greedy was posted to it (raises when the service answered with an
+    error), fold the segments the device greedy flagged into the
+    host-replay set and precompute per-candidate slot keys."""
+    if ctx["result"] is None:
+        ctx["result"] = ctx["service"].wait(ctx["req"])
     res = ctx["result"]
     if "slot_of" not in ctx:
         flags = res["seg_flags"]

@@ -9,12 +9,15 @@ This replaces the sequential merge sweep of cluster.resolve
 (reference: cluster.py:219-353) for INS/DEL/DUP/INV/BND; BND's
 mate-geometry resplit and the single-break types stay on the host path.
 
-Copied from sniffles_tpu/parallel/device_call.py: the packer and the
-in-process consumer. The JAX package's device service, mesh, hedge and
-wire-compression branches are not ported. Unlike the JAX package, a
-failure here raises; the routes that exist for exactness (the
-per-child consumption gate, BND's host resplit, and the stats-capacity
-route of a task to the host sweep) stay, each counted in `counters`.
+Copied from sniffles_tpu/parallel/device_call.py: the packer, the
+wire-compact response of the device service (compress_call_response)
+and the consumer, in process or through the device service of a worker
+process. The mesh branch is not ported; the hedge and its circuit
+breaker are not ported either, by design: they reroute a slow device
+response to the host. Unlike the JAX package, a failure here raises; the
+routes that exist for exactness (the per-child consumption gate, BND's
+host resplit, and the stats-capacity route of a task to the host sweep)
+stay, each counted in `counters`.
 """
 from __future__ import annotations
 
@@ -93,6 +96,26 @@ def pad_packed(packed: np.ndarray) -> np.ndarray:
     out = np.zeros((packed.shape[0], size), dtype=np.int32)
     out[:, :n] = packed
     return out
+
+
+def compress_call_response(flat: np.ndarray, padded_n: int) -> dict:
+    """Wire-compact form of a call_task result: only the valid elements
+    (cluster_id, orig_idx — validity is implied) and the stats columns of
+    real resplit children. The padded buffer is mostly zeros for a
+    typical task, and pickling it costs as much as the request. `nc` (=
+    n_children) and `slots` carry the capacity check (device_clusters
+    routes the task to the host sweep when nc > slots)."""
+    elements, stats = split_call_task_output(flat, padded_n)
+    valid = elements[2] != 0
+    n_children = int(stats[STATS_NC_ROW][0])
+    slots = stats.shape[1]
+    keep = min(max(n_children, 1), slots)
+    return {
+        "nc": n_children,
+        "slots": slots,
+        "elems": np.ascontiguousarray(elements[:2, valid]),
+        "stats": np.ascontiguousarray(stats[:STATS_NC_ROW, :keep]),
+    }
 
 
 def standard_call_meta(config) -> dict:
@@ -225,58 +248,80 @@ def _bump(counters, key, d=1):
         counters[key] = counters.get(key, 0) + d
 
 
-def run_call_task(packed: np.ndarray, meta: dict, device) -> np.ndarray:
-    """call_task_packed of one padded batch on `device`; the flat int32
-    result on the host."""
+def run_call_task(packed: np.ndarray, meta: dict, device) -> dict:
+    """call_task_packed of one trimmed batch on `device`, in process; the
+    result in the device service's wire-compact form
+    (compress_call_response), so device_clusters decodes one format."""
     import torch
     from sniffles_tpu_torch.ops.clustering import call_task_packed
-    batch = torch.from_numpy(pad_packed(packed)).to(device)
-    return call_task_packed(batch, **meta).cpu().numpy()
+    padded = pad_packed(packed)
+    batch = torch.from_numpy(padded).to(device)
+    return compress_call_response(call_task_packed(batch, **meta).cpu().numpy(),
+                                  padded.shape[1])
 
 
-def device_clusters(lead_provider, config, tr, counters=None):
+def device_clusters(lead_provider, config, tr, device=None, posted=None, counters=None):
     """
     Clusters of one task for INS/DEL/DUP/INV/BND, built from the device
-    clustering assignment (run on config.device); the caller handles the
-    single-break types with the host path. An empty list when the task
-    has no device-eligible leads; None when the task has more resplit
-    children than the stats block holds, and then the caller runs the
-    exact host sweep for every type (counted as fb_capacity).
+    clustering assignment; the caller handles the single-break types with
+    the host path. An empty list when the task has no device-eligible
+    leads; None when the task has more resplit children than the stats
+    block holds, and then the caller runs the exact host sweep for every
+    type (counted as fb_capacity).
+
+    `device`: a DeviceClient when running inside a worker process (the
+    parent owns the device and answers over the task pipe); None runs the
+    step in process, on config.device. Both give the wire-compact
+    response (compress_call_response). `posted`: optional (req_id, pack) pair
+    from the decode-ahead thread that already posted this task's batch
+    to the device service (Task.maybe_post_device). A device error or a
+    response that does not come within DeviceClient.TIMEOUT raises.
 
     `counters`: optional dict accumulating the engine-stat consumption
     split per task — device_tasks, clusters_total, children_total,
     engine_consumed, and the exactness routes (fb_bnd, fb_resplit,
     fb_multi_fragment, fb_support_collision, fb_capacity).
     """
-    pack = pack_task_batch(lead_provider, config, tr)
-    if pack is None:
-        return []
+    if posted is not None:
+        req_id, pack = posted
+        if pack is None:
+            return []
+        try:
+            out = device.wait(req_id)
+        except TimeoutError:
+            device.discard(req_id)   # a late response is dropped on arrival
+            raise
+    else:
+        pack = pack_task_batch(lead_provider, config, tr)
+        if pack is None:
+            return []
+        if device is not None:
+            out = device.request("call_task", pack[0], pack[1])
+        else:
+            out = run_call_task(pack[0], pack[1], config.device)
     packed, meta, leads, lead_bins = pack
-    n = len(leads)
-    out = run_call_task(packed, meta, config.device)
     _bump(counters, "device_tasks")
 
-    elements, dev_stats = split_call_task_output(out, padded_width(n))
+    n_children, slots = out["nc"], out["slots"]
     # the stats block holds max(1024, N//8) child slots; a task with more
     # resplit children than slots goes to the exact host sweep
-    n_children = int(dev_stats[STATS_NC_ROW][0])
-    if n_children > dev_stats.shape[1]:
+    if n_children > slots:
         log.info(f"device stats capacity exceeded ({n_children} children > "
-                 f"{dev_stats.shape[1]} slots); host sweep for this task")
+                 f"{slots} slots); host sweep for this task")
         _bump(counters, "fb_capacity")
         return None
     return list(_materialize(lead_provider, config, packed, leads, lead_bins,
-                             elements, dev_stats, n_children, counters))
+                             out["elems"], out["stats"], n_children, counters))
 
 
-def _materialize(lead_provider, config, packed, leads, lead_bins, elements,
+def _materialize(lead_provider, config, packed, leads, lead_bins, elems,
                  dev_stats, n_children, counters):
-    """Cluster objects from the device assignment, with the device's
+    """Cluster objects from the device assignment (`elems`: the valid
+    elements' cluster ids and original indices), with the device's
     per-child statistics attached where the host verifies them."""
     n = len(leads)
     repeat_flags = packed[4, :n] > 0
-    valid = elements[2] != 0
-    normalized = _rebuild_groups(elements[0][valid], elements[1][valid])
+    normalized = _rebuild_groups(elems[0], elems[1])
     child_stats = _children_by_parent(dev_stats, n_children)
 
     # leads_long per INS cluster: long-INS soft clips from the bins the

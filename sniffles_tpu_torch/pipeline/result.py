@@ -1,8 +1,9 @@
 """Result transport: task results, each knowing how to emit itself into
 the output VCF (reference: result.py:23-299). Copied from
-sniffles_tpu/pipeline/result.py: the call and combine results; the
-force-calling and population-SNF results and the call path's temp-SNF
-parts are not ported yet.
+sniffles_tpu/pipeline/result.py: the call and combine results and the
+worker's failure marker (ErrorResult); the force-calling and
+population-SNF results and the call path's temp-SNF parts are not ported
+yet.
 """
 from __future__ import annotations
 
@@ -165,3 +166,19 @@ class CombineResultTmpFile(CombineResult):
             os.unlink(self.tmpfile_name)
         except FileNotFoundError:
             ...
+
+
+class ErrorResult:
+    """Worker-side failure marker; emitting just logs the error (the CLI
+    exits non-zero when any task ended in one)."""
+    error = True
+
+    def __init__(self, msg: str):
+        self.message = msg
+
+    def __str__(self):
+        return str(self.message)
+
+    def emit(self, **kwargs) -> int:
+        log.error(str(self.message))
+        return 0

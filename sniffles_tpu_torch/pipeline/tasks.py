@@ -4,9 +4,14 @@
 Tasks are the unit of genome-space sharding — one per contig interval
 (call) or per SNF-block shard (combine).  Behavior matches the reference
 task semantics (reference: parallel.py:42-572).  Copied from
-sniffles_tpu/pipeline/tasks.py: the Task base, CallTask and CombineTask;
-force calling (GenotypeTask), --snf output of the call path and the
-leadtab cache (--dev-cache) are not ported yet.
+sniffles_tpu/pipeline/tasks.py: the Task base, CallTask, CombineTask and
+ShutdownTask; force calling (GenotypeTask), --snf output of the call
+path and the leadtab cache (--dev-cache) are not ported yet.
+
+In a worker process (--threads N) a task reaches the device through the
+parent's device service: the runtime attaches the worker's DeviceClient
+as `device_service` at execute time, and the decode-ahead thread posts
+the next call task's batch ahead of its execution (maybe_post_device).
 
 Unlike the JAX package, a failure of the device path raises here: it is
 never caught and replaced by the host path. The exactness routes stay
@@ -60,7 +65,14 @@ class Task:
     bam: object = None
     result: Result = None
 
+    _prefetched: Optional[tuple] = None
     _nm_threshold: Optional[float] = None
+    # worker-local DeviceClient proxy; attached at execute time, never
+    # pickled with the task
+    device_service: object = None
+    # (req_id, pack) of a device request posted by the decode-ahead
+    # thread (runtime._prefetch_task); worker-local, never pickled
+    _device_posted: Optional[tuple] = None
 
     def __str__(self):
         return f'Task #{self.id}'
@@ -78,6 +90,10 @@ class Task:
         raise NotImplementedError
 
     def build_leadtab(self):
+        # a decode-ahead prefetch (pipeline/runtime.py) may have already
+        # built the leadtab on a background thread
+        if self._prefetched is not None:
+            return self._prefetched
         config = self.config
         from sniffles_tpu_torch.io.bam import AlignmentFile
         self.bam = AlignmentFile(config.input, config.input_mode, require_index=True,
@@ -86,21 +102,43 @@ class Task:
             config, self.id * config.task_read_id_offset_mult, self.contig)
         span = self.regions if self.regions else [Region(self.contig, self.start, self.end)]
         externals = self.lead_provider.build_leadtab(span, self.bam)
-        # snapshot the per-task regional NM statistic: the scan writes it
-        # to the shared config (reference: leadprov.py:577-578)
-        self._nm_threshold = config.qc_nm_threshold
-        return externals, self.lead_provider.read_count
+        # the per-task regional NM statistic, from this task's own scan
+        # (the reference reads it back from the shared config,
+        # leadprov.py:577-578; a decode-ahead scan of the next task runs
+        # beside this one)
+        self._nm_threshold = self.lead_provider.average_regional_nm
+        self._prefetched = (externals, self.lead_provider.read_count)
+        return self._prefetched
+
+    def maybe_post_device(self, device_client) -> None:
+        """Pack this task's signature batch and post it to the parent's
+        device service ahead of execution (called from the decode-ahead
+        thread), so the device's work overlaps the preceding task's host
+        compute. No-op without the device path, a client or a leadtab."""
+        config = self.config
+        if (device_client is None or self.lead_provider is None
+                or not getattr(config, "tpu_call", False)):
+            return
+        from sniffles_tpu_torch.parallel.device_call import pack_task_batch
+        pack = pack_task_batch(self.lead_provider, config, self.tandem_repeats)
+        if pack is None:
+            self._device_posted = (None, None)
+            return
+        self._device_posted = (device_client.post("call_task", pack[0], pack[1]), pack)
 
     # -- candidate generation ----------------------------------------------
 
     def _iter_clusters(self, config):
-        """Device sort-and-segment clusters on the device path, host sweep
+        """Device sort-and-segment clusters on the device path (in process,
+        or through the device service in a worker process), host sweep
         for the rest (and for a task past the device stats capacity)."""
         host_types = sv.ALL_TYPES
         if config.tpu_call:
             from sniffles_tpu_torch.parallel.device_call import device_clusters, _DEVICE_TYPES
+            posted, self._device_posted = self._device_posted, None
             counters = self.engine_counters = {}
             made = device_clusters(self.lead_provider, config, self.tandem_repeats,
+                                   device=self.device_service, posted=posted,
                                    counters=counters)
             if made is not None:
                 yield from made
@@ -229,6 +267,7 @@ class CallTask(Task):
 
     def execute(self, worker=None) -> CallResult:
         config = self.config
+        self.device_service = getattr(worker, "device_client", None)
         qc = not config.no_qc
 
         read_count = self.build_leadtab()[1]
@@ -394,7 +433,8 @@ class CombineTask(Task):
         if sum(len(a) * len(b) for a, b in pairs) < DEVICE_MIN_CELLS:
             return
         dists = edit_distance_batch(pairs, device=config.device,
-                                    counters=self.combine_counters)
+                                    counters=self.combine_counters,
+                                    service=self.device_service)
         for pair, dist in zip(pairs, dists):
             ed_cache[pair] = int(dist)
 
@@ -482,7 +522,8 @@ class CombineTask(Task):
             ctx = None
             if flat and svtype != "BND":
                 ctx = cdg.pack_task_assignments(
-                    svtype, flat, config, counters=self.combine_counters)
+                    svtype, flat, config, counters=self.combine_counters,
+                    service=self.device_service)
             ctxs[svtype] = ctx
         return {"blocks": blocks, "flushes": flushes_by, "ctx": ctxs,
                 "ed_caches": ed_caches, "seen": seen_total}
@@ -512,6 +553,7 @@ class CombineTask(Task):
 
     def execute(self, worker=None):
         config = self.config
+        self.device_service = getattr(worker, "device_client", None)
         self.combine_counters = {}
         sample_snfs = self._open_sample_snfs()
         result = self.result_class(self, [], 0)
@@ -631,3 +673,15 @@ class CombineTask(Task):
         result.finalize()
 
         return result
+
+
+class ShutdownTask:
+    """Poison pill: executing it raises Shutdown inside the worker loop."""
+    id = None
+
+    def __str__(self):
+        return 'Shutdown Request'
+
+    def execute(self, *args, **kwargs):
+        from sniffles_tpu_torch.pipeline.runtime import SnifflesWorker
+        raise SnifflesWorker.Shutdown

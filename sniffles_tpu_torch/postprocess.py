@@ -403,12 +403,13 @@ def _screen_mosaic_edges(svcall, config, ledger):
 
 
 def qc_sv_post_annotate(svcall: SVCall, config, coverage_average_total: float,
-                        nm_threshold: float | None = None) -> bool:
+                        nm_threshold: float) -> bool:
     """Genotype-aware QC incl. mosaic arms (reference: postprocessing.py:444-600).
 
-    nm_threshold overrides config.qc_nm_threshold (the per-task regional NM
-    statistic; passed explicitly so decode-ahead prefetch of the next task
-    cannot perturb this task's QC).
+    nm_threshold is the task's regional NM statistic (the reference reads
+    config.qc_nm_threshold, which its lead scan writes; here the task's
+    own scan gives it, so a decode-ahead scan of the next task cannot
+    perturb this task's QC).
     """
     ledger = FilterLedger(svcall, config)
 
@@ -428,9 +429,8 @@ def qc_sv_post_annotate(svcall: SVCall, config, coverage_average_total: float,
         if not qc_sv_support(svcall, coverage_average_total, config) and not config.dev_filter:
             return False
 
-    nm_base = nm_threshold if nm_threshold is not None else config.qc_nm_threshold
     nm_active = config.mosaic_qc_nm if mosaic_arm else config.qc_nm
-    nm_limit = nm_base * config.qc_nm_mult
+    nm_limit = nm_threshold * config.qc_nm_mult
     if (nm_active and svcall.nm > nm_limit
             and (len(svcall.genotypes) == 0 or svcall.genotypes[0][1] == 0)
             and ledger.flag("ALN_NM")):

@@ -243,11 +243,13 @@ def split_read_records(sv: PlantedSV, ref: str, contig: str, rng,
 
 def simulate(ref_len: int = 100_000, svs: list[PlantedSV] = (), depth: int = 20,
              read_len: int = 12_000, seed: int = 0, contig: str = "chr1",
-             contig_len: int | None = None, phased: bool = False):
+             contig_len: int | None = None, phased: bool = False, nm_rate: float = 0.0):
     """Returns (reference_seq, records). Reads tile the reference every
     read_len/depth bp; each read spanning a planted INS/DEL carries it in
     its CIGAR (and sequence, for INS) with probability sv.vaf. DUP/INV
-    sites additionally emit SA-tagged split-read pairs."""
+    sites additionally emit SA-tagged split-read pairs. nm_rate adds
+    round(nm_rate * read_len) mismatches to each tiled read's NM tag (its
+    regional NM statistic; the sequence stays the reference's)."""
     rng = np.random.default_rng(seed)
     ref = random_seq(rng, ref_len)
     split_svs = [sv for sv in svs if sv.svtype in ("DUP", "INV")]
@@ -297,7 +299,7 @@ def simulate(ref_len: int = 100_000, svs: list[PlantedSV] = (), depth: int = 20,
                 merged.append((op, ln))
 
         flag = 16 if (rid % 2) else 0
-        tags = {"NM": nm}
+        tags = {"NM": nm + round(nm_rate * read_len)}
         if phased:
             # reads carrying any SV are haplotype 1, the rest haplotype 2
             carried_any = any(has[id(sv)] for sv in carries)
@@ -325,13 +327,14 @@ def simulate(ref_len: int = 100_000, svs: list[PlantedSV] = (), depth: int = 20,
 def write_dataset(tmpdir: str, ref_len: int = 100_000, svs: list[PlantedSV] = (),
                   depth: int = 20, read_len: int = 12_000, seed: int = 0,
                   contig: str = "chr1", contig_len: int | None = None,
-                  phased: bool = False, n_contigs: int = 1):
+                  phased: bool = False, n_contigs: int = 1, nm_rates: tuple = ()):
     """Write reference FASTA + sorted/indexed BAM; returns (bam_path, fasta_path).
 
     contig_len pads the declared contig length (>= 1 Mbp so the default
     contig filter keeps it, reference: util.py:161). With n_contigs > 1
     the same SV layout is replicated on chr1..chrN (for multi-task /
-    scaling tests; tasks are per-contig by default, sniffles:299-302)."""
+    scaling tests; tasks are per-contig by default, sniffles:299-302).
+    nm_rates gives each contig's nm_rate (simulate), 0 where absent."""
     declared = contig_len or max(1_000_000, ref_len)
     contigs = [contig] if n_contigs == 1 else [f"chr{i + 1}" for i in range(n_contigs)]
 
@@ -340,7 +343,8 @@ def write_dataset(tmpdir: str, ref_len: int = 100_000, svs: list[PlantedSV] = ()
     for ci, cname in enumerate(contigs):
         ref, records = simulate(ref_len=ref_len, svs=[PlantedSV(**vars(sv)) for sv in svs],
                                 depth=depth, read_len=read_len, seed=seed + ci,
-                                contig=cname, phased=phased)
+                                contig=cname, phased=phased,
+                                nm_rate=nm_rates[ci] if ci < len(nm_rates) else 0.0)
         refs[cname] = ref
         for r in records:
             r.refid = ci

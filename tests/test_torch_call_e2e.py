@@ -9,6 +9,14 @@ host path. Two datasets from the port's BAM simulator: six SVs on
 identical record lines; both device paths must consume the device
 statistics of every child, with equal engine counters.
 
+The worker pool: the port's default command line (--threads 4, the
+device path through the parent's device service) and --threads 2 must
+give the records of its --threads 0, of its --no-tpu and of the JAX
+package's --threads 2 --tpu-call, each consuming every child's device
+statistics; a device that fails its warmup (the kernel build, or the
+device step itself) makes a --threads 2 run exit non-zero with the
+error in its log.
+
 Each run is its own subprocess: both packages register the same
 "sniffles.sv" pickle alias, and in one process the second package's
 pickles would resolve to the first package's classes.
@@ -55,6 +63,8 @@ def run(module, args, cwd, counters):
     env["SNIFFLES_TPU_FORCE_CPU"] = "1"
     env["JAX_PLATFORMS"] = "cpu"
     env["SNIFFLES_TPU_COUNTERS_JSON"] = str(counters)
+    if os.path.exists(counters):
+        os.unlink(counters)
     r = subprocess.run([sys.executable, "-m", module] + args, capture_output=True,
                        text=True, env=env, cwd=str(cwd), timeout=600)
     assert r.returncode == 0, r.stdout[-3000:] + r.stderr[-3000:]
@@ -99,6 +109,93 @@ def test_call_sample_four_way_records(name, tmp_path):
     assert port == jax
     assert port["engine_consumed"] == port["children_total"] > 0
     assert counters["port-host"] is None
+
+
+THREADED_RUNS = {
+    "port-default": ("sniffles_tpu_torch", []),
+    "port-threads-2": ("sniffles_tpu_torch", ["--threads", "2"]),
+    "port-threads-0": ("sniffles_tpu_torch", ["--threads", "0"]),
+    "port-host": ("sniffles_tpu_torch", ["--threads", "2", "--no-tpu"]),
+    "jax-threads-2": ("sniffles_tpu.cli", ["--threads", "2", "--tpu-call"]),
+}
+
+
+@pytest.fixture(scope="module")
+def two_contig_bam(tmp_path_factory):
+    """Two contigs, so that the pool runs two call tasks."""
+    tmp = tmp_path_factory.mktemp("twocontig")
+    return write_dataset(str(tmp), ref_len=160_000, depth=20, read_len=12_000, seed=23,
+                         n_contigs=2, svs=planted([
+                             (30_000, "DEL", 120, 1.0), (60_000, "INS", 150, 1.0),
+                             (90_000, "DEL", 500, 1.0), (120_000, "DUP", 900, 1.0)]))
+
+
+def test_call_sample_worker_pool_records(two_contig_bam, tmp_path):
+    bam, fasta = two_contig_bam
+    outs, counters = {}, {}
+    for label, (module, extra) in THREADED_RUNS.items():
+        vcf = tmp_path / f"{label}.vcf"
+        counters[label] = run(module, ["--input", bam, "--reference", fasta,
+                                       "--vcf", str(vcf)] + extra, tmp_path,
+                              tmp_path / f"{label}.json")
+        outs[label] = records(vcf)
+    assert len(outs["port-threads-0"]) >= 6
+    for label in THREADED_RUNS:
+        assert outs[label] == outs["port-threads-0"], label
+    for label in ("port-default", "port-threads-2"):
+        port = counters[label]
+        assert port["device_tasks"] == 2
+        assert port["engine_consumed"] == port["children_total"] > 0
+        # every task went through the parent's service; no kernel on the CPU
+        assert port["service_requests"] == 2
+        assert port["kernel_sweep_cuts"] == port["kernel_merge_sweep"] == 0
+    assert counters["port-host"] is None
+
+
+BROKEN_DEVICE = {
+    # the kernel build fails, as on a machine without nvcc
+    "kernel-build": """
+import torch
+torch.cuda.is_available = lambda: True
+from sniffles_tpu_torch.ops import _build
+def broken(*args, **kwargs):
+    raise RuntimeError("nvcc not found (broken for the test)")
+_build.build_all = broken
+""",
+    # the device step itself fails on the CPU device
+    "device-step": """
+import os
+os.environ["SNIFFLES_TPU_FORCE_CPU"] = "1"
+from sniffles_tpu_torch.ops import clustering
+def broken(*args, **kwargs):
+    raise RuntimeError("the device step is broken for the test")
+clustering.call_task_packed = broken
+""",
+}
+
+
+@pytest.mark.parametrize("how", list(BROKEN_DEVICE))
+def test_device_failure_fails_a_threaded_run(how, two_contig_bam, tmp_path):
+    """No device error is rerouted to the host: the warmup's error answers
+    every request, each task ends as an ErrorResult, and the run exits 1
+    with the error in its log."""
+    bam, fasta = two_contig_bam
+    code = BROKEN_DEVICE[how] + """
+import sys
+from sniffles_tpu_torch.cli import main
+sys.exit(main(sys.argv[1:]))
+"""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    env.pop("SNIFFLES_TPU_FORCE_CPU", None)
+    r = subprocess.run([sys.executable, "-c", code, "--input", bam, "--reference", fasta,
+                        "--vcf", str(tmp_path / "o.vcf"), "--threads", "2"],
+                       capture_output=True, text=True, env=env, cwd=str(tmp_path), timeout=300)
+    log = r.stdout + r.stderr
+    assert r.returncode == 1, log[-3000:]
+    assert "device warmup failed" in log and "broken" in log
+    assert "2 task(s) failed" in log
+    assert records(tmp_path / "o.vcf") == []
 
 
 def test_write_dataset_writes_the_jax_packages_bytes(tmp_path):

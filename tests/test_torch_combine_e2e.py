@@ -7,6 +7,12 @@ port's cohort writer (so the JAX package reads the port's SNFs too).
 Record lines must be identical, and the header identical apart from the
 command and date lines.
 
+The worker pool: the port's default command line (--threads 4) and
+--threads 2, whose workers post their greedy and edit-distance work to
+the parent's device service, must give the VCF of the port's --threads 0
+and of the JAX package's --threads 2 --tpu-combine; with the device
+threshold lowered, the workers' edit-distance batches go to the service.
+
 Each run is its own subprocess: both packages register the same
 "sniffles.sv" pickle alias, and in one process the second package's
 pickles would resolve to the first package's classes."""
@@ -143,4 +149,57 @@ def test_lowered_threshold_takes_device_ed_route(monkeypatch, tmp_path, port_sim
     totals = json.loads(counters.read_text())
     assert totals.get("ed_device_batches", 0) >= 1
     assert totals.get("ed_host_batches", 0) == 0
+    assert split_vcf(dev) == split_vcf(host)
+
+
+def test_combine_worker_pool_matches(tmp_path, port_sim_cohort):
+    outs = {}
+    runs = {"port-default": ("sniffles_tpu_torch", []),
+            "port-threads-2": ("sniffles_tpu_torch", ["--threads", "2"]),
+            "port-threads-0": ("sniffles_tpu_torch", ["--threads", "0"]),
+            "jax-threads-2": ("sniffles_tpu.cli", ["--threads", "2", "--tpu-combine"])}
+    for label, (module, extra) in runs.items():
+        vcf, counters = tmp_path / f"{label}.vcf", tmp_path / f"{label}.json"
+        run(module, ["--input", *port_sim_cohort, "--vcf", str(vcf), *extra], tmp_path,
+            {"SNIFFLES_TPU_COUNTERS_JSON": str(counters)})
+        outs[label] = split_vcf(vcf)
+        if label.startswith("port-threads-2") or label == "port-default":
+            totals = json.loads(counters.read_text())
+            # every greedy went through the parent's service
+            assert totals["combine_greedy_dispatches"] >= 2
+            assert totals["service_requests"] >= totals["combine_greedy_dispatches"]
+            assert totals["kernel_ed_myers"] == 0          # no kernel on the CPU
+    assert len(outs["port-threads-0"][1]) >= 8
+    for label in runs:
+        assert outs[label] == outs["port-threads-0"], label
+
+
+def test_worker_pool_sends_edit_distance_batches_to_the_service(tmp_path, port_sim_cohort):
+    """With DEVICE_MIN_CELLS lowered (in the parent, inherited by the forked
+    workers), the workers' ED tables go to the parent's service as ed_batch
+    requests, and the VCF is the host path's."""
+    host = tmp_path / "host.vcf"
+    run("sniffles_tpu_torch", ["--input", *port_sim_cohort, "--vcf", str(host),
+                               "--no-tpu"], tmp_path)
+    code = """
+import sys
+from sniffles_tpu_torch.ops import edit_distance_batch
+edit_distance_batch.DEVICE_MIN_CELLS = 1
+from sniffles_tpu_torch.cli import main
+sys.exit(main(sys.argv[1:]))
+"""
+    counters, dev = tmp_path / "counters.json", tmp_path / "dev.vcf"
+    env = dict(os.environ)
+    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    env["SNIFFLES_TPU_FORCE_CPU"] = "1"
+    env["SNIFFLES_TPU_COUNTERS_JSON"] = str(counters)
+    r = subprocess.run([sys.executable, "-c", code, "--input", *port_sim_cohort,
+                        "--vcf", str(dev), "--threads", "2"], capture_output=True, text=True,
+                       env=env, cwd=str(tmp_path), timeout=600)
+    assert r.returncode == 0, r.stdout[-3000:] + r.stderr[-3000:]
+    totals = json.loads(counters.read_text())
+    assert totals.get("ed_device_batches", 0) >= 1
+    assert totals.get("ed_host_batches", 0) == 0
+    assert totals["service_requests"] >= (totals["ed_device_batches"]
+                                          + totals["combine_greedy_dispatches"])
     assert split_vcf(dev) == split_vcf(host)

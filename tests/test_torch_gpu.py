@@ -207,3 +207,79 @@ def test_call_sample_on_cuda_matches_host(card, monkeypatch, tmp_path):
     assert tc.COUNTS == {"launches": 1, "sweep_cuts": 1}
     assert len(records(host)) == len(svs)
     assert records(dev) == records(host)
+
+
+def test_batched_sweep_kernel_matches_plain_version(card):
+    """One launch of each kernel over a stack of 4 tasks of one width, the
+    third a zero pad slot: every slice's cut flags, counts and state equal
+    its plain version's bit for bit, and the pad slot's state is left as
+    it was."""
+    from sniffles_tpu_torch.sim import fuzz_call_batch
+    batches = [fuzz_call_batch(5, 2048), fuzz_call_batch(6, 2048, svtypes=(4,)),
+               np.zeros((15, 2048), np.int32), fuzz_call_batch(7, 2048, svtypes=(1,))]
+    tasks = [tc.sweep_inputs(*tc.sort_and_seed(tc.packed_signatures(
+        torch.from_numpy(b).to(card)), 100), 100) for b in batches]
+    inputs = tc._stack_tasks([t[0] for t in tasks])
+    state = tc._stack_tasks([t[1] for t in tasks])
+    cut, _, cut_counts = tc.launch_sweep_cuts(inputs, state, 2048, **CUTS)
+    kernel = {k: v.clone() for k, v in state.items()}
+    launches = dict(tc.COUNTS)
+    counts = tc.merge_sweep(inputs, kernel, **SWEEP)
+    torch.cuda.synchronize()
+    assert tc.COUNTS == {k: v + 1 for k, v in launches.items()}
+    assert counts.shape == (4, len(tc.SWEEP_COUNTS))
+    for t, (task_inputs, task_state) in enumerate(tasks):
+        host_inputs = {k: v.cpu() for k, v in task_inputs.items()}
+        nseeds = int(host_inputs["nseeds"][0])
+        plain_cut, _, plain_cut_counts = tc.sweep_cuts_plain(
+            host_inputs, {k: v.cpu() for k, v in task_state.items()}, **CUTS)
+        assert torch.equal(cut[t, :nseeds].cpu(), plain_cut[:nseeds]), t
+        assert torch.equal(cut_counts[t].cpu(), plain_cut_counts), t
+        plain = {k: v.cpu().clone() for k, v in task_state.items()}
+        assert torch.equal(counts[t].cpu(), tc.merge_sweep_plain(host_inputs, plain, **SWEEP)), t
+        for k in tc.SWEEP_STATE:
+            got = kernel[k][t].cpu()
+            assert torch.equal(got.view(torch.int32), plain[k].view(torch.int32)), (t, k)
+            if nseeds == 0:
+                assert torch.equal(got, task_state[k].cpu()), k
+    assert int(inputs["nseeds"][2]) == 0 and counts[2].tolist() == [0, 0, 0, 1, 0]
+
+
+def test_threaded_call_sample_on_cuda_matches_host(card, tmp_path):
+    """--threads 2 in a process of its own (the CLI refuses to fork its
+    workers from a process that holds a CUDA context): the records of the
+    host path, every child's device statistics consumed, the sweep
+    kernels launched by the parent's device service."""
+    import json
+    import os
+    import subprocess
+    import sys
+    from sniffles_tpu_torch.sim import PlantedSV, write_dataset
+
+    svs = [PlantedSV(pos=p, svtype=k, svlen=ln) for p, k, ln in
+           ((30_000, "DEL", 120), (60_000, "INS", 150), (90_000, "DUP", 900))]
+    bam, fa = write_dataset(str(tmp_path), ref_len=120_000, depth=24, read_len=12_000,
+                            seed=12, svs=svs, n_contigs=2)
+
+    def run(label, extra):
+        env = dict(os.environ)
+        repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+        env["PYTHONPATH"] = repo + os.pathsep + env.get("PYTHONPATH", "")
+        env.pop("SNIFFLES_TPU_FORCE_CPU", None)
+        env["SNIFFLES_TPU_COUNTERS_JSON"] = str(tmp_path / f"{label}.json")
+        vcf = tmp_path / f"{label}.vcf"
+        r = subprocess.run([sys.executable, "-m", "sniffles_tpu_torch", "--input", bam,
+                            "--reference", fa, "--vcf", str(vcf), *extra],
+                           capture_output=True, text=True, env=env, timeout=600)
+        assert r.returncode == 0, r.stdout[-3000:] + r.stderr[-3000:]
+        with open(vcf) as f:
+            return [line for line in f if not line.startswith("#")]
+
+    host = run("host", ["--threads", "2", "--no-tpu"])
+    dev = run("dev", ["--threads", "2"])
+    counters = json.loads((tmp_path / "dev.json").read_text())
+    assert len(host) >= len(svs) and dev == host
+    assert counters["engine_consumed"] == counters["children_total"] > 0
+    assert counters["device_tasks"] == 2
+    # the warmup's step and one a dispatch (solo or fused)
+    assert counters["kernel_merge_sweep"] == counters["kernel_sweep_cuts"] >= 2

@@ -1,7 +1,10 @@
 """The port (sniffles_tpu_torch/ and chip_smoke.py) stands alone: it imports
 neither JAX nor anything of the JAX package sniffles_tpu, its combine and
-call_sample run with both blocked from import, and without a card it
-raises unless the CPU was asked for."""
+call_sample run with both blocked from import (inline and with the worker
+pool), and without a card it raises unless the CPU was asked for. Options
+it has not ported are refused; --threads N with the device path, refused
+before the worker pool was ported, now runs and gives the --threads 0
+records."""
 import os
 import re
 import subprocess
@@ -115,15 +118,45 @@ def test_bam_input_without_card_raises(monkeypatch, tmp_path):
                      "--no-tpu", "--allow-overwrite"]) == 0
 
 
-@pytest.mark.parametrize("extra", [
-    pytest.param(["--threads", "4"], id="threads-with-device-path"),
-    pytest.param(["--threads", "0", "--genotype-vcf", "x.vcf"], id="genotype-vcf"),
-    pytest.param(["--threads", "0", "--snf", "x.snf"], id="snf-output"),
-    pytest.param(["--threads", "0", "--dev-cache"], id="dev-cache"),
-    pytest.param(["--threads", "0", "--dev-locasm-do"], id="local-assembly"),
+def run_port(args, cwd):
+    """The port's CLI in a process of its own, on the CPU device."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    env["SNIFFLES_TPU_FORCE_CPU"] = "1"
+    r = subprocess.run([sys.executable, "-m", "sniffles_tpu_torch", *args],
+                       capture_output=True, text=True, env=env, cwd=str(cwd), timeout=300)
+    assert r.returncode == 0, r.stdout[-3000:] + r.stderr[-3000:]
+
+
+def records(path):
+    with open(path) as f:
+        return [line for line in f if not line.startswith("#")]
+
+
+def runs_like_threads_0(inputs, extra, tmp_path):
+    """`extra` (a --threads N command line with the device path) exits 0
+    and writes the records of --threads 0."""
+    threads0, threaded = tmp_path / "t0.vcf", tmp_path / "o.vcf"
+    run_port([*inputs, "--vcf", str(threads0), "--threads", "0"], tmp_path)
+    run_port([*inputs, "--vcf", str(threaded), *extra], tmp_path)
+    assert records(threaded) and records(threaded) == records(threads0)
+
+
+@pytest.mark.parametrize("extra,refused", [
+    pytest.param(["--threads", "4"], False, id="threads-with-device-path"),
+    pytest.param(["--threads", "0", "--genotype-vcf", "x.vcf"], True, id="genotype-vcf"),
+    pytest.param(["--threads", "0", "--snf", "x.snf"], True, id="snf-output"),
+    pytest.param(["--threads", "0", "--dev-cache"], True, id="dev-cache"),
+    pytest.param(["--threads", "0", "--dev-locasm-do"], True, id="local-assembly"),
 ])
-def test_unported_call_sample_options_are_refused(extra, tmp_path, capsys):
+def test_unported_call_sample_options_are_refused(extra, refused, tmp_path, capsys):
     from sniffles_tpu_torch import cli
+    from sniffles_tpu_torch.sim import PlantedSV, write_dataset
+    if not refused:
+        bam, fa = write_dataset(str(tmp_path), ref_len=60_000, depth=10, read_len=8_000,
+                                seed=4, svs=[PlantedSV(pos=30_000, svtype="DEL", svlen=200)])
+        runs_like_threads_0(["--input", bam, "--reference", fa], extra, tmp_path)
+        return
     bam = tmp_path / "a.bam"
     bam.write_bytes(b"")
     assert cli.main(["--input", str(bam), "--vcf", str(tmp_path / "o.vcf"), *extra]) == 1
@@ -159,9 +192,53 @@ def test_no_card_without_cpu_request_raises(monkeypatch, tmp_path):
 
 
 def test_threads_with_device_path_is_refused(tmp_path):
-    from sniffles_tpu_torch import cli
-    snf = tmp_path / "a.snf"
-    snf.write_text("")
-    assert cli.main(["--input", str(snf), "--vcf", str(tmp_path / "o.vcf"),
-                     "--threads", "4"]) == 1
-    assert not (tmp_path / "o.vcf").exists()
+    """Refused before the worker pool was ported; now --threads 4 on .snf
+    inputs runs the device path through the parent's device service."""
+    # the cohort is written in a process of its own: in this one the JAX
+    # package may hold the "sniffles.sv" pickle alias
+    code = ("import sys; from sniffles_tpu_torch.sim import write_cohort; "
+            "print(' '.join(write_cohort(sys.argv[1], 3, 5, contigs=(('chr1', 200_000),), "
+            "lengths=(60, 120, 300))))")
+    env = dict(os.environ)
+    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    r = subprocess.run([sys.executable, "-c", code, str(tmp_path / "cohort")],
+                       capture_output=True, text=True, env=env, timeout=300)
+    assert r.returncode == 0, r.stderr[-3000:]
+    runs_like_threads_0(["--input", *r.stdout.split()], ["--threads", "4"], tmp_path)
+
+
+def test_worker_pool_runs_with_jax_blocked(tmp_path):
+    """--threads 2, device path and host path, combine and call_sample, in
+    a process where jax and sniffles_tpu cannot be imported: the forked
+    workers inherit the block, and nothing of either is loaded."""
+    code = """
+import sys
+sys.modules["jax"] = None          # any import of jax now raises
+sys.modules["sniffles_tpu"] = None
+from sniffles_tpu_torch.sim import PlantedSV, write_cohort, write_dataset
+from sniffles_tpu_torch.cli import main
+snfs = write_cohort(sys.argv[1] + "/cohort", 3, 5, contigs=(("chr1", 200_000),),
+                    lengths=(60, 120, 300))
+bam, fa = write_dataset(sys.argv[1], ref_len=120_000, depth=20, read_len=10_000, seed=3,
+                        svs=[PlantedSV(pos=40_000, svtype="DEL", svlen=300),
+                             PlantedSV(pos=80_000, svtype="INS", svlen=200)])
+for inputs in (snfs, [bam, "--reference", fa]):
+    outs = []
+    for extra in ([], ["--no-tpu"]):
+        out = sys.argv[1] + "/out%d.vcf" % len(extra)
+        assert main(["--input", *inputs, "--vcf", out, "--threads", "2",
+                     "--allow-overwrite", *extra]) == 0
+        outs.append([l for l in open(out) if not l.startswith("#")])
+    assert outs[0] and outs[0] == outs[1], outs
+assert sys.modules["jax"] is None
+loaded = [m for m in sys.modules if m == "sniffles_tpu" or m.startswith("sniffles_tpu.")]
+assert loaded == ["sniffles_tpu"], loaded
+print("OK")
+"""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    env["SNIFFLES_TPU_FORCE_CPU"] = "1"
+    r = subprocess.run([sys.executable, "-c", code, str(tmp_path)], capture_output=True,
+                       text=True, env=env, timeout=300)
+    assert r.returncode == 0, r.stdout[-3000:] + r.stderr[-3000:]
+    assert r.stdout.strip().endswith("OK")
