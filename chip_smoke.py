@@ -55,6 +55,24 @@ Phases, each of which must pass:
      that width, a zero pad slot), one launch of each kernel a stack,
      every slice's cut flags, counts and state == the single-task
      kernel's and the plain version's, bit for bit.
+  6. the other run modes, on three samples (one contig of 2 Mb each,
+     sim.dense_layout, depth 30, seeds 31, 32 and 33): (a) --snf with
+     --vcf, every sample in process on the device path (every merge-sweep
+     launch held against the plain version bit for bit), sample 31 again
+     on the host path and in a child process with the default command
+     line: its three SNFs equal (index, decompressed blocks, header config
+     apart from SNF_OUTPUT_KEYS and the keys of any two runs) and its
+     three VCFs equal; (b) the three device SNFs combined to a .vcf.gz
+     with --dev-population-snf, on the device and host paths: equal
+     records, each contig's records back from the .tbi index, equal
+     population SNFs; then a combine annotated with --combine-population,
+     device and host: equal records, POPULATION_AF on every one; every
+     edit-distance launch of the device combines held against the plain
+     version on the card, bit for bit; (c) force calling,
+     sample 31's BAM against sample 32's VCF from (a), plain and gzipped,
+     on the device path in process (every sweep held against plain), on
+     the host path and in a child with the default command line: every
+     VCF's records equal.
 Then (5) the kernels' timings on the inputs of the main paths' largest
 launches (CUDA events) beside their bounds and plain versions, the
 sweep's device time on phase 2b's fuzz batches and chain, the fused
@@ -110,6 +128,20 @@ SWEEP_OPS_PER_ITERATION = 40
 # phase-2b cases whose sweep phase 5 times beside the main path's largest
 SWEEP_TIMED = ("fuzz n=32768 seed 1", "fuzz n=32768 seed 2", "fuzz n=65536 seed 5",
                "single-svtype chain n=4096")
+# phase 6: three samples of one contig, sim.dense_layout, seeds 31-33
+MODES_SEEDS = (31, 32, 33)
+MODES_REF_LEN = 2_000_000
+MODES_DEPTH = 30
+# config keys of the SNF header that differ between phase 6's runs of one
+# sample (or one cohort) beside those of any two runs
+# (sniffles_tpu_torch.io.snf_compare.RUN_KEYS_THAT_DIFFER), and why;
+# every other key must be equal
+SNF_OUTPUT_KEYS = {
+    "snf": "each run writes an SNF of its own",
+    "vcf": "each run writes a VCF of its own",
+    "uncompressed_vcf_name": "the VCF's name without .gz, kept on the config",
+    "dev_population_snf": "each combine writes a population SNF of its own",
+}
 # cycles of the device sleep queued ahead of a timed sweep (about 1 ms)
 SLEEP_CYCLES = 2_000_000
 # int32 operations a live seed and pass of the partition's walk (the cut
@@ -818,21 +850,27 @@ def hold_launch(inputs, before, after, counts, meta, label):
     return err
 
 
-def check_threaded_counters(c, what):
-    """A threaded dense run's counters: every child's statistics consumed,
-    no route but BND's, one device task a contig, and one launch of each
-    sweep kernel a dispatch (a solo request, or a fused batch) plus one
-    for the warmup's step on a zero batch. Returns the launches."""
+def check_consumed(c, what):
+    """A device run's counters: every child's statistics consumed, no
+    route but BND's."""
     if c.get("engine_consumed", -1) != c.get("children_total", -2):
         fail(f"{what}: device statistics were not consumed by every child")
     routes = {k: c.get(k, 0) for k in ("fb_resplit", "fb_multi_fragment",
                                         "fb_support_collision", "fb_capacity")}
     if any(routes.values()):
         fail(f"{what}: exactness routes taken {routes}")
+
+
+def check_threaded_counters(c, what, tasks=DENSE_CONTIGS):
+    """A threaded run's counters: check_consumed, one device task a
+    contig, and one launch of each sweep kernel a dispatch (a solo
+    request, or a fused batch) plus one for the warmup's step on a zero
+    batch. Returns the launches."""
+    check_consumed(c, what)
     launches = {"launches": c["kernel_merge_sweep"], "sweep_cuts": c["kernel_sweep_cuts"]}
     dispatches = (c["service_requests"] - c["service_fusion_fused_requests"]
                   + c["service_fusion_batches"])
-    if c.get("device_tasks", 0) != DENSE_CONTIGS or not (
+    if c.get("device_tasks", 0) != tasks or not (
             launches["launches"] == launches["sweep_cuts"] == dispatches + 1):
         fail(f"{what}: launches {launches}, {dispatches} dispatches, "
              f"{c.get('device_tasks')} device tasks")
@@ -970,6 +1008,231 @@ def time_batched_sweep(tasks, meta, label):
           f"{len(tasks)} single sweeps ({2 * len(tasks)} launches) {singles_ms:.4f} ms",
           flush=True)
     return fused_ms, singles_ms
+
+# -- phase 6 ----------------------------------------------------------------
+
+def check_snfs(paths, what):
+    """Every SNF equal to the first in the sense of
+    sniffles_tpu_torch.io.snf_compare, apart from the config keys of any
+    two runs and SNF_OUTPUT_KEYS. Returns the first's blocks."""
+    from sniffles_tpu_torch.io.snf_compare import RUN_KEYS_THAT_DIFFER, snf_differences
+    named = {**RUN_KEYS_THAT_DIFFER, **SNF_OUTPUT_KEYS}
+    differed = set()
+    for path in paths[1:]:
+        found, differ, blocks = snf_differences(path, paths[0], named)
+        if found:
+            fail(f"{what}: {path} differs from {paths[0]} in " + "; ".join(found))
+        differed |= differ
+    with open(paths[0], "rb") as f:
+        count = json.loads(f.readline())["snf_candidate_count"]
+    print(f"    {what}: {len(paths)} SNFs equal ({len(blocks)} blocks, {count} candidates; "
+          f"config keys that differ, all named: {sorted(differed)})", flush=True)
+    return blocks
+
+
+def records_of(path):
+    """The record lines of a VCF, plain or bgzipped."""
+    import gzip
+    with (gzip.open(path, "rt") if path.endswith(".gz") else open(path)) as f:
+        return [line for line in f if not line.startswith("#")]
+
+
+def run_kept(args, counters_path, what, meta):
+    """The CLI in process on the device path (run_cli), with the kernels'
+    counts at 0 just before and read just after, and every merge-sweep
+    launch kept and held against the plain version (hold_launch). Fails
+    unless each sweep kernel was launched, once a sweep. Returns (wall,
+    counters, the launches by count name, the max |kernel - plain|)."""
+    from sniffles_tpu_torch.ops import clustering as tc
+    sweep, kept = tc.merge_sweep, []
+
+    def keep_every(inputs, state, **params):
+        before = {k: v.cpu() for k, v in state.items()}
+        counts = sweep(inputs, state, **params)
+        kept.append(({k: v.cpu() for k, v in inputs.items()}, before,
+                     {k: v.cpu() for k, v in state.items()}, counts.cpu()))
+        return counts
+
+    tc.reset_counts()
+    tc.merge_sweep = keep_every
+    try:
+        wall, counters = run_cli(args, [], counters_path, what)
+    finally:
+        tc.merge_sweep = sweep
+    launches = dict(tc.COUNTS)
+    if not (launches["launches"] == launches["sweep_cuts"] == len(kept) >= 1):
+        fail(f"{what}: sweep kernel launches {launches}, {len(kept)} sweeps kept")
+    check_consumed(counters, what)
+    err = 0.0
+    for j, (inputs, before, after, counts) in enumerate(kept):
+        err = max(err, hold_launch(inputs, before, after, counts, meta,
+                                   f"{what}, sweep {j} n={inputs['seed_type'].shape[-1]}"))
+    return wall, counters, launches, err
+
+
+def run_ed_held(args, extra, what):
+    """The CLI in process (run_cli), with the edit-distance kernel's counts
+    at 0 just before and read just after, and every launch kept (a host
+    copy of its inputs and output) and then held against the plain
+    version on the card, bit for bit. Fails unless every launch was held.
+    Returns (wall, counters, launches, cells, the max |kernel - plain|)."""
+    from sniffles_tpu_torch.ops import edit_distance_batch as ted
+    wrapper, kept = ted.edit_distance_batch_device, []
+
+    def keep_every(*inputs):
+        out = wrapper(*inputs)
+        if inputs[0].is_cuda:
+            kept.append(([x.cpu() for x in inputs], out.cpu()))
+        return out
+
+    ted.reset_counts()
+    ted.edit_distance_batch_device = keep_every
+    try:
+        wall, counters = run_cli(args, extra, args[args.index("--vcf") + 1] + ".json", what)
+    finally:
+        ted.edit_distance_batch_device = wrapper
+    launches, cells = ted.COUNTS["launches"], ted.COUNTS["cells"]
+    if len(kept) != launches:
+        fail(f"{what}: {launches} edit-distance launches, {len(kept)} kept")
+    err = 0
+    for j, (inputs, out) in enumerate(kept):
+        inputs, out = [x.cuda() for x in inputs], out.cuda()
+        plain = ted.edit_distance_batch_plain(*inputs)
+        err = max(err, int((out - plain).abs().max()) if out.numel() else 0)
+        if not torch.equal(out, plain):
+            fail(f"{what}: edit-distance launch {j} {tuple(inputs[0].shape)} differs from "
+                 f"its plain version (max err {err})")
+        print(f"    {what}: edit-distance launch {j}, a and b {tuple(inputs[0].shape)}, "
+              f"{int((inputs[2].long() * inputs[3].long()).sum())} cells: kernel == plain "
+              f"(bit-exact)", flush=True)
+    return wall, counters, launches, cells, err
+
+
+def run_modes(tmp, meta):
+    """Phase 6 (see the module's docstring). Returns the max |kernel -
+    plain| of the sweeps and that of the edit-distance launches held
+    against the plain version."""
+    from sniffles_tpu_torch.io.tabix import TabixFile
+    from sniffles_tpu_torch.sim import dense_layout, write_dataset
+    t_phase = time.perf_counter()
+    samples = {}
+    for seed in MODES_SEEDS:
+        d = os.path.join(tmp, f"s{seed}")
+        os.makedirs(d)
+        samples[seed] = write_dataset(d, ref_len=MODES_REF_LEN, svs=dense_layout(MODES_REF_LEN),
+                                      depth=MODES_DEPTH, read_len=12_000, seed=seed)
+    print(f"    wrote {len(samples)} samples of {MODES_REF_LEN // 1_000_000} Mb at depth "
+          f"{MODES_DEPTH} in {time.perf_counter() - t_phase:.1f} s", flush=True)
+    err = 0.0
+
+    print("  (a) --snf with --vcf", flush=True)
+    out = {}
+    for seed, (bam, fa) in samples.items():
+        base = os.path.join(tmp, f"s{seed}")
+        args = ["--input", bam, "--reference", fa, "--sample-id", f"S{seed}"]
+        out[seed] = args
+        wall, counters, launches, e = run_kept([*args, "--snf", base + ".snf", "--vcf",
+                                                base + ".vcf"], base + ".json",
+                                               f"--snf sample {seed}", meta)
+        err = max(err, e)
+        print(f"    sample {seed}, device path: {wall:.2f} s, {len(records_of(base + '.vcf'))} "
+              f"records, sweep launches {launches}; every launch == plain (bit-exact)",
+              flush=True)
+    args, base = out[MODES_SEEDS[0]], os.path.join(tmp, f"s{MODES_SEEDS[0]}")
+    host_wall, _ = run_cli([*args, "--snf", base + "_host.snf", "--vcf", base + "_host.vcf"],
+                           ["--no-tpu"], base + "_host.json", "--snf (host path)")
+    child_wall, c, timing = run_child([*args, "--snf", base + "_child.snf", "--vcf",
+                                       base + "_child.vcf"], base + "_child.json",
+                                      "--snf (default --threads)")
+    child_launches, _ = check_threaded_counters(c, "--snf (default --threads)", tasks=1)
+    print(f"    sample {MODES_SEEDS[0]}: host path {host_wall:.2f} s; default --threads in a "
+          f"child {child_wall:.2f} s ({timing}), service and parent "
+          + json.dumps({k: v for k, v in c.items() if k.startswith(("service_", "kernel_"))},
+                       sort_keys=True), flush=True)
+    check_snfs([base + ".snf", base + "_host.snf", base + "_child.snf"],
+               f"sample {MODES_SEEDS[0]}, device, host and child")
+    reference = vcf_parts(base + ".vcf")
+    for suffix in ("_host.vcf", "_child.vcf"):
+        if vcf_parts(base + suffix) != reference:
+            fail(f"--snf: {base + suffix} differs from the device path's VCF")
+    print(f"    sample {MODES_SEEDS[0]}: device, host and child VCFs equal "
+          f"({len(reference[1])} records)", flush=True)
+
+    print("  (b) combine to .vcf.gz with --dev-population-snf, then --combine-population",
+          flush=True)
+    snfs = [os.path.join(tmp, f"s{seed}.snf") for seed in MODES_SEEDS]
+    cohort = os.path.join(tmp, "cohort")
+    ed_err = 0
+    for label, extra in (("device", []), ("host", ["--no-tpu"])):
+        wall, counters, launches, cells, e = run_ed_held(
+            ["--input", *snfs, "--vcf", f"{cohort}_{label}.vcf.gz", "--dev-population-snf",
+             f"{cohort}_{label}_pop.snf"], extra, f"combine ({label} path)")
+        ed_err = max(ed_err, e)
+        print(f"    {label} path {wall:.2f} s; ED kernel launches {launches}, cells {cells}; "
+              f"greedy dispatches {counters.get('combine_greedy_dispatches', 0)}", flush=True)
+    records = records_of(f"{cohort}_device.vcf.gz")
+    if records_of(f"{cohort}_host.vcf.gz") != records or len(records) < 100:
+        fail(f"combine: device and host .vcf.gz differ, or only {len(records)} records")
+    reader = TabixFile(f"{cohort}_device.vcf.gz")
+    fetched = [line + "\n" for contig in reader.contigs
+               for line in reader.fetch(contig, 0, 2 ** 29)]
+    if fetched != records:
+        fail("combine: the records fetched through the .tbi index differ from the file's")
+    print(f"    device .vcf.gz == host .vcf.gz ({len(records)} records), each contig's "
+          f"records back from the index", flush=True)
+    check_snfs([f"{cohort}_device_pop.snf", f"{cohort}_host_pop.snf"],
+               "population SNFs, device and host")
+    for label, extra in (("device", []), ("host", ["--no-tpu"])):
+        wall, counters, launches, cells, e = run_ed_held(
+            ["--input", *snfs, "--vcf", f"{cohort}_{label}_af.vcf", "--combine-population",
+             f"{cohort}_device_pop.snf"], extra, f"--combine-population ({label} path)")
+        ed_err = max(ed_err, e)
+        print(f"    --combine-population, {label} path {wall:.2f} s; ED kernel launches "
+              f"{launches}, cells {cells}; greedy dispatches "
+              f"{counters.get('combine_greedy_dispatches', 0)}", flush=True)
+    annotated = records_of(f"{cohort}_device_af.vcf")
+    if records_of(f"{cohort}_host_af.vcf") != annotated or annotated != [
+            line for line in annotated if "POPULATION_AF=" in line] or not annotated:
+        fail("--combine-population: device and host records differ, or a record has no "
+             "POPULATION_AF")
+    print(f"    annotated device == host ({len(annotated)} records, POPULATION_AF on each)",
+          flush=True)
+
+    print("  (c) --genotype-vcf, plain and gzipped targets", flush=True)
+    import gzip
+    target = os.path.join(tmp, f"s{MODES_SEEDS[1]}.vcf")
+    with open(target, "rb") as f, open(target + ".gz", "wb") as g:
+        g.write(gzip.compress(f.read()))
+    genotyped = {}
+    for kind, path in (("plain", target), ("gz", target + ".gz")):
+        gbase = os.path.join(tmp, f"g_{kind}")
+        gargs = [*args, "--genotype-vcf", path]
+        wall, counters, launches, e = run_kept([*gargs, "--vcf", gbase + ".vcf"],
+                                               gbase + ".json", f"--genotype-vcf {kind}", meta)
+        err = max(err, e)
+        host_wall, _ = run_cli([*gargs, "--vcf", gbase + "_host.vcf"], ["--no-tpu"],
+                               gbase + "_host.json", f"--genotype-vcf {kind} (host path)")
+        child_wall, c, timing = run_child([*gargs, "--vcf", gbase + "_child.vcf"],
+                                          gbase + "_child.json",
+                                          f"--genotype-vcf {kind} (default --threads)")
+        launched, dispatches = check_threaded_counters(
+            c, f"--genotype-vcf {kind} (default --threads)", tasks=1)
+        print(f"    {kind}: device path {wall:.2f} s (sweep launches {launches}, each == "
+              f"plain), host path {host_wall:.2f} s, child {child_wall:.2f} s ({timing}); "
+              f"child's parent: {launched} for {dispatches} dispatch(es) and the warmup, "
+              f"service " + json.dumps({k: v for k, v in c.items()
+                                        if k.startswith("service_")}, sort_keys=True),
+              flush=True)
+        for suffix in ("", "_host", "_child"):
+            genotyped[f"{kind}{suffix}"] = records_of(gbase + suffix + ".vcf")
+    reference = genotyped["plain"]
+    hom = sum(1 for line in reference if line.rstrip("\n").split("\t")[9].startswith("1/1"))
+    if any(v != reference for v in genotyped.values()) or len(reference) != len(
+            records_of(target)):
+        fail("--genotype-vcf: the records differ between runs, or not every target came back")
+    print(f"    every genotyped VCF equal ({len(reference)} targets, {hom} of them 1/1); "
+          f"phase 6 took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return err, ed_err
 
 
 def sync_sites(fn):
@@ -1136,6 +1399,14 @@ def main() -> int:
               "k=4 fuzz seeds 1, 2, dense tasks 0, 1": [*fuzz32, *dense32]}
     for label, tasks in stacks.items():
         sweep_err = max(sweep_err, check_batched_sweep(tasks, meta, label))
+
+    print(f"[6] the other run modes: --snf, .vcf.gz, population SNF and --genotype-vcf on "
+          f"{len(MODES_SEEDS)} samples of {MODES_REF_LEN // 1_000_000} Mb at depth "
+          f"{MODES_DEPTH}", flush=True)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_modes_") as tmp:
+        err, ed_err = run_modes(tmp, meta)
+    sweep_err = max(sweep_err, err)
+    max_err = max(max_err, ed_err)
 
     print("[5] kernel timings on the main paths' largest launches", flush=True)
     timing = time_ed_kernel([x.cuda() for x in largest])

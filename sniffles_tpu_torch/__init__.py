@@ -1,7 +1,9 @@
 """
-sniffles-tpu, PyTorch/CUDA port on an NVIDIA Hopper card: the
-single-sample call mode (call_sample, .bam -> VCF) and the multi-sample
-combine mode (.snf inputs -> multi-sample VCF).
+sniffles-tpu, PyTorch/CUDA port on an NVIDIA Hopper card: the four run
+modes of the JAX package, single-sample calling (call_sample, .bam -> VCF
+and .snf), force calling (genotype_vcf, .bam and a VCF of targets ->
+VCF), the multi-sample combine (.snf inputs -> multi-sample VCF, plain or
+.vcf.gz) and its population SNF.
 
 The JAX package `sniffles_tpu` beside this one is the reference; this
 package keeps its module names, CLI flags and SNF/VCF formats, so that a

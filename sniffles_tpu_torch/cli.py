@@ -3,11 +3,13 @@ input validation, output opening, task planning, execution (the worker
 pool for --threads N, inline for --threads 0), and ordered result
 emission (reference: src/sniffles/sniffles:64-650).
 
-Copied from sniffles_tpu/cli.py: the call_sample mode (one .bam ->
-VCF) and the combine mode (.snf inputs -> multi-sample VCF). Force
-calling (--genotype-vcf), .cram input, --snf output and the other
-options this package has not ported stop with an error that says so.
-The device path (on unless --no-tpu) runs on the card, or on the CPU
+Copied from sniffles_tpu/cli.py: the four run modes, call_sample (one
+.bam -> VCF and/or .snf), genotype_vcf (force calling against a
+--genotype-vcf), combine (.snf inputs -> multi-sample VCF) and its
+population SNF (--dev-population-snf, --combine-population), with .vcf.gz
+output. .cram input and the other options this package has not ported
+stop with an error that says so; so does --combine-consensus, which
+crashes in the JAX package (ROADMAP C1). The device path (on unless --no-tpu) runs on the card, or on the CPU
 when SNIFFLES_TPU_FORCE_CPU=1 asks for it (config.torch_device). With
 --threads N (4 by default) the workers reach it through the device
 service the parent owns (parallel/device_service.py), whose context is
@@ -56,10 +58,8 @@ def _detect_mode(config: SnifflesConfig) -> list[str]:
             util.fatal_error_main("Please specify max 1 .bam/.cram file as input")
         if "cram" in distinct:
             _not_ported(".cram input")
-        if config.genotype_vcf is not None:
-            _not_ported("The genotype_vcf mode (--genotype-vcf)")
         config.input = config.input[0]
-        config.mode = "call_sample"
+        config.mode = "genotype_vcf" if config.genotype_vcf is not None else "call_sample"
         config.input_mode = "rb"
     elif distinct & {"snf", "tsv"}:
         config.mode = "combine"
@@ -72,23 +72,23 @@ def _detect_mode(config: SnifflesConfig) -> list[str]:
         util.fatal_error_main(f"--snf cannot be used with run mode {config.mode}")
     if config.vcf is None and config.snf is None:
         util.fatal_error_main("Please specify at least one of: --vcf or --snf for output")
-    if config.snf is not None:
-        _not_ported("--snf output from call_sample")
 
     if config.mode == "call_sample":
         config.sample_ids_vcf = [(0, config.sample_id or "SAMPLE")]
-    else:
+    elif config.mode == "combine":
         config.sample_id = None
-        config.sample_ids_vcf = [(0, "CONSENSUS")] if config.combine_consensus else []
+        config.sample_ids_vcf = []
     return exts
 
 
 def _refuse_unported(config: SnifflesConfig) -> None:
-    """Options that this package has not ported."""
-    if config.vcf_output_bgz:
-        _not_ported(".vcf.gz (bgzip + tabix) output")
-    if config.combine_population or config.dev_population_snf:
-        _not_ported("Population SNF input/output")
+    """Options that this package has not ported, and --combine-consensus,
+    whose genotype merge unpacks combine's 7-field genotypes into 5
+    names and raises in the JAX package as in this one."""
+    if config.mode == "combine" and config.combine_consensus:
+        util.fatal_error_main("--combine-consensus is not supported by sniffles_tpu_torch: "
+                              "its genotype merge fails on combine's genotypes (the "
+                              "sniffles_tpu package exits with a ValueError there too)")
     if int(config.tpu_mesh or 0) > 1:
         _not_ported("--tpu-mesh")
     if config.dev_locasm_do:
@@ -114,6 +114,29 @@ def _open_alignments(config: SnifflesConfig):
     return bam_in
 
 
+def _load_genotype_targets(config: SnifflesConfig):
+    """Parse the --genotype-vcf input for force calling
+    (reference: sniffles:191-214)."""
+    from sniffles_tpu_torch.io import vcf as vcfmod
+    ext = os.path.splitext(config.genotype_vcf)[1].lower()
+    if ext == ".gz":
+        import gzip
+        handle = gzip.open(config.genotype_vcf, "rt")
+    elif ext == ".vcf":
+        handle = open(config.genotype_vcf, "r")
+    else:
+        util.fatal_error_main("Expected a .vcf or .vcf.gz file for --genotype-vcf")
+    vcf_in = vcfmod.VCF(config, handle)
+
+    lineindex_order = []
+    by_contig = {}
+    for svc in vcf_in.read_svs_iter():
+        lineindex_order.append(svc.raw_vcf_line_index)
+        by_contig.setdefault(svc.contig, []).append(svc)
+    log.info(f"Read {len(lineindex_order)} SVs to be genotyped")
+    return vcf_in, lineindex_order, by_contig
+
+
 # --------------------------------------------------------------------------
 # Stage 2: outputs
 
@@ -132,19 +155,37 @@ def _open_vcf_out(config: SnifflesConfig):
         util.fatal_error_main(f"Directory {parent_dir} does not exist.")
 
     vcf_out = vcfmod.VCF(config, open(config.uncompressed_vcf_name, "w"))
-    vcf_out.open_reference()
+    if config.mode in ("call_sample", "combine"):
+        vcf_out.open_reference()
     log.info(f"Opening for writing: {config.vcf}")
     return vcf_out
+
+
+def _open_snf_out(config: SnifflesConfig):
+    from sniffles_tpu_torch.io import snf as snfmod
+    _guard_overwrite(config.snf, config)
+    return snfmod.SNFile(config, open(config.snf, "wb"))
+
+
+def _open_psnf_out(config: SnifflesConfig):
+    name = config.dev_population_snf
+    if os.path.exists(name) and not config.allow_overwrite:
+        util.fatal_error_main(f'Population SNF {name} already exists!')
+    from sniffles_tpu_torch.io.snfp import PopulationSNF
+    return PopulationSNF(config, open(name, 'wb'))
 
 
 # --------------------------------------------------------------------------
 # Stage 3: task planning
 
 
-def _plan_interval_tasks(config, bam_in, tandem_repeats):
+def _plan_interval_tasks(config, bam_in, tandem_repeats, genotype_contig_svs):
     """Split each kept contig into read-count-balanced interval tasks
-    (reference: sniffles:289-358).  Returns (tasks, contig_lengths)."""
+    (reference: sniffles:289-358).  Returns (tasks, contigs,
+    contig_lengths)."""
     from sniffles_tpu_torch.pipeline import tasks as taskmod
+    task_class = (taskmod.GenotypeTask if config.mode == "genotype_vcf"
+                  else taskmod.CallTask)
 
     total_mapped = bam_in.mapped
     single_task_per_contig = ((config.threads == 1 and not config.low_memory)
@@ -160,6 +201,7 @@ def _plan_interval_tasks(config, bam_in, tandem_repeats):
         else 10 ** math.ceil(math.log(total_mapped) + 1))
 
     tasks = deque()
+    contigs = []
     contig_lengths = []
     task_id = 0
     tr_annotated = 0
@@ -169,31 +211,36 @@ def _plan_interval_tasks(config, bam_in, tandem_repeats):
         if not util.should_process_contig(contig, length, config):
             continue
 
+        contigs.append(contig)
         contig_lengths.append((contig, length))
         tr_annotated += contig in tandem_repeats
 
         pieces = 1 if task_max_reads == 0 else max(
             1, math.ceil(stat.mapped / float(task_max_reads)))
         step = math.floor(length / float(pieces))
+        targets = genotype_contig_svs.get(contig, []) if genotype_contig_svs is not None else None
 
         lo = 0
         while lo < length - 1:
             hi = min(length - 1, lo + step)
-            tasks.append(taskmod.CallTask(
+            window_svs = ([t for t in targets if lo <= t.pos < hi]
+                          if targets is not None else None)
+            tasks.append(task_class(
                 id=task_id, contig=contig, start=lo, end=hi,
                 assigned_process_id=None,
                 tandem_repeats=tandem_repeats.get(contig),
-                sv_id=0, config=config,
+                genotype_svs=window_svs, sv_id=0, config=config,
                 regions=config.regions_by_contig.get(contig)))
             lo += step
             task_id += 1
 
+    config.contig_lengths = contig_lengths
     if config.tandem_repeats is not None and tr_annotated < len(contig_lengths):
         if tr_annotated == 0:
             util.fatal_error_main(
                 "A tandem repeat annotations file was provided, but no matching annotations "
                 "were found for any contig in the sample input file.")
-    return tasks, contig_lengths
+    return tasks, contigs, contig_lengths
 
 
 def _resolve_snf_inputs(config, exts) -> list[tuple[str, Optional[str]]]:
@@ -247,9 +294,8 @@ def _plan_combine_tasks(config, exts, start_task_id):
         snf_in.close()
         log.info(f"    {filename} (sample ID in output VCF='{sample_id}')")
 
-    if not config.combine_consensus:
-        config.sample_ids_vcf.extend(
-            (info["internal_id"], info["sample_id"]) for info in config.snf_input_info)
+    config.sample_ids_vcf.extend(
+        (info["internal_id"], info["sample_id"]) for info in config.snf_input_info)
 
     if wanted := (config.contig or config.regions_by_contig):
         contig_lengths = [(name, length) for name, length in contig_lengths
@@ -259,6 +305,12 @@ def _plan_combine_tasks(config, exts, start_task_id):
     if len(inputs) > config.combine_max_inmemory_results:
         from sniffles_tpu_torch.pipeline.result import CombineResultTmpFile
         result_class = CombineResultTmpFile
+        if config.sort and config.vcf_output_bgz:
+            config.vcf = config.uncompressed_vcf_name
+            config.no_sort = True
+    if config.dev_population_snf:
+        from sniffles_tpu_torch.pipeline.result import CombineResultTmpFilePopulationSNF
+        result_class = CombineResultTmpFilePopulationSNF
 
     tasks = deque()
     task_id = start_task_id
@@ -277,6 +329,12 @@ def _plan_combine_tasks(config, exts, start_task_id):
 # Stage 4: execution + emission
 
 
+def _uses_device(config) -> bool:
+    """Whether this run takes the device path: the call path's flag for
+    the two modes that call from a BAM, combine's for combine."""
+    return config.tpu_call if config.mode in ("call_sample", "genotype_vcf") else config.tpu_combine
+
+
 def _cuda_initialized() -> bool:
     torch = sys.modules.get("torch")
     return bool(torch is not None and torch.cuda.is_initialized())
@@ -291,7 +349,7 @@ def _run_pool(config, tasks, processes, monitor):
     from sniffles_tpu_torch.ops import clustering, edit_distance_batch
     from sniffles_tpu_torch.pipeline import runtime
     device_server = None
-    use_device = config.tpu_call if config.mode == "call_sample" else config.tpu_combine
+    use_device = _uses_device(config)
     if config.threads:
         if use_device:
             from sniffles_tpu_torch.parallel.device_service import DeviceServer
@@ -411,25 +469,43 @@ def main_with_config(config: SnifflesConfig, processes: list) -> int:
     _refuse_unported(config)
     log.info(f"Running {config.version}, build {config.build}")
     log.info(f"  Run Mode: {config.mode}")
-    use_device = config.tpu_call if config.mode == "call_sample" else config.tpu_combine
-    if use_device:
+    if _uses_device(config):
         config.device = torch_device()
         log.info(f"  Device: {config.device}")
 
+    rkwargs = {}
     bam_in = None
+    vcf_in = None
     tandem_repeats = {}
-    if config.mode == "call_sample":
+    genotype_contig_svs = None
+    if config.mode in ("call_sample", "genotype_vcf"):
         bam_in = _open_alignments(config)
         if config.tandem_repeats is not None:
             tandem_repeats = util.load_tandem_repeats(
                 config.tandem_repeats, config.tandem_repeat_region_pad)
 
-    vcf_out = _open_vcf_out(config)
+    if config.mode == "genotype_vcf":
+        vcf_in, lineindex_order, genotype_contig_svs = _load_genotype_targets(config)
+        rkwargs['genotype_lineindex_order'] = lineindex_order
+
+    vcf_out = _open_vcf_out(config) if config.vcf is not None else None
+    snf_out = _open_snf_out(config) if config.snf is not None else None
+    psnf_out = None
+    if config.dev_population_snf:
+        psnf_out = _open_psnf_out(config)
+        rkwargs['psnf_out'] = psnf_out
+
+    contigs = []
     if config.mode == "combine":
         tasks, contig_lengths = _plan_combine_tasks(config, exts, start_task_id=0)
     else:
-        tasks, contig_lengths = _plan_interval_tasks(config, bam_in, tandem_repeats)
-    vcf_out.write_header(contig_lengths)
+        tasks, contigs, contig_lengths = _plan_interval_tasks(
+            config, bam_in, tandem_repeats, genotype_contig_svs)
+
+    if config.mode == "genotype_vcf" and vcf_out is not None:
+        vcf_out.rewrite_header_genotype(vcf_in.header_str)
+    elif vcf_out is not None:
+        vcf_out.write_header(contig_lengths)
 
     monitor = ResourceMonitor(config)
     try:
@@ -438,13 +514,28 @@ def main_with_config(config: SnifflesConfig, processes: list) -> int:
         monitor.stop()
 
     for t in finished_tasks:
-        t.result.emit(vcf_out=vcf_out)
+        t.result.emit(vcf_out=vcf_out, snf_out=snf_out, **rkwargs)
 
     if config.dev_output_candidates and config.mode == "call_sample":
         _merge_candidate_csvs(config, finished_tasks)
 
-    vcf_out.close()
-    log.info(f"Wrote {vcf_out.call_count} called SVs to {config.vcf}")
+    if snf_out:
+        stored = snf_out.write_results(config, contigs)
+        snf_out.close()
+        log.info(f"Wrote {stored} SV candidates to {config.snf}")
+
+    if psnf_out:
+        stored = psnf_out.write_results(config, contigs)
+        psnf_out.close()
+        log.info(f'Wrote {stored} SVs to population SNF.')
+
+    if vcf_out is not None:
+        vcf_out.close()
+        if config.vcf_output_bgz:
+            from sniffles_tpu_torch.io.tabix import tabix_compress_and_index
+            tabix_compress_and_index(config.uncompressed_vcf_name, config.vcf)
+        if config.mode in ("call_sample", "combine"):
+            log.info(f"Wrote {vcf_out.call_count} called SVs to {config.vcf}")
     # A task that failed in a worker (a device error included) ends as an
     # ErrorResult; the reference only logs it, and so does the JAX
     # package's runtime, but the run must not look like a success.

@@ -17,10 +17,13 @@ import sys
 import tempfile
 from collections import defaultdict
 from functools import cached_property
-from typing import Optional, Union, Literal
+from typing import Optional, Union, Literal, TYPE_CHECKING
 
 from sniffles_tpu_torch import util, VERSION, BUILD, SNF_VERSION
 from sniffles_tpu_torch.region import Region
+
+if TYPE_CHECKING:
+    from sniffles_tpu_torch.io.snfp import PopulationSNF
 
 
 # --------------------------------------------------------------------------
@@ -321,7 +324,7 @@ class SnifflesConfig(argparse.Namespace):
     contig: Optional[str]
     input_mode: Literal['rb', 'rc']
     minsupport: Union[str, int]
-    combine_population: Optional[str]
+    combine_population: Union[str, 'PopulationSNF']
     dev_trace_read: bool | str | list
 
     @property

@@ -14,9 +14,12 @@ import gzip
 import io
 import json
 import logging
+import os
 import pickle
 from functools import cached_property
 from typing import Optional
+
+import numpy as np
 
 from sniffles_tpu_torch import svcall as sv
 from sniffles_tpu_torch.config import SnifflesConfig
@@ -59,7 +62,7 @@ def _empty_block() -> dict:
     return block
 
 
-class SNFile:
+class SNFileBase:
     """One SNF file bound to a handle, for writing (store/write_and_index),
     assembling (write_results) or random-access reading (read_blocks)
     (reference: snf.py:29-245)."""
@@ -72,6 +75,12 @@ class SNFile:
         self.blocks = {}
         self.total_length = 0
         self._header, self._index, self._results = None, {}, []
+
+    @classmethod
+    def open(cls, filename: str) -> 'SNFileBase':
+        snf = cls(SnifflesConfig.GLOBAL, open(filename, 'rb'), filename)
+        snf.read_header()
+        return snf
 
     # -- handle lifecycle --------------------------------------------------
 
@@ -189,6 +198,31 @@ class SNFile:
     def get_total_length(self):
         return self.total_length
 
+    def get_all_blocks(self, contig: str) -> dict:
+        if contig not in self.index:
+            return {}
+        return {start: self.read_blocks(contig, start)[0]
+                for start in self.index[contig]}
+
+    def get_full_coverage(self, contig: str):
+        coverage = {}
+        for block in self.get_all_blocks(contig).values():
+            coverage.update(block['_COVERAGE'])
+        return coverage
+
+    # -- final assembly from per-task temp SNFs ----------------------------
+
+    def add_result(self, result):
+        if result.has_snf:
+            self._results.append(result)
+
+    def _calculate_contig_coverages(self, contigs: list[str]) -> dict[str, float]:
+        per_contig: dict[str, list[float]] = {c: [] for c in contigs}
+        for r in self._results:
+            per_contig[r.contig].append(r.coverage_average_total)
+        return {contig: (sum(vals) / len(vals) if vals else 0)
+                for contig, vals in per_contig.items()}
+
     def _create_header(self, config: SnifflesConfig, main_index: dict, snf_candidate_count: int) -> dict:
         return {"config": config.__dict__, "index": main_index,
                 "snf_candidate_count": snf_candidate_count}
@@ -201,3 +235,56 @@ class SNFile:
         header = self._create_header(config, main_index, snf_candidate_count)
         self.handle.write(
             (json.dumps(header, default=lambda obj: "<Unstored_Object>") + "\n").encode())
+
+    def write_results(self, config: SnifflesConfig, contigs: list[str]) -> int:
+        """Concatenate the per-task temp SNFs in task order, rebasing each
+        part's block offsets by the bytes written before it
+        (reference: snf.py:194-224)."""
+        parts = sorted(self._results, key=lambda r: r.task_id)
+        candidate_count = sum(r.snf_candidate_count for r in self._results)
+
+        merged_index: dict = {}
+        rebase = 0
+        for part in parts:
+            contig_index = merged_index.setdefault(part.contig, {})
+            for block, (start, length) in part.snf_index.items():
+                contig_index.setdefault(block, []).append((start + rebase, length))
+            rebase += part.snf_total_length
+
+        config.contig_coverages = self._calculate_contig_coverages(contigs)
+        self.write_header(config, merged_index, candidate_count)
+
+        for part in parts:
+            with open(part.snf_filename, "rb") as part_handle:
+                self.handle.write(part_handle.read())
+            os.remove(part.snf_filename)
+
+        return candidate_count
+
+
+class SNFile(SNFileBase):
+    def annotate_block_coverages(self, lead_provider):
+        """Add downsampled (500bp-mean) coverage to all stored blocks
+        (reference: snf.py:249-267)."""
+        window = self.config.coverage_binsize_combine
+        block_size = self.config.snf_block_size
+        samples_per_block = block_size // window
+
+        # The reference (snf.py:258) pads and downsamples the FULL contig
+        # coverage array per task, to then read back only the blocks that
+        # hold candidates. Blocks are exact multiples of the coverage bin
+        # (10^5 / 500), so windows never straddle blocks and per-block
+        # slices are numerically identical.
+        assert block_size % window == 0
+        track = lead_provider.coverage
+        for base in self.blocks:
+            chunk = track[base:base + block_size]
+            if len(chunk) == 0:
+                continue
+            tail = -len(chunk) % window
+            if tail:
+                chunk = np.pad(chunk, (0, tail), mode='constant')
+            means = chunk.reshape(-1, window).mean(axis=1)
+            depth_map = self.blocks[base]['_COVERAGE']
+            for i in range(min(samples_per_block, len(means))):
+                depth_map[base + i * window] = round(means[i])

@@ -1,4 +1,4 @@
-"""VCF 4.2 serialization.
+"""VCF 4.2 serialization and force-calling parser.
 
 The writer is organized as a declarative header vocabulary (tables below)
 plus a staged record emitter: genotype columns -> INFO assembly -> allele
@@ -6,8 +6,7 @@ materialization (DEL sequence resolution, anchor-base prefixing, IUPAC
 cleanup) -> line write.  Byte-level output matches the reference writer
 (reference: vcf.py:25-481).  Reference FASTA access goes through the
 built-in io/fasta.py rather than pysam.  Copied from
-sniffles_tpu/io/vcf.py; the force-calling reader and re-writer belong to
-the genotype_vcf mode, which is not ported yet.
+sniffles_tpu/io/vcf.py.
 """
 from __future__ import annotations
 
@@ -15,6 +14,7 @@ import logging
 import os
 
 from sniffles_tpu_torch import svcall as sv
+from sniffles_tpu_torch import util
 from sniffles_tpu_torch.util import ambiguity_cleanup_table
 
 log = logging.getLogger(__name__)
@@ -105,6 +105,14 @@ _INFO_FIELDS = (
     ("POPULATION_SIZE", "1", "Integer", "Size of genotyped population for this variant", "combine_population"),
 )
 
+_GT_REPAIR_LINES = {
+    "GT": '##FORMAT=<ID=GT,Number=1,Type=String,Description="Genotype">',
+    "GQ": '##FORMAT=<ID=GQ,Number=1,Type=Integer,Description="Genotype quality">',
+    "DR": '##FORMAT=<ID=DR,Number=1,Type=Integer,Description="Number of reference reads">',
+    "DV": '##FORMAT=<ID=DV,Number=1,Type=Integer,Description="Number of variant reads">',
+}
+
+
 def format_info(k, v):
     """One INFO token: floats to 3 decimals, lists comma-joined, true flags
     bare, None as '.' (reference: vcf.py:25-35)."""
@@ -153,7 +161,7 @@ def format_genotype(gt, is_phased):
 
 
 class VCF:
-    """VCF writer bound to one output handle
+    """VCF writer/reader bound to one output or input handle
     (reference: vcf.py:82-481)."""
 
     def __init__(self, config, handle):
@@ -161,6 +169,7 @@ class VCF:
         self.handle = handle
         self.call_count = 0
         self.reference_handle = None
+        self.header_str = ""
 
         # Per-record INFO emission order; gated fields mirror the header gates.
         order = ["SVTYPE", "SVLEN", "END", "SUPPORT", "RNAMES", "COVERAGE", "STRAND"]
@@ -379,6 +388,100 @@ class VCF:
         self.write_raw("\t".join(str(f) for f in fields))
         self.call_count += 1
         return 1
+
+    # -- force-calling reader ---------------------------------------------
+
+    def _record_from_line(self, line_strip, line_index):
+        """Parse one data line into an SVCall skeleton for re-genotyping
+        (reference: vcf.py:360-426)."""
+        chrom, pos1, _, ref, alt, qual, flt, info_text = line_strip.split("\t")[:8]
+        info = {}
+        for token in info_text.split(";"):
+            # Strict two-way split: malformed KEY=a=b tokens must error out
+            # through the fatal-error path exactly as the reference does.
+            if "=" in token:
+                key, value = token.split("=")
+            else:
+                key, value = token, True
+            info[key] = value
+
+        call = sv.SVCall(contig=chrom, pos=int(pos1) - 1, id=line_index, ref=ref, alt=alt,
+                         qual=int(qual) if qual != '.' else None, filter=flt, info=info,
+                         svtype=None, svlen=None, end=None, rnames=None, qc=True,
+                         postprocess=None, genotypes=None, precise=None, support=0,
+                         fwd=0, rev=0, nm=-1)
+
+        # Allele-length fallback classification, overridden by INFO keys.
+        if len(alt) > len(ref):
+            call.svtype, call.svlen, call.end = "INS", len(alt), call.pos
+        else:
+            call.svtype, call.svlen = "DEL", -len(ref)
+            call.end = call.pos + call.svlen
+
+        if "SVTYPE" in info:
+            call.svtype = "BND" if info["SVTYPE"] == "TRA" else info["SVTYPE"]
+        if "SVLEN" in info:
+            call.svlen = int(info["SVLEN"])
+        if "END" in info:
+            call.end = int(info["END"])
+
+        if call.svtype == "BND":
+            sides = alt.replace("]", "[").split("[")
+            if len(sides) <= 2:
+                raise ValueError("BND ALT not formatted according to VCF 4.2 specifications")
+            mate_contig, mate_pos = sides[1].split(":")
+            call.bnd_info = sv.SVCallBNDInfo(mate_contig=mate_contig,
+                                             mate_ref_start=int(mate_pos),
+                                             is_first=alt[0] == "N",
+                                             is_reverse="]" in alt)
+
+        call.raw_vcf_line = line_strip
+        call.raw_vcf_line_index = line_index
+        return call
+
+    def read_svs_iter(self):
+        self.header_str = ""
+        for line_index, line in enumerate(self.handle, start=1):
+            try:
+                text = line.decode("utf-8") if isinstance(line, bytes) else line
+                text = text.strip()
+                if not text or text.startswith("#"):
+                    if text:
+                        self.header_str += text + "\n"
+                    continue
+                yield self._record_from_line(text, line_index)
+            except Exception as e:
+                util.fatal_error(f"Error parsing input VCF: Line {line_index}: {e}")
+
+    # -- force-calling writer ---------------------------------------------
+
+    def rewrite_genotype(self, svcall):
+        """Re-emit an input record with freshly computed genotype columns
+        (reference: vcf.py:430-447)."""
+        matched = svcall.genotype_match_sv
+        if matched is not None and len(matched.genotypes) > 0:
+            gt = matched.genotypes[0]
+        else:
+            gt = svcall.genotypes[0]
+        head = svcall.raw_vcf_line.split("\t")[:8]
+        self.write_raw("\t".join(head + [self.config.genotype_format,
+                                         format_genotype(gt, self.config.phase)]))
+
+    def rewrite_header_genotype(self, orig_header):
+        """Pass through the input header, stamping provenance lines and
+        repairing missing genotype FORMAT declarations
+        (reference: vcf.py:449-478)."""
+        lines = orig_header.split("\n")
+        cfg = self.config
+        lines[1:1] = [f"##genotypeSource={cfg.version}_{cfg.build}",
+                      f'##genotypeCommand="{cfg.command}"',
+                      f'##genotypeFileDate="{cfg.start_date}"']
+        present = {tag for tag in _GT_REPAIR_LINES
+                   if any(f"##FORMAT=<ID={tag}," in hl for hl in lines)}
+        for tag, repair in _GT_REPAIR_LINES.items():
+            if tag not in present:
+                lines.insert(len(lines) - 2, repair)
+        self.write_raw("\n".join(lines), endl="")
 
     def close(self):
         self.handle.close()

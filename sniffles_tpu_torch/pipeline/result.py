@@ -1,9 +1,6 @@
 """Result transport: task results, each knowing how to emit itself into
-the output VCF (reference: result.py:23-299). Copied from
-sniffles_tpu/pipeline/result.py: the call and combine results and the
-worker's failure marker (ErrorResult); the force-calling and
-population-SNF results and the call path's temp-SNF parts are not ported
-yet.
+the output VCF/SNF (reference: result.py:23-299). Copied from
+sniffles_tpu/pipeline/result.py.
 """
 from __future__ import annotations
 
@@ -41,14 +38,19 @@ class Result:
 
 
 class CallResult(Result):
-    """call_sample result: calls + optional candidate CSV
-    (reference: result.py:68-110)."""
+    """call_sample result: calls + optional per-task temp-SNF metadata and
+    candidate CSV (reference: result.py:68-110)."""
 
     coverage_average_total: float
     candidate_filename = None
     # per-task device engine-stat consumption split, set by
     # CallTask.execute; None on host-path runs
     engine_counters: dict = None
+
+    # temp-SNF part metadata (set by CallTask when --snf is active)
+    has_snf = False
+    snf_filename = snf_index = None
+    snf_total_length = snf_candidate_count = None
 
     @staticmethod
     def _write_csv_rows(handle, candidates, attr):
@@ -71,6 +73,25 @@ class CallResult(Result):
         with open(self.candidate_filename, "w") as f:
             self._write_csv_rows(f, candidates, 'csv_line')
             self._write_csv_rows(f, candidates, 'csv_line_single')
+
+    def emit(self, **kwargs) -> int:
+        written = super().emit(**kwargs)
+        if snf_out := kwargs.get('snf_out'):
+            snf_out.add_result(self)
+        return written
+
+
+class GenotypeResult(Result):
+    """Force-calling result: re-emits the input VCF's lines in input order
+    with refreshed genotype columns (reference: result.py:113-130)."""
+
+    def emit(self, vcf_out=None, snf_out=None, **kwargs) -> int:
+        if vcf_out is not None:
+            by_line = {call.raw_vcf_line_index: call for call in self.svcalls}
+            for lineindex in kwargs['genotype_lineindex_order']:
+                if lineindex in by_line:
+                    vcf_out.rewrite_genotype(by_line[lineindex])
+        return len(self.svcalls)
 
 
 class CombineResult(Result):
@@ -166,6 +187,42 @@ class CombineResultTmpFile(CombineResult):
             os.unlink(self.tmpfile_name)
         except FileNotFoundError:
             ...
+
+
+class CombineResultTmpFilePopulationSNF(CombineResultTmpFile):
+    """Tmp-file combine result that additionally builds a per-task
+    population-SNF part (reference: result.py:245-285)."""
+
+    has_snf = True
+    snf_candidate_count: int = 0
+    snf_index: dict
+    snf_total_length: int
+    svcalls: list = None
+
+    @property
+    def snf_filename(self) -> str:
+        return os.path.join(SnifflesConfig.GLOBAL.tmp_dir,
+                            f'result-{self.run_id}-{self.task_id:04}.part.snf')
+
+    def store_calls(self, svcalls: list[SVCall]) -> None:
+        super().store_calls(svcalls)
+        self.svcalls = (self.svcalls or []) + list(svcalls)
+
+    def finalize(self):
+        from sniffles_tpu_torch.io.snfp import PopulationSNF
+        with open(self.snf_filename, 'wb') as handle:
+            psnf = PopulationSNF(SnifflesConfig.GLOBAL, handle)
+            stored = sum(1 for call in self.svcalls if psnf.store(call))
+            psnf.write_and_index()
+        self.snf_index = psnf.get_index()
+        self.snf_total_length = psnf.get_total_length()
+        self.snf_candidate_count = stored
+
+    def emit(self, vcf_out=None, **kwargs) -> int:
+        written = super().emit(vcf_out=vcf_out, **kwargs)
+        if psnf_out := kwargs.get('psnf_out'):
+            psnf_out.add_result(self)
+        return written
 
 
 class ErrorResult:

@@ -41,6 +41,17 @@ if TYPE_CHECKING:
 log = logging.getLogger(__name__)
 
 
+def _checked(result, task):
+    """A task's result, or an ErrorResult for a task that returned none
+    (GenotypeTask's bailout on a target without depth values). The JAX
+    package's worker sends nothing for such a task, which leaves the
+    parent waiting for it, and its inline run fails at emission; here the
+    task fails and the run exits 1."""
+    if result is None:
+        return ErrorResult(f"{task} returned no result")
+    return result
+
+
 def _device_live() -> bool:
     """Whether this process has touched a torch device: the device
     service ran, or torch holds a CUDA context."""
@@ -129,6 +140,12 @@ class SnifflesWorker:
         log.info(f'Recycling worker {self.id}')
         self.send_main(ShutdownTask())
         self.process.join(2)
+        # The old process may outlive the join (a loaded machine); its
+        # receiver thread still reads its pipe, so the new process gets
+        # pipes of its own and no later task can reach the old one.
+        with self._send_lock:
+            self.pipe_main, self.pipe_worker = multiprocessing.Pipe()
+        self.heartbeat_main, self.heartbeat_worker = multiprocessing.Pipe()
         self.process = self._make_process()
         self.process.start()
         self._heartbeat = time.monotonic()
@@ -143,7 +160,7 @@ class SnifflesWorker:
     # so the worker can overlap the next task's BAM decode with the
     # current task's compute (the same decode-ahead as the inline
     # SnifflesParentWorker; the reference runtime has no such overlap).
-    LOOKAHEAD_MODES = ("call_sample",)
+    LOOKAHEAD_MODES = ("call_sample", "genotype_vcf")
 
     def run_parent(self) -> bool:
         """Parent-side poll step (reference: parallel.py:652-717)."""
@@ -346,9 +363,8 @@ class SnifflesWorker:
                 with self._worker_send_lock:
                     self.pipe_worker.send(ErrorResult(msg))
             else:
-                if result is not None:
-                    with self._worker_send_lock:
-                        self.pipe_worker.send(result)
+                with self._worker_send_lock:
+                    self.pipe_worker.send(_checked(result, task))
 
             del task
             gc.collect()
@@ -411,7 +427,7 @@ class SnifflesParentWorker:
 
         tasks = list(self.tasks)
         count = len(tasks)
-        can_prefetch = self.config.mode == "call_sample"
+        can_prefetch = self.config.mode in SnifflesWorker.LOOKAHEAD_MODES
 
         # automatic generational GC passes over the 10^5-10^6 live task
         # objects of a combine run cost more than they free; collect once
@@ -427,8 +443,7 @@ class SnifflesParentWorker:
                         next_fut.result()
                     next_fut = (pool.submit(tasks[i + 1].build_leadtab)
                                 if can_prefetch and i + 1 < count else None)
-                    result = task.execute(self)
-                    task.add_result(result)
+                    task.add_result(_checked(task.execute(self), task))
                     self.finished_tasks.append(task)
                     gc.collect()
         finally:

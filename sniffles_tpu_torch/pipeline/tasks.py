@@ -1,12 +1,11 @@
-"""Task types: CallTask (single-sample calling) and CombineTask
-(multi-sample SNF merge).
+"""Task types: CallTask (single-sample calling), GenotypeTask (force
+calling), CombineTask (multi-sample SNF merge).
 
 Tasks are the unit of genome-space sharding — one per contig interval
-(call) or per SNF-block shard (combine).  Behavior matches the reference
-task semantics (reference: parallel.py:42-572).  Copied from
-sniffles_tpu/pipeline/tasks.py: the Task base, CallTask, CombineTask and
-ShutdownTask; force calling (GenotypeTask), --snf output of the call
-path and the leadtab cache (--dev-cache) are not ported yet.
+(call/genotype) or per SNF-block shard (combine).  Behavior matches the
+reference task semantics (reference: parallel.py:42-572).  Copied from
+sniffles_tpu/pipeline/tasks.py; the leadtab cache (--dev-cache) is not
+ported yet.
 
 In a worker process (--threads N) a task reaches the device through the
 parent's device service: the runtime attaches the worker's DeviceClient
@@ -26,6 +25,7 @@ from __future__ import annotations
 
 import copy
 import logging
+import math
 from dataclasses import dataclass
 from typing import Optional, TYPE_CHECKING
 
@@ -35,7 +35,8 @@ from sniffles_tpu_torch import postprocess as postprocessing
 from sniffles_tpu_torch import svcall as sv
 from sniffles_tpu_torch.io import snf
 from sniffles_tpu_torch.region import Region
-from sniffles_tpu_torch.pipeline.result import Result, CallResult, CombineResult
+from sniffles_tpu_torch.pipeline.result import (Result, CallResult, GenotypeResult,
+                                                CombineResult)
 
 if TYPE_CHECKING:
     from sniffles_tpu_torch.config import SnifflesConfig
@@ -61,6 +62,7 @@ class Task:
     assigned_process_id: Optional[int] = None
     tandem_repeats: list = None
     regions: list[Region] = None
+    genotype_svs: list = None
     lead_provider: leadprov.LeadProvider = None
     bam: object = None
     result: Result = None
@@ -265,10 +267,28 @@ class CallTask(Task):
     """Single-sample SV calling for one contig interval
     (reference: parallel.py:252-297)."""
 
+    def _write_temp_snf(self, result, svcandidates, config):
+        """Per-task temp SNF part for later assembly (reference:
+        parallel.py:279-293)."""
+        part_name = f"{config.snf}.tmp_{self.id}.snf"
+        with open(part_name, "wb") as handle:
+            part = snf.SNFile(config, handle)
+            for cand in svcandidates:
+                part.store(cand)
+            # downsampled depth rides along in every block for combine-time
+            # 0/0-vs-./. decisions
+            part.annotate_block_coverages(self.lead_provider)
+            part.write_and_index()
+        result.has_snf = True
+        result.snf_filename = part_name
+        result.snf_index = part.get_index()
+        result.snf_total_length = part.get_total_length()
+        result.snf_candidate_count = len(svcandidates)
+
     def execute(self, worker=None) -> CallResult:
         config = self.config
         self.device_service = getattr(worker, "device_client", None)
-        qc = not config.no_qc
+        qc = not (config.snf is not None or config.no_qc)
 
         read_count = self.build_leadtab()[1]
         phase_before = dict(postprocessing.PHASE_COUNTERS)
@@ -290,7 +310,95 @@ class CallTask(Task):
                     result.engine_counters[k] = result.engine_counters.get(k, 0) + d
         if config.dev_output_candidates:
             result.store_candidates(svcandidates)
+        if config.snf is not None:
+            self._write_temp_snf(result, svcandidates, config)
         result.coverage_average_total = self.coverage_average_total
+        return result
+
+
+class GenotypeTask(Task):
+    """Force calling against a known-SV VCF (reference: parallel.py:300-369)."""
+
+    _BINSIZE = 5000
+
+    def _bin_targets(self):
+        """Index the target SVs by svtype and 5kb position bin; targets near
+        a bin edge register in the neighbor bin too
+        (reference: parallel.py:309-330)."""
+        edge = self._BINSIZE // 10
+        table = {svtype: {} for svtype in sv.TYPES}
+        for target in self.genotype_svs:
+            target.genotype_match_sv = None
+            target.genotype_match_dist = math.inf
+            if target.svtype not in table:
+                log.warning(f'Unsupported SVTYPE: {target.svtype}')
+                continue
+            home = int(target.pos / self._BINSIZE) * self._BINSIZE
+            slots = [home]
+            offset = target.pos % self._BINSIZE
+            if offset < edge:
+                slots.append(home - self._BINSIZE)
+            if offset > self._BINSIZE - edge:
+                slots.append(home + self._BINSIZE)
+            for slot in slots:
+                table[target.svtype].setdefault(slot, []).append(target)
+        return table
+
+    def _match_candidates(self, svcandidates, table, config):
+        """Greedy nearest-target assignment per candidate
+        (reference: parallel.py:337-358)."""
+        for cand in svcandidates:
+            if cand.svtype.startswith('SINGLE'):
+                continue
+            slot = int(cand.pos / self._BINSIZE) * self._BINSIZE
+            targets = table[cand.svtype].get(slot)
+            if targets is None:
+                continue
+            if cand.svtype == "BND":
+                for target in targets:
+                    dist = abs(target.pos - cand.pos)
+                    if (dist < target.genotype_match_dist
+                            and dist <= config.cluster_merge_bnd
+                            and cand.bnd_info.mate_contig == target.bnd_info.mate_contig):
+                        target.genotype_match_sv = cand
+                        target.genotype_match_dist = dist
+            else:
+                for target in targets:
+                    dist = (abs(target.pos - cand.pos)
+                            + abs(abs(target.svlen) - abs(cand.svlen)))
+                    shorter = float(min(abs(target.svlen), abs(cand.svlen)))
+                    if (shorter > 0 and dist < target.genotype_match_dist
+                            and dist <= config.combine_match * math.sqrt(shorter)
+                            and dist <= config.combine_match_max):
+                        target.genotype_match_sv = cand
+                        target.genotype_match_dist = dist
+
+    def execute(self, worker=None) -> Optional[GenotypeResult]:
+        config = self.config
+        self.device_service = getattr(worker, "device_client", None)
+        read_count = self.build_leadtab()[1]
+        svcandidates = self.call_candidates(False, config=config)
+        self.finalize_candidates(svcandidates, True, config=config)
+
+        table = self._bin_targets()
+        self._match_candidates(svcandidates, table, config)
+        postprocessing.coverage(self.genotype_svs, self.lead_provider)
+
+        # Unmatched input SVs genotype as 0/0 (covered) or ./. (uncovered)
+        # (reference: parallel.py:356-366, incl. the mid-loop bailout when a
+        # target has no usable depth values)
+        for target in self.genotype_svs:
+            depths = [d for d in (target.coverage_start, target.coverage_center,
+                                  target.coverage_end) if d is not None]
+            if not depths:
+                return
+            depth = round(sum(depths) / len(depths))
+            target.genotypes = {0: ((0, 0, 0, depth, 0, (None, None)) if depth > 0
+                                    else config.genotype_none)}
+
+        result = GenotypeResult(self, self.genotype_svs, read_count)
+        # the device path's consumption counters, as a call task reports them
+        result.engine_counters = getattr(self, "engine_counters", None)
         return result
 
 
@@ -375,6 +483,15 @@ class CombineTask(Task):
             if self.config.combine_close_handles:
                 snf_in.close()
         return handles
+
+    def _attach_population(self):
+        if not self.config.combine_population:
+            return
+        from sniffles_tpu_torch.io.snfp import PopulationSNF
+        # tasks share the config in inline (--threads 0) mode; only the
+        # first task replaces the filename with the opened handle
+        if isinstance(self.config.combine_population, str):
+            self.config.combine_population = PopulationSNF.open(self.config.combine_population)
 
     def _bin_candidates(self, svtype, sample_snfs, samples_blocks):
         """Collect this block's support-screened candidates per 100bp-scale
@@ -556,6 +673,7 @@ class CombineTask(Task):
         self.device_service = getattr(worker, "device_client", None)
         self.combine_counters = {}
         sample_snfs = self._open_sample_snfs()
+        self._attach_population()
         result = self.result_class(self, [], 0)
 
         batch_trigger = max(25, int(len(config.snf_input_info) * 0.5))

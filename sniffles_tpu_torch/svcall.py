@@ -328,24 +328,6 @@ class SVGroup:
             genotypes[sid] = alleles + (0, depth, 0, (None, None), "NULL")
 
     @staticmethod
-    def _consensus_genotype(genotypes):
-        """Collapse per-sample genotypes to the modal genotype; returns
-        (genotypes, is_variant) (reference: sv.py:376-396)."""
-        buckets = {}
-        for a, b, gt_qual, dr, dv in genotypes.values():
-            slot = buckets.setdefault((a, b), {"count": 0, "qual": [], "dr": [], "dv": []})
-            slot["count"] += 1
-            slot["qual"].append(gt_qual)
-            slot["dr"].append(dr)
-            slot["dv"].append(dv)
-        top_count = max(s["count"] for s in buckets.values())
-        winner = max(gt for gt, s in buckets.items() if s["count"] == top_count)
-        stats = buckets[winner]
-        merged = {0: winner + (int(sum(stats["qual"]) / stats["count"]),
-                               sum(stats["dr"]), sum(stats["dv"]))}
-        return merged, (winner[0] == 1 or winner[1] == 1)
-
-    @staticmethod
     def _relabel_pairs(genotypes, config):
         """Propagate the strongest confident genotype onto low-quality
         samples (reference: sv.py:398-410)."""
@@ -388,11 +370,6 @@ class SVGroup:
         rnames, genotypes = self._collect_genotypes(config)
         all_sample_ids = {s["internal_id"] for s in config.snf_input_info}
         self._fill_absent_samples(genotypes, config, all_sample_ids)
-
-        if config.combine_consensus:
-            genotypes, is_variant = self._consensus_genotype(genotypes)
-            if not is_variant and not solo_unfiltered:
-                return None
 
         if config.combine_pair_relabel:
             self._relabel_pairs(genotypes, config)

@@ -269,3 +269,42 @@ def test_task_past_the_stats_capacity_takes_the_host_sweep():
     assert task.engine_counters["fb_capacity"] == 1
     assert ids == [c.id for t in ("INS",) for c in cluster.resolve(t, provider, config, None)]
     assert len(ids) == 1100
+
+
+# two contigs whose reads differ in their mismatch rate, so that each
+# call task has a regional NM statistic of its own (mosaic QC reads it)
+NM_LAYOUT = [(30_000, "DEL", 120, 0.08), (70_000, "INS", 150, 0.15),
+             (110_000, "DEL", 500, 0.3), (150_000, "DUP", 900, 0.5),
+             (190_000, "INS", 80, 1.0), (230_000, "DEL", 2000, 0.12),
+             (270_000, "INV", 800, 0.5), (310_000, "INS", 300, 0.25),
+             (350_000, "DEL", 250, 1.0), (380_000, "INS", 600, 0.1)]
+
+NM_RUNS = {
+    "port-threads-0": ("sniffles_tpu_torch", ["--threads", "0"]),
+    "port-threads-2": ("sniffles_tpu_torch", ["--threads", "2"]),
+    "port-host-threads-0": ("sniffles_tpu_torch", ["--threads", "0", "--no-tpu"]),
+    "port-host-threads-2": ("sniffles_tpu_torch", ["--threads", "2", "--no-tpu"]),
+    # one task a worker: the JAX package's shared-config NM statistic is
+    # then its own task's (at --threads 0 its decode-ahead makes the
+    # output depend on timing)
+    "jax-threads-2": ("sniffles_tpu.cli", ["--threads", "2", "--tpu-call"]),
+}
+
+
+def test_contigs_of_different_nm_match_jax(tmp_path):
+    """--mosaic on two contigs of different mismatch rates: the port on
+    both paths at --threads 0 and 2 gives the JAX package's records at
+    --threads 2, chr2's included."""
+    bam, fasta = write_dataset(str(tmp_path), ref_len=400_000, depth=30, read_len=12_000,
+                               seed=41, n_contigs=2, nm_rates=(0.002, 0.02),
+                               svs=planted(NM_LAYOUT))
+    outs = {}
+    for label, (module, extra) in NM_RUNS.items():
+        vcf = tmp_path / f"{label}.vcf"
+        run(module, ["--input", bam, "--reference", fasta, "--vcf", str(vcf), "--mosaic",
+                     *extra], tmp_path, tmp_path / f"{label}.json")
+        outs[label] = records(vcf)
+    reference = outs["jax-threads-2"]
+    assert {line.split("\t")[0] for line in reference} == {"chr1", "chr2"}
+    for label in NM_RUNS:
+        assert outs[label] == reference, label

@@ -203,3 +203,30 @@ sys.exit(main(sys.argv[1:]))
     assert totals["service_requests"] >= (totals["ed_device_batches"]
                                           + totals["combine_greedy_dispatches"])
     assert split_vcf(dev) == split_vcf(host)
+
+
+def test_combine_consensus_crashes_in_jax_and_is_refused_by_the_port(tmp_path,
+                                                                      port_sim_cohort):
+    """--combine-consensus: the JAX package's consensus genotype merge
+    unpacks combine's 7-field genotypes into 5 names and exits 1 with a
+    ValueError, so there is no reference output to port; the port refuses
+    the flag with a usage error and writes no VCF."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    env["SNIFFLES_TPU_FORCE_CPU"] = "1"
+    env["JAX_PLATFORMS"] = "cpu"
+    outs = {}
+    for module in ("sniffles_tpu.cli", "sniffles_tpu_torch"):
+        vcf = tmp_path / f"{module}.vcf"
+        r = subprocess.run([sys.executable, "-m", module, "--input", *port_sim_cohort,
+                            "--vcf", str(vcf), "--threads", "0", "--combine-consensus"],
+                           capture_output=True, text=True, env=env, cwd=str(tmp_path),
+                           timeout=600)
+        outs[module] = (r.returncode, r.stdout + r.stderr, vcf)
+    code, log, _ = outs["sniffles_tpu.cli"]
+    assert code != 0
+    assert "ValueError: too many values to unpack (expected 5)" in log, log[-3000:]
+    code, log, vcf = outs["sniffles_tpu_torch"]
+    assert code == 1, log[-3000:]
+    assert "--combine-consensus is not supported by sniffles_tpu_torch" in log
+    assert not vcf.exists()

@@ -5,6 +5,7 @@ pool), and without a card it raises unless the CPU was asked for. Options
 it has not ported are refused; --threads N with the device path, refused
 before the worker pool was ported, now runs and gives the --threads 0
 records."""
+import json
 import os
 import re
 import subprocess
@@ -134,28 +135,48 @@ def records(path):
 
 
 def runs_like_threads_0(inputs, extra, tmp_path):
-    """`extra` (a --threads N command line with the device path) exits 0
-    and writes the records of --threads 0."""
+    """`extra` (a --threads N command line with the device path, or an
+    output option) exits 0 and writes the records of --threads 0; returns
+    the --threads 0 VCF."""
     threads0, threaded = tmp_path / "t0.vcf", tmp_path / "o.vcf"
     run_port([*inputs, "--vcf", str(threads0), "--threads", "0"], tmp_path)
     run_port([*inputs, "--vcf", str(threaded), *extra], tmp_path)
     assert records(threaded) and records(threaded) == records(threads0)
+    return threads0
 
 
 @pytest.mark.parametrize("extra,refused", [
     pytest.param(["--threads", "4"], False, id="threads-with-device-path"),
-    pytest.param(["--threads", "0", "--genotype-vcf", "x.vcf"], True, id="genotype-vcf"),
-    pytest.param(["--threads", "0", "--snf", "x.snf"], True, id="snf-output"),
+    pytest.param(["--threads", "0", "--genotype-vcf", "t0.vcf"], False, id="genotype-vcf"),
+    pytest.param(["--threads", "0", "--snf", "x.snf"], False, id="snf-output"),
     pytest.param(["--threads", "0", "--dev-cache"], True, id="dev-cache"),
     pytest.param(["--threads", "0", "--dev-locasm-do"], True, id="local-assembly"),
 ])
 def test_unported_call_sample_options_are_refused(extra, refused, tmp_path, capsys):
+    """Options the port has not ported are refused. --threads N with the
+    device path, --genotype-vcf and --snf were refused before their
+    slices were ported; now their command lines run: --threads 4 and --snf
+    give the records of --threads 0, and force calling against those
+    records re-emits each of them as 1/1."""
     from sniffles_tpu_torch import cli
     from sniffles_tpu_torch.sim import PlantedSV, write_dataset
     if not refused:
         bam, fa = write_dataset(str(tmp_path), ref_len=60_000, depth=10, read_len=8_000,
                                 seed=4, svs=[PlantedSV(pos=30_000, svtype="DEL", svlen=200)])
-        runs_like_threads_0(["--input", bam, "--reference", fa], extra, tmp_path)
+        inputs = ["--input", bam, "--reference", fa]
+        if "--genotype-vcf" in extra:
+            run_port([*inputs, "--vcf", str(tmp_path / "t0.vcf"), "--threads", "0"], tmp_path)
+            run_port([*inputs, "--vcf", str(tmp_path / "g.vcf"), *extra], tmp_path)
+            called, genotyped = records(tmp_path / "t0.vcf"), records(tmp_path / "g.vcf")
+            assert len(genotyped) == len(called) == 1
+            assert genotyped[0].split("\t")[:8] == called[0].split("\t")[:8]
+            assert genotyped[0].split("\t")[-1].startswith("1/1")
+            return
+        runs_like_threads_0(inputs, extra, tmp_path)
+        if "--snf" in extra:
+            with open(tmp_path / "x.snf", "rb") as f:
+                header = json.loads(f.readline())
+            assert header["snf_candidate_count"] >= 1 and list(header["index"]) == ["chr1"]
         return
     bam = tmp_path / "a.bam"
     bam.write_bytes(b"")
@@ -230,6 +251,53 @@ for inputs in (snfs, [bam, "--reference", fa]):
                      "--allow-overwrite", *extra]) == 0
         outs.append([l for l in open(out) if not l.startswith("#")])
     assert outs[0] and outs[0] == outs[1], outs
+assert sys.modules["jax"] is None
+loaded = [m for m in sys.modules if m == "sniffles_tpu" or m.startswith("sniffles_tpu.")]
+assert loaded == ["sniffles_tpu"], loaded
+print("OK")
+"""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    env["SNIFFLES_TPU_FORCE_CPU"] = "1"
+    r = subprocess.run([sys.executable, "-c", code, str(tmp_path)], capture_output=True,
+                       text=True, env=env, timeout=300)
+    assert r.returncode == 0, r.stdout[-3000:] + r.stderr[-3000:]
+    assert r.stdout.strip().endswith("OK")
+
+
+def test_all_run_modes_run_with_jax_blocked(tmp_path):
+    """The four run modes at --threads 2 in a process where jax and
+    sniffles_tpu cannot be imported: --snf from call_sample for two
+    samples, their combine to .vcf.gz with --dev-population-snf, a combine
+    annotated with that population SNF, and --genotype-vcf against the
+    cohort VCF; nothing of either package is loaded."""
+    code = """
+import gzip, sys
+sys.modules["jax"] = None          # any import of jax now raises
+sys.modules["sniffles_tpu"] = None
+from sniffles_tpu_torch.sim import PlantedSV, write_dataset
+from sniffles_tpu_torch.cli import main
+d = sys.argv[1]
+bam, fa = write_dataset(d, ref_len=120_000, depth=20, read_len=10_000, seed=3, n_contigs=2,
+                        svs=[PlantedSV(pos=40_000, svtype="DEL", svlen=300),
+                             PlantedSV(pos=80_000, svtype="INS", svlen=200)])
+common = ["--threads", "2", "--allow-overwrite"]
+for name in ("A", "B"):
+    assert main(["--input", bam, "--snf", f"{d}/{name}.snf", "--sample-id", name,
+                 *common]) == 0
+snfs = [f"{d}/A.snf", f"{d}/B.snf"]
+assert main(["--input", *snfs, "--vcf", f"{d}/cohort.vcf.gz", "--dev-population-snf",
+             f"{d}/pop.snf", *common]) == 0
+cohort = [l for l in gzip.open(f"{d}/cohort.vcf.gz", "rt") if not l.startswith("#")]
+assert len(cohort) == 4, cohort
+assert main(["--input", *snfs, "--vcf", f"{d}/annotated.vcf", "--combine-population",
+             f"{d}/pop.snf", *common]) == 0
+annotated = [l for l in open(f"{d}/annotated.vcf") if not l.startswith("#")]
+assert len(annotated) == 4 and all("POPULATION_AF=1.000" in l for l in annotated)
+assert main(["--input", bam, "--genotype-vcf", f"{d}/cohort.vcf.gz", "--vcf",
+             f"{d}/genotyped.vcf", *common]) == 0
+genotyped = [l for l in open(f"{d}/genotyped.vcf") if not l.startswith("#")]
+assert len(genotyped) == 4 and all(l.split("\\t")[9].startswith("1/1") for l in genotyped)
 assert sys.modules["jax"] is None
 loaded = [m for m in sys.modules if m == "sniffles_tpu" or m.startswith("sniffles_tpu.")]
 assert loaded == ["sniffles_tpu"], loaded

@@ -6,6 +6,7 @@ torch device, a recycled worker is spawned, not forked; and a worker's
 config.device refuses any in-process device call."""
 import multiprocessing
 import os
+import threading
 import time
 from collections import deque
 from dataclasses import dataclass, field
@@ -146,6 +147,38 @@ def test_worker_recycling():
     assert sorted(t.id for t in finished) == list(range(5))
     assert calls["n"] >= 2
     assert len({t.result.seen[0] for t in finished}) == 2
+
+
+@dataclass
+class LingerTask(SimpleTask):
+    """Leaves a thread behind that keeps its worker process alive for 4 s
+    after the worker loop ends: longer than the recycle's 2 s join."""
+
+    def execute(self, worker=None):
+        threading.Thread(target=time.sleep, args=(4,)).start()
+        return super().execute(worker)
+
+
+def test_recycle_when_the_old_worker_is_slow_to_exit():
+    """A recycled worker whose process outlives the recycle's join (a
+    loaded machine) must not take the tasks meant for its successor: each
+    process has pipes of its own, so every task completes, the tasks after
+    the recycle in the new process."""
+    config = DummyConfig()
+    calls = {"n": 0}
+
+    def recycle_hint(worker_id, pid):
+        calls["n"] += 1
+        return calls["n"] == 2
+
+    tasks = deque([LingerTask(id=0, config=config)]
+                  + [SimpleTask(id=i, config=config) for i in range(1, 5)])
+    worker = SnifflesWorker(process_id=0, config=config, tasks=tasks,
+                            recycle_hint=recycle_hint)
+    finished = drive([worker], tasks, timeout=60)
+    assert sorted(t.id for t in finished) == list(range(5))
+    pids = [t.result.seen[0] for t in sorted(finished, key=lambda t: t.id)]
+    assert len(set(pids)) == 2 and pids[-1] == worker.process.pid
 
 
 def test_recycled_worker_is_spawned_once_the_device_is_live(monkeypatch):
