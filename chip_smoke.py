@@ -6,7 +6,8 @@
 Phases, each of which must pass:
   1. set-up: the card's name and power limit; build every CUDA kernel of
      the port from csrc/ (one nvcc per source, started together), with
-     ptxas's register and shared-memory report;
+     ptxas's register and shared-memory report, and beside them the
+     native host library from csrc/host/ (the host C++ compiler);
   2. the edit-distance kernel against its plain PyTorch version on the
      card, bit for bit, at the main path's shapes and edge cases (lengths
      at 32-bit word boundaries, alphabets beyond ACGT, a batch mixing
@@ -73,6 +74,23 @@ Phases, each of which must pass:
      on the device path in process (every sweep held against plain), on
      the host path and in a child with the default command line: every
      VCF's records equal.
+  7. the native host library (csrc/host/, built by the host compiler at
+     first use; phases 3-6 scan their BAMs with it) on the card's host:
+     (a) dense3 as CRAM: phase 4's BAM inflated by the library in this
+     process, which holds a CUDA context, equal to zlib's; the BAM written
+     as a reference-based CRAM by the port's cramwrite (sim.write_cram),
+     its reads fetched per contig through the .crai equal to the BAM's
+     (count, names, positions); the CRAM called on the device path in
+     process (every sweep launch held against the plain version bit for
+     bit) and with the default command line in a child: records == phase
+     4's, every child's statistics consumed; (b) dense3 on the device path
+     with --no-native, the pure-Python scan: records == phase 4's, the
+     decode-ahead time of both scans printed; (c) --dev-locasm-do on an
+     INS and a DEL filtered by --minsupport (the generator of
+     tests/test_local_asm_rescue.py), device and host paths: equal VCFs,
+     the assemblies and rescued calls counted (at least one of each);
+     (d) --dev-cache, modes3's sample 31 twice: the second run loads the
+     task's leadtab from the cache, and both VCFs equal phase 6's.
 Then (5) the kernels' timings on the inputs of the main paths' largest
 launches (CUDA events) beside their bounds and plain versions, the
 sweep's device time on phase 2b's fuzz batches and chain, the fused
@@ -88,6 +106,7 @@ Without a card it exits non-zero before any of that.
 is the child of phase 4b: the CLI with ARGS, every merge-sweep launch
 kept and saved to KEEP (torch.save) when the CLI ends.
 """
+import concurrent.futures
 import contextlib
 import io
 import json
@@ -142,6 +161,10 @@ SNF_OUTPUT_KEYS = {
     "uncompressed_vcf_name": "the VCF's name without .gz, kept on the config",
     "dev_population_snf": "each combine writes a population SNF of its own",
 }
+# phase 7 (c): tests/test_local_asm_rescue.py's generator, an INS and a DEL
+# at depth 18 that --minsupport 30 filters, so the rescue assembles both
+LOCASM_SEED = 31
+LOCASM_LAYOUT = ((40_000, "INS", 220), (80_000, "DEL", 300))
 # cycles of the device sleep queued ahead of a timed sweep (about 1 ms)
 SLEEP_CYCLES = 2_000_000
 # int32 operations a live seed and pass of the partition's walk (the cut
@@ -767,7 +790,7 @@ def run_dense_call(tmp, meta):
         err = max(err, hold_against_plain(inputs, before, after, counts, meta,
                                           f"main-path sweep {j} n={n}"))
     largest = max(kept, key=lambda launch: int(launch[0]["nseeds"][0]))
-    return largest[:2], launches, err, args, kept, dev_wall
+    return largest[:2], launches, err, args, kept, dev_wall, dev_stages
 
 
 # -- phases 3b and 4b: the worker pool in a child process --------------------
@@ -1235,6 +1258,175 @@ def run_modes(tmp, meta):
     return err, ed_err
 
 
+# -- phase 7 ----------------------------------------------------------------
+
+def run_dense_cram(tmp, args, meta, bam_wall, bam_stages):
+    """Phases 7a and 7b (see the module's docstring) on phase 4's BAM and
+    VCFs; bam_wall and bam_stages are phase 4's device path's. Returns
+    the max |kernel - plain| of the CRAM run's sweeps."""
+    import zlib
+    from sniffles_tpu_torch.io import native
+    from sniffles_tpu_torch.io.bam import AlignmentFile
+    from sniffles_tpu_torch.sim import write_cram
+    bam, fa = args[1], args[3]
+    reference = vcf_parts(os.path.join(tmp, "device.vcf"))
+    with open(bam, "rb") as f:
+        raw = f.read()
+    t0 = time.perf_counter()
+    inflated = native.bgzf_inflate(raw)
+    t_native = time.perf_counter() - t0
+    # zlib a BGZF block at a time (gzip.decompress copies the rest of the
+    # input at every member: minutes for a BAM of this size)
+    t0 = time.perf_counter()
+    view = memoryview(raw)
+    plain = b"".join(zlib.decompress(view[off:off + bsize], 31)
+                     for off, bsize, _ in native.walk_blocks(raw))
+    t_zlib = time.perf_counter() - t0
+    if inflated != plain:
+        fail("the native library's BGZF inflate differs from zlib's in a process with a "
+             "CUDA context")
+    print(f"    native library {os.path.relpath(native.get_lib()._name)}, loaded beside "
+          f"torch and a CUDA context: inflate of the {len(raw) / 1e6:.1f} MB BAM "
+          f"({len(plain) / 1e6:.1f} MB) {t_native:.3f} s == zlib's ({t_zlib:.3f} s)",
+          flush=True)
+
+    t0 = time.perf_counter()
+    cram = write_cram(bam, fa)
+    t_write = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    bam_reader = AlignmentFile(bam, require_index=True)
+    cram_reader = AlignmentFile(cram, require_index=True, reference_filename=fa)
+    n_reads = 0
+    for contig in bam_reader.references:
+        want = [(r.query_name, r.reference_start, r.reference_end)
+                for r in bam_reader.fetch(contig)]
+        got = [(r.query_name, r.reference_start, r.reference_end)
+               for r in cram_reader.fetch(contig)]
+        if got != want:
+            fail(f"CRAM: the reads of {contig} through the .crai differ from the BAM's "
+                 f"({len(got)} against {len(want)})")
+        n_reads += len(got)
+    print(f"    wrote the CRAM ({os.path.getsize(cram) / 1e6:.1f} MB) in {t_write:.2f} s; "
+          f"its {n_reads} reads, fetched per contig through the .crai, == the BAM's "
+          f"(names, positions) in {time.perf_counter() - t0:.2f} s", flush=True)
+    cram_args = ["--input", cram, "--reference", fa]
+    cram_stages = {}
+    with stage_times(cram_stages):
+        wall, counters, launches, err = run_kept(
+            [*cram_args, "--vcf", os.path.join(tmp, "cram.vcf")], os.path.join(tmp, "k6.json"),
+            "CRAM (device path)", meta)
+    if vcf_parts(os.path.join(tmp, "cram.vcf")) != reference:
+        fail("CRAM: the device path's VCF differs from phase 4's BAM VCF")
+    print(f"    CRAM, device path in process: {wall:.2f} s (the BAM's, phase 4: "
+          f"{bam_wall:.2f} s); decode+leads {cram_stages['decode+leads']:.3f} s (the BAM's: "
+          f"{bam_stages['decode+leads']:.3f} s); sweep launches {launches}, each == plain; "
+          f"VCF == phase 4's ({len(reference[1])} records)", flush=True)
+    child_vcf = os.path.join(tmp, "cram_child.vcf")
+    child_wall, c, timing = run_child([*cram_args, "--vcf", child_vcf],
+                                      os.path.join(tmp, "k7.json"), "CRAM (default --threads)")
+    child_launches, dispatches = check_threaded_counters(c, "CRAM (default --threads)")
+    if vcf_parts(child_vcf) != reference:
+        fail("CRAM: the child's VCF differs from phase 4's BAM VCF")
+    print(f"    CRAM, default --threads in a child: {child_wall:.2f} s ({timing}); "
+          f"{child_launches} for {dispatches} dispatches and the warmup; VCF == phase 4's",
+          flush=True)
+
+    nn_stages = {}
+    with stage_times(nn_stages):
+        nn_wall, nn_counters = run_cli([*args, "--vcf", os.path.join(tmp, "no_native.vcf")],
+                                       ["--no-native"], os.path.join(tmp, "k8.json"),
+                                       "call_sample --no-native")
+    check_consumed(nn_counters, "call_sample --no-native")
+    if vcf_parts(os.path.join(tmp, "no_native.vcf")) != reference:
+        fail("--no-native: the VCF differs from phase 4's")
+    print(f"    --no-native (pure-Python scan), device path in process: {nn_wall:.2f} s, "
+          f"decode+leads {nn_stages['decode+leads']:.3f} s; native scan (phase 4): "
+          f"{bam_wall:.2f} s, decode+leads {bam_stages['decode+leads']:.3f} s; "
+          f"VCF == phase 4's", flush=True)
+    return err
+
+
+def run_locasm(tmp, meta):
+    """Phase 7c (see the module's docstring). Returns the max |kernel -
+    plain| of its sweeps."""
+    from sniffles_tpu_torch import local_asm
+    from sniffles_tpu_torch.sim import PlantedSV, random_seq, write_dataset
+    rng = np.random.default_rng(LOCASM_SEED)
+    svs = [PlantedSV(pos=pos, svtype=kind, svlen=ln,
+                     seq=random_seq(rng, ln) if kind == "INS" else "")
+           for pos, kind, ln in LOCASM_LAYOUT]
+    bam, fa = write_dataset(tmp, ref_len=120_000, depth=18, read_len=10_000,
+                            seed=LOCASM_SEED, svs=svs)
+    assembly, tally = local_asm.LocalAsm.assembly, []
+
+    def counted(self, config, *a, **kw):
+        rescued = assembly(self, config, *a, **kw)
+        tally.append((self.sv.svtype, bool(rescued)))
+        return rescued
+
+    args = ["--input", bam, "--reference", fa, "--minsupport", "30", "--dev-locasm-do"]
+    local_asm.LocalAsm.assembly = counted
+    try:
+        wall, _, launches, err = run_kept([*args, "--vcf", os.path.join(tmp, "device.vcf")],
+                                          os.path.join(tmp, "l1.json"),
+                                          "--dev-locasm-do (device path)", meta)
+        device_tally, tally[:] = list(tally), []
+        host_wall, _ = run_cli([*args, "--vcf", os.path.join(tmp, "host.vcf")], ["--no-tpu"],
+                               os.path.join(tmp, "l2.json"), "--dev-locasm-do (host path)")
+    finally:
+        local_asm.LocalAsm.assembly = assembly
+    device = vcf_parts(os.path.join(tmp, "device.vcf"))
+    if vcf_parts(os.path.join(tmp, "host.vcf")) != device:
+        fail("--dev-locasm-do: the device path's VCF differs from the host path's")
+    if device_tally != tally or {kind for kind, _ in tally} != {"INS", "DEL"} or not any(
+            ok for _, ok in tally):
+        fail(f"--dev-locasm-do: assemblies (svtype, rescued) {device_tally} on the device "
+             f"path, {tally} on the host path")
+    rescued = sum(1 for line in device[1] if "LASM" in line.split("	")[7])
+    print(f"    device path {wall:.2f} s (sweep launches {launches}, each == plain), host "
+          f"path {host_wall:.2f} s; {len(tally)} assemblies ({sorted(tally)}), "
+          f"{rescued} rescued calls in the VCF; device VCF == host VCF "
+          f"({len(device[1])} records)", flush=True)
+    if rescued < 1:
+        fail("--dev-locasm-do: no call was rescued")
+    return err
+
+
+def run_dev_cache(tmp):
+    """Phase 7d (see the module's docstring), on phase 6's sample 31."""
+    from sniffles_tpu_torch.pipeline import tasks
+    base = os.path.join(tmp, f"s{MODES_SEEDS[0]}")
+    args = ["--input", os.path.join(base, "sim.bam"), "--reference",
+            os.path.join(base, "ref.fa"), "--dev-cache", "--dev-cache-dir",
+            os.path.join(tmp, "cache")]
+    load, loads = tasks.Task._load_cached_leadtab, []
+
+    def counted(self):
+        loaded = load(self)
+        loads.append(loaded)
+        return loaded
+
+    tasks.Task._load_cached_leadtab = counted
+    walls = {}
+    try:
+        for label in ("first", "second"):
+            walls[label], counters = run_cli([*args, "--vcf", f"{base}_cache_{label}.vcf"], [],
+                                             f"{base}_cache_{label}.json",
+                                             f"--dev-cache ({label} run)")
+            check_consumed(counters, f"--dev-cache ({label} run)")
+    finally:
+        tasks.Task._load_cached_leadtab = load
+    if loads != [False, True]:
+        fail(f"--dev-cache: leadtab loads {loads}, not [False, True]")
+    reference = records_of(base + ".vcf")
+    for label in walls:
+        if records_of(f"{base}_cache_{label}.vcf") != reference:
+            fail(f"--dev-cache: the {label} run's records differ from phase 6's")
+    print(f"    first run {walls['first']:.2f} s (leadtab saved), second {walls['second']:.2f} "
+          f"s (leadtab loaded from the cache); both VCFs == phase 6's ({len(reference)} "
+          f"records)", flush=True)
+
+
 def sync_sites(fn):
     """Runs fn() on the card with torch.cuda.set_sync_debug_mode("warn")
     and returns the synchronising operations it reached, counted by the
@@ -1269,8 +1461,14 @@ def main() -> int:
     print(f"[1] card: {smi} | torch {torch.__version__} (CUDA {torch.version.cuda}) "
           f"| {name} | count {torch.cuda.device_count()}", flush=True)
     t0 = time.perf_counter()
-    logs = _build.build_all(ptxas_verbose=True)
-    print(f"[1] built {', '.join(logs)} in {time.perf_counter() - t0:.1f} s", flush=True)
+    # the native host library (host compiler) builds beside the nvcc builds
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        host_build = pool.submit(_build.build_host)
+        logs = _build.build_all(ptxas_verbose=True)
+        host_lib = host_build.result()
+    print(f"[1] built {', '.join(logs)} and the native host library "
+          f"{os.path.relpath(host_lib)} ({_build.host_cxx()}) in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
     for src, text in logs.items():
         for line in text.splitlines():
             if "registers" in line or "smem" in line or "spill" in line:
@@ -1378,11 +1576,16 @@ def main() -> int:
     print(f"[4] call_sample: {DENSE_CONTIGS} contigs of {DENSE_REF_LEN // 1_000_000} Mb, "
           f"depth {DENSE_DEPTH}, seed {DENSE_SEED} (the dense bench leg)", flush=True)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_call_") as tmp:
-        sweep_largest, _, err, dense_args, dense_kept, dense_wall = run_dense_call(tmp, meta)
+        (sweep_largest, _, err, dense_args, dense_kept, dense_wall,
+         dense_stages) = run_dense_call(tmp, meta)
         sweep_err = max(sweep_err, err)
         print("[4b] call_sample, the default command line (--threads 4), in a child "
               "process", flush=True)
         sweep_launches, err = run_dense_threaded(tmp, dense_args, meta, dense_wall)
+        sweep_err = max(sweep_err, err)
+        print("[7a] dense3 as a reference-based CRAM; [7b] dense3 with --no-native",
+              flush=True)
+        err = run_dense_cram(tmp, dense_args, meta, dense_wall, dense_stages)
     sweep_err = max(sweep_err, err)
 
     print("[2c] the batched merge sweep (k tasks of one width, one launch of each kernel) "
@@ -1405,8 +1608,14 @@ def main() -> int:
           f"{MODES_DEPTH}", flush=True)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_modes_") as tmp:
         err, ed_err = run_modes(tmp, meta)
+        print(f"[7d] --dev-cache: sample {MODES_SEEDS[0]} twice", flush=True)
+        run_dev_cache(tmp)
     sweep_err = max(sweep_err, err)
     max_err = max(max_err, ed_err)
+    print("[7c] --dev-locasm-do: a filtered INS and DEL, device and host paths",
+          flush=True)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_locasm_") as tmp:
+        sweep_err = max(sweep_err, run_locasm(tmp, meta))
 
     print("[5] kernel timings on the main paths' largest launches", flush=True)
     timing = time_ed_kernel([x.cuda() for x in largest])

@@ -4,12 +4,15 @@ pool for --threads N, inline for --threads 0), and ordered result
 emission (reference: src/sniffles/sniffles:64-650).
 
 Copied from sniffles_tpu/cli.py: the four run modes, call_sample (one
-.bam -> VCF and/or .snf), genotype_vcf (force calling against a
+.bam or .cram -> VCF and/or .snf), genotype_vcf (force calling against a
 --genotype-vcf), combine (.snf inputs -> multi-sample VCF) and its
 population SNF (--dev-population-snf, --combine-population), with .vcf.gz
-output. .cram input and the other options this package has not ported
-stop with an error that says so; so does --combine-consensus, which
-crashes in the JAX package (ROADMAP C1). The device path (on unless --no-tpu) runs on the card, or on the CPU
+output, the local-assembly rescue (--dev-locasm-do) and the leadtab
+cache (--dev-cache). --tpu-mesh, which this package has not ported,
+stops with an error that says so; so does --combine-consensus, which
+crashes in the JAX package (ROADMAP C1). The native host library
+(csrc/host/, io/native.py) is built here, before any worker forks. The
+device path (on unless --no-tpu) runs on the card, or on the CPU
 when SNIFFLES_TPU_FORCE_CPU=1 asks for it (config.torch_device). With
 --threads N (4 by default) the workers reach it through the device
 service the parent owns (parallel/device_service.py), whose context is
@@ -56,11 +59,10 @@ def _detect_mode(config: SnifflesConfig) -> list[str]:
     if distinct & {"bam", "cram"}:
         if len(config.input) > 1:
             util.fatal_error_main("Please specify max 1 .bam/.cram file as input")
-        if "cram" in distinct:
-            _not_ported(".cram input")
         config.input = config.input[0]
         config.mode = "genotype_vcf" if config.genotype_vcf is not None else "call_sample"
-        config.input_mode = "rb"
+        config.input_is_cram = "cram" in distinct
+        config.input_mode = "rc" if config.input_is_cram else "rb"
     elif distinct & {"snf", "tsv"}:
         config.mode = "combine"
     else:
@@ -91,14 +93,10 @@ def _refuse_unported(config: SnifflesConfig) -> None:
                               "sniffles_tpu package exits with a ValueError there too)")
     if int(config.tpu_mesh or 0) > 1:
         _not_ported("--tpu-mesh")
-    if config.dev_locasm_do:
-        _not_ported("--dev-locasm-do (local assembly rescue)")
-    if config.dev_cache:
-        _not_ported("--dev-cache")
 
 
 def _open_alignments(config: SnifflesConfig):
-    """Open + index-check the BAM input (reference: sniffles:170-186)."""
+    """Open + index-check the BAM/CRAM input (reference: sniffles:170-186)."""
     from sniffles_tpu_torch.io.bam import AlignmentFile
     log.info(f"Opening for reading: {config.input}")
     try:
@@ -467,6 +465,10 @@ def main_with_config(config: SnifflesConfig, processes: list) -> int:
 
     exts = _detect_mode(config)
     _refuse_unported(config)
+    # the native host library, built once in this process before the
+    # worker pool forks (a failed build raises)
+    from sniffles_tpu_torch.io import native
+    native.get_lib()
     log.info(f"Running {config.version}, build {config.build}")
     log.info(f"  Run Mode: {config.mode}")
     if _uses_device(config):

@@ -281,7 +281,7 @@ _TPU_FLAGS = (
     _f("--tpu-device-pipeline", text="Run clustering/genotyping statistics on the TPU device pipeline (False: host-only numpy path)", metavar="True", type=tobool, default=True),
     _f("--tpu-mesh-shape", text="Device mesh shape for multi-chip sharding, e.g. '8' for 8-way genome-bin data parallelism, or 'auto'", metavar="dp", type=str, default="auto"),
     _f("--tpu-interpret", text="No effect in this package (its kernels are CUDA; on the CPU each takes its plain PyTorch version); accepted for flag compatibility", default=False, action="store_true"),
-    _f("--no-native", text="No effect in this package (it has only the pure-Python BAM decoder, whose output equals the native one's); accepted for flag compatibility", default=False, action="store_true"),
+    _f("--no-native", text="Disable the native C++ BAM decoder, use the pure-Python decoder (same output)", default=False, action="store_true"),
     _f("--tpu-call", text="Use the device sort-and-segment clustering (the merge sweep kernel) for candidate grouping in call_sample (on by default; --no-tpu gives the host sweep)", default=False, action="store_true"),
     _f("--tpu-combine", text="Use the segmented exact greedy + device edit-distance batching for multi-sample combine (on by default; --no-tpu gives the host greedy)", default=False, action="store_true"),
     _f("--tpu-mesh", text="Shard device work over N devices; not yet ported to this package (only 0 = single device is accepted)", metavar="N", type=int, default=0),

@@ -4,9 +4,10 @@ Insertion-sequence consensus by k-mer-anchor pseudo-alignment.
 Host-side exact port of the reference consensus (reference:
 consensus.py:280-394 novel_from_reads; triggered from
 postprocess.annotate_sv, params at config.py:549-553). Copied from
-sniffles_tpu/consensus.py: the numpy path; the JAX package's native
-(native/bamcore.cc) consensus, whose output equals this path's, is not
-ported yet.
+sniffles_tpu/consensus.py: novel_from_reads takes the native consensus
+(bamcore_consensus_novel in csrc/host/bamcore.cc, io/native.py) for
+klen <= 8, and the numpy path below, of equal output, with debug set or
+when the native one declines its parameters.
 
 The per-column vote, the alignment-count scan, and the segment-identity
 pass are vectorized with numpy (the reference iterates per character,
@@ -140,6 +141,14 @@ def novel_from_reads(best_lead, other_leads, klen, skip, skip_repetitive, debug=
     if klen > 8:
         return novel_from_reads_spec(best_lead, other_leads, klen, skip,
                                      skip_repetitive, debug)
+    if not debug:
+        from sniffles_tpu_torch.io import native
+        res = native.consensus_novel(
+            best_lead.seq.encode("ascii"),
+            [ld.seq.encode("ascii") for ld in other_leads],
+            klen, skip, skip_repetitive)
+        if res is not None:
+            return res
     (consensus_min, minspan, minalns, minident, minident_abs,
      minbestdiff), maxshift = _VOTE_PARAMS, klen
 

@@ -4,14 +4,18 @@ BAM container decoding with BAI/CSI index support.
 Replaces pysam.AlignmentFile for the subset of functionality the caller
 needs (reference: leadprov.py:488 bam.fetch, sniffles:170-178 index
 checks, sniffles:313 get_index_statistics). Self-contained: BGZF via
-io/bgzf.py, record decoding here in pure Python.
-`AlignmentFile.fetch(contig, start, end)` iterates records as
-lightweight `BamRead` objects.
+io/bgzf.py, record decoding here (pure Python) or via the port's native
+C++ decoder (csrc/host/bamcore.cc, io/native.py).
 
-Copied from sniffles_tpu/io/bam.py: BAM and its index. CRAM input and
-the native C++ scan (native/bamcore.cc) are not ported yet; the leads
-scan here is the JAX package's pure-Python path (--no-native), whose
-output equals the native one.
+The decoder exposes two access styles:
+  * `AlignmentFile.fetch(contig, start, end)` — per-record iteration,
+    yielding lightweight `BamRead` objects (the pure-Python scan,
+    --no-native, and the local-assembly rescue);
+  * `BamFile.scan_region` — the native scan's columns per index chunk,
+    which `leads.LeadProvider` turns into leads.
+
+`AlignmentFile` opens a CRAM (mode 'rc' or a .cram path) as a
+`io/cram.py::CramFile`. Copied from sniffles_tpu/io/bam.py.
 """
 from __future__ import annotations
 
@@ -377,6 +381,19 @@ class IndexStatistics:
     total: int
 
 
+def _bgzf_isize(raw: bytes, coffset: int) -> int:
+    """ISIZE (uncompressed length) of the BGZF block at coffset."""
+    xlen = struct.unpack_from("<H", raw, coffset + 10)[0]
+    ext = coffset + 12
+    ext_end = ext + xlen
+    while ext + 4 <= ext_end:
+        if raw[ext] == 66 and raw[ext + 1] == 67:
+            bsize = struct.unpack_from("<H", raw, ext + 4)[0] + 1
+            return struct.unpack_from("<I", raw, coffset + bsize - 4)[0]
+        ext += 4 + struct.unpack_from("<H", raw, ext + 2)[0]
+    raise ValueError("BGZF block missing BC subfield")
+
+
 def normalize_fetch_args(contig, start, stop, end, region):
     """Shared fetch() argument normalization for BAM and CRAM readers."""
     if region is not None:
@@ -408,10 +425,14 @@ def filter_fetched(reads, rid: int, start: int, end: int):
 
 def AlignmentFile(path: str, mode: str = "rb", require_index: bool = False,
                   reference_filename: Optional[str] = None):
-    """pysam.AlignmentFile work-alike factory for BAM inputs. CRAM (mode
-    'rc' or a .cram path) is not ported to this package and raises."""
+    """pysam.AlignmentFile work-alike factory: returns a BamFile for BAM
+    inputs or a CramFile (io/cram.py) for CRAM inputs (mode 'rc' or a
+    .cram path), both presenting the same fetch/index API (the reference
+    gets both formats through htslib, SURVEY §2.2)."""
     if mode == "rc" or path.endswith(".cram"):
-        raise NotImplementedError("CRAM input is not yet ported to sniffles_tpu_torch")
+        from sniffles_tpu_torch.io.cram import CramFile
+        return CramFile(path, require_index=require_index,
+                        reference_filename=reference_filename)
     return BamFile(path, mode, require_index, reference_filename)
 
 
@@ -499,6 +520,9 @@ class BamFile:
     def get_reference_length(self, contig: str) -> int:
         return self.lengths[self._ref_by_name[contig]]
 
+    def get_tid(self, contig: str) -> int:
+        return self._ref_by_name.get(contig, -1)
+
     # --- record iteration ---
     def _iter_records_from(self, voffset: int) -> Iterator[BamRead]:
         r = self._reader
@@ -545,3 +569,65 @@ class BamFile:
 
     def close(self) -> None:
         self._reader = None
+
+    # --- native fast path ---
+    def scan_region(self, contig: str, start: int, end: int, min_event_len: int,
+                    nm_adjust_oplen: int = 10):
+        """
+        Scan records overlapping [start, end) with the native decoder
+        (csrc/host/bamcore.cc), yielding (ScanResult, region_mask) per
+        index chunk. region_mask selects records of this contig
+        overlapping the window (same semantics as fetch).
+        """
+        from sniffles_tpu_torch.io import native
+
+        lib_raw = self._reader._raw
+        rid = self._ref_by_name[contig]
+        chunks = self.index.chunks_for_region(rid, start, end)
+
+        for cb, ce in chunks:
+            cb_block, cb_within = cb >> 16, cb & 0xFFFF
+            ce_block, ce_within = ce >> 16, ce & 0xFFFF
+
+            # exact decompressed size and end-cut from an ISIZE header walk
+            # (one native call; the Python block walk where the native
+            # one meets a header it cannot read), then a single native
+            # inflate into the final buffer (no joins)
+            measured = native.bgzf_measure(lib_raw, cb_block, ce_block, ce_within)
+            if measured is not None:
+                body_isize, range_end, ce_isize = measured
+            else:
+                body_isize = 0
+                range_end = ce_block
+                ce_isize = None
+                for boff, bsize, isize in native.walk_blocks(lib_raw, cb_block):
+                    if boff < ce_block:
+                        body_isize += isize
+                        range_end = boff + bsize
+                    elif boff == ce_block and ce_within > 0:
+                        body_isize += isize
+                        range_end = boff + bsize
+                        break
+                    else:
+                        break
+            if body_isize == 0:
+                continue
+            # reuse=True: the buffer is valid until the next chunk scan,
+            # which matches the generator consumption pattern here
+            buf = native.bgzf_inflate_into(lib_raw, cb_block, range_end, body_isize,
+                                           reuse=True)
+            if ce_within == 0:
+                limit = len(buf)
+            else:
+                if ce_isize is None or ce_isize < 0:
+                    ce_isize = _bgzf_isize(lib_raw, ce_block)
+                limit = body_isize - ce_isize + ce_within
+            buf = buf[cb_within:limit]
+            if buf.size == 0:
+                continue
+
+            res = native.scan_records(buf, min_event_len, nm_adjust_oplen)
+            cols = res.cols
+            mask = (cols["refid"] == rid) & (cols["pos"] < end) & \
+                   ((cols["pos"] + cols["ref_len"] > start) | ((cols["flag"] & FUNMAP) != 0))
+            yield res, mask

@@ -68,8 +68,12 @@ class FastaFile:
                 self.references.append(name)
         self._handle = open(path, "rb")
 
-    def fetch(self, reference: str, start: Optional[int] = None,
-              end: Optional[int] = None) -> str:
+    def fetch(self, reference: Optional[str] = None, start: Optional[int] = None,
+              end: Optional[int] = None, region: Optional[str] = None) -> str:
+        if region is not None:
+            from sniffles_tpu_torch.region import Region
+            reg = Region.from_string(region)
+            reference, start, end = reg.contig, reg.start, reg.end
         if reference not in self._index:
             raise KeyError(reference)
         ln, off, bl, ll = self._index[reference]

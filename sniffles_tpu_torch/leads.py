@@ -4,13 +4,13 @@ Produces the same signature stream as the reference extraction
 (reference: leadprov.py): CIGAR indels >= minsvlen_screen, long
 soft-clips as putative long INS, clip-only single-break signatures,
 split-read signatures from SA tags, and dedicated BND leads.  Consumes
-records from the built-in BAM decoder (io/bam.py).
+records from the built-in BAM decoder (io/bam.py) or the native C++
+decoder (csrc/host/bamcore.cc through io/native.py).
 
 The per-base coverage array and the binned leadtab produced here feed
 both the exact host pipeline and (packed by parallel/device_call.py) the
-device clustering. Copied from sniffles_tpu/leads.py: the pure-Python
-region scan, which is what the JAX package runs under --no-native; its
-native-decoder scan is not ported yet.
+device clustering. Copied from sniffles_tpu/leads.py, both region
+scans; the regional NM statistic stays on the provider (ROADMAP C2).
 """
 from __future__ import annotations
 
@@ -474,8 +474,18 @@ class LeadProvider:
     # -- per-read scanning --------------------------------------------------
 
     def iter_region(self, bam, region: Region) -> Iterator[Lead]:
-        """Per-read scan of one region (reference: leadprov.py:474-581)."""
-        yield from self._iter_region_python(bam, region)
+        """Per-read scan of one region (reference: leadprov.py:474-581).
+
+        The native C++ scan (csrc/host/bamcore.cc, built at first use;
+        a failed build raises) for a BAM; the pure-Python scan below, of
+        equal output, for a CRAM, under --no-native, and with
+        --dev-trace-read, which needs per-read visibility.
+        """
+        if (not self.config.no_native and not self.config.dev_trace_read
+                and hasattr(bam, "scan_region")):
+            yield from self._iter_region_native(bam, region)
+        else:
+            yield from self._iter_region_python(bam, region)
 
     def _read_passes(self, read, region, mapq_min, alen_min, exclude_flags) -> bool:
         """Whole-read filter (reference: leadprov.py:494-503); reads are
@@ -570,6 +580,290 @@ class LeadProvider:
         # reference writes it into the shared config (leadprov.py:577-578);
         # here it stays on this provider, so a decode-ahead scan of the next
         # task cannot change the threshold this task's QC reads.
+        self.average_regional_nm = nm_sum / float(max(1, nm_count))
+
+    def _iter_region_native(self, bam, region: Region) -> Iterator[Lead]:
+        """Native-decoder scan with identical semantics to the Python path:
+        per-read filtering, coverage, NM statistics, CIGAR indel/clip
+        leads from pre-extracted events, and full Python split-read
+        handling only for reads carrying an SA tag."""
+        config = self.config
+        qc_nm = config.qc_nm_measure
+        phase = config.phase
+        advanced_tags = qc_nm or phase
+        mapq_min = config.mapq
+        alen_min = config.min_alignment_length
+        exclude_flags = config.exclude_flags if config.exclude_flags is not None else 0
+        minsvlen = config.minsvlen_screen
+        longinslen = config.long_ins_length / 2.0
+        seq_cache_maxlen = config.dev_seq_cache_maxlen
+        detect_large_ins = config.detect_large_ins
+        ld_binsize = config.cluster_binsize
+        nm_sum = 0.0
+        nm_count = 0
+        coverage = self.coverage
+        hap_diff = None  # (3, n_bins+1) per-hp difference accumulator
+
+        from sniffles_tpu_torch.io import native
+        from sniffles_tpu_torch.io.bam import parse_record, FREVERSE, FSECONDARY, FSUPPLEMENTARY
+        from sniffles_tpu_torch.io.bam import CINS as OP_I, CDEL as OP_D, CSOFT_CLIP as OP_S
+
+        for res, mask in bam.scan_region(region.contig, region.start, region.end,
+                                         min_event_len=minsvlen):
+            c = res.cols
+            ev_rec = res.events["rec_index"]
+            pos_arr = c["pos"]
+            flag_arr = c["flag"]
+            qalen_arr = c["qalen"]
+            ref_len_arr = c["ref_len"]
+
+            # Vectorized per-read filtering (reference: leadprov.py:494-503)
+            passing = (mask & (c["mapq"] >= mapq_min)
+                       & ((flag_arr & (FSECONDARY | exclude_flags)) == 0)
+                       & (qalen_arr >= alen_min)
+                       & (pos_arr >= region.start) & (pos_arr < region.end))
+            idxs = np.nonzero(passing)[0]
+            n_pass = len(idxs)
+            if n_pass == 0:
+                continue
+
+            # read ids: sequential in record order
+            read_ids = self.read_id + 1 + np.arange(n_pass, dtype=np.int64)
+            self.read_id += n_pass
+            self.read_count += n_pass
+
+            # coverage: batched difference-array accumulation
+            starts = pos_arr[idxs].astype(np.int64)
+            ends = starts + ref_len_arr[idxs]
+            lo_bp = int(starts.min())
+            hi_bp = int(min(ends.max(), len(coverage)))
+            # one native pass builds the interval difference array AND
+            # prefix-adds it into the coverage track (scratch reused)
+            native.coverage_add(starts, ends, coverage, lo_bp, hi_bp)
+
+            # NM statistics, vectorized (reference: leadprov.py:517-529)
+            nm_raw = c["nm"][idxs]
+            nm_vals = np.where(
+                nm_raw >= 0,
+                (nm_raw - c["large_indel_sum"][idxs]) / (qalen_arr[idxs] + 1.0),
+                -1.0)
+            if advanced_tags:
+                has_nm = nm_raw >= 0
+                nm_sum += float(nm_vals[has_nm].sum())
+                nm_count += int(has_nm.sum())
+
+            # haplotype/REF-bin counts: accumulate per-region difference
+            # arrays across batches, folded into the leadhapcount dict
+            # ONCE after the scan (a per-batch dict fold was ~1.5M dict
+            # ops on a 30x multi-contig run)
+            hp_arr = np.clip(c["hp"][idxs], 0, 2)
+            bin_start = (starts // ld_binsize).astype(np.int64)
+            bin_end = (ends // ld_binsize).astype(np.int64)
+            if hap_diff is None or hap_diff.shape[1] <= int(bin_end.max()) + 1:
+                need = max(int(bin_end.max()) + 2,
+                           len(coverage) // ld_binsize + 2)
+                grown = np.zeros((3, need), dtype=np.int64)
+                if hap_diff is not None:
+                    grown[:, :hap_diff.shape[1]] = hap_diff
+                hap_diff = grown
+            np.add.at(hap_diff, (hp_arr, bin_start), 1)
+            np.add.at(hap_diff, (hp_arr, bin_end), -1)
+
+            # Only reads producing leads need Python-side work
+            has_events = np.zeros(len(pos_arr), dtype=bool)
+            has_events[ev_rec] = True
+            has_sa_arr = c["sa_off"] >= 0
+            interesting = idxs[(has_events | has_sa_arr)[idxs]]
+            if len(interesting) == 0:
+                continue
+
+            # Native split-chain parse for all SA carriers of the batch
+            # (bamcore_scan_splits): SA tag tokenization, CIGAR analysis,
+            # query-order sort, pair classification and BND mate geometry
+            # all happen in C; the loop below only materializes Lead
+            # objects from the returned columns. Reads the scanner flags
+            # (malformed SA) fall back to the exact per-read Python path.
+            sa_sub = interesting[has_sa_arr[interesting]]
+            if len(sa_sub):
+                want = np.where(
+                    (flag_arr[sa_sub] & FSUPPLEMENTARY) != 0, 1, 3).astype(np.uint8)
+                split_bnd, split_hints = native.scan_splits(
+                    res.buf, c["offset"][sa_sub], c["rec_len"][sa_sub], want,
+                    region.contig,
+                    minsvlen=minsvlen,
+                    long_ins_half=config.long_ins_length * 0.5,
+                    seq_cap=seq_cache_maxlen,
+                    max_splits_base=config.max_splits_base,
+                    max_splits_kb=float(config.max_splits_kb),
+                    mapq_min=mapq_min,
+                    keep_lowqual=bool(config.dev_keep_lowqual_splits))
+                sa_pos_of = {int(v): j for j, v in enumerate(sa_sub.tolist())}
+                hint_read = split_hints["h_read"]
+            read_id_of = dict(zip(idxs.tolist(), read_ids.tolist()))
+            ev_lo_a = np.searchsorted(ev_rec, interesting, side="left")
+            ev_hi_a = np.searchsorted(ev_rec, interesting, side="right")
+            # box only the event range interesting reads consume (events
+            # of reads failing the pass mask are skipped entirely)
+            ev_base = int(ev_lo_a[0]) if len(ev_lo_a) else 0
+            ev_top = int(ev_hi_a[-1]) if len(ev_hi_a) else 0
+            ev_lo = (ev_lo_a - ev_base).tolist()
+            ev_hi = (ev_hi_a - ev_base).tolist()
+
+            # batch scalar extraction: one .tolist() per column beats
+            # per-element numpy indexing (~8 boxed reads per record) in
+            # this, the last remaining per-read Python loop
+            flag_l = flag_arr[interesting].tolist()
+            pos_l = pos_arr[interesting].tolist()
+            qstart_l = c["qstart"][interesting].tolist()
+            hp_l = c["hp"][interesting].tolist()
+            ps_l = c["ps"][interesting].tolist()
+            nm_raw_l = c["nm"][interesting].tolist()
+            lis_l = c["large_indel_sum"][interesting].tolist()
+            qalen_l = qalen_arr[interesting].tolist()
+            mapq_l = c["mapq"][interesting].tolist()
+            sa_l = has_sa_arr[interesting].tolist()
+            ev_op_l = res.events["op"][ev_base:ev_top].tolist()
+            ev_oplen_l = res.events["oplen"][ev_base:ev_top].tolist()
+            ev_pos_ref_l = res.events["pos_ref"][ev_base:ev_top].tolist()
+            ev_pos_read_l = res.events["pos_read"][ev_base:ev_top].tolist()
+
+            for k, i in enumerate(interesting.tolist()):
+                flag = flag_l[k]
+                ref_start = pos_l[k]
+                hp = hp_l[k]
+                ps_raw = ps_l[k]
+                ps = ps_raw if ps_raw >= 0 else "NULL"
+                has_sa = sa_l[k]
+                is_supp = bool(flag & FSUPPLEMENTARY)
+                use_clips = detect_large_ins and not is_supp and not has_sa
+                curr_read_id = read_id_of[i]
+                nm = -1
+                if advanced_tags and nm_raw_l[k] >= 0:
+                    nm = (nm_raw_l[k] - lis_l[k]) / float(qalen_l[k] + 1)
+                qname = res.name(i)
+                strand = "-" if (flag & FREVERSE) else "+"
+                mapq = mapq_l[k]
+                read_len = qalen_l[k]
+
+                # CIGAR indel/clip leads from pre-extracted native events
+                for e in range(ev_lo[k], ev_hi[k]):
+                    op = ev_op_l[e]
+                    oplength = ev_oplen_l[e]
+                    pos_ref = ev_pos_ref_l[e]
+                    pos_read = ev_pos_read_l[e]
+                    if op == OP_I:
+                        yield Lead(qname, curr_read_id, region.contig,
+                                   pos_ref, pos_ref, "INS", oplength,
+                                   pos_read, pos_read + oplength,
+                                   strand, mapq, "INLINE", nm,
+                                   seq=(res.seq_slice(i, pos_read, pos_read + oplength)
+                                        if oplength <= seq_cache_maxlen else None),
+                                   hap=str(hp), phase_set=str(ps), is_sa=is_supp,
+                                   read_len=read_len)
+                    elif op == OP_D:
+                        yield Lead(qname, curr_read_id, region.contig,
+                                   pos_ref + oplength, pos_ref, "DEL", -oplength,
+                                   pos_read, pos_read,
+                                   strand, mapq, "INLINE", nm,
+                                   hap=str(hp), phase_set=str(ps), is_sa=is_supp,
+                                   read_len=read_len)
+                    elif op == OP_S:
+                        # hard clips carry event=0 in the reference OPTAB and
+                        # never produce leads (leadprov.py:180-195)
+                        if use_clips and oplength >= longinslen:
+                            yield Lead(qname, curr_read_id, region.contig,
+                                       pos_ref, pos_ref, "INS", None,
+                                       pos_read, pos_read + oplength,
+                                       strand, mapq, "INLINE", nm, seq=None,
+                                       hap=str(hp), phase_set=str(ps),
+                                       is_sa=is_supp, read_len=read_len)
+                        else:
+                            yield Lead(qname, curr_read_id, region.contig,
+                                       pos_ref, pos_ref,
+                                       "SINGLE_LEFT" if pos_ref == ref_start else "SINGLE_RIGHT",
+                                       0, pos_read, pos_read + oplength,
+                                       strand, mapq, "INLINE", nm, seq=None,
+                                       hap=str(hp), phase_set=str(ps),
+                                       is_sa=is_supp, read_len=read_len)
+
+                # Split reads: materialize from the native split-chain
+                # columns; the per-read Python parse remains only as the
+                # exactness route for a read the scanner flags (malformed
+                # SA — reproduces the reference's error messages)
+                if has_sa:
+                    j = sa_pos_of[i]
+                    if split_bnd["bnd_ok"][j] < 0 or split_bnd["split_err"][j]:
+                        read = parse_record(res.record_bytes(i), bam.references)
+                        if lead := Lead.for_bnd(curr_read_id, read):
+                            if (not lead.sa_same_strand
+                                    or lead.bnd_info.mate_contig != lead.contig):
+                                yield lead
+                        if not is_supp:
+                            yield from read_itersplits(curr_read_id, read, region.contig,
+                                                       config, read_nm=nm, read_hap=hp,
+                                                       read_ps=ps)
+                    else:
+                        if split_bnd["bnd_ok"][j] == 1:
+                            moff = int(split_bnd["bnd_mate_off"][j])
+                            mlen = int(split_bnd["bnd_mate_len"][j])
+                            mate = res.buf[moff:moff + mlen].tobytes().decode("ascii")
+                            sa_same = bool(split_bnd["bnd_same_strand"][j])
+                            if not sa_same or mate != region.contig:
+                                anchor = int(split_bnd["bnd_anchor"][j])
+                                qs = qstart_l[k]
+                                yield Lead(
+                                    qname, curr_read_id, region.contig,
+                                    anchor, anchor, "BND", 0,
+                                    qs, qs + qalen_l[k], strand, mapq, "BND_SA",
+                                    int(split_bnd["bnd_sa_nm"][j])
+                                    if nm_raw_l[k] >= 0 else None,
+                                    seq=None,
+                                    bnd_info=sv.SVCallBNDInfo(
+                                        mate,
+                                        int(split_bnd["bnd_mate_anchor"][j]),
+                                        bool(split_bnd["bnd_is_first"][j]),
+                                        bool(split_bnd["bnd_mate_is_reverse"][j])),
+                                    sa_same_strand=sa_same)
+                        lo = int(np.searchsorted(hint_read, j, side="left"))
+                        hi = int(np.searchsorted(hint_read, j, side="right"))
+                        for h in range(lo, hi):
+                            typ = int(split_hints["h_type"][h])
+                            hstart = int(split_hints["h_start"][h])
+                            seq = None
+                            if typ == 4:
+                                svtype, svlen, ref_end = "INS", None, hstart
+                            else:
+                                svtype = ("INS", "DEL", "DUP", "INV")[typ]
+                                svlen = int(split_hints["h_svlen"][h])
+                                ref_end = hstart if svtype == "INS" else hstart + svlen
+                                if svtype == "INS" and split_hints["h_seq_a"][h] >= 0:
+                                    seq = res.seq_slice(
+                                        i, int(split_hints["h_seq_a"][h]),
+                                        int(split_hints["h_seq_b"][h]))
+                            coff = int(split_hints["h_ctg_off"][h])
+                            ctg = (region.contig if coff < 0 else
+                                   res.buf[coff:coff + int(split_hints["h_ctg_len"][h])]
+                                   .tobytes().decode("ascii"))
+                            yield Lead(
+                                qname, curr_read_id, ctg, hstart, ref_end,
+                                svtype, svlen,
+                                int(split_hints["h_qry_start"][h]),
+                                int(split_hints["h_qry_end"][h]),
+                                "-" if split_hints["h_strand"][h] < 0 else "+",
+                                int(split_hints["h_mapq"][h]),
+                                "SPLIT_PRIM" if split_hints["h_source"][h] == 0
+                                else "SPLIT_SUP",
+                                nm, seq=seq, hap=str(hp), phase_set=str(ps),
+                                is_sa=False)
+
+        if hap_diff is not None:
+            # one array accumulate instead of a per-covered-bin dict fold
+            # (millions of dict entries at WGS scale; see RefHapBins)
+            self.leadhapcount["REF"].add_counts(
+                np.cumsum(hap_diff[:, :-1], axis=1))
+
+        # the per-task regional NM statistic stays on this provider, as in
+        # the pure-Python scan
         self.average_regional_nm = nm_sum / float(max(1, nm_count))
 
     def read_iterindels(self, read_id: int, read: BamRead, contig, use_clips,

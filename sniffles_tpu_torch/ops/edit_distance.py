@@ -7,60 +7,16 @@ across samples).
 
 Two implementations:
   * `edit_distance` — host-side Myers bit-parallel algorithm: the native
-    uint64-blocked scan of native/libbamcore.so when that library loads,
-    else Python big ints; O(n*m/w), exact, used by the host pipeline.
+    uint64-blocked scan of the port's native library (io/native.py) for
+    ASCII input, else Python big ints; O(n*m/w), exact, used by the host
+    pipeline.
   * `edit_distance_batch` — the same bit-vector recurrence on the card,
     one warp per pair (ops/edit_distance_batch.py), operating on padded
     uint8 sequence tensors.
 
-A copy of sniffles_tpu/ops/edit_distance.py with its own loader for the
-native library (the loading logic of sniffles_tpu/io/native.py, reduced
-to the two edit-distance symbols).
+A copy of sniffles_tpu/ops/edit_distance.py.
 """
 from __future__ import annotations
-
-import ctypes
-import functools
-import os
-from typing import Optional
-
-_REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-_LIB_PATH = os.path.join(_REPO_ROOT, "native", "libbamcore.so")
-
-
-@functools.lru_cache(maxsize=1)
-def native_lib() -> Optional[ctypes.CDLL]:
-    """native/libbamcore.so with its edit-distance entry points typed, or
-    None when the library is absent or does not load."""
-    if not os.path.exists(_LIB_PATH):
-        return None
-    # RTLD_DEEPBIND: libraries loaded earlier in the process may export
-    # their own zlib symbols RTLD_GLOBAL; this library must resolve
-    # against its own first (the same mode as sniffles_tpu/io/native.py)
-    mode = ctypes.DEFAULT_MODE
-    if hasattr(os, "RTLD_DEEPBIND"):
-        mode = os.RTLD_LOCAL | os.RTLD_DEEPBIND
-    try:
-        lib = ctypes.CDLL(_LIB_PATH, mode=mode)
-    except OSError:
-        try:
-            lib = ctypes.CDLL(_LIB_PATH)
-        except OSError:
-            return None
-    try:
-        lib.bamcore_edit_distance.restype = ctypes.c_int64
-        lib.bamcore_edit_distance.argtypes = [
-            ctypes.c_char_p, ctypes.c_int64, ctypes.c_char_p, ctypes.c_int64]
-    except AttributeError:
-        return None
-    try:  # separate: a stale build may lack the bounded variant
-        lib.bamcore_edit_distance_k.restype = ctypes.c_int64
-        lib.bamcore_edit_distance_k.argtypes = [
-            ctypes.c_char_p, ctypes.c_int64, ctypes.c_char_p,
-            ctypes.c_int64, ctypes.c_int64]
-    except AttributeError:
-        pass
-    return lib
 
 
 def edit_distance(a: str, b: str, k: int = -1) -> int:
@@ -73,9 +29,9 @@ def edit_distance(a: str, b: str, k: int = -1) -> int:
     exceedance) make near-identical and far-apart pairs cheap; both are
     exact under unit edit costs.
 
-    Dispatches to the uint64-blocked C implementation in native/bamcore.cc
-    when available (same algorithm); this pure-Python version is the
-    fallback and the exactness reference."""
+    ASCII input goes to the uint64-blocked C implementation in
+    csrc/host/bamcore.cc (same algorithm); this pure-Python version takes
+    the rest and is the exactness reference."""
     # trim common prefix / suffix (exact under unit costs)
     lo = 0
     hi_a, hi_b = len(a), len(b)
@@ -100,12 +56,8 @@ def edit_distance(a: str, b: str, k: int = -1) -> int:
     except UnicodeEncodeError:
         ab = None
     if ab is not None:
-        lib = native_lib()
-        if lib is not None and hasattr(lib, "bamcore_edit_distance_k"):
-            return int(lib.bamcore_edit_distance_k(ab, m, bb, n, k))
-        if lib is not None and hasattr(lib, "bamcore_edit_distance"):
-            d = int(lib.bamcore_edit_distance(ab, m, bb, n))
-            return d if k < 0 or d <= k else k + 1
+        from sniffles_tpu_torch.io import native
+        return int(native.get_lib().bamcore_edit_distance_k(ab, m, bb, n, k))
     # Build match bitmasks for the pattern
     peq: dict[str, int] = {}
     for i, c in enumerate(a):

@@ -4,8 +4,7 @@ calling), CombineTask (multi-sample SNF merge).
 Tasks are the unit of genome-space sharding — one per contig interval
 (call/genotype) or per SNF-block shard (combine).  Behavior matches the
 reference task semantics (reference: parallel.py:42-572).  Copied from
-sniffles_tpu/pipeline/tasks.py; the leadtab cache (--dev-cache) is not
-ported yet.
+sniffles_tpu/pipeline/tasks.py.
 
 In a worker process (--threads N) a task reaches the device through the
 parent's device service: the runtime attaches the worker's DeviceClient
@@ -26,6 +25,7 @@ from __future__ import annotations
 import copy
 import logging
 import math
+import os
 from dataclasses import dataclass
 from typing import Optional, TYPE_CHECKING
 
@@ -91,12 +91,49 @@ class Task:
     def execute(self, worker=None) -> Optional[Result]:
         raise NotImplementedError
 
+    # -- lead extraction ----------------------------------------------------
+
+    def _cache_filename(self) -> str:
+        """Leadtab cache path (reference: leadprov.py:672-678)."""
+        cache_dir = self.config.dev_cache_dir or os.path.join(self.config.tmp_dir,
+                                                              "sniffles_tpu_cache")
+        os.makedirs(cache_dir, exist_ok=True)
+        base = os.path.basename(self.config.input)
+        return os.path.join(cache_dir, f"{base}_{self.contig}_{self.start}_{self.end}.pickle")
+
+    def _load_cached_leadtab(self) -> bool:
+        """The leadtab of an earlier run with --dev-cache, when its file
+        exists. The task's regional NM statistic comes back with its lead
+        provider (average_regional_nm), as a scan leaves it; nothing is
+        written to the shared config."""
+        import pickle
+        path = self._cache_filename()
+        if not os.path.exists(path):
+            return False
+        with open(path, "rb") as f:
+            self.lead_provider, self._nm_threshold, self._prefetched = pickle.load(f)
+        self.lead_provider.config = self.config  # nulled before pickling
+        log.info(f"{self}: leadtab loaded from the cache {path}")
+        return True
+
+    def _save_cached_leadtab(self):
+        import pickle
+        lp_config = self.lead_provider.config
+        self.lead_provider.config = None  # config is not picklable state
+        try:
+            with open(self._cache_filename(), "wb") as f:
+                pickle.dump((self.lead_provider, self._nm_threshold, self._prefetched), f)
+        finally:
+            self.lead_provider.config = lp_config
+
     def build_leadtab(self):
         # a decode-ahead prefetch (pipeline/runtime.py) may have already
         # built the leadtab on a background thread
         if self._prefetched is not None:
             return self._prefetched
         config = self.config
+        if config.dev_cache and self._load_cached_leadtab():
+            return self._prefetched
         from sniffles_tpu_torch.io.bam import AlignmentFile
         self.bam = AlignmentFile(config.input, config.input_mode, require_index=True,
                                  reference_filename=config.reference)
@@ -110,6 +147,9 @@ class Task:
         # beside this one)
         self._nm_threshold = self.lead_provider.average_regional_nm
         self._prefetched = (externals, self.lead_provider.read_count)
+
+        if config.dev_cache:
+            self._save_cached_leadtab()
         return self._prefetched
 
     def maybe_post_device(self, device_client) -> None:
@@ -221,10 +261,24 @@ class Task:
                 self._snapshot_csv_lines(svc)
 
             self._try_phasing_rescue(svc, config)
+            self._try_local_assembly(svc, config)
 
             svc.finalize()
             finalized.append(svc)
         return finalized
+
+    def _try_local_assembly(self, svc, config):
+        """Assembly-rescue gate for filtered INS/DEL (reference: parallel.py:186-196)."""
+        keep_as_is = (("PASS", "GT", "MOSAIC_VAF") if config.dev_locasm_skip_mosaic
+                      else ("PASS", "GT"))
+        wanted = (config.dev_locasm_do and not svc.qc
+                  and svc.filter not in keep_as_is and svc.svtype in ("INS", "DEL")
+                  and abs(svc.svlen) <= config.dev_maxsvlen_extra
+                  and (svc.support >= config.dev_minreads_extra
+                       or len(svc.rnames) > config.dev_minreads_extra))
+        if wanted:
+            from sniffles_tpu_torch.local_asm import LocalAsm
+            LocalAsm(svc).assembly(self.config)
 
     def rescue_phasing(self, svc: sv.SVCall, min_rnames_in_phase: float = 0.75,
                        min_reads_cover: int = 3) -> bool:

@@ -367,6 +367,16 @@ def write_dataset(tmpdir: str, ref_len: int = 100_000, svs: list[PlantedSV] = ()
     return bam_path, fasta_path
 
 
+def write_cram(bam_path: str, fasta_path: str, cram_path: str = None) -> str:
+    """The reads of an indexed BAM from write_dataset as a reference-based
+    CRAM 3.0 beside it (sim.cram and its .crai, io/cramwrite.py); returns
+    the CRAM's path."""
+    from sniffles_tpu_torch.io.cramwrite import bam_to_cram
+    cram_path = cram_path or os.path.splitext(bam_path)[0] + ".cram"
+    bam_to_cram(bam_path, cram_path, reference_filename=fasta_path)
+    return cram_path
+
+
 def dense_layout(ref_len: int) -> list[PlantedSV]:
     """High-SV-density layout (sites every 1.5-3 kb, the spacing of
     TR-rich regions and population call sets), where per-task compute —

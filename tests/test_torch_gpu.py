@@ -1,7 +1,8 @@
 """Card-only tests of the PyTorch/CUDA port: the hand-written CUDA kernels
 (edit distance; the merge sweep's partition and segment walks) against
 their plain PyTorch versions (and the host Myers scan), and the combine
-and call_sample device paths on the card against their host paths. They
+and call_sample device paths on the card against their host paths, and
+the native host library beside a CUDA context. They
 skip where no CUDA card is visible. This file imports neither JAX nor
 the JAX package, so on the card it runs without them:
 
@@ -207,6 +208,39 @@ def test_call_sample_on_cuda_matches_host(card, monkeypatch, tmp_path):
     assert tc.COUNTS == {"launches": 1, "sweep_cuts": 1}
     assert len(records(host)) == len(svs)
     assert records(dev) == records(host)
+
+
+def test_native_library_beside_a_cuda_context(card, monkeypatch, tmp_path):
+    """The native host library in a process that holds a CUDA context: its
+    BGZF inflate equals zlib's, and a CRAM of the sample called on the
+    card gives the records of the native scan of its BAM and of the
+    pure-Python scan (--no-native)."""
+    import gzip
+    from sniffles_tpu_torch import cli
+    from sniffles_tpu_torch.io import native
+    from sniffles_tpu_torch.sim import PlantedSV, write_cram, write_dataset
+
+    torch.zeros(1, device=card)
+    bam, fa = write_dataset(str(tmp_path), ref_len=150_000, depth=20, read_len=12_000,
+                            seed=12, svs=[PlantedSV(pos=40_000, svtype="DEL", svlen=300),
+                                          PlantedSV(pos=90_000, svtype="INS", svlen=200)])
+    with open(bam, "rb") as f:
+        raw = f.read()
+    assert native.bgzf_inflate(raw) == gzip.decompress(raw)
+    cram = write_cram(bam, fa)
+
+    def records(path):
+        with open(path) as f:
+            return [line for line in f if not line.startswith("#")]
+
+    monkeypatch.delenv("SNIFFLES_TPU_FORCE_CPU", raising=False)
+    outs = []
+    for inp, extra in ((bam, []), (bam, ["--no-native"]), (cram, [])):
+        out = tmp_path / f"o{len(outs)}.vcf"
+        assert cli.main(["--input", inp, "--reference", fa, "--threads", "0", "--vcf",
+                         str(out), *extra]) == 0
+        outs.append(records(out))
+    assert len(outs[0]) == 2 and outs[0] == outs[1] == outs[2]
 
 
 def test_batched_sweep_kernel_matches_plain_version(card):

@@ -1,10 +1,11 @@
 """The port (sniffles_tpu_torch/ and chip_smoke.py) stands alone: it imports
 neither JAX nor anything of the JAX package sniffles_tpu, its combine and
 call_sample run with both blocked from import (inline and with the worker
-pool), and without a card it raises unless the CPU was asked for. Options
-it has not ported are refused; --threads N with the device path, refused
-before the worker pool was ported, now runs and gives the --threads 0
-records."""
+pool), it loads its own build of the native host library and never the
+JAX package's native/libbamcore.so, and without a card it raises unless
+the CPU was asked for. --tpu-mesh, which it has not ported, is refused;
+options refused before their slices were ported (--threads N with the
+device path, --dev-cache, --dev-locasm-do, .cram input) now run."""
 import json
 import os
 import re
@@ -27,8 +28,19 @@ def port_sources():
     paths = [os.path.join(REPO, "chip_smoke.py")]
     for root, _, files in os.walk(PORT):
         paths += [os.path.join(root, f) for f in files
-                  if f.endswith((".py", ".cu", ".cuh"))]
+                  if f.endswith((".py", ".cu", ".cuh", ".cc"))]
     return paths
+
+
+# appended to the scripts below: the process loaded the port's own build
+# of the native library (build/torch_kernels/libbamcore-<hash>.so) and
+# nothing from the JAX package's native/ directory
+NATIVE_CHECK = """
+with open("/proc/self/maps") as f:
+    maps = f.read()
+assert "/native/libbamcore" not in maps, "the JAX package's native library is loaded"
+assert "/build/torch_kernels/libbamcore-" in maps, "the port's native library is not loaded"
+"""
 
 
 def test_port_sources_import_no_jax():
@@ -61,6 +73,7 @@ for extra in ([], ["--no-tpu"]):
 assert sys.modules["jax"] is None
 loaded = [m for m in sys.modules if m == "sniffles_tpu" or m.startswith("sniffles_tpu.")]
 assert loaded == ["sniffles_tpu"], loaded
+""" + NATIVE_CHECK + """
 print("OK")
 """
     env = dict(os.environ)
@@ -92,6 +105,7 @@ assert len(outs[0]) == 2 and outs[0] == outs[1], outs
 assert sys.modules["jax"] is None
 loaded = [m for m in sys.modules if m == "sniffles_tpu" or m.startswith("sniffles_tpu.")]
 assert loaded == ["sniffles_tpu"], loaded
+""" + NATIVE_CHECK + """
 print("OK")
 """
     env = dict(os.environ)
@@ -149,15 +163,20 @@ def runs_like_threads_0(inputs, extra, tmp_path):
     pytest.param(["--threads", "4"], False, id="threads-with-device-path"),
     pytest.param(["--threads", "0", "--genotype-vcf", "t0.vcf"], False, id="genotype-vcf"),
     pytest.param(["--threads", "0", "--snf", "x.snf"], False, id="snf-output"),
-    pytest.param(["--threads", "0", "--dev-cache"], True, id="dev-cache"),
-    pytest.param(["--threads", "0", "--dev-locasm-do"], True, id="local-assembly"),
+    pytest.param(["--threads", "0", "--dev-cache", "--dev-cache-dir", "cache"], False,
+                 id="dev-cache"),
+    pytest.param(["--threads", "0", "--dev-locasm-do"], False, id="local-assembly"),
+    pytest.param(["--threads", "0", "--tpu-mesh", "2"], True, id="tpu-mesh"),
 ])
 def test_unported_call_sample_options_are_refused(extra, refused, tmp_path, capsys):
-    """Options the port has not ported are refused. --threads N with the
-    device path, --genotype-vcf and --snf were refused before their
-    slices were ported; now their command lines run: --threads 4 and --snf
-    give the records of --threads 0, and force calling against those
-    records re-emits each of them as 1/1."""
+    """Options the port has not ported (--tpu-mesh) are refused. --threads N
+    with the device path, --genotype-vcf, --snf, --dev-cache and
+    --dev-locasm-do were refused before their slices were ported; now
+    their command lines run: --threads 4, --snf, --dev-cache (which writes
+    the task's leadtab to its cache directory) and --dev-locasm-do (no call
+    of this sample is filtered, so nothing is assembled) give the records
+    of --threads 0, and force calling against those records re-emits each
+    of them as 1/1."""
     from sniffles_tpu_torch import cli
     from sniffles_tpu_torch.sim import PlantedSV, write_dataset
     if not refused:
@@ -177,6 +196,8 @@ def test_unported_call_sample_options_are_refused(extra, refused, tmp_path, caps
             with open(tmp_path / "x.snf", "rb") as f:
                 header = json.loads(f.readline())
             assert header["snf_candidate_count"] >= 1 and list(header["index"]) == ["chr1"]
+        if "--dev-cache" in extra:
+            assert os.listdir(tmp_path / "cache") == ["sim.bam_chr1_0_999999.pickle"]
         return
     bam = tmp_path / "a.bam"
     bam.write_bytes(b"")
@@ -185,13 +206,21 @@ def test_unported_call_sample_options_are_refused(extra, refused, tmp_path, caps
     assert not (tmp_path / "o.vcf").exists()
 
 
-def test_cram_input_is_refused(tmp_path, capsys):
-    from sniffles_tpu_torch import cli
-    cram = tmp_path / "a.cram"
-    cram.write_bytes(b"")
-    assert cli.main(["--input", str(cram), "--vcf", str(tmp_path / "o.vcf"),
-                     "--threads", "0"]) == 1
-    assert ".cram input is not yet ported" in capsys.readouterr().err
+def test_cram_input_gives_the_records_of_its_bam(tmp_path):
+    """.cram input, refused before its slice was ported: the port's CLI
+    calls a reference-based CRAM written by the port's simulator from its
+    BAM, and writes the BAM's records."""
+    from sniffles_tpu_torch.sim import PlantedSV, write_cram, write_dataset
+    bam, fa = write_dataset(str(tmp_path), ref_len=60_000, depth=10, read_len=8_000,
+                            seed=4, svs=[PlantedSV(pos=30_000, svtype="DEL", svlen=200),
+                                         PlantedSV(pos=45_000, svtype="INS", svlen=150)])
+    cram = write_cram(bam, fa)
+    run_port(["--input", bam, "--reference", fa, "--vcf", str(tmp_path / "bam.vcf"),
+              "--threads", "0"], tmp_path)
+    run_port(["--input", cram, "--reference", fa, "--vcf", str(tmp_path / "cram.vcf"),
+              "--threads", "0"], tmp_path)
+    assert len(records(tmp_path / "bam.vcf")) == 2
+    assert records(tmp_path / "cram.vcf") == records(tmp_path / "bam.vcf")
 
 
 def test_no_card_without_cpu_request_raises(monkeypatch, tmp_path):
@@ -254,6 +283,7 @@ for inputs in (snfs, [bam, "--reference", fa]):
 assert sys.modules["jax"] is None
 loaded = [m for m in sys.modules if m == "sniffles_tpu" or m.startswith("sniffles_tpu.")]
 assert loaded == ["sniffles_tpu"], loaded
+""" + NATIVE_CHECK + """
 print("OK")
 """
     env = dict(os.environ)
@@ -301,6 +331,7 @@ assert len(genotyped) == 4 and all(l.split("\\t")[9].startswith("1/1") for l in 
 assert sys.modules["jax"] is None
 loaded = [m for m in sys.modules if m == "sniffles_tpu" or m.startswith("sniffles_tpu.")]
 assert loaded == ["sniffles_tpu"], loaded
+""" + NATIVE_CHECK + """
 print("OK")
 """
     env = dict(os.environ)

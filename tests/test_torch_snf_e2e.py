@@ -38,8 +38,6 @@ SNF_CONFIG_KEYS_THAT_DIFFER = {
     "qc_nm_threshold": "the JAX package writes a task's regional NM statistic onto the "
                        "shared config; the port keeps it on the task's lead provider",
     "average_regional_nm": "as qc_nm_threshold",
-    "input_is_cram": "the JAX package records whether the input is CRAM; the port "
-                     "refuses .cram input",
 }
 
 
