@@ -91,6 +91,28 @@ Phases, each of which must pass:
      the assemblies and rescued calls counted (at least one of each);
      (d) --dev-cache, modes3's sample 31 twice: the second run loads the
      task's leadtab from the cache, and both VCFs equal phase 6's.
+  8a. the wall of a child process in parts, before any daemon code runs:
+     each child of phases 3b and 4b runs unbuffered and every line of its
+     log is stamped on arrival; dense3 at --threads 4 and 0 and combine256
+     at --threads 4 are split into start and imports (to "Running"), the
+     configuration and the device and index checks (to "Opening for
+     writing"), planning and the pool's start, the analysis (of which the
+     service's warmup), the emission (to "Wrote N called SVs") and the
+     exit.
+  8. the device daemon: one process (this script's --daemon-child, which
+     runs the port's device daemon as `python -m` does and keeps every
+     merge-sweep and edit-distance launch on the host) holds the card and
+     serves, each in a child with no card visible (CUDA_VISIBLE_DEVICES
+     empty): dense3 at --threads 4 and 0, combine256 at --threads 4,
+     modes3's sample 31 with --snf and its force call, and two dense3 runs
+     at once; every VCF and SNF == the same run's in phases 3, 4 and 6;
+     cluster_assign on phase 2b's fuzz batches and combine_greedy on
+     tests/test_combine_greedy_kernel.py's cases on the card through the
+     daemon, each == its plain version on the CPU; the daemon's launches
+     of each kernel over those runs (> 0), and every launch it kept held
+     against its plain version; phase 8a's splits again with the daemon,
+     side by side; the daemon shut down by request, then a second one
+     that must exit by itself after --idle-timeout 2.
 Then (5) the kernels' timings on the inputs of the main paths' largest
 launches (CUDA events) beside their bounds and plain versions, the
 sweep's device time on phase 2b's fuzz batches and chain, the fused
@@ -105,6 +127,11 @@ Without a card it exits non-zero before any of that.
 
 is the child of phase 4b: the CLI with ARGS, every merge-sweep launch
 kept and saved to KEEP (torch.save) when the CLI ends.
+
+    python3 chip_smoke.py --daemon-child KEEP ARGS...
+
+is phase 8's daemon: the port's device daemon with ARGS, every
+merge-sweep and edit-distance launch kept and saved to KEEP when it ends.
 """
 import concurrent.futures
 import contextlib
@@ -114,6 +141,7 @@ import os
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -795,37 +823,79 @@ def run_dense_call(tmp, meta):
 
 # -- phases 3b and 4b: the worker pool in a child process --------------------
 
-def run_child(cli_args, counters_path, what, keep_path=None):
+# the wall splits of the child processes (wall_split), by their `what`
+SPLITS = {}
+
+
+def run_child(cli_args, counters_path, what, keep_path=None, env_extra=None):
     """The port's CLI in a child process: `python -m sniffles_tpu_torch`,
     or, with keep_path, this script's --cli-child, which runs the CLI the
-    same way and keeps every merge-sweep launch. Its log is printed only
-    when the run fails. Returns (the wall from the start of the process
-    to its end, its counters, the lines of its log that give the time of
-    its analysis and of the device service's warmup)."""
+    same way and keeps every merge-sweep launch; env_extra is added to
+    its environment. Each line of its log is stamped on arrival (the
+    child runs unbuffered), and its wall split goes into SPLITS[what]. Its
+    log is printed only when the run fails. Returns (the wall from the
+    start of the process to its end, its counters, the lines of its log
+    that give the time of its analysis and of the device service's
+    warmup)."""
     env = dict(os.environ)
     here = os.path.dirname(os.path.abspath(__file__))
     env["PYTHONPATH"] = here + os.pathsep + env.get("PYTHONPATH", "")
     env["SNIFFLES_TPU_COUNTERS_JSON"] = counters_path
+    env["PYTHONUNBUFFERED"] = "1"
     env.pop("SNIFFLES_TPU_FORCE_CPU", None)
+    env.update(env_extra or {})
     if os.path.exists(counters_path):
         os.unlink(counters_path)
     cmd = ([sys.executable, os.path.abspath(__file__), "--cli-child", keep_path] if keep_path
            else [sys.executable, "-m", "sniffles_tpu_torch"])
     cmd += [*cli_args, "--allow-overwrite"]
     t0 = time.perf_counter()
-    with tempfile.TemporaryFile("w+") as log:
-        rc = subprocess.run(cmd, stdout=log, stderr=subprocess.STDOUT, env=env,
-                            timeout=400).returncode
-        wall = time.perf_counter() - t0
-        log.seek(0)
-        text = log.read()
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                            env=env)
+    watchdog = threading.Timer(400, proc.kill)
+    watchdog.start()
+    stamped = [(time.perf_counter(), line) for line in proc.stdout]
+    rc = proc.wait()
+    wall = time.perf_counter() - t0
+    watchdog.cancel()
+    text = "".join(line for _, line in stamped)
     if rc != 0:
         print(text[-6000:])
         fail(f"{what} in a child process exited {rc}")
-    timing = [line.split(": ", 1)[-1] for line in text.splitlines()
+    SPLITS[what] = wall_split(stamped, t0, t0 + wall)
+    timing = [line.rstrip("\n").split(": ", 1)[-1] for _, line in stamped
               if "Analysis took" in line or "device warmup on" in line]
     with open(counters_path) as f:
         return wall, json.load(f), "; ".join(timing)
+
+
+def wall_split(stamped, t0, t_end):
+    """A CLI child's wall in parts, from the times its log lines arrived
+    (seconds; the CLI itself has no timer): the interpreter's start and
+    the imports, to "Running"; the configuration, the device check and
+    the input's index check, to "Opening for writing"; the planning and
+    the pool's start, to the start of the analysis ("Analysis took X s"
+    less X); the analysis, of which the service's warmup ends at its
+    "device warmup on" line (None when the run had no service of its
+    own); the emission, to "called SVs to"; and the exit. None for a run
+    that logged no analysis."""
+    def at(marker):
+        return next(((t, line) for t, line in stamped if marker in line), (None, ""))
+    t_run, t_open = at("Running ")[0], at("Opening for writing")[0]
+    t_took, took = at("Analysis took")
+    t_warm, t_wrote = at("device warmup on")[0], at("called SVs to")[0]
+    if None in (t_run, t_open, t_took, t_wrote):
+        return None
+    analysis = float(took.split("Analysis took ")[1].split("s")[0])
+    return {"start, imports": t_run - t0,
+            "configuration, device and index checks": t_open - t_run,
+            "planning, pool start": t_took - analysis - t_open,
+            "analysis": analysis,
+            "  of which the service warmup": (None if t_warm is None
+                                              else t_warm - (t_took - analysis)),
+            "emission": t_wrote - t_took,
+            "exit": t_end - t_wrote,
+            "wall": t_end - t0}
 
 
 def cli_child(keep_path, cli_args):
@@ -1427,6 +1497,279 @@ def run_dev_cache(tmp):
           f"records)", flush=True)
 
 
+# -- phases 8a and 8: the wall split, and the device daemon -----------------
+
+# directories whose blocks end before phase 8 runs their inputs again;
+# removed when the script exits
+_KEPT_DIRS = []
+
+
+def kept_dir(prefix):
+    """A temporary directory that outlives the block it is made for."""
+    d = tempfile.TemporaryDirectory(prefix=prefix)
+    _KEPT_DIRS.append(d)
+    return contextlib.nullcontext(d.name)
+
+
+def print_splits(columns):
+    """The wall splits (wall_split) of SPLITS[what] for each (title, what)
+    of `columns`, side by side, in seconds."""
+    splits = [SPLITS.get(what) for _, what in columns]
+    if any(split is None for split in splits):
+        fail(f"no wall split for {[w for (_, w), x in zip(columns, splits) if x is None]}")
+    print("    " + "part (s)".ljust(40) + "".join(title.rjust(16) for title, _ in columns))
+    for part in splits[0]:
+        print("    " + part.ljust(40) + "".join(
+            ("-" if split[part] is None else f"{split[part]:.3f}").rjust(16)
+            for split in splits), flush=True)
+
+
+def daemon_child(keep_path, argv):
+    """Phase 8's daemon: device_daemon.main(ARGV), as `python -m
+    sniffles_tpu_torch.parallel.device_daemon ARGV` runs it, with every
+    merge-sweep launch (inputs, state before and after, counts) and every
+    edit-distance launch (inputs, output) of its dispatcher kept on the
+    host and saved to keep_path when it ends."""
+    from sniffles_tpu_torch.ops import clustering as tc
+    from sniffles_tpu_torch.ops import edit_distance_batch as ted
+    from sniffles_tpu_torch.parallel import device_daemon
+    sweep, ed, sweeps, eds = tc.merge_sweep, ted.edit_distance_batch_device, [], []
+
+    def keep_sweep(inputs, state, **params):
+        before = {k: v.to("cpu", copy=True) for k, v in state.items()}
+        counts = sweep(inputs, state, **params)
+        sweeps.append(({k: v.cpu() for k, v in inputs.items()}, before,
+                       {k: v.cpu() for k, v in state.items()}, counts.cpu()))
+        return counts
+
+    def keep_ed(*inputs):
+        out = ed(*inputs)
+        if inputs[0].is_cuda:
+            eds.append(([x.cpu() for x in inputs], out.cpu()))
+        return out
+
+    tc.merge_sweep, ted.edit_distance_batch_device = keep_sweep, keep_ed
+    code = device_daemon.main(argv)
+    torch.save({"merge_sweep": sweeps, "ed_myers": eds}, keep_path)
+    sys.stdout.flush()
+    sys.stderr.flush()
+    os._exit(code)
+
+
+def start_daemon(sock, args, log_path, keep_path=None):
+    """A device daemon in a child process (phase 8's --daemon-child when
+    keep_path is given, else `python -m`), with its log in log_path;
+    returns it once it answers on its socket."""
+    from sniffles_tpu_torch.parallel.device_daemon import answers
+    env = dict(os.environ)
+    here = os.path.dirname(os.path.abspath(__file__))
+    env["PYTHONPATH"] = here + os.pathsep + env.get("PYTHONPATH", "")
+    env.pop("SNIFFLES_TPU_FORCE_CPU", None)
+    cmd = ([sys.executable, os.path.abspath(__file__), "--daemon-child", keep_path] if keep_path
+           else [sys.executable, "-m", "sniffles_tpu_torch.parallel.device_daemon"])
+    with open(log_path, "w") as log:
+        proc = subprocess.Popen([*cmd, "--socket", sock, *args], stdout=log,
+                                stderr=subprocess.STDOUT, env=env)
+    deadline = time.monotonic() + 120
+    while not answers(sock):
+        if proc.poll() is not None or time.monotonic() > deadline:
+            proc.kill()
+            with open(log_path) as log:
+                print(log.read()[-6000:])
+            fail("the device daemon never answered on its socket")
+        time.sleep(0.05)
+    return proc
+
+
+def check_daemon_counters(c, what, tasks):
+    """A served run's counters (the daemon's stats difference over the
+    run): check_consumed, one device task a contig, and one launch of
+    each sweep kernel a dispatch in the daemon (no warmup of its own).
+    Returns the launches."""
+    check_consumed(c, what)
+    launches = {"launches": c["kernel_merge_sweep"], "sweep_cuts": c["kernel_sweep_cuts"]}
+    dispatches = (c["service_requests"] - c["service_fusion_fused_requests"]
+                  + c["service_fusion_batches"])
+    if c.get("device_tasks", 0) != tasks or not (
+            launches["launches"] == launches["sweep_cuts"] == dispatches):
+        fail(f"{what}: launches {launches}, {dispatches} dispatches, "
+             f"{c.get('device_tasks')} device tasks")
+    return launches
+
+
+def run_daemon(tmp, meta, dense, combine, modes):
+    """Phase 8 (see the module's docstring). dense: (tmp, args) of phase 4;
+    combine: (the SNFs, the device VCF) of phase 3; modes: phase 6's
+    directory. Returns (the daemon's kernel launches over the served runs,
+    the max |kernel - plain| of its sweeps, that of its edit-distance
+    launches)."""
+    from sniffles_tpu_torch.ops import clustering as tc
+    from sniffles_tpu_torch.ops import edit_distance_batch as ted
+    from sniffles_tpu_torch.ops.combine_greedy import run_combine_greedy
+    from sniffles_tpu_torch.parallel import device_daemon as dd
+    from sniffles_tpu_torch.sim import fuzz_call_batch, greedy_flush_payloads
+    sock, keep = os.path.join(tmp, "d.sock"), os.path.join(tmp, "daemon_kept.pt")
+    t0 = time.perf_counter()
+    proc = start_daemon(sock, ["--idle-timeout", "900"], os.path.join(tmp, "daemon.log"), keep)
+    try:
+        client = dd.DaemonClient(sock)
+        if not client.ping(timeout=300):
+            fail("the device daemon did not answer its ping")
+        with open(os.path.join(tmp, "daemon.log")) as log:
+            warm = [line.split(": ", 1)[-1].strip() for line in log if "warmup" in line]
+        print(f"    daemon started, its kernels loaded and warm, in "
+              f"{time.perf_counter() - t0:.2f} s ({'; '.join(warm)})", flush=True)
+        served = {"CUDA_VISIBLE_DEVICES": "", dd.ENV_SOCKET: sock}
+        before = dd.daemon_stats(sock)
+
+        dense_tmp, dense_args = dense
+        reference = vcf_parts(os.path.join(dense_tmp, "device.vcf"))
+        for threads in ("4", "0"):
+            what = f"dense3 --threads {threads}, served"
+            out = os.path.join(tmp, f"dense_t{threads}.vcf")
+            wall, c, _ = run_child([*dense_args, "--vcf", out, "--threads", threads],
+                                   out + ".json", what, env_extra=served)
+            launches = check_daemon_counters(c, what, DENSE_CONTIGS)
+            if vcf_parts(out) != reference:
+                fail(f"{what}: VCF differs from phase 4's")
+            print(f"    {what}: {wall:.2f} s; the daemon's launches {launches}, service "
+                  + json.dumps({k: v for k, v in c.items() if k.startswith("service_")},
+                               sort_keys=True) + "; VCF == phase 4's", flush=True)
+
+        snfs, combine_vcf = combine
+        what = "combine256 --threads 4, served"
+        out = os.path.join(tmp, "combine_t4.vcf")
+        wall, c, _ = run_child(["--input", *snfs, "--vcf", out, "--threads", "4"],
+                               out + ".json", what, env_extra=served)
+        if vcf_parts(out) != vcf_parts(combine_vcf) or c.get("kernel_ed_myers", 0) < 1:
+            fail(f"{what}: VCF differs from phase 3's, or no edit-distance launch in the "
+                 f"daemon ({c.get('kernel_ed_myers')})")
+        print(f"    {what}: {wall:.2f} s; the daemon's edit-distance launches "
+              f"{c['kernel_ed_myers']}, greedy dispatches {c['combine_greedy_dispatches']}; "
+              f"VCF == phase 3's", flush=True)
+
+        base = os.path.join(modes, f"s{MODES_SEEDS[0]}")
+        args = ["--input", os.path.join(base, "sim.bam"), "--reference",
+                os.path.join(base, "ref.fa"), "--sample-id", f"S{MODES_SEEDS[0]}"]
+        what = f"sample {MODES_SEEDS[0]} --snf, served"
+        out = os.path.join(tmp, "s31")
+        wall, c, _ = run_child([*args, "--snf", out + ".snf", "--vcf", out + ".vcf"],
+                               out + ".json", what, env_extra=served)
+        check_daemon_counters(c, what, 1)
+        check_snfs([base + ".snf", out + ".snf"], f"{what}, against phase 6's")
+        if vcf_parts(out + ".vcf") != vcf_parts(base + ".vcf"):
+            fail(f"{what}: VCF differs from phase 6's")
+        what = f"sample {MODES_SEEDS[0]} --genotype-vcf, served"
+        target = os.path.join(modes, f"s{MODES_SEEDS[1]}.vcf")
+        gwall, c, _ = run_child([*args, "--genotype-vcf", target, "--vcf", out + "_gt.vcf"],
+                                out + "_gt.json", what, env_extra=served)
+        check_daemon_counters(c, what, 1)
+        if records_of(out + "_gt.vcf") != records_of(os.path.join(modes, "g_plain.vcf")):
+            fail(f"{what}: records differ from phase 6's")
+        print(f"    sample {MODES_SEEDS[0]}: --snf {wall:.2f} s, SNF and VCF == phase 6's; "
+              f"force calling {gwall:.2f} s, records == phase 6's", flush=True)
+
+        def served_run(j):
+            out = os.path.join(tmp, f"dense_both{j}.vcf")
+            return out, run_child([*dense_args, "--vcf", out], out + ".json",
+                                  f"dense3 --threads 4, served, client {j} of 2",
+                                  env_extra=served)
+        t1 = time.perf_counter()
+        with concurrent.futures.ThreadPoolExecutor(2) as pool:
+            runs = list(pool.map(served_run, (1, 2)))
+        for j, (out, (wall, c, _)) in enumerate(runs, 1):
+            check_consumed(c, f"client {j} of 2")
+            if vcf_parts(out) != reference:
+                fail(f"dense3, client {j} of 2 served at once: VCF differs from phase 4's")
+        print(f"    two dense3 runs served at once: {time.perf_counter() - t1:.2f} s together "
+              f"({runs[0][1][0]:.2f} s, {runs[1][1][0]:.2f} s); both VCFs == phase 4's; "
+              f"service " + json.dumps({k: v for k, v in runs[1][1][1].items()
+                                        if k.startswith("service_")}, sort_keys=True),
+              flush=True)
+
+        assign_meta = {k: meta[k] for k in ("cluster_r", "cluster_repeat_h",
+                                            "cluster_repeat_h_max", "cluster_merge_bnd",
+                                            "cluster_merge_len", "minsvlen", "binsize",
+                                            "resplit_binsize")}
+        for n, seed in ((32768, 1), (32768, 2), (65536, 5), (512, 3), (512, 4)):
+            packed = np.ascontiguousarray(fuzz_call_batch(seed, n)[[0, 1, 2, 8, 4, 5]])
+            got = client.cluster_assign(packed, assign_meta)
+            want = tc.cluster_assign_packed(torch.from_numpy(packed), **assign_meta).numpy()
+            if not np.array_equal(got, want):
+                fail(f"cluster_assign on the card differs from its plain version on the CPU "
+                     f"(fuzz n={n} seed {seed})")
+        cases = greedy_flush_payloads()
+        for j, (payload, gmeta) in enumerate(cases):
+            got = client.request("combine_greedy", payload, gmeta)
+            want = run_combine_greedy(payload, gmeta, "cpu")
+            if any(not np.array_equal(got[k], want[k]) for k in ("assign", "flags")):
+                fail(f"combine_greedy on the card differs from its plain version on the CPU "
+                     f"(case {j})")
+        print(f"    cluster_assign on 5 fuzz batches (n = 512-65,536) and combine_greedy on "
+              f"{len(cases)} flush payloads (tests/test_combine_greedy_kernel.py's cases), "
+              f"on the card through the daemon: each == its plain version on the CPU",
+              flush=True)
+
+        after = dd.daemon_stats(sock)
+        launches = {k: after[k] - before[k] for k in ("kernel_merge_sweep",
+                                                      "kernel_sweep_cuts", "kernel_ed_myers")}
+        if after["device"] != "cuda" or min(launches.values()) < 1:
+            fail(f"the daemon on {after['device']} launched {launches} over the served runs")
+        client.shutdown()
+        if proc.wait(120) != 0:
+            fail(f"the daemon exited {proc.returncode} on its shutdown request")
+        client.close()
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    if os.path.exists(sock):
+        fail("the daemon left its socket behind")
+    print(f"    the daemon shut down on request; its kernel launches over the served runs "
+          f"{launches}, since its start (the warm steps included) "
+          + json.dumps({k: after[k] for k in launches}), flush=True)
+
+    kept = torch.load(keep)
+    if (len(kept["merge_sweep"]) != after["kernel_merge_sweep"]
+            or len(kept["ed_myers"]) != after["kernel_ed_myers"]):
+        fail(f"the daemon kept {len(kept['merge_sweep'])} sweeps and {len(kept['ed_myers'])} "
+             f"edit-distance launches of {after}")
+    sweep_err = 0.0
+    for j, (inputs, before_state, after_state, counts) in enumerate(kept["merge_sweep"]):
+        sweep_err = max(sweep_err, hold_launch(
+            inputs, before_state, after_state, counts, meta,
+            f"daemon sweep {j} {tuple(inputs['seed_type'].shape)}"))
+    ed_err = 0
+    for j, (inputs, out) in enumerate(kept["ed_myers"]):
+        inputs, out = [x.cuda() for x in inputs], out.cuda()
+        plain = ted.edit_distance_batch_plain(*inputs)
+        ed_err = max(ed_err, int((out - plain).abs().max()) if out.numel() else 0)
+        if not torch.equal(out, plain):
+            fail(f"the daemon's edit-distance launch {j} {tuple(inputs[0].shape)} differs "
+                 f"from its plain version")
+    print(f"    every launch in the daemon held against its plain version: "
+          f"{len(kept['merge_sweep'])} sweeps, {len(kept['ed_myers'])} edit-distance launches "
+          f"(a and b {[tuple(x[0][0].shape) for x in kept['ed_myers']]}), each == plain "
+          f"(bit-exact)", flush=True)
+
+    idle = os.path.join(tmp, "idle.sock")
+    t0 = time.perf_counter()
+    proc = start_daemon(idle, ["--idle-timeout", "2", "--no-warm-compile"],
+                        os.path.join(tmp, "idle.log"))
+    try:
+        code = proc.wait(120)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    if code != 0 or os.path.exists(idle):
+        fail(f"the daemon with --idle-timeout 2 exited {code}, its socket "
+             f"{'left behind' if os.path.exists(idle) else 'removed'}")
+    print(f"    a second daemon with --idle-timeout 2 exited by itself after "
+          f"{time.perf_counter() - t0:.2f} s (exit 0, socket removed)", flush=True)
+    return launches, sweep_err, ed_err
+
+
 def sync_sites(fn):
     """Runs fn() on the card with torch.cuda.set_sync_debug_mode("warn")
     and returns the synchronising operations it reached, counted by the
@@ -1501,7 +1844,7 @@ def main() -> int:
             timed_cases[label] = (inputs, state)
 
     print(f"[3] combine: {COHORT_SAMPLES}-sample cohort, 2 contigs of 1 Mb", flush=True)
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+    with kept_dir("chip_smoke_") as tmp:
         from sniffles_tpu_torch.sim import write_cohort
         t0 = time.perf_counter()
         snfs = write_cohort(os.path.join(tmp, "cohort"), COHORT_SAMPLES, COHORT_SEED)
@@ -1575,7 +1918,8 @@ def main() -> int:
 
     print(f"[4] call_sample: {DENSE_CONTIGS} contigs of {DENSE_REF_LEN // 1_000_000} Mb, "
           f"depth {DENSE_DEPTH}, seed {DENSE_SEED} (the dense bench leg)", flush=True)
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_call_") as tmp:
+    with kept_dir("chip_smoke_call_") as tmp:
+        dense_tmp = tmp
         (sweep_largest, _, err, dense_args, dense_kept, dense_wall,
          dense_stages) = run_dense_call(tmp, meta)
         sweep_err = max(sweep_err, err)
@@ -1606,7 +1950,8 @@ def main() -> int:
     print(f"[6] the other run modes: --snf, .vcf.gz, population SNF and --genotype-vcf on "
           f"{len(MODES_SEEDS)} samples of {MODES_REF_LEN // 1_000_000} Mb at depth "
           f"{MODES_DEPTH}", flush=True)
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_modes_") as tmp:
+    with kept_dir("chip_smoke_modes_") as tmp:
+        modes_tmp = tmp
         err, ed_err = run_modes(tmp, meta)
         print(f"[7d] --dev-cache: sample {MODES_SEEDS[0]} twice", flush=True)
         run_dev_cache(tmp)
@@ -1616,6 +1961,25 @@ def main() -> int:
           flush=True)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_locasm_") as tmp:
         sweep_err = max(sweep_err, run_locasm(tmp, meta))
+
+    print("[8a] the wall of a child process in parts (its log lines stamped on arrival), "
+          "phases 3b and 4b, before any daemon code ran", flush=True)
+    columns = [("dense3 t4", "call_sample (default --threads)"),
+               ("dense3 t0", "call_sample --threads 0"),
+               ("combine256 t4", "combine --threads 4")]
+    print_splits(columns)
+    print("[8] the device daemon: one process that holds the card and serves the CLI runs "
+          "(each with no card visible)", flush=True)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_daemon_") as tmp:
+        daemon_launches, err, e = run_daemon(tmp, meta, (dense_tmp, dense_args),
+                                             (snfs, dev_vcf), modes_tmp)
+    sweep_err = max(sweep_err, err)
+    max_err = max(max_err, e)
+    print("[8a] the same splits without and with the daemon (served: the runs of [8])",
+          flush=True)
+    print_splits([columns[0], ("served", "dense3 --threads 4, served"), columns[1],
+                  ("served", "dense3 --threads 0, served"), columns[2],
+                  ("served", "combine256 --threads 4, served")])
 
     print("[5] kernel timings on the main paths' largest launches", flush=True)
     timing = time_ed_kernel([x.cuda() for x in largest])
@@ -1673,4 +2037,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--cli-child"]:
         cli_child(sys.argv[2], sys.argv[3:])
+    if sys.argv[1:2] == ["--daemon-child"]:
+        daemon_child(sys.argv[2], sys.argv[3:])
     sys.exit(main())

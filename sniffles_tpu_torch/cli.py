@@ -16,7 +16,11 @@ device path (on unless --no-tpu) runs on the card, or on the CPU
 when SNIFFLES_TPU_FORCE_CPU=1 asks for it (config.torch_device). With
 --threads N (4 by default) the workers reach it through the device
 service the parent owns (parallel/device_service.py), whose context is
-created after every worker has forked.
+created after every worker has forked. When SNIFFLES_TPU_DEVICE_SOCKET
+names the socket of a device daemon (parallel/device_daemon.py), the
+run's device work goes to the daemon instead: this process creates no
+service and no CUDA context, and a socket that does not answer ends the
+run (no fallback). --no-tpu never connects.
 """
 from __future__ import annotations
 
@@ -333,25 +337,33 @@ def _uses_device(config) -> bool:
     return config.tpu_call if config.mode in ("call_sample", "genotype_vcf") else config.tpu_combine
 
 
+def _daemon_socket(config) -> Optional[str]:
+    """The device daemon's socket, when the run takes the device path and
+    SNIFFLES_TPU_DEVICE_SOCKET names one."""
+    from sniffles_tpu_torch.parallel.device_daemon import ENV_SOCKET
+    return (os.environ.get(ENV_SOCKET) or None) if _uses_device(config) else None
+
+
 def _cuda_initialized() -> bool:
     torch = sys.modules.get("torch")
     return bool(torch is not None and torch.cuda.is_initialized())
 
 
-def _run_pool(config, tasks, processes, monitor):
+def _run_pool(config, tasks, processes, monitor, daemon_socket=None):
     """Run the worker pool (or the inline parent worker for --threads 0)
     to completion (reference: sniffles:495-542). With the device path, the
     pool's workers reach the device through one DeviceServer of this
-    process; its dispatcher thread creates the device context only after
-    every worker has forked."""
-    from sniffles_tpu_torch.ops import clustering, edit_distance_batch
+    process, whose dispatcher thread creates the device context only after
+    every worker has forked; or, with `daemon_socket`, every worker (and
+    the inline worker) through a connection of its own to the device
+    daemon."""
+    from sniffles_tpu_torch.parallel import device_daemon, device_service
     from sniffles_tpu_torch.pipeline import runtime
     device_server = None
     use_device = _uses_device(config)
     if config.threads:
-        if use_device:
-            from sniffles_tpu_torch.parallel.device_service import DeviceServer
-            device_server = DeviceServer(config.device)
+        if use_device and daemon_socket is None:
+            device_server = device_service.DeviceServer(config.device)
             # the workers are forked from this process: it must not hold a
             # CUDA context (torch_device asks NVML, which creates none)
             if _cuda_initialized():
@@ -361,11 +373,16 @@ def _run_pool(config, tasks, processes, monitor):
             processes.append(runtime.SnifflesWorker(
                 process_id=pnum, config=config, tasks=tasks,
                 recycle_hint=monitor, peers=processes,
-                device_server=device_server))
+                device_server=device_server, daemon_socket=daemon_socket))
     else:
-        processes.append(runtime.SnifflesParentWorker(config=config, tasks=tasks))
+        processes.append(runtime.SnifflesParentWorker(config=config, tasks=tasks,
+                                                      daemon_socket=daemon_socket))
 
-    launches = (dict(clustering.COUNTS), dict(edit_distance_batch.COUNTS))
+    # the service's counters and kernel launches before the run (the
+    # daemon's also count its warmup and any other client's work)
+    stats = ((lambda: device_daemon.daemon_stats(daemon_socket)) if daemon_socket
+             else device_server.stats if device_server is not None else None)
+    before = stats() if stats else None
     started = time.monotonic()
     for p in processes:
         p.start()
@@ -391,16 +408,9 @@ def _run_pool(config, tasks, processes, monitor):
 
     # Deterministic emission in task-id order (reference: sniffles:544-547)
     finished_tasks.sort(key=lambda task: task.id)
-    service = None
-    if device_server is not None:
-        # the parent's own device work: the service's counters and the
-        # kernel launches of its dispatcher
-        service = {f"service_{k}": v for k, v in device_server.counters.items()}
-        service.update({
-            "kernel_sweep_cuts": clustering.COUNTS["sweep_cuts"] - launches[0]["sweep_cuts"],
-            "kernel_merge_sweep": clustering.COUNTS["launches"] - launches[0]["launches"],
-            "kernel_ed_myers": (edit_distance_batch.COUNTS["launches"]
-                                - launches[1]["launches"])})
+    service = device_service.stats_difference(before, stats()) if stats else None
+    if daemon_socket:
+        service["service_requests"] -= 1   # the stats request that read the counters
     _report_engine_counters(finished_tasks, service)
     return finished_tasks
 
@@ -471,7 +481,16 @@ def main_with_config(config: SnifflesConfig, processes: list) -> int:
     native.get_lib()
     log.info(f"Running {config.version}, build {config.build}")
     log.info(f"  Run Mode: {config.mode}")
-    if _uses_device(config):
+    daemon_socket = _daemon_socket(config)
+    if daemon_socket is not None:
+        # the daemon's device; this process makes no device check of its own
+        from sniffles_tpu_torch.parallel.device_daemon import daemon_stats
+        try:
+            config.device = daemon_stats(daemon_socket)["device"]
+        except (RuntimeError, TimeoutError) as e:
+            util.fatal_error_main(str(e))
+        log.info(f"  Device: {config.device}, through the device daemon on {daemon_socket}")
+    elif _uses_device(config):
         config.device = torch_device()
         log.info(f"  Device: {config.device}")
 
@@ -511,7 +530,7 @@ def main_with_config(config: SnifflesConfig, processes: list) -> int:
 
     monitor = ResourceMonitor(config)
     try:
-        finished_tasks = _run_pool(config, tasks, processes, monitor)
+        finished_tasks = _run_pool(config, tasks, processes, monitor, daemon_socket)
     finally:
         monitor.stop()
 

@@ -26,10 +26,12 @@ path's `call_task_packed` reaches, as torch ops on `config.device`:
 batched_call_task, which the device service runs on up to 4 fused tasks
 of one padded width: steps 1, 2 and 4 run task after task, step 3 is one
 sweep over the stacked state of all of them (one launch of each kernel).
-The JAX package's other formulations stay there: the grid sweep's
-lockstep lanes (whose float32 range metrics round otherwise) and its
-auto switch, the parallel relaxation of the fused engine path and
-cluster_assign_packed. The tests hold the segmented sweep to a copy of
+`cluster_assign_packed` is the lean assignment of the device service's
+cluster_assign request: steps 1-3, then the resplit stage of the JAX
+package's _cluster_body. The JAX package's other formulations stay
+there: the grid sweep's lockstep lanes (whose float32 range metrics
+round otherwise) and its auto switch, and the parallel relaxation of
+the fused engine path. The tests hold the segmented sweep to a copy of
 the sequential one in every state word, call_task_packed to the JAX
 package's sequential sweep on every batch, and to its default (the auto
 switch) where the JAX package's two formulations agree.
@@ -46,6 +48,10 @@ import ctypes
 import numpy as np
 import torch
 
+from sniffles_tpu_torch.ops._call_consts import (STATS_NC_ROW, STATS_PARENT_ROW,  # noqa: F401
+                                                 STATS_ROWS, STATS_UNCERTAIN_ROW,
+                                                 SVTYPE_CODES, SVTYPE_NAMES,
+                                                 split_call_task_output)
 from sniffles_tpu_torch.ops.segments import (INT32_MAX, INT32_MIN, lexsort,
                                              segment_ids_from_boundaries, seg_sum,
                                              seg_sum_f32, seg_max, seg_min, seg_count,
@@ -55,8 +61,6 @@ from sniffles_tpu_torch.ops.stats import seg_median_modes, seg_trimmed_stdev
 # svtype codes (order matches svcall.ALL_TYPES)
 SVTYPE_INS, SVTYPE_DEL, SVTYPE_DUP, SVTYPE_INV, SVTYPE_BND = 0, 1, 2, 3, 4
 SVTYPE_SINGLE_LEFT, SVTYPE_SINGLE_RIGHT = 5, 6
-SVTYPE_NAMES = ["INS", "DEL", "DUP", "INV", "BND", "SINGLE_LEFT", "SINGLE_RIGHT"]
-SVTYPE_CODES = {name: i for i, name in enumerate(SVTYPE_NAMES)}
 
 # stride picks of a cluster's compute_metrics top out at 199 (L in
 # [100, 199], stride 1), so this cap never binds
@@ -716,6 +720,54 @@ def resplit_child_ids(folded: dict, *, resplit_binsize: int, minsvlen: int,
     return child, n_children, uncertain
 
 
+def cluster_assign_packed(packed: torch.Tensor, *,
+                          cluster_r: float,
+                          cluster_repeat_h: float,
+                          cluster_repeat_h_max: float,
+                          cluster_merge_bnd: int,
+                          cluster_merge_len: float,
+                          minsvlen: int,
+                          binsize: int = 100,
+                          resplit_binsize: int = 20) -> torch.Tensor:
+    """The lean cluster assignment, the counterpart of the JAX package's
+    cluster_assign_packed (sniffles_tpu/ops/clustering.py:951): the sort
+    and the seeds, the exact merge sweep, then _cluster_body's resplit
+    stage (:764-798), on the device of `packed`.
+
+    `packed` is a (6, N) int32 tensor with rows pos, svlen, svtype,
+    read_id, repeat, valid. Returns a (3, N) int32 tensor with rows
+    cluster_id, read_id and valid, in the order of the resplit's sort.
+    """
+    sig = {"pos": packed[0], "svlen": packed[1], "svtype": packed[2],
+           "read_id": packed[3], "repeat": packed[4] > 0, "valid": packed[5] > 0}
+    s, seed_boundary, bin_ = sort_and_seed(sig, binsize)
+    boundary = _exact_merge_sweep(s, seed_boundary, bin_, cluster_r=cluster_r,
+                                  cluster_repeat_h=cluster_repeat_h,
+                                  cluster_repeat_h_max=cluster_repeat_h_max,
+                                  cluster_merge_bnd=cluster_merge_bnd,
+                                  global_repeat=False, binsize=binsize)
+
+    # resplit by the |svlen| histogram inside each merged segment
+    seg = segment_ids_from_boundaries(boundary)
+    valid = s["valid"]
+    svbin = torch.div(s["svlen"].abs(), resplit_binsize,
+                      rounding_mode="floor") * resplit_binsize
+    order = lexsort((torch.where(valid, svbin, INT32_MAX), torch.where(valid, seg, INT32_MAX)))
+    seg, svbin = seg[order], svbin[order]
+    prev_bin = _shift_prev(svbin)
+    prev_seg = torch.cat([seg[:1] - 1, seg[:-1]])
+    f32 = torch.float32
+    gap = (svbin - prev_bin).abs().to(f32)
+    thr = torch.maximum(torch.full((), float(minsvlen), dtype=f32, device=gap.device),
+                        torch.minimum(svbin, prev_bin).to(f32)
+                        * torch.tensor(cluster_merge_len, dtype=f32))
+    no_resplit = s["svtype"][order] == SVTYPE_BND   # BND resplits on the host
+    split = (seg != prev_seg) | ((gap > thr) & ~no_resplit)
+    split[:1].fill_(True)
+    return torch.stack([segment_ids_from_boundaries(split), s["read_id"][order].to(torch.int32),
+                        valid[order].to(torch.int32)])
+
+
 def packed_signatures(packed: torch.Tensor) -> dict:
     """The signature columns of a packed (15, N) int32 batch (layout in
     call_task_packed)."""
@@ -891,21 +943,6 @@ def _task_statistics(s: dict, seed_boundary, inputs: dict, state: dict,
         phase["ps_null"], phase["mixed"],
         parent.to(i32), child_uncertain.to(i32), counts])
     return torch.cat([elements.reshape(-1), full[:, :slots].reshape(-1)])
-
-
-STATS_ROWS = 21          # 9 calling stats + 9 phase tallies + parent +
-                         # uncertain + counts — ALL PER RESPLIT CHILD
-STATS_PARENT_ROW = 18    # child's parent (pre-resplit) cluster id
-STATS_UNCERTAIN_ROW = 19  # parent's resplit float32-ambiguity flag
-STATS_NC_ROW = 20        # slot 0 = n_children, slot 1 = n_clusters
-
-
-def split_call_task_output(flat: np.ndarray, n: int):
-    """Split the flat call_task_packed result back into (elements (3, N),
-    stats (STATS_ROWS, SLOTS))."""
-    elements = flat[:3 * n].reshape(3, n)
-    stats = flat[3 * n:].reshape(STATS_ROWS, -1)
-    return elements, stats
 
 
 def phase_tallies(clustered: dict, n: int) -> dict:

@@ -3,7 +3,11 @@ Device-owned multi-sample combine grouping: an EXACT emulation of the
 host's sequential greedy assignment (cluster.resolve_block_groups,
 reference: cluster.py:356-390), in PyTorch on the run's device. The
 port of sniffles_tpu/ops/combine_greedy.py::_greedy_grid_loop and its
-dispatch (start_combine_greedy_task / run_combine_greedy_task).
+dispatch (start_combine_greedy_task / run_combine_greedy_task), the
+combine path's whole-task greedy, and of the sequential greedy of one
+flush, _greedy_loop and run_combine_greedy, which the device service
+answers as the combine_greedy request kind (no CLI path posts it, in
+either package). Both loops take their step from _greedy_step.
 
 The host greedy walks candidates in support-descending order; each
 candidate joins the best existing group by
@@ -22,7 +26,8 @@ evolve as candidates join (sv.py:303-313).
   floor-scaled fraction separates them; equal rationals map to equal
   keys; argmin's first-minimum tie-break is exactly the host's
   earliest-group-wins rule.
-* The sqrt threshold and the identity-ratio gate are evaluated in
+* The sqrt threshold (a correctly rounded float32 square root,
+  ops/segments.sqrt_f32) and the identity-ratio gate are evaluated in
   float32 where the host uses float64; probes within a ~1e-5 relative
   window of either threshold raise the segment's `ambiguous` flag and
   the caller replays that segment on the exact host greedy. All float
@@ -30,9 +35,10 @@ evolve as candidates join (sv.py:303-313).
 * The identity gate reads a PRECOMPUTED exact edit-distance table; a
   probe whose pair is missing raises the `ed_miss` flag.
 
-The loop runs one step per candidate of the longest segment (a Python
-loop of tensor ops; the dispatch takes the bound from the host's counts,
-so the loop never waits for the card). A hand-written kernel with one
+The grid loop runs one step per candidate of the longest segment, the
+flush loop one per candidate (Python loops of tensor ops; each dispatch
+takes its bound from the host's counts, so a loop never waits for the
+card). A hand-written kernel with one
 block per segment is later work.
 """
 from __future__ import annotations
@@ -43,6 +49,7 @@ import torch
 from sniffles_tpu_torch.ops._greedy_consts import (EPS, NMAX, SCALE, SEGF_AMBIGUOUS,
                                                    SEGF_ED_MISS, SEGF_N_OVERFLOW,
                                                    TASK_ED_HEADS)
+from sniffles_tpu_torch.ops.segments import sqrt_f32
 
 INT32_MAX = 2 ** 31 - 1
 
@@ -52,6 +59,99 @@ def _pow2(x: int, floor: int) -> int:
     while size < x:
         size *= 2
     return size
+
+
+class _Gates:
+    """The float32 constants of the greedy's gates on one device: float
+    constants are float32 tensors, as JAX's weak types make them."""
+
+    def __init__(self, cm: int, cmm: int, limit: float, dev):
+        f32 = torch.float32
+        self.cmm, self.limit = cmm, limit
+        self.cm_f = torch.tensor(cm, dtype=f32, device=dev)
+        self.limit_f = torch.tensor(limit, dtype=f32, device=dev)
+        self.eps_f = torch.tensor(EPS, dtype=f32, device=dev)
+        self.one_f = torch.tensor(1.0, dtype=f32, device=dev)
+        self.zero_f = torch.tensor(0.0, dtype=f32, device=dev)
+        self.tiny_f = torch.tensor(1e-9, dtype=f32, device=dev)
+        # the Python double 1 + 2 EPS rounded once to float32, as JAX does
+        self.forced_at = (torch.tensor(cmm, dtype=f32, device=dev)
+                          * torch.tensor(1.0 + 2.0 * EPS, dtype=f32, device=dev))
+        self.pass_same = bool(limit < 1.0)
+        self.big = torch.tensor(INT32_MAX, dtype=torch.int32, device=dev)
+
+
+def _greedy_step(st: dict, pos, ln, aid, d_ed, upd, g: _Gates):
+    """One step of the greedy, shared by both loops: row r's candidate
+    (pos, ln, aid: (R, 1)) probes every group slot of its row (st's
+    psum, lsum, n, head: (R, G); ngroups (R,)) and joins the best one or
+    founds a group at slot ngroups; rows where `upd` (R,) is false stay
+    as they are. `d_ed` (R, G) is the edit distance of each group head's
+    alt to the candidate's (-1 = not tabulated), read only when the
+    identity gate is on (limit > 0). Updates `st` in place and returns
+    (tgt (R,) the slot joined or founded, create (R, G) the founded slot,
+    bits (R,) this step's SEGF_* flags)."""
+    i32, f32 = torch.int32, torch.float32
+    n, psum, lsum = st["n"], st["psum"], st["lsum"]
+    slots = torch.arange(n.shape[1], dtype=i32, device=n.device)[None, :]
+    active = (slots < st["ngroups"][:, None]) & (n > 0)
+
+    # exact rational distance D/n per group (local coordinates keep every
+    # intermediate inside int32; guarded by the packer)
+    D = (psum - pos * n).abs() + (lsum - ln * n).abs()
+    nf = torch.clamp(n, min=1).to(f32)
+    cap_ok = D <= n * g.cmm
+    shorter_pos = (lsum > 0) & (ln > 0)
+
+    # the sqrt-scaled match radius in float32 with an ambiguity margin,
+    # forced to pass where it provably clears the cap
+    lmf = lsum.to(f32) / nf
+    shorter_f = torch.minimum(lmf, ln.to(f32))
+    thr_f = g.cm_f * sqrt_f32(torch.maximum(shorter_f, g.zero_f))
+    dist_f = D.to(f32) / nf
+    forced = thr_f >= g.forced_at
+    pass2 = (dist_f <= thr_f) | forced
+    amb2 = ((dist_f - thr_f).abs() <= g.eps_f * torch.maximum(thr_f, g.one_f)) & ~forced
+
+    pre = active & cap_ok & shorter_pos
+    if g.limit > 0:
+        same = st["head"] == aid
+        have = d_ed >= 0
+        ratio = (lmf - d_ed.to(f32)) / torch.maximum(lmf, g.tiny_f)
+        pass3 = torch.where(same, g.pass_same, have & (ratio > g.limit_f))
+        amb3 = ~same & have & ((ratio - g.limit_f).abs() <= g.eps_f)
+        miss_hit = (pre & pass2 & ~same & ~have).any(dim=1)
+        eligible = pre & pass2 & pass3
+        amb_hit = (pre & (amb2 | amb3)).any(dim=1)
+    else:
+        miss_hit = torch.zeros_like(upd)
+        eligible = pre & pass2
+        amb_hit = (pre & amb2).any(dim=1)
+
+    # the int32-exact total-order key of D/n; argmin's first minimum is
+    # the host's earliest-group-wins tie-break
+    nd = torch.clamp(n, min=1)
+    q = torch.div(D, nd, rounding_mode="floor")
+    r = D - q * nd
+    key = q * SCALE + torch.div(r * SCALE, nd, rounding_mode="floor")
+    key = torch.where(eligible, key, g.big)
+    best = torch.argmin(key, dim=1).to(i32)
+    found = key.min(dim=1).values < INT32_MAX
+
+    tgt = torch.where(found, best, st["ngroups"])
+    onehot = (slots == tgt[:, None]) & upd[:, None]
+    over = (torch.where(onehot, n, 0).max(dim=1).values + 1 > NMAX) & upd
+    bits = ((amb_hit & upd).to(i32) * SEGF_AMBIGUOUS
+            + (miss_hit & upd).to(i32) * SEGF_ED_MISS
+            + over.to(i32) * SEGF_N_OVERFLOW)
+
+    create = onehot & ~(found | ~upd)[:, None]
+    st["ngroups"] = st["ngroups"] + (upd & ~found).to(i32)
+    st["psum"] = psum + torch.where(onehot, pos, 0)
+    st["lsum"] = lsum + torch.where(onehot, ln, 0)
+    st["n"] = n + onehot.to(i32)
+    st["head"] = torch.where(create, aid, st["head"])
+    return tgt, create, bits
 
 
 def _greedy_grid_loop(c_pos, c_len, c_alt, c_hord, counts, ed,
@@ -84,25 +184,14 @@ def _greedy_grid_loop(c_pos, c_len, c_alt, c_hord, counts, ed,
     S, L = c_pos.shape
     W = ed.shape[2]
     dev = c_pos.device
-    i32, f32 = torch.int32, torch.float32
+    i32 = torch.int32
+    g = _Gates(cm, cmm, limit, dev)
     slots = torch.arange(L, dtype=i32, device=dev)[None, :]
-    cm_f = torch.tensor(cm, dtype=f32, device=dev)
-    cmm_f = torch.tensor(cmm, dtype=f32, device=dev)
-    limit_f = torch.tensor(limit, dtype=f32, device=dev)
-    eps_f = torch.tensor(EPS, dtype=f32, device=dev)
-    one_f = torch.tensor(1.0, dtype=f32, device=dev)
-    zero_f = torch.tensor(0.0, dtype=f32, device=dev)
-    tiny_f = torch.tensor(1e-9, dtype=f32, device=dev)
-    # the Python double 1 + 2 EPS rounded once to float32, as JAX does
-    forced_at = cmm_f * torch.tensor(1.0 + 2.0 * EPS, dtype=f32, device=dev)
-    pass_same = bool(limit < 1.0)
-    big = torch.tensor(INT32_MAX, dtype=i32, device=dev)
-
-    ngroups = torch.zeros((S,), dtype=i32, device=dev)
-    psum = torch.zeros((S, L), dtype=i32, device=dev)
-    lsum = torch.zeros((S, L), dtype=i32, device=dev)
-    n = torch.zeros((S, L), dtype=i32, device=dev)
-    head = torch.zeros((S, L), dtype=i32, device=dev)
+    st = {"ngroups": torch.zeros((S,), dtype=i32, device=dev),
+          "psum": torch.zeros((S, L), dtype=i32, device=dev),
+          "lsum": torch.zeros((S, L), dtype=i32, device=dev),
+          "n": torch.zeros((S, L), dtype=i32, device=dev),
+          "head": torch.zeros((S, L), dtype=i32, device=dev)}
     hord = torch.full((S, L), -1, dtype=i32, device=dev)
     assign = torch.full((S, L), -1, dtype=i32, device=dev)
     segflags = torch.zeros((S,), dtype=i32, device=dev)
@@ -111,75 +200,52 @@ def _greedy_grid_loop(c_pos, c_len, c_alt, c_hord, counts, ed,
         max_count = int(counts.max()) if S else 0   # the one host read
     for i in range(max_count):
         upd = i < counts                                     # (S,)
-        pos = c_pos[:, i:i + 1]                              # (S, 1)
-        ln = c_len[:, i:i + 1]
-        aid = c_alt[:, i:i + 1]
-        active = (slots < ngroups[:, None]) & (n > 0)
-
-        D = (psum - pos * n).abs() + (lsum - ln * n).abs()
-        nf = torch.clamp(n, min=1).to(f32)
-        cap_ok = D <= n * cmm
-        shorter_pos = (lsum > 0) & (ln > 0)
-
-        lmf = lsum.to(f32) / nf
-        shorter_f = torch.minimum(lmf, ln.to(f32))
-        thr_f = cm_f * torch.sqrt(torch.maximum(shorter_f, zero_f))
-        dist_f = D.to(f32) / nf
-        forced = thr_f >= forced_at
-        pass2 = (dist_f <= thr_f) | forced
-        amb2 = ((dist_f - thr_f).abs()
-                <= eps_f * torch.maximum(thr_f, one_f)) & ~forced
-
-        pre = active & cap_ok & shorter_pos
+        d_ed = None
         if limit > 0:
-            same = head == aid
             # a width-1 table is read at column 0 by every step (JAX's
             # dynamic slice clamps the index the same way)
             ed_i = ed[:, :, min(i, W - 1)]                   # (S, K)
             d_ed = torch.where(hord >= 0,
                                torch.gather(ed_i, 1, torch.clamp(hord, min=0).long()),
                                torch.full_like(hord, -1))
-            have = d_ed >= 0
-            ratio = (lmf - d_ed.to(f32)) / torch.maximum(lmf, tiny_f)
-            pass3 = torch.where(same, pass_same, have & (ratio > limit_f))
-            amb3 = ~same & have & ((ratio - limit_f).abs() <= eps_f)
-            miss = ~same & ~have
-            miss_hit = (pre & pass2 & miss).any(dim=1)       # (S,)
-        else:
-            pass3 = torch.ones((S, L), dtype=torch.bool, device=dev)
-            amb3 = torch.zeros((S, L), dtype=torch.bool, device=dev)
-            miss_hit = torch.zeros((S,), dtype=torch.bool, device=dev)
-
-        eligible = pre & pass2 & pass3
-        amb_hit = (pre & (amb2 | amb3)).any(dim=1)           # (S,)
-
-        nd = torch.clamp(n, min=1)
-        q = torch.div(D, nd, rounding_mode="floor")
-        r = D - q * nd
-        key = q * SCALE + torch.div(r * SCALE, nd, rounding_mode="floor")
-        key = torch.where(eligible, key, big)
-        best = torch.argmin(key, dim=1).to(i32)              # first minimum
-        found = key.min(dim=1).values < INT32_MAX
-
-        tgt = torch.where(found, best, ngroups)              # (S,)
-        onehot = (slots == tgt[:, None]) & upd[:, None]      # (S, L)
-        tgt_n = torch.where(onehot, n, 0).max(dim=1).values
-        over = (tgt_n + 1 > NMAX) & upd
-        bits = ((amb_hit & upd).to(i32) * SEGF_AMBIGUOUS
-                + (miss_hit & upd).to(i32) * SEGF_ED_MISS
-                + over.to(i32) * SEGF_N_OVERFLOW)
-
-        create = onehot & ~(found | ~upd)[:, None]
-        at_i = slots == i
-        ngroups = ngroups + (upd & ~found).to(i32)
-        psum = psum + torch.where(onehot, pos, 0)
-        lsum = lsum + torch.where(onehot, ln, 0)
-        n = n + onehot.to(i32)
-        head = torch.where(create, aid, head)
+        tgt, create, bits = _greedy_step(st, c_pos[:, i:i + 1], c_len[:, i:i + 1],
+                                         c_alt[:, i:i + 1], d_ed, upd, g)
         hord = torch.where(create, c_hord[:, i:i + 1], hord)
-        assign = torch.where(at_i & upd[:, None], tgt[:, None], assign)
+        assign = torch.where((slots == i) & upd[:, None], tgt[:, None], assign)
         segflags = segflags | bits
     return assign, segflags
+
+
+def _greedy_loop(c_pos, c_len, c_alt, c_count: int, g_psum, g_lsum, g_n, g_head,
+                 ed, n_groups0: int, *, cm: int, cmm: int, limit: float):
+    """The sequential greedy of one flush (the JAX package's _greedy_loop,
+    sniffles_tpu/ops/combine_greedy.py:61): candidates (Cp,) in processing
+    order, of which the first c_count are real, against G group slots whose
+    first n_groups0 hold the initial groups (integer sums g_psum, g_lsum,
+    sizes g_n, head alt ids g_head); ed (H, Cp) the exact edit distance of
+    alt id x candidate (-1 = missing). One step a candidate: the grid
+    loop's step on a single row, with the identity gate reading the table
+    at the group head's alt id.
+
+    Returns (assign (Cp,) slot ids, < n_groups0 an initial group, else in
+    creation order; flags (3,) int32: ambiguous, ed_miss, n_overflow)."""
+    dev = c_pos.device
+    H = ed.shape[0]
+    g = _Gates(cm, cmm, limit, dev)
+    st = {"ngroups": torch.full((1,), n_groups0, dtype=torch.int32, device=dev),
+          "psum": g_psum[None, :], "lsum": g_lsum[None, :], "n": g_n[None, :],
+          "head": g_head[None, :]}
+    assign = torch.full_like(c_pos, -1)
+    flags = torch.zeros((1,), dtype=torch.int32, device=dev)
+    upd = torch.ones((1,), dtype=torch.bool, device=dev)
+    for i in range(c_count):
+        d_ed = (ed[:, i][torch.clamp(st["head"], 0, H - 1).long()] if limit > 0 else None)
+        tgt, _, bits = _greedy_step(st, c_pos[i:i + 1, None], c_len[i:i + 1, None],
+                                    c_alt[i:i + 1, None], d_ed, upd, g)
+        assign[i:i + 1] = tgt
+        flags = flags | bits
+    flag_bits = (SEGF_AMBIGUOUS, SEGF_ED_MISS, SEGF_N_OVERFLOW)
+    return assign, torch.cat([((flags & b) > 0).to(torch.int32) for b in flag_bits])
 
 
 def start_combine_greedy_task(payload: dict, meta: dict, device):
@@ -241,3 +307,49 @@ def start_combine_greedy_task(payload: dict, meta: dict, device):
 def run_combine_greedy_task(payload: dict, meta: dict, device) -> dict:
     """start_combine_greedy_task, waited for."""
     return start_combine_greedy_task(payload, meta, device)()
+
+
+def run_combine_greedy(payload: dict, meta: dict, device) -> dict:
+    """The sequential greedy of one (block, svtype) flush on `device`, the
+    counterpart of the JAX package's run_combine_greedy
+    (sniffles_tpu/ops/combine_greedy.py:395); payload arrays are trimmed
+    and padded here as the JAX package pads them.
+
+    payload: c_pos/c_len/c_alt (int32, local coords, processing order),
+    g_psum/g_lsum/g_n/g_head (int32, K0 initial groups in list order),
+    ed_rows/ed_cols/ed_vals (sparse exact ED table entries over
+    (alt_id, candidate_index)), n_alts.
+    meta: cm, cmm, limit.
+
+    Returns {"assign": (C,) int32 (slot < K0 = initial group, else
+    creation order K0, K0+1, ...), "flags": (3,) int32} as numpy arrays.
+    """
+    from sniffles_tpu_torch.ops.transfer import to_device, to_host_async
+    c_pos = np.asarray(payload["c_pos"], dtype=np.int32)
+    C = len(c_pos)
+    K0 = len(payload["g_n"])
+    Cp = _pow2(max(C, 1), 64)
+    Kp = _pow2(max(K0, 1), 16)
+    G = Cp + Kp
+
+    def pad(a, size):
+        out = np.zeros(size, dtype=np.int32)
+        out[:len(a)] = a
+        return to_device(out, device)
+
+    Hp = _pow2(max(int(payload["n_alts"]), 1), 16)
+    ed = np.full((Hp, Cp), -1, dtype=np.int32)
+    rows = np.asarray(payload["ed_rows"], dtype=np.int64)
+    if len(rows):
+        ed[rows, np.asarray(payload["ed_cols"], dtype=np.int64)] = \
+            np.asarray(payload["ed_vals"], dtype=np.int32)
+
+    assign, flags = _greedy_loop(
+        pad(c_pos, Cp), pad(np.asarray(payload["c_len"], dtype=np.int32), Cp),
+        pad(np.asarray(payload["c_alt"], dtype=np.int32), Cp), C,
+        *(pad(np.asarray(payload[k], dtype=np.int32), G)
+          for k in ("g_psum", "g_lsum", "g_n", "g_head")),
+        to_device(ed, device), K0,
+        cm=int(meta["cm"]), cmm=int(meta["cmm"]), limit=float(meta["limit"]))
+    assign_h, flags_h = to_host_async(assign, flags)()
+    return {"assign": assign_h[:C], "flags": flags_h}

@@ -18,13 +18,16 @@ over thousands of blocks evaluates many pairs).
 
 `encode_pairs` and `build_distance_cache` are copies of the JAX
 package's, so both packages feed their kernels identical arrays.
+
+Importing this module imports no torch (each function that needs it
+imports it): a CLI run served by the device daemon dispatches its
+batches through `edit_distance_batch` without ever loading torch.
 """
 from __future__ import annotations
 
 import ctypes
 
 import numpy as np
-import torch
 
 from sniffles_tpu_torch.ops._greedy_consts import ED_DEVICE_MIN_CELLS
 
@@ -78,6 +81,7 @@ def edit_distance_batch_plain(a: torch.Tensor, b: torch.Tensor,
     value of the batch and gathered per step. At the end D(la, lb) = lb +
     popc(pv) - popc(mv) over the la pattern bits: the last column's
     vertical deltas."""
+    import torch
     B, L = a.shape
     dev = a.device
     i64 = torch.int64
@@ -142,6 +146,7 @@ def edit_distance_batch_plain(a: torch.Tensor, b: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 def _check_inputs(a, b, la, lb) -> None:
+    import torch
     if a.dim() != 2 or b.shape != a.shape:
         raise ValueError(f"a and b must be [B, L] of one shape, got "
                          f"{tuple(a.shape)} and {tuple(b.shape)}")
@@ -166,6 +171,7 @@ def edit_distance_batch_device(a: torch.Tensor, b: torch.Tensor,
     on the card the lengths must also be at most MAX_LEN. The kernel takes
     the pairs in descending order of la * lb, so the long pairs start
     first."""
+    import torch
     _check_inputs(a, b, la, lb)
     if a.device.type == "cpu":
         return edit_distance_batch_plain(a, b, la, lb)
@@ -193,6 +199,7 @@ def launch_myers(a, b, la, lb, order) -> torch.Tensor:
     edit_distance_batch_device has checked; `order` is an int32 [B]
     permutation, the order the warps take the pairs in. Counts nothing;
     raises when the launch fails."""
+    import torch
     B, L = a.shape
     from sniffles_tpu_torch.ops import _build
     fn = _build.load("edit_distance").ed_myers
@@ -294,6 +301,7 @@ def device_edit_distance_batch(pairs: list[tuple[str, str]], max_len: int | None
     the pairs encoded, the batch dimension padded to a power of two with
     empty pairs (as in the JAX package), through edit_distance_batch_device
     on `device`. The device service answers ed_batch requests with it."""
+    import torch
     a, b, la, lb = encode_pairs(pairs, max_len)
     n = a.shape[0]
     n_pad = 16

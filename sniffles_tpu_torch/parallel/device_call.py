@@ -27,9 +27,9 @@ import zlib
 import numpy as np
 
 from sniffles_tpu_torch.cluster import Cluster, merge_inner, resplit, resplit_bnd
-from sniffles_tpu_torch.ops.clustering import (SVTYPE_CODES, STATS_NC_ROW,
-                                               STATS_PARENT_ROW, STATS_UNCERTAIN_ROW,
-                                               split_call_task_output)
+from sniffles_tpu_torch.ops._call_consts import (SVTYPE_CODES, STATS_NC_ROW,
+                                                 STATS_PARENT_ROW, STATS_UNCERTAIN_ROW,
+                                                 split_call_task_output)
 
 log = logging.getLogger(__name__)
 

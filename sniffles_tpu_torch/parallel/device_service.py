@@ -45,8 +45,11 @@ window, the one-deep response pipeline) and DeviceClient. What differs:
   12 ms; measured on the H100, see FUSION_WINDOW_S), and when it is set,
   the pending response is answered before the dispatcher waits in it
   (the JAX package's dispatcher holds it through the wait).
-* Not ported request kinds (cluster_assign, call_task_mesh,
-  combine_mesh, combine_greedy) are answered with an error that says so.
+* The mesh's request kinds (call_task_mesh, combine_mesh), not ported,
+  are answered with an error that says so.
+* A stats answer also names the device and counts this process's
+  kernel launches (`stats`), so a client of the device daemon
+  (parallel/device_daemon.py) sees where its kernels ran.
 
 Reference mapping: this replaces nothing in the reference (which is
 CPU-only, parallel.py:585-807); it is the device-side equivalent of its
@@ -73,7 +76,7 @@ log = logging.getLogger(__name__)
 DEVICE_LIVE = False
 
 # request kinds of the JAX package's service that this package has not ported
-NOT_PORTED_KINDS = ("cluster_assign", "call_task_mesh", "combine_mesh", "combine_greedy")
+NOT_PORTED_KINDS = ("call_task_mesh", "combine_mesh")
 
 
 @dataclass
@@ -135,6 +138,7 @@ class DeviceServer:
         self._queue: queue.Queue = queue.Queue()
         self._thread: threading.Thread = None
         self._warm_meta = None
+        self._warm_full = False
         self._warm_error: str = None
         self._stream = None
         self.counters = {"requests": 0, "fusion_batches": 0,
@@ -143,13 +147,17 @@ class DeviceServer:
 
     # -- threaded operation -------------------------------------------------
 
-    def warm_async(self, config) -> None:
+    def warm_async(self, config, full: bool = False) -> None:
         """Start the dispatcher thread; it builds the kernels, creates the
         context and runs the run's call step (`config`'s parameters) once
-        on a zero batch before serving requests. Call it after every
-        worker has forked, before the first submit."""
+        on a zero batch of the floor width before serving requests; with
+        full=True (the device daemon) also at 2, 4 and 8 times that
+        width, and the fused steps of k = 2 and 4 tasks. With config None
+        it runs no step. Call it after every worker has forked, before
+        the first submit."""
         from sniffles_tpu_torch.parallel.device_call import standard_call_meta
-        self._warm_meta = standard_call_meta(config)
+        self._warm_meta = None if config is None else standard_call_meta(config)
+        self._warm_full = full
         self._thread = threading.Thread(target=self._run, daemon=True,
                                         name="device-dispatch")
         self._thread.start()
@@ -355,8 +363,10 @@ class DeviceServer:
 
     def _warm(self) -> None:
         """Build both kernel libraries, create the context (and the
-        dispatcher's stream), and run one call step on a zero batch of the
-        floor width. A failure is stored: every request then gets it."""
+        dispatcher's stream), and run the warm call steps on zero batches
+        (warm_async). Nothing compiles in torch, but the first launches
+        load the kernels' modules and fill the caching allocator. A
+        failure is stored: every request then gets it."""
         global DEVICE_LIVE
         try:
             t0 = time.perf_counter()
@@ -370,25 +380,47 @@ class DeviceServer:
             if self.device == "cuda":
                 torch.cuda.init()
                 self._stream = torch.cuda.Stream()
-            from sniffles_tpu_torch.ops.clustering import call_task_packed
+            from sniffles_tpu_torch.ops.clustering import batched_call_task, call_task_packed
             from sniffles_tpu_torch.parallel.device_call import (DEVICE_BATCH_FLOOR,
                                                                  PACKED_ROWS)
+            meta = self._warm_meta
+            widths, fused = [], []
+            if meta is not None:
+                widths = [DEVICE_BATCH_FLOOR]
+                if self._warm_full:
+                    widths += [2 * DEVICE_BATCH_FLOOR, 4 * DEVICE_BATCH_FLOOR,
+                               8 * DEVICE_BATCH_FLOOR]
+                    fused = [2, 4]
             with self._on_stream():
-                zero = torch.zeros((PACKED_ROWS, DEVICE_BATCH_FLOOR), dtype=torch.int32,
-                                   device=self.device)
-                call_task_packed(zero, **self._warm_meta).cpu()
+                for width in widths:
+                    zero = torch.zeros((PACKED_ROWS, width), dtype=torch.int32,
+                                       device=self.device)
+                    call_task_packed(zero, **meta).cpu()
+                for k in fused:
+                    zero = torch.zeros((k, PACKED_ROWS, DEVICE_BATCH_FLOOR),
+                                       dtype=torch.int32, device=self.device)
+                    batched_call_task(tuple(sorted(meta.items())), zero).cpu()
             log.info(f"device warmup on {self.device}: kernels {build_s:.2f}s, context and "
-                     f"standard step {time.perf_counter() - t0:.2f}s")
+                     f"{len(widths) + len(fused)} warm steps {time.perf_counter() - t0:.2f}s")
         except Exception as e:  # noqa: BLE001
             self._warm_error = f"device warmup failed: {_error_text(e)}"
             log.error(self._warm_error, exc_info=e)
 
     # -- dispatch -------------------------------------------------------------
 
+    def stats(self) -> dict:
+        """The service's counters, its device, and the kernel launches of
+        this process (the names the CLI's counters give them)."""
+        from sniffles_tpu_torch.ops import clustering, edit_distance_batch
+        return {**self.counters, "device": self.device,
+                "kernel_sweep_cuts": clustering.COUNTS["sweep_cuts"],
+                "kernel_merge_sweep": clustering.COUNTS["launches"],
+                "kernel_ed_myers": edit_distance_batch.COUNTS["launches"]}
+
     def handle(self, request: DeviceRequest) -> DeviceResponse:
-        """Answer one request that is not pipelined (ed_batch, noop,
-        stats, the kinds not ported), or any request with the warmup's
-        error when it failed."""
+        """Answer one request that is not pipelined (cluster_assign,
+        combine_greedy, ed_batch, noop, stats, the kinds not ported), or
+        any request with the warmup's error when it failed."""
         if self._warm_error is not None:
             return DeviceResponse(error=self._warm_error, req_id=request.req_id)
         try:
@@ -403,10 +435,23 @@ class DeviceServer:
             # liveness probe: reaching here means warmup finished
             return np.zeros(1, dtype=np.int32)
         if request.kind == "stats":
-            return dict(self.counters)
+            return self.stats()
         if request.kind in NOT_PORTED_KINDS:
             raise NotImplementedError(f"device request kind {request.kind!r} is not yet "
                                       f"ported to sniffles_tpu_torch")
+        if request.kind == "cluster_assign":
+            DEVICE_LIVE = True
+            from sniffles_tpu_torch.ops.clustering import cluster_assign_packed
+            from sniffles_tpu_torch.ops.transfer import to_device
+            with self._on_stream():
+                packed = to_device(np.asarray(request.payload, dtype=np.int32), self.device)
+                return cluster_assign_packed(packed, **request.meta).cpu().numpy()
+        if request.kind == "combine_greedy":
+            DEVICE_LIVE = True
+            # the sequential greedy of one (block, svtype) flush
+            from sniffles_tpu_torch.ops.combine_greedy import run_combine_greedy
+            with self._on_stream():
+                return run_combine_greedy(request.payload, request.meta, self.device)
         if request.kind == "ed_batch":
             DEVICE_LIVE = True
             # payload: list of (a, b) string pairs (combine identity gate)
@@ -415,6 +460,14 @@ class DeviceServer:
                 return device_edit_distance_batch(request.payload, request.meta.get("max_len"),
                                                   device=self.device)
         raise ValueError(f"unknown device request kind: {request.kind}")
+
+
+def stats_difference(before: dict, after: dict) -> dict:
+    """The counters of a run from two stats answers (DeviceServer.stats):
+    the service's counters as service_*, the kernel launches by their
+    names, each after less before."""
+    return {(k if k.startswith("kernel_") else f"service_{k}"): after[k] - before[k]
+            for k in after if k != "device"}
 
 
 class DeviceClient:
@@ -433,6 +486,14 @@ class DeviceClient:
         self._responses: dict[int, tuple] = {}   # req_id -> (response, t_arrived)
         self._abandoned: dict[int, float] = {}   # req_id -> t_abandoned
         self._next_id = 1
+        self._lost: str = None
+
+    def lose(self, reason: str) -> None:
+        """The connection is gone: every wait, now and later, raises
+        RuntimeError(reason)."""
+        with self._cv:
+            self._lost = reason
+            self._cv.notify_all()
 
     def deliver(self, response: DeviceResponse) -> None:
         """Called from the worker's pipe receive thread."""
@@ -468,12 +529,15 @@ class DeviceClient:
 
     def wait(self, req_id: int, timeout: float = None):
         """The response's payload; raises RuntimeError on a response that
-        carries an error, TimeoutError when none came within `timeout`
-        (TIMEOUT by default)."""
+        carries an error or once the connection is lost (`lose`),
+        TimeoutError when none came within `timeout` (TIMEOUT by
+        default)."""
         timeout = timeout or self.TIMEOUT
         deadline = time.monotonic() + timeout
         with self._cv:
             while req_id not in self._responses:
+                if self._lost is not None:
+                    raise RuntimeError(self._lost)
                 remaining = deadline - time.monotonic()
                 if remaining <= 0 or not self._cv.wait(timeout=remaining):
                     if req_id in self._responses:
@@ -487,3 +551,6 @@ class DeviceClient:
 
     def request(self, kind: str, payload, meta: dict):
         return self.wait(self.post(kind, payload, meta))
+
+    def cluster_assign(self, packed: np.ndarray, meta: dict) -> np.ndarray:
+        return self.request("cluster_assign", packed, meta)

@@ -9,14 +9,16 @@ device through the parent-owned device service
 (parallel/device_service.py): they ship packed batches over their task
 pipe and wait for the result, so ``--threads N`` composes with the device
 path — host parallelism for decode and compute, one device context in
-the parent. In a worker, config.device is WORKER_DEVICE, on which any
-in-process device call raises.
+the parent. With a device daemon (parallel/device_daemon.py) every
+worker, and the inline worker, opens a connection of its own to the
+daemon once it runs, and posts there. In a worker, config.device is
+WORKER_DEVICE, on which any in-process device call raises.
 
 Copied from sniffles_tpu/pipeline/runtime.py: SnifflesWorker (pipes,
 heartbeat, requeue, recycling, the lookahead task, the receive thread
-and the decode-ahead prefetch), _spawned_worker_main and the inline
-SnifflesParentWorker with its decode-ahead. The persistent device daemon
-of the JAX package is not ported.
+and the decode-ahead prefetch), _spawned_worker_main, the inline
+SnifflesParentWorker with its decode-ahead, and their connections to
+the device daemon (no fallback: a daemon that does not answer raises).
 """
 from __future__ import annotations
 
@@ -32,6 +34,7 @@ from typing import Union, Callable, TYPE_CHECKING
 
 from sniffles_tpu_torch.pipeline.result import Result, ErrorResult
 from sniffles_tpu_torch.pipeline.tasks import Task, ShutdownTask
+from sniffles_tpu_torch.parallel import device_daemon
 from sniffles_tpu_torch.parallel.device_service import (DeviceClient, DeviceRequest,
                                                         DeviceResponse)
 
@@ -70,6 +73,7 @@ class SnifflesWorker:
     _recycle_flag: bool = False
     running = True
     pid: int = None
+    daemon_socket: str = None
     _shutdown: threading.Event
     _heartbeat: float = 0
     HEARTBEAT_INTERVAL = 3   # seconds
@@ -81,7 +85,7 @@ class SnifflesWorker:
     def __init__(self, process_id: int, config: 'SnifflesConfig', tasks: deque,
                  recycle_hint: Union[bool, Callable] = None,
                  peers: list['SnifflesWorker'] = None,
-                 device_server=None):
+                 device_server=None, daemon_socket: str = None):
         self.id = process_id
         self.config = config
         self.tasks = tasks
@@ -92,6 +96,8 @@ class SnifflesWorker:
         # shared parent-side dispatcher (parallel/device_service.py); its
         # thread and the device context start after all forks
         self.device_server = device_server
+        # the device daemon's socket, when it serves the run's device work
+        self.daemon_socket = daemon_socket
         # Peer pool visibility: an idle worker only shuts down when no peer
         # has an in-flight task, so a dead peer's requeued task still finds
         # a live worker. (The reference shuts down on an empty deque,
@@ -120,7 +126,8 @@ class SnifflesWorker:
             # workers therefore come from a clean spawned interpreter.
             ctx = multiprocessing.get_context("spawn")
             return ctx.Process(target=_spawned_worker_main,
-                               args=(self.id, self.pipe_worker, self.heartbeat_worker),
+                               args=(self.id, self.pipe_worker, self.heartbeat_worker,
+                                     self.daemon_socket),
                                daemon=True)
         return multiprocessing.Process(target=self.run_worker, daemon=True)
 
@@ -298,7 +305,9 @@ class SnifflesWorker:
         # thread posting device requests (decode-ahead prefetch);
         # serialize sends through one lock shared with the DeviceClient
         self._worker_send_lock = threading.Lock()
-        self.device_client = DeviceClient(self.pipe_worker, send_lock=self._worker_send_lock)
+        self.device_client = (device_daemon.connect(self.daemon_socket) if self.daemon_socket
+                              else DeviceClient(self.pipe_worker,
+                                                send_lock=self._worker_send_lock))
 
         t = threading.Thread(target=self.run_worker_heartbeats, daemon=True)
         t.start()
@@ -370,6 +379,8 @@ class SnifflesWorker:
             gc.collect()
 
         prefetch_pool.shutdown(wait=False, cancel_futures=True)
+        if self.daemon_socket:
+            self.device_client.close()
         t.join(1.0)
 
     def _prefetch_task(self, task):
@@ -389,7 +400,8 @@ class SnifflesWorker:
             self._shutdown.wait(self.HEARTBEAT_INTERVAL)
 
 
-def _spawned_worker_main(worker_id: int, task_conn, heartbeat_conn) -> None:
+def _spawned_worker_main(worker_id: int, task_conn, heartbeat_conn,
+                         daemon_socket: str = None) -> None:
     """Entry point for spawn-context worker processes (used once the
     parent has touched a torch device and fork is unsafe). Builds a bare
     worker shell around the inherited pipe ends and runs the loop."""
@@ -397,6 +409,7 @@ def _spawned_worker_main(worker_id: int, task_conn, heartbeat_conn) -> None:
     shell.id = worker_id
     shell.pipe_worker = task_conn
     shell.heartbeat_worker = heartbeat_conn
+    shell.daemon_socket = daemon_socket
     shell.running = True
     shell.run_worker()
 
@@ -404,19 +417,23 @@ def _spawned_worker_main(worker_id: int, task_conn, heartbeat_conn) -> None:
 class SnifflesParentWorker:
     """Runs all tasks inline in the main process (--threads 0; reference:
     parallel.py:777-807). This is the mode in which tasks use the torch
-    device directly."""
+    device directly, or, with a device daemon, post to it through
+    `device_client`."""
     id: int = 0
     running = True
     device_client = None
 
-    def __init__(self, config: 'SnifflesConfig', tasks: deque, **kwargs):  # noqa
+    def __init__(self, config: 'SnifflesConfig', tasks: deque,
+                 daemon_socket: str = None, **kwargs):  # noqa
         self.tasks = tasks
         self.task = None
         self.config = config
+        self.daemon_socket = daemon_socket
         self.finished_tasks: list[Task] = []
 
     def start(self) -> None:
-        ...
+        if self.daemon_socket:
+            self.device_client = device_daemon.connect(self.daemon_socket)
 
     def run_parent(self) -> bool:
         """Serial execution with decode-ahead: the next task's BAM scan
@@ -453,4 +470,5 @@ class SnifflesParentWorker:
         return False
 
     def finalize(self):
-        ...
+        if self.device_client is not None:
+            self.device_client.close()

@@ -467,6 +467,89 @@ def edge_call_batches() -> dict[str, np.ndarray]:
     return {"nseeds-0": empty, "one-seed": one, "fragmented-read": frag}
 
 
+def _flush_payload(cands, keeps) -> dict:
+    """The payload of run_combine_greedy for one flush, packed as the JAX
+    package's tests/test_combine_greedy_kernel.py::run_device packs it:
+    local coordinates, integer group sums, an alt-id table and the exact
+    edit distance of every (head alt id, candidate) pair of distinct
+    alts. cands: [(pos, len, alt)] in processing order; keeps:
+    [(pos_mean, len_mean, n, head_alt)]."""
+    from sniffles_tpu_torch.ops.edit_distance import edit_distance
+    base = int(min([p for p, _, _ in cands] + [kp for kp, _, _, _ in keeps]))
+    alt_ids: dict = {}
+    g_head = [alt_ids.setdefault(h, len(alt_ids)) for _, _, _, h in keeps]
+    c_alt = [alt_ids.setdefault(a, len(alt_ids)) for _, _, a in cands]
+    strings = {v: k for k, v in alt_ids.items()}
+    rows, cols, vals = [], [], []
+    for j, a_j in enumerate(c_alt):
+        for h_id in set(alt_ids.values()):
+            if h_id != a_j:
+                rows.append(h_id)
+                cols.append(j)
+                vals.append(edit_distance(strings[h_id], strings[a_j]))
+    i32 = lambda v: np.array(v, dtype=np.int32)  # noqa: E731
+    return {"c_pos": i32([p - base for p, _, _ in cands]),
+            "c_len": i32([ln for _, ln, _ in cands]), "c_alt": i32(c_alt),
+            "g_psum": i32([round((p - base) * n) for p, _, n, _ in keeps]),
+            "g_lsum": i32([round(ln * n) for _, ln, n, _ in keeps]),
+            "g_n": i32([n for _, _, n, _ in keeps]), "g_head": i32(g_head),
+            "n_alts": len(alt_ids), "ed_rows": i32(rows), "ed_cols": i32(cols),
+            "ed_vals": i32(vals)}
+
+
+def greedy_flush_payloads() -> list[tuple[dict, dict]]:
+    """The (payload, meta) pairs of the JAX package's
+    tests/test_combine_greedy_kernel.py, in its order: a basic trajectory,
+    initial groups at a tie, the identity gate at limits 0, 0.7 and
+    0.95, 40 fuzz seeds (clustered positions and lengths, initial groups
+    with non-integral means), a group-size overflow and an empty ED table
+    (ed_miss). The inputs of the combine_greedy request kind."""
+    meta = {"cm": 250, "cmm": 1000, "limit": 0.0}
+    out = []
+    cands = [(1000, 100, "<DEL>"), (1010, 102, "<DEL>"), (5000, 100, "<DEL>"),
+             (1004, 101, "<DEL>"), (5020, 400, "<DEL>"), (990, 99, "<DEL>")]
+    out.append((_flush_payload(cands, []), meta))
+    out.append((_flush_payload([(1010, 100, "<INS>")],
+                               [(1000, 100, 1, "<INS>"), (1020, 100, 1, "<INS>")]), meta))
+    rng = np.random.default_rng(7)
+
+    def seq(n):
+        return "".join(rng.choice(list("ACGT"), size=n))
+    s1 = seq(120)
+    s2 = s1[:40] + seq(40) + s1[80:]
+    s3 = s1[:115] + seq(5)
+    cands = [(1000, 120, s1), (1004, 120, s2), (1008, 120, s3), (1002, 118, s2),
+             (1001, 119, s1)]
+    out += [(_flush_payload(cands, []), dict(meta, limit=limit)) for limit in (0.0, 0.7, 0.95)]
+    for seed in range(40):
+        rng = np.random.default_rng(2000 + seed)
+        n_sites = int(rng.integers(2, 7))
+        sites = [(int(rng.integers(0, 60_000)), int(rng.integers(50, 900)))
+                 for _ in range(n_sites)]
+        cands = []
+        for _ in range(int(rng.integers(8, 60))):
+            sp, sl = sites[int(rng.integers(0, n_sites))]
+            cands.append((sp + int(rng.integers(-40, 41)),
+                          max(20, sl + int(rng.integers(-10, 11))), "<DEL>"))
+        keeps = []
+        for _ in range(int(rng.integers(0, 4))):
+            sp, sl = sites[int(rng.integers(0, n_sites))]
+            n = int(rng.integers(1, 5))
+            psum = sum(sp + int(rng.integers(-30, 31)) for _ in range(n))
+            lsum = sum(max(20, sl + int(rng.integers(-8, 9))) for _ in range(n))
+            keeps.append((psum / n, lsum / n, n, "<DEL>"))
+        order = list(rng.permutation(len(cands)))
+        out.append((_flush_payload([cands[i] for i in order], keeps), meta))
+    out.append((_flush_payload([(1000, 100, "<INS>")] * 8,
+                               [(1000.0, 100.0, 1020, "<INS>")]), meta))
+    z = np.zeros(0, dtype=np.int32)
+    out.append(({"c_pos": np.array([0, 4], np.int32), "c_len": np.array([100, 100], np.int32),
+                 "c_alt": np.array([0, 1], np.int32), "g_psum": z, "g_lsum": z, "g_n": z,
+                 "g_head": z, "n_alts": 2, "ed_rows": z, "ed_cols": z, "ed_vals": z},
+                dict(meta, limit=0.7)))
+    return out
+
+
 def _layout_batch(leads, size: int = 2048) -> np.ndarray:
     """A packed (15, size) call-task batch of (pos, svtype, repeat) leads:
     svlen 300 (-300 for DEL, 0 for BND), one read each, forward strand."""

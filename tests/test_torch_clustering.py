@@ -23,7 +23,11 @@ a walk per segment) is held to a copy of the sequential sweep
 (`sequential_sweep` below) in every state array, floats bit for bit, on
 all of those batches, with global_repeat on, and on the layouts of
 sim.sweep_layout_batches (a head seed alone, BND chains, a cascade that
-collapses the cut fixpoint); its partition is checked for soundness."""
+collapses the cut fixpoint); its partition is checked for soundness.
+
+cluster_assign_packed (the service's cluster_assign request) is held to
+the JAX package's in the same way on the fuzz and edge batches, and on
+tests/test_device_cluster.py's batches."""
 import numpy as np
 import pytest
 import torch
@@ -228,6 +232,66 @@ def test_call_task_packed_matches_jax_on_fuzz_batches(kw, monkeypatch):
 @pytest.mark.parametrize("name", ["nseeds-0", "one-seed", "fragmented-read"])
 def test_call_task_packed_matches_jax_on_edges(name, monkeypatch):
     check_call_task(edge_call_batches()[name], monkeypatch)
+
+
+# ---------------------------------------------------------------------------
+# cluster_assign_packed: the lean assignment of the cluster_assign request
+
+
+ASSIGN_META = {k: META[k] for k in ("cluster_r", "cluster_repeat_h", "cluster_repeat_h_max",
+                                    "cluster_merge_bnd", "cluster_merge_len", "minsvlen",
+                                    "binsize", "resplit_binsize")}
+_JAX_ASSIGN = {}
+
+
+def jax_cluster_assign(packed, sequential: bool, monkeypatch):
+    """The JAX package's cluster_assign_packed with its sequential sweep
+    or its default formulation (as jax_call_task)."""
+    if sequential not in _JAX_ASSIGN:
+        _JAX_ASSIGN[sequential] = jax.jit(jc.cluster_assign_packed.__wrapped__,
+                                          static_argnames=tuple(ASSIGN_META))
+    monkeypatch.setattr(jc, "_FORCE_SEQ_SWEEP", sequential)
+    return np.asarray(_JAX_ASSIGN[sequential](jnp.asarray(packed), **ASSIGN_META))
+
+
+@pytest.mark.parametrize("kw", FUZZ + [pytest.param(name, id=name) for name in
+                                       ("nseeds-0", "one-seed", "fragmented-read")])
+def test_cluster_assign_packed_matches_jax(kw, monkeypatch):
+    """The (6, N) rows pos, svlen, svtype, read_id, repeat, valid of each
+    fuzz and edge batch: the port's (3, N) assignment equals the JAX
+    package's sequential sweep bit for bit, and its default where the JAX
+    package's two formulations agree."""
+    packed15 = fuzz_call_batch(**kw) if isinstance(kw, dict) else edge_call_batches()[kw]
+    packed = np.ascontiguousarray(packed15[[0, 1, 2, 8, 4, 5]])
+    ours = tc.cluster_assign_packed(torch.from_numpy(packed), **ASSIGN_META)
+    assert ours.dtype == torch.int32 and tuple(ours.shape) == (3, packed.shape[1])
+    seq = jax_cluster_assign(packed, True, monkeypatch)
+    default = jax_cluster_assign(packed, False, monkeypatch)
+    assert ours.numpy().tolist() == seq.tolist()
+    if np.array_equal(seq, default):
+        assert ours.numpy().tolist() == default.tolist()
+
+
+@pytest.mark.parametrize("name", ["test_merge_chain_matches_host_sweep",
+                                  "test_grid_sweep_threshold_chains_match_host"])
+def test_cluster_assign_packed_matches_jax_on_device_cluster_batches(name, monkeypatch):
+    """tests/test_device_cluster.py's batches (a five-link merge cascade;
+    chains at gaps around the sound-cut bound, with repeat flags), each
+    held against the JAX package's cluster_assign_packed as that test
+    calls it, bit for bit."""
+    import tests.test_device_cluster as jtest
+    from sniffles_tpu.config import SnifflesConfig as JConfig
+    real, held = jc.cluster_assign_packed, []
+
+    def both(packed, **meta):
+        theirs = np.asarray(real(packed, **meta))
+        ours = tc.cluster_assign_packed(torch.from_numpy(np.asarray(packed)), **meta)
+        assert ours.numpy().tolist() == theirs.tolist()
+        held.append(meta)
+        return theirs
+    monkeypatch.setattr(jc, "cluster_assign_packed", both)
+    getattr(jtest, name)(JConfig("--input", "x.bam", "--vcf", "y.vcf"))
+    assert len(held) == (1 if "merge_chain" in name else 15)
 
 
 # ---------------------------------------------------------------------------

@@ -6,7 +6,9 @@ run_combine_greedy_task on the SAME numpy payload dicts: `assign` and
 width-1 table. The port's packer must also build byte-identical
 payloads from the same cohort (the carry-across: the payload dicts are
 the interface, no conversion is needed), and its replay must reproduce
-the host greedy."""
+the host greedy. The sequential greedy of one flush, run_combine_greedy,
+is held to the JAX package's on every case of
+tests/test_combine_greedy_kernel.py."""
 import numpy as np
 import pytest
 
@@ -160,6 +162,61 @@ def test_group_size_overflow():
                "ed_cols": np.zeros(0, np.int32), "ed_vals": np.zeros(0, np.int32)}
     out = assert_same_result(payload, {"cm": 250, "cmm": 1000, "limit": 0.0})
     assert out["seg_flags"].tolist() == [SEGF_N_OVERFLOW]
+
+
+# ---------------------------------------------------------------------------
+# the sequential greedy of one flush (run_combine_greedy, the
+# combine_greedy request kind)
+
+
+@pytest.mark.parametrize("name", [
+    "test_basic_trajectory_matches_host", "test_initial_groups_and_tie_break",
+    "test_identity_gate_matches_host", "test_greedy_fuzz_matches_host",
+    "test_group_size_overflow_flags", "test_ed_miss_flags_fallback"])
+def test_flush_greedy_matches_jax(name, monkeypatch):
+    """Every payload of tests/test_combine_greedy_kernel.py's cases (fuzz
+    included) through the port's run_combine_greedy and the JAX
+    package's: `assign` and `flags` equal, bit for bit."""
+    import tests.test_combine_greedy_kernel as jtest
+    real, held = jcg.run_combine_greedy, []
+
+    def both(payload, meta):
+        theirs = real(payload, meta)
+        ours = tcg.run_combine_greedy(payload, meta, "cpu")
+        for key in ("assign", "flags"):
+            assert ours[key].dtype == np.int32
+            assert ours[key].tolist() == np.asarray(theirs[key]).tolist(), key
+        held.append(meta)
+        return theirs
+    monkeypatch.setattr(jtest, "run_combine_greedy", both)
+    monkeypatch.setattr(jcg, "run_combine_greedy", both)
+    getattr(jtest, name)()
+    assert held
+
+
+def test_sim_flush_payloads_are_the_jax_cases(monkeypatch):
+    """sniffles_tpu_torch.sim.greedy_flush_payloads (the cases chip_smoke.py
+    sends through the device daemon on the card) gives the payloads and
+    metas of tests/test_combine_greedy_kernel.py, array for array."""
+    import tests.test_combine_greedy_kernel as jtest
+    from sniffles_tpu_torch.sim import greedy_flush_payloads
+    real, captured = jcg.run_combine_greedy, []
+
+    def capture(payload, meta):
+        captured.append((payload, meta))
+        return real(payload, meta)
+    monkeypatch.setattr(jtest, "run_combine_greedy", capture)
+    monkeypatch.setattr(jcg, "run_combine_greedy", capture)
+    for name in ("test_basic_trajectory_matches_host", "test_initial_groups_and_tie_break",
+                 "test_identity_gate_matches_host", "test_greedy_fuzz_matches_host",
+                 "test_group_size_overflow_flags", "test_ed_miss_flags_fallback"):
+        getattr(jtest, name)()
+    ours = greedy_flush_payloads()
+    assert len(ours) == len(captured) == 47
+    for (payload, meta), (want, want_meta) in zip(ours, captured):
+        assert meta == want_meta and sorted(payload) == sorted(want)
+        for key in want:
+            assert np.asarray(payload[key]).tolist() == np.asarray(want[key]).tolist(), key
 
 
 # ---------------------------------------------------------------------------

@@ -1,8 +1,9 @@
 """Card-only tests of the PyTorch/CUDA port: the hand-written CUDA kernels
 (edit distance; the merge sweep's partition and segment walks) against
 their plain PyTorch versions (and the host Myers scan), and the combine
-and call_sample device paths on the card against their host paths, and
-the native host library beside a CUDA context. They
+and call_sample device paths on the card against their host paths, the
+native host library beside a CUDA context, and the cluster_assign and
+flush-greedy steps on the card against the CPU. They
 skip where no CUDA card is visible. This file imports neither JAX nor
 the JAX package, so on the card it runs without them:
 
@@ -317,3 +318,31 @@ def test_threaded_call_sample_on_cuda_matches_host(card, tmp_path):
     assert counters["device_tasks"] == 2
     # the warmup's step and one a dispatch (solo or fused)
     assert counters["kernel_merge_sweep"] == counters["kernel_sweep_cuts"] >= 2
+
+
+@pytest.mark.parametrize("seed,size", [(1, 32768), (3, 512)])
+def test_cluster_assign_on_cuda_matches_plain(card, seed, size):
+    """cluster_assign_packed on the card (the sweep kernels, the resplit as
+    torch ops) == on the CPU (the plain sweep), bit for bit."""
+    from sniffles_tpu_torch.sim import fuzz_call_batch
+    meta = dict(cluster_r=2.5, cluster_repeat_h=1.5, cluster_repeat_h_max=1000.0,
+                cluster_merge_bnd=1000, cluster_merge_len=0.22, minsvlen=50, binsize=100,
+                resplit_binsize=20)
+    packed = torch.from_numpy(np.ascontiguousarray(fuzz_call_batch(seed, size)[[0, 1, 2, 8, 4,
+                                                                                5]]))
+    launches = tc.COUNTS["launches"]
+    got = tc.cluster_assign_packed(packed.to(card), **meta).cpu()
+    assert tc.COUNTS["launches"] == launches + 1
+    assert torch.equal(got, tc.cluster_assign_packed(packed, **meta))
+
+
+def test_flush_greedy_on_cuda_matches_plain(card):
+    """run_combine_greedy on the card == on the CPU for every case of
+    sniffles_tpu_torch.sim.greedy_flush_payloads."""
+    from sniffles_tpu_torch.ops.combine_greedy import run_combine_greedy
+    from sniffles_tpu_torch.sim import greedy_flush_payloads
+    for payload, meta in greedy_flush_payloads():
+        got = run_combine_greedy(payload, meta, "cuda")
+        want = run_combine_greedy(payload, meta, "cpu")
+        assert got["assign"].tolist() == want["assign"].tolist()
+        assert got["flags"].tolist() == want["flags"].tolist()

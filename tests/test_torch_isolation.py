@@ -3,7 +3,8 @@ neither JAX nor anything of the JAX package sniffles_tpu, its combine and
 call_sample run with both blocked from import (inline and with the worker
 pool), it loads its own build of the native host library and never the
 JAX package's native/libbamcore.so, and without a card it raises unless
-the CPU was asked for. --tpu-mesh, which it has not ported, is refused;
+the CPU was asked for. Its device daemon serves with both blocked too.
+--tpu-mesh, which it has not ported, is refused;
 options refused before their slices were ported (--threads N with the
 device path, --dev-cache, --dev-locasm-do, .cram input) now run."""
 import json
@@ -332,6 +333,75 @@ assert sys.modules["jax"] is None
 loaded = [m for m in sys.modules if m == "sniffles_tpu" or m.startswith("sniffles_tpu.")]
 assert loaded == ["sniffles_tpu"], loaded
 """ + NATIVE_CHECK + """
+print("OK")
+"""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    env["SNIFFLES_TPU_FORCE_CPU"] = "1"
+    r = subprocess.run([sys.executable, "-c", code, str(tmp_path)], capture_output=True,
+                       text=True, env=env, timeout=300)
+    assert r.returncode == 0, r.stdout[-3000:] + r.stderr[-3000:]
+    assert r.stdout.strip().endswith("OK")
+
+
+def test_device_daemon_serves_with_jax_blocked(tmp_path):
+    """The device daemon (parallel/device_daemon.py) in a process where jax
+    and sniffles_tpu cannot be imported, on the CPU, with its full warmup
+    (the call steps at 1, 2, 4 and 8 times the floor width and the fused
+    k = 2 and 4 steps): it answers a ping, a call_task, a cluster_assign
+    and a combine_greedy request and serves a CLI run at --threads 0,
+    whose records equal the in-process run's, then shuts down on
+    request; nothing of either package is loaded."""
+    code = """
+import os, sys, threading
+sys.modules["jax"] = None          # any import of jax now raises
+sys.modules["sniffles_tpu"] = None
+from sniffles_tpu_torch.parallel import device_daemon as dd
+from sniffles_tpu_torch.sim import PlantedSV, fuzz_call_batch, write_dataset
+from sniffles_tpu_torch.cli import main
+d = sys.argv[1]
+sock = d + "/d.sock"
+served = threading.Thread(target=dd.serve, args=(sock,), kwargs={"device": "cpu"})
+served.start()
+while not dd.answers(sock):
+    pass
+client = dd.DaemonClient(sock)
+assert client.ping(timeout=120)
+meta = dict(cluster_r=2.5, cluster_repeat_h=1.5, cluster_repeat_h_max=1000.0,
+            cluster_merge_bnd=1000, cluster_merge_len=0.22, minsvlen=50, binsize=100,
+            resplit_binsize=20)
+packed = fuzz_call_batch(11, 512)
+assert client.call_task(packed, dict(meta, cluster_merge_pos=150, global_repeat=False))["nc"] > 0
+assert client.cluster_assign(packed[[0, 1, 2, 8, 4, 5]], meta).shape == (3, 512)
+import numpy as np
+z = np.zeros(0, np.int32)
+greedy = client.request("combine_greedy", {"c_pos": np.array([0, 5], np.int32),
+    "c_len": np.array([100, 100], np.int32), "c_alt": np.zeros(2, np.int32), "g_psum": z,
+    "g_lsum": z, "g_n": z, "g_head": z, "n_alts": 1, "ed_rows": z, "ed_cols": z,
+    "ed_vals": z}, {"cm": 250, "cmm": 1000, "limit": 0.0})
+assert greedy["assign"].tolist() == [0, 0], greedy
+stats = dd.daemon_stats(sock)
+assert stats["device"] == "cpu" and stats["requests"] >= 5, stats
+bam, fa = write_dataset(d, ref_len=120_000, depth=20, read_len=10_000, seed=3,
+                        svs=[PlantedSV(pos=40_000, svtype="DEL", svlen=300),
+                             PlantedSV(pos=80_000, svtype="INS", svlen=200)])
+outs = []
+for socket_env in (sock, None):
+    if socket_env:
+        os.environ[dd.ENV_SOCKET] = socket_env
+    else:
+        os.environ.pop(dd.ENV_SOCKET)
+    out = d + "/out%d.vcf" % len(outs)
+    assert main(["--input", bam, "--reference", fa, "--vcf", out, "--threads", "0"]) == 0
+    outs.append([l for l in open(out) if not l.startswith("#")])
+assert len(outs[0]) == 2 and outs[0] == outs[1], outs
+assert dd.daemon_stats(sock)["requests"] > stats["requests"] + 1
+client.shutdown()
+served.join(60)
+assert not served.is_alive() and not os.path.exists(sock)
+assert sys.modules["jax"] is None
+loaded = [m for m in sys.modules if m == "sniffles_tpu" or m.startswith("sniffles_tpu.")]
+assert loaded == ["sniffles_tpu"], loaded
 print("OK")
 """
     env = dict(os.environ)

@@ -8,8 +8,8 @@ slot included, must equal the port's call_task_packed of each task and
 the JAX package's batched_call_task (its vmap, with the sequential sweep)
 bit for bit. The DeviceServer must answer solo, fused and pipelined
 requests with the single-task result, answer every request with the
-warmup's error when warmup failed, and refuse the request kinds it has
-not ported; the DeviceClient's post, wait, discard and timeout are held
+warmup's error when warmup failed, serve the cluster_assign and
+combine_greedy kinds, and refuse the request kinds it has not ported; the DeviceClient's post, wait, discard and timeout are held
 to their contract."""
 import os
 import threading
@@ -307,9 +307,49 @@ def test_server_warmup_failure_answers_every_request(monkeypatch):
 
 @pytest.mark.parametrize("kind", ds.NOT_PORTED_KINDS)
 def test_not_ported_request_kinds_are_refused(kind):
+    assert ds.NOT_PORTED_KINDS == ("call_task_mesh", "combine_mesh")
     response = ds.DeviceServer("cpu").handle(ds.DeviceRequest(kind, None, {}, 9))
     assert response.req_id == 9 and response.payload is None
     assert "not yet ported" in response.error
+
+
+@pytest.mark.parametrize("kind", ["cluster_assign", "combine_greedy"])
+def test_ported_request_kinds_are_served(kind):
+    """The kinds refused before their port: a cluster_assign request
+    answers cluster_assign_packed's (3, N) assignment, a combine_greedy
+    request run_combine_greedy's result, through the dispatcher and the
+    client's methods."""
+    from sniffles_tpu_torch.ops.combine_greedy import run_combine_greedy
+    assign_meta = {k: META[k] for k in ("cluster_r", "cluster_repeat_h",
+                                        "cluster_repeat_h_max", "cluster_merge_bnd",
+                                        "cluster_merge_len", "minsvlen", "binsize",
+                                        "resplit_binsize")}
+    if kind == "cluster_assign":
+        payload, meta = fuzz_call_batch(23, 1024)[[0, 1, 2, 8, 4, 5]], assign_meta
+        want = tc.cluster_assign_packed(torch.from_numpy(payload), **meta).numpy()
+    else:
+        payload = {"c_pos": np.array([0, 10, 4000, 6], np.int32),
+                   "c_len": np.array([100, 104, 100, 98], np.int32),
+                   "c_alt": np.zeros(4, np.int32), "g_psum": np.array([20], np.int32),
+                   "g_lsum": np.array([101], np.int32), "g_n": np.array([1], np.int32),
+                   "g_head": np.zeros(1, np.int32), "n_alts": 1,
+                   "ed_rows": np.zeros(0, np.int32), "ed_cols": np.zeros(0, np.int32),
+                   "ed_vals": np.zeros(0, np.int32)}
+        meta = {"cm": 250, "cmm": 1000, "limit": 0.0}
+        want = run_combine_greedy(payload, meta, "cpu")
+    got = serve(ds.DeviceServer("cpu"), [ds.DeviceRequest(kind, payload, meta, 5)])[5]
+    assert got.error is None
+    if kind == "cluster_assign":
+        assert got.payload.tolist() == want.tolist()
+        pipe = Pipe()
+        client = ds.DeviceClient(pipe)
+        threading.Timer(0.05, client.deliver,
+                        [ds.DeviceResponse(payload=want, req_id=1)]).start()
+        assert client.cluster_assign(payload, meta) is want
+        assert pipe.sent[0].kind == "cluster_assign"
+    else:
+        assert got.payload["assign"].tolist() == want["assign"].tolist() == [0, 0, 1, 0]
+        assert got.payload["flags"].tolist() == want["flags"].tolist() == [0, 0, 0]
 
 
 # ---------------------------------------------------------------------------
@@ -356,6 +396,14 @@ def test_client_post_wait_discard_and_timeout():
     client.deliver(ds.DeviceResponse(payload=np.array([1]), req_id=d))
     client.discard(d)
     assert d not in client._responses
+
+    # a lost connection fails every wait at once, now and later
+    e = client.post("noop", None, {})
+    threading.Timer(0.05, client.lose, ["the connection was lost"]).start()
+    with pytest.raises(RuntimeError, match="the connection was lost"):
+        client.wait(e, timeout=10)
+    with pytest.raises(RuntimeError, match="the connection was lost"):
+        client.wait(client.post("noop", None, {}), timeout=10)
 
 
 @pytest.mark.parametrize("env_ms, window_s", [(None, 0.0), ("25", 0.025)])
