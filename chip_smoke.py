@@ -113,6 +113,27 @@ Phases, each of which must pass:
      against its plain version; phase 8a's splits again with the daemon,
      side by side; the daemon shut down by request, then a second one
      that must exit by itself after --idle-timeout 2.
+  9. --tpu-mesh 4, four genome shards on the one card
+     (SNIFFLES_TPU_MESH_DEVICES=cuda:0,cuda:0,cuda:0,cuda:0, set for the
+     whole script): (a) phase 2b's fuzz batches with mixed head masks
+     (0x00, 0x0A, 0xF5, and a stack of three tasks with three masks in one
+     launch): kernels == plain; (c) dense3 at --tpu-mesh 4, --threads 0
+     and 4, each in a child that keeps every sweep launch (and the mesh
+     payloads): VCFs == phase 4's, mesh_tasks = 3 and no seam route, every
+     launch == plain with mixed head masks among them; (b) the mesh call
+     step (parallel/mesh.py build_sharded_assign) on dense3's largest
+     task's payload as 4 shards on cuda:0 against the same step on 4 CPU
+     shards (the plain versions): rows and overflow flags bit for bit;
+     (d) the mesh cohort (tests/test_mesh_combine_cli.py's: three samples
+     at depth 18, called to .snf) and combine256 at --tpu-mesh 4, each in
+     a child that keeps every edit-distance launch: VCFs == their host
+     VCFs, combine_mesh_flushes > 0 on the cohort, every launch (per-flush
+     batches, at least one on combine256) == plain bit for bit; (e) (inside
+     phase 8) dense3 at --tpu-mesh 4 served by phase 8's daemon: VCF ==
+     phase 4's, its launches held against plain with the daemon's; (f) two
+     processes on the card joined by SNIFFLES_TPU_COORDINATOR (the
+     multi-host run, --tpu-mesh 4): process 0 writes phase 4's records,
+     process 1 writes nothing, the 3 tasks split between them.
 Then (5) the kernels' timings on the inputs of the main paths' largest
 launches (CUDA events) beside their bounds and plain versions, the
 sweep's device time on phase 2b's fuzz batches and chain, the fused
@@ -125,8 +146,10 @@ Without a card it exits non-zero before any of that.
 
     python3 chip_smoke.py --cli-child KEEP ARGS...
 
-is the child of phase 4b: the CLI with ARGS, every merge-sweep launch
-kept and saved to KEEP (torch.save) when the CLI ends.
+is the child of phases 4b and 9: the CLI with ARGS, every merge-sweep
+launch kept and saved to KEEP (torch.save) when the CLI ends, every
+edit-distance launch to KEEP.ed, and the payload of every mesh call step
+to KEEP.mesh (pickle).
 
     python3 chip_smoke.py --daemon-child KEEP ARGS...
 
@@ -138,6 +161,7 @@ import contextlib
 import io
 import json
 import os
+import pickle
 import subprocess
 import sys
 import tempfile
@@ -199,6 +223,11 @@ SLEEP_CYCLES = 2_000_000
 # test: a compare of types, three differences, a min, a multiply, two
 # compares), counted from csrc/merge_sweep.cu
 CUTS_OPS_PER_SEED = 8
+# phase 9: four genome shards on the one card
+MESH_SHARDS = 4
+MESH_DEVICES = ",".join(["cuda:0"] * MESH_SHARDS)
+# the head masks of phase 9a (0xFF, every caller's but a mesh shard's, is phase 2b's)
+MESH_HEAD_MASKS = (0x00, 0x0A, 0xF5)
 
 
 def fail(msg: str) -> None:
@@ -472,8 +501,9 @@ def sweep_bytes(inputs, state, final):
     for every merged-away seed, its range end; for every seed that
     absorbed a merge, its range start and back link, and the position and
     length of each stride pick of its surviving range; every state element
-    that changed, written once; nseeds read and the iteration count
-    written. A sweep that merges nothing reads 28 bytes a seed."""
+    that changed, written once; nseeds and the head mask read and the
+    iteration count written. A sweep that merges nothing reads 28 bytes a
+    seed."""
     from sniffles_tpu_torch.ops import clustering as tc
     nseeds = int(inputs["nseeds"][0])
     changed = sum(int((final[k].view(torch.int32) != state[k].view(torch.int32)).sum())
@@ -484,7 +514,7 @@ def sweep_bytes(inputs, state, final):
     stride = (length // length.clamp(max=100).clamp(min=1)).clamp(min=1)
     picks = int(((length + stride - 1) // stride).clamp(max=256).sum())
     return (4 * SWEEP_CRITERIA_ARRAYS * nseeds + 4 * merged + 8 * int(grew.sum())
-            + 8 * picks + 4 * changed + 8)
+            + 8 * picks + 4 * changed + 12)
 
 
 def sweep_edge_batches():
@@ -903,11 +933,16 @@ def cli_child(keep_path, cli_args):
     runs it, in this process, which has no CUDA context of its own; every
     merge-sweep launch of its device service is kept on the host (inputs,
     state before and after, counts; [k, n] tensors for a fused dispatch)
-    and saved to keep_path when the CLI ends. The workers it forks never
-    run a sweep."""
+    and saved to keep_path when the CLI ends, every edit-distance launch
+    (inputs, output) to KEEP.ed. The workers it forks never launch a
+    kernel."""
     import runpy
     from sniffles_tpu_torch.ops import clustering as tc
+    from sniffles_tpu_torch.ops import edit_distance_batch as ted
+    from sniffles_tpu_torch.parallel import device_call
     sweep, kept = tc.merge_sweep, []
+    ed, eds = ted.edit_distance_batch_device, []
+    mesh_step, payloads = device_call.run_mesh_assign, []
 
     def keep_every(inputs, state, **params):
         before = {k: v.cpu() for k, v in state.items()}
@@ -916,12 +951,26 @@ def cli_child(keep_path, cli_args):
                      {k: v.cpu() for k, v in state.items()}, counts.cpu()))
         return counts
 
-    tc.merge_sweep = keep_every
+    def keep_ed(*inputs):
+        out = ed(*inputs)
+        if inputs[0].is_cuda:
+            eds.append(([x.cpu() for x in inputs], out.cpu()))
+        return out
+
+    def keep_payload(payload, meta):
+        payloads.append((payload, meta))
+        return mesh_step(payload, meta)
+
+    tc.merge_sweep, device_call.run_mesh_assign = keep_every, keep_payload
+    ted.edit_distance_batch_device = keep_ed
     sys.argv = ["sniffles_tpu_torch", *cli_args]
     try:
         runpy.run_module("sniffles_tpu_torch", run_name="__main__", alter_sys=True)
     finally:
         torch.save(kept, keep_path)
+        torch.save(eds, keep_path + ".ed")
+        with open(keep_path + ".mesh", "wb") as f:
+            pickle.dump(payloads, f)
 
 
 def hold_launch(inputs, before, after, counts, meta, label):
@@ -1163,6 +1212,26 @@ def run_kept(args, counters_path, what, meta):
     return wall, counters, launches, err
 
 
+def hold_ed(kept, what):
+    """Every kept edit-distance launch (host copies of its inputs and
+    output) held against the plain version on the card, bit for bit; prints
+    the launches' shapes and cells. Returns the max |kernel - plain|."""
+    from sniffles_tpu_torch.ops import edit_distance_batch as ted
+    err, cells = 0, 0
+    for j, (inputs, out) in enumerate(kept):
+        inputs, out = [x.cuda() for x in inputs], out.cuda()
+        plain = ted.edit_distance_batch_plain(*inputs)
+        e = int((out - plain).abs().max()) if out.numel() else 0
+        err = max(err, e)
+        if not torch.equal(out, plain):
+            fail(f"{what}: edit-distance launch {j} {tuple(inputs[0].shape)} differs from "
+                 f"its plain version (max err {e})")
+        cells += int((inputs[2].long() * inputs[3].long()).sum())
+    print(f"    {what}: {len(kept)} edit-distance launches, {cells} cells, each == plain "
+          f"(bit-exact); a and b {[tuple(x[0][0].shape) for x in kept]}", flush=True)
+    return err
+
+
 def run_ed_held(args, extra, what):
     """The CLI in process (run_cli), with the edit-distance kernel's counts
     at 0 just before and read just after, and every launch kept (a host
@@ -1187,18 +1256,7 @@ def run_ed_held(args, extra, what):
     launches, cells = ted.COUNTS["launches"], ted.COUNTS["cells"]
     if len(kept) != launches:
         fail(f"{what}: {launches} edit-distance launches, {len(kept)} kept")
-    err = 0
-    for j, (inputs, out) in enumerate(kept):
-        inputs, out = [x.cuda() for x in inputs], out.cuda()
-        plain = ted.edit_distance_batch_plain(*inputs)
-        err = max(err, int((out - plain).abs().max()) if out.numel() else 0)
-        if not torch.equal(out, plain):
-            fail(f"{what}: edit-distance launch {j} {tuple(inputs[0].shape)} differs from "
-                 f"its plain version (max err {err})")
-        print(f"    {what}: edit-distance launch {j}, a and b {tuple(inputs[0].shape)}, "
-              f"{int((inputs[2].long() * inputs[3].long()).sum())} cells: kernel == plain "
-              f"(bit-exact)", flush=True)
-    return wall, counters, launches, cells, err
+    return wall, counters, launches, cells, hold_ed(kept, what)
 
 
 def run_modes(tmp, meta):
@@ -1604,7 +1662,6 @@ def run_daemon(tmp, meta, dense, combine, modes):
     the max |kernel - plain| of its sweeps, that of its edit-distance
     launches)."""
     from sniffles_tpu_torch.ops import clustering as tc
-    from sniffles_tpu_torch.ops import edit_distance_batch as ted
     from sniffles_tpu_torch.ops.combine_greedy import run_combine_greedy
     from sniffles_tpu_torch.parallel import device_daemon as dd
     from sniffles_tpu_torch.sim import fuzz_call_batch, greedy_flush_payloads
@@ -1635,6 +1692,17 @@ def run_daemon(tmp, meta, dense, combine, modes):
             print(f"    {what}: {wall:.2f} s; the daemon's launches {launches}, service "
                   + json.dumps({k: v for k, v in c.items() if k.startswith("service_")},
                                sort_keys=True) + "; VCF == phase 4's", flush=True)
+
+        what = f"[9e] dense3 --tpu-mesh {MESH_SHARDS}, served"
+        out = os.path.join(tmp, "dense_mesh.vcf")
+        wall, c, _ = run_child([*dense_args, "--vcf", out, "--tpu-mesh", str(MESH_SHARDS)],
+                               out + ".json", what, env_extra=served)
+        check_mesh_counters(c, what)
+        if vcf_parts(out) != reference:
+            fail(f"{what}: VCF differs from phase 4's")
+        print(f"    {what}: {wall:.2f} s; the daemon's launches of each sweep kernel "
+              f"{c['kernel_merge_sweep']}, {c['kernel_sweep_cuts']} for "
+              f"{c['service_requests']} mesh requests; VCF == phase 4's", flush=True)
 
         snfs, combine_vcf = combine
         what = "combine256 --threads 4, served"
@@ -1739,18 +1807,10 @@ def run_daemon(tmp, meta, dense, combine, modes):
         sweep_err = max(sweep_err, hold_launch(
             inputs, before_state, after_state, counts, meta,
             f"daemon sweep {j} {tuple(inputs['seed_type'].shape)}"))
-    ed_err = 0
-    for j, (inputs, out) in enumerate(kept["ed_myers"]):
-        inputs, out = [x.cuda() for x in inputs], out.cuda()
-        plain = ted.edit_distance_batch_plain(*inputs)
-        ed_err = max(ed_err, int((out - plain).abs().max()) if out.numel() else 0)
-        if not torch.equal(out, plain):
-            fail(f"the daemon's edit-distance launch {j} {tuple(inputs[0].shape)} differs "
-                 f"from its plain version")
+    ed_err = hold_ed(kept["ed_myers"], "the daemon")
     print(f"    every launch in the daemon held against its plain version: "
-          f"{len(kept['merge_sweep'])} sweeps, {len(kept['ed_myers'])} edit-distance launches "
-          f"(a and b {[tuple(x[0][0].shape) for x in kept['ed_myers']]}), each == plain "
-          f"(bit-exact)", flush=True)
+          f"{len(kept['merge_sweep'])} sweeps, {len(kept['ed_myers'])} edit-distance launches, "
+          f"each == plain (bit-exact)", flush=True)
 
     idle = os.path.join(tmp, "idle.sock")
     t0 = time.perf_counter()
@@ -1768,6 +1828,215 @@ def run_daemon(tmp, meta, dense, combine, modes):
     print(f"    a second daemon with --idle-timeout 2 exited by itself after "
           f"{time.perf_counter() - t0:.2f} s (exit 0, socket removed)", flush=True)
     return launches, sweep_err, ed_err
+
+
+# -- phase 9: the mesh ------------------------------------------------------
+
+def check_mesh_counters(c, what, tasks=DENSE_CONTIGS):
+    """A --tpu-mesh run's counters: every task through the mesh, none on
+    the seam route, and, where the counters hold a service's launches, at
+    least one launch of each sweep kernel a shard of each mesh request."""
+    if c.get("mesh_tasks") != tasks or c.get("mesh_seam_host", 0) or c.get("fb_capacity", 0):
+        fail(f"{what}: mesh_tasks {c.get('mesh_tasks')} (want {tasks}), mesh_seam_host "
+             f"{c.get('mesh_seam_host', 0)}, fb_capacity {c.get('fb_capacity', 0)}")
+    if "kernel_merge_sweep" in c and not (
+            c["kernel_merge_sweep"] == c["kernel_sweep_cuts"]
+            >= MESH_SHARDS * (c["service_requests"] - c.get("service_fusion_fused_requests", 0))):
+        fail(f"{what}: sweep launches {c['kernel_merge_sweep']}, {c['kernel_sweep_cuts']} for "
+             f"{c['service_requests']} requests")
+
+
+def hold_kept(keep_path, meta, what):
+    """Every sweep launch a --cli-child kept, held against the plain
+    version. Returns (the launches, those whose head mask was neither 0 nor
+    0xFF, the max |kernel - plain|)."""
+    kept, err, mixed = torch.load(keep_path), 0.0, 0
+    for j, (inputs, before, after, counts) in enumerate(kept):
+        mixed += int(inputs["head_mask"].reshape(-1)[0]) not in (0, 0xFF)
+        err = max(err, hold_launch(inputs, before, after, counts, meta,
+                                   f"{what}, sweep {j} n={inputs['seed_type'].shape[-1]} "
+                                   f"head mask {int(inputs['head_mask'].reshape(-1)[0]):#04x}"))
+    return len(kept), mixed, err
+
+
+def mesh_cohort(tmp):
+    """tests/test_mesh_combine_cli.py's cohort: three samples sharing sites
+    at slightly different breakpoints, and site pairs on either side of
+    combine_match_max, called to .snf on the host path in process."""
+    from sniffles_tpu_torch.sim import PlantedSV, write_dataset
+    snfs = []
+    for i in range(3):
+        rng = np.random.default_rng(100 + i)
+        svs = [PlantedSV(pos=base + int(rng.integers(-30, 31)),
+                         svtype=("INS", "DEL", "DUP", "INV")[base // 30_000 % 4],
+                         svlen=150 + 40 * (base // 30_000))
+               for base in (20_000, 50_000, 80_000, 110_000, 140_000, 170_000)]
+        svs += [PlantedSV(pos=200_000, svtype="DEL", svlen=120),
+                PlantedSV(pos=200_900, svtype="DEL", svlen=130),
+                PlantedSV(pos=230_000, svtype="INS", svlen=90),
+                PlantedSV(pos=231_140, svtype="INS", svlen=95)]
+        d = os.path.join(tmp, f"s{i}")
+        os.makedirs(d)
+        bam, _ = write_dataset(d, ref_len=260_000, depth=18, read_len=12_000, seed=13 + i,
+                               svs=sorted(svs, key=lambda sv: sv.pos))
+        snfs.append(os.path.join(tmp, f"s{i}.snf"))
+        run_cli(["--input", bam, "--snf", snfs[-1], "--sample-id", f"s{i}"], ["--no-tpu"],
+                os.path.join(tmp, f"s{i}.json"), "mesh cohort --snf")
+    return snfs
+
+
+def run_mesh(tmp, meta, dense, combine):
+    """Phase 9 but (e) (see the module's docstring). dense: (tmp, args) of
+    phase 4; combine: (the SNFs, the device VCF) of phase 3. Returns (the
+    phase's main-path sweep launches in the --threads 4 child's service,
+    the sweeps' max |kernel - plain|, the edit-distance launches'
+    max |kernel - plain|)."""
+    from sniffles_tpu_torch.ops import clustering as tc
+    from sniffles_tpu_torch.parallel import device_call as tdc
+    from sniffles_tpu_torch.parallel import mesh as tmesh
+    from sniffles_tpu_torch.sim import fuzz_call_batch
+
+    print("[9a] the merge sweep with mixed head masks against its plain version", flush=True)
+    err = 0.0
+    for seed in (1, 2):
+        packed = fuzz_call_batch(seed, 32768)
+        for mask in MESH_HEAD_MASKS:
+            s, b, bin_ = tc.sort_and_seed(tc.packed_signatures(
+                torch.from_numpy(packed).cuda()), meta["binsize"])
+            inputs, state = tc.sweep_inputs(s, b, bin_, meta["binsize"], mask)
+            err = max(err, check_sweep_kernel(inputs, state, meta,
+                                              f"fuzz n=32768 seed {seed} head mask {mask:#04x}"))
+    stack = []
+    for seed, mask in zip((3, 4, 5), MESH_HEAD_MASKS):
+        s, b, bin_ = tc.sort_and_seed(tc.packed_signatures(
+            torch.from_numpy(fuzz_call_batch(seed, 2048)).cuda()), meta["binsize"])
+        stack.append(tc.sweep_inputs(s, b, bin_, meta["binsize"], mask))
+    inputs, state = (tc._stack_tasks([t[j] for t in stack]) for j in (0, 1))
+    after = {k: v.clone() for k, v in state.items()}
+    counts = tc.merge_sweep(inputs, after, **sweep_params(meta))
+    torch.cuda.synchronize()
+    err = max(err, hold_launch({k: v.cpu() for k, v in inputs.items()},
+                               {k: v.cpu() for k, v in state.items()},
+                               {k: v.cpu() for k, v in after.items()}, counts.cpu(), meta,
+                               "a stack of 3 tasks (n=2048, seeds 3-5), masks "
+                               + ", ".join(f"{m:#04x}" for m in MESH_HEAD_MASKS)))
+
+    dense_tmp, dense_args = dense
+    reference = vcf_parts(os.path.join(dense_tmp, "device.vcf"))
+    mesh_args = ["--tpu-mesh", str(MESH_SHARDS)]
+    print(f"[9c] dense3 at --tpu-mesh {MESH_SHARDS} ({MESH_DEVICES}), --threads 0 and 4, in "
+          f"children that keep every sweep launch", flush=True)
+    launches = None
+    for threads in ("0", "4"):
+        what = f"dense3 --tpu-mesh {MESH_SHARDS} --threads {threads}"
+        out, keep = (os.path.join(tmp, f"dense_mesh_t{threads}.{x}") for x in ("vcf", "pt"))
+        wall, c, timing = run_child([*dense_args, "--vcf", out, "--threads", threads,
+                                     *mesh_args], out + ".json", what, keep_path=keep)
+        check_mesh_counters(c, what)
+        if vcf_parts(out) != reference:
+            fail(f"{what}: VCF differs from phase 4's")
+        n_kept, mixed, e = hold_kept(keep, meta, what)
+        err = max(err, e)
+        if not n_kept >= MESH_SHARDS * DENSE_CONTIGS or mixed < 1:
+            fail(f"{what}: {n_kept} sweeps kept, {mixed} with a mixed head mask")
+        if threads == "4":
+            launches = {"launches": c["kernel_merge_sweep"], "sweep_cuts": c["kernel_sweep_cuts"]}
+        print(f"    {what}: {wall:.2f} s ({timing}); VCF == phase 4's "
+              f"({len(reference[1])} records); counters " + json.dumps(
+                  {k: c[k] for k in sorted(c) if k.startswith(("mesh", "device_tasks",
+                                                               "engine", "children",
+                                                               "fb_", "kernel_"))})
+              + f"; {n_kept} sweeps kept, {mixed} with a mixed head mask, each == plain",
+              flush=True)
+
+    print(f"[9b] the mesh call step on dense3's largest task: {MESH_SHARDS} shards on "
+          f"cuda:0 against {MESH_SHARDS} CPU shards", flush=True)
+    with open(os.path.join(tmp, "dense_mesh_t0.pt.mesh"), "rb") as f:
+        payloads = pickle.load(f)   # this script's own child wrote it
+    payload, step_meta = max(payloads, key=lambda p: int((p[0]["shards"][:, 5] > 0).sum()))
+    halo_w = np.full((MESH_SHARDS, 1), tdc.MESH_HALO_BP, dtype=np.int32)
+    args = (payload["shards"], payload["offsets"], payload["window_len"], halo_w)
+    walls = {}
+    for where, devices in (("card", tmesh.mesh_devices(MESH_SHARDS)),
+                           ("cpu", ["cpu"] * MESH_SHARDS)):
+        t0 = time.perf_counter()
+        walls[where] = (tmesh.build_sharded_assign(devices, **step_meta)(*args),
+                        time.perf_counter() - t0)
+    (on_card, card_s), (on_cpu, cpu_s) = walls["card"], walls["cpu"]
+    if (not np.array_equal(on_card["rows"], on_cpu["rows"])
+            or not np.array_equal(on_card["halo_overflow"], on_cpu["halo_overflow"])):
+        bad = np.argwhere(on_card["rows"] != on_cpu["rows"])[:5].tolist()
+        fail(f"the mesh call step on the card differs from the CPU's at {bad}")
+    signatures = int((payload["shards"][:, 5] > 0).sum())
+    print(f"    {signatures} signatures over {MESH_SHARDS} shards of width "
+          f"{payload['shards'].shape[2]}: rows {tuple(on_card['rows'].shape)} and overflow "
+          f"flags {on_card['halo_overflow'].tolist()} == the CPU's, bit for bit (card "
+          f"{card_s:.3f} s, CPU {cpu_s:.3f} s, host clock, one call each)", flush=True)
+
+    print(f"[9d] combine at --tpu-mesh {MESH_SHARDS}: the mesh cohort and combine256, in "
+          f"children that keep every edit-distance launch", flush=True)
+    cohort = mesh_cohort(tmp)
+    ed_err = 0
+    snfs, combine_vcf = combine
+    for label, inputs, host_vcf in (("mesh cohort", cohort, None),
+                                    ("combine256", snfs, combine_vcf)):
+        if host_vcf is None:
+            host_vcf = os.path.join(tmp, "cohort_host.vcf")
+            run_cli(["--input", *inputs, "--vcf", host_vcf], ["--no-tpu"],
+                    os.path.join(tmp, "cohort_host.json"), "mesh cohort")
+        what = f"{label} --tpu-mesh {MESH_SHARDS}"
+        out = os.path.join(tmp, f"{label.replace(' ', '_')}_mesh.vcf")
+        keep = out + ".pt"
+        wall, c, _ = run_child(["--input", *inputs, "--vcf", out, *mesh_args], out + ".json",
+                               what, keep_path=keep)
+        # every edit-distance launch of the child's service, at this path's
+        # own per-flush shapes, against the plain version
+        eds = torch.load(keep + ".ed")
+        if len(eds) != c.get("kernel_ed_myers", 0):
+            fail(f"{what}: {c.get('kernel_ed_myers', 0)} edit-distance launches, "
+                 f"{len(eds)} kept")
+        if label == "combine256" and not eds:
+            fail(f"{what}: the edit-distance kernel never ran")
+        ed_err = max(ed_err, hold_ed(eds, what))
+        if vcf_parts(out) != vcf_parts(host_vcf):
+            fail(f"{what}: VCF differs from its host VCF")
+        if label == "mesh cohort" and c.get("combine_mesh_flushes", 0) < 1:
+            fail(f"{what}: the mesh took no flush {c}")
+        if c.get("combine_mesh_seam", 0):
+            fail(f"{what}: {c['combine_mesh_seam']} flushes overflowed the halo")
+        print(f"    {what}: {wall:.2f} s; {len(records_of(out))} records == the host VCF's; "
+              + json.dumps({k: c.get(k, 0) for k in ("combine_mesh_flushes",
+                                                      "combine_mesh_skipped",
+                                                      "combine_mesh_seam", "service_requests",
+                                                      "kernel_ed_myers")}), flush=True)
+
+    print("[9f] the multi-host run: two processes on the card, joined by "
+          "SNIFFLES_TPU_COORDINATOR", flush=True)
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        coordinator = f"127.0.0.1:{sock.getsockname()[1]}"
+
+    def process(rank):
+        out = os.path.join(tmp, f"host{rank}.vcf")
+        return out, run_child([*dense_args, "--vcf", out, *mesh_args], out + ".json",
+                              f"dense3 --tpu-mesh {MESH_SHARDS}, process {rank} of 2",
+                              env_extra={"SNIFFLES_TPU_COORDINATOR": coordinator,
+                                         "SNIFFLES_TPU_NUM_PROCESSES": "2",
+                                         "SNIFFLES_TPU_PROCESS_ID": str(rank)})
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        (out0, (wall0, c0, _)), (out1, (wall1, c1, _)) = pool.map(process, (0, 1))
+    if vcf_parts(out0) != reference or os.path.exists(out1):
+        fail("the multi-host run: process 0's VCF differs from phase 4's, or process 1 wrote "
+             "one")
+    tasks = (c0.get("mesh_tasks", 0), c1.get("mesh_tasks", 0))
+    if sum(tasks) != DENSE_CONTIGS or min(tasks) < 1:
+        fail(f"the multi-host run: mesh tasks by process {tasks}")
+    print(f"    {time.perf_counter() - t0:.2f} s together ({wall0:.2f} s, {wall1:.2f} s); "
+          f"mesh tasks by process {tasks}; process 0's VCF == phase 4's, process 1 wrote "
+          f"none", flush=True)
+    return launches, err, ed_err
 
 
 def sync_sites(fn):
@@ -1796,6 +2065,9 @@ def main() -> int:
               file=sys.stderr)
         return 2
     os.environ.pop("SNIFFLES_TPU_FORCE_CPU", None)
+    # phase 9's shards, for every process of the script (a run without
+    # --tpu-mesh never reads it)
+    os.environ["SNIFFLES_TPU_MESH_DEVICES"] = MESH_DEVICES
     from sniffles_tpu_torch.ops import _build
     from sniffles_tpu_torch.ops import edit_distance_batch as ted
 
@@ -1980,6 +2252,16 @@ def main() -> int:
     print_splits([columns[0], ("served", "dense3 --threads 4, served"), columns[1],
                   ("served", "dense3 --threads 0, served"), columns[2],
                   ("served", "combine256 --threads 4, served")])
+
+    print(f"[9] --tpu-mesh {MESH_SHARDS}: {MESH_SHARDS} genome shards on the card",
+          flush=True)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_") as tmp:
+        mesh_launches, err, e = run_mesh(tmp, meta, (dense_tmp, dense_args),
+                                         (snfs, dev_vcf))
+    sweep_err = max(sweep_err, err)
+    max_err = max(max_err, e)
+    print(f"    the mesh's main path (dense3 --tpu-mesh {MESH_SHARDS} --threads 4) launched "
+          f"{mesh_launches}", flush=True)
 
     print("[5] kernel timings on the main paths' largest launches", flush=True)
     timing = time_ed_kernel([x.cuda() for x in largest])

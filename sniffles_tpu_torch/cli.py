@@ -7,10 +7,14 @@ Copied from sniffles_tpu/cli.py: the four run modes, call_sample (one
 .bam or .cram -> VCF and/or .snf), genotype_vcf (force calling against a
 --genotype-vcf), combine (.snf inputs -> multi-sample VCF) and its
 population SNF (--dev-population-snf, --combine-population), with .vcf.gz
-output, the local-assembly rescue (--dev-locasm-do) and the leadtab
-cache (--dev-cache). --tpu-mesh, which this package has not ported,
-stops with an error that says so; so does --combine-consensus, which
-crashes in the JAX package (ROADMAP C1). The native host library
+output, the local-assembly rescue (--dev-locasm-do), the leadtab cache
+(--dev-cache), --tpu-mesh N (the genome-sharded device steps over N
+devices, parallel/mesh.py; a mesh that cannot be placed ends the run
+before any task) and the multi-host run (SNIFFLES_TPU_COORDINATOR,
+SNIFFLES_TPU_NUM_PROCESSES, SNIFFLES_TPU_PROCESS_ID: each process runs
+its share of the tasks and process 0 writes the output,
+parallel/distributed.py). --combine-consensus, which crashes in the JAX
+package (ROADMAP C1), stops with a usage error. The native host library
 (csrc/host/, io/native.py) is built here, before any worker forks. The
 device path (on unless --no-tpu) runs on the card, or on the CPU
 when SNIFFLES_TPU_FORCE_CPU=1 asks for it (config.torch_device). With
@@ -38,11 +42,6 @@ from sniffles_tpu_torch import util
 from sniffles_tpu_torch.config import SnifflesConfig, torch_device
 
 log = logging.getLogger('sniffles_tpu_torch.main')
-
-
-def _not_ported(what: str) -> None:
-    util.fatal_error_main(f"{what} is not yet ported to sniffles_tpu_torch; "
-                         f"use the sniffles_tpu package for it")
 
 
 # --------------------------------------------------------------------------
@@ -87,16 +86,13 @@ def _detect_mode(config: SnifflesConfig) -> list[str]:
     return exts
 
 
-def _refuse_unported(config: SnifflesConfig) -> None:
-    """Options that this package has not ported, and --combine-consensus,
-    whose genotype merge unpacks combine's 7-field genotypes into 5
-    names and raises in the JAX package as in this one."""
+def _refuse_unsupported(config: SnifflesConfig) -> None:
+    """--combine-consensus, whose genotype merge unpacks combine's 7-field
+    genotypes into 5 names and raises in the JAX package as in this one."""
     if config.mode == "combine" and config.combine_consensus:
         util.fatal_error_main("--combine-consensus is not supported by sniffles_tpu_torch: "
                               "its genotype merge fails on combine's genotypes (the "
                               "sniffles_tpu package exits with a ValueError there too)")
-    if int(config.tpu_mesh or 0) > 1:
-        _not_ported("--tpu-mesh")
 
 
 def _open_alignments(config: SnifflesConfig):
@@ -474,7 +470,13 @@ def main_with_config(config: SnifflesConfig, processes: list) -> int:
             pass
 
     exts = _detect_mode(config)
-    _refuse_unported(config)
+    _refuse_unsupported(config)
+    from sniffles_tpu_torch.parallel import distributed
+    try:
+        multihost = distributed.from_environment()
+    except ValueError as e:
+        util.fatal_error_main(str(e))
+    emit_here = multihost is None or multihost.is_emitter
     # the native host library, built once in this process before the
     # worker pool forks (a failed build raises)
     from sniffles_tpu_torch.io import native
@@ -493,6 +495,15 @@ def main_with_config(config: SnifflesConfig, processes: list) -> int:
     elif _uses_device(config):
         config.device = torch_device()
         log.info(f"  Device: {config.device}")
+        if int(config.tpu_mesh or 0) > 1:
+            # the mesh is placed here, before any task (NVML: no context);
+            # the device service resolves it again in its own thread
+            from sniffles_tpu_torch.parallel.mesh import mesh_devices
+            try:
+                devices = mesh_devices(int(config.tpu_mesh))
+            except RuntimeError as e:
+                util.fatal_error_main(str(e))
+            log.info(f"  Mesh: {config.tpu_mesh} shards on {', '.join(devices)}")
 
     rkwargs = {}
     bam_in = None
@@ -509,10 +520,19 @@ def main_with_config(config: SnifflesConfig, processes: list) -> int:
         vcf_in, lineindex_order, genotype_contig_svs = _load_genotype_targets(config)
         rkwargs['genotype_lineindex_order'] = lineindex_order
 
-    vcf_out = _open_vcf_out(config) if config.vcf is not None else None
-    snf_out = _open_snf_out(config) if config.snf is not None else None
+    if multihost is not None:
+        # every process has checked its configuration, input and mesh: meet
+        # the others before any output is opened or any task runs
+        try:
+            distributed.rendezvous(multihost)
+        except RuntimeError as e:
+            util.fatal_error_main(str(e))
+
+    # only the emitter process of a multi-host run touches output files
+    vcf_out = _open_vcf_out(config) if (config.vcf is not None and emit_here) else None
+    snf_out = _open_snf_out(config) if (config.snf is not None and emit_here) else None
     psnf_out = None
-    if config.dev_population_snf:
+    if config.dev_population_snf and emit_here:
         psnf_out = _open_psnf_out(config)
         rkwargs['psnf_out'] = psnf_out
 
@@ -528,11 +548,22 @@ def main_with_config(config: SnifflesConfig, processes: list) -> int:
     elif vcf_out is not None:
         vcf_out.write_header(contig_lengths)
 
+    if multihost is not None:
+        # every process plans the same task list and runs its own share
+        own = set(multihost.shard_assignment(len(tasks)))
+        tasks = deque(t for i, t in enumerate(tasks) if i in own)
+
     monitor = ResourceMonitor(config)
     try:
         finished_tasks = _run_pool(config, tasks, processes, monitor, daemon_socket)
     finally:
         monitor.stop()
+
+    if multihost is not None:
+        # after the pool: the process group is never created before a fork
+        finished_tasks = distributed.exchange_results(multihost, finished_tasks)
+        if not emit_here:
+            return _exit_code(finished_tasks, tasks)
 
     for t in finished_tasks:
         t.result.emit(vcf_out=vcf_out, snf_out=snf_out, **rkwargs)
@@ -557,12 +588,18 @@ def main_with_config(config: SnifflesConfig, processes: list) -> int:
             tabix_compress_and_index(config.uncompressed_vcf_name, config.vcf)
         if config.mode in ("call_sample", "combine"):
             log.info(f"Wrote {vcf_out.call_count} called SVs to {config.vcf}")
-    # A task that failed in a worker (a device error included) ends as an
-    # ErrorResult; the reference only logs it, and so does the JAX
-    # package's runtime, but the run must not look like a success.
+    return _exit_code(finished_tasks, tasks)
+
+
+def _exit_code(finished_tasks, unprocessed) -> int:
+    """1 when a task failed (in any process of a multi-host run) or was
+    left unprocessed here, else 0. A task that failed in a worker (a
+    device error included) ends as an ErrorResult; the reference only
+    logs it, and so does the JAX package's runtime, but the run must not
+    look like a success."""
     n_errors = sum(1 for t in finished_tasks if getattr(t.result, "error", False))
-    if n_errors or len(tasks) > 0:
-        log.error(f"{n_errors} task(s) failed, {len(tasks)} task(s) unprocessed; "
+    if n_errors or len(unprocessed) > 0:
+        log.error(f"{n_errors} task(s) failed, {len(unprocessed)} task(s) unprocessed; "
                   f"output is partial.")
         return 1
     return 0

@@ -284,7 +284,7 @@ _TPU_FLAGS = (
     _f("--no-native", text="Disable the native C++ BAM decoder, use the pure-Python decoder (same output)", default=False, action="store_true"),
     _f("--tpu-call", text="Use the device sort-and-segment clustering (the merge sweep kernel) for candidate grouping in call_sample (on by default; --no-tpu gives the host sweep)", default=False, action="store_true"),
     _f("--tpu-combine", text="Use the segmented exact greedy + device edit-distance batching for multi-sample combine (on by default; --no-tpu gives the host greedy)", default=False, action="store_true"),
-    _f("--tpu-mesh", text="Shard device work over N devices; not yet ported to this package (only 0 = single device is accepted)", metavar="N", type=int, default=0),
+    _f("--tpu-mesh", text="Shard device work over N devices (a genome mesh with halo exchange): each call task's clustering step, and each combine flush's safe-cut segmentation in multi-sample mode. The shards go to cuda:0 ... cuda:N-1, to the devices SNIFFLES_TPU_MESH_DEVICES names (one a shard, for example cuda:0,cuda:0 for two shards on one card), or to the CPU with SNIFFLES_TPU_FORCE_CPU=1. 0 or 1 = single device", metavar="N", type=int, default=0),
     _f("--no-tpu", text="Never use the device: host cluster sweep (call_sample), host greedy and host edit distance (combine). The device path is on by default, on the CUDA card, or on the CPU with SNIFFLES_TPU_FORCE_CPU=1", default=False, action="store_true"),
 )
 

@@ -65,8 +65,13 @@
 // from n; threads past the task's segment count exit). Each thread runs the sequential
 // loop body from its segment's head, with the grid's lane rules
 // (clustering.py:489-562), which give the sequential sweep's states:
-//   - i starts at 0 only at a svtype's first seed (there is no mesh here,
-//     so head_freeze is always true), at 2 elsewhere. The sequential
+//   - i starts at 0 only at a svtype's first seed, and there only when
+//     the task's head mask has that svtype's bit (head_mask[t] bit s for
+//     svtype s, clamped to 0-7; the JAX package's head_freeze[s],
+//     clustering.py:112-114, :142-146, :174-176, and the grid's
+//     :333-337, :469-472); at 2 elsewhere. A mesh shard clears svtype s's
+//     bit when it does not hold the svtype's task-global first element
+//     (parallel/mesh.py); every other caller passes 0xFF. The sequential
 //     pointer reaches a later segment's head with i >= 1, and i only
 //     decides between i == 0, i == 1 and a backtrack; at a head the
 //     backtrack fails (below), so 1 and 2 act alike there.
@@ -117,6 +122,8 @@ constexpr int kPickCap = 256;       // stride picks top out at 199
 constexpr int kCutThreads = 1024;   // sweep_cuts' block, one a task
 constexpr int kMaxPasses = 24;
 constexpr int kSweepThreads = 128;
+// every svtype's head frozen (a single device, no mesh shard)
+constexpr int kAllHeads = 0xFF;
 // the slots of counts (SWEEP_COUNTS in ops/clustering.py)
 constexpr int kIterations = 0, kDepth = 1, kSegments = 2, kPasses = 3, kCollapsed = 4;
 constexpr int kCounts = 5;
@@ -297,10 +304,10 @@ __global__ void __launch_bounds__(kSweepThreads) merge_sweep_kernel(
     const int32_t* __restrict__ seed_type, const int32_t* __restrict__ start_bp,
     const int32_t* __restrict__ lo, const float* __restrict__ posf,
     const float* __restrict__ svlenf, const uint8_t* __restrict__ cut,
-    const int32_t* __restrict__ heads, int32_t* counts, int32_t* nxt, int32_t* prv,
-    int32_t* hi, int32_t* end_bp, int32_t* rep, float* msv, float* sd, int32_t* alive,
-    int n, float cluster_r, float repeat_h, float repeat_h_max, float merge_bnd,
-    int global_repeat) {
+    const int32_t* __restrict__ heads, const int32_t* __restrict__ head_mask, int32_t* counts,
+    int32_t* nxt, int32_t* prv, int32_t* hi, int32_t* end_bp, int32_t* rep, float* msv,
+    float* sd, int32_t* alive, int n, float cluster_r, float repeat_h, float repeat_h_max,
+    float merge_bnd, int global_repeat) {
   // this grid row's task
   const size_t row = static_cast<size_t>(blockIdx.y) * n;
   seed_type += row;
@@ -325,7 +332,9 @@ __global__ void __launch_bounds__(kSweepThreads) merge_sweep_kernel(
   const int head = heads[g];
   const int ct = seed_type[head];
   const int64_t max_iters = 4LL * n + 8;
-  int c = head, i = type_cut(seed_type, head) ? 0 : 2;
+  const int hbit = ct < 0 ? 0 : (ct > 7 ? 7 : ct);
+  const bool frozen = ((head_mask[blockIdx.y] & kAllHeads) >> hbit) & 1;
+  int c = head, i = type_cut(seed_type, head) && frozen ? 0 : 2;
   int64_t it = 0;
   while (it < max_iters) {
     ++it;
@@ -383,7 +392,10 @@ __global__ void __launch_bounds__(kSweepThreads) merge_sweep_kernel(
 }  // namespace
 
 // Both entry points take k tasks of n slots each ([k, n] arrays, nseeds
-// [k], counts [k, 5]); k = 1 is a single task.
+// [k], counts [k, 5]; merge_sweep also head_mask [k]); k = 1 is a single
+// task. sweep_cuts takes no head mask: a type change is an unconditional
+// cut (the JAX package's proof, clustering.py:296-311, holds whatever the
+// head's pointer start), so the partition does not depend on it.
 extern "C" int sweep_cuts(const int32_t* seed_type, const int32_t* start_bp,
                           const int32_t* end_bp, const int32_t* nseeds, uint8_t* cut,
                           uint8_t* spare, int32_t* heads, int32_t* counts, int n, int k,
@@ -396,15 +408,17 @@ extern "C" int sweep_cuts(const int32_t* seed_type, const int32_t* start_bp,
 
 extern "C" int merge_sweep(const int32_t* seed_type, const int32_t* start_bp,
                            const int32_t* lo, const float* posf, const float* svlenf,
-                           const uint8_t* cut, const int32_t* heads, int32_t* counts,
-                           int32_t* nxt, int32_t* prv, int32_t* hi, int32_t* end_bp,
-                           int32_t* rep, float* msv, float* sd, int32_t* alive, int n,
-                           int k, float cluster_r, float repeat_h, float repeat_h_max,
+                           const uint8_t* cut, const int32_t* heads,
+                           const int32_t* head_mask, int32_t* counts, int32_t* nxt,
+                           int32_t* prv, int32_t* hi, int32_t* end_bp, int32_t* rep,
+                           float* msv, float* sd, int32_t* alive, int n, int k,
+                           float cluster_r, float repeat_h, float repeat_h_max,
                            float merge_bnd, int global_repeat, cudaStream_t s) {
   if (n <= 0 || k <= 0 || k > 65535) return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid((n + kSweepThreads - 1) / kSweepThreads, k);
   merge_sweep_kernel<<<grid, kSweepThreads, 0, s>>>(
-      seed_type, start_bp, lo, posf, svlenf, cut, heads, counts, nxt, prv, hi, end_bp, rep,
-      msv, sd, alive, n, cluster_r, repeat_h, repeat_h_max, merge_bnd, global_repeat);
+      seed_type, start_bp, lo, posf, svlenf, cut, heads, head_mask, counts, nxt, prv, hi,
+      end_bp, rep, msv, sd, alive, n, cluster_r, repeat_h, repeat_h_max, merge_bnd,
+      global_repeat);
   return static_cast<int>(cudaGetLastError());
 }

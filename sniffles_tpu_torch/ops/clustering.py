@@ -131,13 +131,24 @@ def _segment_metrics(seg, valid, pos, svlen, arange_n, n):
 
 SWEEP_STATE = ("nxt", "prv", "hi", "end_bp", "rep", "msv", "sd", "alive")
 
+# the sweep's head mask with every svtype's bit set: bit s frozen means
+# svtype s's first seed starts the pointer at i = 0 (the JAX package's
+# head_freeze[s], sniffles_tpu/ops/clustering.py:112-114); a task on one
+# device holds every svtype's task-global head, only a mesh shard may not
+HEAD_ALL = 0xFF
 
-def sweep_inputs(s: dict, seed_boundary, bin_, binsize):
+# per-task int32 inputs of the sweep ([1] for one task, [k] for k)
+_PER_TASK = ("nseeds", "head_mask")
+
+
+def sweep_inputs(s: dict, seed_boundary, bin_, binsize, head_mask=HEAD_ALL):
     """Per-seed slot state of the sweep, as torch ops (the JAX package's
     _exact_merge_sweep, :122-140 and :179-181): n slots, of which the
     first `nseeds` are live. Returns (inputs, state): the read-only
-    per-slot arrays and element columns the sweep reads, and the mutable
-    linked-list cluster state it updates in place."""
+    per-slot arrays and element columns the sweep reads, with the task's
+    head mask (an int or an int32 [1] tensor, 8 bits, HEAD_ALL but on a
+    mesh shard), and the mutable linked-list cluster state it updates in
+    place."""
     n = s["pos"].shape[0]
     valid = s["valid"]
     svtype = s["svtype"]
@@ -158,7 +169,11 @@ def sweep_inputs(s: dict, seed_boundary, bin_, binsize):
 
     inputs = {"seed_type": seed_type, "start_bp": start_bp, "lo": lo,
               "posf": pos.to(torch.float32), "svlenf": s["svlen"].to(torch.float32),
-              "nseeds": nseeds.to(torch.int32).reshape(1)}
+              "nseeds": nseeds.to(torch.int32).reshape(1),
+              "head_mask": (head_mask.to(torch.int32).reshape(1)
+                            if isinstance(head_mask, torch.Tensor)
+                            else torch.full((1,), int(head_mask), dtype=torch.int32,
+                                            device=pos.device))}
     state = {"nxt": torch.where(arange_n + 1 < nseeds, arange_n + 1, sent),
              "prv": torch.where(arange_n > 0, arange_n - 1, sent),
              "hi": hi, "end_bp": end_bp0, "rep": rep0,
@@ -286,7 +301,8 @@ def merge_sweep_plain(inputs: dict, state: dict, *, cluster_r, cluster_repeat_h,
     svtype's first cluster is evaluated exactly once (the i=0 quirk — the
     head cluster can never absorb a third seed). A segment's walk follows
     the JAX grid sweep's lane rules (:489-562): `i` starts at 0 at a
-    svtype's first seed (no mesh shards here) and at 2 elsewhere; a pair
+    svtype's first seed when the task's head mask (inputs["head_mask"])
+    has that svtype's bit, and at 2 elsewhere; a pair
     whose right cluster heads the next segment is not evaluated, and the
     walk ends when the pointer leaves the segment; a backtrack from the
     segment's head stays put. By the cut proof (:281-311) no merge crosses
@@ -318,6 +334,7 @@ def segment_sweep_plain(inputs: dict, state: dict, cut: torch.Tensor, heads: tor
     seed_type = inputs["seed_type"].tolist()
     start_bp = inputs["start_bp"].tolist()
     lo = inputs["lo"].tolist()
+    head_mask = int(inputs["head_mask"][0]) & HEAD_ALL
     posf, svlenf = inputs["posf"], inputs["svlenf"]
     n = len(seed_type)
     sent = n
@@ -332,7 +349,9 @@ def segment_sweep_plain(inputs: dict, state: dict, cut: torch.Tensor, heads: tor
 
     def walk(head: int) -> int:
         ct = seed_type[head]
-        c, i, it = head, 0 if head == 0 or seed_type[head - 1] != ct else 2, 0
+        type_head = head == 0 or seed_type[head - 1] != ct
+        frozen = (head_mask >> min(max(ct, 0), 7)) & 1
+        c, i, it = head, 0 if type_head and frozen else 2, 0
         while it < max_iters:
             it += 1
             r = int(nxt[c])
@@ -386,14 +405,16 @@ def segment_sweep_plain(inputs: dict, state: dict, cut: torch.Tensor, heads: tor
 
 
 def _check_sweep_tensors(inputs: dict, state: dict) -> tuple[int, int]:
-    """Checks the sweep's tensors: one task ([n] arrays, nseeds [1]) or k
-    tasks ([k, n] arrays, nseeds [k]). Returns (k, n)."""
+    """Checks the sweep's tensors: one task ([n] arrays, nseeds and
+    head_mask [1]) or k tasks ([k, n] arrays, nseeds and head_mask [k]).
+    Returns (k, n)."""
     shape = tuple(inputs["seed_type"].shape)
     if len(shape) not in (1, 2):
         raise ValueError(f"seed_type must be [n] or [k, n], got {shape}")
     k, n = (1, shape[0]) if len(shape) == 1 else shape
     want = {"seed_type": torch.int32, "start_bp": torch.int32, "lo": torch.int32,
             "posf": torch.float32, "svlenf": torch.float32, "nseeds": torch.int32,
+            "head_mask": torch.int32,
             "nxt": torch.int32, "prv": torch.int32, "hi": torch.int32,
             "end_bp": torch.int32, "rep": torch.int32, "msv": torch.float32,
             "sd": torch.float32, "alive": torch.int32}
@@ -401,7 +422,7 @@ def _check_sweep_tensors(inputs: dict, state: dict) -> tuple[int, int]:
     device = inputs["seed_type"].device
     for name, dtype in want.items():
         t = tensors[name]
-        size = (k,) if name == "nseeds" else shape
+        size = (k,) if name in _PER_TASK else shape
         if t.dtype != dtype or tuple(t.shape) != size or not t.is_contiguous():
             raise ValueError(f"{name} must be a contiguous {list(size)} {dtype} tensor, got "
                              f"{tuple(t.shape)} {t.dtype}")
@@ -422,6 +443,7 @@ def merge_sweep(inputs: dict, state: dict, *, cluster_r, cluster_repeat_h,
     state): on CUDA tensors the kernels of csrc/merge_sweep.cu, one launch
     of sweep_cuts then one of merge_sweep for all the tasks, on one stream
     (or an exception); on CPU tensors the plain version, task after task.
+    inputs["head_mask"] ([1] or [k]) gives each task's head mask.
     Returns the counts of SWEEP_COUNTS as an int32 tensor ([5], or [k, 5])
     on the inputs' device (no host synchronisation on the card)."""
     k, n = _check_sweep_tensors(inputs, state)
@@ -442,8 +464,9 @@ def merge_sweep(inputs: dict, state: dict, *, cluster_r, cluster_repeat_h,
 
 
 def _task_row(tensors: dict, t: int) -> dict:
-    """Task t's [n] views of stacked [k, n] sweep tensors (nseeds [1])."""
-    return {key: v[t:t + 1] if key == "nseeds" else v[t] for key, v in tensors.items()}
+    """Task t's [n] views of stacked [k, n] sweep tensors (nseeds and
+    head_mask [1])."""
+    return {key: v[t:t + 1] if key in _PER_TASK else v[t] for key, v in tensors.items()}
 
 
 def _kernel(name: str, argtypes: list):
@@ -454,9 +477,13 @@ def _kernel(name: str, argtypes: list):
     return fn
 
 
-def _stream(device) -> int:
+def _launch(fn, device, *args) -> int:
+    """fn(*args, stream) with `device` as the current device and its
+    current stream: a launch goes to the current device, whatever device
+    its stream and pointers belong to (a mesh shard's may not be 0).
+    Returns fn's CUDA error code."""
     with torch.cuda.device(device):
-        return torch.cuda.current_stream(device).cuda_stream
+        return fn(*args, torch.cuda.current_stream(device).cuda_stream)
 
 
 def _tasks(inputs: dict) -> int:
@@ -481,11 +508,10 @@ def launch_sweep_cuts(inputs: dict, state: dict, n: int, *, cluster_r,
     heads = torch.empty(seed_type.shape, dtype=torch.int32, device=seed_type.device)
     counts = torch.empty(seed_type.shape[:-1] + (len(SWEEP_COUNTS),), dtype=torch.int32,
                          device=seed_type.device)
-    rc = fn(seed_type.data_ptr(), inputs["start_bp"].data_ptr(),
-            state["end_bp"].data_ptr(), inputs["nseeds"].data_ptr(), cut.data_ptr(),
-            spare.data_ptr(), heads.data_ptr(), counts.data_ptr(), n, k, float(cluster_r),
-            max(float(cluster_merge_bnd), float(cluster_repeat_h_max)),
-            _stream(seed_type.device))
+    rc = _launch(fn, seed_type.device, seed_type.data_ptr(), inputs["start_bp"].data_ptr(),
+                 state["end_bp"].data_ptr(), inputs["nseeds"].data_ptr(), cut.data_ptr(),
+                 spare.data_ptr(), heads.data_ptr(), counts.data_ptr(), n, k,
+                 float(cluster_r), max(float(cluster_merge_bnd), float(cluster_repeat_h_max)))
     if rc != 0:
         raise RuntimeError(f"sweep_cuts launch failed with CUDA error {rc}")
     return cut, heads, counts
@@ -516,14 +542,15 @@ def launch_segment_sweep(inputs: dict, state: dict, n: int, cut: torch.Tensor,
     segment of the partition that launch_sweep_cuts returned, a grid row
     a task. Returns the counts; counts no launch; raises when the launch
     fails."""
-    fn = _kernel("merge_sweep", [ctypes.c_void_p] * 16 + [ctypes.c_int] * 2
+    fn = _kernel("merge_sweep", [ctypes.c_void_p] * 17 + [ctypes.c_int] * 2
                  + [ctypes.c_float] * 4 + [ctypes.c_int, ctypes.c_void_p])
     ptrs = [inputs[k].data_ptr() for k in ("seed_type", "start_bp", "lo", "posf", "svlenf")]
-    ptrs += [cut.data_ptr(), heads.data_ptr(), counts.data_ptr()]
+    ptrs += [cut.data_ptr(), heads.data_ptr(), inputs["head_mask"].data_ptr(),
+             counts.data_ptr()]
     ptrs += [state[k].data_ptr() for k in SWEEP_STATE]
-    rc = fn(*ptrs, n, _tasks(inputs), float(cluster_r), float(cluster_repeat_h),
-            float(cluster_repeat_h_max), float(cluster_merge_bnd), int(bool(global_repeat)),
-            _stream(inputs["seed_type"].device))
+    rc = _launch(fn, inputs["seed_type"].device, *ptrs, n, _tasks(inputs), float(cluster_r),
+                 float(cluster_repeat_h), float(cluster_repeat_h_max),
+                 float(cluster_merge_bnd), int(bool(global_repeat)))
     if rc != 0:
         raise RuntimeError(f"merge_sweep launch failed with CUDA error {rc}")
     return counts
@@ -531,11 +558,12 @@ def launch_segment_sweep(inputs: dict, state: dict, n: int, cut: torch.Tensor,
 
 def _exact_merge_sweep(s: dict, seed_boundary, bin_, *, cluster_r,
                        cluster_repeat_h, cluster_repeat_h_max,
-                       cluster_merge_bnd, global_repeat, binsize):
+                       cluster_merge_bnd, global_repeat, binsize, head_mask=HEAD_ALL):
     """The exact sweep (sniffles_tpu/ops/clustering.py:90 formulation):
     slot state as torch ops, the sweep itself through `merge_sweep`,
-    then the element boundaries from the surviving clusters."""
-    inputs, state = sweep_inputs(s, seed_boundary, bin_, binsize)
+    then the element boundaries from the surviving clusters. `head_mask`
+    is the JAX function's head_freeze as 8 bits (sweep_inputs)."""
+    inputs, state = sweep_inputs(s, seed_boundary, bin_, binsize, head_mask)
     merge_sweep(inputs, state, cluster_r=cluster_r, cluster_repeat_h=cluster_repeat_h,
                 cluster_repeat_h_max=cluster_repeat_h_max,
                 cluster_merge_bnd=cluster_merge_bnd, global_repeat=global_repeat)
@@ -886,8 +914,9 @@ def _call_tasks(batches: list, meta: dict) -> list:
 
 
 def _stack_tasks(tensors: list) -> dict:
-    """[n] sweep tensors of k tasks stacked into [k, n] (nseeds [k])."""
-    return {key: torch.cat([t[key] for t in tensors]) if key == "nseeds"
+    """[n] sweep tensors of k tasks stacked into [k, n] (nseeds and
+    head_mask [k])."""
+    return {key: torch.cat([t[key] for t in tensors]) if key in _PER_TASK
             else torch.stack([t[key] for t in tensors]) for key in tensors[0]}
 
 

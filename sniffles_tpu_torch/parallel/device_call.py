@@ -10,18 +10,22 @@ This replaces the sequential merge sweep of cluster.resolve
 mate-geometry resplit and the single-break types stay on the host path.
 
 Copied from sniffles_tpu/parallel/device_call.py: the packer, the
-wire-compact response of the device service (compress_call_response)
-and the consumer, in process or through the device service of a worker
-process. The mesh branch is not ported; the hedge and its circuit
-breaker are not ported either, by design: they reroute a slow device
-response to the host. Unlike the JAX package, a failure here raises; the
-routes that exist for exactness (the per-child consumption gate, BND's
-host resplit, and the stats-capacity route of a task to the host sweep)
-stay, each counted in `counters`.
+wire-compact response of the device service (compress_call_response),
+the consumer, in process or through the device service of a worker
+process, and the mesh half (--tpu-mesh N: pack_mesh_payload,
+run_mesh_assign and the mesh branch of device_clusters, whose pre-resplit
+statistics only single-child clusters consume). The hedge and its circuit
+breaker are not ported, by design: they reroute a slow device response to
+the host. Unlike the JAX package, a failure here raises; the routes that
+exist for exactness (the per-child consumption gate, BND's host resplit,
+the stats-capacity route of a task to the host sweep, and the mesh's
+seam route, MeshHaloOverflow, for a cluster wider than the halo) stay,
+each counted in `counters`.
 """
 from __future__ import annotations
 
 import logging
+import os
 import zlib
 
 import numpy as np
@@ -207,6 +211,112 @@ def pack_task_batch(lead_provider, config, tr):
     return packed, standard_call_meta(config), leads, lead_bins
 
 
+def pack_mesh_payload(pack, n_dev: int) -> dict:
+    """Re-shard a single-device packed batch into n_dev contiguous genome
+    windows for the mesh call step (parallel/mesh.py
+    build_sharded_assign). Each shard keeps the full padded width."""
+    from sniffles_tpu_torch.parallel.mesh import genome_windows
+    packed, meta, leads, lead_bins = pack
+    n = len(leads)
+    size = padded_width(n)
+    shard_of, offsets, window = genome_windows(packed[0, :n], n_dev)
+
+    shards = np.zeros((n_dev, packed.shape[0], size), dtype=np.int32)
+    for shard in range(n_dev):
+        sel = np.nonzero(shard_of == shard)[0]
+        shards[shard, :, :len(sel)] = packed[:, sel]
+    offsets = offsets.reshape(n_dev, 1)
+    window_len = np.full((n_dev, 1), window, dtype=np.int32)
+    return {"shards": shards, "offsets": offsets, "window_len": window_len,
+            "n_dev": n_dev}
+
+
+# halo width of the mesh call step: it must exceed any cluster's span and
+# merge reach; doubled on overflow (W is a run-time value of the step)
+# before the task takes the host sweep
+MESH_HALO_BP = 5000
+MESH_HALO_RETRIES = 3
+
+# a test hook: every mesh call step reports an exhausted halo
+ENV_FORCE_OVERFLOW = "SNIFFLES_TPU_MESH_FORCE_OVERFLOW"
+
+# the key of a device service's answer to a mesh request whose halo
+# overflowed (serve_mesh): the error crosses the pipe as a result, so the
+# task can tell the seam route from a device error
+MESH_OVERFLOW_KEY = "mesh_halo_overflow"
+
+
+class MeshHaloOverflow(RuntimeError):
+    """A mesh step's halo did not cover a cluster at any admissible width:
+    a cluster spans more than W bp, or more signatures lie in a shard's
+    last 2W bp than the halo has slots, and W cannot double past half the
+    shard window (the halo is one hop). The caller takes its exact host
+    route for the task (the JAX package's seam repair); this is no device
+    error."""
+
+
+def serve_mesh(run, payload, meta):
+    """A device service's answer to a mesh request: run(payload, meta), or
+    {MESH_OVERFLOW_KEY: message} when its halo overflowed."""
+    try:
+        return run(payload, meta)
+    except MeshHaloOverflow as e:
+        return {MESH_OVERFLOW_KEY: str(e)}
+
+
+def mesh_result(out):
+    """The rows of a mesh request's answer (serve_mesh); raises
+    MeshHaloOverflow for the overflow answer."""
+    if isinstance(out, dict) and MESH_OVERFLOW_KEY in out:
+        raise MeshHaloOverflow(out[MESH_OVERFLOW_KEY])
+    return out
+
+
+def run_mesh_assign(payload: dict, meta: dict) -> np.ndarray:
+    """The mesh call step on the payload's shards (pack_mesh_payload), in
+    the process that owns the devices (mesh.mesh_devices): the device
+    service, the daemon, or the CLI at --threads 0. Retries with a
+    doubled halo width while a shard reports overflow; returns the
+    (n_dev, 13, N_ext) rows, or raises MeshHaloOverflow once W would
+    pass half the shard window or the retries are spent."""
+    if os.environ.get(ENV_FORCE_OVERFLOW):
+        raise MeshHaloOverflow(f"mesh halo overflow (forced by {ENV_FORCE_OVERFLOW}); "
+                               f"the host sweep takes this task")
+    from sniffles_tpu_torch.parallel import mesh as meshmod
+    n_dev = int(payload["n_dev"])
+    fn = meshmod.build_sharded_assign(meshmod.mesh_devices(n_dev), **meta)
+    window = int(payload["window_len"][0, 0])
+    out, w = meshmod.retry_halo(
+        lambda w: fn(payload["shards"], payload["offsets"], payload["window_len"],
+                     np.full((n_dev, 1), w, dtype=np.int32)),
+        window, MESH_HALO_BP, MESH_HALO_RETRIES)
+    if out is not None:
+        return out["rows"]
+    raise MeshHaloOverflow(f"mesh halo overflow at W={w}bp (shard window {window}bp); "
+                           f"the host sweep takes this task")
+
+
+def _mesh_groups(rows: np.ndarray, leads, lead_bins) -> list:
+    """(None, member indices, pre-resplit stats9) per owned cluster of the
+    mesh step's (n_dev, 13, N_ext) rows, in the host's cluster order
+    (svtype, then seed bin); exactly-once ownership puts each element in
+    one shard's owned cluster."""
+    ordered = []
+    for shard_rows in rows:
+        groups: dict[int, list[int]] = {}
+        for cid, li, ok in zip(shard_rows[0].tolist(), shard_rows[1].tolist(),
+                               shard_rows[2].tolist()):
+            if ok:
+                groups.setdefault(cid, []).append(li)
+        for cid, member_idx in groups.items():
+            stats9 = tuple(int(shard_rows[3 + r][cid]) for r in range(9))
+            svcode = SVTYPE_CODES[leads[member_idx[0]].svtype]
+            seed = min(lead_bins[i] for i in member_idx)
+            ordered.append(((svcode, seed), member_idx, stats9))
+    ordered.sort(key=lambda item: item[0])
+    return [(None, m, st) for _, m, st in ordered]
+
+
 def _rebuild_groups(cids: np.ndarray, ridx: np.ndarray) -> list:
     """(cluster_id, member_index_list) per cluster, ascending cluster id
     == (svtype, pos) sort order == the host sweep's cluster order (seed
@@ -267,7 +377,10 @@ def device_clusters(lead_provider, config, tr, device=None, posted=None, counter
     the host path. An empty list when the task has no device-eligible
     leads; None when the task has more resplit children than the stats
     block holds, and then the caller runs the exact host sweep for every
-    type (counted as fb_capacity).
+    type (counted as fb_capacity). With --tpu-mesh N (N > 1) the step is
+    the mesh's (run_mesh_assign; mesh_tasks counts the task), and a halo
+    that does not cover a cluster raises MeshHaloOverflow, for which the
+    caller runs the exact host sweep.
 
     `device`: a DeviceClient when running inside a worker process (the
     parent owns the device and answers over the task pipe); None runs the
@@ -282,6 +395,7 @@ def device_clusters(lead_provider, config, tr, device=None, posted=None, counter
     engine_consumed, and the exactness routes (fb_bnd, fb_resplit,
     fb_multi_fragment, fb_support_collision, fb_capacity).
     """
+    mesh_n = int(getattr(config, "tpu_mesh", 0) or 0)
     if posted is not None:
         req_id, pack = posted
         if pack is None:
@@ -295,11 +409,21 @@ def device_clusters(lead_provider, config, tr, device=None, posted=None, counter
         pack = pack_task_batch(lead_provider, config, tr)
         if pack is None:
             return []
-        if device is not None:
+        if mesh_n > 1:
+            payload = pack_mesh_payload(pack, mesh_n)
+            out = (device.request("call_task_mesh", payload, pack[1]) if device is not None
+                   else run_mesh_assign(payload, pack[1]))
+        elif device is not None:
             out = device.request("call_task", pack[0], pack[1])
         else:
             out = run_call_task(pack[0], pack[1], config.device)
     packed, meta, leads, lead_bins = pack
+    if mesh_n > 1:
+        rows = mesh_result(out)
+        _bump(counters, "device_tasks")
+        _bump(counters, "mesh_tasks")
+        return list(_materialize(lead_provider, config, packed, leads, lead_bins,
+                                 _mesh_groups(rows, leads, lead_bins), {}, counters))
     _bump(counters, "device_tasks")
 
     n_children, slots = out["nc"], out["slots"]
@@ -310,19 +434,23 @@ def device_clusters(lead_provider, config, tr, device=None, posted=None, counter
                  f"{slots} slots); host sweep for this task")
         _bump(counters, "fb_capacity")
         return None
-    return list(_materialize(lead_provider, config, packed, leads, lead_bins,
-                             out["elems"], out["stats"], n_children, counters))
+    elems = out["elems"]
+    groups = [(cid, m, None) for cid, m in _rebuild_groups(elems[0], elems[1])]
+    return list(_materialize(lead_provider, config, packed, leads, lead_bins, groups,
+                             _children_by_parent(out["stats"], n_children), counters))
 
 
-def _materialize(lead_provider, config, packed, leads, lead_bins, elems,
-                 dev_stats, n_children, counters):
-    """Cluster objects from the device assignment (`elems`: the valid
-    elements' cluster ids and original indices), with the device's
-    per-child statistics attached where the host verifies them."""
+def _materialize(lead_provider, config, packed, leads, lead_bins, groups,
+                 child_stats, counters):
+    """Cluster objects from the device assignment, with the device's
+    statistics attached where the host verifies them. `groups`: (cluster
+    id, member indices, stats9) per cluster in the host's cluster order;
+    `child_stats` the per-child statistics by cluster id
+    (_children_by_parent), or the mesh's pre-resplit stats9 of each
+    cluster, which only a single-child cluster consumes (no phase
+    tallies: the host votes)."""
     n = len(leads)
     repeat_flags = packed[4, :n] > 0
-    normalized = _rebuild_groups(elems[0], elems[1])
-    child_stats = _children_by_parent(dev_stats, n_children)
 
     # leads_long per INS cluster: long-INS soft clips from the bins the
     # cluster's leads came from (reference: cluster.py:248-250)
@@ -334,7 +462,7 @@ def _materialize(lead_provider, config, packed, leads, lead_bins, elems,
 
     hap_ref = lead_provider.leadhapcount["REF"]
 
-    for cid, member_idx in normalized:
+    for cid, member_idx, legacy_stats9 in groups:
         cluster_leads = [leads[i] for i in member_idx]
         if len(cluster_leads) < config.dev_min_leads_cluster:
             continue
@@ -411,9 +539,13 @@ def _materialize(lead_provider, config, packed, leads, lead_bins, elems,
         # unique-hash `support` must all match — any divergence (or the
         # float32 resplit-ambiguity flag) leaves the affected children to
         # the exact host computation.
-        dev_children = child_stats.get(cid)
-        if dev_children is not None and len(dev_children) != len(children):
-            dev_children = None
+        if legacy_stats9 is not None:
+            dev_children = ([(tuple(legacy_stats9) + (None,) * 9, False)]
+                            if len(children) == 1 else None)
+        else:
+            dev_children = child_stats.get(cid)
+            if dev_children is not None and len(dev_children) != len(children):
+                dev_children = None
         if dev_children is None or any(unc for _, unc in dev_children):
             _bump(counters, "fb_resplit", len(children))
             yield from children
@@ -440,8 +572,9 @@ def _materialize(lead_provider, config, packed, leads, lead_bins, elems,
                     # sv.py:580-581)
                     "support_sa": support_sa,
                     # phase-vote tallies (postprocess.phase_sv consumes
-                    # these instead of iterating the leads)
-                    "phase": st[9:18],
+                    # these instead of iterating the leads; None, from
+                    # the mesh, leaves the vote to the host)
+                    "phase": st[9:18] if legacy_stats9 is None else None,
                 }
                 _bump(counters, "engine_consumed")
             else:

@@ -41,6 +41,10 @@ connect and main. What differs:
   context.
 * A stats answer names the device and counts the daemon's kernel
   launches (DeviceServer.stats).
+* The mesh's request kinds place their shards here, from the daemon's
+  own environment (parallel/mesh.py mesh_devices:
+  SNIFFLES_TPU_MESH_DEVICES, or the cards it sees); a client of a mesh
+  run makes no placement check of its own.
 
 Reference mapping: no analogue (the reference is CPU-only); the serving
 equivalent of a persistent process that amortises the device's set-up

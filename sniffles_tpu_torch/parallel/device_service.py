@@ -45,8 +45,12 @@ window, the one-deep response pipeline) and DeviceClient. What differs:
   12 ms; measured on the H100, see FUSION_WINDOW_S), and when it is set,
   the pending response is answered before the dispatcher waits in it
   (the JAX package's dispatcher holds it through the wait).
-* The mesh's request kinds (call_task_mesh, combine_mesh), not ported,
-  are answered with an error that says so.
+* The mesh's request kinds (call_task_mesh, combine_mesh) resolve the
+  mesh's devices here, in the process that owns the card
+  (parallel/mesh.py mesh_devices), and run on a stream of the service's
+  on every CUDA device of the mesh. A halo that overflows at every
+  admissible width is answered as a result (device_call.serve_mesh), so
+  that the task takes its seam route; any other failure is an error.
 * A stats answer also names the device and counts this process's
   kernel launches (`stats`), so a client of the device daemon
   (parallel/device_daemon.py) sees where its kernels ran.
@@ -75,8 +79,8 @@ log = logging.getLogger(__name__)
 # workers to spawn when this is set.
 DEVICE_LIVE = False
 
-# request kinds of the JAX package's service that this package has not ported
-NOT_PORTED_KINDS = ("call_task_mesh", "combine_mesh")
+# the mesh's request kinds: the call step's and the combine segmentation's
+MESH_KINDS = ("call_task_mesh", "combine_mesh")
 
 
 @dataclass
@@ -141,6 +145,7 @@ class DeviceServer:
         self._warm_full = False
         self._warm_error: str = None
         self._stream = None
+        self._mesh_streams: dict = {}
         self.counters = {"requests": 0, "fusion_batches": 0,
                          "fusion_fused_requests": 0, "fusion_window_waits": 0}
         self._last_arrival = 0.0
@@ -291,11 +296,24 @@ class DeviceServer:
         for req, reply in batch:
             self._safe_reply(reply, DeviceResponse(error=_error_text(e), req_id=req.req_id))
 
-    def _on_stream(self):
+    def _on_stream(self, devices=()):
+        """The service's streams as the current ones: on its own device,
+        and on each other CUDA device of `devices` (a mesh's) one stream
+        of the service's, made at first use. The service's device is
+        entered last, so it stays the current device."""
         import torch
+        stack = contextlib.ExitStack()
         if self._stream is None:
-            return contextlib.nullcontext()
-        return torch.cuda.stream(self._stream)
+            return stack
+        own = self._stream.device
+        for d in dict.fromkeys(torch.device(d) for d in devices):
+            if d.type != "cuda" or (d.index if d.index is not None else own.index) == own.index:
+                continue
+            if d.index not in self._mesh_streams:
+                self._mesh_streams[d.index] = torch.cuda.Stream(device=d)
+            stack.enter_context(torch.cuda.stream(self._mesh_streams[d.index]))
+        stack.enter_context(torch.cuda.stream(self._stream))
+        return stack
 
     def _start_call(self, batch):
         """Launch one call step for one call_task request, or one batched
@@ -419,8 +437,8 @@ class DeviceServer:
 
     def handle(self, request: DeviceRequest) -> DeviceResponse:
         """Answer one request that is not pipelined (cluster_assign,
-        combine_greedy, ed_batch, noop, stats, the kinds not ported), or
-        any request with the warmup's error when it failed."""
+        combine_greedy, ed_batch, the mesh kinds, noop, stats), or any
+        request with the warmup's error when it failed."""
         if self._warm_error is not None:
             return DeviceResponse(error=self._warm_error, req_id=request.req_id)
         try:
@@ -436,9 +454,14 @@ class DeviceServer:
             return np.zeros(1, dtype=np.int32)
         if request.kind == "stats":
             return self.stats()
-        if request.kind in NOT_PORTED_KINDS:
-            raise NotImplementedError(f"device request kind {request.kind!r} is not yet "
-                                      f"ported to sniffles_tpu_torch")
+        if request.kind in MESH_KINDS:
+            DEVICE_LIVE = True
+            from sniffles_tpu_torch.parallel import device_call, device_combine
+            from sniffles_tpu_torch.parallel.mesh import mesh_devices
+            run = (device_call.run_mesh_assign if request.kind == "call_task_mesh"
+                   else device_combine.run_mesh_combine)
+            with self._on_stream(mesh_devices(int(request.payload["n_dev"]))):
+                return device_call.serve_mesh(run, request.payload, request.meta)
         if request.kind == "cluster_assign":
             DEVICE_LIVE = True
             from sniffles_tpu_torch.ops.clustering import cluster_assign_packed

@@ -13,12 +13,15 @@ the next call task's batch ahead of its execution (maybe_post_device).
 
 Unlike the JAX package, a failure of the device path raises here: it is
 never caught and replaced by the host path. The exactness routes stay
-(in the call path: the per-child consumption gate, BND's host resplit
-and the stats-capacity route of a task to the host sweep; in combine:
-segments the device greedy flags are replayed on the host, a packer
-guard returns None, an edit-distance batch under DEVICE_MIN_CELLS runs
-the host Myers scan), and each is counted in the task's engine or
-combine counters.
+(in the call path: the per-child consumption gate, BND's host resplit,
+the stats-capacity route of a task to the host sweep, and under
+--tpu-mesh the seam route of a task whose cluster is wider than the
+mesh's halo (MeshHaloOverflow, mesh_seam_host); in combine: segments the
+device greedy flags are replayed on the host, a packer guard returns
+None, an edit-distance batch under DEVICE_MIN_CELLS runs the host Myers
+scan, and under --tpu-mesh a flush the mesh cannot take, or whose halo
+overflows, takes the host-vectorized segmentation), and each is counted
+in the task's engine or combine counters.
 """
 from __future__ import annotations
 
@@ -161,27 +164,43 @@ class Task:
         if (device_client is None or self.lead_provider is None
                 or not getattr(config, "tpu_call", False)):
             return
-        from sniffles_tpu_torch.parallel.device_call import pack_task_batch
+        from sniffles_tpu_torch.parallel.device_call import pack_mesh_payload, pack_task_batch
         pack = pack_task_batch(self.lead_provider, config, self.tandem_repeats)
         if pack is None:
             self._device_posted = (None, None)
             return
-        self._device_posted = (device_client.post("call_task", pack[0], pack[1]), pack)
+        mesh_n = int(getattr(config, "tpu_mesh", 0) or 0)
+        if mesh_n > 1:
+            req_id = device_client.post("call_task_mesh", pack_mesh_payload(pack, mesh_n),
+                                        pack[1])
+        else:
+            req_id = device_client.post("call_task", pack[0], pack[1])
+        self._device_posted = (req_id, pack)
 
     # -- candidate generation ----------------------------------------------
 
     def _iter_clusters(self, config):
         """Device sort-and-segment clusters on the device path (in process,
         or through the device service in a worker process), host sweep
-        for the rest (and for a task past the device stats capacity)."""
+        for the rest, and for a task past the device stats capacity or,
+        under --tpu-mesh, one whose cluster is wider than the mesh's halo
+        (MeshHaloOverflow: the seam route, counted as mesh_seam_host).
+        Any other device error propagates."""
         host_types = sv.ALL_TYPES
         if config.tpu_call:
-            from sniffles_tpu_torch.parallel.device_call import device_clusters, _DEVICE_TYPES
+            from sniffles_tpu_torch.parallel.device_call import (device_clusters,
+                                                                 MeshHaloOverflow,
+                                                                 _DEVICE_TYPES)
             posted, self._device_posted = self._device_posted, None
             counters = self.engine_counters = {}
-            made = device_clusters(self.lead_provider, config, self.tandem_repeats,
-                                   device=self.device_service, posted=posted,
-                                   counters=counters)
+            try:
+                made = device_clusters(self.lead_provider, config, self.tandem_repeats,
+                                       device=self.device_service, posted=posted,
+                                       counters=counters)
+            except MeshHaloOverflow as e:
+                log.info(f"{self}: {e}")
+                counters["mesh_seam_host"] = counters.get("mesh_seam_host", 0) + 1
+                made = None
             if made is not None:
                 yield from made
                 host_types = [t for t in sv.ALL_TYPES if t not in _DEVICE_TYPES]
@@ -609,10 +628,34 @@ class CombineTask(Task):
         for pair, dist in zip(pairs, dists):
             ed_cache[pair] = int(dist)
 
+    def _bump(self, key):
+        self.combine_counters[key] = self.combine_counters.get(key, 0) + 1
+
     def _group_batch(self, svtype, svcands, keep, ed_cache):
-        """Greedy group assignment: the host-vectorized segmented exact
-        greedy on the device path, or the plain host greedy."""
+        """Greedy group assignment: under --tpu-mesh N the mesh-sharded
+        safe-cut segmentation (byte-exact: the exact host greedy runs per
+        gathered segment, parallel/device_combine.mesh_block_groups), the
+        host-vectorized segmented exact greedy on the device path, or the
+        plain host greedy. A flush the mesh does not take (BND, under 4
+        candidates, or mesh_block_groups' None) is counted as
+        combine_mesh_skipped, one whose halo overflows as
+        combine_mesh_seam; both go on to the device path's segmentation."""
         self._prefill_ed_cache(svcands, keep, ed_cache, self.config)
+        if int(getattr(self.config, "tpu_mesh", 0) or 0) > 1:
+            from sniffles_tpu_torch.parallel.device_call import MeshHaloOverflow
+            from sniffles_tpu_torch.parallel.device_combine import mesh_block_groups
+            try:
+                out = (mesh_block_groups(svtype, svcands, keep, self.config, ed_cache,
+                                         device=self.device_service)
+                       if svtype != "BND" and len(svcands) >= 4 else None)
+            except MeshHaloOverflow as e:
+                log.info(f"{self}: {e}; host-vectorized segmentation for this flush")
+                self._bump("combine_mesh_seam")
+            else:
+                if out is not None:
+                    self._bump("combine_mesh_flushes")
+                    return out
+                self._bump("combine_mesh_skipped")
         use_device = (getattr(self.config, "tpu_combine", False)
                       and svtype != "BND" and len(svcands) >= 4)
         if use_device:
@@ -744,9 +787,15 @@ class CombineTask(Task):
         # entire task, and replay the assignment through the real
         # SVGroup objects below — float statistics, frontier closure and
         # emission order stay host-exact (guards + exactness argument:
-        # parallel/combine_device_greedy.py)
+        # parallel/combine_device_greedy.py). The device path always sets
+        # tpu_combine here, so under --tpu-mesh N the preplan is skipped
+        # and every streaming flush goes through _group_batch's mesh
+        # segmentation: the JAX package's routing for --tpu-mesh N without
+        # --tpu-combine, the only one in which its mesh grouping runs.
+        # Every route is host-exact, so the VCF is the same either way.
         preplan = None
-        if getattr(config, "tpu_combine", False):
+        if (getattr(config, "tpu_combine", False)
+                and int(getattr(config, "tpu_mesh", 0) or 0) <= 1):
             preplan = self._preplan_device(sample_snfs, batch_trigger,
                                            bin_width)
             if preplan is None:

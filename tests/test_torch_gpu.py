@@ -141,6 +141,9 @@ def test_combine_on_cuda_matches_host(card, monkeypatch, tmp_path):
 SWEEP = dict(cluster_r=2.5, cluster_repeat_h=1.5, cluster_repeat_h_max=1000.0,
              cluster_merge_bnd=1000, global_repeat=False)
 CUTS = {k: SWEEP[k] for k in ("cluster_r", "cluster_repeat_h_max", "cluster_merge_bnd")}
+# the default configuration's call step parameters (standard_call_meta)
+META = dict(SWEEP, cluster_merge_len=0.22, minsvlen=50, cluster_merge_pos=150, binsize=100,
+            resplit_binsize=20)
 
 
 @pytest.mark.parametrize("seed,size,svtypes", [
@@ -183,6 +186,106 @@ def test_merge_sweep_kernel_matches_plain_version(card, seed, size, svtypes):
         assert torch.equal(got, plain[k]), k
     assert int(kernel["alive"].sum()) < int(inputs["nseeds"][0])
     assert bool(counts[4]) == (seed == "cascade")
+
+
+@pytest.mark.parametrize("mask", [0x00, 0x0A, 0xF5])
+def test_head_masked_merge_sweep_matches_plain_version(card, mask):
+    """The sweep with a head mask (a mesh shard's): one task a mask, then
+    a stack of three tasks with three masks in one launch; every state
+    array bit for bit and the counts equal the plain version's."""
+    from sniffles_tpu_torch.sim import fuzz_call_batch
+    batches = [fuzz_call_batch(2, 2048), fuzz_call_batch(3, 2048, svtypes=(4,)),
+               fuzz_call_batch(4, 2048, svtypes=(0, 1))]
+    masks = [mask, 0xFF, mask ^ 0xFF]
+    tasks = [tc.sweep_inputs(*tc.sort_and_seed(tc.packed_signatures(
+        torch.from_numpy(b).to(card)), 100), 100, m) for b, m in zip(batches, masks)]
+    for inputs, state in [tasks[0], tuple(tc._stack_tasks([t[j] for t in tasks])
+                                          for j in (0, 1))]:
+        kernel = {k: v.clone() for k, v in state.items()}
+        counts = tc.merge_sweep(inputs, kernel, **SWEEP).cpu()
+        torch.cuda.synchronize()
+        stacked = inputs["seed_type"].dim() == 2
+        for t in range(len(tasks) if stacked else 1):
+            row_in, row_state, row_kernel = ((tc._task_row(d, t) for d in (inputs, state, kernel))
+                                             if stacked else (inputs, state, kernel))
+            host_inputs = {k: v.cpu() for k, v in row_in.items()}
+            assert int(host_inputs["head_mask"][0]) == masks[t]
+            plain = {k: v.cpu().clone() for k, v in row_state.items()}
+            want = tc.merge_sweep_plain(host_inputs, plain, **SWEEP)
+            assert torch.equal(counts[t] if stacked else counts, want), t
+            for k in tc.SWEEP_STATE:
+                assert torch.equal(row_kernel[k].cpu().view(torch.int32),
+                                   plain[k].view(torch.int32)), (t, k)
+
+
+@pytest.fixture
+def cards():
+    """Two cards or more (a host of several), else a skip."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    return [f"cuda:{i}" for i in range(min(4, torch.cuda.device_count()))]
+
+
+def test_merge_sweep_on_another_card_matches_plain_version(cards):
+    """The sweep of tensors on the last card (not the current device):
+    its launches go to that card, in order with its stream; the state
+    equals the plain version's bit for bit."""
+    from sniffles_tpu_torch.sim import fuzz_call_batch
+    packed = torch.from_numpy(fuzz_call_batch(2, 2048)).to(cards[-1])
+    inputs, state = tc.sweep_inputs(*tc.sort_and_seed(tc.packed_signatures(packed), 100), 100,
+                                    0x0A)
+    kernel = {k: v.clone() for k, v in state.items()}
+    counts = tc.merge_sweep(inputs, kernel, **SWEEP).cpu()
+    plain = {k: v.cpu().clone() for k, v in state.items()}
+    assert torch.equal(counts, tc.merge_sweep_plain({k: v.cpu() for k, v in inputs.items()},
+                                                    plain, **SWEEP))
+    for k in tc.SWEEP_STATE:
+        assert torch.equal(kernel[k].cpu().view(torch.int32), plain[k].view(torch.int32)), k
+
+
+def test_sharded_assign_on_distinct_cards_matches_the_cpu(cards):
+    """The mesh call step with a shard on each card (the halo crosses
+    between cards) gives the rows of the same step on CPU shards."""
+    from sniffles_tpu_torch.parallel import device_call as tdc
+    from sniffles_tpu_torch.parallel import mesh as tmesh
+    from sniffles_tpu_torch.sim import fuzz_call_batch
+    packed = fuzz_call_batch(21, 4096)
+    packed = packed[:, packed[5] > 0].copy()
+    packed[3] = np.arange(packed.shape[1], dtype=np.int32)
+    n = len(cards)
+    payload = tdc.pack_mesh_payload((packed, META, [None] * packed.shape[1], None), n)
+    args = (payload["shards"], payload["offsets"], payload["window_len"],
+            np.full((n, 1), tdc.MESH_HALO_BP, dtype=np.int32))
+    on_cards = tmesh.build_sharded_assign(cards, **META)(*args)
+    on_cpu = tmesh.build_sharded_assign(["cpu"] * n, **META)(*args)
+    assert on_cards["rows"].tolist() == on_cpu["rows"].tolist()
+    assert on_cards["halo_overflow"].tolist() == on_cpu["halo_overflow"].tolist()
+
+
+def test_sharded_assign_on_cuda_matches_the_cpu(card, monkeypatch):
+    """The mesh call step as 4 shards on cuda:0 (mixed head masks among
+    them) gives the rows and overflow flags of the same step on 4 CPU
+    shards, bit for bit."""
+    from sniffles_tpu_torch.parallel import device_call as tdc
+    from sniffles_tpu_torch.parallel import mesh as tmesh
+    from sniffles_tpu_torch.sim import fuzz_call_batch
+    packed = fuzz_call_batch(21, 4096)
+    packed = packed[:, packed[5] > 0].copy()
+    packed[3] = np.arange(packed.shape[1], dtype=np.int32)
+    payload = tdc.pack_mesh_payload((packed, META, [None] * packed.shape[1], None), 4)
+    masks, sweep = [], tc.merge_sweep
+
+    def recorded(inputs, state, **params):
+        masks.append(int(inputs["head_mask"][0]))
+        return sweep(inputs, state, **params)
+    monkeypatch.setattr(tc, "merge_sweep", recorded)
+    halo_w = np.full((4, 1), tdc.MESH_HALO_BP, dtype=np.int32)
+    args = (payload["shards"], payload["offsets"], payload["window_len"], halo_w)
+    on_card = tmesh.build_sharded_assign(["cuda:0"] * 4, **META)(*args)
+    on_cpu = tmesh.build_sharded_assign(["cpu"] * 4, **META)(*args)
+    assert on_card["rows"].tolist() == on_cpu["rows"].tolist()
+    assert on_card["halo_overflow"].tolist() == on_cpu["halo_overflow"].tolist()
+    assert any(m not in (0, 0xFF) for m in masks), masks
 
 
 def test_call_sample_on_cuda_matches_host(card, monkeypatch, tmp_path):

@@ -3,10 +3,11 @@ neither JAX nor anything of the JAX package sniffles_tpu, its combine and
 call_sample run with both blocked from import (inline and with the worker
 pool), it loads its own build of the native host library and never the
 JAX package's native/libbamcore.so, and without a card it raises unless
-the CPU was asked for. Its device daemon serves with both blocked too.
---tpu-mesh, which it has not ported, is refused;
-options refused before their slices were ported (--threads N with the
-device path, --dev-cache, --dev-locasm-do, .cram input) now run."""
+the CPU was asked for. Its device daemon serves with both blocked too,
+and so does --tpu-mesh (parallel/mesh.py, distributed.py and the modules
+under them). Options refused before their slices were ported (--threads N
+with the device path, --dev-cache, --dev-locasm-do, .cram input,
+--tpu-mesh) now run."""
 import json
 import os
 import re
@@ -160,51 +161,43 @@ def runs_like_threads_0(inputs, extra, tmp_path):
     return threads0
 
 
-@pytest.mark.parametrize("extra,refused", [
-    pytest.param(["--threads", "4"], False, id="threads-with-device-path"),
-    pytest.param(["--threads", "0", "--genotype-vcf", "t0.vcf"], False, id="genotype-vcf"),
-    pytest.param(["--threads", "0", "--snf", "x.snf"], False, id="snf-output"),
-    pytest.param(["--threads", "0", "--dev-cache", "--dev-cache-dir", "cache"], False,
+@pytest.mark.parametrize("extra", [
+    pytest.param(["--threads", "4"], id="threads-with-device-path"),
+    pytest.param(["--threads", "0", "--genotype-vcf", "t0.vcf"], id="genotype-vcf"),
+    pytest.param(["--threads", "0", "--snf", "x.snf"], id="snf-output"),
+    pytest.param(["--threads", "0", "--dev-cache", "--dev-cache-dir", "cache"],
                  id="dev-cache"),
-    pytest.param(["--threads", "0", "--dev-locasm-do"], False, id="local-assembly"),
-    pytest.param(["--threads", "0", "--tpu-mesh", "2"], True, id="tpu-mesh"),
+    pytest.param(["--threads", "0", "--dev-locasm-do"], id="local-assembly"),
+    pytest.param(["--threads", "0", "--tpu-mesh", "2"], id="tpu-mesh"),
 ])
-def test_unported_call_sample_options_are_refused(extra, refused, tmp_path, capsys):
-    """Options the port has not ported (--tpu-mesh) are refused. --threads N
-    with the device path, --genotype-vcf, --snf, --dev-cache and
-    --dev-locasm-do were refused before their slices were ported; now
-    their command lines run: --threads 4, --snf, --dev-cache (which writes
-    the task's leadtab to its cache directory) and --dev-locasm-do (no call
-    of this sample is filtered, so nothing is assembled) give the records
-    of --threads 0, and force calling against those records re-emits each
-    of them as 1/1."""
-    from sniffles_tpu_torch import cli
+def test_unported_call_sample_options_are_refused(extra, tmp_path):
+    """--threads N with the device path, --genotype-vcf, --snf, --dev-cache,
+    --dev-locasm-do and --tpu-mesh were refused before their slices were
+    ported, and the test keeps the name it had then; none is refused now,
+    and each case checks that its command line runs: --threads 4, --snf, --dev-cache
+    (which writes the task's leadtab to its cache directory),
+    --dev-locasm-do (no call of this sample is filtered, so nothing is
+    assembled) and --tpu-mesh 2 give the records of --threads 0, and force
+    calling against those records re-emits each of them as 1/1."""
     from sniffles_tpu_torch.sim import PlantedSV, write_dataset
-    if not refused:
-        bam, fa = write_dataset(str(tmp_path), ref_len=60_000, depth=10, read_len=8_000,
-                                seed=4, svs=[PlantedSV(pos=30_000, svtype="DEL", svlen=200)])
-        inputs = ["--input", bam, "--reference", fa]
-        if "--genotype-vcf" in extra:
-            run_port([*inputs, "--vcf", str(tmp_path / "t0.vcf"), "--threads", "0"], tmp_path)
-            run_port([*inputs, "--vcf", str(tmp_path / "g.vcf"), *extra], tmp_path)
-            called, genotyped = records(tmp_path / "t0.vcf"), records(tmp_path / "g.vcf")
-            assert len(genotyped) == len(called) == 1
-            assert genotyped[0].split("\t")[:8] == called[0].split("\t")[:8]
-            assert genotyped[0].split("\t")[-1].startswith("1/1")
-            return
-        runs_like_threads_0(inputs, extra, tmp_path)
-        if "--snf" in extra:
-            with open(tmp_path / "x.snf", "rb") as f:
-                header = json.loads(f.readline())
-            assert header["snf_candidate_count"] >= 1 and list(header["index"]) == ["chr1"]
-        if "--dev-cache" in extra:
-            assert os.listdir(tmp_path / "cache") == ["sim.bam_chr1_0_999999.pickle"]
+    bam, fa = write_dataset(str(tmp_path), ref_len=60_000, depth=10, read_len=8_000,
+                            seed=4, svs=[PlantedSV(pos=30_000, svtype="DEL", svlen=200)])
+    inputs = ["--input", bam, "--reference", fa]
+    if "--genotype-vcf" in extra:
+        run_port([*inputs, "--vcf", str(tmp_path / "t0.vcf"), "--threads", "0"], tmp_path)
+        run_port([*inputs, "--vcf", str(tmp_path / "g.vcf"), *extra], tmp_path)
+        called, genotyped = records(tmp_path / "t0.vcf"), records(tmp_path / "g.vcf")
+        assert len(genotyped) == len(called) == 1
+        assert genotyped[0].split("\t")[:8] == called[0].split("\t")[:8]
+        assert genotyped[0].split("\t")[-1].startswith("1/1")
         return
-    bam = tmp_path / "a.bam"
-    bam.write_bytes(b"")
-    assert cli.main(["--input", str(bam), "--vcf", str(tmp_path / "o.vcf"), *extra]) == 1
-    assert "not yet ported" in capsys.readouterr().err
-    assert not (tmp_path / "o.vcf").exists()
+    runs_like_threads_0(inputs, extra, tmp_path)
+    if "--snf" in extra:
+        with open(tmp_path / "x.snf", "rb") as f:
+            header = json.loads(f.readline())
+        assert header["snf_candidate_count"] >= 1 and list(header["index"]) == ["chr1"]
+    if "--dev-cache" in extra:
+        assert os.listdir(tmp_path / "cache") == ["sim.bam_chr1_0_999999.pickle"]
 
 
 def test_cram_input_gives_the_records_of_its_bam(tmp_path):
@@ -338,6 +331,57 @@ print("OK")
     env = dict(os.environ)
     env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
     env["SNIFFLES_TPU_FORCE_CPU"] = "1"
+    r = subprocess.run([sys.executable, "-c", code, str(tmp_path)], capture_output=True,
+                       text=True, env=env, timeout=300)
+    assert r.returncode == 0, r.stdout[-3000:] + r.stderr[-3000:]
+    assert r.stdout.strip().endswith("OK")
+
+
+def test_mesh_runs_with_jax_blocked(tmp_path):
+    """--tpu-mesh 2 in a process where jax and sniffles_tpu cannot be
+    imported: call_sample at --threads 0 and 2 through the mesh (its
+    counters say so) and a combine of two samples, each with the records
+    of its run without the mesh; nothing of either package is loaded."""
+    code = """
+import json, os, sys
+sys.modules["jax"] = None          # any import of jax now raises
+sys.modules["sniffles_tpu"] = None
+from sniffles_tpu_torch.sim import PlantedSV, write_dataset
+from sniffles_tpu_torch.cli import main
+d = sys.argv[1]
+bam, fa = write_dataset(d, ref_len=120_000, depth=20, read_len=10_000, seed=3,
+                        svs=[PlantedSV(pos=40_000, svtype="DEL", svlen=300),
+                             PlantedSV(pos=80_000, svtype="INS", svlen=200)])
+def run(args, mesh):
+    os.environ["SNIFFLES_TPU_COUNTERS_JSON"] = f"{d}/c.json"
+    assert main([*args, "--allow-overwrite", *(["--tpu-mesh", "2"] if mesh else [])]) == 0
+    return json.load(open(f"{d}/c.json"))
+def recs(path):
+    return [l for l in open(path) if not l.startswith("#")]
+for threads in ("0", "2"):
+    c = run(["--input", bam, "--vcf", f"{d}/m{threads}.vcf", "--threads", threads], True)
+    assert c["mesh_tasks"] == 1, c
+run(["--input", bam, "--vcf", f"{d}/plain.vcf", "--threads", "0"], False)
+assert len(recs(f"{d}/plain.vcf")) == 2
+assert recs(f"{d}/m0.vcf") == recs(f"{d}/m2.vcf") == recs(f"{d}/plain.vcf")
+for name in ("A", "B"):
+    run(["--input", bam, "--snf", f"{d}/{name}.snf", "--sample-id", name, "--threads", "0"],
+        False)
+snfs = [f"{d}/A.snf", f"{d}/B.snf"]
+run(["--input", *snfs, "--vcf", f"{d}/cm.vcf", "--threads", "0"], True)
+run(["--input", *snfs, "--vcf", f"{d}/cp.vcf", "--threads", "0"], False)
+assert len(recs(f"{d}/cm.vcf")) == 2 and recs(f"{d}/cm.vcf") == recs(f"{d}/cp.vcf")
+assert sys.modules["jax"] is None
+loaded = [m for m in sys.modules if m == "sniffles_tpu" or m.startswith("sniffles_tpu.")]
+assert loaded == ["sniffles_tpu"], loaded
+assert "sniffles_tpu_torch.parallel.mesh" in sys.modules
+""" + NATIVE_CHECK + """
+print("OK")
+"""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    env["SNIFFLES_TPU_FORCE_CPU"] = "1"
+    env["OMP_NUM_THREADS"] = "1"   # small tensors: one torch thread
     r = subprocess.run([sys.executable, "-c", code, str(tmp_path)], capture_output=True,
                        text=True, env=env, timeout=300)
     assert r.returncode == 0, r.stdout[-3000:] + r.stderr[-3000:]

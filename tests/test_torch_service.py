@@ -305,21 +305,56 @@ def test_server_warmup_failure_answers_every_request(monkeypatch):
     assert not torch.cuda.is_initialized()
 
 
-@pytest.mark.parametrize("kind", ds.NOT_PORTED_KINDS)
-def test_not_ported_request_kinds_are_refused(kind):
-    assert ds.NOT_PORTED_KINDS == ("call_task_mesh", "combine_mesh")
-    response = ds.DeviceServer("cpu").handle(ds.DeviceRequest(kind, None, {}, 9))
-    assert response.req_id == 9 and response.payload is None
-    assert "not yet ported" in response.error
+def mesh_request(kind):
+    """A payload of each mesh kind (8 shards), and the step's answer in
+    process."""
+    from sniffles_tpu_torch.parallel import device_call, device_combine
+    from sniffles_tpu_torch.parallel.combine_tensors import shard_candidate_tensors
+    if kind == "call_task_mesh":
+        packed = fuzz_call_batch(23, 1024)
+        packed = packed[:, packed[5] > 0].copy()
+        packed[3] = np.arange(packed.shape[1], dtype=np.int32)
+        payload = device_call.pack_mesh_payload((packed, META, [None] * packed.shape[1], None),
+                                                8)
+        return payload, META, device_call.run_mesh_assign(payload, META)
+    rng = np.random.default_rng(3)
+    n = 300
+    cand = {"pos": np.sort(rng.integers(0, 400_000, size=n)).astype(np.int32),
+            "svlen": rng.integers(50, 900, size=n).astype(np.int32),
+            "svtype": np.zeros(n, np.int32), "sample_id": np.zeros(n, np.int32),
+            "support": np.zeros(n, np.int32), "qc": np.ones(n, bool),
+            "valid": np.ones(n, bool), "orig_idx": np.arange(n, dtype=np.int32)}
+    sharded, offsets, window_len = shard_candidate_tensors(cand, 8)
+    payload = {"cand": sharded, "offsets": offsets, "window_len": window_len, "n_dev": 8}
+    meta = {"combine_match": 250.0, "combine_match_max": 1001.0, "binsize": 100}
+    return payload, meta, device_combine.run_mesh_combine(payload, meta)
 
 
-@pytest.mark.parametrize("kind", ["cluster_assign", "combine_greedy"])
-def test_ported_request_kinds_are_served(kind):
+@pytest.mark.parametrize("kind", ["cluster_assign", "combine_greedy", "call_task_mesh",
+                                  "combine_mesh"])
+def test_ported_request_kinds_are_served(kind, monkeypatch):
     """The kinds refused before their port: a cluster_assign request
     answers cluster_assign_packed's (3, N) assignment, a combine_greedy
     request run_combine_greedy's result, through the dispatcher and the
-    client's methods."""
+    client's methods; the mesh kinds (on 8 CPU shards) the mesh step's
+    rows, and a halo that overflows at every width an answer the client
+    turns into MeshHaloOverflow."""
     from sniffles_tpu_torch.ops.combine_greedy import run_combine_greedy
+    from sniffles_tpu_torch.parallel import device_call
+    if kind in ds.MESH_KINDS:
+        monkeypatch.setenv("SNIFFLES_TPU_FORCE_CPU", "1")
+        payload, meta, want = mesh_request(kind)
+        got = serve(ds.DeviceServer("cpu"), [ds.DeviceRequest(kind, payload, meta, 5)])[5]
+        assert got.error is None and device_call.mesh_result(got.payload).tolist() == want.tolist()
+        if kind == "call_task_mesh":
+            monkeypatch.setenv(device_call.ENV_FORCE_OVERFLOW, "1")
+        else:
+            payload = dict(payload, window_len=np.full(8, 1, np.int32))   # no admissible W
+        got = serve(ds.DeviceServer("cpu"), [ds.DeviceRequest(kind, payload, meta, 6)])[6]
+        assert got.error is None
+        with pytest.raises(device_call.MeshHaloOverflow, match="halo overflow"):
+            device_call.mesh_result(got.payload)
+        return
     assign_meta = {k: META[k] for k in ("cluster_r", "cluster_repeat_h",
                                         "cluster_repeat_h_max", "cluster_merge_bnd",
                                         "cluster_merge_len", "minsvlen", "binsize",
