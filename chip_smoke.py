@@ -134,6 +134,26 @@ Phases, each of which must pass:
      processes on the card joined by SNIFFLES_TPU_COORDINATOR (the
      multi-host run, --tpu-mesh 4): process 0 writes phase 4's records,
      process 1 writes nothing, the 3 tasks split between them.
+  10. the fused calling engine (parallel/engine.py, call_pipeline_step) and
+     its two kernels (csrc/merge_relax.cu, the relaxation's rounds;
+     csrc/candidate_tail.cu, coverage, genotype and QC in one pass): (a)
+     the whole step on the card against the same step on the CPU (the
+     plain versions), every output key bit for bit, on
+     __graft_entry__.entry()'s batch (4,096 signatures, 1 Mb of coverage
+     at 30) and bench.py::bench_device's two sizes (2^16 and 2^21
+     signatures, n/40 sites, seed 42); (b) dense3's chr1 signatures
+     (from_leads of the port's lead provider over phase 4's BAM, its
+     coverage) under the default flags, --mosaic and --minsupport auto
+     --qc-nm: card == CPU, the filter codes counted; (c) build_sharded_step
+     as 4 shards on cuda:0 against 4 CPU shards, on
+     __graft_entry__.dryrun_multichip's recipe (16,384 bp and 256 slots a
+     shard, halo_bp 2,000, 64 halo slots) and on dense3's chr1 in 4
+     windows of 500 kb: integer outputs and halo_overflow equal; every
+     kernel launched on (a)-(c); (d) at 2^21 signatures each kernel against
+     its plain version on the card (bit for bit) and timed (CUDA events)
+     beside its bound, the relaxation's rounds, the step's device time,
+     signatures a second, peak device memory and host synchronisations
+     (none inside the relaxation: set_sync_debug_mode("error")).
 Then (5) the kernels' timings on the inputs of the main paths' largest
 launches (CUDA events) beside their bounds and plain versions, the
 sweep's device time on phase 2b's fuzz batches and chain, the fused
@@ -228,6 +248,18 @@ MESH_SHARDS = 4
 MESH_DEVICES = ",".join(["cuda:0"] * MESH_SHARDS)
 # the head masks of phase 9a (0xFF, every caller's but a mesh shard's, is phase 2b's)
 MESH_HEAD_MASKS = (0x00, 0x0A, 0xF5)
+# phase 10: the engine's sharded step as four shards on the one card
+ENGINE_SHARDS = 4
+# float32 operations a second outside the tensor cores (H100 SXM data sheet)
+FP32_OPS_PER_S = 67e12
+# int32 operations an element and round of the relaxation, counted from
+# csrc/merge_relax.cu: its head's walk (a load, a multiply, an add, a min, a
+# max, an or, the boundary test) and its share of the segment's stride picks
+RELAX_OPS_PER_ELEMENT = 12
+# float32 operations a candidate slot of the tail, counted from
+# csrc/candidate_tail.cu: the probes' index arithmetic, five coverage means,
+# the rescale, the likelihoods and their sort, and the QC cascade's tests
+TAIL_OPS_PER_SLOT = 150
 
 
 def fail(msg: str) -> None:
@@ -2039,6 +2071,346 @@ def run_mesh(tmp, meta, dense, combine):
     return launches, err, ed_err
 
 
+# -- phase 10 ---------------------------------------------------------------
+
+def queued_ms(fn, reps):
+    """Device time of fn()'s launches between two CUDA events, the mean of
+    `reps` runs after one that warms up; the card sleeps ahead of the start
+    event, so the launches are queued before it reaches them and the
+    host's time to make them stays out."""
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    total = 0.0
+    for rep in range(reps + 1):
+        torch.cuda._sleep(SLEEP_CYCLES)
+        start.record()
+        fn()
+        stop.record()
+        torch.cuda.synchronize()
+        if rep:
+            total += start.elapsed_time(stop)
+    return total / reps
+
+
+def engine_outputs_equal(ours, want, what, keys=None):
+    """Fails unless every key (or `keys`) of two engine outputs is equal,
+    float32 keys by their bits; `ours` on any device, `want` on the CPU
+    (tensors or numpy arrays)."""
+    for k in keys if keys is not None else want:
+        a = ours[k].cpu().numpy() if isinstance(ours[k], torch.Tensor) else np.asarray(ours[k])
+        b = want[k].numpy() if isinstance(want[k], torch.Tensor) else np.asarray(want[k])
+        if a.dtype != b.dtype or a.shape != b.shape:
+            fail(f"{what}: {k} is {a.dtype} {a.shape} on the card, {b.dtype} {b.shape} on "
+                 f"the CPU")
+        if a.dtype == np.float32:
+            a, b = a.view(np.int32), b.view(np.int32)
+        if not np.array_equal(a, b):
+            fail(f"{what}: {k} differs between the card and the CPU in "
+                 f"{int((a != b).sum())} slots")
+
+
+def engine_step_pair(sig, coverage, params, what, region_offset=0):
+    """The engine's step on the card and on the CPU (the plain versions),
+    every key held bit for bit. Returns (the card's output, its relaxation
+    rounds, CPU s, card s)."""
+    from sniffles_tpu_torch.parallel.engine import call_pipeline_step
+    t0 = time.perf_counter()
+    want = call_pipeline_step(sig, coverage, params, region_offset, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    info = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = call_pipeline_step(sig, coverage, params, region_offset, device="cuda", info=info)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    engine_outputs_equal(got, want, what)
+    return got, int(info["merge_rounds"]), cpu_s, card_s
+
+
+def dense_chr1(bam, contig="chr1"):
+    """The port's lead provider over one contig of a BAM: its leads with a
+    length (sorted by position) and its coverage as int32."""
+    from sniffles_tpu_torch.config import SnifflesConfig
+    from sniffles_tpu_torch.io.bam import AlignmentFile
+    from sniffles_tpu_torch.leads import LeadProvider
+    from sniffles_tpu_torch.region import Region
+    config = SnifflesConfig("--input", bam, "--vcf", "out.vcf")
+    f = AlignmentFile(bam, "rb", require_index=True)
+    provider = LeadProvider(config, 0, contig)
+    provider.build_leadtab([Region(contig, 0, f.get_reference_length(contig))], f)
+    leads = sorted((ld for tab in provider.leadtab.values() for binned in tab.values()
+                    for ld in binned if ld.svlen is not None), key=lambda ld: ld.ref_start)
+    return leads, provider.coverage.astype(np.int32), provider.average_regional_nm
+
+
+def engine_flag_params(flags, coverage, nm_threshold):
+    """default_params of the CLI's flag set, with the contig's mean coverage
+    and regional NM as a call task has them."""
+    from sniffles_tpu_torch.config import SnifflesConfig
+    from sniffles_tpu_torch.parallel.engine import default_params
+    params = default_params(SnifflesConfig("--input", "x.bam", "--vcf", "y.vcf", *flags))
+    params["coverage_global"] = float(coverage.mean())
+    params["qc_nm_threshold"] = float(nm_threshold)
+    return params
+
+
+def sharded_pair(sig, coverage, offsets, what, **kw):
+    """build_sharded_step as ENGINE_SHARDS shards on cuda:0 against the same
+    step on ENGINE_SHARDS CPU shards: integer outputs and halo_overflow
+    equal. Returns (the card's output, card s, CPU s)."""
+    from sniffles_tpu_torch.parallel.engine import default_params
+    from sniffles_tpu_torch.parallel.mesh import build_sharded_step
+    outs, secs = [], []
+    for dev in ("cpu", "cuda:0"):
+        t0 = time.perf_counter()
+        outs.append(build_sharded_step([dev] * ENGINE_SHARDS, default_params(), **kw)(
+            sig, coverage, offsets))
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    want, got = outs
+    engine_outputs_equal(got, want, what, [k for k, v in want.items() if v.dtype != np.float32])
+    return got, secs[1], secs[0]
+
+
+def dryrun_shards(tmp):
+    """__graft_entry__.dryrun_multichip's recipe at ENGINE_SHARDS shards: a
+    simulated BAM of 16,384 bp a shard, the real leads of each window as
+    a batch of 256 slots, the real per-base coverage."""
+    from sniffles_tpu_torch.signatures import from_leads
+    from sniffles_tpu_torch.sim import PlantedSV, write_dataset
+    cov_per_dev, per_dev = 16384, 256
+    ref_len = cov_per_dev * ENGINE_SHARDS
+    svs = [PlantedSV(pos=int((i + 0.5) * ref_len / (2 * ENGINE_SHARDS)),
+                     svtype=("INS", "DEL", "DUP", "INV")[i % 4], svlen=120 + 60 * (i % 4))
+           for i in range(2 * ENGINE_SHARDS)]
+    os.makedirs(tmp, exist_ok=True)
+    bam, _ = write_dataset(tmp, ref_len=ref_len, depth=10, read_len=6000, seed=5, svs=svs)
+    leads, coverage, _ = dense_chr1(bam)
+    sig = {}
+    for s in range(ENGINE_SHARDS):
+        shard = [ld for ld in leads if s * cov_per_dev <= ld.ref_start < (s + 1) * cov_per_dev]
+        for k, v in from_leads(shard, batch_size=per_dev).as_dict().items():
+            sig.setdefault(k, []).append(v[:per_dev])
+    return ({k: np.concatenate(v) for k, v in sig.items()}, coverage[:ref_len],
+            np.arange(ENGINE_SHARDS, dtype=np.int32) * cov_per_dev)
+
+
+def window_shards(leads, coverage, window):
+    """A contig's leads as ENGINE_SHARDS windows of `window` bp, each padded
+    to one width (a multiple of 1,024)."""
+    from sniffles_tpu_torch.signatures import from_leads
+    shards = [[ld for ld in leads if s * window <= ld.ref_start < (s + 1) * window]
+              for s in range(ENGINE_SHARDS)]
+    width = -(-max(len(s) for s in shards) // 1024) * 1024
+    sig = {}
+    for shard in shards:
+        for k, v in from_leads(shard, batch_size=width).as_dict().items():
+            sig.setdefault(k, []).append(v)
+    cov = np.zeros(window * ENGINE_SHARDS, dtype=np.int32)
+    cov[:min(len(coverage), len(cov))] = coverage[:len(cov)]
+    return ({k: np.concatenate(v) for k, v in sig.items()}, cov,
+            np.arange(ENGINE_SHARDS, dtype=np.int32) * window)
+
+
+def relax_bytes(n):
+    """Bytes the relaxation must move: each input read once (pos, svlen as
+    float32, svtype, bin as int32, repeat, valid and the seed boundaries as
+    bytes) and the boundaries written once."""
+    return n * (4 * 4 + 3 + 1)
+
+
+def tail_bytes(stats, coverage, region_offset, binsize=100):
+    """Bytes the candidate tail must move: a slot's statistics (svtype,
+    svlen, pos, support, lead_count, n_strands, stdev_pos, stdev_len,
+    support_sa: 36 bytes), an element's nm, valid and cluster id (9), the
+    distinct coverage entries its probes read in this run, and 60 bytes of
+    outputs a slot."""
+    n = stats["svtype"].shape[0]
+    from sniffles_tpu_torch.ops.coverage import annotate_coverage
+    cov = annotate_coverage(torch.arange(coverage.shape[0], dtype=torch.int32) + 1,
+                            stats["svtype"].cpu(), stats["pos"].cpu(), stats["svlen"].cpu(),
+                            torch.zeros(n, dtype=torch.bool), region_offset, binsize)
+    probes = torch.cat([v for v in cov.values()])
+    distinct = int(torch.unique(probes[probes > 0]).numel())
+    return n * (36 + 9 + 60) + 4 * distinct
+
+
+def time_engine_kernels(sig, coverage, params):
+    """(d): the two kernels' CUDA-event times on the step's 2^21 inputs, their
+    plain versions on the card, their bounds; the step's device time,
+    signatures a second (bench.py's measure: 3 repeats of 10 steps), peak
+    device memory and host synchronisations. Returns the JSON rows."""
+    from sniffles_tpu_torch.ops import candidate_tail as ct, clustering as tc
+    from sniffles_tpu_torch.ops import merge_relax as tmr
+    from sniffles_tpu_torch.ops.segments import seg_sum
+    from sniffles_tpu_torch.parallel.engine import call_pipeline_step, to_device
+    sig, coverage = to_device(sig, coverage, "cuda")
+    n = sig["pos"].shape[0]
+    relax = {k: params[k] for k in ("cluster_r", "cluster_repeat_h", "cluster_repeat_h_max",
+                                    "cluster_merge_bnd")}
+    relax.update(global_repeat=False, binsize=100)
+    s, boundary, bin_ = tc.sort_and_seed(sig, 100)
+    got, rounds = tmr.launch_merge_relax(s, boundary, bin_, **relax)
+    want, want_rounds = tmr.merge_relax_plain(s, boundary, bin_, **relax)
+    if not torch.equal(got, want) or int(rounds) != want_rounds:
+        fail("merge_relax kernel differs from its plain version on the 2^21 step's inputs")
+    relax_ms = queued_ms(lambda: tmr.launch_merge_relax(s, boundary, bin_, **relax), 10)
+    relax_call_ms = cuda_ms(lambda: tmr.launch_merge_relax(s, boundary, bin_, **relax), 10)
+    relax_plain_ms = cuda_ms(lambda: tmr.merge_relax_plain(s, boundary, bin_, **relax), 3)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        tmr.launch_merge_relax(s, boundary, bin_, **relax)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    # the relaxation's work: each element walked once a round by its head,
+    # RELAX_OPS_PER_ELEMENT int32 operations
+    relax_ops = RELAX_OPS_PER_ELEMENT * n * want_rounds
+    relax_bound = max(relax_bytes(n) / HBM_BYTES_PER_S, relax_ops / INT32_OPS_PER_S) * 1e3
+    print(f"  merge_relax n={n}: {want_rounds} rounds; kernel {relax_ms:.4f} ms on the device "
+          f"(all 32 rounds enqueued, the rounds after the fixed point exit at once; "
+          f"{relax_call_ms:.4f} ms a call of the wrapper, host-bound), plain {relax_plain_ms:.2f}"
+          f" ms, == plain (bit-exact), no host synchronisation (sync debug mode 'error'); "
+          f"bound {relax_bound * 1e3:.3f} us ({relax_bytes(n)} bytes at "
+          f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s; {relax_ops} int32 ops at "
+          f"{INT32_OPS_PER_S / 1e12:.1f} Tops/s), {relax_bound / relax_ms:.3%} of it",
+          flush=True)
+
+    clustered = tc.cluster_signatures(sig, minsvlen=params["minsvlen"],
+                                      cluster_merge_len=params["cluster_merge_len"],
+                                      exact_sweep=False, **{k: v for k, v in relax.items()
+                                                            if k != "global_repeat"})
+    clustered.pop("merge_rounds")
+    stats = tc.call_statistics(clustered, fused=True)
+    support_sa = seg_sum((clustered["valid"] & (clustered["sa"] > 0)).to(torch.int32),
+                         clustered["cluster_id"], n)
+    tail = ct.launch_candidate_tail(stats, support_sa, coverage, clustered, params)
+    # held against the plain version on CPU copies: on the card its NM sum
+    # is an index_add_ of atomics, whose order is not the array's
+    plain = ct.candidate_tail_plain(
+        {k: v.cpu() for k, v in stats.items()}, support_sa.cpu(), coverage.cpu(),
+        {k: v.cpu() for k, v in clustered.items()}, params)
+    engine_outputs_equal(tail, plain, "candidate_tail against its plain version (2^21)")
+    tail_ms = queued_ms(lambda: ct.launch_candidate_tail(stats, support_sa, coverage, clustered,
+                                                         params), 10)
+    tail_call_ms = cuda_ms(lambda: ct.launch_candidate_tail(stats, support_sa, coverage,
+                                                            clustered, params), 10)
+    tail_plain_ms = cuda_ms(lambda: ct.candidate_tail_plain(stats, support_sa, coverage,
+                                                            clustered, params), 3)
+    n_bytes = tail_bytes(stats, coverage, 0)
+    tail_ops = TAIL_OPS_PER_SLOT * n
+    tail_bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    tail_ops_ms = tail_ops / FP32_OPS_PER_S * 1e3
+    tail_bound = max(tail_bytes_ms, tail_ops_ms)
+    print(f"  candidate_tail n={n}: kernel {tail_ms:.4f} ms on the device ({tail_call_ms:.4f} "
+          f"ms a call of the wrapper), plain {tail_plain_ms:.2f} ms on "
+          f"the card, == plain on the CPU copies (bit-exact); bound {tail_bound * 1e3:.3f} us ({n_bytes} bytes at "
+          f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s; {tail_ops} float32 ops at "
+          f"{FP32_OPS_PER_S / 1e12:.0f} TFLOP/s: {tail_ops_ms * 1e3:.3f} us), "
+          f"{tail_bound / tail_ms:.3%} of it", flush=True)
+
+    step = lambda: call_pipeline_step(sig, coverage, params)  # noqa: E731
+    step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    step_ms = cuda_ms(step, 10)
+    peak = torch.cuda.max_memory_allocated() - base
+    rates = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(10):
+            step()
+        torch.cuda.synchronize()
+        rates.append(n / ((time.perf_counter() - t0) / 10))
+    sites = sync_sites(step)
+    in_relax = sum(v for k, v in sites.items() if "merge_relax" in k)
+    print(f"  the step n={n}: {step_ms:.3f} ms a step between CUDA events; "
+          f"{np.mean(rates):.4g} signatures/s (bench.py's measure: 3 x 10 steps, host clock; "
+          f"{', '.join(f'{r:.4g}' for r in rates)}); peak device memory of a step "
+          f"{peak / 2**20:.1f} MiB above its inputs; host synchronisations "
+          f"{sum(sites.values())}" + "".join(f"; {k} x{v}" for k, v in sorted(sites.items())),
+          flush=True)
+    if in_relax:
+        fail(f"the relaxation synchronised with the host {in_relax} times")
+    return ({"ms": relax_ms, "plain_ms": relax_plain_ms, "bound_ms": relax_bound,
+             "bound_by": "bytes" if relax_bytes(n) / HBM_BYTES_PER_S
+             >= relax_ops / INT32_OPS_PER_S else "operations"},
+            {"ms": tail_ms, "plain_ms": tail_plain_ms, "bound_ms": tail_bound,
+             "bound_by": "bytes" if tail_bytes_ms >= tail_ops_ms else "operations"})
+
+
+def run_engine(tmp, dense_bam):
+    """Phase 10 (see the module's docstring). Returns (the kernels' launches
+    on its main path, the timing rows of both kernels)."""
+    from sniffles_tpu_torch.ops import candidate_tail as ct, merge_relax as tmr
+    from sniffles_tpu_torch.ops.qc_batch import FILTERS
+    from sniffles_tpu_torch.parallel.engine import default_params
+    from sniffles_tpu_torch.signatures import from_leads, synthetic_batch
+
+    t_phase = time.perf_counter()
+    tmr.reset_counts()
+    ct.reset_counts()
+    print("[10a] the whole step on the card against the CPU", flush=True)
+    sizes = [("graft entry 4096", 4096, 64, 7), ("bench 2^16", 1 << 16, (1 << 16) // 40, 42),
+             ("bench 2^21", 1 << 21, (1 << 21) // 40, 42)]
+    params = default_params()
+    coverage = np.full(1_000_000, 30, dtype=np.int32)
+    big = None
+    for label, n, ncl, seed in sizes:
+        batch = synthetic_batch(n, ncl, seed=seed, genome_span=900_000, batch_size=n).as_dict()
+        out, rounds, cpu_s, card_s = engine_step_pair(batch, coverage, params, label)
+        print(f"    {label}: {int(out['n_clusters'])} clusters, {rounds} relaxation rounds, "
+              f"{int(out['cluster_valid'].sum())} valid, {int(out['qc'].sum())} PASS; card == "
+              f"CPU on every key (CPU {cpu_s:.2f} s, card {card_s:.3f} s with the copies)",
+              flush=True)
+        big = batch
+
+    print("[10b] dense3's chr1 signatures (the port's lead provider) under three flag sets",
+          flush=True)
+    t0 = time.perf_counter()
+    leads, chr1_cov, nm = dense_chr1(dense_bam)
+    sig = from_leads(leads).as_dict()
+    print(f"    {len(leads)} leads in {sig['pos'].shape[0]} slots, coverage mean "
+          f"{chr1_cov.mean():.2f} ({time.perf_counter() - t0:.1f} s)", flush=True)
+    for flags in ([], ["--mosaic"], ["--minsupport", "auto", "--qc-nm"]):
+        p = engine_flag_params(flags, chr1_cov, nm)
+        out, rounds, cpu_s, card_s = engine_step_pair(sig, chr1_cov, p, f"dense3 chr1 {flags}")
+        valid = out["cluster_valid"].cpu()
+        codes = np.bincount(out["filter_code"].cpu()[valid].numpy(), minlength=len(FILTERS))
+        print(f"    {' '.join(flags) or 'default'}: {int(out['n_clusters'])} clusters, "
+              f"{int(valid.sum())} valid, {rounds} rounds; card == CPU on every key; filter "
+              f"codes " + ", ".join(f"{FILTERS[i]} {c}" for i, c in enumerate(codes) if c),
+              flush=True)
+
+    print(f"[10c] the sharded step, {ENGINE_SHARDS} shards on cuda:0 against "
+          f"{ENGINE_SHARDS} CPU shards", flush=True)
+    d_sig, d_cov, d_offs = dryrun_shards(os.path.join(tmp, "dryrun"))
+    out, card_s, cpu_s = sharded_pair(d_sig, d_cov, d_offs, "dryrun_multichip's recipe",
+                                      halo_bp=2000, halo_slots=64)
+    print(f"    dryrun_multichip's recipe: clusters a shard {out['n_clusters'].tolist()}, "
+          f"owned {int(out['cluster_valid'].sum())}, halo_overflow "
+          f"{out['halo_overflow'].tolist()}; integer outputs == ({card_s:.3f} s card, "
+          f"{cpu_s:.3f} s CPU)", flush=True)
+    w_sig, w_cov, w_offs = window_shards(leads, chr1_cov, 500_000)
+    out, card_s, cpu_s = sharded_pair(w_sig, w_cov, w_offs, "dense3 chr1 in 4 windows",
+                                      halo_bp=5000, halo_slots=512)
+    print(f"    dense3 chr1 in {ENGINE_SHARDS} windows of 500 kb "
+          f"({w_sig['pos'].shape[0] // ENGINE_SHARDS} slots a shard): clusters a shard "
+          f"{out['n_clusters'].tolist()}, owned {int(out['cluster_valid'].sum())}, "
+          f"halo_overflow {out['halo_overflow'].tolist()}; integer outputs == "
+          f"({card_s:.3f} s card, {cpu_s:.3f} s CPU)", flush=True)
+    launches = {"merge_relax": tmr.COUNTS["launches"], "candidate_tail": ct.COUNTS["launches"]}
+    print(f"    the main path of [10a-c] launched {launches}", flush=True)
+    if min(launches.values()) < 1:
+        fail(f"phase 10's main path left a kernel unlaunched: {launches}")
+
+    print("[10d] timings at 2^21 signatures", flush=True)
+    rows = time_engine_kernels(big, coverage, params)
+    print(f"    phase 10 took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return launches, rows
+
+
 def sync_sites(fn):
     """Runs fn() on the card with torch.cuda.set_sync_debug_mode("warn")
     and returns the synchronising operations it reached, counted by the
@@ -2263,6 +2635,11 @@ def main() -> int:
     print(f"    the mesh's main path (dense3 --tpu-mesh {MESH_SHARDS} --threads 4) launched "
           f"{mesh_launches}", flush=True)
 
+    print("[10] the fused calling engine (parallel/engine.py) and its two kernels",
+          flush=True)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_engine_") as tmp:
+        engine_launches, engine_rows = run_engine(tmp, dense_args[1])
+
     print("[5] kernel timings on the main paths' largest launches", flush=True)
     timing = time_ed_kernel([x.cuda() for x in largest])
     max_err = max(max_err, timing["max_abs_err"])
@@ -2308,7 +2685,17 @@ def main() -> int:
         "launches": sweep_launches["sweep_cuts"], "max_abs_err": cuts_timing["max_abs_err"],
         "ms": cuts_timing["ms"], "plain_ms": cuts_timing["plain_ms"],
         "bound_ms": cuts_timing["bound_ms"], "bound_by": cuts_timing["bound_by"],
-        "library_ms": None}]
+        "library_ms": None}, {
+        "name": "merge_relax", "route": "cuda",
+        "source": "sniffles_tpu_torch/csrc/merge_relax.cu",
+        "replaces": "sniffles_tpu/ops/clustering.py:709",
+        "launches": engine_launches["merge_relax"], "max_abs_err": 0,
+        **engine_rows[0], "library_ms": None}, {
+        "name": "candidate_tail", "route": "cuda",
+        "source": "sniffles_tpu_torch/csrc/candidate_tail.cu",
+        "replaces": "sniffles_tpu/parallel/engine.py:133",
+        "launches": engine_launches["candidate_tail"], "max_abs_err": 0,
+        **engine_rows[1], "library_ms": None}]
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

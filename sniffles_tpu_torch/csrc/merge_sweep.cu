@@ -115,10 +115,15 @@
 #include <cub/block/block_scan.cuh>
 #include <cuda_runtime.h>
 
+#include "range_metrics.cuh"
+
 namespace {
 
+using sniffles::clamp_slot;
+using sniffles::kPickCap;
+using sniffles::range_metrics;
+
 constexpr int kSvtypeBnd = 4;
-constexpr int kPickCap = 256;       // stride picks top out at 199
 constexpr int kCutThreads = 1024;   // sweep_cuts' block, one a task
 constexpr int kMaxPasses = 24;
 constexpr int kSweepThreads = 128;
@@ -136,10 +141,6 @@ struct MaxOp {
 struct MinOp {
   __device__ int operator()(int a, int b) const { return a < b ? a : b; }
 };
-
-__device__ __forceinline__ int clamp_slot(int x, int n) {
-  return x < 0 ? 0 : (x > n - 1 ? n - 1 : x);
-}
 
 __device__ __forceinline__ bool type_cut(const int32_t* __restrict__ seed_type, int j) {
   return j == 0 || seed_type[j] != seed_type[j - 1];
@@ -264,40 +265,6 @@ __global__ void __launch_bounds__(kCutThreads) sweep_cuts_kernel(
     counts[kPasses] = passes;
     counts[kCollapsed] = changed;
   }
-}
-
-// compute_metrics over the contiguous element range [lo, hi): the
-// reference's stride subsample of at most ~max_n = 100 leads, the mean
-// svlen divided by max_n, the sample stdev over the actual picks.
-// All divisions here are of non-negative values, so C++'s truncating
-// division is the JAX package's floor division.
-__device__ void range_metrics(const float* __restrict__ posf,
-                              const float* __restrict__ svlenf, int n, int lo, int hi,
-                              float* mean_sv, float* sd) {
-  const int L = hi - lo > 0 ? hi - lo : 0;
-  const int nn = L < 100 ? L : 100;
-  const int q = L / (nn > 1 ? nn : 1);
-  const int stride = q > 1 ? q : 1;
-  double sum_sv = 0.0, sum_ps = 0.0;
-  int npicks = 0;
-  for (int k = 0; k < kPickCap && k * stride < L; ++k) {
-    const int idx = clamp_slot(lo + k * stride, n);
-    sum_sv += static_cast<double>(svlenf[idx]);
-    sum_ps += static_cast<double>(posf[idx]);
-    ++npicks;
-  }
-  *mean_sv = __fdiv_rn(static_cast<float>(sum_sv), static_cast<float>(nn > 1 ? nn : 1));
-  const float mean_ps = __fdiv_rn(static_cast<float>(sum_ps),
-                                  static_cast<float>(npicks > 1 ? npicks : 1));
-  double ss = 0.0;
-  for (int k = 0; k < npicks; ++k) {
-    const float dev = __fsub_rn(posf[clamp_slot(lo + k * stride, n)], mean_ps);
-    ss += static_cast<double>(__fmul_rn(dev, dev));
-  }
-  *sd = npicks >= 2
-            ? __fsqrt_rn(__fdiv_rn(static_cast<float>(ss),
-                                   static_cast<float>(npicks - 1 > 1 ? npicks - 1 : 1)))
-            : 0.0f;
 }
 
 __global__ void __launch_bounds__(kSweepThreads) merge_sweep_kernel(

@@ -1,9 +1,10 @@
 """Build and load the port's hand-written CUDA kernels and its native
 host library.
 
-Each source csrc/<name>.cu exports a plain C function; it is compiled by
-nvcc for sm_90a into build/torch_kernels/lib<name>-<hash>.so at first use
-and loaded with ctypes. The hash of the source and the flags names the
+Each source csrc/<name>.cu exports a plain C function (shared device code
+lives in csrc/*.cuh); it is compiled by nvcc for sm_90a into
+build/torch_kernels/lib<name>-<hash>.so at first use and loaded with
+ctypes. The hash of the source, the headers and the flags names the
 library, so an edited source is rebuilt and a stale build is never
 loaded. Nothing here runs at import: the CPU tests import every module.
 
@@ -30,7 +31,7 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "torch_kernels")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
-KERNEL_SOURCES = ("edit_distance", "merge_sweep")
+KERNEL_SOURCES = ("edit_distance", "merge_sweep", "merge_relax", "candidate_tail")
 HOST_SOURCES = ("bamcore.cc", "poacore.cc")
 # -ffp-contract=off: bamcore.cc's split filter computes base + kb * (qlen /
 # 1000.0) in double precision as Python does, two roundings; a fused
@@ -53,8 +54,13 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> str:
-    with open(os.path.join(CSRC, f"{name}.cu"), "rb") as f:
-        digest = hashlib.sha1(f.read() + " ".join(NVCC_FLAGS).encode())
+    """The build of csrc/<name>.cu, named by a hash of the source, the
+    shared headers (csrc/*.cuh) and the flags."""
+    digest = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(glob.glob(os.path.join(CSRC, "*.cuh")))
+    for path in [os.path.join(CSRC, f"{name}.cu")] + headers:
+        with open(path, "rb") as f:
+            digest.update(f.read())
     return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:12]}.so")
 
 

@@ -775,25 +775,89 @@ def cluster_assign_packed(packed: torch.Tensor, *,
                                   cluster_merge_bnd=cluster_merge_bnd,
                                   global_repeat=False, binsize=binsize)
 
-    # resplit by the |svlen| histogram inside each merged segment
+    s, cluster_id = _resplit(s, boundary, resplit_binsize=resplit_binsize, minsvlen=minsvlen,
+                             cluster_merge_len=cluster_merge_len)
+    return torch.stack([cluster_id, s["read_id"].to(torch.int32), s["valid"].to(torch.int32)])
+
+
+def _f32_scalar(v, device) -> torch.Tensor:
+    """A number or 0-d tensor as a float32 0-d tensor on `device` (a number
+    is filled on the device: no copy that waits for it)."""
+    if isinstance(v, torch.Tensor):
+        return v.to(device, torch.float32)
+    return torch.full((), float(v), dtype=torch.float32, device=device)
+
+
+def _resplit(s: dict, boundary, *, resplit_binsize: int, minsvlen, cluster_merge_len):
+    """Step 4 of _cluster_body (:764-798): each merged segment split by the
+    |svlen| histogram, single chain pass (BND keeps its segment; the host
+    resplits it). Returns (`s` in the resplit's order, cluster_id int32).
+    minsvlen and cluster_merge_len are numbers or 0-d tensors, taken as
+    float32."""
     seg = segment_ids_from_boundaries(boundary)
     valid = s["valid"]
     svbin = torch.div(s["svlen"].abs(), resplit_binsize,
                       rounding_mode="floor") * resplit_binsize
     order = lexsort((torch.where(valid, svbin, INT32_MAX), torch.where(valid, seg, INT32_MAX)))
+    s = {k: v[order] for k, v in s.items()}
     seg, svbin = seg[order], svbin[order]
     prev_bin = _shift_prev(svbin)
     prev_seg = torch.cat([seg[:1] - 1, seg[:-1]])
     f32 = torch.float32
     gap = (svbin - prev_bin).abs().to(f32)
-    thr = torch.maximum(torch.full((), float(minsvlen), dtype=f32, device=gap.device),
+    thr = torch.maximum(_f32_scalar(minsvlen, gap.device),
                         torch.minimum(svbin, prev_bin).to(f32)
-                        * torch.tensor(cluster_merge_len, dtype=f32))
-    no_resplit = s["svtype"][order] == SVTYPE_BND   # BND resplits on the host
+                        * _f32_scalar(cluster_merge_len, gap.device))
+    no_resplit = s["svtype"] == SVTYPE_BND   # BND resplits on the host
     split = (seg != prev_seg) | ((gap > thr) & ~no_resplit)
     split[:1].fill_(True)
-    return torch.stack([segment_ids_from_boundaries(split), s["read_id"][order].to(torch.int32),
-                        valid[order].to(torch.int32)])
+    return s, segment_ids_from_boundaries(split)
+
+
+def cluster_signatures(sig: dict, *, cluster_r, cluster_repeat_h, cluster_repeat_h_max,
+                       cluster_merge_bnd, cluster_merge_len, minsvlen, binsize: int = 100,
+                       resplit_binsize: int = 20, do_resplit: bool = True,
+                       global_repeat: bool = False, exact_sweep: bool = True) -> dict:
+    """
+    Cluster a signature batch (sniffles_tpu/ops/clustering.py:801,
+    _cluster_body :641). `sig` is a dict of equal-length tensors: pos,
+    svlen, svtype, read_id, strand, mapq (int32), nm (float32), repeat,
+    valid (bool); other keys ride along through the sorts.
+
+    `exact_sweep` selects the exact sequential sweep (the production
+    paths; the kernels of csrc/merge_sweep.cu) over the parallel
+    relaxation (the fused engine's path; ops/merge_relax.py, the kernel of
+    csrc/merge_relax.cu). Scalars are numbers or 0-d tensors; the
+    relaxation reads them as float32 (cluster_merge_bnd as int32).
+
+    Returns the sorted signature arrays plus `cluster_id` per element and
+    `n_clusters` (an int32 0-d tensor on the batch's device), and
+    `merge_rounds` when the relaxation ran (its rounds, an int or an
+    int32 0-d tensor).
+    """
+    from sniffles_tpu_torch.ops.merge_relax import merge_relax
+    s, boundary, bin_ = sort_and_seed(sig, binsize)
+    sweep = dict(cluster_r=cluster_r, cluster_repeat_h=cluster_repeat_h,
+                 cluster_repeat_h_max=cluster_repeat_h_max,
+                 cluster_merge_bnd=cluster_merge_bnd, global_repeat=global_repeat,
+                 binsize=binsize)
+    rounds = None
+    if exact_sweep:
+        boundary = _exact_merge_sweep(s, boundary, bin_, **sweep)
+    else:
+        boundary, rounds = merge_relax(s, boundary, bin_, **sweep)
+    if do_resplit:
+        s, cluster_id = _resplit(s, boundary, resplit_binsize=resplit_binsize,
+                                 minsvlen=minsvlen, cluster_merge_len=cluster_merge_len)
+    else:
+        cluster_id = segment_ids_from_boundaries(boundary)
+    out = dict(s)
+    out["cluster_id"] = cluster_id
+    # invalid (padding) slots sort last; their tail segment is no cluster
+    out["n_clusters"] = (torch.max(torch.where(s["valid"], cluster_id, -1)) + 1).to(torch.int32)
+    if rounds is not None:
+        out["merge_rounds"] = rounds
+    return out
 
 
 def packed_signatures(packed: torch.Tensor) -> dict:
@@ -1058,12 +1122,14 @@ def phase_tallies(clustered: dict, n: int) -> dict:
     }
 
 
-def call_statistics(clustered: dict) -> dict:
+def call_statistics(clustered: dict, fused: bool = False) -> dict:
     """
     Per-cluster calling statistics (reference: sv.py:497-598 call_from):
     svlen/pos centers via median_modes, trimmed stdevs, support as
     unique read count, mean mapq, strand counts, mean NM, PRECISE flag
-    inputs. Results are [N]-shaped, indexed by cluster id.
+    inputs. Results are [N]-shaped, indexed by cluster id. fused=True
+    gives the stdevs of the JAX package's jitted fused step
+    (ops/segments.seg_stdev).
     """
     n = clustered["pos"].shape[0]
     cid = clustered["cluster_id"]
@@ -1082,8 +1148,8 @@ def call_statistics(clustered: dict) -> dict:
 
     svlen_center = seg_median_modes(svlen_s, cid_l, valid_l, n)
     pos_center = seg_median_modes(pos_s, cid_p, valid_p, n)
-    stdev_len = seg_trimmed_stdev(svlen_s, cid_l, valid_l, n)
-    stdev_pos = seg_trimmed_stdev(pos_s, cid_p, valid_p, n)
+    stdev_len = seg_trimmed_stdev(svlen_s, cid_l, valid_l, n, fused)
+    stdev_pos = seg_trimmed_stdev(pos_s, cid_p, valid_p, n, fused)
     support = unique_count_per_segment(cid_r, read_s, valid_r, n)
 
     count = seg_count(cid, valid, n)
@@ -1091,7 +1157,7 @@ def call_statistics(clustered: dict) -> dict:
     fwd = seg_sum((valid & (clustered["strand"] > 0)).to(i32), cid, n)
     rev = count - fwd
     nm_mean = seg_mean(clustered["nm"], cid, valid, n)
-    n_strands = torch.where((fwd > 0) & (rev > 0), 2, torch.where(count > 0, 1, 0))
+    n_strands = torch.where((fwd > 0) & (rev > 0), 2, torch.where(count > 0, 1, 0)).to(i32)
 
     # cluster svtype (uniform within a cluster; max is a cheap head-select)
     svtype = seg_max(torch.where(valid, clustered["svtype"], -1), cid, n)

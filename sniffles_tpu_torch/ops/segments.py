@@ -19,7 +19,11 @@ primitives kept where torch's differ:
     they add exactly, and round once to float32: order-independent, so a
     scatter with atomics on the card gives the same bits as the CPU;
   * a float32 square root is the correctly rounded one (sqrt_f32), as
-    XLA's and CUDA's sqrtf are.
+    XLA's and CUDA's sqrtf are;
+  * where the JAX package's jitted code has a float32 multiply feeding an
+    add, XLA's CPU backend contracts the two into a fused multiply-add
+    (eager JAX, one op at a time, does not): `fma_f32` is that operation,
+    and seg_stdev(fused=True) the jitted variance.
 """
 from __future__ import annotations
 
@@ -36,6 +40,21 @@ def sqrt_f32(x: torch.Tensor) -> torch.Tensor:
     a float32 value taken in float64 and rounded to float32 is, even from
     a float64 sqrt that is off by an ulp."""
     return torch.sqrt(x.to(torch.float64)).to(torch.float32)
+
+
+def fma_f32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """a * b + c on float32 values with one rounding (a fused multiply-add).
+    The product is exact in float64; the sum is rounded to odd in float64
+    (the TwoSum error decides the last bit), and rounding that to float32
+    is the correctly rounded result."""
+    p = a.to(torch.float64) * b.to(torch.float64)
+    c = c.to(torch.float64)
+    s = p + c
+    bv = s - p
+    err = (p - (s - bv)) + (c - bv)
+    fix = (err != 0) & ((s.view(torch.int64) & 1) == 0) & torch.isfinite(s)
+    toward = torch.copysign(torch.full_like(s, float("inf")), err)
+    return torch.where(fix, torch.nextafter(s, toward), s).to(torch.float32)
 
 
 def segment_ids_from_boundaries(boundary: torch.Tensor) -> torch.Tensor:
@@ -111,13 +130,16 @@ def seg_mean(x: torch.Tensor, seg_ids: torch.Tensor, valid: torch.Tensor,
 
 
 def seg_stdev(x: torch.Tensor, seg_ids: torch.Tensor, valid: torch.Tensor,
-              num_segments: int) -> torch.Tensor:
+              num_segments: int, fused: bool = False) -> torch.Tensor:
     """Sample standard deviation per segment (ddof=1; 0 for <2 elements),
     matching util.stdev semantics (reference: util.py:25-27).
 
     Values are centered on the segment minimum before the moment
     computation: genome coordinates (~1e8-1e9) squared overflow the f32
     mantissa and would destroy the variance otherwise.
+
+    fused=True takes s2 - (cnt * mean) * mean as one fused multiply-add,
+    as the JAX package's jitted steps compute it on the CPU.
     """
     shift = seg_min(torch.where(valid, x, INT32_MAX).to(torch.int32), seg_ids,
                     num_segments)
@@ -128,7 +150,8 @@ def seg_stdev(x: torch.Tensor, seg_ids: torch.Tensor, valid: torch.Tensor,
     s1 = seg_sum_f32(xf, seg_ids, num_segments)
     s2 = seg_sum_f32(xf * xf, seg_ids, num_segments)
     mean = s1 / torch.clamp(cnt, min=1)
-    var = (s2 - cnt * mean * mean) / torch.clamp(cnt - 1, min=1)
+    num = fma_f32(-(cnt * mean), mean, s2) if fused else s2 - cnt * mean * mean
+    var = num / torch.clamp(cnt - 1, min=1)
     var = torch.clamp(var, min=0.0)
     return torch.where(cnt >= 2, sqrt_f32(var), 0.0)
 

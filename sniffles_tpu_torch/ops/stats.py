@@ -65,18 +65,19 @@ def seg_median_modes(values_sorted: torch.Tensor, seg_ids: torch.Tensor,
 
 
 def seg_trimmed_stdev(values_sorted: torch.Tensor, seg_ids: torch.Tensor,
-                      valid: torch.Tensor, num_segments: int) -> torch.Tensor:
+                      valid: torch.Tensor, num_segments: int,
+                      fused: bool = False) -> torch.Tensor:
     """
     Per-segment `util.stdev(util.trim(values))` (reference: util.py:82-88,
     sv.py:530-532): drop 25% from each end (int truncation), sample stdev
-    of the rest.
+    of the rest (seg_stdev, with its `fused`).
     """
     rank = seg_prefix_count(valid, seg_ids) - 1
     cnt_here = seg_count(seg_ids, valid, num_segments)[seg_ids.long()]
     trim_n = torch.div(cnt_here * 25, 100, rounding_mode="floor")
     in_window = valid & (rank >= trim_n) & (rank < cnt_here - trim_n)
     keep = torch.where(trim_n > 0, in_window, valid)
-    return seg_stdev(values_sorted, seg_ids, keep, num_segments)
+    return seg_stdev(values_sorted, seg_ids, keep, num_segments, fused)
 
 
 def seg_most_common_top(values_sorted: torch.Tensor, seg_ids: torch.Tensor,

@@ -21,7 +21,9 @@ shards meet only at the collectives:
     caller retries with a doubled W or routes the task to the host.
 
 Copied from sniffles_tpu/parallel/mesh.py: GENOME_AXIS, make_genome_mesh
-(:43), build_sharded_assign (:161) and build_sharded_combine_step (:334).
+(:43), build_sharded_step (:54, the fused engine's step),
+build_sharded_assign (:161), build_sharded_combine_step (:334) and
+shard_batch (:441).
 The JAX package traces one shard_map program over a jax.sharding.Mesh;
 here one process owns the mesh's devices, each shard's body runs as torch
 ops on its own device, split at each collective, and the collectives are
@@ -31,11 +33,10 @@ shard's, masked off), psum and pmin reduce on the first shard's device
 and copy back. Nothing waits for a device between the phases, so on a
 host with several cards the shards' work overlaps. A shard's merge sweep
 is the port's kernel (ops/clustering.merge_sweep), one launch pair per
-shard, with the shard's head mask.
+shard, with the shard's head mask; a shard of the engine's step runs
+parallel/engine.call_pipeline_step with its two kernels.
 
 Which device holds each shard is decided in one place, mesh_devices.
-build_sharded_step (:54, the fused engine's step) and shard_batch (:441)
-wait for the fused engine (ROADMAP A10).
 """
 from __future__ import annotations
 
@@ -322,6 +323,128 @@ def build_sharded_assign(devices: list, *, cluster_r: float, cluster_repeat_h: f
 
         return {"rows": np.stack([r.cpu().numpy() for r in rows]),
                 "halo_overflow": np.array([bool(f) for f in flags])}
+
+    return run
+
+
+def shard_batch(batch_dict: dict, n_dev: int) -> dict:
+    """Pad host arrays with zeros so the leading axis divides n_dev."""
+    out = {}
+    for k, v in batch_dict.items():
+        pad = (-v.shape[0]) % n_dev
+        if pad:
+            v = np.concatenate([v, np.zeros((pad,) + v.shape[1:], dtype=v.dtype)])
+        out[k] = v
+    return out
+
+
+_SIG_FIELDS = ("pos", "svlen", "svtype", "read_id", "strand", "mapq", "nm",
+               "repeat", "sa", "valid")
+
+
+def build_sharded_step(devices: list, params: dict | None = None, halo_bp: int = 5000,
+                       halo_slots: int = 256, binsize: int = 100):
+    """
+    The multi-device fused calling step: each shard runs the engine's step
+    (parallel/engine.call_pipeline_step) over its own signatures and the
+    halo of its left neighbour, with the global coverage and NM means
+    reduced over the mesh (psum) and two-window exactly-once ownership
+    (module docstring).
+
+    Contract: shard i's signatures lie in [offset_i, offset_i + L) where L
+    is its coverage window's length (at least 2 * halo_bp + 1024, the
+    coverage tail a shard sends); shards are contiguous along the genome.
+    Exactness bound: halo_bp must exceed the span of any single cluster
+    plus the coverage probe reach; halo_slots bounds the signatures within
+    the last 2 * halo_bp bp of a shard (`halo_overflow` reports when either
+    is exceeded).
+
+    Returns run(sig, coverage, region_offset, info=None): sig a dict of
+    [n_dev * S] arrays (_SIG_FIELDS, shard i's at [i * S, (i + 1) * S);
+    shard_batch pads), coverage [n_dev * L] int32, region_offset [n_dev]
+    int32. It returns numpy arrays, each shard's concatenated along the
+    first axis as the JAX step's out_specs give them: every key of the
+    engine's step ([n_dev * (halo_slots + S)]; n_clusters [n_dev]), with
+    cluster_valid the clusters the shard owns, and halo_overflow,
+    coverage_global and nm_global [n_dev]. `info`, a dict, receives each
+    shard's relaxation rounds under "merge_rounds".
+
+    The global means are float64 sums rounded once: the same on the card
+    and the CPU; they differ from XLA's float32 reductions in the last
+    bits (the tests hold them to 2^-20 relative).
+    """
+    import torch
+    from sniffles_tpu_torch.parallel.engine import call_pipeline_step, default_params
+
+    if params is None:
+        params = default_params()
+    n_dev = len(devices)
+    f32, f64 = torch.float32, torch.float64
+    w = halo_bp
+    cov_halo_len = 2 * w + 1024  # probe reach: updown_bins * binsize + slack
+
+    def run(sig: dict, coverage, region_offset, info: dict | None = None) -> dict:
+        per = len(sig["pos"]) // n_dev
+        cov_len = len(coverage) // n_dev
+        if cov_len < cov_halo_len:
+            raise ValueError(f"a shard's coverage window of {cov_len} bp is shorter than the "
+                             f"coverage tail it sends ({cov_halo_len} bp at halo_bp={w})")
+        shards = [{k: torch.as_tensor(np.ascontiguousarray(sig[k][i * per:(i + 1) * per]))
+                   .to(devices[i]) for k in _SIG_FIELDS} for i in range(n_dev)]
+        covs = [torch.as_tensor(np.ascontiguousarray(coverage[i * cov_len:(i + 1) * cov_len]),
+                                dtype=torch.int32).to(devices[i]) for i in range(n_dev)]
+
+        # psum: the global coverage and NM means
+        cov_means = [(c.sum(dtype=torch.int64).to(f64) / cov_len).to(f32) for c in covs]
+        coverage_global = [(t.to(f64) / n_dev).to(f32) for t in
+                           _all_reduce(cov_means, devices, lambda x: x.to(f64).sum(0))]
+        nm_sums = [torch.where(sh["valid"], sh["nm"], 0.0).to(f64).sum() for sh in shards]
+        nm_counts = [sh["valid"].sum().to(f64) for sh in shards]
+        nm_total = _all_reduce(nm_sums, devices, lambda x: x.sum(0))
+        nm_n = _all_reduce(nm_counts, devices, lambda x: x.sum(0))
+        nm_global = [(a / torch.clamp(b, min=1.0)).to(f32) for a, b in zip(nm_total, nm_n)]
+
+        # each shard's outgoing halo, then ppermute right
+        windows = []
+        halos, overflow = [], []
+        for i, sh in enumerate(shards):
+            my_start = _i32(int(region_offset[i]))
+            my_end = _i32(my_start + cov_len)
+            windows.append((my_start, my_end))
+            in_halo, order = _halo_order(sh["pos"], sh["valid"], my_end, w)
+            out = {k: v[order][:halo_slots] for k, v in sh.items()}
+            out["valid"] = out["valid"] & in_halo[order][:halo_slots]
+            halos.append(out)
+            overflow.append(in_halo.sum(dtype=torch.int32) > halo_slots)
+        incoming = [dict(zip(_SIG_FIELDS, vals)) for vals in zip(
+            *(_ppermute_right([h[k] for h in halos], devices) for k in _SIG_FIELDS))]
+        # shard 0 receives the wrap-around sender; mask it off
+        incoming[0]["valid"] = torch.zeros_like(incoming[0]["valid"])
+        cov_in = _ppermute_right([c[cov_len - cov_halo_len:] for c in covs], devices)
+        cov_in[0] = torch.zeros_like(cov_in[0])
+
+        parts, rounds = [], []
+        for i, (my_start, my_end) in enumerate(windows):
+            ext = {k: torch.cat([incoming[i][k], shards[i][k]]) for k in _SIG_FIELDS}
+            ext_cov = torch.cat([cov_in[i], covs[i]])
+            p = dict(params)
+            p["coverage_global"] = coverage_global[i]
+            p["qc_nm_threshold"] = nm_global[i]
+            step_info = {}
+            out = call_pipeline_step(ext, ext_cov, p, region_offset=_i32(my_start - cov_halo_len),
+                                     binsize=binsize, device=devices[i], info=step_info)
+            rounds.append(step_info["merge_rounds"])
+            owned, span_overflow = _ownership(out["pos_min"], out["pos_max"],
+                                              out["cluster_valid"], my_start, my_end, w, i,
+                                              n_dev, binsize)
+            out["cluster_valid"] = owned
+            out["halo_overflow"] = overflow[i] | span_overflow
+            out["coverage_global"] = coverage_global[i]
+            out["nm_global"] = nm_global[i]
+            parts.append({k: v.cpu().numpy() for k, v in out.items()})
+        if info is not None:
+            info["merge_rounds"] = [int(r) for r in rounds]
+        return {k: np.concatenate([np.atleast_1d(pt[k]) for pt in parts]) for k in parts[0]}
 
     return run
 

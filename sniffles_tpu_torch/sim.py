@@ -606,3 +606,25 @@ def sweep_layout_batches() -> dict[str, np.ndarray]:
         p = last + 100
     return {"head-alone": _layout_batch(head), "bnd-chains": _layout_batch(bnd),
             "cascade": _layout_batch(cascade)}
+
+
+def relax_chain_positions(links: int = 36) -> list[int]:
+    """Signature positions of one INS chain on which the fused engine's
+    relaxation (ops/merge_relax.py) joins one link a round: runs of
+    occupied 100 bp bins, one lead a bin (they coalesce in the first
+    round), each gap wider than 2.5 times the start stdev of the run before
+    it but not of everything before it, and each run wide enough not to be
+    the pair's smaller stdev. Run k merges only once runs 0..k-1 have, so
+    `links` links take links rounds: more than 32 and the cap binds."""
+    def sd(a):
+        a = np.asarray(a, dtype=np.float64)
+        stride = max(len(a) // min(len(a), 100), 1)
+        return a[::stride].std(ddof=1)
+    pos, start, width = [], 100_000, 400
+    for k in range(links):
+        run = list(range(start, start + width + 1, 100))
+        pos.extend(run)
+        gap = (int(2.5 * sd(run) // 100) + (1 if k else 0)) * 100
+        width = int(np.ceil(gap / 2.5 * np.sqrt(12) * 1.05 / 100)) * 100
+        start = run[-1] + 100 + gap
+    return pos

@@ -449,3 +449,152 @@ def test_flush_greedy_on_cuda_matches_plain(card):
         want = run_combine_greedy(payload, meta, "cpu")
         assert got["assign"].tolist() == want["assign"].tolist()
         assert got["flags"].tolist() == want["flags"].tolist()
+
+
+# ---------------------------------------------------------------------------
+# the fused engine's kernels: the relaxation and the candidate tail
+
+RELAX = dict(cluster_r=2.5, cluster_repeat_h=1.5, cluster_repeat_h_max=1000.0,
+             cluster_merge_bnd=1000, global_repeat=False, binsize=100)
+
+
+def engine_sig(kind, size=4096):
+    """Signature batches for the engine's kernels: synthetic sites, the
+    36-link chain (the relaxation's 32-round cap binds), one segment, all
+    slots invalid, a single slot."""
+    from sniffles_tpu_torch.signatures import synthetic_batch
+    from sniffles_tpu_torch.sim import relax_chain_positions
+    if kind.startswith("synthetic"):
+        return synthetic_batch(3000, 60, seed=int(kind[-1]), genome_span=2_000_000,
+                               batch_size=size).as_dict()
+    b = synthetic_batch(0, 1, seed=1, batch_size=size if kind != "single" else 1)
+    sig = b.as_dict()
+    pos = {"chain36": relax_chain_positions(36), "one-segment": list(range(5_000, 5_090, 3)),
+           "all-invalid": [], "single": [7_000]}[kind]
+    n = len(pos)
+    sig["pos"][:n], sig["svlen"][:n], sig["valid"][:n] = pos, 100, True
+    sig["read_id"][:n] = np.arange(n)
+    return sig
+
+
+ENGINE_KINDS = ["synthetic-1", "synthetic-2", "chain36", "one-segment", "all-invalid", "single"]
+
+
+@pytest.mark.parametrize("kind", ENGINE_KINDS)
+def test_merge_relax_kernel_matches_plain_version(card, kind):
+    from sniffles_tpu_torch.ops import merge_relax as tmr
+    sig = {k: torch.as_tensor(v) for k, v in engine_sig(kind).items()}
+    s, boundary, bin_ = tc.sort_and_seed(sig, 100)
+    want, want_rounds = tmr.merge_relax_plain(s, boundary, bin_, **RELAX)
+    launches = tmr.COUNTS["launches"]
+    got, rounds = tmr.merge_relax({k: v.to(card) for k, v in s.items()}, boundary.to(card),
+                                  bin_.to(card), **RELAX)
+    torch.cuda.synchronize()
+    assert tmr.COUNTS["launches"] == launches + 1
+    assert got.cpu().tolist() == want.tolist()
+    assert int(rounds) == want_rounds
+    if kind == "chain36":
+        assert want_rounds == 32
+
+
+def test_merge_relax_kernel_makes_no_host_sync(card):
+    from sniffles_tpu_torch.ops import merge_relax as tmr
+    sig = {k: torch.as_tensor(v).to(card) for k, v in engine_sig("chain36").items()}
+    s, boundary, bin_ = tc.sort_and_seed(sig, 100)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        tmr.merge_relax(s, boundary, bin_, **RELAX)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+
+
+def engine_params(flags):
+    from sniffles_tpu_torch.parallel.engine import default_params
+    p = default_params()
+    if flags == "mosaic":
+        p["mosaic"] = 1
+    elif flags == "auto-qc-nm":
+        p.update(minsupport_is_auto=1, qc_nm=1, qc_nm_threshold=0.02, coverage_global=27.5)
+    return p
+
+
+@pytest.mark.parametrize("flags", ["default", "mosaic", "auto-qc-nm"])
+@pytest.mark.parametrize("kind", ["synthetic-3", "all-invalid", "outside"])
+def test_candidate_tail_kernel_matches_plain_version(card, kind, flags):
+    """The tail on the card against its plain version on CPU copies of the
+    same statistics; "outside": a coverage window shorter than the sites'
+    span and offset, so probes fall on both sides of it."""
+    from sniffles_tpu_torch.ops import candidate_tail as ct
+    from sniffles_tpu_torch.ops.segments import seg_sum
+    sig = {k: torch.as_tensor(v) for k, v in engine_sig(
+        "synthetic-3" if kind == "outside" else kind).items()}
+    params = engine_params(flags)
+    clustered = tc.cluster_signatures(sig, cluster_r=2.5, cluster_repeat_h=1.5,
+                                      cluster_repeat_h_max=1000.0, cluster_merge_bnd=1000,
+                                      cluster_merge_len=0.22, minsvlen=50, exact_sweep=False)
+    stats = tc.call_statistics(clustered, fused=True)
+    n = stats["svtype"].shape[0]
+    support_sa = seg_sum((clustered["valid"] & (clustered["sa"] > 0)).to(torch.int32),
+                         clustered["cluster_id"], n)
+    rng = np.random.default_rng(4)
+    cov_len, offset = (400_000, 300_000) if kind == "outside" else (2_200_000, 0)
+    coverage = torch.as_tensor(rng.integers(0, 60, cov_len).astype(np.int32))
+    want = ct.candidate_tail(stats, support_sa, coverage, clustered, params,
+                             region_offset=offset)
+    launches = ct.COUNTS["launches"]
+    got = ct.candidate_tail({k: v.to(card) if isinstance(v, torch.Tensor) else v
+                             for k, v in stats.items()}, support_sa.to(card),
+                            coverage.to(card), {k: v.to(card) for k, v in clustered.items()
+                                                if isinstance(v, torch.Tensor)},
+                            params, region_offset=offset)
+    torch.cuda.synchronize()
+    assert ct.COUNTS["launches"] == launches + 1
+    assert set(got) == set(want)
+    for k, v in want.items():
+        g = got[k].cpu()
+        assert g.dtype == v.dtype, k
+        if v.dtype == torch.float32:
+            assert g.view(torch.int32).tolist() == v.view(torch.int32).tolist(), k
+        else:
+            assert g.tolist() == v.tolist(), k
+
+
+def test_engine_step_on_cuda_matches_the_cpu(card):
+    """call_pipeline_step on the card == on the CPU, every key bit for bit;
+    each kernel launched once."""
+    from sniffles_tpu_torch.ops import candidate_tail as ct, merge_relax as tmr
+    from sniffles_tpu_torch.parallel.engine import call_pipeline_step
+    sig = engine_sig("synthetic-2")
+    coverage = np.full(2_200_000, 30, dtype=np.int32)
+    params = engine_params("default")
+    want = call_pipeline_step(sig, coverage, params, device="cpu")
+    before = (tmr.COUNTS["launches"], ct.COUNTS["launches"])
+    got = call_pipeline_step(sig, coverage, params, device=card)
+    torch.cuda.synchronize()
+    assert (tmr.COUNTS["launches"], ct.COUNTS["launches"]) == (before[0] + 1, before[1] + 1)
+    for k, v in want.items():
+        g = got[k].cpu()
+        assert g.dtype == v.dtype, k
+        if v.dtype == torch.float32:
+            assert g.view(torch.int32).tolist() == v.view(torch.int32).tolist(), k
+        else:
+            assert g.tolist() == v.tolist(), k
+
+
+def test_sharded_step_on_cuda_matches_the_cpu(card):
+    """build_sharded_step with 4 shards on the card == 4 CPU shards: every
+    integer output and the overflow flags."""
+    from sniffles_tpu_torch.parallel.engine import default_params
+    from sniffles_tpu_torch.parallel.mesh import build_sharded_step, shard_batch
+    from sniffles_tpu_torch.signatures import synthetic_batch
+    sig = shard_batch(synthetic_batch(4000, 80, seed=3, genome_span=400_000,
+                                      batch_size=4096).as_dict(), 4)
+    coverage = np.full(4 * 131072, 30, dtype=np.int32)
+    offs = np.arange(4, dtype=np.int32) * 131072
+    runs = [build_sharded_step([d] * 4, default_params(), halo_bp=2000, halo_slots=256)(
+        sig, coverage, offs) for d in ("cpu", card)]
+    for k, v in runs[0].items():
+        if v.dtype != np.float32:
+            assert runs[1][k].tolist() == v.tolist(), k

@@ -5,7 +5,8 @@ pool), it loads its own build of the native host library and never the
 JAX package's native/libbamcore.so, and without a card it raises unless
 the CPU was asked for. Its device daemon serves with both blocked too,
 and so does --tpu-mesh (parallel/mesh.py, distributed.py and the modules
-under them). Options refused before their slices were ported (--threads N
+under them), and the fused engine's step and its sharded step
+(parallel/engine.py, build_sharded_step). Options refused before their slices were ported (--threads N
 with the device path, --dev-cache, --dev-locasm-do, .cram input,
 --tpu-mesh) now run."""
 import json
@@ -56,6 +57,46 @@ def test_port_sources_import_no_jax():
         assert "from sniffles_tpu " not in text, path
         assert not _IMPORT.search(text), path
         assert not _DYNAMIC.search(text), path
+
+
+def test_source_scan_covers_the_engine_modules():
+    scanned = {os.path.relpath(p, PORT) for p in port_sources()}
+    assert {"signatures.py", "parallel/engine.py", "parallel/mesh.py", "ops/coverage.py",
+            "ops/genotype_batch.py", "ops/qc_batch.py", "ops/merge_relax.py",
+            "ops/candidate_tail.py", "csrc/merge_relax.cu", "csrc/candidate_tail.cu",
+            "csrc/range_metrics.cuh"} <= scanned
+
+
+def test_engine_and_sharded_step_run_with_jax_blocked():
+    """call_pipeline_step and build_sharded_step (4 shards) on the CPU in a
+    process where jax and sniffles_tpu cannot be imported."""
+    code = """
+import sys
+sys.modules["jax"] = None          # any import of jax now raises
+sys.modules["sniffles_tpu"] = None
+import numpy as np
+from sniffles_tpu_torch.signatures import synthetic_batch
+from sniffles_tpu_torch.parallel.engine import call_pipeline_step, default_params
+from sniffles_tpu_torch.parallel.mesh import build_sharded_step, shard_batch
+b = synthetic_batch(3000, 50, seed=5, genome_span=400_000, batch_size=4096)
+out = call_pipeline_step(b.as_dict(), np.full(500_000, 30, np.int32), default_params())
+assert int(out["n_clusters"]) >= 50 and int(out["cluster_valid"].sum()) >= 50
+sig = shard_batch(b.as_dict(), 4)
+step = build_sharded_step(["cpu"] * 4, default_params(), halo_bp=5000, halo_slots=256)
+meshed = step(sig, np.full(4 * 131072, 30, np.int32), np.arange(4, dtype=np.int32) * 131072)
+assert meshed["halo_overflow"].shape == (4,) and int(meshed["cluster_valid"].sum()) > 0
+assert sys.modules["jax"] is None
+loaded = [m for m in sys.modules if m == "sniffles_tpu" or m.startswith("sniffles_tpu.")]
+assert loaded == ["sniffles_tpu"], loaded
+print("OK")
+"""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    env["SNIFFLES_TPU_FORCE_CPU"] = "1"
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, env=env,
+                       timeout=300)
+    assert r.returncode == 0, r.stdout[-3000:] + r.stderr[-3000:]
+    assert r.stdout.strip().endswith("OK")
 
 
 def test_combine_runs_with_jax_blocked(tmp_path):
@@ -170,11 +211,11 @@ def runs_like_threads_0(inputs, extra, tmp_path):
     pytest.param(["--threads", "0", "--dev-locasm-do"], id="local-assembly"),
     pytest.param(["--threads", "0", "--tpu-mesh", "2"], id="tpu-mesh"),
 ])
-def test_unported_call_sample_options_are_refused(extra, tmp_path):
+def test_formerly_refused_call_sample_options_run(extra, tmp_path):
     """--threads N with the device path, --genotype-vcf, --snf, --dev-cache,
     --dev-locasm-do and --tpu-mesh were refused before their slices were
-    ported, and the test keeps the name it had then; none is refused now,
-    and each case checks that its command line runs: --threads 4, --snf, --dev-cache
+    ported; none is refused now, and each case checks that its command
+    line runs: --threads 4, --snf, --dev-cache
     (which writes the task's leadtab to its cache directory),
     --dev-locasm-do (no call of this sample is filtered, so nothing is
     assembled) and --tpu-mesh 2 give the records of --threads 0, and force
@@ -235,7 +276,7 @@ def test_no_card_without_cpu_request_raises(monkeypatch, tmp_path):
     assert torch_device() == "cpu"
 
 
-def test_threads_with_device_path_is_refused(tmp_path):
+def test_threads_with_device_path_runs(tmp_path):
     """Refused before the worker pool was ported; now --threads 4 on .snf
     inputs runs the device path through the parent's device service."""
     # the cohort is written in a process of its own: in this one the JAX

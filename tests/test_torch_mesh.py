@@ -18,10 +18,15 @@ where the merge-sweep wrapper takes its plain version):
     doubled-halo retry, the exhausted halo (MeshHaloOverflow, and the
     task's counted host route), the head freeze off shard 0, and the
     sender's span overflow;
+  * build_sharded_step (the fused engine's step) on 4 CPU shards against
+    the JAX step on 4 virtual devices, on tests/test_mesh.py's planted and
+    straddling cases, and its overflow flags;
   * mesh_devices' placement and refusals, and the service's mesh kinds.
 
 Tolerance: 0. Every integer output is compared bit for bit, the float32
-support mean by its bits. The JAX mesh step runs its sequential sweep
+support mean by its bits; the engine step's global coverage and NM means
+within 2^-20 relative (MEAN_RTOL), its other float32 outputs by their
+bits. The JAX mesh step runs its sequential sweep
 (`_FORCE_SEQ_SWEEP`, as tests/test_torch_clustering.py does): its default
 grid sweep keeps unsound cuts on some batches (ROADMAP C), and where its
 grid and sequential mesh rows differ the count is reported."""
@@ -598,6 +603,142 @@ def test_mesh_sender_span_overflow_forces_retry(jax_sequential):
     assert cluster_records(mesh) == cluster_records(theirs)
     assert keyset(mesh) == keyset(single)
     assert len([k for k in keyset(single) if len(k[1]) > 200]) == 1
+
+
+# ---------------------------------------------------------------------------
+# the fused engine's sharded step (build_sharded_step) on 4 shards
+
+STEP_SHARDS = 4
+# the global means are float32 reductions in XLA's order on the JAX side
+# and float64 sums rounded once here: equal within 2^-20 relative
+MEAN_RTOL = 2.0 ** -20
+
+
+def planted_step_case(per_dev, cov_per_dev, seed, straddle_types):
+    """tests/test_mesh.py::_planted_shard_batch on STEP_SHARDS shards:
+    interior clusters of mixed svtypes on every shard, and a straddling
+    cluster of each requested svtype at successive shard boundaries; NM
+    values drawn from the seed."""
+    n_dev = STEP_SHARDS
+    rng = np.random.default_rng(seed)
+    total = per_dev * n_dev
+    sig = {k: np.zeros(total, dtype=np.int32) for k in ("pos", "svlen", "svtype", "read_id")}
+    sig["strand"] = np.ones(total, dtype=np.int32)
+    sig["mapq"] = np.full(total, 60, dtype=np.int32)
+    sig["nm"] = np.zeros(total, dtype=np.float32)
+    for k in ("repeat", "sa", "valid"):
+        sig[k] = np.zeros(total, dtype=bool)
+    next_slot = [s * per_dev for s in range(n_dev)]
+
+    def add(shard, pos, svlen, svtype, n_sig):
+        for _ in range(n_sig):
+            i = next_slot[shard]
+            sig["pos"][i] = pos + int(rng.integers(-12, 13))
+            sig["svlen"][i] = svlen + int(rng.integers(-3, 4))
+            sig["svtype"][i] = svtype
+            sig["read_id"][i] = i + 1
+            sig["strand"][i] = int(rng.choice((-1, 1)))
+            sig["mapq"][i] = int(rng.integers(30, 60))
+            sig["nm"][i] = rng.random() * 0.05
+            sig["sa"][i] = rng.random() < 0.3
+            sig["valid"][i] = True
+            next_slot[shard] += 1
+
+    for s in range(n_dev):
+        for c in range(3):
+            pos = s * cov_per_dev + 8_000 + c * 15_000 + int(rng.integers(0, 4_000))
+            svtype = int(rng.integers(0, 4))
+            add(s, pos, int(rng.integers(60, 1500)) * (-1 if svtype == 1 else 1), svtype,
+                int(rng.integers(4, 9)))
+    for b, svtype in enumerate(straddle_types):
+        right = b % (n_dev - 1) + 1
+        svlen = int(rng.integers(80, 900)) * (-1 if svtype == 1 else 1)
+        add(right - 1, right * cov_per_dev - 40, svlen, svtype, 5)
+        add(right, right * cov_per_dev + 40, svlen, svtype, 5)
+    return sig
+
+
+def straddling_step_case(per_dev):
+    """tests/test_mesh.py's 20-signature INS cluster split 10/10 across the
+    first shard boundary."""
+    total = per_dev * STEP_SHARDS
+    sig = {k: np.zeros(total, dtype=np.int32) for k in ("pos", "svlen", "svtype", "mapq")}
+    sig["read_id"] = np.arange(total, dtype=np.int32)
+    sig["strand"] = np.ones(total, dtype=np.int32)
+    sig["mapq"][:] = 60
+    sig["nm"] = np.zeros(total, dtype=np.float32)
+    for k in ("repeat", "sa", "valid"):
+        sig[k] = np.zeros(total, dtype=bool)
+    for i in range(10):
+        for j, p in ((i, 65400 + i), (per_dev + i, 65560 + i)):
+            sig["pos"][j], sig["svlen"][j], sig["valid"][j] = p, 100, True
+    return sig
+
+
+@pytest.fixture(scope="module")
+def jax_step_mesh():
+    if len(jax.devices()) < STEP_SHARDS:
+        pytest.skip("needs 4 virtual devices")
+    return jmesh.make_genome_mesh(STEP_SHARDS)
+
+
+STEP_CASES = {"planted-3": (128, 3), "planted-17": (128, 17), "planted-99": (128, 99),
+              "straddling": (64, None)}
+
+
+@pytest.mark.parametrize("case", list(STEP_CASES))
+def test_sharded_step_matches_jax(case, jax_step_mesh):
+    from sniffles_tpu.parallel.engine import default_params as jax_default_params
+    from sniffles_tpu_torch.parallel.engine import default_params
+    per_dev, seed = STEP_CASES[case]
+    cov_per_dev = 65536
+    sig = (planted_step_case(per_dev, cov_per_dev, seed, [0, 1, 2, 3, 4, 0, 1, 4, 2, 3])
+           if seed is not None else straddling_step_case(per_dev))
+    sig = tmesh.shard_batch(sig, STEP_SHARDS)
+    coverage = np.full(cov_per_dev * STEP_SHARDS, 25, dtype=np.int32)
+    coverage[cov_per_dev - 3000:cov_per_dev + 500] = 31
+    offs = np.arange(STEP_SHARDS, dtype=np.int32) * cov_per_dev
+    halo_slots = 128 if seed is not None else 64
+    key = ("step", STEP_SHARDS, halo_slots)
+    if key not in _JAX_STEPS:
+        _JAX_STEPS[key] = jmesh.build_sharded_step(jax_step_mesh, jax_default_params(),
+                                                   halo_bp=5000, halo_slots=halo_slots)
+    theirs = _JAX_STEPS[key]({k: jnp.asarray(v) for k, v in sig.items()},
+                             jnp.asarray(coverage), jnp.asarray(offs))
+    theirs = {k: np.asarray(v) for k, v in theirs.items()}
+    info = {}
+    ours = tmesh.build_sharded_step(["cpu"] * STEP_SHARDS, default_params(), halo_bp=5000,
+                                    halo_slots=halo_slots)(sig, coverage, offs, info=info)
+    assert set(ours) == set(theirs)
+    for k, v in theirs.items():
+        if k in ("coverage_global", "nm_global"):
+            np.testing.assert_allclose(ours[k], v, rtol=MEAN_RTOL, atol=0)
+        elif v.dtype == np.float32:
+            assert ours[k].view(np.int32).tolist() == v.view(np.int32).tolist(), k
+        else:
+            assert ours[k].dtype == v.dtype and ours[k].tolist() == v.tolist(), k
+    assert not ours["halo_overflow"].any()
+    assert len(info["merge_rounds"]) == STEP_SHARDS
+    if seed is None:
+        # emitted once, with the full union's 20 reads
+        owned = np.nonzero(ours["cluster_valid"])[0]
+        assert len(owned) == 1 and ours["support"][owned[0]] == 20
+
+
+def test_sharded_step_reports_a_halo_overflow(jax_step_mesh):
+    """More halo signatures than slots: JAX's and the port's flags agree."""
+    from sniffles_tpu.parallel.engine import default_params as jax_default_params
+    from sniffles_tpu_torch.parallel.engine import default_params
+    sig = planted_step_case(128, 65536, 5, [0, 1, 2, 3, 4, 0, 1, 4, 2, 3])
+    coverage = np.full(65536 * STEP_SHARDS, 25, dtype=np.int32)
+    offs = np.arange(STEP_SHARDS, dtype=np.int32) * 65536
+    step = jmesh.build_sharded_step(jax_step_mesh, jax_default_params(), halo_bp=5000,
+                                    halo_slots=4)
+    theirs = np.asarray(step({k: jnp.asarray(v) for k, v in sig.items()},
+                             jnp.asarray(coverage), jnp.asarray(offs))["halo_overflow"])
+    ours = tmesh.build_sharded_step(["cpu"] * STEP_SHARDS, default_params(), halo_bp=5000,
+                                    halo_slots=4)(sig, coverage, offs)["halo_overflow"]
+    assert theirs.any() and ours.tolist() == theirs.tolist()
 
 
 # ---------------------------------------------------------------------------
