@@ -153,7 +153,12 @@ Phases, each of which must pass:
      its plain version on the card (bit for bit) and timed (CUDA events)
      beside its bound, the relaxation's rounds, the step's device time,
      signatures a second, peak device memory and host synchronisations
-     (none inside the relaxation: set_sync_debug_mode("error")).
+     (none inside the relaxation: set_sync_debug_mode("error")); the
+     relaxation again on 2^21 slots of the tiled 36-link chain
+     (sim.relax_chain_batch: the 32-round cap binds), held against its
+     plain version (boundaries and rounds), timed beside it and its bound,
+     with no host synchronisation; the tail's registers and spills from
+     phase 1's ptxas report.
 Then (5) the kernels' timings on the inputs of the main paths' largest
 launches (CUDA events) beside their bounds and plain versions, the
 sweep's device time on phase 2b's fuzz batches and chain, the fused
@@ -2234,7 +2239,42 @@ def tail_bytes(stats, coverage, region_offset, binsize=100):
     return n * (36 + 9 + 60) + 4 * distinct
 
 
-def time_engine_kernels(sig, coverage, params):
+def relax_bound_ms(n, rounds):
+    """(bound ms, int32 operations, "bytes" or "operations") of a
+    relaxation over n slots that ran `rounds` rounds: each element walked
+    once a round by its head, RELAX_OPS_PER_ELEMENT operations."""
+    ops = RELAX_OPS_PER_ELEMENT * n * rounds
+    by_bytes, by_ops = relax_bytes(n) / HBM_BYTES_PER_S, ops / INT32_OPS_PER_S
+    return max(by_bytes, by_ops) * 1e3, ops, "bytes" if by_bytes >= by_ops else "operations"
+
+
+def no_relax_sync(tmr, s, boundary, bin_, relax):
+    """One relaxation under torch.cuda.set_sync_debug_mode("error"): a host
+    synchronisation raises."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        tmr.launch_merge_relax(s, boundary, bin_, **relax)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
+def ptxas_summary(log, kernel):
+    """ptxas's registers and spills of `kernel` from a -Xptxas -v build log."""
+    lines = log.splitlines()
+    for i, line in enumerate(lines):
+        if "Compiling entry" in line and kernel in line:
+            stats = []
+            for ln in lines[i + 1:i + 6]:
+                if "Compiling entry" in ln:
+                    break
+                if "registers" in ln or "spill" in ln:
+                    stats.append(ln.split("info    :", 1)[-1].strip())
+            return "; ".join(stats)
+    return "not in the build log"
+
+
+def time_engine_kernels(sig, coverage, params, ptxas_log):
     """(d): the two kernels' CUDA-event times on the step's 2^21 inputs, their
     plain versions on the card, their bounds; the step's device time,
     signatures a second (bench.py's measure: 3 repeats of 10 steps), peak
@@ -2256,24 +2296,34 @@ def time_engine_kernels(sig, coverage, params):
     relax_ms = queued_ms(lambda: tmr.launch_merge_relax(s, boundary, bin_, **relax), 10)
     relax_call_ms = cuda_ms(lambda: tmr.launch_merge_relax(s, boundary, bin_, **relax), 10)
     relax_plain_ms = cuda_ms(lambda: tmr.merge_relax_plain(s, boundary, bin_, **relax), 3)
-    torch.cuda.synchronize()
-    torch.cuda.set_sync_debug_mode("error")
-    try:
-        tmr.launch_merge_relax(s, boundary, bin_, **relax)
-    finally:
-        torch.cuda.set_sync_debug_mode(0)
-    # the relaxation's work: each element walked once a round by its head,
-    # RELAX_OPS_PER_ELEMENT int32 operations
-    relax_ops = RELAX_OPS_PER_ELEMENT * n * want_rounds
-    relax_bound = max(relax_bytes(n) / HBM_BYTES_PER_S, relax_ops / INT32_OPS_PER_S) * 1e3
+    no_relax_sync(tmr, s, boundary, bin_, relax)
+    relax_bound, relax_ops, relax_by = relax_bound_ms(n, want_rounds)
     print(f"  merge_relax n={n}: {want_rounds} rounds; kernel {relax_ms:.4f} ms on the device "
-          f"(all 32 rounds enqueued, the rounds after the fixed point exit at once; "
-          f"{relax_call_ms:.4f} ms a call of the wrapper, host-bound), plain {relax_plain_ms:.2f}"
+          f"(one cooperative launch of {tmr.resident_grid(boundary.device)} blocks; "
+          f"{relax_call_ms:.4f} ms a call of the wrapper), plain {relax_plain_ms:.2f}"
           f" ms, == plain (bit-exact), no host synchronisation (sync debug mode 'error'); "
           f"bound {relax_bound * 1e3:.3f} us ({relax_bytes(n)} bytes at "
           f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s; {relax_ops} int32 ops at "
           f"{INT32_OPS_PER_S / 1e12:.1f} Tops/s), {relax_bound / relax_ms:.3%} of it",
           flush=True)
+    from sniffles_tpu_torch.sim import relax_chain_batch
+    chain = {k: torch.as_tensor(v).cuda() for k, v in relax_chain_batch(n).items()}
+    cs, cboundary, cbin = tc.sort_and_seed(chain, 100)
+    got, rounds = tmr.launch_merge_relax(cs, cboundary, cbin, **relax)
+    want, chain_rounds = tmr.merge_relax_plain(cs, cboundary, cbin, **relax)
+    if (not torch.equal(got, want) or int(rounds) != chain_rounds
+            or chain_rounds != tmr.MERGE_ITERS_MAX):
+        fail(f"merge_relax kernel differs from its plain version on the tiled chain "
+             f"({int(rounds)} rounds against {chain_rounds})")
+    chain_ms = queued_ms(lambda: tmr.launch_merge_relax(cs, cboundary, cbin, **relax), 10)
+    chain_plain_ms = cuda_ms(lambda: tmr.merge_relax_plain(cs, cboundary, cbin, **relax), 3)
+    no_relax_sync(tmr, cs, cboundary, cbin, relax)
+    chain_bound, chain_ops, chain_by = relax_bound_ms(n, chain_rounds)
+    print(f"  merge_relax on the tiled chain n={n} ({int(chain['valid'].sum())} leads, "
+          f"{int(cboundary.sum())} seed heads, {int(want.sum())} after): {chain_rounds} rounds, "
+          f"== plain (bit-exact), no host synchronisation; kernel {chain_ms:.4f} ms, plain "
+          f"{chain_plain_ms:.2f} ms; bound {chain_bound * 1e3:.3f} us ({chain_by}: "
+          f"{chain_ops} int32 ops), {chain_bound / chain_ms:.3%} of it", flush=True)
 
     clustered = tc.cluster_signatures(sig, minsvlen=params["minsvlen"],
                                       cluster_merge_len=params["cluster_merge_len"],
@@ -2301,6 +2351,8 @@ def time_engine_kernels(sig, coverage, params):
     tail_bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
     tail_ops_ms = tail_ops / FP32_OPS_PER_S * 1e3
     tail_bound = max(tail_bytes_ms, tail_ops_ms)
+    print(f"  candidate_tail ptxas: {ptxas_summary(ptxas_log, 'candidate_tail_kernel')}",
+          flush=True)
     print(f"  candidate_tail n={n}: kernel {tail_ms:.4f} ms on the device ({tail_call_ms:.4f} "
           f"ms a call of the wrapper), plain {tail_plain_ms:.2f} ms on "
           f"the card, == plain on the CPU copies (bit-exact); bound {tail_bound * 1e3:.3f} us ({n_bytes} bytes at "
@@ -2334,13 +2386,12 @@ def time_engine_kernels(sig, coverage, params):
     if in_relax:
         fail(f"the relaxation synchronised with the host {in_relax} times")
     return ({"ms": relax_ms, "plain_ms": relax_plain_ms, "bound_ms": relax_bound,
-             "bound_by": "bytes" if relax_bytes(n) / HBM_BYTES_PER_S
-             >= relax_ops / INT32_OPS_PER_S else "operations"},
+             "bound_by": relax_by},
             {"ms": tail_ms, "plain_ms": tail_plain_ms, "bound_ms": tail_bound,
              "bound_by": "bytes" if tail_bytes_ms >= tail_ops_ms else "operations"})
 
 
-def run_engine(tmp, dense_bam):
+def run_engine(tmp, dense_bam, ptxas_log):
     """Phase 10 (see the module's docstring). Returns (the kernels' launches
     on its main path, the timing rows of both kernels)."""
     from sniffles_tpu_torch.ops import candidate_tail as ct, merge_relax as tmr
@@ -2406,7 +2457,7 @@ def run_engine(tmp, dense_bam):
         fail(f"phase 10's main path left a kernel unlaunched: {launches}")
 
     print("[10d] timings at 2^21 signatures", flush=True)
-    rows = time_engine_kernels(big, coverage, params)
+    rows = time_engine_kernels(big, coverage, params, ptxas_log)
     print(f"    phase 10 took {time.perf_counter() - t_phase:.1f} s", flush=True)
     return launches, rows
 
@@ -2638,7 +2689,7 @@ def main() -> int:
     print("[10] the fused calling engine (parallel/engine.py) and its two kernels",
           flush=True)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_engine_") as tmp:
-        engine_launches, engine_rows = run_engine(tmp, dense_args[1])
+        engine_launches, engine_rows = run_engine(tmp, dense_args[1], logs["candidate_tail"])
 
     print("[5] kernel timings on the main paths' largest launches", flush=True)
     timing = time_ed_kernel([x.cuda() for x in largest])

@@ -455,9 +455,40 @@ def _merge_candidate_csvs(config, finished_tasks):
                 os.unlink(part)
 
 
+def _attach_remote_debugger(port: int) -> None:
+    """--dev-debug PORT: attach to an IDE debug server on localhost
+    (reference: sniffles:70-81 via pydevd_pycharm; copied from the JAX
+    package's cli.py). Tries pydevd_pycharm, pydevd, then debugpy; logs a
+    warning and continues when none is importable or the connection
+    fails."""
+    try:
+        try:
+            import pydevd_pycharm
+            pydevd_pycharm.settrace('localhost', port=port, stdoutToServer=True,
+                                    stderrToServer=True)
+            return
+        except ImportError:
+            pass
+        try:
+            import pydevd
+            pydevd.settrace('localhost', port=port, stdout_to_server=True,
+                            stderr_to_server=True)
+            return
+        except ImportError:
+            pass
+        import debugpy
+        debugpy.connect(("localhost", port))
+        log.info(f"Attached debugpy client to localhost:{port}")
+    except Exception as e:
+        log.warning(f"--dev-debug {port}: could not attach a remote debugger "
+                    f"(pydevd_pycharm/pydevd/debugpy): {e}")
+
+
 def main_with_config(config: SnifflesConfig, processes: list) -> int:
     from sniffles_tpu_torch.resmon import ResourceMonitor
 
+    if getattr(config, "dev_debug", None):
+        _attach_remote_debugger(config.dev_debug)
     if config.no_progress:
         logging.getLogger('sniffles_tpu_torch.progress').setLevel(logging.CRITICAL)
     if config.dev_debug_log:

@@ -21,18 +21,25 @@
 //   * int32 index arithmetic wraps; `//` of the centre is floor division;
 //   * the cluster's NM sum adds its contiguous run of elements in array
 //     order in float32, as XLA's scatter-add does (cluster ids ascend
-//     along the array; the thread finds its run by binary search);
+//     along the array; a first pass, tail_runs, writes the run's start,
+//     the lower bound of each cluster id, so a slot reads its run's two
+//     ends instead of searching for them);
 //   * the stable descending sort of the three likelihoods puts NaN last,
 //     as torch.argsort of -lq does; torch.minimum propagates NaN, and a
 //     NaN or infinite float cast to int32 is INT32_MIN, as on the CPU.
 // Parameters: the struct TailParams (by value; ops/candidate_tail.py builds
-// it field for field) and, on the device, coverage_global and
-// qc_nm_threshold (a mesh's reductions), so nothing waits for the host.
+// it field for field) and, where they are tensors on the device (a mesh's
+// reductions), coverage_global and qc_nm_threshold in dyn, so nothing waits
+// for the host; where they are numbers they ride in the struct and dyn is
+// null. Boolean columns in and out are the bytes of torch bool tensors.
 //
 // Bound: bytes. A slot reads about 60 bytes of statistics, its cluster's
 // NM run (4 bytes an element) and five coverage samples, and writes 65
 // bytes; a few hundred float operations a slot are far below the card's
-// rate.
+// rate. A slot's loads are independent but for its coverage probes (they
+// need its position) and its NM run, whose ends the run-start pass gives
+// (scratch, n + 1 int32, not counted in the bound), so the run's loads go
+// out ahead of the in-order sum; the wrapper launches no conversion.
 
 #include <climits>
 #include <cmath>
@@ -67,6 +74,7 @@ struct TailParams {
       mosaic_af_max, mosaic_min_reads, mosaic_use_strand_thresholds,
       mosaic_qc_invdup_min_length, max_svlen_mosaic;
   float log10_err, log10_1m_err, log10_het, log10_1m_het, log10_1m_1m_err;
+  float coverage_global, qc_nm_threshold;  // unless dyn holds them on the device
   int minsvlen, minsvlen_screen, minsvlen_hard_cap, qc_stdev, qc_strand,
       qc_bnd_filter_strand, qc_nm, minsupport_is_auto, mosaic, mosaic_qc_strand,
       mosaic_include_germline, detect_large_ins;
@@ -131,14 +139,28 @@ __device__ __forceinline__ bool before(float a, float b) {
   return na < nb;
 }
 
+// run_start[c] = the first element j with cluster_id[j] >= c, for every c
+// up to cluster_id[n - 1] + 1 (cluster ids ascend along the array): the
+// element j writes the ids in (cluster_id[j - 1], cluster_id[j]], and the
+// end (j = n) the one past the last id.
+__global__ void __launch_bounds__(kThreads) tail_runs(const int32_t* __restrict__ cluster_id,
+                                                      int32_t* __restrict__ run_start, int n) {
+  const int j = blockIdx.x * blockDim.x + threadIdx.x;
+  if (j > n) return;
+  const int from = j == 0 ? 0 : max(cluster_id[j - 1] + 1, 0);
+  const int to = j == n ? (from <= n ? from : -1) : min(cluster_id[j], n);
+  for (int c = from; c <= to; ++c) run_start[c] = j;
+}
+
 __global__ void __launch_bounds__(kThreads) candidate_tail_kernel(
     const int32_t* __restrict__ svtype_, const int32_t* __restrict__ svlen_,
     const int32_t* __restrict__ pos_, const int32_t* __restrict__ support_,
     const int32_t* __restrict__ lead_count_, const int32_t* __restrict__ n_strands_,
     const float* __restrict__ stdev_pos_, const float* __restrict__ stdev_len_,
     const float* __restrict__ nm, const uint8_t* __restrict__ valid,
-    const int32_t* __restrict__ cluster_id, const int32_t* __restrict__ n_clusters,
-    const int32_t* __restrict__ support_sa_, const int32_t* __restrict__ cov, const float* dyn,
+    const int32_t* __restrict__ cluster_id, const int32_t* __restrict__ run_start,
+    const int32_t* __restrict__ n_clusters, const int32_t* __restrict__ support_sa_,
+    const int32_t* __restrict__ cov, const float* __restrict__ dyn,
     int32_t* out_i, float* out_f, uint8_t* out_b, int n, int len, int region_offset,
     int binsize, TailParams p) {
   const int c = blockIdx.x * blockDim.x + threadIdx.x;
@@ -146,19 +168,20 @@ __global__ void __launch_bounds__(kThreads) candidate_tail_kernel(
   const int svtype = svtype_[c], svlen = svlen_[c], support = support_[c];
   const int lead_count = lead_count_[c], n_strands = n_strands_[c];
   const float stdev_pos = stdev_pos_[c], stdev_len = stdev_len_[c];
-  const float coverage_global = dyn[0], qc_nm_threshold = dyn[1];
+  const float coverage_global = dyn != nullptr ? dyn[0] : p.coverage_global;
+  const float qc_nm_threshold = dyn != nullptr ? dyn[1] : p.qc_nm_threshold;
   const int abs_svlen = wrap_abs(svlen);
 
-  // the cluster's mean NM: its run of elements, summed in array order (a
-  // slot past the last cluster id has none, and skips the search)
-  int lo = c <= cluster_id[n - 1] ? 0 : n, hi = n;
-  while (lo < hi) {
-    const int mid = lo + (hi - lo) / 2;
-    if (cluster_id[mid] < c) lo = mid + 1; else hi = mid;
-  }
+  // the cluster's mean NM: its run of elements [run_start[c],
+  // run_start[c + 1]), summed in array order (a slot past the last cluster
+  // id has none)
   float nm_sum = 0.0f;
-  for (int j = lo; j < n && cluster_id[j] == c; ++j) {
-    nm_sum = __fadd_rn(nm_sum, valid[j] ? nm[j] : 0.0f);
+  if (c <= cluster_id[n - 1]) {
+    const int hi = run_start[c + 1];
+#pragma unroll 4
+    for (int j = run_start[c]; j < hi; ++j) {
+      nm_sum = __fadd_rn(nm_sum, valid[j] ? nm[j] : 0.0f);
+    }
   }
   const float nm_mean = __fdiv_rn(nm_sum, static_cast<float>(lead_count > 1 ? lead_count : 1));
 
@@ -382,20 +405,26 @@ __global__ void __launch_bounds__(kThreads) candidate_tail_kernel(
 // svlen, pos, support, lead_count, n_strands int32; stdev_pos, stdev_len
 // float), the clustered elements' nm (float), valid (uint8) and cluster_id
 // (int32) [n], n_clusters [1], support_sa [n], coverage [len], dyn [2]
-// (coverage_global, qc_nm_threshold); outputs out_i [12, n], out_f [3, n],
-// out_b [4, n] in the rows of ops/candidate_tail.py. Returns the launch error.
+// (coverage_global, qc_nm_threshold) or null; run_start int32 [n + 1]
+// scratch; outputs out_i [12, n], out_f [3, n], out_b [4, n] (bool bytes)
+// in the rows of ops/candidate_tail.py. Two launches: the run starts, then the tail.
+// Returns the first launch error.
 extern "C" int candidate_tail(const int32_t* svtype, const int32_t* svlen, const int32_t* pos,
                               const int32_t* support, const int32_t* lead_count,
                               const int32_t* n_strands, const float* stdev_pos,
                               const float* stdev_len, const float* nm, const uint8_t* valid,
                               const int32_t* cluster_id, const int32_t* n_clusters,
                               const int32_t* support_sa, const int32_t* cov, const float* dyn,
-                              int32_t* out_i, float* out_f, uint8_t* out_b, int n, int len,
-                              int region_offset, int binsize, TailParams p, cudaStream_t s) {
+                              int32_t* run_start, int32_t* out_i, float* out_f, uint8_t* out_b,
+                              int n, int len, int region_offset, int binsize, TailParams p,
+                              cudaStream_t s) {
   if (n <= 0 || len <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  tail_runs<<<n / kThreads + 1, kThreads, 0, s>>>(cluster_id, run_start, n);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
   candidate_tail_kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0, s>>>(
       svtype, svlen, pos, support, lead_count, n_strands, stdev_pos, stdev_len, nm, valid,
-      cluster_id, n_clusters, support_sa, cov, dyn, out_i, out_f, out_b, n, len,
+      cluster_id, run_start, n_clusters, support_sa, cov, dyn, out_i, out_f, out_b, n, len,
       region_offset, binsize, p);
   return static_cast<int>(cudaGetLastError());
 }

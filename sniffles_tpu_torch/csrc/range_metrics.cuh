@@ -20,10 +20,12 @@ __device__ __forceinline__ int clamp_slot(int x, int n) {
 // reference's stride subsample of at most ~max_n = 100 leads, the mean
 // svlen divided by max_n, the sample stdev over the actual picks.
 // All divisions here are of non-negative values, so C++'s truncating
-// division is the JAX package's floor division.
-__device__ inline void range_metrics(const float* __restrict__ posf,
-                              const float* __restrict__ svlenf, int n, int lo, int hi,
-                              float* mean_sv, float* sd) {
+// division is the JAX package's floor division. The positions and
+// lengths are float32, or int32 taken as float32 (round to nearest, as
+// torch's .to(float32)): T is float or int32_t.
+template <typename T>
+__device__ inline void range_metrics(const T* __restrict__ posf, const T* __restrict__ svlenf,
+                                     int n, int lo, int hi, float* mean_sv, float* sd) {
   const int L = hi - lo > 0 ? hi - lo : 0;
   const int nn = L < 100 ? L : 100;
   const int q = L / (nn > 1 ? nn : 1);
@@ -32,8 +34,8 @@ __device__ inline void range_metrics(const float* __restrict__ posf,
   int npicks = 0;
   for (int k = 0; k < kPickCap && k * stride < L; ++k) {
     const int idx = clamp_slot(lo + k * stride, n);
-    sum_sv += static_cast<double>(svlenf[idx]);
-    sum_ps += static_cast<double>(posf[idx]);
+    sum_sv += static_cast<double>(static_cast<float>(svlenf[idx]));
+    sum_ps += static_cast<double>(static_cast<float>(posf[idx]));
     ++npicks;
   }
   *mean_sv = __fdiv_rn(static_cast<float>(sum_sv), static_cast<float>(nn > 1 ? nn : 1));
@@ -41,7 +43,8 @@ __device__ inline void range_metrics(const float* __restrict__ posf,
                                   static_cast<float>(npicks > 1 ? npicks : 1));
   double ss = 0.0;
   for (int k = 0; k < npicks; ++k) {
-    const float dev = __fsub_rn(posf[clamp_slot(lo + k * stride, n)], mean_ps);
+    const float dev = __fsub_rn(static_cast<float>(posf[clamp_slot(lo + k * stride, n)]),
+                                mean_ps);
     ss += static_cast<double>(__fmul_rn(dev, dev));
   }
   *sd = npicks >= 2

@@ -8,8 +8,9 @@ and the QC cascade (ops/qc_batch.py).
 
 `candidate_tail` is the wrapper: on CPU tensors the plain version
 (`candidate_tail_plain`, the composition of those modules' torch
-functions), on CUDA tensors the kernel of csrc/candidate_tail.cu (a
-thread per candidate slot; no host synchronisation), or an exception.
+functions), on CUDA tensors the kernel of csrc/candidate_tail.cu (a pass that
+writes each cluster's run start, then a thread per candidate slot; no
+host synchronisation), or an exception.
 
 The cluster's mean NM is the JAX package's float32 segment sum, which XLA
 adds element by element in array order (cluster ids ascend along the
@@ -55,13 +56,16 @@ FLOAT_PARAMS = ("normalization_target", "long_ins_length", "rescale_base", "resc
                 "mosaic_use_strand_thresholds", "mosaic_qc_invdup_min_length",
                 "max_svlen_mosaic")
 LOG10_PARAMS = ("log10_err", "log10_1m_err", "log10_het", "log10_1m_het", "log10_1m_1m_err")
+# the step's two values that a mesh reduces on the device: in the struct
+# where they are numbers, else in a device array the kernel reads
+DYN_PARAMS = ("coverage_global", "qc_nm_threshold")
 INT_PARAMS = ("minsvlen", "minsvlen_screen", "minsvlen_hard_cap", "qc_stdev", "qc_strand",
               "qc_bnd_filter_strand", "qc_nm", "minsupport_is_auto", "mosaic",
               "mosaic_qc_strand", "mosaic_include_germline", "detect_large_ins")
 
 
 class TailParams(ctypes.Structure):
-    _fields_ = ([(k, ctypes.c_float) for k in FLOAT_PARAMS + LOG10_PARAMS]
+    _fields_ = ([(k, ctypes.c_float) for k in FLOAT_PARAMS + LOG10_PARAMS + DYN_PARAMS]
                 + [(k, ctypes.c_int) for k in INT_PARAMS])
 
 
@@ -151,15 +155,17 @@ def tail_params(params: dict) -> TailParams:
     f32 = np.float32
     values = {k: float(f32(_host_value(params[k]))) for k in FLOAT_PARAMS}
     values.update(zip(LOG10_PARAMS, (float(c) for c in log10s_of(params))))
+    values.update({k: 0.0 if isinstance(params[k], torch.Tensor) else float(f32(params[k]))
+                   for k in DYN_PARAMS})
     values.update({k: int(_host_value(params[k])) for k in INT_PARAMS})
     return TailParams(**values)
 
 
 def launch_candidate_tail(stats: dict, support_sa, coverage, elements: dict, params: dict, *,
                           region_offset=0, binsize: int = 100) -> dict:
-    """The kernel's entry point candidate_tail on CUDA tensors, a thread
-    per slot, on the current stream of the tensors' device. Counts
-    nothing; raises when the launch fails."""
+    """The kernel's entry point candidate_tail on CUDA tensors (the run
+    starts, then a thread per slot) on the current stream of the tensors'
+    device. Counts nothing; raises when a launch fails."""
     from sniffles_tpu_torch.ops import _build
     from sniffles_tpu_torch.ops.clustering import _launch
     dev = coverage.device
@@ -175,29 +181,36 @@ def launch_candidate_tail(stats: dict, support_sa, coverage, elements: dict, par
     ints = [col(stats[k], i32) for k in ("svtype", "svlen", "pos", "support", "lead_count",
                                          "n_strands")]
     floats = [col(stats[k], f32) for k in ("stdev_pos", "stdev_len")]
-    elems = [col(elements["nm"], f32), col(elements["valid"], u8),
+    # a bool is one byte, 0 or 1: the kernel reads and writes bool columns
+    # as their bytes, with no conversion
+    elems = [col(elements["nm"], f32), col(elements["valid"], torch.bool).view(u8),
              col(elements["cluster_id"], i32)]
     n_clusters = col(stats["n_clusters"], i32, 1)
     sa = col(support_sa, i32)
     cov = coverage.to(i32).contiguous()
-    # a number becomes a fill on the device, not a copy that waits for it
-    dyn = torch.stack([params[k].to(dev, f32).reshape(()) if isinstance(params[k], torch.Tensor)
-                       else torch.full((), float(params[k]), dtype=f32, device=dev)
-                       for k in ("coverage_global", "qc_nm_threshold")])
+    # numbers ride in the parameter struct; device values (a mesh's) are
+    # stacked on the device, never copied from the host
+    dyn = (torch.stack([params[k].to(dev, f32).reshape(()) if isinstance(params[k], torch.Tensor)
+                        else torch.full((), float(params[k]), dtype=f32, device=dev)
+                        for k in DYN_PARAMS])
+           if any(isinstance(params[k], torch.Tensor) for k in DYN_PARAMS) else None)
     off = int(_host_value(region_offset))
+    run_start = torch.empty((n + 1,), dtype=i32, device=dev)   # scratch
     out_i = torch.empty((len(INT_KEYS), n), dtype=i32, device=dev)
     out_f = torch.empty((len(FLOAT_KEYS), n), dtype=f32, device=dev)
-    out_b = torch.empty((len(BOOL_KEYS), n), dtype=u8, device=dev)
+    out_b = torch.empty((len(BOOL_KEYS), n), dtype=torch.bool, device=dev)
     fn = _build.load("candidate_tail").candidate_tail
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 18 + [ctypes.c_int] * 4 + [TailParams, ctypes.c_void_p])
+    fn.argtypes = ([ctypes.c_void_p] * 19 + [ctypes.c_int] * 4 + [TailParams, ctypes.c_void_p])
     rc = _launch(fn, dev, *(t.data_ptr() for t in ints + floats + elems),
-                 n_clusters.data_ptr(), sa.data_ptr(), cov.data_ptr(), dyn.data_ptr(),
-                 out_i.data_ptr(), out_f.data_ptr(), out_b.data_ptr(), n, cov.shape[0],
+                 n_clusters.data_ptr(), sa.data_ptr(), cov.data_ptr(),
+                 dyn.data_ptr() if dyn is not None else None, run_start.data_ptr(),
+                 out_i.data_ptr(), out_f.data_ptr(), out_b.view(u8).data_ptr(),
+                 n, cov.shape[0],
                  off, int(binsize), tail_params(params))
     if rc != 0:
         raise RuntimeError(f"candidate_tail launch failed with CUDA error {rc}")
     out = dict(zip(INT_KEYS, out_i))
     out.update(zip(FLOAT_KEYS, out_f))
-    out.update((k, v.bool()) for k, v in zip(BOOL_KEYS, out_b))
+    out.update(zip(BOOL_KEYS, out_b))
     return out

@@ -15,9 +15,10 @@ fixed point, and every later round would change nothing either.
 `merge_relax` is the wrapper: on CPU tensors the plain version
 (`merge_relax_plain`, the torch loop of JAX's merge_step with the port's
 _segment_metrics, one host read of the boundary count a round for the
-stop rule), on CUDA tensors the kernel of csrc/merge_relax.cu (all 32
-rounds enqueued on the stream, a round that follows a round without a
-change exits at once, no host synchronisation), or an exception.
+stop rule), on CUDA tensors the kernel of csrc/merge_relax.cu (one
+persistent cooperative launch over the card's resident grid runs every
+round over a list of the live segment heads and stops on the device; no
+host synchronisation), or an exception.
 """
 from __future__ import annotations
 
@@ -116,52 +117,99 @@ def _scalar(v, dtype):
     return float(torch.tensor(v, dtype=torch.float32)) if dtype is float else int(v)
 
 
-def launch_merge_relax(s: dict, boundary: torch.Tensor, bin_: torch.Tensor, *, cluster_r,
-                       cluster_repeat_h, cluster_repeat_h_max, cluster_merge_bnd,
-                       global_repeat: bool, binsize: int):
-    """The kernel's entry point merge_relax on CUDA tensors: 32 rounds of
-    two kernels enqueued on the current stream of the tensors' device.
-    Returns (boundaries, rounds as an int32 0-d tensor); counts nothing;
-    raises when a launch fails."""
-    from sniffles_tpu_torch.ops import _build
+# the kernel's int32 control words (csrc/merge_relax.cu, kCtl): a change
+# flag a round, two list counts, the long-segment queue's count, and last
+# the round count
+CTL_WORDS = MERGE_ITERS_MAX + 4
+# the kernel's device time stamps (stamps=): the start, the head list, and
+# two a round
+STAMP_WORDS = 2 * MERGE_ITERS_MAX + 2
+
+
+def relax_columns(s: dict, boundary: torch.Tensor, bin_: torch.Tensor, stamps=None) -> dict:
+    """The kernel's inputs on the boundaries' device, checked: pos, svlen,
+    svtype and bin as contiguous int32 [n] columns, repeat and valid as
+    the bytes of contiguous bool [n] columns (a bool is one byte, 0 or 1;
+    the kernel reads them as uint8), each starting on 16 bytes (the kernel
+    reads 4 slots a load; a column that does not is copied). `stamps`:
+    None or an int64 [STAMP_WORDS] tensor there. Raises ValueError on
+    anything else."""
     dev = boundary.device
     n = boundary.shape[0]
-    i32, u8 = torch.int32, torch.uint8
-    cols = {"pos": s["pos"].to(torch.float32), "svlen": s["svlen"].to(torch.float32),
-            "svtype": s["svtype"].to(i32), "bin": bin_.to(i32),
-            "repeat": s["repeat"].to(u8), "valid": s["valid"].to(u8)}
+    if boundary.dim() != 1 or n < 1:
+        raise ValueError(f"merge_relax: the boundaries must be a non-empty [n] tensor, got "
+                         f"{tuple(boundary.shape)}")
+    cols = {"pos": s["pos"].to(torch.int32), "svlen": s["svlen"].to(torch.int32),
+            "svtype": s["svtype"].to(torch.int32), "bin": bin_.to(torch.int32),
+            "repeat": s["repeat"].to(torch.bool), "valid": s["valid"].to(torch.bool)}
     for k, v in cols.items():
         if v.device != dev or v.shape != (n,):
             raise ValueError(f"merge_relax: {k} must be a [{n}] tensor on {dev}, got "
                              f"{tuple(v.shape)} on {v.device}")
+    if stamps is not None and (stamps.device != dev or stamps.dtype != torch.int64
+                               or stamps.shape != (STAMP_WORDS,)):
+        raise ValueError(f"merge_relax: stamps must be an int64 [{STAMP_WORDS}] tensor on "
+                         f"{dev}")
     cols = {k: v.contiguous() for k, v in cols.items()}
-    bound = boundary.to(u8).contiguous().clone()
-    start_bp = torch.empty((n,), dtype=i32, device=dev)
-    end_bp = torch.empty_like(start_bp)
-    prev_head = torch.empty_like(start_bp)
-    msv = torch.empty((n,), dtype=torch.float32, device=dev)
-    sd = torch.empty_like(msv)
-    rep = torch.empty((n,), dtype=u8, device=dev)
-    changed = torch.empty((MERGE_ITERS_MAX,), dtype=i32, device=dev)
-    fn = _build.load("merge_relax").merge_relax
+    cols = {k: v if v.data_ptr() % 16 == 0 else v.clone() for k, v in cols.items()}
+    return {k: v.view(torch.uint8) if v.dtype == torch.bool else v for k, v in cols.items()}
+
+
+def resident_grid(device) -> int:
+    """The blocks of the kernel's cooperative launch on a CUDA device: its
+    resident blocks a multiprocessor times the multiprocessor count (the
+    library caches it per device; a host query that does not wait for the
+    device). Raises when the device offers no cooperative launch."""
+    from sniffles_tpu_torch.ops import _build
+    fn = _build.load("merge_relax").merge_relax_grid
+    fn.restype, fn.argtypes = ctypes.c_int, [ctypes.POINTER(ctypes.c_int)]
+    blocks = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        rc = fn(ctypes.byref(blocks))
+    if rc != 0:
+        raise RuntimeError(f"merge_relax: no resident grid on {device} (CUDA error {rc})")
+    return blocks.value
+
+
+def launch_merge_relax(s: dict, boundary: torch.Tensor, bin_: torch.Tensor, *, cluster_r,
+                       cluster_repeat_h, cluster_repeat_h_max, cluster_merge_bnd,
+                       global_repeat: bool, binsize: int, stamps=None):
+    """The kernel's entry point merge_relax on CUDA tensors: a memset of its
+    control words and one cooperative launch on the current stream of the
+    tensors' device. With `stamps` (int64 [STAMP_WORDS] on the device) the
+    kernel also writes its device time stamps there (the start, after the
+    head list, after each round's metrics and merge phases). Returns
+    (boundaries, rounds as an int32 0-d tensor); counts nothing; raises
+    when the launch fails or is refused."""
+    from sniffles_tpu_torch.ops import _build
+    dev = boundary.device
+    n = boundary.shape[0]
+    cols = relax_columns(s, boundary, bin_, stamps)
+    i32 = torch.int32
+    bound = boundary.to(torch.bool).clone(memory_format=torch.contiguous_format)
+    seg = torch.empty((n, 4), dtype=i32, device=dev)
+    rep = torch.empty((n,), dtype=torch.uint8, device=dev)
+    prev_head = torch.empty((n,), dtype=i32, device=dev)
+    walk_round = torch.empty_like(prev_head)
+    heads = torch.empty((2, n), dtype=i32, device=dev)
+    ctl = torch.empty((CTL_WORDS,), dtype=i32, device=dev)
+    lib = _build.load("merge_relax")
+    lib.merge_relax_ctl_words.restype = ctypes.c_int
+    if lib.merge_relax_ctl_words() != CTL_WORDS:
+        raise RuntimeError("merge_relax: the library's control words differ from CTL_WORDS")
+    fn = lib.merge_relax
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 14 + [ctypes.c_int] * 2 + [ctypes.c_float] * 3
+    fn.argtypes = ([ctypes.c_void_p] * 15 + [ctypes.c_int] * 2 + [ctypes.c_float] * 3
                    + [ctypes.c_int] * 2 + [ctypes.c_void_p])
     rc = _launch(fn, dev, *(cols[k].data_ptr() for k in
                             ("pos", "svlen", "svtype", "bin", "repeat", "valid")),
-                 bound.data_ptr(), start_bp.data_ptr(), end_bp.data_ptr(),
-                 prev_head.data_ptr(), msv.data_ptr(), sd.data_ptr(), rep.data_ptr(),
-                 changed.data_ptr(), n, int(binsize), _scalar(cluster_r, float),
-                 _scalar(cluster_repeat_h, float), _scalar(cluster_repeat_h_max, float),
-                 _scalar(cluster_merge_bnd, int), int(bool(global_repeat)))
+                 bound.view(torch.uint8).data_ptr(), seg.data_ptr(), rep.data_ptr(),
+                 prev_head.data_ptr(),
+                 walk_round.data_ptr(), heads[0].data_ptr(), heads[1].data_ptr(),
+                 ctl.data_ptr(), stamps.data_ptr() if stamps is not None else None, n,
+                 int(binsize), _scalar(cluster_r, float), _scalar(cluster_repeat_h, float),
+                 _scalar(cluster_repeat_h_max, float), _scalar(cluster_merge_bnd, int),
+                 int(bool(global_repeat)))
     if rc != 0:
         raise RuntimeError(f"merge_relax launch failed with CUDA error {rc}")
-    return bound.bool(), rounds_of(changed)
-
-
-def rounds_of(changed: torch.Tensor) -> torch.Tensor:
-    """The rounds JAX's loop runs, from the kernel's per-round change flags:
-    every round up to and including the first that changed nothing, at
-    most 32."""
-    ran = torch.cumprod(changed.to(torch.int32), 0).sum(dtype=torch.int32) + 1
-    return ran.clamp(max=MERGE_ITERS_MAX)
+    return bound, ctl[CTL_WORDS - 1]

@@ -628,3 +628,27 @@ def relax_chain_positions(links: int = 36) -> list[int]:
         width = int(np.ceil(gap / 2.5 * np.sqrt(12) * 1.05 / 100)) * 100
         start = run[-1] + 100 + gap
     return pos
+
+
+def relax_chain_batch(size: int, links: int = 36, spacing: int = 1_100_000) -> dict:
+    """A signature batch (SignatureBatch.as_dict) of `size` slots holding
+    as many whole copies of the relax_chain_positions(links) chain as fit,
+    copy c shifted by c * spacing bp: INS of 100 bp, each lead a read of
+    its own, the rest padding. The gap between two copies is wider than
+    2.5 times the start stdev of a whole chain, so copies never merge:
+    every copy takes `links` relaxation rounds (the 32-round cap binds
+    above 32)."""
+    from sniffles_tpu_torch.signatures import synthetic_batch
+    chain = np.asarray(relax_chain_positions(links), dtype=np.int64)
+    gap = spacing - (chain[-1] - chain[0])
+    if gap <= 2.5 * chain.std(ddof=1):
+        raise ValueError(f"a gap of {gap} bp lets copies of the {links}-link chain merge")
+    copies = size // len(chain)
+    pos = (chain[None, :] + spacing * np.arange(copies)[:, None]).reshape(-1)
+    if copies and pos[-1] >= 2 ** 31:
+        raise ValueError(f"{copies} chains {spacing} bp apart overflow int32 positions")
+    sig = synthetic_batch(0, 1, seed=1, batch_size=size).as_dict()
+    n = pos.size
+    sig["pos"][:n], sig["svlen"][:n], sig["valid"][:n] = pos, 100, True
+    sig["read_id"][:n] = np.arange(n)
+    return sig

@@ -1,9 +1,13 @@
 """Card-only tests of the PyTorch/CUDA port: the hand-written CUDA kernels
-(edit distance; the merge sweep's partition and segment walks) against
-their plain PyTorch versions (and the host Myers scan), and the combine
-and call_sample device paths on the card against their host paths, the
-native host library beside a CUDA context, and the cluster_assign and
-flush-greedy steps on the card against the CPU. They
+(edit distance; the merge sweep's partition and segment walks; the fused
+engine's relaxation, one cooperative launch, on every engine input and
+on 2^16 slots of tiled 36-link chains, with its grid and time stamps; its
+candidate tail at odd widths under three flag sets) against their plain
+PyTorch versions (and the host Myers scan), and the combine and
+call_sample device paths on the card against their host paths, the
+native host library beside a CUDA context, the cluster_assign and
+flush-greedy steps and the engine's step, whole and sharded, on the card
+against the CPU. They
 skip where no CUDA card is visible. This file imports neither JAX nor
 the JAX package, so on the card it runs without them:
 
@@ -510,6 +514,46 @@ def test_merge_relax_kernel_makes_no_host_sync(card):
     torch.cuda.synchronize()
 
 
+def test_merge_relax_kernel_on_the_tiled_chain(card):
+    """2^16 slots of tiled 36-link chains: the 32-round cap binds; one
+    launch, no host synchronisation, the plain version's boundaries."""
+    from sniffles_tpu_torch.ops import merge_relax as tmr
+    from sniffles_tpu_torch.sim import relax_chain_batch
+    sig = {k: torch.as_tensor(v) for k, v in relax_chain_batch(1 << 16).items()}
+    s, boundary, bin_ = tc.sort_and_seed(sig, 100)
+    want, want_rounds = tmr.merge_relax_plain(s, boundary, bin_, **RELAX)
+    s, boundary, bin_ = ({k: v.to(card) for k, v in s.items()}, boundary.to(card),
+                         bin_.to(card))
+    launches = tmr.COUNTS["launches"]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got, rounds = tmr.merge_relax(s, boundary, bin_, **RELAX)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert tmr.COUNTS["launches"] == launches + 1
+    assert want_rounds == tmr.MERGE_ITERS_MAX == int(rounds)
+    assert got.cpu().tolist() == want.tolist()
+
+
+def test_merge_relax_grid_and_stamps(card):
+    """The cooperative grid is the card's resident grid (a whole number of
+    blocks a multiprocessor), the same at every call; the kernel's time
+    stamps rise through the rounds it ran."""
+    from sniffles_tpu_torch.ops import merge_relax as tmr
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    blocks = tmr.resident_grid(card)
+    assert blocks >= sms and blocks % sms == 0 and tmr.resident_grid(card) == blocks
+    sig = {k: torch.as_tensor(v).to(card) for k, v in engine_sig("synthetic-1").items()}
+    s, boundary, bin_ = tc.sort_and_seed(sig, 100)
+    stamps = torch.zeros(tmr.STAMP_WORDS, dtype=torch.int64, device=card)
+    _, rounds = tmr.launch_merge_relax(s, boundary, bin_, stamps=stamps, **RELAX)
+    used = stamps[:2 * int(rounds) + 2].tolist()
+    assert used[0] > 0 and used == sorted(used)
+    assert not stamps[2 * int(rounds) + 2:].any()
+
+
 def engine_params(flags):
     from sniffles_tpu_torch.parallel.engine import default_params
     p = default_params()
@@ -520,17 +564,13 @@ def engine_params(flags):
     return p
 
 
-@pytest.mark.parametrize("flags", ["default", "mosaic", "auto-qc-nm"])
-@pytest.mark.parametrize("kind", ["synthetic-3", "all-invalid", "outside"])
-def test_candidate_tail_kernel_matches_plain_version(card, kind, flags):
+def held_tail(card, sig, params, cov_len=2_200_000, offset=0):
     """The tail on the card against its plain version on CPU copies of the
-    same statistics; "outside": a coverage window shorter than the sites'
-    span and offset, so probes fall on both sides of it."""
+    same statistics (clustered on the CPU), every key bit for bit; one
+    launch."""
     from sniffles_tpu_torch.ops import candidate_tail as ct
     from sniffles_tpu_torch.ops.segments import seg_sum
-    sig = {k: torch.as_tensor(v) for k, v in engine_sig(
-        "synthetic-3" if kind == "outside" else kind).items()}
-    params = engine_params(flags)
+    sig = {k: torch.as_tensor(v) for k, v in sig.items()}
     clustered = tc.cluster_signatures(sig, cluster_r=2.5, cluster_repeat_h=1.5,
                                       cluster_repeat_h_max=1000.0, cluster_merge_bnd=1000,
                                       cluster_merge_len=0.22, minsvlen=50, exact_sweep=False)
@@ -539,7 +579,6 @@ def test_candidate_tail_kernel_matches_plain_version(card, kind, flags):
     support_sa = seg_sum((clustered["valid"] & (clustered["sa"] > 0)).to(torch.int32),
                          clustered["cluster_id"], n)
     rng = np.random.default_rng(4)
-    cov_len, offset = (400_000, 300_000) if kind == "outside" else (2_200_000, 0)
     coverage = torch.as_tensor(rng.integers(0, 60, cov_len).astype(np.int32))
     want = ct.candidate_tail(stats, support_sa, coverage, clustered, params,
                              region_offset=offset)
@@ -559,6 +598,28 @@ def test_candidate_tail_kernel_matches_plain_version(card, kind, flags):
             assert g.view(torch.int32).tolist() == v.view(torch.int32).tolist(), k
         else:
             assert g.tolist() == v.tolist(), k
+
+
+@pytest.mark.parametrize("flags", ["default", "mosaic", "auto-qc-nm"])
+@pytest.mark.parametrize("kind", ["synthetic-3", "all-invalid", "outside"])
+def test_candidate_tail_kernel_matches_plain_version(card, kind, flags):
+    """"outside": a coverage window shorter than the sites' span and
+    offset, so probes fall on both sides of it."""
+    sig = engine_sig("synthetic-3" if kind == "outside" else kind)
+    cov_len, offset = (400_000, 300_000) if kind == "outside" else (2_200_000, 0)
+    held_tail(card, sig, engine_params(flags), cov_len, offset)
+
+
+@pytest.mark.parametrize("flags", ["default", "mosaic", "auto-qc-nm"])
+@pytest.mark.parametrize("n", [1, 4095, 4097, 1 << 16])
+def test_candidate_tail_kernel_at_odd_widths(card, n, flags):
+    """Widths that are not a multiple of the kernel's blocks or vectors: a
+    single slot, one either side of 4,096, and 2^16 (most slots hold no
+    cluster)."""
+    from sniffles_tpu_torch.signatures import synthetic_batch
+    sig = synthetic_batch(max(n * 3 // 4, 1), max(n // 40, 1), seed=n % 97,
+                          genome_span=2_000_000, batch_size=n).as_dict()
+    held_tail(card, sig, engine_params(flags))
 
 
 def test_engine_step_on_cuda_matches_the_cpu(card):
