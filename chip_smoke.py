@@ -159,6 +159,19 @@ Phases, each of which must pass:
      plain version (boundaries and rounds), timed beside it and its bound,
      with no host synchronisation; the tail's registers and spills from
      phase 1's ptxas report.
+  11. the port's benchmark and its differential fuzz, each in a child
+     process: `python -m sniffles_tpu_torch.bench` with BENCH_CONTIGS=2,
+     BENCH_PAIRS=1, BENCH_SKIP_SCALE=1 and BENCH_SKIP_COMBINE=1 (the quick
+     leg on 2 contigs of 1.2 Mb, the dense leg on phase 4's dense3, each
+     host against the device path served by the port's daemon in one
+     alternating pair after the warmups, then the engine legs at their full
+     2^16 and 2^21 signatures): exit 0, one JSON line on stdout, every
+     *_records_identical true, the device legs' medians, both engine rates
+     and the host chain's rate above 0, the daemon on the card with merge
+     sweeps launched, its "device" the card's nvidia-smi line; then
+     `python -m sniffles_tpu_torch.tools.diff_fuzz 2 1000 --jobs 2` (seed
+     1000: a CRAM at --tpu-mesh 2; 1001: a BAM), the device path against
+     the host path on the card: every VCF and SNF equal (the fuzz's rules).
 Then (5) the kernels' timings on the inputs of the main paths' largest
 launches (CUDA events) beside their bounds and plain versions, the
 sweep's device time on phase 2b's fuzz batches and chain, the fused
@@ -2462,6 +2475,76 @@ def run_engine(tmp, dense_bam, ptxas_log):
     return launches, rows
 
 
+# -- phase 11 ---------------------------------------------------------------
+
+# the port's benchmark, cut to fit the smoke run (the full legs are a run
+# of `python -m sniffles_tpu_torch.bench` of their own)
+BENCH_SMOKE_ENV = {"BENCH_CONTIGS": "2", "BENCH_PAIRS": "1", "BENCH_SKIP_SCALE": "1",
+                   "BENCH_SKIP_COMBINE": "1"}
+FUZZ_SMOKE_ARGS = ("2", "1000", "--jobs", "2")
+
+
+def run_port_child(args, env_extra, timeout, what):
+    """`python -m ARGS` in a child process with this checkout first on its
+    path; returns its standard output. Fails, with the end of its error
+    output, when it exits non-zero."""
+    from sniffles_tpu_torch.bench import child_env
+    env = child_env({"SNIFFLES_TPU_FORCE_CPU": None, **env_extra})
+    t0 = time.perf_counter()
+    p = subprocess.run([sys.executable, "-m", *args], capture_output=True, text=True, env=env,
+                       timeout=timeout)
+    print(f"    {what}: exit {p.returncode} in {time.perf_counter() - t0:.1f} s", flush=True)
+    if p.returncode != 0:
+        print(p.stdout[-3000:])
+        print(p.stderr[-6000:])
+        fail(f"{what} exited {p.returncode}")
+    return p.stdout
+
+
+def run_bench_and_fuzz(dense_tmp, smi):
+    """Phase 11: the port's benchmark at the smoke run's cut, its dense leg
+    on phase 4's dense3 files, then the 2-seed differential fuzz."""
+    from sniffles_tpu_torch.bench import records_differ
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_bench_") as tmp:
+        out = run_port_child(["sniffles_tpu_torch.bench"],
+                             {**BENCH_SMOKE_ENV, "TMPDIR": tmp, "BENCH_DENSE_DIR": dense_tmp},
+                             900, "the bench")
+    lines = out.splitlines()
+    if len(lines) != 1:
+        fail(f"the bench printed {len(lines)} lines on stdout, not one JSON line")
+    r = json.loads(lines[0])
+    for leg in ("e2e_pairs", "e2e_dense_pairs"):
+        p = r[leg]
+        print(f"    {leg}: host median {p['host_median']} s, device median {p['tpu_median']} "
+              f"s, deltas {p['pair_deltas']}, device wins {p['tpu_wins']}, warmups "
+              f"{p['warmup_runs']}", flush=True)
+    print(f"    engine: {r['device_sig_per_sec_equal']:.4g} signatures/s at "
+          f"{r['equal_workload_signatures']}, {r['device_sig_per_sec_peak']:.4g} at the peak "
+          f"size; host chain {r['host_sig_per_sec_equal']:.4g}; daemon start-to-ping "
+          f"{r['tpu_daemon_warm_s']} s; daemon stats {json.dumps(r['device_service_stats'])}",
+          flush=True)
+    differ = records_differ(r)
+    if differ or not any(k.endswith("records_identical") for k in r):
+        fail(f"the bench's device records differ from its host records: {differ}")
+    for key in ("e2e_seconds_ours_tpu", "e2e_dense_seconds_ours_tpu", "e2e_seconds_ours",
+                "e2e_dense_seconds_ours", "device_sig_per_sec_equal",
+                "device_sig_per_sec_peak", "host_sig_per_sec_equal"):
+        if not (r.get(key) or 0) > 0:
+            fail(f"the bench's {key} is {r.get(key)!r}")
+    stats = r["device_service_stats"]
+    if stats["device"] != "cuda" or stats["kernel_merge_sweep"] < 1:
+        fail(f"the bench's daemon did not serve its device legs on the card: {stats}")
+    if r["device"] != smi:
+        fail(f"the bench's device line {r['device']!r} is not nvidia-smi's {smi!r}")
+    out = run_port_child(["sniffles_tpu_torch.tools.diff_fuzz", *FUZZ_SMOKE_ARGS], {}, 900,
+                         "the differential fuzz, device path against host path")
+    print("    " + out.strip().replace("\n", "\n    "), flush=True)
+    if not out.strip().endswith(f"all {FUZZ_SMOKE_ARGS[0]} seeds OK"):
+        fail("the differential fuzz did not end with every seed equal")
+    print(f"    phase 11 took {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
 def sync_sites(fn):
     """Runs fn() on the card with torch.cuda.set_sync_debug_mode("warn")
     and returns the synchronising operations it reached, counted by the
@@ -2690,6 +2773,12 @@ def main() -> int:
           flush=True)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_engine_") as tmp:
         engine_launches, engine_rows = run_engine(tmp, dense_args[1], logs["candidate_tail"])
+
+    print("[11] the port's benchmark (python -m sniffles_tpu_torch.bench, cut: quick leg on "
+          f"{BENCH_SMOKE_ENV['BENCH_CONTIGS']} contigs, {BENCH_SMOKE_ENV['BENCH_PAIRS']} pair, no "
+          "scale or combine leg) and its differential fuzz, each in a child process",
+          flush=True)
+    run_bench_and_fuzz(dense_tmp, smi)
 
     print("[5] kernel timings on the main paths' largest launches", flush=True)
     timing = time_ed_kernel([x.cuda() for x in largest])

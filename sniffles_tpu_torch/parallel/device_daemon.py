@@ -248,19 +248,20 @@ def connect(socket_path: str = None) -> DaemonClient:
     return DaemonClient(path) if path else None
 
 
-def daemon_stats(socket_path: str) -> dict:
-    """One stats answer of the daemon on `socket_path` (DeviceServer.stats),
-    over a connection of its own that is closed again. No thread is left
-    behind: the CLI asks before it forks its workers. Raises RuntimeError
-    naming the socket."""
+def daemon_request(socket_path: str, kind: str, timeout: float = None):
+    """The payload of one request of `kind` (no payload, no meta) to the
+    daemon on `socket_path`, over a connection of its own that is closed
+    again. No thread is left behind: the CLI asks before it forks its
+    workers. Raises RuntimeError naming the socket, and TimeoutError when
+    no answer comes within `timeout` (DeviceClient.TIMEOUT by default)."""
     try:
         conn = Client(socket_path, family="AF_UNIX")
     except OSError as e:
         raise RuntimeError(f"the device daemon socket {socket_path} ({ENV_SOCKET}) "
                            f"does not answer: {e}") from e
     try:
-        conn.send(DeviceRequest(kind="stats", payload=None, meta={}, req_id=1))
-        if not conn.poll(DeviceClient.TIMEOUT):
+        conn.send(DeviceRequest(kind=kind, payload=None, meta={}, req_id=1))
+        if not conn.poll(DeviceClient.TIMEOUT if timeout is None else timeout):
             raise TimeoutError(f"the device daemon on {socket_path} did not answer in time")
         response = conn.recv()
     except (EOFError, OSError) as e:
@@ -271,6 +272,23 @@ def daemon_stats(socket_path: str) -> dict:
     if response.error is not None:
         raise RuntimeError(f"device daemon error: {response.error}")
     return response.payload
+
+
+def daemon_stats(socket_path: str) -> dict:
+    """One stats answer of the daemon on `socket_path` (DeviceServer.stats)."""
+    return daemon_request(socket_path, "stats")
+
+
+def daemon_ping(socket_path: str, timeout: float = None) -> None:
+    """Returns once the daemon on `socket_path` has finished its warmup;
+    raises as daemon_request does."""
+    daemon_request(socket_path, _PING, timeout)
+
+
+def daemon_shutdown(socket_path: str, timeout: float = None) -> None:
+    """Asks the daemon on `socket_path` to exit, and waits for its answer;
+    raises as daemon_request does."""
+    daemon_request(socket_path, _SHUTDOWN, timeout)
 
 
 def main(argv=None) -> int:

@@ -6,7 +6,10 @@ JAX package's native/libbamcore.so, and without a card it raises unless
 the CPU was asked for. Its device daemon serves with both blocked too,
 and so does --tpu-mesh (parallel/mesh.py, distributed.py and the modules
 under them), and the fused engine's step and its sharded step
-(parallel/engine.py, build_sharded_step). Options refused before their slices were ported (--threads N
+(parallel/engine.py, build_sharded_step); the benchmark's own process
+(bench.py) is held so in tests/test_torch_bench.py. Every module of the
+JAX package has its copy.
+Options refused before their slices were ported (--threads N
 with the device path, --dev-cache, --dev-locasm-do, .cram input,
 --tpu-mesh) now run."""
 import json
@@ -65,6 +68,33 @@ def test_source_scan_covers_the_engine_modules():
             "ops/genotype_batch.py", "ops/qc_batch.py", "ops/merge_relax.py",
             "ops/candidate_tail.py", "csrc/merge_relax.cu", "csrc/candidate_tail.cu",
             "csrc/range_metrics.cuh"} <= scanned
+
+
+def test_source_scan_covers_the_bench_and_the_fuzz():
+    scanned = {os.path.relpath(p, PORT) for p in port_sources()}
+    assert {"bench.py", "tools/bench_combine.py", "tools/diff_fuzz.py",
+            "term_colors.py"} <= scanned
+
+
+def test_every_module_of_the_jax_package_has_a_copy():
+    """Each module of sniffles_tpu/ has one of the same relative path in the
+    port, but ops/edit_distance_jax.py (the Pallas kernel), whose port is
+    ops/edit_distance_batch.py; the last copy, term_colors.py, has the JAX
+    package's TermColors."""
+    from sniffles_tpu.term_colors import TermColors as JaxColors
+    from sniffles_tpu_torch.term_colors import TermColors
+
+    def modules(root):
+        return {os.path.relpath(os.path.join(d, f), root) for d, _, files in os.walk(root)
+                for f in files if f.endswith(".py")}
+
+    port = modules(PORT) | {"ops/edit_distance_jax.py"}
+    assert modules(os.path.join(REPO, "sniffles_tpu")) <= port
+    assert "ops/edit_distance_batch.py" in port
+
+    def colors(cls):
+        return {k: v for k, v in vars(cls).items() if not k.startswith("_")}
+    assert colors(TermColors) == colors(JaxColors) and len(colors(TermColors)) == 9
 
 
 def test_engine_and_sharded_step_run_with_jax_blocked():
