@@ -31,11 +31,14 @@ Phases, each of which must pass:
      sniffles_tpu_torch.sim and called on the device path (--threads 0)
      and on the host path (--no-tpu): identical records, at least 1,500
      of them, every device child's statistics consumed, no exactness
-     route taken but BND's, one launch of each sweep kernel per task,
-     and the state and counts of every one of those sweeps == the plain
-     version's on the same inputs, bit for bit; the device time of
-     call_task_packed per task (CUDA events), the wall time of both
-     paths and the peak device memory are printed.
+     route taken but BND's, one launch of each sweep kernel and of the
+     call statistics (csrc/call_stats.cu) per task, and the state and
+     counts of every one of those sweeps == the plain version's on the
+     same inputs, bit for bit; (b) each task's call statistics (the folded
+     children, unfused) == the plain version on CPU copies of its inputs on
+     every key and slot, and on the card in the integer keys; the device
+     time of call_task_packed per task (CUDA events), the wall time of
+     both paths and the peak device memory are printed.
   3b. combine with --threads 4, the worker pool and the parent's device
      service, in a child process (`python -m sniffles_tpu_torch`, the
      parent users run, which refuses to fork with a CUDA context):
@@ -135,8 +138,10 @@ Phases, each of which must pass:
      multi-host run, --tpu-mesh 4): process 0 writes phase 4's records,
      process 1 writes nothing, the 3 tasks split between them.
   10. the fused calling engine (parallel/engine.py, call_pipeline_step) and
-     its two kernels (csrc/merge_relax.cu, the relaxation's rounds;
-     csrc/candidate_tail.cu, coverage, genotype and QC in one pass): (a)
+     its three kernel sources (csrc/merge_relax.cu, the relaxation's rounds;
+     csrc/call_stats.cu, the call statistics, a run pass and a warp a
+     cluster slot; csrc/candidate_tail.cu, coverage, genotype and QC in one
+     pass): (a)
      the whole step on the card against the same step on the CPU (the
      plain versions), every output key bit for bit, on
      __graft_entry__.entry()'s batch (4,096 signatures, 1 Mb of coverage
@@ -149,7 +154,16 @@ Phases, each of which must pass:
      __graft_entry__.dryrun_multichip's recipe (16,384 bp and 256 slots a
      shard, halo_bp 2,000, 64 halo slots) and on dense3's chr1 in 4
      windows of 500 kb: integer outputs and halo_overflow equal; every
-     kernel launched on (a)-(c); (d) at 2^21 signatures each kernel against
+     kernel launched on (a)-(c), the call statistics on each of (a), (b) and
+     (c), and each call-statistics call of (a) and (c) held against the
+     plain version (on CPU copies of its inputs every key and slot bit for
+     bit, on the card the integer keys; float32 sums on the card add with
+     atomics); (d) the call statistics held so on the tiled chain's 2^21
+     slots and on tests/test_torch_call_stats.py's crafted batches (both
+     settings), timed at 2^21 (the wrapper, the kernels alone, the plain
+     version on the card, the bound, no host synchronisation, and the
+     engine step's statistics stage through tools/profile_engine.py);
+     and at 2^21 signatures each kernel against
      its plain version on the card (bit for bit) and timed (CUDA events)
      beside its bound, the relaxation's rounds, the step's device time,
      signatures a second, peak device memory and host synchronisations
@@ -278,6 +292,21 @@ RELAX_OPS_PER_ELEMENT = 12
 # csrc/candidate_tail.cu: the probes' index arithmetic, five coverage means,
 # the rescale, the likelihoods and their sort, and the QC cascade's tests
 TAIL_OPS_PER_SLOT = 150
+# operations an element of the call statistics, counted from
+# csrc/call_stats.cu: each median's run tests (two compares, the run
+# length, the kept test, the rank count) for svlen and pos, each trimmed
+# stdev's centering, conversion, square and two adds, the read run test
+# and count, the mapq conversion and add, the NM add, the strand test and
+# count, the svtype max
+CALL_STATS_OPS_PER_ELEMENT = 30
+# bytes an element and slot of the call statistics as a function: the
+# clustered batch's seven int32 columns, nm and valid read once (33), the
+# 16 int32 rows written once (64)
+CALL_STATS_BYTES = 33 + 64
+# the same for the two kernels alone: the three sorted int64 keys, the
+# masked ids and the int64 permutation of the cid-only sort (32), the raw
+# cluster id, valid, mapq, strand, svtype and NM (21), the 16 rows (64)
+CALL_STATS_KERNEL_BYTES = 32 + 21 + 64
 
 
 def fail(msg: str) -> None:
@@ -812,7 +841,7 @@ def run_dense_call(tmp, meta):
     seeds, the kernel launches by count name, the max |kernel - plain| of
     the float state, the CLI's input arguments, every sweep launch kept
     (inputs, state before and after, counts), the device path's wall)."""
-    from sniffles_tpu_torch.ops import clustering as tc
+    from sniffles_tpu_torch.ops import call_stats as cs, clustering as tc
     from sniffles_tpu_torch.sim import dense_layout, write_dataset
     t0 = time.perf_counter()
     bam, fa = write_dataset(tmp, ref_len=DENSE_REF_LEN, svs=dense_layout(DENSE_REF_LEN),
@@ -845,15 +874,16 @@ def run_dense_call(tmp, meta):
     args = ["--input", bam, "--reference", fa]
     torch.cuda.reset_peak_memory_stats()
     tc.reset_counts()
+    cs.reset_counts()
     tc.merge_sweep, tc.call_task_packed = keep_every, timed_step
-    dev_stages, host_stages = {}, {}
+    dev_stages, host_stages, stats_kept = {}, {}, []
     try:
-        with stage_times(dev_stages):
+        with stage_times(dev_stages), kept_call_stats(stats_kept):
             dev_wall, dev_counters = run_cli([*args, "--vcf", os.path.join(tmp, "device.vcf")],
                                              [], os.path.join(tmp, "k1.json"), "call_sample")
     finally:
         tc.merge_sweep, tc.call_task_packed = sweep, task_step
-    launches = dict(tc.COUNTS)
+    launches = dict(tc.COUNTS, call_stats=cs.COUNTS["launches"])
     peak = torch.cuda.max_memory_allocated()
     task_ms = [(n, start.elapsed_time(stop)) for n, start, stop in task_events]
     with stage_times(host_stages):
@@ -897,6 +927,15 @@ def run_dense_call(tmp, meta):
         n = inputs["seed_type"].shape[0]
         err = max(err, hold_against_plain(inputs, before, after, counts, meta,
                                           f"main-path sweep {j} n={n}"))
+    calls, stats_err = hold_kept_call_stats(stats_kept, "dense3's call tasks (unfused)")
+    if calls != tasks or any(fused for _, _, fused in stats_kept):
+        fail(f"call_sample: {calls} call-statistics calls for {tasks} device tasks")
+    print(f"    [b] the call statistics of the {calls} call tasks (the folded children "
+          f"through call_task_packed, unfused; widths "
+          f"{[c['pos'].shape[0] for c, _, _ in stats_kept]}): kernels == plain version on "
+          f"CPU copies on every key and slot, integer keys == plain version on the card; "
+          f"float32 keys differ from the card's plain version by at most {stats_err:.3g}",
+          flush=True)
     largest = max(kept, key=lambda launch: int(launch[0]["nseeds"][0]))
     return largest[:2], launches, err, args, kept, dev_wall, dev_stages
 
@@ -1066,6 +1105,8 @@ def check_threaded_counters(c, what, tasks=DENSE_CONTIGS):
             launches["launches"] == launches["sweep_cuts"] == dispatches + 1):
         fail(f"{what}: launches {launches}, {dispatches} dispatches, "
              f"{c.get('device_tasks')} device tasks")
+    if c.get("kernel_call_stats", 0) < tasks:
+        fail(f"{what}: {c.get('kernel_call_stats')} call-statistics launches for {tasks} tasks")
     return launches, dispatches
 
 
@@ -1702,6 +1743,8 @@ def check_daemon_counters(c, what, tasks):
             launches["launches"] == launches["sweep_cuts"] == dispatches):
         fail(f"{what}: launches {launches}, {dispatches} dispatches, "
              f"{c.get('device_tasks')} device tasks")
+    if c.get("kernel_call_stats", 0) < tasks:
+        fail(f"{what}: {c.get('kernel_call_stats')} call-statistics launches for {tasks} tasks")
     return launches
 
 
@@ -1893,6 +1936,10 @@ def check_mesh_counters(c, what, tasks=DENSE_CONTIGS):
             c["kernel_merge_sweep"] == c["kernel_sweep_cuts"]
             >= MESH_SHARDS * (c["service_requests"] - c.get("service_fusion_fused_requests", 0))):
         fail(f"{what}: sweep launches {c['kernel_merge_sweep']}, {c['kernel_sweep_cuts']} for "
+             f"{c['service_requests']} requests")
+    if "kernel_merge_sweep" in c and c["kernel_call_stats"] < MESH_SHARDS * (
+            c["service_requests"] - c.get("service_fusion_fused_requests", 0)):
+        fail(f"{what}: {c['kernel_call_stats']} call-statistics launches for "
              f"{c['service_requests']} requests")
 
 
@@ -2272,6 +2319,61 @@ def no_relax_sync(tmr, s, boundary, bin_, relax):
         torch.cuda.set_sync_debug_mode(0)
 
 
+@contextlib.contextmanager
+def kept_call_stats(store):
+    """Keeps every call of the call-statistics wrapper on CUDA tensors
+    while the block runs: (its inputs and its output, copies on the card,
+    fused) appended to `store`. The wrapper is looked up at each call."""
+    from sniffles_tpu_torch.ops import call_stats as cs
+    wrapper = cs.call_statistics
+
+    def keep(clustered, fused=False):
+        out = wrapper(clustered, fused)
+        if clustered["pos"].is_cuda:
+            store.append(({k: v.clone() if isinstance(v, torch.Tensor) else v
+                           for k, v in clustered.items()},
+                          {k: v.clone() for k, v in out.items()}, fused))
+        return out
+    cs.call_statistics = keep
+    try:
+        yield store
+    finally:
+        cs.call_statistics = wrapper
+
+
+def hold_call_stats(clustered, got, fused, what):
+    """A call of the call-statistics kernels (inputs on the card, output)
+    against call_statistics_plain: on CPU copies of the inputs every key
+    and slot bit for bit; on the card, the same device, every integer key
+    bit for bit. Returns the largest |kernel - plain on the card| of the
+    float32 keys (the card's plain float sums add with atomics, in no
+    fixed order)."""
+    from sniffles_tpu_torch.ops import call_stats as cs
+    cpu = {k: v.cpu() if isinstance(v, torch.Tensor) else v for k, v in clustered.items()}
+    engine_outputs_equal(got, cs.call_statistics_plain(cpu, fused),
+                         f"call_stats {what}, against the plain version on CPU copies")
+    on_card = cs.call_statistics_plain(clustered, fused)
+    err = 0.0
+    for k in cs.KEYS:
+        if k in cs.FLOAT_KEYS:
+            if got[k].numel():
+                err = max(err, float((got[k] - on_card[k]).abs().nan_to_num(0.0).max()))
+        elif not torch.equal(got[k], on_card[k]):
+            fail(f"call_stats {what}: {k} differs from the plain version on the card in "
+                 f"{int((got[k] != on_card[k]).sum())} slots")
+    return err
+
+
+def hold_kept_call_stats(kept, what):
+    """hold_call_stats of every kept call; returns (calls, largest float32
+    difference from the plain version on the card)."""
+    err = 0.0
+    for j, (clustered, got, fused) in enumerate(kept):
+        err = max(err, hold_call_stats(clustered, got, fused,
+                                       f"{what}, call {j} (n={clustered['pos'].shape[0]})"))
+    return len(kept), err
+
+
 def ptxas_summary(log, kernel):
     """ptxas's registers and spills of `kernel` from a -Xptxas -v build log."""
     lines = log.splitlines()
@@ -2372,6 +2474,7 @@ def time_engine_kernels(sig, coverage, params, ptxas_log):
           f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s; {tail_ops} float32 ops at "
           f"{FP32_OPS_PER_S / 1e12:.0f} TFLOP/s: {tail_ops_ms * 1e3:.3f} us), "
           f"{tail_bound / tail_ms:.3%} of it", flush=True)
+    stats_row = time_call_stats(clustered, chain, relax, params)
 
     step = lambda: call_pipeline_step(sig, coverage, params)  # noqa: E731
     step()
@@ -2401,12 +2504,91 @@ def time_engine_kernels(sig, coverage, params, ptxas_log):
     return ({"ms": relax_ms, "plain_ms": relax_plain_ms, "bound_ms": relax_bound,
              "bound_by": relax_by},
             {"ms": tail_ms, "plain_ms": tail_plain_ms, "bound_ms": tail_bound,
-             "bound_by": "bytes" if tail_bytes_ms >= tail_ops_ms else "operations"})
+             "bound_by": "bytes" if tail_bytes_ms >= tail_ops_ms else "operations"},
+            stats_row)
+
+
+def call_stats_bound_ms(n, bytes_per_element):
+    """(bound ms, "bytes" or "operations") of the call statistics over n
+    slots: `bytes_per_element` a slot at the HBM rate, or
+    CALL_STATS_OPS_PER_ELEMENT int32 operations a slot."""
+    by_bytes = bytes_per_element * n / HBM_BYTES_PER_S
+    by_ops = CALL_STATS_OPS_PER_ELEMENT * n / INT32_OPS_PER_S
+    return max(by_bytes, by_ops) * 1e3, "bytes" if by_bytes >= by_ops else "operations"
+
+
+def time_call_stats(clustered, chain, relax, params):
+    """(a) and (d) of the call statistics and their timing in [10d]: the
+    kernels held against the plain version on the tiled chain's 2^21 slots
+    (fused) and on the crafted batches of tests/test_torch_call_stats.py
+    (both settings); then, on the step's 2^21 clustered batch, the
+    wrapper's and the kernels' CUDA-event times, the plain version's on the
+    card, their bounds, no host synchronisation in the wrapper, and the
+    engine step's statistics stage (tools/profile_engine.py: its kernels'
+    device time and launches). Returns the JSON row."""
+    from sniffles_tpu_torch.ops import call_stats as tcs, clustering as tc
+    from sniffles_tpu_torch.sim import call_stats_batch
+    from sniffles_tpu_torch.tools.profile_engine import profile
+    n = clustered["pos"].shape[0]
+    chain_cl = tc.cluster_signatures(chain, minsvlen=params["minsvlen"],
+                                     cluster_merge_len=params["cluster_merge_len"],
+                                     exact_sweep=False, **{k: v for k, v in relax.items()
+                                                           if k != "global_repeat"})
+    chain_cl.pop("merge_rounds")
+    err = hold_call_stats(chain_cl, tcs.launch_call_statistics(chain_cl, True), True,
+                          f"the tiled chain n={n} (fused)")
+    largest = int(tcs.call_statistics_plain(chain_cl, True)["lead_count"].max())
+    crafted = (("edge", 8192, 4), ("edge", 8192, 5), ("random", 8192, 3))
+    for kind, size, seed in crafted:
+        b = {k: torch.as_tensor(v).cuda() for k, v in call_stats_batch(kind, size, seed).items()}
+        for fused in (False, True):
+            err = max(err, hold_call_stats(b, tcs.launch_call_statistics(b, fused), fused,
+                                           f"{kind} {size} seed {seed} (fused={fused})"))
+    print(f"  call_stats held against its plain version on the tiled chain n={n} (fused; "
+          f"largest cluster {largest}) and on {', '.join(f'{k} {z} seed {d}' for k, z, d in crafted)}"
+          f" (fused and unfused): == plain on CPU copies, every key and slot; integer keys "
+          f"== plain on the card, float32 keys within {err:.3g} of it", flush=True)
+
+    inputs = tcs.kernel_inputs(clustered)
+    nc = clustered["n_clusters"]
+    ms = queued_ms(lambda: tcs.launch_call_statistics(clustered, True), 10)
+    kernels_ms = queued_ms(lambda: tcs.launch_kernels(inputs, nc, True), 10)
+    call_ms = cuda_ms(lambda: tcs.launch_call_statistics(clustered, True), 10)
+    plain_ms = cuda_ms(lambda: tcs.call_statistics_plain(clustered, True), 3)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        tcs.launch_call_statistics(clustered, True)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    bound, bound_by = call_stats_bound_ms(n, CALL_STATS_BYTES)
+    kbound, kbound_by = call_stats_bound_ms(n, CALL_STATS_KERNEL_BYTES)
+    fig = profile(n, 1, "cuda")
+    us, launches, _, _ = fig["split"].get("statistics", (0.0, 0.0, {}, 0.0))
+    print(f"  call_stats n={n} ({int(nc)} clusters): the wrapper (4 sorts, 2 memsets, the run "
+          f"pass and a warp a slot) {ms:.4f} ms on the device ({call_ms:.4f} ms a call), "
+          f"the two kernels and memsets alone {kernels_ms:.4f} ms; plain {plain_ms:.2f} ms on "
+          f"the card; no host synchronisation (sync debug mode 'error'); bound "
+          f"{bound * 1e3:.3f} us ({bound_by}: {CALL_STATS_BYTES * n} bytes at "
+          f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s; {CALL_STATS_OPS_PER_ELEMENT * n} int32 ops at "
+          f"{INT32_OPS_PER_S / 1e12:.1f} Tops/s), {bound / ms:.3%} of it; the kernels' bound "
+          f"{kbound * 1e3:.3f} us ({kbound_by}: {CALL_STATS_KERNEL_BYTES * n} bytes), "
+          f"{kbound / kernels_ms:.3%} of it", flush=True)
+    print(f"  the engine step's statistics stage (tools/profile_engine.py, 1 profiled step): "
+          f"{us / 1e3:.4f} ms of kernels in {launches:.0f} launches, "
+          f"{fig['interval_ms'].get('statistics', float('nan')):.4f} ms between its events; "
+          f"the step {fig['step_ms']:.4f} ms between CUDA events", flush=True)
+    # max_abs_err: against the plain version on the same inputs (CPU
+    # copies), held bit for bit above
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
+            "max_abs_err": 0}
 
 
 def run_engine(tmp, dense_bam, ptxas_log):
     """Phase 10 (see the module's docstring). Returns (the kernels' launches
     on its main path, the timing rows of both kernels)."""
+    from sniffles_tpu_torch.ops import call_stats as cs
     from sniffles_tpu_torch.ops import candidate_tail as ct, merge_relax as tmr
     from sniffles_tpu_torch.ops.qc_batch import FILTERS
     from sniffles_tpu_torch.parallel.engine import default_params
@@ -2415,6 +2597,8 @@ def run_engine(tmp, dense_bam, ptxas_log):
     t_phase = time.perf_counter()
     tmr.reset_counts()
     ct.reset_counts()
+    cs.reset_counts()
+    stats_launches = {}
     print("[10a] the whole step on the card against the CPU", flush=True)
     sizes = [("graft entry 4096", 4096, 64, 7), ("bench 2^16", 1 << 16, (1 << 16) // 40, 42),
              ("bench 2^21", 1 << 21, (1 << 21) // 40, 42)]
@@ -2423,12 +2607,19 @@ def run_engine(tmp, dense_bam, ptxas_log):
     big = None
     for label, n, ncl, seed in sizes:
         batch = synthetic_batch(n, ncl, seed=seed, genome_span=900_000, batch_size=n).as_dict()
-        out, rounds, cpu_s, card_s = engine_step_pair(batch, coverage, params, label)
+        kept = []
+        with kept_call_stats(kept):
+            out, rounds, cpu_s, card_s = engine_step_pair(batch, coverage, params, label)
         print(f"    {label}: {int(out['n_clusters'])} clusters, {rounds} relaxation rounds, "
               f"{int(out['cluster_valid'].sum())} valid, {int(out['qc'].sum())} PASS; card == "
               f"CPU on every key (CPU {cpu_s:.2f} s, card {card_s:.3f} s with the copies)",
               flush=True)
+        calls, err = hold_kept_call_stats(kept, f"the engine's {label} (fused)")
+        print(f"    [a] {label}: the step's {calls} call-statistics call held: kernels == plain "
+              f"version on CPU copies, every key and slot; integer keys == plain on the card, "
+              f"float32 keys within {err:.3g} of it", flush=True)
         big = batch
+    stats_launches["10a"] = cs.COUNTS["launches"]
 
     print("[10b] dense3's chr1 signatures (the port's lead provider) under three flag sets",
           flush=True)
@@ -2446,28 +2637,39 @@ def run_engine(tmp, dense_bam, ptxas_log):
               f"{int(valid.sum())} valid, {rounds} rounds; card == CPU on every key; filter "
               f"codes " + ", ".join(f"{FILTERS[i]} {c}" for i, c in enumerate(codes) if c),
               flush=True)
+    stats_launches["10b"] = cs.COUNTS["launches"] - stats_launches["10a"]
 
     print(f"[10c] the sharded step, {ENGINE_SHARDS} shards on cuda:0 against "
           f"{ENGINE_SHARDS} CPU shards", flush=True)
     d_sig, d_cov, d_offs = dryrun_shards(os.path.join(tmp, "dryrun"))
-    out, card_s, cpu_s = sharded_pair(d_sig, d_cov, d_offs, "dryrun_multichip's recipe",
-                                      halo_bp=2000, halo_slots=64)
+    kept = []
+    with kept_call_stats(kept):
+        out, card_s, cpu_s = sharded_pair(d_sig, d_cov, d_offs, "dryrun_multichip's recipe",
+                                          halo_bp=2000, halo_slots=64)
     print(f"    dryrun_multichip's recipe: clusters a shard {out['n_clusters'].tolist()}, "
           f"owned {int(out['cluster_valid'].sum())}, halo_overflow "
           f"{out['halo_overflow'].tolist()}; integer outputs == ({card_s:.3f} s card, "
           f"{cpu_s:.3f} s CPU)", flush=True)
     w_sig, w_cov, w_offs = window_shards(leads, chr1_cov, 500_000)
-    out, card_s, cpu_s = sharded_pair(w_sig, w_cov, w_offs, "dense3 chr1 in 4 windows",
-                                      halo_bp=5000, halo_slots=512)
+    with kept_call_stats(kept):
+        out, card_s, cpu_s = sharded_pair(w_sig, w_cov, w_offs, "dense3 chr1 in 4 windows",
+                                          halo_bp=5000, halo_slots=512)
     print(f"    dense3 chr1 in {ENGINE_SHARDS} windows of 500 kb "
           f"({w_sig['pos'].shape[0] // ENGINE_SHARDS} slots a shard): clusters a shard "
           f"{out['n_clusters'].tolist()}, owned {int(out['cluster_valid'].sum())}, "
           f"halo_overflow {out['halo_overflow'].tolist()}; integer outputs == "
           f"({card_s:.3f} s card, {cpu_s:.3f} s CPU)", flush=True)
-    launches = {"merge_relax": tmr.COUNTS["launches"], "candidate_tail": ct.COUNTS["launches"]}
-    print(f"    the main path of [10a-c] launched {launches}", flush=True)
-    if min(launches.values()) < 1:
-        fail(f"phase 10's main path left a kernel unlaunched: {launches}")
+    stats_launches["10c"] = cs.COUNTS["launches"] - stats_launches["10a"] - stats_launches["10b"]
+    launches = {"merge_relax": tmr.COUNTS["launches"], "candidate_tail": ct.COUNTS["launches"],
+                "call_stats": cs.COUNTS["launches"]}
+    print(f"    the main path of [10a-c] launched {launches}; call_stats by part "
+          f"{stats_launches}", flush=True)
+    if min(launches.values()) < 1 or min(stats_launches.values()) < 1:
+        fail(f"phase 10's main path left a kernel unlaunched: {launches}, {stats_launches}")
+    calls, err = hold_kept_call_stats(kept, "the sharded step's shards (fused)")
+    print(f"    [c] the sharded steps' {calls} call-statistics calls held: kernels == plain "
+          f"version on CPU copies; integer keys == plain on the card, float32 keys within "
+          f"{err:.3g} of it", flush=True)
 
     print("[10d] timings at 2^21 signatures", flush=True)
     rows = time_engine_kernels(big, coverage, params, ptxas_log)
@@ -2769,8 +2971,8 @@ def main() -> int:
     print(f"    the mesh's main path (dense3 --tpu-mesh {MESH_SHARDS} --threads 4) launched "
           f"{mesh_launches}", flush=True)
 
-    print("[10] the fused calling engine (parallel/engine.py) and its two kernels",
-          flush=True)
+    print("[10] the fused calling engine (parallel/engine.py) and its kernels (the relaxation, "
+          "the call statistics, the candidate tail)", flush=True)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_engine_") as tmp:
         engine_launches, engine_rows = run_engine(tmp, dense_args[1], logs["candidate_tail"])
 
@@ -2835,7 +3037,12 @@ def main() -> int:
         "source": "sniffles_tpu_torch/csrc/candidate_tail.cu",
         "replaces": "sniffles_tpu/parallel/engine.py:133",
         "launches": engine_launches["candidate_tail"], "max_abs_err": 0,
-        **engine_rows[1], "library_ms": None}]
+        **engine_rows[1], "library_ms": None}, {
+        "name": "call_stats", "route": "cuda",
+        "source": "sniffles_tpu_torch/csrc/call_stats.cu",
+        "replaces": "sniffles_tpu/ops/clustering.py:1262",
+        "launches": engine_launches["call_stats"],
+        **engine_rows[2], "library_ms": None}]
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -31,7 +31,8 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "torch_kernels")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
-KERNEL_SOURCES = ("edit_distance", "merge_sweep", "merge_relax", "candidate_tail")
+KERNEL_SOURCES = ("edit_distance", "merge_sweep", "merge_relax", "candidate_tail",
+                  "call_stats")
 HOST_SOURCES = ("bamcore.cc", "poacore.cc")
 # -ffp-contract=off: bamcore.cc's split filter computes base + kb * (qlen /
 # 1000.0) in double precision as Python does, two roundings; a fused

@@ -1,0 +1,223 @@
+"""
+The per-cluster calling statistics of a clustered batch (reference:
+sv.py:497-598 call_from): the JAX package's jitted call_statistics
+(sniffles_tpu/ops/clustering.py:1262). Three callers: each call task's
+device step (ops/clustering._task_statistics), the call path's sharded
+step (parallel/mesh.py) and the fused engine (parallel/engine.py,
+fused=True).
+
+`call_statistics` is the wrapper: on CPU tensors the plain version
+(`call_statistics_plain`, torch ops), on CUDA tensors the two kernels of
+csrc/call_stats.cu after four stable sorts in torch (a run pass, then a
+resident grid that writes each empty slot's identities, a thread a slot,
+and walks each live cluster slot with a warp; no host synchronisation),
+or an exception.
+
+The sorts: the plain version's three lexsorts by (masked cluster id,
+masked value), each a chain of two stable sorts, become one stable sort
+each of an int64 key, (masked cid << 32) | (masked value biased to
+unsigned), which gives lexsort's permutation (tests/test_torch_call_stats.py
+holds the two equal on ties and masks); a fourth stable sort by the masked
+cluster id alone puts each cluster's elements in array order. All four put
+the same sequence of masked cluster ids first, so one run table serves them.
+
+The float32 sums are XLA's: term by term in float32, s1 and s2 in the
+run's sorted order, the mapq and NM sums in array order (ops/segments.py).
+The plain version's index_add_ adds in those orders on the CPU; on the card
+it adds with atomics, so the kernels are held against the plain version on
+CPU copies of the same inputs, and against the card's in the integer keys.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from sniffles_tpu_torch.ops._call_consts import SVTYPE_CODES
+from sniffles_tpu_torch.ops.segments import (INT32_MAX, INT32_MIN, lexsort, seg_count,
+                                             seg_max, seg_mean, seg_min, seg_sum,
+                                             unique_count_per_segment)
+from sniffles_tpu_torch.ops.stats import seg_median_modes, seg_trimmed_stdev
+
+SVTYPE_INS, SVTYPE_DEL = SVTYPE_CODES["INS"], SVTYPE_CODES["DEL"]
+
+# Launches of the kernels by the wrapper (call_statistics), one a call (the
+# run pass and the statistics); it adds to it only where it launches them.
+COUNTS = {"launches": 0}
+
+# the output keys after n_clusters, in the order of the kernel's 16 rows of
+# one int32 tensor (the float32 keys are rows of their bits)
+KEYS = ("svtype", "svlen", "pos", "end", "raw_pos_center", "pos_min", "pos_max",
+        "stdev_pos", "stdev_len", "support", "lead_count", "qual", "fwd", "rev", "nm",
+        "n_strands")
+FLOAT_KEYS = ("stdev_pos", "stdev_len", "nm")
+# the int32 columns of the clustered batch the statistics read
+INT_COLUMNS = ("cluster_id", "pos", "svlen", "read_id", "mapq", "strand", "svtype")
+
+
+def reset_counts() -> None:
+    COUNTS["launches"] = 0
+
+
+def call_statistics_plain(clustered: dict, fused: bool = False) -> dict:
+    """
+    Per-cluster calling statistics (reference: sv.py:497-598 call_from):
+    svlen/pos centers via median_modes, trimmed stdevs, support as
+    unique read count, mean mapq, strand counts, mean NM, PRECISE flag
+    inputs. Results are [N]-shaped, indexed by cluster id. fused=True
+    gives the stdevs of the JAX package's jitted fused step
+    (ops/segments.seg_stdev).
+    """
+    n = clustered["pos"].shape[0]
+    cid = clustered["cluster_id"]
+    valid = clustered["valid"]
+    i32 = torch.int32
+
+    # sort by (cluster, value); invalid slots last
+    def sorted_by(value):
+        order = lexsort((torch.where(valid, value, INT32_MAX),
+                         torch.where(valid, cid, INT32_MAX)))
+        return value[order], cid[order], valid[order]
+
+    svlen_s, cid_l, valid_l = sorted_by(clustered["svlen"])
+    pos_s, cid_p, valid_p = sorted_by(clustered["pos"])
+    read_s, cid_r, valid_r = sorted_by(clustered["read_id"])
+
+    svlen_center = seg_median_modes(svlen_s, cid_l, valid_l, n)
+    pos_center = seg_median_modes(pos_s, cid_p, valid_p, n)
+    stdev_len = seg_trimmed_stdev(svlen_s, cid_l, valid_l, n, fused)
+    stdev_pos = seg_trimmed_stdev(pos_s, cid_p, valid_p, n, fused)
+    support = unique_count_per_segment(cid_r, read_s, valid_r, n)
+
+    count = seg_count(cid, valid, n)
+    qual = torch.floor(seg_mean(clustered["mapq"], cid, valid, n)).to(i32)
+    fwd = seg_sum((valid & (clustered["strand"] > 0)).to(i32), cid, n)
+    rev = count - fwd
+    nm_mean = seg_mean(clustered["nm"], cid, valid, n)
+    n_strands = torch.where((fwd > 0) & (rev > 0), 2, torch.where(count > 0, 1, 0)).to(i32)
+
+    # cluster svtype (uniform within a cluster; max is a cheap head-select)
+    svtype = seg_max(torch.where(valid, clustered["svtype"], -1), cid, n)
+
+    # element-position extent per cluster
+    pos_min = seg_min(torch.where(valid, clustered["pos"], INT32_MAX), cid, n)
+    pos_max = seg_max(torch.where(valid, clustered["pos"], INT32_MIN), cid, n)
+
+    # bounds (reference: sv.py:484-494 calculate_bounds)
+    is_ins = svtype == SVTYPE_INS
+    is_del = svtype == SVTYPE_DEL
+    svstart = torch.where(is_del, pos_center + svlen_center, pos_center)
+    svend = torch.where(is_ins | is_del, pos_center, pos_center + svlen_center.abs())
+
+    return {
+        "n_clusters": clustered["n_clusters"],
+        "svtype": svtype.to(i32),
+        "svlen": svlen_center.to(i32),
+        "pos": svstart.to(i32),
+        "end": svend.to(i32),
+        "raw_pos_center": pos_center.to(i32),
+        "pos_min": pos_min.to(i32),
+        "pos_max": pos_max.to(i32),
+        "stdev_pos": stdev_pos,
+        "stdev_len": stdev_len,
+        "support": support,
+        "lead_count": count,
+        "qual": qual,
+        "fwd": fwd,
+        "rev": rev,
+        "nm": nm_mean,
+        "n_strands": n_strands,
+    }
+
+
+def call_statistics(clustered: dict, fused: bool = False) -> dict:
+    """The statistics of call_statistics_plain: on CPU tensors the plain
+    version, on CUDA tensors the kernels (launch_call_statistics), on any
+    other device an exception."""
+    dev = clustered["pos"].device
+    if dev.type == "cpu":
+        return call_statistics_plain(clustered, fused)
+    if dev.type != "cuda":
+        raise ValueError(f"no call-statistics kernel for device {dev}")
+    out = launch_call_statistics(clustered, fused)
+    if clustered["pos"].shape[0]:
+        COUNTS["launches"] += 1
+    return out
+
+
+def masked_keys(cid: torch.Tensor, valid: torch.Tensor, values: torch.Tensor) -> torch.Tensor:
+    """The int64 sort key of lexsort((where(valid, values, MAX),
+    where(valid, cid, MAX))): the masked cluster id in the high word, the
+    masked value biased to unsigned in the low word."""
+    mcid = torch.where(valid, cid, INT32_MAX).to(torch.int64)
+    mval = torch.where(valid, values, INT32_MAX).to(torch.int64)
+    return mcid * (1 << 32) + (mval + (1 << 31))
+
+
+def sorted_keys(clustered: dict) -> tuple:
+    """The wrapper's four stable sorts: ((sorted key, permutation) of the
+    (cluster, svlen), (cluster, pos) and (cluster, read) keys, and
+    (sorted masked cluster ids, permutation) of the cluster id alone)."""
+    cid, valid = clustered["cluster_id"], clustered["valid"]
+    keyed = tuple(torch.sort(masked_keys(cid, valid, clustered[k]), stable=True)
+                  for k in ("svlen", "pos", "read_id"))
+    return keyed + (torch.sort(torch.where(valid, cid, INT32_MAX), stable=True),)
+
+
+def kernel_inputs(clustered: dict) -> dict:
+    """The kernels' inputs from a clustered batch of CUDA tensors: its
+    columns as contiguous int32, bool and float32 [n] tensors, and the four
+    sorts (sorted_keys). Raises on a column of another shape or device."""
+    dev = clustered["pos"].device
+    n = clustered["pos"].shape[0]
+
+    def col(key, dtype):
+        t = clustered[key]
+        if t.device != dev or t.dim() != 1 or t.shape[0] != n:
+            raise ValueError(f"call_statistics: {key} is {tuple(t.shape)} on {t.device}, "
+                             f"want ({n},) on {dev}")
+        return t.to(dtype).contiguous()
+
+    c = {k: col(k, torch.int32) for k in INT_COLUMNS}
+    c["valid"] = col("valid", torch.bool)
+    c["nm"] = col("nm", torch.float32)
+    c["sorts"] = sorted_keys(c) if n else None
+    return c
+
+
+def launch_kernels(inputs: dict, n_clusters, fused: bool = False) -> dict:
+    """The kernels' entry point call_stats on kernel_inputs (two memsets,
+    the run pass, then the resident grid) on the current stream of the
+    tensors' device; no launch for n = 0. Counts nothing; raises when a
+    launch fails."""
+    from sniffles_tpu_torch.ops import _build
+    from sniffles_tpu_torch.ops.clustering import _launch
+    c = inputs
+    dev, n = c["pos"].device, c["pos"].shape[0]
+    out = torch.empty((len(KEYS), n), dtype=torch.int32, device=dev)
+    if n:
+        (k_len, _), (k_pos, _), (k_read, _), (cid_s, order) = c["sorts"]
+        runs = torch.empty((2, n), dtype=torch.int32, device=dev)     # scratch
+        has_invalid = torch.empty((n,), dtype=torch.uint8, device=dev)  # scratch
+        fn = _build.load("call_stats").call_stats
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+        # a bool is one byte, 0 or 1: the kernel reads valid as its bytes
+        rc = _launch(fn, dev, k_len.data_ptr(), k_pos.data_ptr(), k_read.data_ptr(),
+                     cid_s.data_ptr(), order.data_ptr(), c["cluster_id"].data_ptr(),
+                     c["valid"].view(torch.uint8).data_ptr(), c["mapq"].data_ptr(),
+                     c["strand"].data_ptr(), c["svtype"].data_ptr(), c["nm"].data_ptr(),
+                     runs.data_ptr(), has_invalid.data_ptr(), out.data_ptr(),
+                     n, int(bool(fused)))
+        if rc != 0:
+            raise RuntimeError(f"call_stats launch failed with CUDA error {rc}")
+    stats = {"n_clusters": n_clusters}
+    stats.update((k, row.view(torch.float32) if k in FLOAT_KEYS else row)
+                 for k, row in zip(KEYS, out))
+    return stats
+
+
+def launch_call_statistics(clustered: dict, fused: bool = False) -> dict:
+    """The statistics on CUDA tensors: the sorts, then the kernels
+    (launch_kernels). Counts nothing; raises when a launch fails."""
+    return launch_kernels(kernel_inputs(clustered), clustered["n_clusters"], fused)

@@ -20,7 +20,8 @@ path's `call_task_packed` reaches, as torch ops on `config.device`:
      thread per segment); `sweep_cuts_plain` and `merge_sweep_plain` are
      their plain PyTorch versions, and what a CPU tensor gets
   4. the per-read inner merge fold, the svlen-histogram resplit, and the
-     per-child calling statistics and phase tallies
+     per-child calling statistics (ops/call_stats.py: the kernels of
+     csrc/call_stats.cu on the card) and phase tallies
 
 `batched_call_task` is the counterpart of the JAX package's vmapped
 batched_call_task, which the device service runs on up to 4 fused tasks
@@ -52,11 +53,10 @@ from sniffles_tpu_torch.ops._call_consts import (STATS_NC_ROW, STATS_PARENT_ROW,
                                                  STATS_ROWS, STATS_UNCERTAIN_ROW,
                                                  SVTYPE_CODES, SVTYPE_NAMES,
                                                  split_call_task_output)
-from sniffles_tpu_torch.ops.segments import (INT32_MAX, INT32_MIN, lexsort,
-                                             segment_ids_from_boundaries, seg_sum,
-                                             seg_sum_f32, seg_max, seg_min, seg_count,
-                                             seg_mean, sqrt_f32, unique_count_per_segment)
-from sniffles_tpu_torch.ops.stats import seg_median_modes, seg_trimmed_stdev
+from sniffles_tpu_torch.ops import call_stats
+from sniffles_tpu_torch.ops.segments import (INT32_MAX, lexsort, segment_ids_from_boundaries,
+                                             seg_sum, seg_sum_f32, seg_max, seg_min,
+                                             seg_count, sqrt_f32)
 
 # svtype codes (order matches svcall.ALL_TYPES)
 SVTYPE_INS, SVTYPE_DEL, SVTYPE_DUP, SVTYPE_INV, SVTYPE_BND = 0, 1, 2, 3, 4
@@ -1123,71 +1123,9 @@ def phase_tallies(clustered: dict, n: int) -> dict:
 
 
 def call_statistics(clustered: dict, fused: bool = False) -> dict:
-    """
-    Per-cluster calling statistics (reference: sv.py:497-598 call_from):
-    svlen/pos centers via median_modes, trimmed stdevs, support as
-    unique read count, mean mapq, strand counts, mean NM, PRECISE flag
-    inputs. Results are [N]-shaped, indexed by cluster id. fused=True
-    gives the stdevs of the JAX package's jitted fused step
-    (ops/segments.seg_stdev).
-    """
-    n = clustered["pos"].shape[0]
-    cid = clustered["cluster_id"]
-    valid = clustered["valid"]
-    i32 = torch.int32
-
-    # sort by (cluster, value); invalid slots last
-    def sorted_by(value):
-        order = lexsort((torch.where(valid, value, INT32_MAX),
-                         torch.where(valid, cid, INT32_MAX)))
-        return value[order], cid[order], valid[order]
-
-    svlen_s, cid_l, valid_l = sorted_by(clustered["svlen"])
-    pos_s, cid_p, valid_p = sorted_by(clustered["pos"])
-    read_s, cid_r, valid_r = sorted_by(clustered["read_id"])
-
-    svlen_center = seg_median_modes(svlen_s, cid_l, valid_l, n)
-    pos_center = seg_median_modes(pos_s, cid_p, valid_p, n)
-    stdev_len = seg_trimmed_stdev(svlen_s, cid_l, valid_l, n, fused)
-    stdev_pos = seg_trimmed_stdev(pos_s, cid_p, valid_p, n, fused)
-    support = unique_count_per_segment(cid_r, read_s, valid_r, n)
-
-    count = seg_count(cid, valid, n)
-    qual = torch.floor(seg_mean(clustered["mapq"], cid, valid, n)).to(i32)
-    fwd = seg_sum((valid & (clustered["strand"] > 0)).to(i32), cid, n)
-    rev = count - fwd
-    nm_mean = seg_mean(clustered["nm"], cid, valid, n)
-    n_strands = torch.where((fwd > 0) & (rev > 0), 2, torch.where(count > 0, 1, 0)).to(i32)
-
-    # cluster svtype (uniform within a cluster; max is a cheap head-select)
-    svtype = seg_max(torch.where(valid, clustered["svtype"], -1), cid, n)
-
-    # element-position extent per cluster
-    pos_min = seg_min(torch.where(valid, clustered["pos"], INT32_MAX), cid, n)
-    pos_max = seg_max(torch.where(valid, clustered["pos"], INT32_MIN), cid, n)
-
-    # bounds (reference: sv.py:484-494 calculate_bounds)
-    is_ins = svtype == SVTYPE_INS
-    is_del = svtype == SVTYPE_DEL
-    svstart = torch.where(is_del, pos_center + svlen_center, pos_center)
-    svend = torch.where(is_ins | is_del, pos_center, pos_center + svlen_center.abs())
-
-    return {
-        "n_clusters": clustered["n_clusters"],
-        "svtype": svtype.to(i32),
-        "svlen": svlen_center.to(i32),
-        "pos": svstart.to(i32),
-        "end": svend.to(i32),
-        "raw_pos_center": pos_center.to(i32),
-        "pos_min": pos_min.to(i32),
-        "pos_max": pos_max.to(i32),
-        "stdev_pos": stdev_pos,
-        "stdev_len": stdev_len,
-        "support": support,
-        "lead_count": count,
-        "qual": qual,
-        "fwd": fwd,
-        "rev": rev,
-        "nm": nm_mean,
-        "n_strands": n_strands,
-    }
+    """Per-cluster calling statistics (reference: sv.py:497-598 call_from),
+    [N]-shaped and indexed by cluster id: ops/call_stats.call_statistics,
+    the plain version on CPU tensors and the kernels of csrc/call_stats.cu
+    on CUDA tensors. fused=True gives the stdevs of the JAX package's
+    jitted fused step."""
+    return call_stats.call_statistics(clustered, fused)

@@ -15,9 +15,14 @@ primitives kept where torch's differ:
     slot that is cut off, and the output starts at that identity;
   * an int32 sum stays int32 and wraps, as XLA's does (torch.sum would
     widen it to int64);
-  * float sums of integer-valued terms accumulate in float64, where
-    they add exactly, and round once to float32: order-independent, so a
-    scatter with atomics on the card gives the same bits as the CPU;
+  * a float32 segment sum (seg_sum of float32 terms, as in seg_mean and
+    seg_stdev) adds term by term in float32 in array order, as XLA's
+    scatter-add does; torch's CPU index_add_ adds in that order, its CUDA
+    one with atomics in no fixed order (the kernel of ops/call_stats.py
+    sums each cluster in order instead);
+  * seg_sum_f32 accumulates float32 terms in float64 and rounds once:
+    the merge kernels' pick sums, whose integer-valued terms add exactly,
+    so any order gives the same bits;
   * a float32 square root is the correctly rounded one (sqrt_f32), as
     XLA's and CUDA's sqrtf are;
   * where the JAX package's jitted code has a float32 multiply feeding an
@@ -125,7 +130,7 @@ def rank_in_segment(seg_ids: torch.Tensor) -> torch.Tensor:
 def seg_mean(x: torch.Tensor, seg_ids: torch.Tensor, valid: torch.Tensor,
              num_segments: int) -> torch.Tensor:
     cnt = seg_count(seg_ids, valid, num_segments)
-    s = seg_sum_f32(torch.where(valid, x, 0).to(torch.float32), seg_ids, num_segments)
+    s = seg_sum(torch.where(valid, x, 0).to(torch.float32), seg_ids, num_segments)
     return s / torch.clamp(cnt, min=1).to(torch.float32)
 
 
@@ -147,8 +152,8 @@ def seg_stdev(x: torch.Tensor, seg_ids: torch.Tensor, valid: torch.Tensor,
     xc = (x.to(torch.int64) - shift[seg_ids.long()]).to(torch.int32).to(torch.float32)
     cnt = seg_count(seg_ids, valid, num_segments).to(torch.float32)
     xf = torch.where(valid, xc, 0.0)
-    s1 = seg_sum_f32(xf, seg_ids, num_segments)
-    s2 = seg_sum_f32(xf * xf, seg_ids, num_segments)
+    s1 = seg_sum(xf, seg_ids, num_segments)
+    s2 = seg_sum(xf * xf, seg_ids, num_segments)
     mean = s1 / torch.clamp(cnt, min=1)
     num = fma_f32(-(cnt * mean), mean, s2) if fused else s2 - cnt * mean * mean
     var = num / torch.clamp(cnt - 1, min=1)

@@ -652,3 +652,123 @@ def relax_chain_batch(size: int, links: int = 36, spacing: int = 1_100_000) -> d
     sig["pos"][:n], sig["svlen"][:n], sig["valid"][:n] = pos, 100, True
     sig["read_id"][:n] = np.arange(n)
     return sig
+
+
+_I32_MIN, _I32_MAX = -2 ** 31, 2 ** 31 - 1
+
+
+def _stats_cluster(rng, size: int, center: int, spread: int, svlen: int, len_spread: int,
+                   step: int = 1) -> dict:
+    """One cluster's columns: positions and lengths about their centers,
+    rounded to `step` (ties in the modes), reads from a pool smaller than
+    the cluster (repeated reads), mapq, strand, one svtype, NM of a long
+    read's rates."""
+    def around(mid, half):
+        if half == 0:
+            return np.full(size, mid, dtype=np.int64)
+        return mid + rng.integers(-half, half + 1, size) // step * step
+    return {"pos": around(center, spread), "svlen": around(svlen, len_spread),
+            "read_id": rng.integers(0, max(size * 2 // 3, 1), size),
+            "mapq": rng.integers(0, 61, size), "strand": rng.integers(0, 2, size),
+            "svtype": np.full(size, int(rng.integers(0, 7))),
+            "nm": rng.random(size, dtype=np.float32) * np.float32(0.05)}
+
+
+def call_stats_batch(kind: str, size: int, seed: int) -> dict:
+    """A clustered batch for call_statistics (the columns it reads, numpy,
+    and n_clusters), in shuffled array order, so a cluster's elements are
+    not contiguous. "random": clusters of 1 to 60 elements at genome
+    positions, about 10 % invalid elements (some naming a live cluster,
+    some the only element of their slot), skipped ids (empty slots).
+    "edge" (size >= 8,192): clusters of 1 to 5 elements (the trim
+    boundary), one of 5,000, ties in the modes, values at the int32 limits
+    (the centering wraps), a cluster whose centered svlen spans 2^29, a
+    mixed-svtype and a one-strand cluster, mapq 255, NM across 40
+    binades, slots holding only invalid elements, and empty slots."""
+    rng = np.random.default_rng(seed)
+    clusters, invalid_only = [], []
+    if kind == "random":
+        free = size - size // 10
+        while free > 60:
+            k = int(min(rng.geometric(0.08), 60))
+            free -= k
+            clusters.append(_stats_cluster(rng, k, int(rng.integers(10 ** 6, 2 * 10 ** 8)),
+                                           int(rng.integers(0, 600)),
+                                           int(rng.choice([-1, 1]) * rng.integers(50, 5000)),
+                                           int(rng.integers(0, 40)), int(rng.choice([1, 5]))))
+    elif kind == "edge":
+        if size < 8192:
+            raise ValueError("the edge batch needs 8,192 slots")
+        for k in (1, 2, 3, 4, 5):
+            for _ in range(12):
+                clusters.append(_stats_cluster(rng, k, int(rng.integers(10 ** 6, 10 ** 8)),
+                                               int(rng.integers(0, 40)), 300, 20, 10))
+        big = _stats_cluster(rng, 5000, 150_000_000, 3000, -400, 300, 1)
+        clusters.append(big)
+        # ties: every value twice, and two values three times against one
+        tie = _stats_cluster(rng, 8, 5_000_000, 0, 100, 0)
+        tie["pos"] = 5_000_000 + np.array([0, 0, 10, 10, 20, 20, 30, 30])
+        tie["svlen"] = np.array([100, 100, 100, 200, 200, 200, 300, 400])
+        clusters.append(tie)
+        # the int32 limits: the centering wraps; the bounds overflow
+        top = _stats_cluster(rng, 9, _I32_MAX - 50, 50, _I32_MIN + 20, 20)
+        top["pos"][:3] = _I32_MAX
+        top["svtype"][:] = 1
+        clusters.append(top)
+        wrap = _stats_cluster(rng, 7, 0, 0, 0, 0)
+        wrap["pos"] = np.array([_I32_MIN, _I32_MIN + 1, 0, 5, _I32_MAX - 1, _I32_MAX, _I32_MAX])
+        wrap["svlen"] = np.array([_I32_MAX, _I32_MIN, -1, 0, 1, _I32_MIN + 7, _I32_MAX])
+        clusters.append(wrap)
+        # centered svlen spanning 2^29: float32 sums that round
+        wide = _stats_cluster(rng, 60, 40_000_000, 500, 0, 2 ** 28)
+        clusters.append(wide)
+        # mixed svtypes (the max), one strand, mapq at 255
+        mixed = _stats_cluster(rng, 6, 60_000_000, 30, 500, 10)
+        mixed["svtype"] = np.array([0, 4, 2, 6, 3, 1])
+        mixed["strand"][:] = 1
+        mixed["mapq"][:] = 255
+        clusters.append(mixed)
+        # NM across 40 binades (no subnormals)
+        for c in clusters:
+            c["nm"] = (rng.random(c["nm"].size, dtype=np.float32) + np.float32(0.5)) * (
+                np.float32(2.0) ** rng.integers(-36, 4, c["nm"].size)).astype(np.float32)
+        invalid_only = [int(x) for x in rng.integers(1, 6, 12)]
+    else:
+        raise ValueError(f"no call_stats batch of kind {kind!r}")
+
+    # slot ids: one live cluster or invalid-only slot after another, with
+    # skipped ids (empty slots) between some
+    n_slots = len(clusters) + len(invalid_only)
+    gaps = rng.random(n_slots) < 0.2
+    ids = np.cumsum(1 + gaps) - 1
+    kinds = rng.permutation(np.r_[np.zeros(len(clusters), bool), np.ones(len(invalid_only), bool)])
+    cols = {k: [] for k in ("pos", "svlen", "read_id", "mapq", "strand", "svtype", "nm")}
+    cid, valid = [], []
+    it_c, it_i = iter(clusters), iter(invalid_only)
+    for slot, only_invalid in zip(ids, kinds):
+        c = (_stats_cluster(rng, next(it_i), 7_000_000, 100, 100, 10) if only_invalid
+             else next(it_c))
+        k = c["pos"].size
+        for key in cols:
+            cols[key].append(c[key])
+        cid.append(np.full(k, slot))
+        valid.append(np.full(k, not only_invalid))
+    used = sum(x.size for x in cid)
+    if used > size:
+        raise ValueError(f"{used} elements do not fit {size} slots")
+    # the rest: invalid padding, half naming live clusters' ids
+    pad = size - used
+    live = ids[~kinds]
+    pad_c = _stats_cluster(rng, pad, 9_000_000, 1000, 200, 50)
+    for key in cols:
+        cols[key].append(pad_c[key])
+    cid.append(np.where(rng.random(pad) < 0.5, rng.choice(live, pad), ids[-1] + 1 +
+                        rng.integers(0, max(size - ids[-1] - 1, 1), pad)))
+    valid.append(np.zeros(pad, bool))
+    perm = rng.permutation(size)
+    out = {k: np.concatenate(v)[perm].astype(np.float32 if k == "nm" else np.int32)
+           for k, v in cols.items()}
+    out["cluster_id"] = np.concatenate(cid)[perm].astype(np.int32)
+    out["valid"] = np.concatenate(valid)[perm]
+    out["n_clusters"] = np.int32(live.max() + 1 if live.size else 0)
+    return out

@@ -4,9 +4,9 @@ the merge-sweep wrapper takes its plain version) against the JAX
 package's on the same numpy inputs made from a seed.
 
 Tolerance: 0 for every integer output. Float outputs of the segment
-primitives are compared at inputs whose float32 sums are exact (so the
-port's float64 accumulation and XLA's float32 one give the same bits)
-and asserted equal.
+primitives are asserted equal bit for bit: seg_mean and seg_stdev add in
+float32 in array order, as XLA's scatter-add does (the call statistics'
+batches whose float32 sums round: tests/test_torch_call_stats.py).
 
 call_task_packed is held to the JAX package's two formulations of the
 exact sweep: its sequential while_loop on every batch, and its default

@@ -2,7 +2,10 @@
 (edit distance; the merge sweep's partition and segment walks; the fused
 engine's relaxation, one cooperative launch, on every engine input and
 on 2^16 slots of tiled 36-link chains, with its grid and time stamps; its
-candidate tail at odd widths under three flag sets) against their plain
+candidate tail at odd widths under three flag sets; the call statistics'
+run pass and warp per slot on seeded and edge batches and the engine's
+2^16 batch, and on the call task, the call path's mesh step and the
+engine) against their plain
 PyTorch versions (and the host Myers scan), and the combine and
 call_sample device paths on the card against their host paths, the
 native host library beside a CUDA context, the cluster_assign and
@@ -659,3 +662,116 @@ def test_sharded_step_on_cuda_matches_the_cpu(card):
     for k, v in runs[0].items():
         if v.dtype != np.float32:
             assert runs[1][k].tolist() == v.tolist(), k
+
+
+# ---------------------------------------------------------------------------
+# the call statistics: the run pass and a warp per cluster slot
+
+CALL_STATS_BATCHES = [("random", 1024, 1), ("random", 8192, 3), ("edge", 8192, 4),
+                      ("edge", 8192, 5)]
+
+
+def call_stats_inputs(kind, n, seed):
+    """tests/test_torch_call_stats.py's batches, or "engine": the engine's
+    clustered 2^16 batch (synthetic_batch, n/40 sites, seed 42), as CPU
+    tensors."""
+    from sniffles_tpu_torch.sim import call_stats_batch
+    if kind != "engine":
+        return {k: torch.as_tensor(v) for k, v in call_stats_batch(kind, n, seed).items()}
+    from sniffles_tpu_torch.signatures import synthetic_batch
+    sig = {k: torch.as_tensor(v) for k, v in synthetic_batch(
+        n, n // 40, seed=seed, genome_span=900_000, batch_size=n).as_dict().items()}
+    clustered = tc.cluster_signatures(sig, cluster_r=2.5, cluster_repeat_h=1.5,
+                                      cluster_repeat_h_max=1000.0, cluster_merge_bnd=1000,
+                                      cluster_merge_len=0.22, minsvlen=50, exact_sweep=False)
+    clustered.pop("merge_rounds")
+    return clustered
+
+
+def held_call_stats(card, clustered, fused):
+    """The kernels on the card against the plain version on the CPU copies,
+    every key and slot bit for bit, and against the plain version on the
+    card in the integer keys (its float32 sums add with atomics there); one
+    launch, no host synchronisation inside the wrapper."""
+    from sniffles_tpu_torch.ops import call_stats as cs
+    want = cs.call_statistics_plain(clustered, fused)
+    on_card = {k: v.to(card) for k, v in clustered.items()}
+    plain_card = cs.call_statistics_plain(on_card, fused)
+    launches = cs.COUNTS["launches"]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = cs.call_statistics(on_card, fused)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert cs.COUNTS["launches"] == launches + 1
+    assert set(got) == set(want)
+    for k, v in want.items():
+        g = got[k].cpu()
+        assert g.dtype == v.dtype and g.shape == v.shape, k
+        if v.dtype == torch.float32:
+            assert g.view(torch.int32).tolist() == v.view(torch.int32).tolist(), k
+        else:
+            assert g.tolist() == v.tolist(), k
+            assert plain_card[k].cpu().tolist() == v.tolist(), k
+
+
+@pytest.mark.parametrize("fused", [False, True])
+@pytest.mark.parametrize("kind,n,seed", CALL_STATS_BATCHES + [("engine", 1 << 16, 42)])
+def test_call_stats_kernel_matches_plain_version(card, kind, n, seed, fused):
+    held_call_stats(card, call_stats_inputs(kind, n, seed), fused)
+
+
+def test_call_stats_kernel_on_a_single_slot_and_all_invalid(card):
+    """One slot (a cluster of one), and a batch with no valid element
+    (every slot empty or invalid-only)."""
+    one = {k: v[:1].clone() for k, v in call_stats_inputs("random", 1024, 1).items()
+           if k != "n_clusters"}
+    one["valid"][:] = True
+    one["cluster_id"][:] = 0
+    one["n_clusters"] = torch.tensor(1, dtype=torch.int32)
+    held_call_stats(card, one, True)
+    none = call_stats_inputs("random", 1024, 2)
+    none["valid"][:] = False
+    held_call_stats(card, none, False)
+
+
+def test_call_statistics_kernel_runs_on_the_three_paths(card, monkeypatch):
+    """call_task_packed (a call task), build_sharded_assign (the call path's
+    mesh step, 4 shards) and call_pipeline_step (the engine) each launch
+    the kernels on CUDA tensors, one launch a statistics call, and give the
+    CPU's results."""
+    from sniffles_tpu_torch.ops import call_stats as cs
+    from sniffles_tpu_torch.parallel import device_call as tdc
+    from sniffles_tpu_torch.parallel import mesh as tmesh
+    from sniffles_tpu_torch.parallel.engine import call_pipeline_step
+    from sniffles_tpu_torch.sim import fuzz_call_batch
+    from sniffles_tpu_torch.ops.transfer import to_device
+    packed = fuzz_call_batch(7, 4096)
+    before = cs.COUNTS["launches"]
+    got = tc.call_task_packed(to_device(packed, card), **META)
+    torch.cuda.synchronize()
+    assert cs.COUNTS["launches"] == before + 1
+    assert got.cpu().tolist() == tc.call_task_packed(torch.as_tensor(packed), **META).tolist()
+
+    packed = packed[:, packed[5] > 0].copy()
+    packed[3] = np.arange(packed.shape[1], dtype=np.int32)
+    payload = tdc.pack_mesh_payload((packed, META, [None] * packed.shape[1], None), 4)
+    args = (payload["shards"], payload["offsets"], payload["window_len"],
+            np.full((4, 1), tdc.MESH_HALO_BP, dtype=np.int32))
+    before = cs.COUNTS["launches"]
+    on_card = tmesh.build_sharded_assign(["cuda:0"] * 4, **META)(*args)
+    assert cs.COUNTS["launches"] == before + 4
+    assert on_card["rows"].tolist() == tmesh.build_sharded_assign(["cpu"] * 4, **META)(
+        *args)["rows"].tolist()
+
+    sig = engine_sig("synthetic-2")
+    coverage = np.full(2_200_000, 30, dtype=np.int32)
+    before = cs.COUNTS["launches"]
+    got = call_pipeline_step(sig, coverage, engine_params("default"), device=card)
+    torch.cuda.synchronize()
+    assert cs.COUNTS["launches"] == before + 1
+    want = call_pipeline_step(sig, coverage, engine_params("default"), device="cpu")
+    for k in ("stdev_pos", "stdev_len", "support", "svlen", "pos", "qual"):
+        assert got[k].cpu().view(torch.int32).tolist() == want[k].view(torch.int32).tolist(), k

@@ -70,6 +70,11 @@ def test_source_scan_covers_the_engine_modules():
             "csrc/range_metrics.cuh"} <= scanned
 
 
+def test_source_scan_covers_the_call_statistics():
+    scanned = {os.path.relpath(p, PORT) for p in port_sources()}
+    assert {"ops/call_stats.py", "csrc/call_stats.cu"} <= scanned
+
+
 def test_source_scan_covers_the_bench_and_the_fuzz():
     scanned = {os.path.relpath(p, PORT) for p in port_sources()}
     assert {"bench.py", "tools/bench_combine.py", "tools/diff_fuzz.py",
