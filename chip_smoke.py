@@ -139,9 +139,9 @@ Phases, each of which must pass:
      process 1 writes nothing, the 3 tasks split between them.
   10. the fused calling engine (parallel/engine.py, call_pipeline_step) and
      its three kernel sources (csrc/merge_relax.cu, the relaxation's rounds;
-     csrc/call_stats.cu, the call statistics, a run pass and a warp a
-     cluster slot; csrc/candidate_tail.cu, coverage, genotype and QC in one
-     pass): (a)
+     csrc/call_stats.cu, the call statistics, a run pass, then a thread, a
+     warp or a block a cluster by its size; csrc/candidate_tail.cu,
+     coverage, genotype and QC in one pass): (a)
      the whole step on the card against the same step on the CPU (the
      plain versions), every output key bit for bit, on
      __graft_entry__.entry()'s batch (4,096 signatures, 1 Mb of coverage
@@ -160,9 +160,12 @@ Phases, each of which must pass:
      bit, on the card the integer keys; float32 sums on the card add with
      atomics); (d) the call statistics held so on the tiled chain's 2^21
      slots and on tests/test_torch_call_stats.py's crafted batches (both
-     settings), timed at 2^21 (the wrapper, the kernels alone, the plain
-     version on the card, the bound, no host synchronisation, and the
-     engine step's statistics stage through tools/profile_engine.py);
+     settings; the tier and huge batches among them), timed at 2^21 (the
+     wrapper, the kernels alone, the plain version on the card, the bound,
+     no host synchronisation, the engine step's statistics stage through
+     tools/profile_engine.py, the kernels alone on each population of
+     tools/time_call_stats.py, held first, and each of the four kernels by
+     torch.profiler beside its bound and ptxas's report);
      and at 2^21 signatures each kernel against
      its plain version on the card (bit for bit) and timed (CUDA events)
      beside its bound, the relaxation's rounds, the step's device time,
@@ -303,10 +306,19 @@ CALL_STATS_OPS_PER_ELEMENT = 30
 # clustered batch's seven int32 columns, nm and valid read once (33), the
 # 16 int32 rows written once (64)
 CALL_STATS_BYTES = 33 + 64
-# the same for the two kernels alone: the three sorted int64 keys, the
-# masked ids and the int64 permutation of the cid-only sort (32), the raw
-# cluster id, valid, mapq, strand, svtype and NM (21), the 16 rows (64)
-CALL_STATS_KERNEL_BYTES = 32 + 21 + 64
+# the same for the kernels alone: the sorted masked ids and the int64
+# permutation of the one sort (12), the raw cluster id, valid, svlen, pos,
+# read id, mapq, strand, svtype and NM (33), the 16 rows (64)
+CALL_STATS_KERNEL_BYTES = 12 + 33 + 64
+# a kernel's reads of an element it gathers: its permutation entry and the
+# seven columns (svlen, pos, read id, mapq, strand, svtype, NM)
+CALL_STATS_GATHER_BYTES = 8 + 28
+# int32 operations of a compare of a comparison sort of a cluster's list
+# (the compare and the two moves), three lists sorted; a list of cnt
+# elements needs about cnt * log2(cnt) compares, whatever the kernel's own
+# network does (its bitonic network pads to a power of two and does
+# log^2 steps: that is its cost, not the function's)
+CALL_STATS_OPS_PER_COMPARE = 3 * 3
 
 
 def fail(msg: str) -> None:
@@ -2389,7 +2401,7 @@ def ptxas_summary(log, kernel):
     return "not in the build log"
 
 
-def time_engine_kernels(sig, coverage, params, ptxas_log):
+def time_engine_kernels(sig, coverage, params, ptxas_log, stats_ptxas_log):
     """(d): the two kernels' CUDA-event times on the step's 2^21 inputs, their
     plain versions on the card, their bounds; the step's device time,
     signatures a second (bench.py's measure: 3 repeats of 10 steps), peak
@@ -2474,7 +2486,7 @@ def time_engine_kernels(sig, coverage, params, ptxas_log):
           f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s; {tail_ops} float32 ops at "
           f"{FP32_OPS_PER_S / 1e12:.0f} TFLOP/s: {tail_ops_ms * 1e3:.3f} us), "
           f"{tail_bound / tail_ms:.3%} of it", flush=True)
-    stats_row = time_call_stats(clustered, chain, relax, params)
+    stats_rows = time_call_stats(clustered, chain, relax, params, stats_ptxas_log)
 
     step = lambda: call_pipeline_step(sig, coverage, params)  # noqa: E731
     step()
@@ -2483,6 +2495,14 @@ def time_engine_kernels(sig, coverage, params, ptxas_log):
     base = torch.cuda.memory_allocated()
     step_ms = cuda_ms(step, 10)
     peak = torch.cuda.max_memory_allocated() - base
+    # the host's side of a step: where it comes near step_ms, the host
+    # bounds the step and the card waits on its launches
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(10):
+        step()
+    enqueue_ms = (time.perf_counter() - t0) / 10 * 1e3
+    torch.cuda.synchronize()
     rates = []
     for _ in range(3):
         torch.cuda.synchronize()
@@ -2493,8 +2513,8 @@ def time_engine_kernels(sig, coverage, params, ptxas_log):
         rates.append(n / ((time.perf_counter() - t0) / 10))
     sites = sync_sites(step)
     in_relax = sum(v for k, v in sites.items() if "merge_relax" in k)
-    print(f"  the step n={n}: {step_ms:.3f} ms a step between CUDA events; "
-          f"{np.mean(rates):.4g} signatures/s (bench.py's measure: 3 x 10 steps, host clock; "
+    print(f"  the step n={n}: {step_ms:.3f} ms a step between CUDA events, the host's "
+          f"launches of a step {enqueue_ms:.3f} ms; {np.mean(rates):.4g} signatures/s (bench.py's measure: 3 x 10 steps, host clock; "
           f"{', '.join(f'{r:.4g}' for r in rates)}); peak device memory of a step "
           f"{peak / 2**20:.1f} MiB above its inputs; host synchronisations "
           f"{sum(sites.values())}" + "".join(f"; {k} x{v}" for k, v in sorted(sites.items())),
@@ -2505,7 +2525,7 @@ def time_engine_kernels(sig, coverage, params, ptxas_log):
              "bound_by": relax_by},
             {"ms": tail_ms, "plain_ms": tail_plain_ms, "bound_ms": tail_bound,
              "bound_by": "bytes" if tail_bytes_ms >= tail_ops_ms else "operations"},
-            stats_row)
+            stats_rows)
 
 
 def call_stats_bound_ms(n, bytes_per_element):
@@ -2517,18 +2537,81 @@ def call_stats_bound_ms(n, bytes_per_element):
     return max(by_bytes, by_ops) * 1e3, "bytes" if by_bytes >= by_ops else "operations"
 
 
-def time_call_stats(clustered, chain, relax, params):
+def call_stats_kernel_bounds(counts, n):
+    """{kernel: (bound ms, "bytes" or "operations")} of each kernel of
+    csrc/call_stats.cu on n slots whose clusters have `counts` elements
+    (lead_count, numpy), split by the tiers of ops/call_stats.py: the bytes
+    each must move (stat_runs: the masked id, cluster id and valid byte of
+    every element, a live slot's run; stat_slots: every slot's run and
+    invalid mark, the rows of the empty slots and of the thread tier's
+    clusters, those clusters' gathers, the other live slots' list entries;
+    stat_warps and stat_blocks: their clusters' runs, list entries, marks,
+    gathers and rows) and the operations (CALL_STATS_OPS_PER_ELEMENT an
+    element, and the cnt * log2(cnt) compares of a comparison sort of each
+    cluster's lists, CALL_STATS_OPS_PER_COMPARE each)."""
+    from sniffles_tpu_torch.ops import call_stats as cs
+    counts = counts.astype(np.int64)
+    live = counts > 0
+    tiers = {"stat_slots": live & (counts <= cs.TINY_MAX),
+             "stat_warps": (counts > cs.TINY_MAX) & (counts <= cs.WARP_MAX),
+             "stat_blocks": counts > cs.WARP_MAX}
+    compares = counts * np.log2(np.maximum(counts, 1))
+
+    def work(sel):
+        elements = int(counts[sel].sum())
+        return (elements * CALL_STATS_GATHER_BYTES + int(sel.sum()) * (8 + 4 + 1 + 64),
+                elements * CALL_STATS_OPS_PER_ELEMENT
+                + float(compares[sel].sum()) * CALL_STATS_OPS_PER_COMPARE)
+    slots_bytes, slots_ops = work(tiers["stat_slots"])
+    n_bytes = {"stat_runs": 9 * n + 8 * int(live.sum()),
+               "stat_slots": 9 * n + 64 * int((~live).sum()) + slots_bytes - 13 * int(
+                   tiers["stat_slots"].sum()) + 4 * int((live & ~tiers["stat_slots"]).sum()),
+               "stat_warps": work(tiers["stat_warps"])[0],
+               "stat_blocks": work(tiers["stat_blocks"])[0]}
+    n_ops = {"stat_runs": 4 * n, "stat_slots": slots_ops + 4 * n,
+             "stat_warps": work(tiers["stat_warps"])[1],
+             "stat_blocks": work(tiers["stat_blocks"])[1]}
+    out = {}
+    for k in cs.KERNELS:
+        by_bytes, by_ops = n_bytes[k] / HBM_BYTES_PER_S, n_ops[k] / INT32_OPS_PER_S
+        out[k] = (max(by_bytes, by_ops) * 1e3, "bytes" if by_bytes >= by_ops else "operations")
+    return out
+
+
+def launch_us(fn, kernels, tries=5):
+    """{kernel: device us of one launch} of kernels that fn() launches once
+    each, from tools/time_call_stats.by_kernel: the mean over the launches
+    the profiler recorded. It drops device events at times (a run that kept
+    1 of 10 calls' kernels), so a launch's mean is read, not the sum over
+    the calls; the profile is retaken while a kernel has no launch in it,
+    and the script fails after `tries`."""
+    from sniffles_tpu_torch.tools.time_call_stats import by_kernel
+    for _ in range(tries):
+        split = by_kernel(fn)
+        seen = {k: [(us, n) for name, (us, n) in split.items() if k in name] for k in kernels}
+        if all(sum(n for _, n in v) > 0 for v in seen.values()):
+            return {k: sum(us for us, _ in v) / sum(n for _, n in v) for k, v in seen.items()}
+    fail(f"torch.profiler recorded no launch of one of {kernels} in {tries} profiles")
+
+
+def time_call_stats(clustered, chain, relax, params, ptxas_log):
     """(a) and (d) of the call statistics and their timing in [10d]: the
     kernels held against the plain version on the tiled chain's 2^21 slots
     (fused) and on the crafted batches of tests/test_torch_call_stats.py
-    (both settings); then, on the step's 2^21 clustered batch, the
-    wrapper's and the kernels' CUDA-event times, the plain version's on the
-    card, their bounds, no host synchronisation in the wrapper, and the
-    engine step's statistics stage (tools/profile_engine.py: its kernels'
-    device time and launches). Returns the JSON row."""
+    (both settings), the tier and huge batches among them; then, on the
+    step's 2^21 clustered batch, the wrapper's and the kernels' CUDA-event
+    times, the plain version's on the card, their bounds, no host
+    synchronisation in the wrapper, and the engine step's statistics stage
+    (tools/profile_engine.py: its kernels' device time and launches); the
+    kernels alone on tools/time_call_stats.py's populations (each held
+    first); each kernel's device time (torch.profiler) and bound, on the
+    step's batch (stat_blocks on the tiled chain, whose clusters are its
+    tier's), and ptxas's registers and spills. Returns the JSON rows
+    {"call_stats": the wrapper's, kernel: its own}."""
     from sniffles_tpu_torch.ops import call_stats as tcs, clustering as tc
     from sniffles_tpu_torch.sim import call_stats_batch
     from sniffles_tpu_torch.tools.profile_engine import profile
+    from sniffles_tpu_torch.tools.time_call_stats import populations
     n = clustered["pos"].shape[0]
     chain_cl = tc.cluster_signatures(chain, minsvlen=params["minsvlen"],
                                      cluster_merge_len=params["cluster_merge_len"],
@@ -2537,17 +2620,21 @@ def time_call_stats(clustered, chain, relax, params):
     chain_cl.pop("merge_rounds")
     err = hold_call_stats(chain_cl, tcs.launch_call_statistics(chain_cl, True), True,
                           f"the tiled chain n={n} (fused)")
-    largest = int(tcs.call_statistics_plain(chain_cl, True)["lead_count"].max())
-    crafted = (("edge", 8192, 4), ("edge", 8192, 5), ("random", 8192, 3))
+    chain_counts = tcs.call_statistics_plain({k: v.cpu() for k, v in chain_cl.items()},
+                                             True)["lead_count"].numpy()
+    crafted = (("edge", 8192, 4), ("edge", 8192, 5), ("random", 8192, 3), ("tiers", 65536, 8),
+               ("huge", 32768, 9))
     for kind, size, seed in crafted:
         b = {k: torch.as_tensor(v).cuda() for k, v in call_stats_batch(kind, size, seed).items()}
         for fused in (False, True):
             err = max(err, hold_call_stats(b, tcs.launch_call_statistics(b, fused), fused,
                                            f"{kind} {size} seed {seed} (fused={fused})"))
     print(f"  call_stats held against its plain version on the tiled chain n={n} (fused; "
-          f"largest cluster {largest}) and on {', '.join(f'{k} {z} seed {d}' for k, z, d in crafted)}"
-          f" (fused and unfused): == plain on CPU copies, every key and slot; integer keys "
-          f"== plain on the card, float32 keys within {err:.3g} of it", flush=True)
+          f"largest cluster {int(chain_counts.max())}) and on "
+          f"{', '.join(f'{k} {z} seed {d}' for k, z, d in crafted)} (fused and unfused; tiers "
+          f"{'/'.join(map(str, tcs.TIERS))}): == plain on CPU copies, every key "
+          f"and slot; integer keys == plain on the card, float32 keys within {err:.3g} of it",
+          flush=True)
 
     inputs = tcs.kernel_inputs(clustered)
     nc = clustered["n_clusters"]
@@ -2566,11 +2653,11 @@ def time_call_stats(clustered, chain, relax, params):
     kbound, kbound_by = call_stats_bound_ms(n, CALL_STATS_KERNEL_BYTES)
     fig = profile(n, 1, "cuda")
     us, launches, _, _ = fig["split"].get("statistics", (0.0, 0.0, {}, 0.0))
-    print(f"  call_stats n={n} ({int(nc)} clusters): the wrapper (4 sorts, 2 memsets, the run "
-          f"pass and a warp a slot) {ms:.4f} ms on the device ({call_ms:.4f} ms a call), "
-          f"the two kernels and memsets alone {kernels_ms:.4f} ms; plain {plain_ms:.2f} ms on "
-          f"the card; no host synchronisation (sync debug mode 'error'); bound "
-          f"{bound * 1e3:.3f} us ({bound_by}: {CALL_STATS_BYTES * n} bytes at "
+    print(f"  call_stats n={n} ({int(nc)} clusters): the wrapper (the id sort, 2 memsets, the run "
+          f"pass, the slot pass, the warp and block tiers) {ms:.4f} ms on the device "
+          f"({call_ms:.4f} ms a call), the kernels and memsets alone {kernels_ms:.4f} ms; plain "
+          f"{plain_ms:.2f} ms on the card; no host synchronisation (sync debug mode 'error'); "
+          f"bound {bound * 1e3:.3f} us ({bound_by}: {CALL_STATS_BYTES * n} bytes at "
           f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s; {CALL_STATS_OPS_PER_ELEMENT * n} int32 ops at "
           f"{INT32_OPS_PER_S / 1e12:.1f} Tops/s), {bound / ms:.3%} of it; the kernels' bound "
           f"{kbound * 1e3:.3f} us ({kbound_by}: {CALL_STATS_KERNEL_BYTES * n} bytes), "
@@ -2579,13 +2666,41 @@ def time_call_stats(clustered, chain, relax, params):
           f"{us / 1e3:.4f} ms of kernels in {launches:.0f} launches, "
           f"{fig['interval_ms'].get('statistics', float('nan')):.4f} ms between its events; "
           f"the step {fig['step_ms']:.4f} ms between CUDA events", flush=True)
+
+    for case, c in populations(n, "cuda").items():
+        hold_call_stats(c, tcs.launch_call_statistics(c, True), True, f"population {case}")
+        c_inputs = tcs.kernel_inputs(c)
+        c_ms = queued_ms(lambda: tcs.launch_kernels(c_inputs, c["n_clusters"], True), 10)
+        print(f"    population {case}: == plain; the kernels alone {c_ms:.4f} ms", flush=True)
+
+    # each kernel: its device time on the step's batch (stat_blocks: on the
+    # tiled chain), beside its bound on the same data and the whole plain
+    # version's time there
+    counts = tcs.call_statistics_plain({k: v.cpu() for k, v in clustered.items()},
+                                       True)["lead_count"].numpy()
+    split = launch_us(lambda: tcs.launch_call_statistics(clustered, True), tcs.KERNELS)
+    chain_split = launch_us(lambda: tcs.launch_call_statistics(chain_cl, True), tcs.KERNELS)
+    chain_plain_ms = cuda_ms(lambda: tcs.call_statistics_plain(chain_cl, True), 3)
+    bounds = call_stats_kernel_bounds(counts, n)
+    chain_bounds = call_stats_kernel_bounds(chain_counts, n)
+    rows = {"call_stats": {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+                           "bound_by": bound_by, "max_abs_err": 0}}
+    for k in tcs.KERNELS:
+        on_chain = k == "stat_blocks"
+        k_us = (chain_split if on_chain else split)[k]
+        k_bound, k_by = (chain_bounds if on_chain else bounds)[k]
+        rows[k] = {"ms": k_us / 1e3, "plain_ms": chain_plain_ms if on_chain else plain_ms,
+                   "bound_ms": k_bound, "bound_by": k_by, "max_abs_err": 0}
+        print(f"  {k} ({'the tiled chain' if on_chain else 'the step batch'}, n={n}): "
+              f"{k_us / 1e3:.4f} ms on the device (torch.profiler); bound "
+              f"{k_bound * 1e3:.3f} us ({k_by}), {k_bound * 1e3 / max(k_us, 1e-9):.3%} of it; "
+              f"ptxas: {ptxas_summary(ptxas_log, k)}", flush=True)
     # max_abs_err: against the plain version on the same inputs (CPU
     # copies), held bit for bit above
-    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
-            "max_abs_err": 0}
+    return rows
 
 
-def run_engine(tmp, dense_bam, ptxas_log):
+def run_engine(tmp, dense_bam, ptxas_log, stats_ptxas_log):
     """Phase 10 (see the module's docstring). Returns (the kernels' launches
     on its main path, the timing rows of both kernels)."""
     from sniffles_tpu_torch.ops import call_stats as cs
@@ -2661,7 +2776,7 @@ def run_engine(tmp, dense_bam, ptxas_log):
           f"({card_s:.3f} s card, {cpu_s:.3f} s CPU)", flush=True)
     stats_launches["10c"] = cs.COUNTS["launches"] - stats_launches["10a"] - stats_launches["10b"]
     launches = {"merge_relax": tmr.COUNTS["launches"], "candidate_tail": ct.COUNTS["launches"],
-                "call_stats": cs.COUNTS["launches"]}
+                "call_stats": cs.COUNTS["launches"], **{k: cs.COUNTS[k] for k in cs.KERNELS}}
     print(f"    the main path of [10a-c] launched {launches}; call_stats by part "
           f"{stats_launches}", flush=True)
     if min(launches.values()) < 1 or min(stats_launches.values()) < 1:
@@ -2672,7 +2787,7 @@ def run_engine(tmp, dense_bam, ptxas_log):
           f"{err:.3g} of it", flush=True)
 
     print("[10d] timings at 2^21 signatures", flush=True)
-    rows = time_engine_kernels(big, coverage, params, ptxas_log)
+    rows = time_engine_kernels(big, coverage, params, ptxas_log, stats_ptxas_log)
     print(f"    phase 10 took {time.perf_counter() - t_phase:.1f} s", flush=True)
     return launches, rows
 
@@ -2777,6 +2892,7 @@ def main() -> int:
     # --tpu-mesh never reads it)
     os.environ["SNIFFLES_TPU_MESH_DEVICES"] = MESH_DEVICES
     from sniffles_tpu_torch.ops import _build
+    from sniffles_tpu_torch.ops import call_stats as cs
     from sniffles_tpu_torch.ops import edit_distance_batch as ted
 
     smi = smi_line()
@@ -2974,7 +3090,8 @@ def main() -> int:
     print("[10] the fused calling engine (parallel/engine.py) and its kernels (the relaxation, "
           "the call statistics, the candidate tail)", flush=True)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_engine_") as tmp:
-        engine_launches, engine_rows = run_engine(tmp, dense_args[1], logs["candidate_tail"])
+        engine_launches, engine_rows = run_engine(tmp, dense_args[1], logs["candidate_tail"],
+                                                  logs["call_stats"])
 
     print("[11] the port's benchmark (python -m sniffles_tpu_torch.bench, cut: quick leg on "
           f"{BENCH_SMOKE_ENV['BENCH_CONTIGS']} contigs, {BENCH_SMOKE_ENV['BENCH_PAIRS']} pair, no "
@@ -3042,7 +3159,10 @@ def main() -> int:
         "source": "sniffles_tpu_torch/csrc/call_stats.cu",
         "replaces": "sniffles_tpu/ops/clustering.py:1262",
         "launches": engine_launches["call_stats"],
-        **engine_rows[2], "library_ms": None}]
+        **engine_rows[2]["call_stats"], "library_ms": None}] + [{
+        "name": k, "route": "cuda", "source": "sniffles_tpu_torch/csrc/call_stats.cu",
+        "replaces": "sniffles_tpu/ops/clustering.py:1262", "launches": engine_launches[k],
+        **engine_rows[2][k], "library_ms": None} for k in cs.KERNELS]
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -6,7 +6,10 @@ lives in csrc/*.cuh); it is compiled by nvcc for sm_90a into
 build/torch_kernels/lib<name>-<hash>.so at first use and loaded with
 ctypes. The hash of the source, the headers and the flags names the
 library, so an edited source is rebuilt and a stale build is never
-loaded. Nothing here runs at import: the CPU tests import every module.
+loaded. A source may take -D flags: call_stats.cu's tier thresholds come
+from ops/call_stats.py (`default_defines`), and a variant built with
+other flags is a library of its own. Nothing here runs at import: the CPU
+tests import every module.
 
 The native host library (csrc/host/bamcore.cc and poacore.cc: the BGZF
 inflate, the BAM record and split scans, the CRAM codecs' ITF8 and rANS,
@@ -54,10 +57,21 @@ def nvcc() -> str:
     return found
 
 
-def library_path(name: str) -> str:
-    """The build of csrc/<name>.cu, named by a hash of the source, the
-    shared headers (csrc/*.cuh) and the flags."""
-    digest = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+def default_defines(name: str) -> tuple:
+    """The -D flags csrc/<name>.cu is built with unless asked for others:
+    call_stats.cu's tier thresholds (ops/call_stats.nvcc_defines)."""
+    if name == "call_stats":
+        from sniffles_tpu_torch.ops.call_stats import nvcc_defines
+        return nvcc_defines()
+    return ()
+
+
+def library_path(name: str, defines: tuple | None = None) -> str:
+    """The build of csrc/<name>.cu with `defines` (default_defines when
+    None), named by a hash of the source, the shared headers (csrc/*.cuh)
+    and the flags."""
+    defines = default_defines(name) if defines is None else tuple(defines)
+    digest = hashlib.sha1(" ".join(NVCC_FLAGS + defines).encode())
     headers = sorted(glob.glob(os.path.join(CSRC, "*.cuh")))
     for path in [os.path.join(CSRC, f"{name}.cu")] + headers:
         with open(path, "rb") as f:
@@ -65,16 +79,18 @@ def library_path(name: str) -> str:
     return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:12]}.so")
 
 
-def start_build(name: str, ptxas_verbose: bool = False):
-    """Start nvcc on csrc/<name>.cu; returns (process, temp path, final
-    path), or None when the library is already built."""
-    out = library_path(name)
+def start_build(name: str, ptxas_verbose: bool = False, defines: tuple | None = None):
+    """Start nvcc on csrc/<name>.cu with `defines` (as library_path);
+    returns (process, temp path, final path), or None when the library is
+    already built."""
+    defines = default_defines(name) if defines is None else tuple(defines)
+    out = library_path(name, defines)
     if os.path.exists(out) and not ptxas_verbose:
         return None
     os.makedirs(BUILD_DIR, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    cmd = [nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if ptxas_verbose else []),
+    cmd = [nvcc(), *NVCC_FLAGS, *defines, *(["-Xptxas", "-v"] if ptxas_verbose else []),
            "-o", tmp, os.path.join(CSRC, f"{name}.cu")]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                             text=True)
@@ -103,11 +119,12 @@ def build_all(ptxas_verbose: bool = False) -> dict[str, str]:
 
 
 @functools.lru_cache(maxsize=None)
-def load(name: str) -> ctypes.CDLL:
-    """The built library of csrc/<name>.cu, building it when missing."""
-    path = library_path(name)
+def load(name: str, defines: tuple | None = None) -> ctypes.CDLL:
+    """The built library of csrc/<name>.cu with `defines` (as
+    library_path), building it when missing."""
+    path = library_path(name, defines)
     if not os.path.exists(path):
-        finish_build(start_build(name))
+        finish_build(start_build(name, defines=defines))
     return ctypes.CDLL(path)
 
 

@@ -7,25 +7,23 @@ step (parallel/mesh.py) and the fused engine (parallel/engine.py,
 fused=True).
 
 `call_statistics` is the wrapper: on CPU tensors the plain version
-(`call_statistics_plain`, torch ops), on CUDA tensors the two kernels of
-csrc/call_stats.cu after four stable sorts in torch (a run pass, then a
-resident grid that writes each empty slot's identities, a thread a slot,
-and walks each live cluster slot with a warp; no host synchronisation),
-or an exception.
-
-The sorts: the plain version's three lexsorts by (masked cluster id,
-masked value), each a chain of two stable sorts, become one stable sort
-each of an int64 key, (masked cid << 32) | (masked value biased to
-unsigned), which gives lexsort's permutation (tests/test_torch_call_stats.py
-holds the two equal on ties and masks); a fourth stable sort by the masked
-cluster id alone puts each cluster's elements in array order. All four put
-the same sequence of masked cluster ids first, so one run table serves them.
+(`call_statistics_plain`, torch ops), on CUDA tensors the kernels of
+csrc/call_stats.cu after one stable sort in torch, or an exception. The
+sort is by the masked cluster id (`sorted_ids`); it puts each cluster's
+elements together in array order. The kernels: a run pass over the sorted
+ids, then each live cluster gathers its values through the permutation
+and sorts them on chip, by a thread (at most TINY_MAX elements, in
+registers), a warp (at most WARP_MAX, in shared memory) or a block (in
+shared memory up to BLOCK_MAX elements, past it in a global scratch
+buffer); no host synchronisation, no cap on a cluster's size. The
+thresholds are built into the kernels (nvcc_defines).
 
 The float32 sums are XLA's: term by term in float32, s1 and s2 in the
-run's sorted order, the mapq and NM sums in array order (ops/segments.py).
-The plain version's index_add_ adds in those orders on the CPU; on the card
-it adds with atomics, so the kernels are held against the plain version on
-CPU copies of the same inputs, and against the card's in the integer keys.
+cluster's sorted order, the mapq and NM sums in array order
+(ops/segments.py). The plain version's index_add_ adds in those orders on
+the CPU; on the card it adds with atomics, so the kernels are held against
+the plain version on CPU copies of the same inputs, and against the card's
+in the integer keys.
 """
 from __future__ import annotations
 
@@ -41,9 +39,27 @@ from sniffles_tpu_torch.ops.stats import seg_median_modes, seg_trimmed_stdev
 
 SVTYPE_INS, SVTYPE_DEL = SVTYPE_CODES["INS"], SVTYPE_CODES["DEL"]
 
-# Launches of the kernels by the wrapper (call_statistics), one a call (the
-# run pass and the statistics); it adds to it only where it launches them.
-COUNTS = {"launches": 0}
+# Launches by the wrapper (call_statistics): "launches" one a call, and one
+# a call for each kernel of csrc/call_stats.cu (the run pass, the slot pass
+# with the thread tier, the warp tier, the block tier); it adds to them only
+# where it launches the kernels.
+KERNELS = ("stat_runs", "stat_slots", "stat_warps", "stat_blocks")
+COUNTS = {"launches": 0, **{k: 0 for k in KERNELS}}
+
+# The tiers by a cluster's element count, chosen on the card by
+# tools/time_call_stats.py (PERF.md) and built into the kernels as -D flags
+# (nvcc_defines): a thread a cluster up to TINY_MAX (at most the kernel's 8
+# registers a list), a warp up to WARP_MAX (20 bytes an element of the
+# warp's slice of shared memory; up to PAIR_MAX, 0 or 64, in two registers
+# a lane instead), a block beyond, its lists in dynamic shared memory up to
+# BLOCK_MAX elements (20 bytes each: two blocks an SM fit the H100's shared
+# memory, which beat one block of twice the room) and in global scratch
+# past it.
+TINY_MAX = 8
+PAIR_MAX = 64
+WARP_MAX = 256
+BLOCK_MAX = 5632
+TIERS = (TINY_MAX, PAIR_MAX, WARP_MAX, BLOCK_MAX)
 
 # the output keys after n_clusters, in the order of the kernel's 16 rows of
 # one int32 tensor (the float32 keys are rows of their bits)
@@ -56,7 +72,8 @@ INT_COLUMNS = ("cluster_id", "pos", "svlen", "read_id", "mapq", "strand", "svtyp
 
 
 def reset_counts() -> None:
-    COUNTS["launches"] = 0
+    for k in COUNTS:
+        COUNTS[k] = 0
 
 
 def call_statistics_plain(clustered: dict, fused: bool = False) -> dict:
@@ -141,33 +158,23 @@ def call_statistics(clustered: dict, fused: bool = False) -> dict:
         raise ValueError(f"no call-statistics kernel for device {dev}")
     out = launch_call_statistics(clustered, fused)
     if clustered["pos"].shape[0]:
-        COUNTS["launches"] += 1
+        for k in COUNTS:
+            COUNTS[k] += 1
     return out
 
 
-def masked_keys(cid: torch.Tensor, valid: torch.Tensor, values: torch.Tensor) -> torch.Tensor:
-    """The int64 sort key of lexsort((where(valid, values, MAX),
-    where(valid, cid, MAX))): the masked cluster id in the high word, the
-    masked value biased to unsigned in the low word."""
-    mcid = torch.where(valid, cid, INT32_MAX).to(torch.int64)
-    mval = torch.where(valid, values, INT32_MAX).to(torch.int64)
-    return mcid * (1 << 32) + (mval + (1 << 31))
-
-
-def sorted_keys(clustered: dict) -> tuple:
-    """The wrapper's four stable sorts: ((sorted key, permutation) of the
-    (cluster, svlen), (cluster, pos) and (cluster, read) keys, and
-    (sorted masked cluster ids, permutation) of the cluster id alone)."""
-    cid, valid = clustered["cluster_id"], clustered["valid"]
-    keyed = tuple(torch.sort(masked_keys(cid, valid, clustered[k]), stable=True)
-                  for k in ("svlen", "pos", "read_id"))
-    return keyed + (torch.sort(torch.where(valid, cid, INT32_MAX), stable=True),)
+def sorted_ids(clustered: dict) -> tuple:
+    """The wrapper's one sort: (sorted masked cluster ids, permutation) of
+    the stable sort of where(valid, cluster_id, INT32_MAX). Each cluster's
+    elements are one run, in array order."""
+    masked = torch.where(clustered["valid"], clustered["cluster_id"], INT32_MAX)
+    return torch.sort(masked, stable=True)
 
 
 def kernel_inputs(clustered: dict) -> dict:
-    """The kernels' inputs from a clustered batch of CUDA tensors: its
-    columns as contiguous int32, bool and float32 [n] tensors, and the four
-    sorts (sorted_keys). Raises on a column of another shape or device."""
+    """The kernels' inputs from a clustered batch: its columns as
+    contiguous int32, bool and float32 [n] tensors, and the one sort
+    (sorted_ids). Raises on a column of another shape or device."""
     dev = clustered["pos"].device
     n = clustered["pos"].shape[0]
 
@@ -181,34 +188,48 @@ def kernel_inputs(clustered: dict) -> dict:
     c = {k: col(k, torch.int32) for k in INT_COLUMNS}
     c["valid"] = col("valid", torch.bool)
     c["nm"] = col("nm", torch.float32)
-    c["sorts"] = sorted_keys(c) if n else None
+    c["sort"] = sorted_ids(c) if n else None
     return c
 
 
-def launch_kernels(inputs: dict, n_clusters, fused: bool = False) -> dict:
+def nvcc_defines(tiers: tuple = TIERS) -> tuple:
+    """The -D flags of csrc/call_stats.cu for the thresholds (tiny, pair,
+    warp, block); the kernel's static_asserts refuse a set that does not
+    fit it."""
+    names = ("STAT_TINY_MAX", "STAT_PAIR_MAX", "STAT_WARP_MAX", "STAT_BLOCK_MAX")
+    return tuple(f"-D{k}={int(v)}" for k, v in zip(names, tiers, strict=True))
+
+
+def launch_kernels(inputs: dict, n_clusters, fused: bool = False,
+                   tiers: tuple = TIERS) -> dict:
     """The kernels' entry point call_stats on kernel_inputs (two memsets,
-    the run pass, then the resident grid) on the current stream of the
-    tensors' device; no launch for n = 0. Counts nothing; raises when a
-    launch fails."""
+    the run pass, the slot pass, the warp and the block tiers) on the
+    current stream of the tensors' device, from the build with the
+    thresholds `tiers` (as nvcc_defines; another set than TIERS is a
+    library of its own, built at first use); no launch for n = 0. Counts
+    nothing; raises when a launch fails or the card refuses a tier's
+    shared memory."""
     from sniffles_tpu_torch.ops import _build
     from sniffles_tpu_torch.ops.clustering import _launch
     c = inputs
     dev, n = c["pos"].device, c["pos"].shape[0]
     out = torch.empty((len(KEYS), n), dtype=torch.int32, device=dev)
     if n:
-        (k_len, _), (k_pos, _), (k_read, _), (cid_s, order) = c["sorts"]
-        runs = torch.empty((2, n), dtype=torch.int32, device=dev)     # scratch
-        has_invalid = torch.empty((n,), dtype=torch.uint8, device=dev)  # scratch
-        fn = _build.load("call_stats").call_stats
+        cid_s, order = c["sort"]
+        runs = torch.empty((2 * n + 2,), dtype=torch.int32, device=dev)  # runs, list counts
+        lists = torch.empty((4 * n,), dtype=torch.int32, device=dev)      # the tiers' slots
+        has_invalid = torch.empty((n,), dtype=torch.uint8, device=dev)
+        lists_big = torch.empty((5, n), dtype=torch.int32, device=dev)    # past BLOCK_MAX
+        fn = _build.load("call_stats", nvcc_defines(tiers)).call_stats
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
         # a bool is one byte, 0 or 1: the kernel reads valid as its bytes
-        rc = _launch(fn, dev, k_len.data_ptr(), k_pos.data_ptr(), k_read.data_ptr(),
-                     cid_s.data_ptr(), order.data_ptr(), c["cluster_id"].data_ptr(),
-                     c["valid"].view(torch.uint8).data_ptr(), c["mapq"].data_ptr(),
+        rc = _launch(fn, dev, cid_s.data_ptr(), order.data_ptr(), c["cluster_id"].data_ptr(),
+                     c["valid"].view(torch.uint8).data_ptr(), c["svlen"].data_ptr(),
+                     c["pos"].data_ptr(), c["read_id"].data_ptr(), c["mapq"].data_ptr(),
                      c["strand"].data_ptr(), c["svtype"].data_ptr(), c["nm"].data_ptr(),
-                     runs.data_ptr(), has_invalid.data_ptr(), out.data_ptr(),
-                     n, int(bool(fused)))
+                     runs.data_ptr(), lists.data_ptr(), has_invalid.data_ptr(),
+                     lists_big.data_ptr(), out.data_ptr(), n, int(bool(fused)))
         if rc != 0:
             raise RuntimeError(f"call_stats launch failed with CUDA error {rc}")
     stats = {"n_clusters": n_clusters}
@@ -218,6 +239,6 @@ def launch_kernels(inputs: dict, n_clusters, fused: bool = False) -> dict:
 
 
 def launch_call_statistics(clustered: dict, fused: bool = False) -> dict:
-    """The statistics on CUDA tensors: the sorts, then the kernels
+    """The statistics on CUDA tensors: the sort, then the kernels
     (launch_kernels). Counts nothing; raises when a launch fails."""
     return launch_kernels(kernel_inputs(clustered), clustered["n_clusters"], fused)

@@ -674,6 +674,12 @@ def _stats_cluster(rng, size: int, center: int, spread: int, svlen: int, len_spr
             "nm": rng.random(size, dtype=np.float32) * np.float32(0.05)}
 
 
+def _nm_binades(rng, size: int) -> np.ndarray:
+    """NM rates across 40 binades (no subnormals): float32 sums that round."""
+    return (rng.random(size, dtype=np.float32) + np.float32(0.5)) * (
+        np.float32(2.0) ** rng.integers(-36, 4, size)).astype(np.float32)
+
+
 def call_stats_batch(kind: str, size: int, seed: int) -> dict:
     """A clustered batch for call_statistics (the columns it reads, numpy,
     and n_clusters), in shuffled array order, so a cluster's elements are
@@ -684,7 +690,13 @@ def call_stats_batch(kind: str, size: int, seed: int) -> dict:
     boundary), one of 5,000, ties in the modes, values at the int32 limits
     (the centering wraps), a cluster whose centered svlen spans 2^29, a
     mixed-svtype and a one-strand cluster, mapq 255, NM across 40
-    binades, slots holding only invalid elements, and empty slots."""
+    binades, slots holding only invalid elements, and empty slots.
+    "tiers" (size >= 65,536): a cluster of each size at the kernels' tier
+    thresholds (ops/call_stats.py TINY_MAX, PAIR_MAX, WARP_MAX, BLOCK_MAX)
+    and one above and below each, and of 1 and 2, with ties, NM across 40 binades,
+    and int32 limits in the clusters at each threshold. "huge" (size >=
+    32,768): one cluster of 25,000 elements, past a block's shared memory,
+    with ties and values at the int32 limits, beside clusters of 1 to 60."""
     rng = np.random.default_rng(seed)
     clusters, invalid_only = [], []
     if kind == "random":
@@ -728,11 +740,39 @@ def call_stats_batch(kind: str, size: int, seed: int) -> dict:
         mixed["strand"][:] = 1
         mixed["mapq"][:] = 255
         clusters.append(mixed)
-        # NM across 40 binades (no subnormals)
         for c in clusters:
-            c["nm"] = (rng.random(c["nm"].size, dtype=np.float32) + np.float32(0.5)) * (
-                np.float32(2.0) ** rng.integers(-36, 4, c["nm"].size)).astype(np.float32)
+            c["nm"] = _nm_binades(rng, c["nm"].size)
         invalid_only = [int(x) for x in rng.integers(1, 6, 12)]
+    elif kind == "tiers":
+        from sniffles_tpu_torch.ops.call_stats import BLOCK_MAX, PAIR_MAX, TINY_MAX, WARP_MAX
+        if size < 65536:
+            raise ValueError("the tiers batch needs 65,536 slots")
+        for at in (1, 2, TINY_MAX, PAIR_MAX, WARP_MAX, BLOCK_MAX):
+            for k in sorted({at - 1, at, at + 1} - {0}):
+                c = _stats_cluster(rng, k, int(rng.integers(10 ** 6, 2 * 10 ** 8)),
+                                   int(rng.integers(0, 3000)),
+                                   int(rng.choice([-1, 1]) * rng.integers(50, 5000)),
+                                   int(rng.integers(0, 400)), int(rng.choice([1, 5])))
+                if k == at and at > 2:  # the int32 limits: sentinels among the values
+                    c["pos"][:2] = _I32_MAX, _I32_MIN
+                    c["svlen"][-1] = _I32_MAX
+                c["nm"] = _nm_binades(rng, k)
+                clusters.append(c)
+        invalid_only = [int(x) for x in rng.integers(1, 6, 8)]
+    elif kind == "huge":
+        if size < 32768:
+            raise ValueError("the huge batch needs 32,768 slots")
+        big = _stats_cluster(rng, 25_000, 80_000_000, 4000, -700, 600, 5)
+        big["pos"][:3] = _I32_MAX
+        big["pos"][3:5] = _I32_MIN
+        big["svlen"][:4] = _I32_MAX
+        big["nm"] = _nm_binades(rng, 25_000)
+        clusters.append(big)
+        for _ in range(40):
+            clusters.append(_stats_cluster(rng, int(rng.integers(1, 61)),
+                                           int(rng.integers(10 ** 6, 2 * 10 ** 8)),
+                                           int(rng.integers(0, 600)), 300, 40))
+        invalid_only = [int(x) for x in rng.integers(1, 6, 6)]
     else:
         raise ValueError(f"no call_stats batch of kind {kind!r}")
 

@@ -4,10 +4,12 @@ CPU, where the wrapper takes its plain version.
 
 Batches: sniffles_tpu_torch.sim.call_stats_batch, seeded numpy, in
 shuffled array order: "random" (1,024 and 8,192 slots: clusters of 1 to 60
-elements, invalid elements, empty and invalid-only slots) and "edge"
+elements, invalid elements, empty and invalid-only slots), "edge"
 (8,192 slots: clusters of 1 to 5 elements, one of 5,000, ties in the
 modes, values at the int32 limits, a centered svlen spanning 2^29, NM
-across 40 binades).
+across 40 binades), "tiers" (65,536 slots: a cluster at each of the
+kernels' tier thresholds and one above and below each) and "huge" (32,768
+slots: a cluster of 25,000 elements, past a block's shared memory).
 
 Tolerance: 0. Every key, every slot, bit for bit (float32 keys by their
 bits). The JAX function's two arithmetics, as its callers run it:
@@ -20,8 +22,8 @@ bits). The JAX function's two arithmetics, as its callers run it:
     the statistics unfused).
 
 Also: the wrapper takes the plain version on CPU tensors and counts no
-launch, raises on a device that is neither; the int64 sort key gives
-ops/segments.lexsort's permutation, ties and masks included;
+launch, raises on a device that is neither; its one sort keeps each
+cluster's elements in array order; the tier thresholds fit the kernels;
 tools/time_call_stats.py's cases. The kernels themselves run on the card
 only (tests/test_torch_gpu.py, chip_smoke.py).
 """
@@ -35,11 +37,11 @@ import jax.numpy as jnp  # noqa: E402
 from sniffles_tpu.ops import clustering as jcl  # noqa: E402
 from sniffles_tpu_torch.ops import call_stats as cs  # noqa: E402
 from sniffles_tpu_torch.ops import clustering as tcl  # noqa: E402
-from sniffles_tpu_torch.ops.segments import INT32_MAX, lexsort  # noqa: E402
+from sniffles_tpu_torch.ops.segments import INT32_MAX  # noqa: E402
 from sniffles_tpu_torch.sim import call_stats_batch  # noqa: E402
 
 BATCHES = [("random", 1024, 1), ("random", 1024, 2), ("random", 8192, 3), ("edge", 8192, 4),
-           ("edge", 8192, 5)]
+           ("edge", 8192, 5), ("tiers", 65536, 8), ("huge", 32768, 9)]
 BATCH_IDS = [f"{k}-{n}-seed{s}" for k, n, s in BATCHES]
 
 
@@ -126,67 +128,125 @@ def test_wrapper_raises_on_another_device():
         tcl.call_statistics(b, fused=True)
 
 
-@pytest.mark.parametrize("seed", [1, 2, 3])
-def test_int64_key_sort_is_lexsort(seed):
-    """One stable sort of the int64 key gives lexsort's permutation of
-    (masked value, masked cluster id): ties in both keys, values at the
-    int32 limits, masked elements (INT32_MAX in both) and valid elements
-    whose value is INT32_MAX."""
-    rng = np.random.default_rng(seed)
-    n = 4096
-    cid = torch.as_tensor(rng.integers(-3, 40, n).astype(np.int32))
-    vals = rng.choice(np.array([-2 ** 31, -2 ** 31 + 1, -1, 0, 1, 7, 2 ** 31 - 2, 2 ** 31 - 1]),
-                      n)
-    vals = torch.as_tensor(np.where(rng.random(n) < 0.5, vals, rng.integers(-50, 50, n))
-                           .astype(np.int32))
-    valid = torch.as_tensor(rng.random(n) < 0.8)
-    want = lexsort((torch.where(valid, vals, INT32_MAX), torch.where(valid, cid, INT32_MAX)))
-    key = cs.masked_keys(cid, valid, vals)
-    got = torch.sort(key, stable=True).indices
-    assert got.tolist() == want.tolist()
-    # the sorted key's words are the masked id and value
-    s = key[got]
-    assert (s >> 32).to(torch.int32).tolist() == torch.where(valid, cid, INT32_MAX)[want].tolist()
-    low = ((s & 0xFFFFFFFF) - (1 << 31)).to(torch.int32)
-    assert low.tolist() == torch.where(valid, vals, INT32_MAX)[want].tolist()
-
-
-def test_wrapper_sorts_share_the_masked_id_sequence():
-    """The four sorts of the wrapper put the same sequence of masked
-    cluster ids first, so one run table serves them all; the cid-only
-    sort keeps each cluster's elements in array order."""
+def test_id_sort_keeps_each_cluster_in_array_order():
+    """The wrapper's one sort (sorted_ids): the masked ids ascending, the
+    invalid elements (INT32_MAX) last, and each cluster's elements one run
+    in array order, which the kernels' mapq and NM sums need; ids outside
+    [0, n) and valid elements whose id is INT32_MAX included."""
     b = torch_batch(call_stats_batch("edge", 8192, 4))
-    (k_len, _), (k_pos, _), (k_read, _), (cid_s, order) = cs.sorted_keys(b)
-    for k in (k_len, k_pos, k_read):
-        assert (k >> 32).to(torch.int32).tolist() == cid_s.tolist()
+    rng = np.random.default_rng(3)
+    b["cluster_id"][torch.as_tensor(rng.choice(8192, 40, replace=False))] = torch.as_tensor(
+        np.r_[np.full(10, -5), np.full(10, 9000), np.full(10, INT32_MAX), np.full(10, -1)]
+        .astype(np.int32))
+    cid_s, order = cs.sorted_ids(b)
     mcid = torch.where(b["valid"], b["cluster_id"], INT32_MAX)
     assert order.tolist() == sorted(range(8192), key=lambda i: (int(mcid[i]), i))
+    assert cid_s.tolist() == mcid[order].tolist()
+
+
+def test_tier_batches_reach_every_tier():
+    """The "tiers" batch holds a cluster at each tier threshold and one
+    above and below it; the "huge" batch one past a block's shared memory;
+    the thresholds fit the kernels (a thread's registers hold TINY_MAX
+    elements, a warp's two registers a lane PAIR_MAX; a warp's and a
+    block's lists, 20 bytes an element, fit the H100's 227 KB of shared
+    memory a block)."""
+    src = open(cs.__file__.replace("ops/call_stats.py", "csrc/call_stats.cu")).read()
+    cap = int(src.split("constexpr int kTinyCap = ")[1].split(";")[0])
+    assert 0 <= cs.TINY_MAX <= cap and cs.TINY_MAX < cs.WARP_MAX < cs.BLOCK_MAX
+    assert cs.PAIR_MAX in (0, 64) and cs.PAIR_MAX <= cs.WARP_MAX
+    assert 8 * 20 * cs.WARP_MAX <= 232_448 and 20 * cs.BLOCK_MAX <= 232_448
+    assert cs.TIERS == (cs.TINY_MAX, cs.PAIR_MAX, cs.WARP_MAX, cs.BLOCK_MAX)
+    counts = set(cs.call_statistics_plain(torch_batch(call_stats_batch("tiers", 65536, 8)),
+                                          True)["lead_count"].tolist())
+    for at in cs.TIERS:
+        assert {at - 1, at, at + 1} <= counts
+    huge = cs.call_statistics_plain(torch_batch(call_stats_batch("huge", 32768, 9)), True)
+    assert int(huge["lead_count"].max()) == 25_000 > cs.BLOCK_MAX
+
+
+def test_tier_thresholds_are_build_flags():
+    """The thresholds reach the kernels as nvcc -D flags, one for each name
+    the source requires; the default build takes ops/call_stats.TIERS, and
+    another set of thresholds is a library of its own."""
+    from sniffles_tpu_torch.ops import _build
+    src = open(cs.__file__.replace("ops/call_stats.py", "csrc/call_stats.cu")).read()
+    flags = cs.nvcc_defines()
+    assert _build.default_defines("call_stats") == flags
+    for flag, value in zip(flags, cs.TIERS, strict=True):
+        name, got = flag[2:].split("=")
+        assert f"defined({name})" in src and int(got) == value
+    assert _build.default_defines("merge_relax") == ()
+    other = cs.nvcc_defines((cs.TINY_MAX - 1,) + cs.TIERS[1:])
+    assert _build.library_path("call_stats") == _build.library_path("call_stats", flags)
+    assert _build.library_path("call_stats", other) != _build.library_path("call_stats")
+    with pytest.raises(ValueError):
+        cs.nvcc_defines(cs.TIERS[:3])
+
+
+def test_smoke_times_a_kernel_by_its_recorded_launches(monkeypatch):
+    """chip_smoke.py's launch_us: a kernel's time is the mean over the
+    launches the profiler recorded (a profile that dropped 9 calls of 10
+    reads the same), a profile with a kernel missing is retaken, and the
+    script fails when every one misses it; call_stats_kernel_bounds counts
+    a comparison sort's cnt * log2(cnt) compares, so a tiled chain's block
+    tier is bound by its bytes."""
+    import importlib.util
+    import pathlib
+    from sniffles_tpu_torch.tools import time_call_stats
+    path = pathlib.Path(cs.__file__).parents[2] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke_launch_us", path)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    profiles = iter([{"void stat_runs(int)": (2.0, 1.0), "memset": (1.0, 2.0)},
+                     {"void stat_runs(int)": (1.2, 0.1), "void stat_warps(int)": (15.0, 1.0)}])
+    monkeypatch.setattr(time_call_stats, "by_kernel", lambda fn: next(profiles))
+    got = smoke.launch_us(None, ("stat_runs", "stat_warps"))
+    assert got == {"stat_runs": pytest.approx(12.0), "stat_warps": 15.0}
+    monkeypatch.setattr(time_call_stats, "by_kernel", lambda fn: {"memset": (1.0, 1.0)})
+    with pytest.raises(SystemExit, match="recorded no launch"):
+        smoke.launch_us(None, ("stat_runs",), tries=2)
+    n = 1 << 16
+    counts = np.zeros(n, np.int64)
+    counts[:16] = 3689
+    bound, by = smoke.call_stats_kernel_bounds(counts, n)["stat_blocks"]
+    assert by == "bytes"
+    ops = 16 * 3689 * (smoke.CALL_STATS_OPS_PER_ELEMENT
+                       + np.log2(3689) * smoke.CALL_STATS_OPS_PER_COMPARE)
+    assert bound > ops / smoke.INT32_OPS_PER_S * 1e3
 
 
 def test_timing_tool_populations():
     """tools/time_call_stats.py's cases on the CPU: the engine's clustered
-    batch, every slot empty, every slot a singleton, 40 elements a slot;
-    the plain version gives each its live slots."""
+    batch, every slot empty, every slot a singleton, K elements a slot for
+    each tier's size; the plain version gives each its live slots."""
     from sniffles_tpu_torch.tools import time_call_stats
     n = 4096
     cases = time_call_stats.populations(n, "cpu")
     live = {k: int((cs.call_statistics_plain(c, True)["lead_count"] > 0).sum())
             for k, c in cases.items()}
     assert live["all invalid"] == 0 and live["singletons"] == n
-    assert live["40 a slot"] == -(-n // 40)
+    for k in time_call_stats.SLOT_SIZES:
+        assert live[f"{k} a slot"] == -(-n // k)
     assert 0 < live["engine"] <= n // 40
+    assert time_call_stats.short("void (anonymous namespace)::stat_warps(Columns, int)") \
+        == "stat_warps"
 
 
 def test_kernel_inputs_on_the_cpu():
     """The host side of the kernels' launch: the columns as contiguous
     int32, bool and float32 (other integer types converted), the wrapper's
-    four sorts; a column of another length raises."""
+    one sort (sorted_ids); a column of another length raises."""
     b = torch_batch(call_stats_batch("random", 1024, 7))
     b["mapq"] = b["mapq"].to(torch.int64)
+    b["read_id"] = torch.stack([b["read_id"], b["read_id"]], 1)[:, 0]  # strided
     inputs = cs.kernel_inputs(b)
     assert inputs["mapq"].dtype == torch.int32 and inputs["nm"].dtype == torch.float32
-    for (k1, p1), (k2, p2) in zip(inputs["sorts"], cs.sorted_keys(b)):
-        assert torch.equal(k1, k2) and torch.equal(p1, p2)
+    assert all(inputs[k].is_contiguous() for k in cs.INT_COLUMNS)
+    cid_s, order = inputs["sort"]
+    want_s, want_o = cs.sorted_ids(b)
+    assert torch.equal(cid_s, want_s) and torch.equal(order, want_o)
+    assert cid_s.dtype == torch.int32 and order.dtype == torch.int64
     b["nm"] = b["nm"][:-1]
     with pytest.raises(ValueError, match="nm is"):
         cs.kernel_inputs(b)

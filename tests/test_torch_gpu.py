@@ -3,9 +3,9 @@
 engine's relaxation, one cooperative launch, on every engine input and
 on 2^16 slots of tiled 36-link chains, with its grid and time stamps; its
 candidate tail at odd widths under three flag sets; the call statistics'
-run pass and warp per slot on seeded and edge batches and the engine's
-2^16 batch, and on the call task, the call path's mesh step and the
-engine) against their plain
+run pass and its thread, warp and block tiers on seeded, edge, tier and
+huge batches, under other tier thresholds, and on the engine's 2^16
+batch, and on the call task, the call path's mesh step and the engine) against their plain
 PyTorch versions (and the host Myers scan), and the combine and
 call_sample device paths on the card against their host paths, the
 native host library beside a CUDA context, the cluster_assign and
@@ -665,10 +665,11 @@ def test_sharded_step_on_cuda_matches_the_cpu(card):
 
 
 # ---------------------------------------------------------------------------
-# the call statistics: the run pass and a warp per cluster slot
+# the call statistics: the run pass, then a thread, a warp or a block a
+# cluster by its size
 
 CALL_STATS_BATCHES = [("random", 1024, 1), ("random", 8192, 3), ("edge", 8192, 4),
-                      ("edge", 8192, 5)]
+                      ("edge", 8192, 5), ("tiers", 65536, 8), ("huge", 32768, 9)]
 
 
 def call_stats_inputs(kind, n, seed):
@@ -735,6 +736,65 @@ def test_call_stats_kernel_on_a_single_slot_and_all_invalid(card):
     none = call_stats_inputs("random", 1024, 2)
     none["valid"][:] = False
     held_call_stats(card, none, False)
+
+
+# thresholds (tiny, pair, warp, block) that send the clusters of every
+# crafted batch through other tiers, each a build of its own; and one whose
+# block tier the card's shared memory refuses
+TIER_VARIANTS = [(0, 0, 1, 1), (8, 0, 8, 8), (0, 64, 64, 64), (1, 0, 1024, 4096)]
+REFUSED_TIERS = (8, 64, 256, 20_000)
+
+
+@pytest.fixture(scope="module")
+def tier_builds():
+    """The call-statistics builds of TIER_VARIANTS and REFUSED_TIERS, one
+    nvcc each, started together."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from sniffles_tpu_torch.ops import _build
+    from sniffles_tpu_torch.ops import call_stats as cs
+    started = [_build.start_build("call_stats", defines=cs.nvcc_defines(t))
+               for t in TIER_VARIANTS + [REFUSED_TIERS]]
+    for s in started:
+        _build.finish_build(s)
+
+
+@pytest.mark.parametrize("fused", [False, True])
+@pytest.mark.parametrize("tiers", TIER_VARIANTS,
+                         ids=["all-past-shared", "tiny-then-past", "warp-then-past",
+                              "block-to-4096"])
+def test_call_stats_each_tier_on_every_batch(card, tier_builds, tiers, fused):
+    """Thresholds that send the clusters of every crafted batch through
+    other tiers: (0, 0, 1, 1) every cluster of 2 or more to the block
+    tier's global scratch, (8, 0, 8, 8) the thread tier, then that scratch,
+    (0, 64, 64, 64) a warp's registers up to 64, then that scratch, (1, 0,
+    1024, 4096) a warp's shared memory for 2 to 1,024; the kernels == the
+    plain version on CPU copies, every key and slot."""
+    from sniffles_tpu_torch.ops import call_stats as cs
+    for kind, n, seed in CALL_STATS_BATCHES:
+        clustered = call_stats_inputs(kind, n, seed)
+        want = cs.call_statistics_plain(clustered, fused)
+        inputs = cs.kernel_inputs({k: v.to(card) for k, v in clustered.items()})
+        got = cs.launch_kernels(inputs, want["n_clusters"], fused, tiers)
+        for k, v in want.items():
+            g = got[k].cpu() if isinstance(got[k], torch.Tensor) else got[k]
+            if k != "n_clusters" and v.dtype == torch.float32:
+                g, v = g.view(torch.int32), v.view(torch.int32)
+            assert torch.equal(torch.as_tensor(g), torch.as_tensor(v)), (kind, seed, k)
+
+
+def test_call_stats_singletons_and_a_refused_shared_memory(card, tier_builds):
+    """Every slot a cluster of one (the thread tier alone) == the plain
+    version; a block tier larger than a block's shared memory raises."""
+    from sniffles_tpu_torch.ops import call_stats as cs
+    clustered = call_stats_inputs("random", 8192, 3)
+    clustered["valid"][:] = True
+    clustered["cluster_id"] = torch.arange(8192, dtype=torch.int32)
+    clustered["n_clusters"] = torch.tensor(8192, dtype=torch.int32)
+    held_call_stats(card, clustered, True)
+    inputs = cs.kernel_inputs({k: v.to(card) for k, v in clustered.items()})
+    with pytest.raises(RuntimeError, match="call_stats launch failed"):
+        cs.launch_kernels(inputs, clustered["n_clusters"], True, REFUSED_TIERS)
 
 
 def test_call_statistics_kernel_runs_on_the_three_paths(card, monkeypatch):
