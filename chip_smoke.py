@@ -21,11 +21,20 @@ Phases, each of which must pass:
      fragmented read and a single-svtype chain, and the partition's
      layouts (a head seed alone, BND chains, a cascade that collapses
      the fixpoint);
+  2d. the combine greedy's two kernels (csrc/combine_greedy.cu: the
+     whole-task grid greedy, a warp a segment row, and the flush greedy)
+     against their plain PyTorch versions on CPU copies of the same
+     inputs, bit for bit in assign, seg_flags and flags, on every payload
+     of sim.greedy_task_payloads, sim.greedy_flush_payloads and
+     sim.greedy_flush_wide_payloads;
   3. combine on the card: a 256-sample cohort written by
      sniffles_tpu_torch.sim, combined into a multi-sample VCF on the card
      (the device greedy and the edit-distance kernel) and again on the
      host path (--no-tpu); the two VCFs must be identical, and the kernel
-     must have been launched by the device run;
+     must have been launched by the device run; every greedy dispatch
+     (one launch of the grid kernel each) kept as a host copy of its
+     payload and result and held against the plain version on the CPU,
+     bit for bit;
   4. call_sample on the card: the JAX package's compute-dense bench leg
      (3 contigs of 2 Mb, depth 60, seed 17, sim.dense_layout) written by
      sniffles_tpu_torch.sim and called on the device path (--threads 0)
@@ -43,8 +52,10 @@ Phases, each of which must pass:
      service, in a child process (`python -m sniffles_tpu_torch`, the
      parent users run, which refuses to fork with a CUDA context):
      its VCF == phase 3's device and host VCFs, the edit-distance kernel
-     launched by the parent at least once; the service's counters and
-     the edit-distance batches of --threads 0 and --threads 4 are printed;
+     launched by the parent at least once, the greedy kernel wherever the
+     run made a greedy dispatch (as in phases 6, 8 and 9d); the service's
+     counters and the edit-distance batches of --threads 0 and --threads 4
+     are printed;
   4b. call_sample on the dense leg with the default command line (no
      --threads: 4 workers) in a child process (`python -m
      sniffles_tpu_torch`): records == phase 4's, every child's statistics
@@ -190,7 +201,9 @@ Phases, each of which must pass:
      1000: a CRAM at --tpu-mesh 2; 1001: a BAM), the device path against
      the host path on the card: every VCF and SNF equal (the fuzz's rules).
 Then (5) the kernels' timings on the inputs of the main paths' largest
-launches (CUDA events) beside their bounds and plain versions, the
+launches (CUDA events) beside their bounds and plain versions (the
+greedy's: combine256's dispatch of the most candidates, the kernel against
+the torch loop on the card), the
 sweep's device time on phase 2b's fuzz batches and chain, the fused
 sweep of phase 2c's k = 4 stack against its k single sweeps, the host
 synchronisations of call_task_packed and batched_call_task on the card
@@ -505,6 +518,118 @@ def time_ed_kernel(inputs):
     return {"ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": "operations" if bound_ops_ms >= bound_bytes_ms else "bytes",
             "max_abs_err": err}
+
+
+# -- phase 2d: the combine greedy's kernels -----------------------------------
+
+def greedy_err(got: dict, want: dict, keys, what: str) -> int:
+    """max |kernel - plain| over `keys` of two greedy results (numpy);
+    fails unless they are equal, bit for bit."""
+    err = 0
+    for k in keys:
+        a, b = np.asarray(got[k], dtype=np.int64), np.asarray(want[k], dtype=np.int64)
+        if a.shape != b.shape:
+            fail(f"{what}: {k} is {a.shape} on the card, {b.shape} in the plain version")
+        err = max(err, int(np.abs(a - b).max()) if a.size else 0)
+        if not np.array_equal(a, b):
+            fail(f"{what}: {k} differs from the plain version (max err {err})")
+    return err
+
+
+def check_greedy_kernels() -> int:
+    """Phase 2d: the grid kernel on every payload of
+    sim.greedy_task_payloads and the flush kernel on every case of
+    sim.greedy_flush_payloads and sim.greedy_flush_wide_payloads (its
+    state in global scratch) against the plain versions on CPU copies of
+    the same inputs, bit for bit in assign, seg_flags and flags; one launch
+    a payload. Returns the max |kernel - plain|."""
+    from sniffles_tpu_torch.ops import combine_greedy as cg
+    from sniffles_tpu_torch.sim import (greedy_flush_payloads, greedy_flush_wide_payloads,
+                                        greedy_task_payloads)
+    err, t0 = 0, time.perf_counter()
+    tasks = greedy_task_payloads()
+    flushes = greedy_flush_payloads() + greedy_flush_wide_payloads()
+    cg.reset_counts()
+    for label, payload, meta in tasks:
+        got = cg.run_combine_greedy_task(payload, meta, "cuda")
+        err = max(err, greedy_err(got, cg.run_combine_greedy_task(payload, meta, "cpu"),
+                                  ("assign", "seg_flags"), f"grid greedy, {label} {meta}"))
+    for j, (payload, meta) in enumerate(flushes):
+        got = cg.run_combine_greedy(payload, meta, "cuda")
+        err = max(err, greedy_err(got, cg.run_combine_greedy(payload, meta, "cpu"),
+                                  ("assign", "flags"), f"flush greedy, case {j}"))
+    if cg.COUNTS["launches"] != len(tasks) + len(flushes):
+        fail(f"the greedy kernels launched {cg.COUNTS} for {len(tasks)} grid and "
+             f"{len(flushes)} flush payloads")
+    print(f"    {len(tasks)} grid payloads (fuzz, ties, thresholds, ED misses, a width-1 "
+          f"table, overflow, one row of 2,048, 16,384 rows of one) and {len(flushes)} flush "
+          f"payloads (the last 2 past a block's shared memory): each == plain (bit-exact), "
+          f"one launch each ({cg.COUNTS}); {time.perf_counter() - t0:.1f} s", flush=True)
+    return err
+
+
+def hold_greedy_dispatches(kept, what) -> int:
+    """Every kept whole-task greedy dispatch (its payload and the result
+    the card gave; tools/time_combine_greedy.captured_dispatches) against
+    the plain version on the CPU, bit for bit. Returns the max |kernel -
+    plain|."""
+    from sniffles_tpu_torch.ops import combine_greedy as cg
+    err = 0
+    for j, d in enumerate(kept):
+        want = cg.run_combine_greedy_task(d["payload"], d["meta"], "cpu")
+        err = max(err, greedy_err(d["result"], want, ("assign", "seg_flags"),
+                                  f"{what}, greedy dispatch {j}"))
+    return err
+
+
+def check_greedy_counters(c, what) -> str:
+    """A run's service or daemon counters: at least one launch of the
+    greedy kernel wherever the run made a greedy dispatch. Returns them
+    as text."""
+    dispatches, launches = c.get("combine_greedy_dispatches", 0), c.get("kernel_combine_greedy")
+    if dispatches >= 1 and (launches or 0) < 1:
+        fail(f"{what}: {dispatches} greedy dispatches, {launches} greedy kernel launches")
+    return f"greedy dispatches {dispatches}, greedy kernel launches {launches}"
+
+
+def time_greedy_kernel(kept) -> dict:
+    """Phase 5's greedy: the kernel (the wrapper's one launch, CUDA events,
+    the card asleep ahead of the start) and the plain version on the card
+    (the torch loop on the same CUDA tensors) on the main path's largest
+    dispatch (the most candidates), each == the CPU's, and the bound
+    (tools/time_combine_greedy.bound: the live candidates, the ED entries
+    the steps read and the outputs at HBM_BYTES_PER_S, against the live
+    slots' probes)."""
+    from sniffles_tpu_torch.ops import combine_greedy as cg
+    from sniffles_tpu_torch.tools import time_combine_greedy as tool
+    d = max(kept, key=lambda d: int(np.asarray(d["payload"]["counts"]).sum()))
+    row, b = tool.dispatch_row(d), tool.bound(d)
+    args, kw, _ = tool.device_inputs(cg, d)
+    want = cg.run_combine_greedy_task(d["payload"], d["meta"], "cpu")
+    err, launches = 0, cg.COUNTS["launches"]
+    for label, fn in (("kernel", cg._greedy_grid_loop), ("plain", cg.greedy_grid_plain)):
+        assign, segflags = (t.cpu().numpy() for t in fn(*args, **kw))
+        err = max(err, greedy_err({"assign": assign[:row["S"], :row["L"]],
+                                   "seg_flags": segflags[:row["S"]]}, want,
+                                  ("assign", "seg_flags"), f"phase 5 greedy ({label})"))
+    if cg.COUNTS["launches"] != launches + 1:
+        fail(f"phase 5 greedy: the kernel and the plain version counted "
+             f"{cg.COUNTS['launches'] - launches} launches, not 1")
+    kernel = tool.timed(lambda: cg._greedy_grid_loop(*args, **kw), sleep=True, profiled=False)
+    plain = tool.timed(lambda: cg.greedy_grid_plain(*args, **kw), sleep=False)
+    print(f"  greedy, combine256's largest dispatch: S {row['S']} (Sp {row['Sp']}), L "
+          f"{row['L']} (Lp {row['Lp']}), {row['candidates']} candidates, {row['max_count']} "
+          f"steps, ED width {row['ed_width']}, limit > 0 {row['limit_on']}: kernel "
+          f"{kernel['ms']:.4f} ms (one launch, the wrapper's count; host "
+          f"{kernel['host_ms']:.3f} ms), plain (the torch loop on the card) {plain['ms']:.2f} ms "
+          f"({plain['launches']:g} launches by torch.profiler, host {plain['host_ms']:.2f} ms); "
+          f"== plain (bit-exact); bound {b['bound_ms']:.6f} ms ({b['bound_by']}: "
+          f"{b['bytes']} bytes {b['bytes_ms']:.6f} ms, {b['probes']} probes "
+          f"{b['ops_ms']:.6f} ms), {b['bound_ms'] / kernel['ms']:.3%} of it; a chain of "
+          f"{row['max_count']} dependent steps, {1e3 * kernel['ms'] / max(row['max_count'], 1):.3f}"
+          f" us a step", flush=True)
+    return {"ms": kernel["ms"], "plain_ms": plain["ms"], "bound_ms": b["bound_ms"],
+            "bound_by": b["bound_by"], "max_abs_err": err}
 
 
 # -- phase 2b ---------------------------------------------------------------
@@ -1340,7 +1465,10 @@ def run_ed_held(args, extra, what):
     at 0 just before and read just after, and every launch kept (a host
     copy of its inputs and output) and then held against the plain
     version on the card, bit for bit. Fails unless every launch was held.
+    The greedy kernel's launches over the run (its counts at 0 just before)
+    go into the counters returned as kernel_combine_greedy.
     Returns (wall, counters, launches, cells, the max |kernel - plain|)."""
+    from sniffles_tpu_torch.ops import combine_greedy as cg
     from sniffles_tpu_torch.ops import edit_distance_batch as ted
     wrapper, kept = ted.edit_distance_batch_device, []
 
@@ -1351,12 +1479,14 @@ def run_ed_held(args, extra, what):
         return out
 
     ted.reset_counts()
+    cg.reset_counts()
     ted.edit_distance_batch_device = keep_every
     try:
         wall, counters = run_cli(args, extra, args[args.index("--vcf") + 1] + ".json", what)
     finally:
         ted.edit_distance_batch_device = wrapper
     launches, cells = ted.COUNTS["launches"], ted.COUNTS["cells"]
+    counters["kernel_combine_greedy"] = cg.COUNTS["launches"]
     if len(kept) != launches:
         fail(f"{what}: {launches} edit-distance launches, {len(kept)} kept")
     return wall, counters, launches, cells, hold_ed(kept, what)
@@ -1423,7 +1553,7 @@ def run_modes(tmp, meta):
              f"{cohort}_{label}_pop.snf"], extra, f"combine ({label} path)")
         ed_err = max(ed_err, e)
         print(f"    {label} path {wall:.2f} s; ED kernel launches {launches}, cells {cells}; "
-              f"greedy dispatches {counters.get('combine_greedy_dispatches', 0)}", flush=True)
+              f"{check_greedy_counters(counters, label)}", flush=True)
     records = records_of(f"{cohort}_device.vcf.gz")
     if records_of(f"{cohort}_host.vcf.gz") != records or len(records) < 100:
         fail(f"combine: device and host .vcf.gz differ, or only {len(records)} records")
@@ -1442,8 +1572,8 @@ def run_modes(tmp, meta):
              f"{cohort}_device_pop.snf"], extra, f"--combine-population ({label} path)")
         ed_err = max(ed_err, e)
         print(f"    --combine-population, {label} path {wall:.2f} s; ED kernel launches "
-              f"{launches}, cells {cells}; greedy dispatches "
-              f"{counters.get('combine_greedy_dispatches', 0)}", flush=True)
+              f"{launches}, cells {cells}; {check_greedy_counters(counters, label)}",
+              flush=True)
     annotated = records_of(f"{cohort}_device_af.vcf")
     if records_of(f"{cohort}_host_af.vcf") != annotated or annotated != [
             line for line in annotated if "POPULATION_AF=" in line] or not annotated:
@@ -1818,7 +1948,7 @@ def run_daemon(tmp, meta, dense, combine, modes):
             fail(f"{what}: VCF differs from phase 3's, or no edit-distance launch in the "
                  f"daemon ({c.get('kernel_ed_myers')})")
         print(f"    {what}: {wall:.2f} s; the daemon's edit-distance launches "
-              f"{c['kernel_ed_myers']}, greedy dispatches {c['combine_greedy_dispatches']}; "
+              f"{c['kernel_ed_myers']}, {check_greedy_counters(c, what)}; "
               f"VCF == phase 3's", flush=True)
 
         base = os.path.join(modes, f"s{MODES_SEEDS[0]}")
@@ -1884,8 +2014,9 @@ def run_daemon(tmp, meta, dense, combine, modes):
               flush=True)
 
         after = dd.daemon_stats(sock)
-        launches = {k: after[k] - before[k] for k in ("kernel_merge_sweep",
-                                                      "kernel_sweep_cuts", "kernel_ed_myers")}
+        launches = {k: after[k] - before[k] for k in ("kernel_merge_sweep", "kernel_sweep_cuts",
+                                                      "kernel_ed_myers",
+                                                      "kernel_combine_greedy")}
         if after["device"] != "cuda" or min(launches.values()) < 1:
             fail(f"the daemon on {after['device']} launched {launches} over the served runs")
         client.shutdown()
@@ -2114,6 +2245,7 @@ def run_mesh(tmp, meta, dense, combine):
         if c.get("combine_mesh_seam", 0):
             fail(f"{what}: {c['combine_mesh_seam']} flushes overflowed the halo")
         print(f"    {what}: {wall:.2f} s; {len(records_of(out))} records == the host VCF's; "
+              f"{check_greedy_counters(c, what)}; "
               + json.dumps({k: c.get(k, 0) for k in ("combine_mesh_flushes",
                                                       "combine_mesh_skipped",
                                                       "combine_mesh_seam", "service_requests",
@@ -2893,7 +3025,9 @@ def main() -> int:
     os.environ["SNIFFLES_TPU_MESH_DEVICES"] = MESH_DEVICES
     from sniffles_tpu_torch.ops import _build
     from sniffles_tpu_torch.ops import call_stats as cs
+    from sniffles_tpu_torch.ops import combine_greedy as cg
     from sniffles_tpu_torch.ops import edit_distance_batch as ted
+    from sniffles_tpu_torch.tools.time_combine_greedy import captured_dispatches
 
     smi = smi_line()
     name = torch.cuda.get_device_name(0)
@@ -2939,6 +3073,10 @@ def main() -> int:
         if label in SWEEP_TIMED:
             timed_cases[label] = (inputs, state)
 
+    print("[2d] the combine greedy's kernels (grid and flush) against their plain versions",
+          flush=True)
+    greedy_max_err = check_greedy_kernels()
+
     print(f"[3] combine: {COHORT_SAMPLES}-sample cohort, 2 contigs of 1 Mb", flush=True)
     with kept_dir("chip_smoke_") as tmp:
         from sniffles_tpu_torch.sim import write_cohort
@@ -2959,13 +3097,17 @@ def main() -> int:
 
         torch.cuda.reset_peak_memory_stats()
         ted.reset_counts()
+        cg.reset_counts()
         ted.edit_distance_batch_device = keep_largest
         try:
-            dev_wall, dev_counters = run_cli(["--input", *snfs, "--vcf", dev_vcf], [],
-                                             os.path.join(tmp, "c1.json"), "combine")
+            # every greedy dispatch kept: its payload and the card's result
+            with captured_dispatches() as greedy_kept:
+                dev_wall, dev_counters = run_cli(["--input", *snfs, "--vcf", dev_vcf], [],
+                                                 os.path.join(tmp, "c1.json"), "combine")
         finally:
             ted.edit_distance_batch_device = wrapper
         launches, cells = ted.COUNTS["launches"], ted.COUNTS["cells"]
+        greedy_counts = dict(cg.COUNTS)
         peak = torch.cuda.max_memory_allocated()
         host_wall, host_counters = run_cli(["--input", *snfs, "--vcf", host_vcf],
                                            ["--no-tpu"], os.path.join(tmp, "c2.json"),
@@ -2984,7 +3126,15 @@ def main() -> int:
             fail(f"the main path launched the ED kernel {launches} times over {cells} cells")
         if dev_counters.get("combine_greedy_dispatches", 0) < 1:
             fail("the device greedy never ran")
-        print("    device VCF == host VCF", flush=True)
+        if not (greedy_counts["launches"] == len(greedy_kept)
+                == dev_counters["combine_greedy_dispatches"]):
+            fail(f"the greedy kernel launched {greedy_counts} for "
+                 f"{dev_counters['combine_greedy_dispatches']} dispatches, {len(greedy_kept)} "
+                 f"kept")
+        greedy_max_err = max(greedy_max_err, hold_greedy_dispatches(greedy_kept, "combine256"))
+        print(f"    device VCF == host VCF; {len(greedy_kept)} greedy dispatches, one kernel "
+              f"launch each ({greedy_counts}), each == plain on the CPU (bit-exact)",
+              flush=True)
 
         print("[3b] combine with --threads 4 in a child process (the worker pool and the "
               "parent's device service)", flush=True)
@@ -2992,6 +3142,7 @@ def main() -> int:
         wall4, c4, timing4 = run_child(["--input", *snfs, "--vcf", t4_vcf, "--threads", "4"],
                                        os.path.join(tmp, "c3.json"), "combine --threads 4")
         ed_launches = c4.get("kernel_ed_myers", 0)
+        greedy_launches = c4.get("kernel_combine_greedy", 0)
         wall0, _, timing0 = run_child(["--input", *snfs, "--vcf", t0_vcf, "--threads", "0"],
                                       os.path.join(tmp, "c4.json"), "combine --threads 0")
         print(f"    threads 4 {wall4:.2f} s ({timing4}), threads 0 {wall0:.2f} s ({timing0}), "
@@ -3010,7 +3161,8 @@ def main() -> int:
                  "and host VCFs")
         if ed_launches < 1:
             fail("combine --threads 4: the parent never launched the edit-distance kernel")
-        print("    threads-4 VCF == device VCF == host VCF", flush=True)
+        print(f"    threads-4 VCF == device VCF == host VCF; "
+              f"{check_greedy_counters(c4, 'combine --threads 4')}", flush=True)
 
     print(f"[4] call_sample: {DENSE_CONTIGS} contigs of {DENSE_REF_LEN // 1_000_000} Mb, "
           f"depth {DENSE_DEPTH}, seed {DENSE_SEED} (the dense bench leg)", flush=True)
@@ -3109,6 +3261,8 @@ def main() -> int:
                                      for d in sweep_largest), meta)
     for label, (inputs, state) in timed_cases.items():
         time_sweep_case(inputs, state, meta, label)
+    greedy_timing = time_greedy_kernel(greedy_kept)
+    greedy_max_err = max(greedy_max_err, greedy_timing.pop("max_abs_err"))
     fused_label = "k=4 fuzz seeds 1, 2, dense tasks 0, 1"
     time_batched_sweep(stacks[fused_label], meta, fused_label)
     from sniffles_tpu_torch.ops import clustering as tc
@@ -3162,7 +3316,12 @@ def main() -> int:
         **engine_rows[2]["call_stats"], "library_ms": None}] + [{
         "name": k, "route": "cuda", "source": "sniffles_tpu_torch/csrc/call_stats.cu",
         "replaces": "sniffles_tpu/ops/clustering.py:1262", "launches": engine_launches[k],
-        **engine_rows[2][k], "library_ms": None} for k in cs.KERNELS]
+        **engine_rows[2][k], "library_ms": None} for k in cs.KERNELS] + [{
+        "name": "combine_greedy", "route": "cuda",
+        "source": "sniffles_tpu_torch/csrc/combine_greedy.cu",
+        "replaces": "sniffles_tpu/ops/combine_greedy.py:180",
+        "launches": greedy_launches, "max_abs_err": greedy_max_err, **greedy_timing,
+        "library_ms": None}]
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

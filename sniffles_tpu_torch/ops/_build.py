@@ -35,7 +35,7 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "torch_kernels")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 KERNEL_SOURCES = ("edit_distance", "merge_sweep", "merge_relax", "candidate_tail",
-                  "call_stats")
+                  "call_stats", "combine_greedy")
 HOST_SOURCES = ("bamcore.cc", "poacore.cc")
 # -ffp-contract=off: bamcore.cc's split filter computes base + kb * (qlen /
 # 1000.0) in double precision as Python does, two roundings; a fused

@@ -35,13 +35,18 @@ evolve as candidates join (sv.py:303-313).
 * The identity gate reads a PRECOMPUTED exact edit-distance table; a
   probe whose pair is missing raises the `ed_miss` flag.
 
-The grid loop runs one step per candidate of the longest segment, the
-flush loop one per candidate (Python loops of tensor ops; each dispatch
-takes its bound from the host's counts, so a loop never waits for the
-card). A hand-written kernel with one
-block per segment is later work.
+`_greedy_grid_loop` and `_greedy_loop` are the wrappers: on CPU tensors
+the plain versions (`greedy_grid_plain`, one step per candidate of the
+longest segment, and `greedy_flush_plain`, one per candidate: Python
+loops of tensor ops that take their bound from the host's counts), on
+CUDA tensors one launch of csrc/combine_greedy.cu's kernel (`greedy_grid`,
+a warp a segment row, each row run to its own count; `greedy_flush`, one
+warp), on any other device an exception. The gates' float32 constants go
+to the kernel as their bits, made by torch on the host (`gate_bits`).
 """
 from __future__ import annotations
+
+import ctypes
 
 import numpy as np
 import torch
@@ -52,6 +57,30 @@ from sniffles_tpu_torch.ops._greedy_consts import (EPS, NMAX, SCALE, SEGF_AMBIGU
 from sniffles_tpu_torch.ops.segments import sqrt_f32
 
 INT32_MAX = 2 ** 31 - 1
+
+# Launches by the wrappers (_greedy_grid_loop, _greedy_loop), counted only
+# where they launch the kernel: "launches" one a launch of either entry
+# point, "segments" the rows it ran (a grid's S, a flush's one), "steps"
+# the longest row's candidates (a grid's max_count, when its caller gives
+# it; a flush's c_count).
+COUNTS = {"launches": 0, "segments": 0, "steps": 0}
+
+# The kernel keeps a row's state (psum, lsum, n, head, hord: 5 int32 a
+# slot) in a block's shared memory, 48 KB without an opt-in: a grid row
+# always (the packer's SEG_LMAX = 2,048 keeps L within it; grid_inputs
+# refuses more), the flush's one row where its G slots fit, else a global
+# scratch buffer the wrapper allocates.
+STATE_WORDS = 5
+SHARED_STATE_MAX = 48 * 1024
+# lanes of a warp: the grid's ED column is shuffled from lanes k < K
+MAX_ED_HEADS = 32
+# the grid greedy's inputs, in _greedy_grid_loop's order (task_grids)
+GRID_KEYS = ("c_pos", "c_len", "c_alt", "c_hord", "counts", "ed")
+
+
+def reset_counts() -> None:
+    for k in COUNTS:
+        COUNTS[k] = 0
 
 
 def _pow2(x: int, floor: int) -> int:
@@ -154,7 +183,170 @@ def _greedy_step(st: dict, pos, ln, aid, d_ed, upd, g: _Gates):
     return tgt, create, bits
 
 
+def gate_bits(cm: int, cmm: int, limit: float) -> dict:
+    """The kernel's float32 constants as int32 bits, made by torch on the
+    host as _Gates makes them: cm_f, limit_f, eps_f, tiny_f and forced_at
+    (float32(cmm) times float32(1 + 2 EPS), one rounding)."""
+    f32 = torch.float32
+    consts = torch.tensor([float(cm), float(limit), EPS, 1e-9], dtype=f32)
+    forced_at = (torch.tensor(float(cmm), dtype=f32)
+                 * torch.tensor(1.0 + 2.0 * EPS, dtype=f32)).reshape(1)
+    bits = torch.cat([consts, forced_at]).view(torch.int32).tolist()
+    return dict(zip(("cm_f", "limit_f", "eps_f", "tiny_f", "forced_at"), bits))
+
+
+def _kernel_gates(cm: int, cmm: int, limit: float) -> tuple:
+    """The kernel's gate arguments: cmm, the five bits of gate_bits, and
+    the flags limit > 0 (the identity gate) and limit < 1 (pass_same)."""
+    bits = gate_bits(cm, cmm, limit)
+    return (int(cmm), *(bits[k] for k in ("cm_f", "limit_f", "eps_f", "tiny_f", "forced_at")),
+            int(limit > 0), int(limit < 1.0))
+
+
+def _int32_input(name: str, t, dev, shape: tuple) -> torch.Tensor:
+    """`t` as a contiguous int32 tensor of `shape` on `dev`; raises on
+    another dtype, shape or device."""
+    if t.dtype != torch.int32 or t.device != dev or tuple(t.shape) != shape:
+        raise ValueError(f"combine greedy: {name} is {t.dtype} {tuple(t.shape)} on "
+                         f"{t.device}, want int32 {shape} on {dev}")
+    return t.contiguous()
+
+
+def grid_inputs(c_pos, c_len, c_alt, c_hord, counts, ed) -> dict:
+    """The grid kernel's inputs: the (S, L) grids, counts (S,) and the ED
+    table (S, K, W) as contiguous int32 tensors on c_pos's device, a row's
+    state within SHARED_STATE_MAX, K at most a warp's lanes and W at least
+    1; raises on anything else."""
+    dev = c_pos.device
+    S, L = c_pos.shape
+    if 4 * STATE_WORDS * L > SHARED_STATE_MAX:
+        raise ValueError(f"combine greedy: rows of {L} slots, past a block's shared memory "
+                         f"({SHARED_STATE_MAX // (4 * STATE_WORDS)})")
+    if ed.dim() != 3 or ed.shape[0] != S or not 1 <= ed.shape[1] <= MAX_ED_HEADS \
+            or ed.shape[2] < 1:
+        raise ValueError(f"combine greedy: ed is {tuple(ed.shape)}, want ({S}, K <= "
+                         f"{MAX_ED_HEADS}, W >= 1)")
+    grids = {k: _int32_input(k, t, dev, (S, L)) for k, t in
+             (("c_pos", c_pos), ("c_len", c_len), ("c_alt", c_alt), ("c_hord", c_hord))}
+    return {**grids, "counts": _int32_input("counts", counts, dev, (S,)),
+            "ed": _int32_input("ed", ed, dev, tuple(ed.shape))}
+
+
+def flush_inputs(c_pos, c_len, c_alt, g_psum, g_lsum, g_n, g_head, ed) -> dict:
+    """The flush kernel's inputs: candidates (Cp,), group slots (G,) and
+    the ED table (H, Cp) as contiguous int32 tensors on c_pos's device;
+    raises on anything else."""
+    dev = c_pos.device
+    cp, G = c_pos.shape[0], g_psum.shape[0]
+    if ed.dim() != 2 or ed.shape[0] < 1 or ed.shape[1] != cp:
+        raise ValueError(f"combine greedy: ed is {tuple(ed.shape)}, want (H >= 1, {cp})")
+    out = {k: _int32_input(k, t, dev, (cp,)) for k, t in
+           (("c_pos", c_pos), ("c_len", c_len), ("c_alt", c_alt))}
+    out.update((k, _int32_input(k, t, dev, (G,))) for k, t in
+               (("g_psum", g_psum), ("g_lsum", g_lsum), ("g_n", g_n), ("g_head", g_head)))
+    out["ed"] = _int32_input("ed", ed, dev, tuple(ed.shape))
+    return out
+
+
+def _entry(name: str, argtypes: list):
+    """Entry point `name` of csrc/combine_greedy.cu (built at first use)."""
+    from sniffles_tpu_torch.ops import _build
+    fn = getattr(_build.load("combine_greedy"), name)
+    fn.restype = ctypes.c_int
+    fn.argtypes = argtypes + [ctypes.c_void_p]   # the stream
+    return fn
+
+
+def launch_grid(inputs: dict, *, cm: int, cmm: int, limit: float):
+    """One launch of the grid kernel (greedy_grid) on grid_inputs' CUDA
+    tensors, on the device's current stream. Returns (assign (S, L),
+    segflags (S,)); counts nothing; raises when the launch is refused."""
+    from sniffles_tpu_torch.ops.clustering import _launch
+    c_pos, ed = inputs["c_pos"], inputs["ed"]
+    dev = c_pos.device
+    S, L = c_pos.shape
+    assign = torch.empty((S, L), dtype=torch.int32, device=dev)
+    segflags = torch.empty((S,), dtype=torch.int32, device=dev)
+    fn = _entry("greedy_grid", [ctypes.c_void_p] * 8 + [ctypes.c_int] * 12)
+    rc = _launch(fn, dev, *(inputs[k].data_ptr() for k in
+                            ("c_pos", "c_len", "c_alt", "c_hord", "counts", "ed")),
+                 assign.data_ptr(), segflags.data_ptr(), S, L, ed.shape[1], ed.shape[2],
+                 *_kernel_gates(cm, cmm, limit))
+    if rc != 0:
+        raise RuntimeError(f"combine_greedy launch failed with CUDA error {rc}")
+    return assign, segflags
+
+
+def launch_flush(inputs: dict, c_count: int, n_groups0: int, *, cm: int, cmm: int,
+                 limit: float):
+    """One launch of the flush kernel (greedy_flush) on flush_inputs' CUDA
+    tensors, on the device's current stream, its row's state in shared
+    memory where its G slots fit SHARED_STATE_MAX, else in a global scratch
+    buffer. Returns (assign (Cp,), flags (3,)); counts nothing; raises when
+    the launch is refused."""
+    from sniffles_tpu_torch.ops.clustering import _launch
+    c_pos, ed = inputs["c_pos"], inputs["ed"]
+    dev = c_pos.device
+    cp, G = c_pos.shape[0], inputs["g_psum"].shape[0]
+    assign = torch.empty((cp,), dtype=torch.int32, device=dev)
+    flags = torch.empty((3,), dtype=torch.int32, device=dev)
+    scratch = (None if 4 * STATE_WORDS * G <= SHARED_STATE_MAX
+               else torch.empty((STATE_WORDS, G), dtype=torch.int32, device=dev))
+    fn = _entry("greedy_flush", [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2
+                + [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+                                           ctypes.c_int] + [ctypes.c_void_p] * 3
+                + [ctypes.c_int] * 8)
+    rc = _launch(fn, dev, *(inputs[k].data_ptr() for k in ("c_pos", "c_len", "c_alt")),
+                 int(c_count), cp,
+                 *(inputs[k].data_ptr() for k in ("g_psum", "g_lsum", "g_n", "g_head")),
+                 G, ed.data_ptr(), ed.shape[0], int(n_groups0), assign.data_ptr(),
+                 flags.data_ptr(), None if scratch is None else scratch.data_ptr(),
+                 *_kernel_gates(cm, cmm, limit))
+    if rc != 0:
+        raise RuntimeError(f"combine_greedy launch failed with CUDA error {rc}")
+    return assign, flags
+
+
 def _greedy_grid_loop(c_pos, c_len, c_alt, c_hord, counts, ed,
+                      *, cm: int, cmm: int, limit: float, max_count: int = None):
+    """The whole-task grid greedy of greedy_grid_plain: on CPU tensors the
+    plain version, on CUDA tensors one launch of the kernel (each row runs
+    to its own count, so max_count is not needed there and nothing is read
+    from the card), on any other device an exception."""
+    dev = c_pos.device
+    if dev.type == "cpu":
+        return greedy_grid_plain(c_pos, c_len, c_alt, c_hord, counts, ed, cm=cm, cmm=cmm,
+                                 limit=limit, max_count=max_count)
+    if dev.type != "cuda":
+        raise ValueError(f"no combine greedy kernel for device {dev}")
+    out = launch_grid(grid_inputs(c_pos, c_len, c_alt, c_hord, counts, ed),
+                      cm=cm, cmm=cmm, limit=limit)
+    COUNTS["launches"] += 1
+    COUNTS["segments"] += c_pos.shape[0]
+    COUNTS["steps"] += int(max_count or 0)
+    return out
+
+
+def _greedy_loop(c_pos, c_len, c_alt, c_count: int, g_psum, g_lsum, g_n, g_head,
+                 ed, n_groups0: int, *, cm: int, cmm: int, limit: float):
+    """The flush greedy of greedy_flush_plain: on CPU tensors the plain
+    version, on CUDA tensors one launch of the kernel, on any other device
+    an exception."""
+    dev = c_pos.device
+    if dev.type == "cpu":
+        return greedy_flush_plain(c_pos, c_len, c_alt, c_count, g_psum, g_lsum, g_n, g_head,
+                                  ed, n_groups0, cm=cm, cmm=cmm, limit=limit)
+    if dev.type != "cuda":
+        raise ValueError(f"no combine greedy kernel for device {dev}")
+    out = launch_flush(flush_inputs(c_pos, c_len, c_alt, g_psum, g_lsum, g_n, g_head, ed),
+                       c_count, n_groups0, cm=cm, cmm=cmm, limit=limit)
+    COUNTS["launches"] += 1
+    COUNTS["segments"] += 1
+    COUNTS["steps"] += int(c_count)
+    return out
+
+
+def greedy_grid_plain(c_pos, c_len, c_alt, c_hord, counts, ed,
                       *, cm: int, cmm: int, limit: float, max_count: int = None):
     """Whole-task greedy as a SEGMENT-GRID lockstep loop.
 
@@ -216,8 +408,8 @@ def _greedy_grid_loop(c_pos, c_len, c_alt, c_hord, counts, ed,
     return assign, segflags
 
 
-def _greedy_loop(c_pos, c_len, c_alt, c_count: int, g_psum, g_lsum, g_n, g_head,
-                 ed, n_groups0: int, *, cm: int, cmm: int, limit: float):
+def greedy_flush_plain(c_pos, c_len, c_alt, c_count: int, g_psum, g_lsum, g_n, g_head,
+                       ed, n_groups0: int, *, cm: int, cmm: int, limit: float):
     """The sequential greedy of one flush (the JAX package's _greedy_loop,
     sniffles_tpu/ops/combine_greedy.py:61): candidates (Cp,) in processing
     order, of which the first c_count are real, against G group slots whose
@@ -266,6 +458,26 @@ def start_combine_greedy_task(payload: dict, meta: dict, device):
     "seg_flags": (S,) int32 SEGF_* bitmasks} as numpy arrays.
     """
     from sniffles_tpu_torch.ops.transfer import to_device, to_host_async
+    S, L = np.shape(payload["c_pos"])
+    grids = task_grids(payload)
+    assign, segflags = _greedy_grid_loop(
+        *(to_device(grids[k], device) for k in GRID_KEYS),
+        cm=int(meta["cm"]), cmm=int(meta["cmm"]), limit=float(meta["limit"]),
+        max_count=int(grids["counts"].max()))
+    fetch = to_host_async(assign, segflags)
+
+    def finish():
+        assign_h, segflags_h = fetch()
+        return {"assign": assign_h[:S, :L], "seg_flags": segflags_h[:S]}
+    return finish
+
+
+def task_grids(payload: dict) -> dict:
+    """A trimmed grid payload padded as the JAX package pads it: the (S, L)
+    grids to (Sp, Lp), powers of two of at least 16 and 64 (c_hord with
+    -1), counts to (Sp,), and the dense ED table (Sp, TASK_ED_HEADS, Lp),
+    or (Sp, TASK_ED_HEADS, 1) when no entry is tabulated; numpy int32
+    arrays under GRID_KEYS."""
     c_pos = np.asarray(payload["c_pos"], dtype=np.int32)
     S, L = c_pos.shape
     Sp = _pow2(max(S, 1), 16)
@@ -287,21 +499,11 @@ def start_combine_greedy_task(payload: dict, meta: dict, device):
     else:
         # all-missing table: a width-1 grid reads the same -1 everywhere
         ed = np.full((Sp, TASK_ED_HEADS, 1), -1, dtype=np.int32)
-
-    assign, segflags = _greedy_grid_loop(
-        to_device(pad_g(c_pos), device),
-        to_device(pad_g(np.asarray(payload["c_len"], dtype=np.int32)), device),
-        to_device(pad_g(np.asarray(payload["c_alt"], dtype=np.int32)), device),
-        to_device(pad_g(np.asarray(payload["c_hord"], dtype=np.int32), fill=-1), device),
-        to_device(counts, device), to_device(ed, device),
-        cm=int(meta["cm"]), cmm=int(meta["cmm"]), limit=float(meta["limit"]),
-        max_count=int(counts.max()))
-    fetch = to_host_async(assign, segflags)
-
-    def finish():
-        assign_h, segflags_h = fetch()
-        return {"assign": assign_h[:S, :L], "seg_flags": segflags_h[:S]}
-    return finish
+    return {"c_pos": pad_g(c_pos),
+            "c_len": pad_g(np.asarray(payload["c_len"], dtype=np.int32)),
+            "c_alt": pad_g(np.asarray(payload["c_alt"], dtype=np.int32)),
+            "c_hord": pad_g(np.asarray(payload["c_hord"], dtype=np.int32), fill=-1),
+            "counts": counts, "ed": ed}
 
 
 def run_combine_greedy_task(payload: dict, meta: dict, device) -> dict:

@@ -429,12 +429,14 @@ class DeviceServer:
     def stats(self) -> dict:
         """The service's counters, its device, and the kernel launches of
         this process (the names the CLI's counters give them)."""
-        from sniffles_tpu_torch.ops import call_stats, clustering, edit_distance_batch
+        from sniffles_tpu_torch.ops import (call_stats, clustering, combine_greedy,
+                                            edit_distance_batch)
         return {**self.counters, "device": self.device,
                 "kernel_sweep_cuts": clustering.COUNTS["sweep_cuts"],
                 "kernel_merge_sweep": clustering.COUNTS["launches"],
                 "kernel_ed_myers": edit_distance_batch.COUNTS["launches"],
-                "kernel_call_stats": call_stats.COUNTS["launches"]}
+                "kernel_call_stats": call_stats.COUNTS["launches"],
+                "kernel_combine_greedy": combine_greedy.COUNTS["launches"]}
 
     def handle(self, request: DeviceRequest) -> DeviceResponse:
         """Answer one request that is not pipelined (cluster_assign,

@@ -467,6 +467,127 @@ def edge_call_batches() -> dict[str, np.ndarray]:
     return {"nseeds-0": empty, "one-seed": one, "fragmented-read": frag}
 
 
+def greedy_fuzz_payload(rng, S, L, n_sites=3, lens=(16, 60, 200), n_alts=6, table=0.8,
+                        heads=8, span=3000, full=False) -> dict:
+    """A payload of run_combine_greedy_task: S segment rows of up to L
+    candidates (counts drawn from 1..L, or L each when `full`) with
+    clustered positions and lengths (so exact and near ties are common),
+    head ordinals assigned as the packer assigns them (at most `heads` a
+    row), and a random sparse ED table (each head row x candidate with
+    probability `table`)."""
+    counts = (np.full(S, L, np.int32) if full
+              else rng.integers(1, L + 1, size=S).astype(np.int32))
+    c_pos = np.zeros((S, L), np.int32)
+    c_len = np.zeros((S, L), np.int32)
+    c_alt = np.zeros((S, L), np.int32)
+    c_hord = np.full((S, L), -1, np.int32)
+    segs, rows, cols, vals = [], [], [], []
+    for s in range(S):
+        sites = rng.integers(0, span, size=n_sites)
+        site_len = rng.choice(lens, size=n_sites)
+        ords = {}
+        for j in range(int(counts[s])):
+            k = int(rng.integers(0, n_sites))
+            c_pos[s, j] = sites[k] + int(rng.integers(-30, 31))
+            c_len[s, j] = max(1, int(site_len[k]) + int(rng.integers(-4, 5)))
+            alt = int(rng.integers(0, n_alts))
+            c_alt[s, j] = alt
+            if alt not in ords and len(ords) < heads:
+                ords[alt] = len(ords)
+            c_hord[s, j] = ords.get(alt, -1)
+        for h in range(len(ords)):
+            for j in range(int(counts[s])):
+                if rng.random() < table:
+                    segs.append(s)
+                    rows.append(h)
+                    cols.append(j)
+                    vals.append(int(rng.integers(0, 2 * int(c_len[s, j]) + 1)))
+    as32 = lambda v: np.array(v, dtype=np.int32)  # noqa: E731
+    return {"c_pos": c_pos, "c_len": c_len, "c_alt": c_alt, "c_hord": c_hord,
+            "counts": counts, "ed_segs": as32(segs), "ed_rows": as32(rows),
+            "ed_cols": as32(cols), "ed_vals": as32(vals)}
+
+
+# the metas of the grid payloads' fuzz seeds: both branches of limit
+GREEDY_FUZZ_METAS = ({"cm": 250, "cmm": 1000, "limit": 0.7},
+                     {"cm": 10, "cmm": 120, "limit": 0.5},
+                     {"cm": 250, "cmm": 1000, "limit": 0.0})
+
+
+def _no_ed_table(payload: dict) -> dict:
+    z = np.zeros(0, np.int32)
+    return dict(payload, ed_segs=z, ed_rows=z, ed_cols=z, ed_vals=z)
+
+
+def greedy_task_payloads() -> list[tuple[str, dict, dict]]:
+    """(label, payload, meta) of the whole-task grid greedy
+    (run_combine_greedy_task), which the CPU tests hold against the JAX
+    package and the card holds its kernel against the plain version on:
+      - "fuzz seed k": greedy_fuzz_payload on seeds 100..105 (S 1-19, L
+        2-39), each under GREEDY_FUZZ_METAS;
+      - "exact ties": two groups at the same rational distance from a
+        probe, the earliest wins;
+      - "near threshold": probes exactly on the float32 sqrt radius and on
+        the identity ratio (the ambiguity flag);
+      - "ed miss" (a sparse table) and "width-1 table" (no table at all:
+        the ED grid is one column wide) at limit 0.7, and the width-1
+        table at limit 0;
+      - "group overflow": one group past NMAX members;
+      - "one long segment": one row of SEG_LMAX = 2,048 candidates at 64
+        sites (well over a warp's 32 groups), at limits 0.7 and 0;
+      - "many segments": 16,384 rows of one candidate, at limits 0.7 and 0.
+    """
+    from sniffles_tpu_torch.ops._greedy_consts import NMAX, SEG_LMAX
+    out = []
+    for seed in range(6):
+        rng = np.random.default_rng(100 + seed)
+        payload = greedy_fuzz_payload(rng, S=int(rng.integers(1, 20)),
+                                      L=int(rng.integers(2, 40)))
+        out += [(f"fuzz seed {seed}", payload, dict(meta)) for meta in GREEDY_FUZZ_METAS]
+    # alt 0 and alt 1 fail the identity gate against each other (ED 90 of
+    # length 100) and so found two groups; alt 2 passes against both
+    # heads, and the third candidate sits midway: distance 50 to each.
+    # The fifth is nearer the second group's mean and joins it.
+    i32 = lambda v: np.array(v, dtype=np.int32)  # noqa: E731
+    out.append(("exact ties", {
+        "c_pos": i32([[100, 200, 150, 150, 175]]), "c_len": i32([[100] * 5]),
+        "c_alt": i32([[0, 1, 2, 2, 2]]), "c_hord": i32([[0, 1, -1, -1, -1]]),
+        "counts": i32([5]), "ed_segs": i32([0] * 8), "ed_rows": i32([0, 0, 0, 0, 1, 1, 1, 1]),
+        "ed_cols": i32([1, 2, 3, 4, 0, 2, 3, 4]), "ed_vals": i32([90, 5, 5, 5, 90, 5, 5, 5])},
+        {"cm": 250, "cmm": 1000, "limit": 0.7}))
+    # cm 10 at length 16 gives a radius of 40.0; (100 - 30) / 100 = 0.7
+    out.append(("near threshold", {
+        "c_pos": i32([[1000, 1040], [5000, 5010]]), "c_len": i32([[16, 16], [100, 100]]),
+        "c_alt": i32([[0, 0], [0, 1]]), "c_hord": i32([[0, 0], [0, -1]]),
+        "counts": i32([2, 2]), "ed_segs": i32([1]), "ed_rows": i32([0]),
+        "ed_cols": i32([1]), "ed_vals": i32([30])},
+        {"cm": 10, "cmm": 1000, "limit": 0.7}))
+    sparse = greedy_fuzz_payload(np.random.default_rng(7), S=5, L=12, table=0.3)
+    out.append(("ed miss", sparse, {"cm": 250, "cmm": 1000, "limit": 0.7}))
+    out.append(("width-1 table", _no_ed_table(sparse), {"cm": 250, "cmm": 1000, "limit": 0.7}))
+    out.append(("width-1 table", _no_ed_table(sparse), {"cm": 250, "cmm": 1000, "limit": 0.0}))
+    n = NMAX + 3
+    out.append(("group overflow", _no_ed_table({
+        "c_pos": (np.arange(n, dtype=np.int32) % 3)[None, :],
+        "c_len": np.full((1, n), 250, np.int32), "c_alt": np.zeros((1, n), np.int32),
+        "c_hord": np.full((1, n), -1, np.int32), "counts": i32([n])}),
+        {"cm": 250, "cmm": 1000, "limit": 0.0}))
+    long = greedy_fuzz_payload(np.random.default_rng(11), S=1, L=SEG_LMAX, n_sites=64,
+                               lens=(60, 200, 800), table=0.9, span=200_000, full=True)
+    for limit in (0.7, 0.0):
+        out.append(("one long segment", long, {"cm": 250, "cmm": 1000, "limit": limit}))
+    rng = np.random.default_rng(12)
+    S = 16_384
+    many = {"c_pos": rng.integers(0, 1000, size=(S, 1)).astype(np.int32),
+            "c_len": rng.integers(20, 900, size=(S, 1)).astype(np.int32),
+            "c_alt": np.zeros((S, 1), np.int32), "c_hord": np.zeros((S, 1), np.int32),
+            "counts": np.ones(S, np.int32)}
+    for limit in (0.7, 0.0):
+        out.append(("many segments", _no_ed_table(many), {"cm": 250, "cmm": 1000,
+                                                          "limit": limit}))
+    return out
+
+
 def _flush_payload(cands, keeps) -> dict:
     """The payload of run_combine_greedy for one flush, packed as the JAX
     package's tests/test_combine_greedy_kernel.py::run_device packs it:
@@ -548,6 +669,33 @@ def greedy_flush_payloads() -> list[tuple[dict, dict]]:
                  "g_head": z, "n_alts": 2, "ed_rows": z, "ed_cols": z, "ed_vals": z},
                 dict(meta, limit=0.7)))
     return out
+
+
+def greedy_flush_wide_payloads() -> list[tuple[dict, dict]]:
+    """(payload, meta) of run_combine_greedy whose one row does not fit a
+    block's shared memory, so that the flush kernel keeps its state in
+    global scratch: 2,100 initial groups 100 bp apart (G = 64 + 4,096
+    slots, 83,200 bytes of state) and 60 candidates, at limits 0 and 0.7.
+    The groups' heads are three 40 bp alleles; a candidate carries one of
+    them, a copy with one base changed, or a fourth allele, which fails
+    the identity gate against every head (at 0.7 it founds a group). Every
+    fourth candidate lies past the groups, at one of four sites, and
+    founds a group there or joins one founded before it."""
+    rng = np.random.default_rng(3000)
+    alleles = [random_seq(rng, 40) for _ in range(4)]
+    alts = alleles + [a[:20] + ("A" if a[20] != "A" else "C") + a[21:] for a in alleles[:3]]
+    keeps = [(100.0 * k + 0.5 * (k % 3), float(rng.integers(36, 45)), int(rng.integers(1, 4)),
+              alleles[int(rng.integers(0, 3))]) for k in range(2100)]
+    cands = []
+    for j in range(60):
+        if j % 4 == 3:
+            kp, kl = 215_000.0 + 3_000 * int(rng.integers(0, 4)), 40.0
+        else:
+            kp, kl, _, _ = keeps[int(rng.integers(0, len(keeps)))]
+        cands.append((int(kp) + int(rng.integers(-20, 21)), int(kl) + int(rng.integers(-3, 4)),
+                      alts[int(rng.integers(0, len(alts)))]))
+    payload = _flush_payload(cands, keeps)
+    return [(payload, {"cm": 250, "cmm": 1000, "limit": limit}) for limit in (0.0, 0.7)]
 
 
 def _layout_batch(leads, size: int = 2048) -> np.ndarray:

@@ -1,9 +1,15 @@
-"""The port's device combine greedy (sniffles_tpu_torch/ops/combine_greedy.py,
-plain PyTorch on the CPU here) against the JAX package's
-run_combine_greedy_task on the SAME numpy payload dicts: `assign` and
-`seg_flags` must be equal on fuzz payloads, exact ties, near-threshold
-(ambiguous) probes, ED misses, group-size overflow, limit = 0 and the
-width-1 table. The port's packer must also build byte-identical
+"""The port's device combine greedy (sniffles_tpu_torch/ops/combine_greedy.py:
+the wrappers run the plain versions on the CPU here) against the JAX
+package's run_combine_greedy_task on the SAME numpy payload dicts, those
+of sniffles_tpu_torch.sim.greedy_task_payloads (shared with the card's
+tests and chip_smoke.py): `assign` and `seg_flags` must be equal on fuzz
+payloads, exact ties, near-threshold (ambiguous) probes, ED misses,
+group-size overflow, limit = 0, the width-1 table, one segment of
+SEG_LMAX candidates and 16,384 segments of one. The sim's fuzz
+payloads are held to this file's old fuzz_payload; the wrappers take the
+plain versions on CPU tensors and raise on any device without a kernel;
+what they hand the kernel (int32 inputs, the gates' float32 bits) is the
+plain version's. The port's packer must also build byte-identical
 payloads from the same cohort (the carry-across: the payload dicts are
 the interface, no conversion is needed), and its replay must reproduce
 the host greedy. The sequential greedy of one flush, run_combine_greedy,
@@ -23,9 +29,9 @@ from sniffles_tpu_torch import cluster as tcl  # noqa: E402
 from sniffles_tpu_torch import svcall as tsv  # noqa: E402
 from sniffles_tpu_torch.config import SnifflesConfig as TConfig  # noqa: E402
 from sniffles_tpu_torch.ops import combine_greedy as tcg  # noqa: E402
-from sniffles_tpu_torch.ops._greedy_consts import (NMAX, SEGF_AMBIGUOUS,  # noqa: E402
-                                                   SEGF_ED_MISS, SEGF_N_OVERFLOW,
-                                                   TASK_ED_HEADS)
+from sniffles_tpu_torch.ops._greedy_consts import (NMAX, SEG_LMAX,  # noqa: E402
+                                                   SEGF_AMBIGUOUS, SEGF_ED_MISS,
+                                                   SEGF_N_OVERFLOW, TASK_ED_HEADS)
 from sniffles_tpu_torch.parallel import combine_device_greedy as tcdg  # noqa: E402
 
 
@@ -40,14 +46,17 @@ def assert_same_result(payload, meta):
 
 
 # ---------------------------------------------------------------------------
-# payload-level cases
+# payload-level cases (sniffles_tpu_torch.sim.greedy_task_payloads, which the
+# card's tests and chip_smoke.py share)
 
 
 def fuzz_payload(rng, S, L, n_sites=3, lens=(16, 60, 200), n_alts=6,
                  table=0.8, heads=TASK_ED_HEADS):
-    """Grid payload with clustered positions and lengths (so exact and
-    near ties are common), per-segment head ordinals assigned as the
-    packer assigns them, and a random sparse ED table."""
+    """The fuzz payload this file built before it moved to
+    sim.greedy_fuzz_payload, kept as the reference that one is held to: grid
+    payload with clustered positions and lengths (so exact and near ties
+    are common), per-segment head ordinals assigned as the packer assigns
+    them, and a random sparse ED table."""
     counts = rng.integers(1, L + 1, size=S).astype(np.int32)
     c_pos = np.zeros((S, L), np.int32)
     c_len = np.zeros((S, L), np.int32)
@@ -80,39 +89,42 @@ def fuzz_payload(rng, S, L, n_sites=3, lens=(16, 60, 200), n_alts=6,
             "ed_cols": as32(cols), "ed_vals": as32(vals)}
 
 
+def task_cases(label):
+    """[(payload, meta)] of sim.greedy_task_payloads() under `label`."""
+    from sniffles_tpu_torch.sim import greedy_task_payloads
+    cases = [(p, m) for name, p, m in greedy_task_payloads() if name == label]
+    assert cases, label
+    return cases
+
+
 @pytest.mark.parametrize("seed", range(6))
 def test_fuzz_payloads_match_jax(seed):
-    rng = np.random.default_rng(100 + seed)
-    payload = fuzz_payload(rng, S=int(rng.integers(1, 20)),
-                           L=int(rng.integers(2, 40)))
-    for meta in ({"cm": 250, "cmm": 1000, "limit": 0.7},
-                 {"cm": 10, "cmm": 120, "limit": 0.5},
-                 {"cm": 250, "cmm": 1000, "limit": 0.0}):
+    cases = task_cases(f"fuzz seed {seed}")
+    assert [m for _, m in cases] == [{"cm": 250, "cmm": 1000, "limit": 0.7},
+                                     {"cm": 10, "cmm": 120, "limit": 0.5},
+                                     {"cm": 250, "cmm": 1000, "limit": 0.0}]
+    for payload, meta in cases:
         assert_same_result(payload, meta)
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_sim_fuzz_payloads_are_the_old_ones(seed):
+    """sim.greedy_task_payloads' fuzz seeds are this file's old
+    fuzz_payload draws, array for array."""
+    rng = np.random.default_rng(100 + seed)
+    want = fuzz_payload(rng, S=int(rng.integers(1, 20)), L=int(rng.integers(2, 40)))
+    for payload, _ in task_cases(f"fuzz seed {seed}"):
+        assert sorted(payload) == sorted(want)
+        for key in want:
+            assert payload[key].dtype == want[key].dtype, key
+            assert payload[key].tolist() == want[key].tolist(), key
 
 
 def test_exact_ties_first_group_wins():
     """Two groups at exactly the same rational distance from a probe:
     the earliest group wins, in both packages."""
-    # alt 0 and alt 1 fail the identity gate against each other (ED 90
-    # of length 100) and so found two groups; alt 2 passes against both
-    # heads, and the third candidate sits midway: distance 50 to each.
-    # The fifth is nearer the second group's mean and joins it.
-    c_pos = np.array([[100, 200, 150, 150, 175]], np.int32)
-    c_len = np.array([[100, 100, 100, 100, 100]], np.int32)
-    c_alt = np.array([[0, 1, 2, 2, 2]], np.int32)
-    c_hord = np.array([[0, 1, -1, -1, -1]], np.int32)
-    segs = [0] * 8
-    rows = [0, 0, 0, 0, 1, 1, 1, 1]
-    cols = [1, 2, 3, 4, 0, 2, 3, 4]
-    vals = [90, 5, 5, 5, 90, 5, 5, 5]
-    payload = {"c_pos": c_pos, "c_len": c_len, "c_alt": c_alt,
-               "c_hord": c_hord, "counts": np.array([5], np.int32),
-               "ed_segs": np.array(segs, np.int32),
-               "ed_rows": np.array(rows, np.int32),
-               "ed_cols": np.array(cols, np.int32),
-               "ed_vals": np.array(vals, np.int32)}
-    out = assert_same_result(payload, {"cm": 250, "cmm": 1000, "limit": 0.7})
+    (payload, meta), = task_cases("exact ties")
+    out = assert_same_result(payload, meta)
     assert out["assign"][0].tolist() == [0, 1, 0, 0, 1]
     assert out["seg_flags"].tolist() == [0]
 
@@ -121,15 +133,8 @@ def test_near_threshold_flags_ambiguous():
     """Probes exactly on the float32 thresholds (the sqrt radius: cm 10
     at length 16 gives 40.0; the identity ratio: (100 - 30) / 100 = 0.7)
     raise the ambiguity flag for the segment only."""
-    payload = {
-        "c_pos": np.array([[1000, 1040], [5000, 5010]], np.int32),
-        "c_len": np.array([[16, 16], [100, 100]], np.int32),
-        "c_alt": np.array([[0, 0], [0, 1]], np.int32),
-        "c_hord": np.array([[0, 0], [0, -1]], np.int32),
-        "counts": np.array([2, 2], np.int32),
-        "ed_segs": np.array([1], np.int32), "ed_rows": np.array([0], np.int32),
-        "ed_cols": np.array([1], np.int32), "ed_vals": np.array([30], np.int32)}
-    out = assert_same_result(payload, {"cm": 10, "cmm": 1000, "limit": 0.7})
+    (payload, meta), = task_cases("near threshold")
+    out = assert_same_result(payload, meta)
     assert out["seg_flags"].tolist() == [SEGF_AMBIGUOUS, SEGF_AMBIGUOUS]
 
 
@@ -137,31 +142,128 @@ def test_ed_miss_and_width_one_table():
     """A probe against a head whose pair is not tabulated flags ed_miss;
     with no table at all the ED grid has width 1 and every step reads its
     one column (limit > 0, non-uniform alts)."""
-    rng = np.random.default_rng(7)
-    payload = fuzz_payload(rng, S=5, L=12, table=0.3)
-    out = assert_same_result(payload, {"cm": 250, "cmm": 1000, "limit": 0.7})
+    (payload, meta), = task_cases("ed miss")
+    out = assert_same_result(payload, meta)
     assert (out["seg_flags"] & SEGF_ED_MISS).any()
-    empty = dict(payload)
-    for key in ("ed_segs", "ed_rows", "ed_cols", "ed_vals"):
-        empty[key] = np.zeros(0, np.int32)
-    out = assert_same_result(empty, {"cm": 250, "cmm": 1000, "limit": 0.7})
+    (empty, meta7), (empty0, meta0) = task_cases("width-1 table")
+    assert meta7["limit"] == 0.7 and meta0["limit"] == 0.0
+    assert not any(len(empty[k]) for k in ("ed_segs", "ed_rows", "ed_cols", "ed_vals"))
+    out = assert_same_result(empty, meta7)
     assert (out["seg_flags"] & SEGF_ED_MISS).any()
     # limit 0 never reads the table
-    out = assert_same_result(empty, {"cm": 250, "cmm": 1000, "limit": 0.0})
+    out = assert_same_result(empty0, meta0)
     assert not (out["seg_flags"] & SEGF_ED_MISS).any()
 
 
 def test_group_size_overflow():
-    n = NMAX + 3
-    payload = {"c_pos": (np.arange(n, dtype=np.int32) % 3)[None, :],
-               "c_len": np.full((1, n), 250, np.int32),
-               "c_alt": np.zeros((1, n), np.int32),
-               "c_hord": np.full((1, n), -1, np.int32),
-               "counts": np.array([n], np.int32),
-               "ed_segs": np.zeros(0, np.int32), "ed_rows": np.zeros(0, np.int32),
-               "ed_cols": np.zeros(0, np.int32), "ed_vals": np.zeros(0, np.int32)}
-    out = assert_same_result(payload, {"cm": 250, "cmm": 1000, "limit": 0.0})
+    (payload, meta), = task_cases("group overflow")
+    assert int(payload["counts"][0]) == NMAX + 3
+    out = assert_same_result(payload, meta)
     assert out["seg_flags"].tolist() == [SEGF_N_OVERFLOW]
+
+
+@pytest.mark.parametrize("label", ["one long segment", "many segments"])
+def test_long_segment_and_many_segments_match_jax(label):
+    """One segment of SEG_LMAX candidates and 16,384 segments of one, at
+    limits 0.7 and 0: the port == the JAX package."""
+    cases = task_cases(label)
+    assert [m["limit"] for _, m in cases] == [0.7, 0.0]
+    for payload, meta in cases:
+        out = assert_same_result(payload, meta)
+        if label == "one long segment":
+            assert out["assign"].shape == (1, SEG_LMAX) and out["assign"].max() > 32
+        else:
+            assert out["assign"].shape == (16_384, 1) and (out["assign"] == 0).all()
+
+
+def test_every_task_payload_is_held():
+    """Every label of sim.greedy_task_payloads is held by a test above."""
+    from sniffles_tpu_torch.sim import greedy_task_payloads
+    held = {f"fuzz seed {k}" for k in range(6)} | {
+        "exact ties", "near threshold", "ed miss", "width-1 table", "group overflow",
+        "one long segment", "many segments"}
+    assert {name for name, _, _ in greedy_task_payloads()} == held
+
+
+def test_wrappers_run_the_plain_version_on_the_cpu_and_raise_on_meta():
+    """_greedy_grid_loop and _greedy_loop take the plain versions on CPU
+    tensors (no kernel launch counted) and raise on a device that has no
+    kernel."""
+    import torch
+    (payload, meta), = task_cases("exact ties")
+    sim_meta = dict(cm=meta["cm"], cmm=meta["cmm"], limit=meta["limit"])
+    c = {k: torch.as_tensor(np.pad(payload[k], ((0, 0), (0, 59)))) for k in
+         ("c_pos", "c_len", "c_alt", "c_hord")}
+    counts = torch.as_tensor(payload["counts"])
+    ed = torch.full((1, TASK_ED_HEADS, 64), -1, dtype=torch.int32)
+    ed[0, payload["ed_rows"], payload["ed_cols"]] = torch.as_tensor(payload["ed_vals"])
+    tcg.reset_counts()
+    got = tcg._greedy_grid_loop(*c.values(), counts, ed, **sim_meta)
+    want = tcg.greedy_grid_plain(*c.values(), counts, ed, **sim_meta)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert got[0][0, :5].tolist() == [0, 1, 0, 0, 1]
+    flush = tcg.run_combine_greedy(*greedy_flush_case(), "cpu")
+    assert tcg.COUNTS == {"launches": 0, "segments": 0, "steps": 0}
+    assert flush["assign"].tolist() == [0, 0, 1, 0, 1, 0]
+    meta_dev = {k: v.to("meta") for k, v in c.items()}
+    with pytest.raises(ValueError, match="no combine greedy kernel"):
+        tcg._greedy_grid_loop(*meta_dev.values(), counts.to("meta"), ed.to("meta"),
+                              **sim_meta)
+    z = torch.zeros(64, dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="no combine greedy kernel"):
+        tcg._greedy_loop(z, z, z, 1, z, z, z, z, torch.zeros((16, 64), dtype=torch.int32,
+                                                            device="meta"), 0, **sim_meta)
+    assert tcg.COUNTS == {"launches": 0, "segments": 0, "steps": 0}
+
+
+def greedy_flush_case():
+    from sniffles_tpu_torch.sim import greedy_flush_payloads
+    return greedy_flush_payloads()[0]
+
+
+def test_kernel_inputs_match_the_plain_versions_gates():
+    """What the wrappers hand the kernel: the grids, counts and ED table as
+    contiguous int32 tensors of the plain version's shapes, and the five
+    float32 constants' bits those of the plain version's _Gates
+    (forced_at = float32(cmm) * float32(1 + 2 EPS), one rounding)."""
+    import torch
+    for payload, meta in task_cases("fuzz seed 0"):
+        g = tcg._Gates(meta["cm"], meta["cmm"], meta["limit"], "cpu")
+        bits = tcg.gate_bits(meta["cm"], meta["cmm"], meta["limit"])
+        for key in ("cm_f", "limit_f", "eps_f", "tiny_f", "forced_at"):
+            want = getattr(g, key)
+            assert want.dtype == torch.float32 and want.dim() == 0
+            assert bits[key] == want.view(torch.int32).item(), key
+        assert bits["forced_at"] == np.array(
+            np.float32(meta["cmm"]) * np.float32(1 + 2e-5)).view(np.int32)
+        gates = tcg._kernel_gates(meta["cm"], meta["cmm"], meta["limit"])
+        assert gates == (meta["cmm"], *(bits[k] for k in ("cm_f", "limit_f", "eps_f",
+                                                           "tiny_f", "forced_at")),
+                         int(meta["limit"] > 0), int(g.pass_same))
+        S, L = payload["c_pos"].shape
+        # a transposed copy is not contiguous: the inputs are made so
+        grids = [torch.as_tensor(payload[k].T.copy()).T for k in
+                 ("c_pos", "c_len", "c_alt", "c_hord")]
+        assert not grids[0].is_contiguous()
+        ed = torch.full((S, TASK_ED_HEADS, L), -1, dtype=torch.int32)
+        inputs = tcg.grid_inputs(*grids, torch.as_tensor(payload["counts"]), ed)
+        assert list(inputs) == ["c_pos", "c_len", "c_alt", "c_hord", "counts", "ed"]
+        for k, t in inputs.items():
+            assert t.dtype == torch.int32 and t.is_contiguous(), k
+        assert inputs["c_pos"].shape == (S, L) and inputs["counts"].shape == (S,)
+        assert inputs["ed"].shape == (S, TASK_ED_HEADS, L)
+        assert torch.equal(inputs["c_pos"], torch.as_tensor(payload["c_pos"]))
+    with pytest.raises(ValueError, match="want int32"):
+        tcg.grid_inputs(*[g.long() for g in grids], torch.as_tensor(payload["counts"]), ed)
+    with pytest.raises(ValueError, match="ed is"):
+        tcg.grid_inputs(*grids, torch.as_tensor(payload["counts"]),
+                        torch.zeros((S, 33, L), dtype=torch.int32))
+    z = torch.zeros(64, dtype=torch.int32)
+    flush = tcg.flush_inputs(z, z, z, z[:16], z[:16], z[:16], z[:16],
+                             torch.zeros((16, 64), dtype=torch.int32))
+    assert [t.shape for t in flush.values()] == [(64,)] * 3 + [(16,)] * 4 + [(16, 64)]
+    with pytest.raises(ValueError, match="ed is"):
+        tcg.flush_inputs(z, z, z, z, z, z, z, torch.zeros((16, 32), dtype=torch.int32))
 
 
 # ---------------------------------------------------------------------------
@@ -217,6 +319,42 @@ def test_sim_flush_payloads_are_the_jax_cases(monkeypatch):
         assert meta == want_meta and sorted(payload) == sorted(want)
         for key in want:
             assert np.asarray(payload[key]).tolist() == np.asarray(want[key]).tolist(), key
+
+
+@pytest.mark.parametrize("limit", [0.0, 0.7])
+def test_flush_past_shared_memory_matches_jax(limit):
+    """sim.greedy_flush_wide_payloads, whose row of group slots is too
+    large for a block's shared memory (the flush kernel's global-scratch
+    layout), through the port's run_combine_greedy and the JAX package's:
+    `assign` and `flags` equal, bit for bit; the candidates join initial
+    groups and found groups of their own."""
+    from sniffles_tpu_torch.sim import greedy_flush_wide_payloads
+    (payload, meta), = [(p, m) for p, m in greedy_flush_wide_payloads() if m["limit"] == limit]
+    K0, C = len(payload["g_n"]), len(payload["c_pos"])
+    G = tcg._pow2(C, 64) + tcg._pow2(K0, 16)
+    assert 4 * tcg.STATE_WORDS * G > tcg.SHARED_STATE_MAX
+    ours = tcg.run_combine_greedy(payload, meta, "cpu")
+    theirs = jcg.run_combine_greedy(payload, meta)
+    for key in ("assign", "flags"):
+        assert ours[key].tolist() == np.asarray(theirs[key]).tolist(), key
+    assert (ours["assign"] < K0).any() and (ours["assign"] >= K0).sum() >= 15
+
+
+def test_grid_rows_past_shared_memory_are_refused():
+    """The grid kernel keeps every row's state in shared memory: grid_inputs
+    takes rows of SEG_LMAX = 2,048 slots (the packer's largest segment,
+    40 KB of state) and refuses the next padded width, 4,096."""
+    import torch
+    assert 4 * tcg.STATE_WORDS * SEG_LMAX <= tcg.SHARED_STATE_MAX
+    for L in (SEG_LMAX, 2 * SEG_LMAX):
+        grids = [torch.zeros((2, L), dtype=torch.int32)] * 4
+        args = (*grids, torch.ones(2, dtype=torch.int32),
+                torch.full((2, TASK_ED_HEADS, 1), -1, dtype=torch.int32))
+        if L == SEG_LMAX:
+            assert tcg.grid_inputs(*args)["c_pos"].shape == (2, L)
+        else:
+            with pytest.raises(ValueError, match="past a block's shared memory"):
+                tcg.grid_inputs(*args)
 
 
 # ---------------------------------------------------------------------------
@@ -397,3 +535,4 @@ def test_host_greedy_copy_matches_jax():
             keep = cl.resolve_block_groups("DEL", batch, keep, conf, None)
         out.append(groups_shape(keep))
     assert out[0] == out[1]
+

@@ -8,9 +8,9 @@ huge batches, under other tier thresholds, and on the engine's 2^16
 batch, and on the call task, the call path's mesh step and the engine) against their plain
 PyTorch versions (and the host Myers scan), and the combine and
 call_sample device paths on the card against their host paths, the
-native host library beside a CUDA context, the cluster_assign and
-flush-greedy steps and the engine's step, whole and sharded, on the card
-against the CPU. They
+native host library beside a CUDA context, the cluster_assign step, the
+combine greedy's grid and flush kernels and the engine's step, whole and
+sharded, on the card against the CPU. They
 skip where no CUDA card is visible. This file imports neither JAX nor
 the JAX package, so on the card it runs without them:
 
@@ -447,15 +447,88 @@ def test_cluster_assign_on_cuda_matches_plain(card, seed, size):
 
 
 def test_flush_greedy_on_cuda_matches_plain(card):
-    """run_combine_greedy on the card == on the CPU for every case of
-    sniffles_tpu_torch.sim.greedy_flush_payloads."""
-    from sniffles_tpu_torch.ops.combine_greedy import run_combine_greedy
-    from sniffles_tpu_torch.sim import greedy_flush_payloads
-    for payload, meta in greedy_flush_payloads():
-        got = run_combine_greedy(payload, meta, "cuda")
-        want = run_combine_greedy(payload, meta, "cpu")
-        assert got["assign"].tolist() == want["assign"].tolist()
-        assert got["flags"].tolist() == want["flags"].tolist()
+    """run_combine_greedy on the card (the flush kernel, one launch a
+    request) == on the CPU for every case of
+    sniffles_tpu_torch.sim.greedy_flush_payloads, and of
+    greedy_flush_wide_payloads, whose row's state is in global scratch."""
+    from sniffles_tpu_torch.ops import combine_greedy as tcg
+    from sniffles_tpu_torch.sim import greedy_flush_payloads, greedy_flush_wide_payloads
+    for j, (payload, meta) in enumerate(greedy_flush_payloads()
+                                        + greedy_flush_wide_payloads()):
+        launches = tcg.COUNTS["launches"]
+        got = tcg.run_combine_greedy(payload, meta, "cuda")
+        assert tcg.COUNTS["launches"] == launches + 1, j
+        want = tcg.run_combine_greedy(payload, meta, "cpu")
+        assert got["assign"].tolist() == want["assign"].tolist(), j
+        assert got["flags"].tolist() == want["flags"].tolist(), j
+
+
+# the labels of sniffles_tpu_torch.sim.greedy_task_payloads
+GREEDY_TASK_LABELS = [f"fuzz seed {k}" for k in range(6)] + [
+    "exact ties", "near threshold", "ed miss", "width-1 table", "group overflow",
+    "one long segment", "many segments"]
+
+
+def greedy_task_cases(label):
+    from sniffles_tpu_torch.sim import greedy_task_payloads
+    cases = [(p, m) for name, p, m in greedy_task_payloads() if name == label]
+    assert cases, label
+    return cases
+
+
+@pytest.mark.parametrize("label", GREEDY_TASK_LABELS)
+def test_grid_greedy_kernel_matches_plain(card, label):
+    """The grid kernel on every payload of sim.greedy_task_payloads ==
+    the plain version on the CPU, in assign and seg_flags: through
+    run_combine_greedy_task (one launch a dispatch), and through the
+    wrapper and launch_grid with no host synchronisation."""
+    from sniffles_tpu_torch.ops import combine_greedy as tcg
+    for payload, meta in greedy_task_cases(label):
+        want = tcg.run_combine_greedy_task(payload, meta, "cpu")
+        launches = tcg.COUNTS["launches"]
+        got = tcg.run_combine_greedy_task(payload, meta, "cuda")
+        assert tcg.COUNTS["launches"] == launches + 1
+        for key in ("assign", "seg_flags"):
+            assert got[key].tolist() == want[key].tolist(), (label, meta, key)
+        grids = {k: torch.from_numpy(v).to(card) for k, v in tcg.task_grids(payload).items()}
+        S, L = payload["c_pos"].shape
+        gates = dict(cm=meta["cm"], cmm=meta["cmm"], limit=meta["limit"])
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            tcg._greedy_grid_loop(*(grids[k] for k in tcg.GRID_KEYS), **gates)
+            assign, segflags = tcg.launch_grid(tcg.grid_inputs(
+                *(grids[k] for k in tcg.GRID_KEYS)), **gates)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        assert assign.cpu()[:S, :L].tolist() == want["assign"].tolist(), (label, meta)
+        assert segflags.cpu()[:S].tolist() == want["seg_flags"].tolist(), (label, meta)
+
+
+def test_greedy_kernel_refused_launch_raises(card):
+    """A launch the card's entry points refuse (grid rows whose state
+    would pass a block's 48 KB of shared memory, which grid_inputs also
+    refuses; a flush whose ED table has no row) raises instead of
+    returning stale memory."""
+    from sniffles_tpu_torch.ops import combine_greedy as tcg
+    S, L = 16, 4096
+    grids = {k: torch.zeros((S, L), dtype=torch.int32, device=card)
+             for k in ("c_pos", "c_len", "c_alt", "c_hord")}
+    counts = torch.ones(S, dtype=torch.int32, device=card)
+    ed = torch.full((S, 8, 1), -1, dtype=torch.int32, device=card)
+    with pytest.raises(ValueError, match="past a block's shared memory"):
+        tcg.grid_inputs(*grids.values(), counts, ed)
+    gates = dict(cm=250, cmm=1000, limit=0.7)
+    with pytest.raises(RuntimeError, match="combine_greedy launch failed"):
+        tcg.launch_grid({**grids, "counts": counts, "ed": ed}, **gates)
+    inputs = tcg.grid_inputs(*(g[:, :2048] for g in grids.values()), counts, ed)
+    assign, _ = tcg.launch_grid(inputs, **gates)
+    assert assign.cpu()[:, 0].tolist() == [0] * S
+    z = torch.zeros(64, dtype=torch.int32, device=card)
+    flush = tcg.flush_inputs(z, z, z, z, z, z, z,
+                             torch.full((16, 64), -1, dtype=torch.int32, device=card))
+    with pytest.raises(RuntimeError, match="combine_greedy launch failed"):
+        tcg.launch_flush({**flush, "ed": flush["ed"][:0]}, 1, 0, **gates)
 
 
 # ---------------------------------------------------------------------------

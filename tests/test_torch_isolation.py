@@ -75,6 +75,12 @@ def test_source_scan_covers_the_call_statistics():
     assert {"ops/call_stats.py", "csrc/call_stats.cu"} <= scanned
 
 
+def test_source_scan_covers_the_combine_greedy():
+    scanned = {os.path.relpath(p, PORT) for p in port_sources()}
+    assert {"ops/combine_greedy.py", "csrc/combine_greedy.cu",
+            "tools/time_combine_greedy.py"} <= scanned
+
+
 def test_source_scan_covers_the_bench_and_the_fuzz():
     scanned = {os.path.relpath(p, PORT) for p in port_sources()}
     assert {"bench.py", "tools/bench_combine.py", "tools/diff_fuzz.py",
