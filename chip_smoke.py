@@ -27,6 +27,18 @@ Phases, each of which must pass:
      inputs, bit for bit in assign, seg_flags and flags, on every payload
      of sim.greedy_task_payloads, sim.greedy_flush_payloads and
      sim.greedy_flush_wide_payloads;
+  2e. the clustering's segmented sorts (csrc/cluster_sorts.cu: the run
+     pass and the thread tier, the warp and block tiers, the gather of
+     many columns, the stages' predicates) against their plain versions on
+     CPU copies of the same inputs, bit for bit: sim.seg_sort_batch's populations (segments of 1,
+     of each tier threshold and one either side of it, presorted and
+     all-equal segments, keys at the int32 limits, no valid element, a
+     segment of 2^20) with two keys, one key and through a base
+     permutation; then every seg_sort, gather_columns and predicate call
+     of call_task_packed on sim.fuzz_call_batch seeds 1 and 2 (n = 32,768)
+     and sim.edge_call_batches(), and of the engine's clustering on phase
+     10d's 2^21 batch and on chain2^21 (segments of up to 3,689: the block
+     tier);
   3. combine on the card: a 256-sample cohort written by
      sniffles_tpu_torch.sim, combined into a multi-sample VCF on the card
      (the device greedy and the edit-distance kernel) and again on the
@@ -43,7 +55,8 @@ Phases, each of which must pass:
      route taken but BND's, one launch of each sweep kernel and of the
      call statistics (csrc/call_stats.cu) per task, and the state and
      counts of every one of those sweeps == the plain version's on the
-     same inputs, bit for bit; (b) each task's call statistics (the folded
+     same inputs, bit for bit, and five segmented sorts and gathers and two
+     predicates a task (csrc/cluster_sorts.cu); (b) each task's call statistics (the folded
      children, unfused) == the plain version on CPU copies of its inputs on
      every key and slot, and on the card in the integer keys; the device
      time of call_task_packed per task (CUDA events), the wall time of
@@ -188,22 +201,23 @@ Phases, each of which must pass:
      with no host synchronisation; the tail's registers and spills from
      phase 1's ptxas report.
   11. the port's benchmark and its differential fuzz, each in a child
-     process: `python -m sniffles_tpu_torch.bench` with BENCH_CONTIGS=2,
+     process: `python -m sniffles_tpu_torch.bench` with BENCH_CONTIGS=1,
      BENCH_PAIRS=1, BENCH_SKIP_SCALE=1 and BENCH_SKIP_COMBINE=1 (the quick
-     leg on 2 contigs of 1.2 Mb, the dense leg on phase 4's dense3, each
+     leg on 1 contig of 1.2 Mb, the dense leg on phase 4's dense3, each
      host against the device path served by the port's daemon in one
      alternating pair after the warmups, then the engine legs at their full
      2^16 and 2^21 signatures): exit 0, one JSON line on stdout, every
      *_records_identical true, the device legs' medians, both engine rates
      and the host chain's rate above 0, the daemon on the card with merge
      sweeps launched, its "device" the card's nvidia-smi line; then
-     `python -m sniffles_tpu_torch.tools.diff_fuzz 2 1000 --jobs 2` (seed
-     1000: a CRAM at --tpu-mesh 2; 1001: a BAM), the device path against
-     the host path on the card: every VCF and SNF equal (the fuzz's rules).
+     `python -m sniffles_tpu_torch.tools.diff_fuzz 1 1000` (seed 1000: a
+     CRAM at --tpu-mesh 2 and --threads 2), the device path against the
+     host path on the card: every VCF and SNF equal (the fuzz's rules).
 Then (5) the kernels' timings on the inputs of the main paths' largest
 launches (CUDA events) beside their bounds and plain versions (the
 greedy's: combine256's dispatch of the most candidates, the kernel against
-the torch loop on the card), the
+the torch loop on the card; the segmented sorts' at the engine step's 2^21
+signatures, beside one torch.sort of the same permutation), the
 sweep's device time on phase 2b's fuzz batches and chain, the fused
 sweep of phase 2c's k = 4 stack against its k single sweeps, the host
 synchronisations of call_task_packed and batched_call_task on the card
@@ -343,6 +357,14 @@ def smi_line() -> str:
                           "--format=csv,noheader"], capture_output=True, text=True,
                          timeout=60)
     return out.stdout.strip().splitlines()[0] if out.returncode == 0 else "nvidia-smi failed"
+
+
+T_START = time.perf_counter()
+
+
+def header(*parts, **kw) -> None:
+    """A phase's header line, with the seconds since the script started."""
+    print(*parts, f"(at {time.perf_counter() - T_START:.1f} s)", **kw)
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -490,8 +512,9 @@ def time_ed_kernel(inputs):
                 "index order": lambda: launch_myers(*inputs, index_order),
                 "wrapper": lambda: edit_distance_batch_device(*inputs)}
 
-    plain_ms = cuda_ms(lambda: edit_distance_batch_plain(*inputs), 1)
-    plain = edit_distance_batch_plain(*inputs)
+    held = []     # the timed call's result is the one held (3.8 s a call on the H100)
+    plain_ms = cuda_ms(lambda: held.append(edit_distance_batch_plain(*inputs)), 1)
+    plain = held[0]
     err = 0
     for name, fn in launches.items():
         out = fn()
@@ -630,6 +653,175 @@ def time_greedy_kernel(kept) -> dict:
           f" us a step", flush=True)
     return {"ms": kernel["ms"], "plain_ms": plain["ms"], "bound_ms": b["bound_ms"],
             "bound_by": b["bound_by"], "max_abs_err": err}
+
+
+# -- phase 2e: the clustering's segmented sorts ------------------------------
+
+# the widths of sim.seg_sort_batch's populations (huge: one segment of 2^20)
+SEG_SORT_WIDTH = 65536
+SEG_SORT_HUGE_WIDTH = (1 << 20) + 8192
+
+
+@contextlib.contextmanager
+def captured_sorts():
+    """Every seg_sort, gather_columns and stage-predicate call of the block
+    (the callers look the wrappers up at each call) as host copies of its
+    inputs and result: ("seg_sort", (seg_start, k1, k2, base, alone), perm),
+    ("gather", (order, columns), out) and (the predicate's name, its
+    arguments, its result)."""
+    from sniffles_tpu_torch.ops import cluster_sorts as cso
+    seg_sort, gather = cso.seg_sort, cso.gather_columns
+    marks = {k: getattr(cso, k) for k in ("seed_marks", "resplit_marks", "fold_marks")}
+    kept = []
+
+    def cpu(t):
+        if isinstance(t, dict):
+            return {k: cpu(v) for k, v in t.items()}
+        if isinstance(t, tuple):
+            return tuple(cpu(v) for v in t)
+        return t.cpu() if isinstance(t, torch.Tensor) else t
+
+    def keep_marks(name):
+        def run(*args):
+            out = marks[name](*args)
+            kept.append((name, tuple(cpu(a) for a in args), cpu(out)))
+            return out
+        return run
+
+    def keep_sort(seg_start, k1, k2=None, base=None, alone=None):
+        perm = seg_sort(seg_start, k1, k2, base, alone)
+        kept.append(("seg_sort", tuple(cpu(t) for t in (seg_start, k1, k2, base, alone)),
+                     perm.cpu()))
+        return perm
+
+    def keep_gather(order, columns):
+        out = gather(order, columns)
+        kept.append(("gather", (order.cpu(), {k: cpu(v) for k, v in columns.items()}),
+                     {k: cpu(v) for k, v in out.items()}))
+        return out
+
+    cso.seg_sort, cso.gather_columns = keep_sort, keep_gather
+    for name in marks:
+        setattr(cso, name, keep_marks(name))
+    try:
+        yield kept
+    finally:
+        cso.seg_sort, cso.gather_columns = seg_sort, gather
+        for name, fn in marks.items():
+            setattr(cso, name, fn)
+
+
+def hold_sorts(kept, what) -> tuple:
+    """Each kept call's result == its plain version on the CPU copies of its
+    inputs, bit for bit. Returns (seg_sort calls, gather calls, predicate
+    calls, the largest segment a seg_sort held)."""
+    from sniffles_tpu_torch.ops import cluster_sorts as cso
+    sorts = gathers = marks = largest = 0
+    for kind, args, got in kept:
+        if kind.endswith("_marks"):
+            want = getattr(cso, kind + "_plain")(*args)
+            pairs = zip(got, want) if isinstance(want, tuple) else [(got, want)]
+            if any(g.dtype != w.dtype or not torch.equal(g, w) for g, w in pairs):
+                fail(f"{what}: {kind} call {marks} differs from its plain version")
+            marks += 1
+        elif kind == "seg_sort":
+            want = cso.seg_sort_plain(*args)
+            if got.dtype != torch.int64 or not torch.equal(got, want):
+                fail(f"{what}: seg_sort call {sorts} differs from its plain version")
+            heads = np.flatnonzero(args[0].numpy() | (np.arange(args[0].shape[0]) == 0))
+            if heads.size:
+                largest = max(largest, int(np.diff(np.r_[heads, args[0].shape[0]]).max()))
+            sorts += 1
+        else:
+            want = cso.gather_columns_plain(*args)
+            if set(got) != set(want) or any(
+                    isinstance(v, torch.Tensor) and not torch.equal(got[k], v)
+                    for k, v in want.items()):
+                fail(f"{what}: gather_columns call {gathers} differs from its plain version")
+            gathers += 1
+    return sorts, gathers, marks, largest
+
+
+def seg_sort_population(kind):
+    """sim.seg_sort_batch's population as its callers build one: segment
+    starts, the keys masked to INT32_MAX where not valid, the invalid
+    elements."""
+    from sniffles_tpu_torch.ops.clustering import _starts
+    from sniffles_tpu_torch.sim import seg_sort_batch
+    b = seg_sort_batch(kind, SEG_SORT_HUGE_WIDTH if kind == "huge" else SEG_SORT_WIDTH, 5)
+    valid = torch.from_numpy(b["valid"])
+    big = 2 ** 31 - 1
+    return (_starts(torch.from_numpy(b["seg_id"])),
+            torch.where(valid, torch.from_numpy(b["k1"]), big),
+            torch.where(valid, torch.from_numpy(b["k2"]), big), ~valid)
+
+
+def engine_batch(n, chain=False):
+    """The engine's signatures at n (phase 10d's synthetic batch, or the
+    tiled 36-link chain) on the card."""
+    from sniffles_tpu_torch.signatures import synthetic_batch
+    from sniffles_tpu_torch.sim import relax_chain_batch
+    sig = (relax_chain_batch(n) if chain else synthetic_batch(
+        n, n // 40, seed=42, genome_span=900_000, batch_size=n).as_dict())
+    return {k: torch.as_tensor(np.asarray(v)).cuda() for k, v in sig.items()}
+
+
+def check_cluster_sorts(meta):
+    """Phase 2e (see the module's docstring)."""
+    from sniffles_tpu_torch.ops import cluster_sorts as cso, clustering as tc
+    from sniffles_tpu_torch.sim import SEG_SORT_KINDS, edge_call_batches, fuzz_call_batch
+    t0 = time.perf_counter()
+    with captured_sorts() as kept:
+        for kind in SEG_SORT_KINDS:
+            seg_start, k1, k2, invalid = (t.cuda() for t in seg_sort_population(kind))
+            base = torch.randperm(k1.shape[0], generator=torch.Generator().manual_seed(1)).cuda()
+            inverse = torch.argsort(base)
+            cso.seg_sort(seg_start, k1, k2)
+            cso.seg_sort(seg_start, k1)
+            cso.seg_sort(seg_start, k1, k2, alone=invalid)
+            cso.seg_sort(seg_start, k1[inverse], k2[inverse], base, invalid[inverse])
+        sorts, _, _, largest = hold_sorts(kept, "sim.seg_sort_batch")
+    print(f"    sim.seg_sort_batch's populations {', '.join(SEG_SORT_KINDS)} (each with two "
+          f"keys, one, the padding alone, and through a base permutation): {sorts} seg_sort "
+          f"calls == plain, "
+          f"segments up to {largest} (tiers {cso.TIERS})", flush=True)
+    callers = {f"fuzz n=32768 seed {seed}": fuzz_call_batch(seed, 32768) for seed in (1, 2)}
+    callers.update((f"edge {k}", v) for k, v in edge_call_batches().items())
+    for what, packed in callers.items():
+        with captured_sorts() as kept:
+            tc.call_task_packed(torch.as_tensor(packed).cuda(), **meta)
+        sorts, gathers, marks, largest = hold_sorts(kept, f"call_task_packed ({what})")
+        if (sorts, gathers, marks) != (5, 5, 2):
+            fail(f"call_task_packed ({what}): {sorts} seg_sort, {gathers} gather and {marks} "
+                 f"predicate calls, not 5, 5 and 2")
+        print(f"    call_task_packed ({what}): its {sorts} seg_sort, {gathers} gather and {marks} "
+              f"predicate calls == plain, segments up to {largest}", flush=True)
+    for what, chain in (("the engine's 2^21 batch", False), ("chain2^21", True)):
+        sig = engine_batch(1 << 21, chain)
+        with captured_sorts() as kept:
+            tc.cluster_signatures(sig, cluster_r=2.5, cluster_repeat_h=1.5,
+                                  cluster_repeat_h_max=1000.0, cluster_merge_bnd=1000,
+                                  cluster_merge_len=0.22, minsvlen=50, exact_sweep=False)
+        sorts, gathers, marks, largest = hold_sorts(kept, what)
+        if (sorts, gathers, marks) != (2, 2, 2):
+            fail(f"{what}: {sorts} seg_sort, {gathers} gather and {marks} predicate calls, "
+                 f"not 2 each")
+        print(f"    {what} (sort and seed, the relaxation, the resplit): {sorts} seg_sort, "
+              f"{gathers} gather and {marks} predicate calls == plain, segments up to {largest}",
+              flush=True)
+    print(f"    phase 2e took {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def check_sort_launches(launches, tasks, what):
+    """A call task's five sorts and gathers (sort and seed, the fold, the
+    resplit's child ids, the two tallies), one launch of the run pass and
+    two of the tiers a sort, one gather launch a gather, and two predicates
+    (the seeds, the fold), one launch each."""
+    want = {"seg_sort": 5 * tasks, "gather_columns": 5 * tasks, "marks": 2 * tasks,
+            "seg_runs": 5 * tasks, "seg_tiers": 10 * tasks, "seg_gather": 5 * tasks,
+            "seg_marks": 2 * tasks}
+    if launches != want:
+        fail(f"{what}: the segmented sorts launched {launches}, want {want} for {tasks} tasks")
 
 
 # -- phase 2b ---------------------------------------------------------------
@@ -895,6 +1087,38 @@ def time_sweep_kernel(inputs, state, meta):
     return {"ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": "bytes" if bound_bytes_ms >= bound_ops_ms else "operations",
             "max_abs_err": err}
+
+
+# the XLA work each kernel of csrc/cluster_sorts.cu takes the place of: the
+# resplit's lexsort of _cluster_body (where the run pass and the tiers are
+# timed, beside one torch.sort of the same permutation), _apply_order, and
+# the resplit's split predicate (where seg_marks is timed)
+SORT_REPLACES = {"seg_runs": "sniffles_tpu/ops/clustering.py:775",
+                 "seg_tiers": "sniffles_tpu/ops/clustering.py:775",
+                 "seg_gather": "sniffles_tpu/ops/clustering.py:57",
+                 "seg_marks": "sniffles_tpu/ops/clustering.py:788"}
+
+
+def time_cluster_sorts() -> dict:
+    """Phase 5's rows of the segmented sorts at the engine step's 2^21
+    signatures (tools/time_cluster_sorts.kernel_rows: the resplit's sort,
+    the sort and seed's gather; each held against its plain version first):
+    {kernel: row}."""
+    from sniffles_tpu_torch.tools.time_cluster_sorts import kernel_rows
+    rows = kernel_rows(1 << 21)
+    for name, r in rows.pop("wrappers").items():
+        lib = f"{r['library_ms']:.4f} ms" if r["library_ms"] is not None else "none"
+        stage = "sort and seed" if name == "gather_columns" else "resplit"
+        split = "".join(f", {k} {v:.4f} ms" for k, v in r.get("split", {}).items())
+        print(f"  {name} at 2^21 (the engine's {stage}): the wrapper {r['ms']:.4f} ms{split}, "
+              f"plain {r['plain_ms']:.4f} ms, one torch.sort {lib}, bound "
+              f"{r['bound_ms']:.5f} ms ({sum(np.atleast_1d(r['bytes']))} bytes at "
+              f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s), {100 * r['bound_ms'] / r['ms']:.1f} % of it",
+              flush=True)
+    for name, r in rows.items():
+        print(f"  {name}: {r['ms']:.4f} ms (CUDA events) against a bound of "
+              f"{r['bound_ms']:.5f} ms", flush=True)
+    return rows
 
 
 # -- phase 3 ----------------------------------------------------------------
@@ -2136,7 +2360,7 @@ def run_mesh(tmp, meta, dense, combine):
     from sniffles_tpu_torch.parallel import mesh as tmesh
     from sniffles_tpu_torch.sim import fuzz_call_batch
 
-    print("[9a] the merge sweep with mixed head masks against its plain version", flush=True)
+    header("[9a] the merge sweep with mixed head masks against its plain version", flush=True)
     err = 0.0
     for seed in (1, 2):
         packed = fuzz_call_batch(seed, 32768)
@@ -2164,7 +2388,7 @@ def run_mesh(tmp, meta, dense, combine):
     dense_tmp, dense_args = dense
     reference = vcf_parts(os.path.join(dense_tmp, "device.vcf"))
     mesh_args = ["--tpu-mesh", str(MESH_SHARDS)]
-    print(f"[9c] dense3 at --tpu-mesh {MESH_SHARDS} ({MESH_DEVICES}), --threads 0 and 4, in "
+    header(f"[9c] dense3 at --tpu-mesh {MESH_SHARDS} ({MESH_DEVICES}), --threads 0 and 4, in "
           f"children that keep every sweep launch", flush=True)
     launches = None
     for threads in ("0", "4"):
@@ -2189,7 +2413,7 @@ def run_mesh(tmp, meta, dense, combine):
               + f"; {n_kept} sweeps kept, {mixed} with a mixed head mask, each == plain",
               flush=True)
 
-    print(f"[9b] the mesh call step on dense3's largest task: {MESH_SHARDS} shards on "
+    header(f"[9b] the mesh call step on dense3's largest task: {MESH_SHARDS} shards on "
           f"cuda:0 against {MESH_SHARDS} CPU shards", flush=True)
     with open(os.path.join(tmp, "dense_mesh_t0.pt.mesh"), "rb") as f:
         payloads = pickle.load(f)   # this script's own child wrote it
@@ -2213,7 +2437,7 @@ def run_mesh(tmp, meta, dense, combine):
           f"flags {on_card['halo_overflow'].tolist()} == the CPU's, bit for bit (card "
           f"{card_s:.3f} s, CPU {cpu_s:.3f} s, host clock, one call each)", flush=True)
 
-    print(f"[9d] combine at --tpu-mesh {MESH_SHARDS}: the mesh cohort and combine256, in "
+    header(f"[9d] combine at --tpu-mesh {MESH_SHARDS}: the mesh cohort and combine256, in "
           f"children that keep every edit-distance launch", flush=True)
     cohort = mesh_cohort(tmp)
     ed_err = 0
@@ -2251,7 +2475,7 @@ def run_mesh(tmp, meta, dense, combine):
                                                       "combine_mesh_seam", "service_requests",
                                                       "kernel_ed_myers")}), flush=True)
 
-    print("[9f] the multi-host run: two processes on the card, joined by "
+    header("[9f] the multi-host run: two processes on the card, joined by "
           "SNIFFLES_TPU_COORDINATOR", flush=True)
     import socket
     with socket.socket() as sock:
@@ -2841,12 +3065,14 @@ def run_engine(tmp, dense_bam, ptxas_log, stats_ptxas_log):
     from sniffles_tpu_torch.parallel.engine import default_params
     from sniffles_tpu_torch.signatures import from_leads, synthetic_batch
 
+    from sniffles_tpu_torch.ops import cluster_sorts as cso
     t_phase = time.perf_counter()
     tmr.reset_counts()
     ct.reset_counts()
     cs.reset_counts()
+    cso.reset_counts()
     stats_launches = {}
-    print("[10a] the whole step on the card against the CPU", flush=True)
+    header("[10a] the whole step on the card against the CPU", flush=True)
     sizes = [("graft entry 4096", 4096, 64, 7), ("bench 2^16", 1 << 16, (1 << 16) // 40, 42),
              ("bench 2^21", 1 << 21, (1 << 21) // 40, 42)]
     params = default_params()
@@ -2868,7 +3094,7 @@ def run_engine(tmp, dense_bam, ptxas_log, stats_ptxas_log):
         big = batch
     stats_launches["10a"] = cs.COUNTS["launches"]
 
-    print("[10b] dense3's chr1 signatures (the port's lead provider) under three flag sets",
+    header("[10b] dense3's chr1 signatures (the port's lead provider) under three flag sets",
           flush=True)
     t0 = time.perf_counter()
     leads, chr1_cov, nm = dense_chr1(dense_bam)
@@ -2886,7 +3112,7 @@ def run_engine(tmp, dense_bam, ptxas_log, stats_ptxas_log):
               flush=True)
     stats_launches["10b"] = cs.COUNTS["launches"] - stats_launches["10a"]
 
-    print(f"[10c] the sharded step, {ENGINE_SHARDS} shards on cuda:0 against "
+    header(f"[10c] the sharded step, {ENGINE_SHARDS} shards on cuda:0 against "
           f"{ENGINE_SHARDS} CPU shards", flush=True)
     d_sig, d_cov, d_offs = dryrun_shards(os.path.join(tmp, "dryrun"))
     kept = []
@@ -2908,7 +3134,8 @@ def run_engine(tmp, dense_bam, ptxas_log, stats_ptxas_log):
           f"({card_s:.3f} s card, {cpu_s:.3f} s CPU)", flush=True)
     stats_launches["10c"] = cs.COUNTS["launches"] - stats_launches["10a"] - stats_launches["10b"]
     launches = {"merge_relax": tmr.COUNTS["launches"], "candidate_tail": ct.COUNTS["launches"],
-                "call_stats": cs.COUNTS["launches"], **{k: cs.COUNTS[k] for k in cs.KERNELS}}
+                "call_stats": cs.COUNTS["launches"], **{k: cs.COUNTS[k] for k in cs.KERNELS},
+                **{k: cso.COUNTS[k] for k in cso.KERNELS}}
     print(f"    the main path of [10a-c] launched {launches}; call_stats by part "
           f"{stats_launches}", flush=True)
     if min(launches.values()) < 1 or min(stats_launches.values()) < 1:
@@ -2918,7 +3145,7 @@ def run_engine(tmp, dense_bam, ptxas_log, stats_ptxas_log):
           f"version on CPU copies; integer keys == plain on the card, float32 keys within "
           f"{err:.3g} of it", flush=True)
 
-    print("[10d] timings at 2^21 signatures", flush=True)
+    header("[10d] timings at 2^21 signatures", flush=True)
     rows = time_engine_kernels(big, coverage, params, ptxas_log, stats_ptxas_log)
     print(f"    phase 10 took {time.perf_counter() - t_phase:.1f} s", flush=True)
     return launches, rows
@@ -2928,9 +3155,9 @@ def run_engine(tmp, dense_bam, ptxas_log, stats_ptxas_log):
 
 # the port's benchmark, cut to fit the smoke run (the full legs are a run
 # of `python -m sniffles_tpu_torch.bench` of their own)
-BENCH_SMOKE_ENV = {"BENCH_CONTIGS": "2", "BENCH_PAIRS": "1", "BENCH_SKIP_SCALE": "1",
+BENCH_SMOKE_ENV = {"BENCH_CONTIGS": "1", "BENCH_PAIRS": "1", "BENCH_SKIP_SCALE": "1",
                    "BENCH_SKIP_COMBINE": "1"}
-FUZZ_SMOKE_ARGS = ("2", "1000", "--jobs", "2")
+FUZZ_SMOKE_ARGS = ("1", "1000")
 
 
 def run_port_child(args, env_extra, timeout, what):
@@ -2952,7 +3179,7 @@ def run_port_child(args, env_extra, timeout, what):
 
 def run_bench_and_fuzz(dense_tmp, smi):
     """Phase 11: the port's benchmark at the smoke run's cut, its dense leg
-    on phase 4's dense3 files, then the 2-seed differential fuzz."""
+    on phase 4's dense3 files, then the 1-seed differential fuzz."""
     from sniffles_tpu_torch.bench import records_differ
     t_phase = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_bench_") as tmp:
@@ -3025,13 +3252,14 @@ def main() -> int:
     os.environ["SNIFFLES_TPU_MESH_DEVICES"] = MESH_DEVICES
     from sniffles_tpu_torch.ops import _build
     from sniffles_tpu_torch.ops import call_stats as cs
+    from sniffles_tpu_torch.ops import cluster_sorts as cso
     from sniffles_tpu_torch.ops import combine_greedy as cg
     from sniffles_tpu_torch.ops import edit_distance_batch as ted
     from sniffles_tpu_torch.tools.time_combine_greedy import captured_dispatches
 
     smi = smi_line()
     name = torch.cuda.get_device_name(0)
-    print(f"[1] card: {smi} | torch {torch.__version__} (CUDA {torch.version.cuda}) "
+    header(f"[1] card: {smi} | torch {torch.__version__} (CUDA {torch.version.cuda}) "
           f"| {name} | count {torch.cuda.device_count()}", flush=True)
     t0 = time.perf_counter()
     # the native host library (host compiler) builds beside the nvcc builds
@@ -3039,7 +3267,7 @@ def main() -> int:
         host_build = pool.submit(_build.build_host)
         logs = _build.build_all(ptxas_verbose=True)
         host_lib = host_build.result()
-    print(f"[1] built {', '.join(logs)} and the native host library "
+    header(f"[1] built {', '.join(logs)} and the native host library "
           f"{os.path.relpath(host_lib)} ({_build.host_cxx()}) in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     for src, text in logs.items():
@@ -3047,7 +3275,7 @@ def main() -> int:
             if "registers" in line or "smem" in line or "spill" in line:
                 print(f"    {src}: {line.strip()}")
 
-    print("[2] edit-distance kernel against its plain version", flush=True)
+    header("[2] edit-distance kernel against its plain version", flush=True)
     rng = np.random.default_rng(7)
     max_err = 0
     for L, B in ((128, 4096), (1024, 4096), (2560, 2048), (4096, 2048)):
@@ -3058,7 +3286,7 @@ def main() -> int:
     max_err = max(max_err, check_ed_kernel(special_pairs(rng), 4096,
                                            "word boundaries, alphabets, 60/4095 mix", 1))
 
-    print("[2b] merge-sweep kernel against its plain version", flush=True)
+    header("[2b] merge-sweep kernel against its plain version", flush=True)
     from sniffles_tpu_torch.config import SnifflesConfig
     from sniffles_tpu_torch.parallel.device_call import standard_call_meta
     from sniffles_tpu_torch.sim import fuzz_call_batch
@@ -3073,11 +3301,15 @@ def main() -> int:
         if label in SWEEP_TIMED:
             timed_cases[label] = (inputs, state)
 
-    print("[2d] the combine greedy's kernels (grid and flush) against their plain versions",
+    header("[2d] the combine greedy's kernels (grid and flush) against their plain versions",
           flush=True)
     greedy_max_err = check_greedy_kernels()
 
-    print(f"[3] combine: {COHORT_SAMPLES}-sample cohort, 2 contigs of 1 Mb", flush=True)
+    header("[2e] the clustering's segmented sorts (csrc/cluster_sorts.cu) against their plain "
+          "versions", flush=True)
+    check_cluster_sorts(meta)
+
+    header(f"[3] combine: {COHORT_SAMPLES}-sample cohort, 2 contigs of 1 Mb", flush=True)
     with kept_dir("chip_smoke_") as tmp:
         from sniffles_tpu_torch.sim import write_cohort
         t0 = time.perf_counter()
@@ -3136,7 +3368,7 @@ def main() -> int:
               f"launch each ({greedy_counts}), each == plain on the CPU (bit-exact)",
               flush=True)
 
-        print("[3b] combine with --threads 4 in a child process (the worker pool and the "
+        header("[3b] combine with --threads 4 in a child process (the worker pool and the "
               "parent's device service)", flush=True)
         t4_vcf, t0_vcf = os.path.join(tmp, "threads4.vcf"), os.path.join(tmp, "threads0.vcf")
         wall4, c4, timing4 = run_child(["--input", *snfs, "--vcf", t4_vcf, "--threads", "4"],
@@ -3164,23 +3396,28 @@ def main() -> int:
         print(f"    threads-4 VCF == device VCF == host VCF; "
               f"{check_greedy_counters(c4, 'combine --threads 4')}", flush=True)
 
-    print(f"[4] call_sample: {DENSE_CONTIGS} contigs of {DENSE_REF_LEN // 1_000_000} Mb, "
+    header(f"[4] call_sample: {DENSE_CONTIGS} contigs of {DENSE_REF_LEN // 1_000_000} Mb, "
           f"depth {DENSE_DEPTH}, seed {DENSE_SEED} (the dense bench leg)", flush=True)
     with kept_dir("chip_smoke_call_") as tmp:
         dense_tmp = tmp
+        cso.reset_counts()
         (sweep_largest, _, err, dense_args, dense_kept, dense_wall,
          dense_stages) = run_dense_call(tmp, meta)
+        sort_launches = dict(cso.COUNTS)
+        check_sort_launches(sort_launches, DENSE_CONTIGS, "call_sample (in process)")
+        print(f"    the segmented sorts on the main path (the {DENSE_CONTIGS} call tasks): "
+              f"{sort_launches}", flush=True)
         sweep_err = max(sweep_err, err)
-        print("[4b] call_sample, the default command line (--threads 4), in a child "
+        header("[4b] call_sample, the default command line (--threads 4), in a child "
               "process", flush=True)
         sweep_launches, err = run_dense_threaded(tmp, dense_args, meta, dense_wall)
         sweep_err = max(sweep_err, err)
-        print("[7a] dense3 as a reference-based CRAM; [7b] dense3 with --no-native",
+        header("[7a] dense3 as a reference-based CRAM; [7b] dense3 with --no-native",
               flush=True)
         err = run_dense_cram(tmp, dense_args, meta, dense_wall, dense_stages)
     sweep_err = max(sweep_err, err)
 
-    print("[2c] the batched merge sweep (k tasks of one width, one launch of each kernel) "
+    header("[2c] the batched merge sweep (k tasks of one width, one launch of each kernel) "
           "against the single-task kernel and the plain version", flush=True)
     dense32 = [tuple({k: v.cuda() for k, v in d.items()} for d in launch[:2])
                for launch in dense_kept if launch[0]["seed_type"].shape[0] == 32768]
@@ -3195,41 +3432,41 @@ def main() -> int:
     for label, tasks in stacks.items():
         sweep_err = max(sweep_err, check_batched_sweep(tasks, meta, label))
 
-    print(f"[6] the other run modes: --snf, .vcf.gz, population SNF and --genotype-vcf on "
+    header(f"[6] the other run modes: --snf, .vcf.gz, population SNF and --genotype-vcf on "
           f"{len(MODES_SEEDS)} samples of {MODES_REF_LEN // 1_000_000} Mb at depth "
           f"{MODES_DEPTH}", flush=True)
     with kept_dir("chip_smoke_modes_") as tmp:
         modes_tmp = tmp
         err, ed_err = run_modes(tmp, meta)
-        print(f"[7d] --dev-cache: sample {MODES_SEEDS[0]} twice", flush=True)
+        header(f"[7d] --dev-cache: sample {MODES_SEEDS[0]} twice", flush=True)
         run_dev_cache(tmp)
     sweep_err = max(sweep_err, err)
     max_err = max(max_err, ed_err)
-    print("[7c] --dev-locasm-do: a filtered INS and DEL, device and host paths",
+    header("[7c] --dev-locasm-do: a filtered INS and DEL, device and host paths",
           flush=True)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_locasm_") as tmp:
         sweep_err = max(sweep_err, run_locasm(tmp, meta))
 
-    print("[8a] the wall of a child process in parts (its log lines stamped on arrival), "
+    header("[8a] the wall of a child process in parts (its log lines stamped on arrival), "
           "phases 3b and 4b, before any daemon code ran", flush=True)
     columns = [("dense3 t4", "call_sample (default --threads)"),
                ("dense3 t0", "call_sample --threads 0"),
                ("combine256 t4", "combine --threads 4")]
     print_splits(columns)
-    print("[8] the device daemon: one process that holds the card and serves the CLI runs "
+    header("[8] the device daemon: one process that holds the card and serves the CLI runs "
           "(each with no card visible)", flush=True)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_daemon_") as tmp:
         daemon_launches, err, e = run_daemon(tmp, meta, (dense_tmp, dense_args),
                                              (snfs, dev_vcf), modes_tmp)
     sweep_err = max(sweep_err, err)
     max_err = max(max_err, e)
-    print("[8a] the same splits without and with the daemon (served: the runs of [8])",
+    header("[8a] the same splits without and with the daemon (served: the runs of [8])",
           flush=True)
     print_splits([columns[0], ("served", "dense3 --threads 4, served"), columns[1],
                   ("served", "dense3 --threads 0, served"), columns[2],
                   ("served", "combine256 --threads 4, served")])
 
-    print(f"[9] --tpu-mesh {MESH_SHARDS}: {MESH_SHARDS} genome shards on the card",
+    header(f"[9] --tpu-mesh {MESH_SHARDS}: {MESH_SHARDS} genome shards on the card",
           flush=True)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_") as tmp:
         mesh_launches, err, e = run_mesh(tmp, meta, (dense_tmp, dense_args),
@@ -3239,19 +3476,19 @@ def main() -> int:
     print(f"    the mesh's main path (dense3 --tpu-mesh {MESH_SHARDS} --threads 4) launched "
           f"{mesh_launches}", flush=True)
 
-    print("[10] the fused calling engine (parallel/engine.py) and its kernels (the relaxation, "
+    header("[10] the fused calling engine (parallel/engine.py) and its kernels (the relaxation, "
           "the call statistics, the candidate tail)", flush=True)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_engine_") as tmp:
         engine_launches, engine_rows = run_engine(tmp, dense_args[1], logs["candidate_tail"],
                                                   logs["call_stats"])
 
-    print("[11] the port's benchmark (python -m sniffles_tpu_torch.bench, cut: quick leg on "
-          f"{BENCH_SMOKE_ENV['BENCH_CONTIGS']} contigs, {BENCH_SMOKE_ENV['BENCH_PAIRS']} pair, no "
+    header("[11] the port's benchmark (python -m sniffles_tpu_torch.bench, cut: quick leg on "
+          f"{BENCH_SMOKE_ENV['BENCH_CONTIGS']} contig, {BENCH_SMOKE_ENV['BENCH_PAIRS']} pair, no "
           "scale or combine leg) and its differential fuzz, each in a child process",
           flush=True)
     run_bench_and_fuzz(dense_tmp, smi)
 
-    print("[5] kernel timings on the main paths' largest launches", flush=True)
+    header("[5] kernel timings on the main paths' largest launches", flush=True)
     timing = time_ed_kernel([x.cuda() for x in largest])
     max_err = max(max_err, timing["max_abs_err"])
     sweep_timing = time_sweep_kernel(*({k: v.cuda() for k, v in d.items()}
@@ -3265,6 +3502,7 @@ def main() -> int:
     greedy_max_err = max(greedy_max_err, greedy_timing.pop("max_abs_err"))
     fused_label = "k=4 fuzz seeds 1, 2, dense tasks 0, 1"
     time_batched_sweep(stacks[fused_label], meta, fused_label)
+    sort_rows = time_cluster_sorts()
     from sniffles_tpu_torch.ops import clustering as tc
     from sniffles_tpu_torch.ops.transfer import to_device
     packed = [fuzz_call_batch(seed, 32768) for seed in (1, 2)]
@@ -3321,7 +3559,10 @@ def main() -> int:
         "source": "sniffles_tpu_torch/csrc/combine_greedy.cu",
         "replaces": "sniffles_tpu/ops/combine_greedy.py:180",
         "launches": greedy_launches, "max_abs_err": greedy_max_err, **greedy_timing,
-        "library_ms": None}]
+        "library_ms": None}] + [{
+        "name": k, "route": "cuda", "source": "sniffles_tpu_torch/csrc/cluster_sorts.cu",
+        "replaces": SORT_REPLACES[k], "launches": sort_launches[k], **sort_rows[k]}
+        for k in cso.KERNELS]
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -6,8 +6,9 @@ lives in csrc/*.cuh); it is compiled by nvcc for sm_90a into
 build/torch_kernels/lib<name>-<hash>.so at first use and loaded with
 ctypes. The hash of the source, the headers and the flags names the
 library, so an edited source is rebuilt and a stale build is never
-loaded. A source may take -D flags: call_stats.cu's tier thresholds come
-from ops/call_stats.py (`default_defines`), and a variant built with
+loaded. A source may take -D flags: call_stats.cu's and cluster_sorts.cu's
+tier thresholds come from ops/call_stats.py and ops/cluster_sorts.py
+(`default_defines`), and a variant built with
 other flags is a library of its own. Nothing here runs at import: the CPU
 tests import every module.
 
@@ -35,7 +36,7 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "torch_kernels")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 KERNEL_SOURCES = ("edit_distance", "merge_sweep", "merge_relax", "candidate_tail",
-                  "call_stats", "combine_greedy")
+                  "call_stats", "combine_greedy", "cluster_sorts")
 HOST_SOURCES = ("bamcore.cc", "poacore.cc")
 # -ffp-contract=off: bamcore.cc's split filter computes base + kb * (qlen /
 # 1000.0) in double precision as Python does, two roundings; a fused
@@ -59,9 +60,13 @@ def nvcc() -> str:
 
 def default_defines(name: str) -> tuple:
     """The -D flags csrc/<name>.cu is built with unless asked for others:
-    call_stats.cu's tier thresholds (ops/call_stats.nvcc_defines)."""
+    call_stats.cu's and cluster_sorts.cu's tier thresholds
+    (ops/call_stats.nvcc_defines, ops/cluster_sorts.nvcc_defines)."""
     if name == "call_stats":
         from sniffles_tpu_torch.ops.call_stats import nvcc_defines
+        return nvcc_defines()
+    if name == "cluster_sorts":
+        from sniffles_tpu_torch.ops.cluster_sorts import nvcc_defines
         return nvcc_defines()
     return ()
 

@@ -37,6 +37,11 @@ the sequential one in every state word, call_task_packed to the JAX
 package's sequential sweep on every batch, and to its default (the auto
 switch) where the JAX package's two formulations agree.
 
+On the card the sorting stages (sort and seed, the fold, the resplits,
+the phase tallies) give the same permutations by the segmented sorts of
+ops/cluster_sorts.py (the kernels of csrc/cluster_sorts.cu): each later
+sort orders only segments that are already contiguous.
+
 Where JAX and torch differ, the JAX semantics are kept: `jnp.lexsort`
 (last key primary) is a chain of stable sorts (ops/segments.lexsort);
 JAX indexing `a[i]` clamps out-of-range indices (`_clamped`); int32 sums
@@ -53,8 +58,10 @@ from sniffles_tpu_torch.ops._call_consts import (STATS_NC_ROW, STATS_PARENT_ROW,
                                                  STATS_ROWS, STATS_UNCERTAIN_ROW,
                                                  SVTYPE_CODES, SVTYPE_NAMES,
                                                  split_call_task_output)
-from sniffles_tpu_torch.ops import call_stats
+from sniffles_tpu_torch.ops import call_stats, cluster_sorts
+from sniffles_tpu_torch.ops.cluster_sorts import on_card
 from sniffles_tpu_torch.ops.segments import (INT32_MAX, lexsort, segment_ids_from_boundaries,
+                                             shift_prev,
                                              seg_sum, seg_sum_f32, seg_max, seg_min,
                                              seg_count, sqrt_f32)
 
@@ -85,12 +92,6 @@ def _clamped(v: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 def _arange(n: int, like: torch.Tensor) -> torch.Tensor:
     return torch.arange(n, dtype=torch.int32, device=like.device)
-
-
-def _shift_prev(v: torch.Tensor) -> torch.Tensor:
-    """concatenate([v[:1], v[:-1]]): each element's predecessor, the first
-    its own."""
-    return torch.cat([v[:1], v[:-1]])
 
 
 def _segment_metrics(seg, valid, pos, svlen, arange_n, n):
@@ -585,28 +586,57 @@ def _sweep_boundaries(s: dict, seed_boundary, inputs: dict, state: dict):
     return boundary
 
 
+def _starts(v: torch.Tensor) -> torch.Tensor:
+    """True at element 0 and where v differs from its predecessor."""
+    out = torch.ones(v.shape, dtype=torch.bool, device=v.device)
+    out[1:] = v[1:] != v[:-1]
+    return out
+
+
+def seed_key(svtype: torch.Tensor, bin_: torch.Tensor) -> torch.Tensor:
+    """The int64 key whose order is the (svtype, bin) order of two int32
+    columns, exact for every int32 pair: svtype * 2^32 + (bin + 2^31)."""
+    return svtype.to(torch.int64) * (1 << 32) + (bin_.to(torch.int64) + (1 << 31))
+
+
 def sort_and_seed(sig: dict, binsize: int):
     """Steps 1-2 of _cluster_body: the batch sorted by (svtype, seed bin,
     insertion order), invalid slots last, and its seed boundaries (a
-    svtype or bin change). Returns (sorted dict, boundary, bin_)."""
+    svtype or bin change). Returns (sorted dict, boundary, bin_).
+
+    The plain version (CPU tensors) is the JAX package's lexsort of the
+    three masked keys; the segmented one (CUDA tensors) the same
+    permutation as one stable torch.sort of the masked (svtype, bin) pair
+    as an int64 key (seed_key), each run of equal key (a seed) sorted by
+    the masked tie (cluster_sorts.seg_sort through the first sort's
+    permutation), and one gather of every column. The seeds:
+    cluster_sorts.seed_marks (one launch on the card)."""
     valid = sig["valid"]
     # Within a bin the HOST keeps scan/insertion order (leadtab lists,
     # reference: leadprov.py:400-418), and the sweep's subsampled
     # compute_metrics picks depend on that order — so the device sorts
     # by the original lead index within bins.
     bin0 = torch.div(sig["pos"], binsize, rounding_mode="floor")
-    tie0 = sig.get("orig_idx", sig["pos"])
-    order = lexsort((torch.where(valid, tie0, INT32_MAX),
-                     torch.where(valid, bin0, INT32_MAX),
-                     torch.where(valid, sig["svtype"], INT32_MAX)))
-    s = {k: v[order] for k, v in sig.items()}
-    valid = s["valid"]
-    svtype = s["svtype"]
-    bin_ = torch.div(s["pos"], binsize, rounding_mode="floor")
-    first = torch.ones((1,), dtype=torch.bool, device=valid.device)
-    change = ((svtype[1:] != svtype[:-1]) | (bin_[1:] != bin_[:-1])
-              | (~valid[1:] & valid[:-1]))
-    return s, torch.cat([first, change]), bin_
+    tie = torch.where(valid, sig.get("orig_idx", sig["pos"]), INT32_MAX)
+    sv_m = torch.where(valid, sig["svtype"], INT32_MAX)
+    bin_m = torch.where(valid, bin0, INT32_MAX)
+    if on_card(valid, "clustering"):
+        key, first = torch.sort(seed_key(sv_m, bin_m), stable=True)
+        # the invalid slots, whose key is the largest, are a run of their own
+        # after every other, each left where it is, unless a valid slot shares
+        # that key (svtype and bin at INT32_MAX): then the run sorts by the tie
+        shared = (valid & (sv_m == INT32_MAX) & (bin_m == INT32_MAX)).any()
+        order = cluster_sorts.seg_sort(_starts(key), tie, base=first, alone=~(valid | shared))
+        s = cluster_sorts.gather_columns(order, sig)
+    else:
+        order = lexsort((tie, bin_m, sv_m))
+        s = {k: v[order] for k, v in sig.items()}
+    boundary, bin_ = cluster_sorts.seed_marks(s["svtype"], s["pos"], s["valid"], binsize)
+    return s, boundary, bin_
+
+
+# merge_inner_fold: the key of the cluster's repeat flag riding along the sort
+_REP = "\0repeat"
 
 
 def merge_inner_fold(clustered: dict, *, cluster_merge_pos: int,
@@ -629,6 +659,9 @@ def merge_inner_fold(clustered: dict, *, cluster_merge_pos: int,
     qry_start / qry_end columns. Returns the same dict with `svlen`
     folded and `valid` masked to fold-group heads (non-head slots are
     dropped from statistics exactly as the host drops merged fragments).
+    The plain version (CPU tensors) sorts by the JAX package's lexsort;
+    the segmented one (CUDA tensors) by cluster_sorts.seg_sort inside each
+    cluster, then one gather.
     """
     n = clustered["pos"].shape[0]
     cid = clustered["cluster_id"]
@@ -643,30 +676,23 @@ def merge_inner_fold(clustered: dict, *, cluster_merge_pos: int,
 
     # sort by (cluster, read, ref_start); stable, so ties keep the
     # cluster-sort order — the same order the host's stable per-read
-    # sort produces from cluster.leads
-    order = lexsort((torch.where(valid, pos, INT32_MAX),
-                     torch.where(valid, clustered["read_id"], INT32_MAX),
-                     torch.where(valid, cid, INT32_MAX)))
-    s = {k: (v[order] if isinstance(v, torch.Tensor) and v.dim() == 1 else v)
-         for k, v in clustered.items()}
+    # sort produces from cluster.leads. Segmented: each cluster (a
+    # contiguous run of ids, the invalid elements a suffix of their own)
+    # sorts itself by (read, ref_start)
+    read_m = torch.where(valid, clustered["read_id"], INT32_MAX)
+    pos_m = torch.where(valid, pos, INT32_MAX)
+    if on_card(valid, "clustering"):
+        order = cluster_sorts.seg_sort(_starts(cid), read_m, pos_m, alone=~valid)
+        s = cluster_sorts.gather_columns(order, {**clustered, _REP: rep_here})
+    else:
+        order = lexsort((pos_m, read_m, torch.where(valid, cid, INT32_MAX)))
+        s = {k: (v[order] if isinstance(v, torch.Tensor) and v.dim() == 1 else v)
+             for k, v in {**clustered, _REP: rep_here}.items()}
+    rep_s = s.pop(_REP)
     valid = s["valid"]
-    pos = s["pos"]
-    cid_s = s["cluster_id"]
-    t = cluster_merge_pos
-
-    prev = {k: _shift_prev(v) for k, v in s.items()
-            if isinstance(v, torch.Tensor) and v.dim() == 1}
-    same_key = (valid & prev["valid"] & (cid_s == prev["cluster_id"])
-                & (s["read_id"] == prev["read_id"]))
-    near = ((((pos - prev["ref_end"]).abs() < t)
-             | ((pos - prev["pos"]).abs() < t))
-            & (((s["qry_start"] - prev["qry_end"]).abs() < t)
-               | ((s["qry_start"] - prev["qry_start"]).abs() < t)))
-    foldable = (s["svtype"] == SVTYPE_INS) | (s["svtype"] == SVTYPE_DEL)
-    rep_s = rep_here[order]
-    merge = (same_key & foldable
-             & (rep_s | (near & (s["strand"] == prev["strand"]))))
-    merge[:1].fill_(False)
+    # the adjacent-pair predicate (cluster_sorts.fold_marks_plain; one
+    # launch on the card)
+    merge = cluster_sorts.fold_marks(s, rep_s, cluster_merge_pos)
 
     fold_id = segment_ids_from_boundaries(~merge)
     svlen_f = seg_sum(torch.where(valid, s["svlen"], 0), fold_id, n)
@@ -709,6 +735,11 @@ def resplit_child_ids(folded: dict, *, resplit_binsize: int, minsvlen: int,
     differently, so such pairs mark their PARENT cluster `uncertain` —
     the consumer withholds device stats for its children and the exact
     host resplit decides (conservative, never wrong).
+
+    The plain version (CPU tensors) sorts by the JAX package's lexsort;
+    the segmented one (CUDA tensors) by cluster_sorts.seg_sort inside each
+    cluster (`folded` holds each cluster contiguous, the invalid elements
+    last), then one gather.
     """
     n = folded["pos"].shape[0]
     valid = folded["valid_all"]
@@ -716,14 +747,17 @@ def resplit_child_ids(folded: dict, *, resplit_binsize: int, minsvlen: int,
     svbin = torch.div(folded["svlen"].abs(), resplit_binsize,
                       rounding_mode="floor") * resplit_binsize
 
-    order = lexsort((torch.where(valid, svbin, INT32_MAX),
-                     torch.where(valid, cid, INT32_MAX)))
-    bin_s = svbin[order]
-    cid_s = cid[order]
-    valid_s = valid[order]
-    type_s = folded["svtype"][order]
+    bin_m = torch.where(valid, svbin, INT32_MAX)
+    columns = {"bin": svbin, "cid": cid, "valid": valid, "type": folded["svtype"]}
+    if on_card(valid, "clustering"):
+        order = cluster_sorts.seg_sort(_starts(cid), bin_m, alone=~valid)
+        g = cluster_sorts.gather_columns(order, columns)
+    else:
+        order = lexsort((bin_m, torch.where(valid, cid, INT32_MAX)))
+        g = {k: v[order] for k, v in columns.items()}
+    bin_s, cid_s, valid_s, type_s = g["bin"], g["cid"], g["valid"], g["type"]
 
-    prev_bin = _shift_prev(bin_s)
+    prev_bin = shift_prev(bin_s)
     prev_cid = torch.cat([cid_s[:1] - 1, cid_s[:-1]])
     same_cluster = cid_s == prev_cid
     f32 = torch.float32
@@ -732,7 +766,7 @@ def resplit_child_ids(folded: dict, *, resplit_binsize: int, minsvlen: int,
                         prev_bin.to(f32) * torch.tensor(cluster_merge_len, dtype=f32))
     no_resplit = type_s == SVTYPE_BND
     boundary = ((~same_cluster) | ((gap > thr) & ~no_resplit)
-                | (~valid_s & _shift_prev(valid_s)))
+                | (~valid_s & shift_prev(valid_s)))
     boundary[:1].fill_(True)
     child_sorted = segment_ids_from_boundaries(boundary)
     n_children = torch.max(torch.where(valid_s, child_sorted, -1)) + 1
@@ -788,29 +822,37 @@ def _f32_scalar(v, device) -> torch.Tensor:
     return torch.full((), float(v), dtype=torch.float32, device=device)
 
 
+# _resplit: the keys of the segment ids and bins riding along its gather
+_SEG, _SVBIN = "\0seg", "\0svbin"
+
+
 def _resplit(s: dict, boundary, *, resplit_binsize: int, minsvlen, cluster_merge_len):
     """Step 4 of _cluster_body (:764-798): each merged segment split by the
     |svlen| histogram, single chain pass (BND keeps its segment; the host
     resplits it). Returns (`s` in the resplit's order, cluster_id int32).
     minsvlen and cluster_merge_len are numbers or 0-d tensors, taken as
-    float32."""
+    float32. The plain version (CPU tensors) sorts by the JAX package's
+    lexsort; the segmented one (CUDA tensors) by cluster_sorts.seg_sort
+    inside each merged segment (the invalid elements are segments of their
+    own, last), then one gather; the splits: cluster_sorts.resplit_marks."""
     seg = segment_ids_from_boundaries(boundary)
     valid = s["valid"]
     svbin = torch.div(s["svlen"].abs(), resplit_binsize,
                       rounding_mode="floor") * resplit_binsize
-    order = lexsort((torch.where(valid, svbin, INT32_MAX), torch.where(valid, seg, INT32_MAX)))
-    s = {k: v[order] for k, v in s.items()}
-    seg, svbin = seg[order], svbin[order]
-    prev_bin = _shift_prev(svbin)
-    prev_seg = torch.cat([seg[:1] - 1, seg[:-1]])
-    f32 = torch.float32
-    gap = (svbin - prev_bin).abs().to(f32)
-    thr = torch.maximum(_f32_scalar(minsvlen, gap.device),
-                        torch.minimum(svbin, prev_bin).to(f32)
-                        * _f32_scalar(cluster_merge_len, gap.device))
-    no_resplit = s["svtype"] == SVTYPE_BND   # BND resplits on the host
-    split = (seg != prev_seg) | ((gap > thr) & ~no_resplit)
-    split[:1].fill_(True)
+    bin_m = torch.where(valid, svbin, INT32_MAX)
+    columns = {**s, _SEG: seg, _SVBIN: svbin}
+    if on_card(valid, "clustering"):
+        order = cluster_sorts.seg_sort(boundary, bin_m, alone=~valid)
+        s = cluster_sorts.gather_columns(order, columns)
+    else:
+        order = lexsort((bin_m, torch.where(valid, seg, INT32_MAX)))
+        s = {k: v[order] for k, v in columns.items()}
+    seg, svbin = s.pop(_SEG), s.pop(_SVBIN)
+    # the splits (cluster_sorts.resplit_marks_plain; one launch on the card);
+    # BND resplits on the host
+    split = cluster_sorts.resplit_marks(seg, svbin, s["svtype"],
+                                        _f32_scalar(minsvlen, svbin.device),
+                                        _f32_scalar(cluster_merge_len, svbin.device))
     return s, segment_ids_from_boundaries(split)
 
 
@@ -1011,7 +1053,8 @@ def _task_statistics(s: dict, seed_boundary, inputs: dict, state: dict,
     stats = call_statistics(folded_child)
     phase = phase_tallies({"cluster_id": child, "valid": folded["valid_all"],
                            "read_id": folded["read_id"], "hap": folded["hap"],
-                           "ps": folded["ps"]}, folded["pos"].shape[0])
+                           "ps": folded["ps"], "parent": folded["cluster_id"]},
+                          folded["pos"].shape[0])
 
     n = folded["pos"].shape[0]
     valid = folded["valid"]
@@ -1052,6 +1095,20 @@ def phase_tallies(clustered: dict, n: int) -> dict:
     `mixed` (a read whose elements disagree on hap or ps) and a non-null
     phase-set count tie (winner selection needs string comparison of the
     tied values).
+
+    The plain version (CPU tensors) sorts by the JAX package's two
+    lexsorts. The segmented one (CUDA tensors) needs `parent`, each
+    element's parent cluster id (`cluster_id` holds the child's): the child
+    ids ascend in (parent, bin) order and each parent is contiguous, so the
+    first sort is cluster_sorts.seg_sort by (child, read) inside each
+    parent, and the second by (ps, non-representative) inside each child.
+    That second order keeps a child's non-representatives after its
+    representatives, where the lexsort
+    sends them to the batch's end; no tally depends on where they sit:
+    a run starts only at a representative, and a non-representative adds
+    0 to the count of the run before it (or of run 0) and -1 to its
+    maxima, which each run's starting representative (cid and ps >= 0)
+    exceeds.
     """
     cid = clustered["cluster_id"]
     valid = clustered["valid"]
@@ -1059,20 +1116,25 @@ def phase_tallies(clustered: dict, n: int) -> dict:
     hap = clustered["hap"]
     ps = clustered["ps"]
     i32 = torch.int32
+    segmented = on_card(valid, "clustering")
 
-    order = lexsort((torch.where(valid, read, INT32_MAX),
-                     torch.where(valid, cid, INT32_MAX)))
-    cid_r = cid[order]
-    read_r = read[order]
-    hap_r = hap[order]
-    ps_r = ps[order]
-    valid_r = valid[order]
+    cid_m = torch.where(valid, cid, INT32_MAX)
+    read_m = torch.where(valid, read, INT32_MAX)
+    columns = {"cid": cid, "read": read, "hap": hap, "ps": ps, "valid": valid}
+    if segmented:
+        order = cluster_sorts.seg_sort(_starts(clustered["parent"]), cid_m, read_m,
+                                       alone=~valid)
+        r = cluster_sorts.gather_columns(order, columns)
+    else:
+        order = lexsort((read_m, cid_m))
+        r = {k: v[order] for k, v in columns.items()}
+    cid_r, read_r, hap_r, ps_r, valid_r = r["cid"], r["read"], r["hap"], r["ps"], r["valid"]
 
-    same_run = (valid_r & _shift_prev(valid_r) & (cid_r == _shift_prev(cid_r))
-                & (read_r == _shift_prev(read_r)))
+    same_run = (valid_r & shift_prev(valid_r) & (cid_r == shift_prev(cid_r))
+                & (read_r == shift_prev(read_r)))
     same_run[:1].fill_(False)
     first = valid_r & ~same_run   # representative element per (cluster, read)
-    mixed_e = same_run & ((hap_r != _shift_prev(hap_r)) | (ps_r != _shift_prev(ps_r)))
+    mixed_e = same_run & ((hap_r != shift_prev(hap_r)) | (ps_r != shift_prev(ps_r)))
     seg = torch.where(valid_r, cid_r, 0)
     mixed = seg_max(torch.where(valid_r, mixed_e.to(i32), 0), seg, n)
 
@@ -1088,13 +1150,17 @@ def phase_tallies(clustered: dict, n: int) -> dict:
     # phase-set mode among non-null representatives: run-length count per
     # (cluster, ps) after a second sort, then per-cluster max + second max
     rep = first & (ps_r >= 0)
-    order2 = lexsort((torch.where(rep, ps_r, INT32_MAX),
-                      torch.where(rep, cid_r, INT32_MAX)))
-    cid_p = cid_r[order2]
-    ps_p = ps_r[order2]
-    rep_p = rep[order2]
-    new_run = rep_p & (~_shift_prev(rep_p) | (cid_p != _shift_prev(cid_p))
-                       | (ps_p != _shift_prev(ps_p)))
+    ps_m = torch.where(rep, ps_r, INT32_MAX)
+    columns = {"cid": cid_r, "ps": ps_r, "rep": rep}
+    if segmented:
+        order2 = cluster_sorts.seg_sort(_starts(cid_r), ps_m, (~rep).to(i32), alone=~valid_r)
+        p = cluster_sorts.gather_columns(order2, columns)
+    else:
+        order2 = lexsort((ps_m, torch.where(rep, cid_r, INT32_MAX)))
+        p = {k: v[order2] for k, v in columns.items()}
+    cid_p, ps_p, rep_p = p["cid"], p["ps"], p["rep"]
+    new_run = rep_p & (~shift_prev(rep_p) | (cid_p != shift_prev(cid_p))
+                       | (ps_p != shift_prev(ps_p)))
     new_run[0] = rep_p[0]
     run_id = torch.clamp(torch.cumsum(new_run.to(i32), 0, dtype=i32) - 1, 0, n - 1)
     run_count = seg_sum(rep_p.to(i32), run_id, n)

@@ -62,6 +62,12 @@ def fma_f32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     return torch.where(fix, torch.nextafter(s, toward), s).to(torch.float32)
 
 
+def shift_prev(v: torch.Tensor) -> torch.Tensor:
+    """concatenate([v[:1], v[:-1]]): each element's predecessor, the first
+    its own."""
+    return torch.cat([v[:1], v[:-1]])
+
+
 def segment_ids_from_boundaries(boundary: torch.Tensor) -> torch.Tensor:
     """boundary[i]=True marks the start of a new segment; returns int32 ids."""
     return torch.cumsum(boundary.to(torch.int32), 0, dtype=torch.int32) - 1

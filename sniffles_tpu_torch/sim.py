@@ -960,3 +960,79 @@ def call_stats_batch(kind: str, size: int, seed: int) -> dict:
     out["valid"] = np.concatenate(valid)[perm]
     out["n_clusters"] = np.int32(live.max() + 1 if live.size else 0)
     return out
+
+
+SEG_SORT_KINDS = ("tiers", "random", "equal", "limits", "invalid", "huge")
+
+
+def seg_sort_batch(kind: str, size: int, seed: int) -> dict:
+    """A batch for the segmented sort (ops/cluster_sorts.seg_sort) as its
+    callers build one, numpy: `seg_id`, int32 ids that ascend over
+    contiguous segments; `valid`, False on a suffix made of whole segments
+    (the padding); `k1` and `k2`, int32 keys. A caller sorts each segment by
+    the keys masked to INT32_MAX where not valid. Kinds:
+      "tiers": segments of 1 and 2 elements and of each tier threshold
+        (ops/cluster_sorts.py TINY_MAX, WARP_MAX, BLOCK_MAX) and one either
+        side of it, in a shuffled order, keys from a small range (ties),
+        a tenth of the width invalid (size >= 65,536);
+      "random": segments of geometric sizes (mean 40) up to 600, keys from
+        a range of 64 (ties), some segments presorted, a tenth invalid;
+      "equal": segments of 1 to BLOCK_MAX + 2 elements, every key equal
+        (the order is the array's: stability);
+      "limits": keys at and next to INT32_MIN, -1, 0, 1 and INT32_MAX, all
+        valid, segments of 1 to 600;
+      "invalid": every element invalid, segments of 1 to 300;
+      "huge": one segment of 2^20 elements (size >= 2^20 + 4,096), keys
+        from a range of 1,000, then small segments and an invalid tail."""
+    from sniffles_tpu_torch.ops.cluster_sorts import BLOCK_MAX, TINY_MAX, WARP_MAX
+    rng = np.random.default_rng(seed)
+    limits = np.array([_I32_MIN, _I32_MIN + 1, -1, 0, 1, _I32_MAX - 1, _I32_MAX], np.int64)
+    sizes, presorted = [], []
+    n_invalid = size // 10
+    if kind == "tiers":
+        if size < 65536:
+            raise ValueError("the tiers batch needs 65,536 slots")
+        for at in (1, 2, TINY_MAX, WARP_MAX, BLOCK_MAX):
+            sizes += sorted({at - 1, at, at + 1} - {0})
+        sizes = list(rng.permutation(sizes))
+    elif kind == "huge":
+        if size < (1 << 20) + 4096:
+            raise ValueError("the huge batch needs 2^20 + 4,096 slots")
+        sizes = [1 << 20]
+        n_invalid = 1024
+    elif kind == "invalid":
+        n_invalid = size
+    elif kind not in ("random", "equal", "limits"):
+        raise ValueError(f"no seg_sort batch of kind {kind!r}")
+    if kind == "limits":
+        n_invalid = 0
+    free = size - n_invalid - sum(sizes)
+    if free < 0:
+        raise ValueError(f"the {kind} batch does not fit {size} slots")
+    top = BLOCK_MAX + 2 if kind == "equal" else 600
+    while free > 0:
+        k = min(int(rng.geometric(1 / 40)) if kind in ("random", "huge") else
+                int(rng.integers(1, top + 1)), top, free)
+        sizes.append(k)
+        free -= k
+    valid_n = size - n_invalid
+    k1 = rng.integers(0, 1000 if kind == "huge" else 64, size)
+    k2 = rng.integers(-3, 4, size)
+    if kind == "equal":
+        k1[:], k2[:] = 7, -7
+    elif kind == "limits":
+        k1, k2 = rng.choice(limits, size), rng.choice(limits, size)
+    seg = np.repeat(np.arange(len(sizes)), sizes)
+    if kind == "random":   # every fifth segment already in (k1, k2) order
+        starts = np.r_[0, np.cumsum(sizes)[:-1]]
+        for s0, k in zip(starts[::5], np.array(sizes)[::5]):
+            o = np.lexsort((k2[s0:s0 + k], k1[s0:s0 + k]))
+            k1[s0:s0 + k], k2[s0:s0 + k] = k1[s0:s0 + k][o], k2[s0:s0 + k][o]
+    # the invalid suffix: segments of its own, of 1 to 300 elements
+    tail = []
+    while sum(tail) < n_invalid:
+        tail.append(min(int(rng.integers(1, 301)), n_invalid - sum(tail)))
+    seg_id = np.r_[seg, len(sizes) + np.repeat(np.arange(len(tail)), tail)]
+    return {"seg_id": seg_id.astype(np.int32),
+            "valid": np.arange(size) < valid_n,
+            "k1": k1.astype(np.int32), "k2": k2.astype(np.int32)}

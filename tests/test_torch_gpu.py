@@ -5,7 +5,10 @@ on 2^16 slots of tiled 36-link chains, with its grid and time stamps; its
 candidate tail at odd widths under three flag sets; the call statistics'
 run pass and its thread, warp and block tiers on seeded, edge, tier and
 huge batches, under other tier thresholds, and on the engine's 2^16
-batch, and on the call task, the call path's mesh step and the engine) against their plain
+batch, and on the call task, the call path's mesh step and the engine;
+the clustering's segmented sorts and gather on every sim.seg_sort_batch
+population, under other tier thresholds, with no host synchronisation,
+and on every caller) against their plain
 PyTorch versions (and the host Myers scan), and the combine and
 call_sample device paths on the card against their host paths, the
 native host library beside a CUDA context, the cluster_assign step, the
@@ -908,3 +911,271 @@ def test_call_statistics_kernel_runs_on_the_three_paths(card, monkeypatch):
     want = call_pipeline_step(sig, coverage, engine_params("default"), device="cpu")
     for k in ("stdev_pos", "stdev_len", "support", "svlen", "pos", "qual"):
         assert got[k].cpu().view(torch.int32).tolist() == want[k].view(torch.int32).tolist(), k
+
+
+# ---------------------------------------------------------------------------
+# the clustering's segmented sorts (csrc/cluster_sorts.cu): the run pass and
+# the thread tier, the warp and block tiers, the gather
+
+
+def seg_sort_case(kind, seed=5):
+    """sim.seg_sort_batch's population as the callers give it: segment
+    starts, the keys masked to INT32_MAX where not valid, the invalid
+    elements (CPU tensors)."""
+    from sniffles_tpu_torch.sim import seg_sort_batch
+    size = (1 << 20) + 8192 if kind == "huge" else 65536
+    b = seg_sort_batch(kind, size, seed)
+    valid = torch.from_numpy(b["valid"])
+    big = 2 ** 31 - 1
+    k1 = torch.where(valid, torch.from_numpy(b["k1"]), big)
+    k2 = torch.where(valid, torch.from_numpy(b["k2"]), big)
+    return tc._starts(torch.from_numpy(b["seg_id"])), k1, k2, ~valid
+
+
+def held_seg_sort(card, seg_start, k1, k2=None, base=None, alone=None, tiers=None):
+    """The kernels on the card (one seg_sort call, no host synchronisation
+    inside the wrapper) == the plain version on the CPU, every element."""
+    from sniffles_tpu_torch.ops import cluster_sorts as cso
+    want = cso.seg_sort_plain(seg_start, k1, k2, base, alone)
+    args = [None if t is None else t.to(card) for t in (seg_start, k1, k2, base, alone)]
+    before = dict(cso.COUNTS)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = (cso.seg_sort(*args) if tiers is None
+               else cso.launch_seg_sort(*args, tiers=tiers))
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    if tiers is None:
+        assert cso.COUNTS["seg_sort"] == before["seg_sort"] + 1
+        assert cso.COUNTS["seg_runs"] == before["seg_runs"] + 1
+        assert cso.COUNTS["seg_tiers"] == before["seg_tiers"] + 2
+    assert got.dtype == torch.int64
+    assert torch.equal(got.cpu(), want)
+
+
+SEG_SORT_KINDS = ["tiers", "random", "equal", "limits", "invalid", "huge"]
+
+
+@pytest.mark.parametrize("kind", SEG_SORT_KINDS)
+def test_seg_sort_kernel_matches_plain_version(card, kind):
+    """Every sim.seg_sort_batch population (each tier threshold from both
+    sides, presorted and all-equal segments, keys at the int32 limits, no
+    valid element, a segment of 2^20), with two keys, one key and through
+    a base permutation."""
+    seg_start, k1, k2, invalid = seg_sort_case(kind)
+    held_seg_sort(card, seg_start, k1, k2)
+    held_seg_sort(card, seg_start, k1)
+    held_seg_sort(card, seg_start, k1, k2, alone=invalid)
+    base = torch.from_numpy(np.random.default_rng(1).permutation(k1.shape[0]))
+    inverse = torch.argsort(base)
+    held_seg_sort(card, seg_start, k1[inverse], k2[inverse], base)
+    held_seg_sort(card, seg_start, k1[inverse], k2[inverse], base, invalid[inverse])
+
+
+# thresholds (tiny, warp, block) that send the populations' segments
+# through other tiers, each a build of its own; and one whose block tier the
+# card's shared memory refuses
+SORT_TIER_VARIANTS = [(1, 1, 1), (8, 8, 8), (1, 32, 32), (2, 512, 16384)]
+REFUSED_SORT_TIERS = (8, 256, 20_000)
+
+
+@pytest.fixture(scope="module")
+def sort_tier_builds():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from sniffles_tpu_torch.ops import _build
+    from sniffles_tpu_torch.ops import cluster_sorts as cso
+    started = [_build.start_build("cluster_sorts", defines=cso.nvcc_defines(t))
+               for t in SORT_TIER_VARIANTS + [REFUSED_SORT_TIERS]]
+    for s in started:
+        _build.finish_build(s)
+
+
+@pytest.mark.parametrize("tiers", SORT_TIER_VARIANTS,
+                         ids=["all-past-shared", "tiny-then-past", "warp-then-past",
+                              "block-to-16384"])
+def test_seg_sort_each_tier_on_every_population(card, sort_tier_builds, tiers):
+    """(1, 1, 1): every segment of 2 or more to the block tier's global
+    scratch; (8, 8, 8): the thread tier, then that scratch; (1, 32, 32): a
+    warp up to 32, then that scratch; (2, 512, 16384): a warp up to 512, a
+    block's shared memory up to 16,384: the kernels == the plain version."""
+    for kind in ("tiers", "random", "equal", "limits"):
+        seg_start, k1, k2, invalid = seg_sort_case(kind, seed=7)
+        held_seg_sort(card, seg_start, k1, k2, tiers=tiers)
+        held_seg_sort(card, seg_start, k1, k2, alone=invalid, tiers=tiers)
+
+
+def test_seg_sort_events_time_its_parts(card):
+    """The entry point records a timing tool's three events around the run
+    pass and the tiers, and gives the same permutation."""
+    from sniffles_tpu_torch.ops import cluster_sorts as cso
+    seg_start, k1, k2, invalid = seg_sort_case("random")
+    want = cso.seg_sort_plain(seg_start, k1, k2, None, invalid)
+    evs = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    for e in evs:
+        e.record()
+    got = cso.launch_seg_sort(seg_start.to(card), k1.to(card), k2.to(card),
+                              alone=invalid.to(card), events=evs)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)
+    assert evs[0].elapsed_time(evs[1]) > 0 and evs[1].elapsed_time(evs[2]) > 0
+
+
+def test_seg_sort_refused_shared_memory_raises(card, sort_tier_builds):
+    from sniffles_tpu_torch.ops import cluster_sorts as cso
+    seg_start, k1, _, _ = seg_sort_case("random")
+    with pytest.raises(RuntimeError, match="seg_sort launch failed"):
+        cso.launch_seg_sort(seg_start.to(card), k1.to(card), tiers=REFUSED_SORT_TIERS)
+
+
+def test_gather_columns_kernel_matches_plain_version(card):
+    """40 columns of bool, int32, float32 and int64 (two launches) and a 0-d
+    count that rides along, through a random permutation; no host
+    synchronisation inside the wrapper."""
+    from sniffles_tpu_torch.ops import cluster_sorts as cso
+    rng = np.random.default_rng(2)
+    n = 100_003
+    order = torch.from_numpy(rng.permutation(n))
+    makers = [lambda: torch.from_numpy(rng.integers(-2 ** 31, 2 ** 31, n, dtype=np.int64)
+                                       .astype(np.int32)),
+              lambda: torch.from_numpy(rng.standard_normal(n).astype(np.float32)),
+              lambda: torch.from_numpy(rng.random(n) < 0.5),
+              lambda: torch.from_numpy(rng.integers(-2 ** 62, 2 ** 62, n))]
+    cols = {f"c{i}": makers[i % 4]() for i in range(40)}
+    cols["count"] = torch.tensor(5)
+    want = cso.gather_columns_plain(order, cols)
+    before = dict(cso.COUNTS)
+    on_card = {k: v.to(card) for k, v in cols.items()}
+    order_card = order.to(card)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = cso.gather_columns(order_card, on_card)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert cso.COUNTS["gather_columns"] == before["gather_columns"] + 1
+    assert cso.COUNTS["seg_gather"] == before["seg_gather"] + 2
+    assert got["count"] is on_card["count"]
+    for k, v in want.items():
+        if k != "count":
+            assert got[k].dtype == v.dtype and torch.equal(got[k].cpu(), v), k
+
+
+def marks_case(n, seed):
+    """Columns for the stage predicates: small ranges (the predicates fire),
+    int32 limits among them (the differences wrap), every svtype."""
+    rng = np.random.default_rng(seed)
+    lim = np.array([-2 ** 31, -2 ** 31 + 1, -1, 0, 1, 2 ** 31 - 2, 2 ** 31 - 1])
+
+    def col(lo, hi, extremes=0.02):
+        v = rng.integers(lo, hi, n)
+        pick = rng.random(n) < extremes
+        v[pick] = rng.choice(lim, int(pick.sum()))
+        return torch.from_numpy(v.astype(np.int32))
+    c = {"cluster_id": col(0, 40, 0), "read_id": col(0, 6, 0.01), "pos": col(-300, 300),
+         "ref_end": col(-300, 500), "qry_start": col(0, 400), "qry_end": col(0, 600),
+         "strand": col(-1, 2, 0), "svtype": col(0, 7, 0)}
+    c["cluster_id"] = torch.sort(c["cluster_id"]).values
+    valid = torch.from_numpy(rng.random(n) < 0.9)
+    return c, valid, torch.from_numpy(rng.random(n) < 0.2)
+
+
+@pytest.mark.parametrize("seed", [1, 2, 3])
+def test_stage_marks_kernel_matches_plain_version(card, seed):
+    """The seeds (binsize 100, 7 and 1), the resplit's splits (its float32
+    threshold, BND, a NaN merge length) and the fold's merge flags: the
+    kernel == the plain version on the CPU, one launch each."""
+    from sniffles_tpu_torch.ops import cluster_sorts as cso
+    n = 20_011
+    c, valid, rep = marks_case(n, seed)
+    on = {k: v.to(card) for k, v in c.items()}
+    for binsize in (100, 7, 1):
+        want = cso.seed_marks_plain(c["svtype"], c["pos"], valid, binsize)
+        got = cso.seed_marks(on["svtype"], on["pos"], valid.to(card), binsize)
+        assert all(torch.equal(g.cpu(), w) for g, w in zip(got, want)), binsize
+    seg = c["cluster_id"]
+    svbin = (torch.div(c["pos"].abs(), 20, rounding_mode="floor") * 20).to(torch.int32)
+    for lo, cml in ((50.0, 0.22), (0.0, 1e-30), (50.0, float("nan")), (1e9, 3.0)):
+        f = [torch.tensor(v, dtype=torch.float32) for v in (lo, cml)]
+        want = cso.resplit_marks_plain(seg, svbin, c["svtype"], *f)
+        before = cso.COUNTS["seg_marks"]
+        got = cso.resplit_marks(seg.to(card), svbin.to(card), on["svtype"],
+                                *(x.to(card) for x in f))
+        assert cso.COUNTS["seg_marks"] == before + 1
+        assert torch.equal(got.cpu(), want), (lo, cml)
+    s = dict(c, valid=valid)
+    for t in (150, 1, 2 ** 31 - 1):
+        want = cso.fold_marks_plain(s, rep, t)
+        got = cso.fold_marks({k: v.to(card) for k, v in s.items()}, rep.to(card), t)
+        assert torch.equal(got.cpu(), want), t
+
+
+def test_cluster_sorts_run_on_every_caller(card):
+    """call_task_packed, cluster_assign_packed, the engine's step and the
+    call path's mesh step on CUDA tensors launch the segmented sorts (no
+    lexsort of ops/segments) and give the CPU's results bit for bit."""
+    from sniffles_tpu_torch.ops import cluster_sorts as cso, segments as tseg
+    from sniffles_tpu_torch.ops.transfer import to_device
+    from sniffles_tpu_torch.parallel import device_call as tdc
+    from sniffles_tpu_torch.parallel import mesh as tmesh
+    from sniffles_tpu_torch.parallel.engine import call_pipeline_step
+    from sniffles_tpu_torch.sim import edge_call_batches, fuzz_call_batch
+    lexsorts = []
+    real_lexsort = tseg.lexsort
+
+    def counted(keys):
+        if keys[0].device.type == "cuda":
+            lexsorts.append(len(keys))
+        return real_lexsort(keys)
+    tc.lexsort = counted
+    try:
+        for packed in [fuzz_call_batch(7, 4096), fuzz_call_batch(8, 32768),
+                       *edge_call_batches().values()]:
+            before, marks = cso.COUNTS["seg_sort"], cso.COUNTS["marks"]
+            got = tc.call_task_packed(to_device(packed, card), **META)
+            # sort and seed, the fold, the resplit's child ids, two for the tallies;
+            # the seeds' and the fold's predicates
+            assert cso.COUNTS["seg_sort"] == before + 5
+            assert cso.COUNTS["marks"] == marks + 2
+            assert got.cpu().tolist() == tc.call_task_packed(torch.as_tensor(packed),
+                                                             **META).tolist()
+            assign = np.ascontiguousarray(packed[[0, 1, 2, 8, 4, 5]])
+            kw = {k: META[k] for k in ("cluster_r", "cluster_repeat_h", "cluster_repeat_h_max",
+                                       "cluster_merge_bnd", "cluster_merge_len", "minsvlen",
+                                       "binsize", "resplit_binsize")}
+            before, marks = cso.COUNTS["seg_sort"], cso.COUNTS["marks"]
+            got = tc.cluster_assign_packed(to_device(assign, card), **kw)
+            assert cso.COUNTS["seg_sort"] == before + 2
+            assert cso.COUNTS["marks"] == marks + 2   # the seeds, the resplit
+            assert got.cpu().tolist() == tc.cluster_assign_packed(torch.as_tensor(assign),
+                                                                  **kw).tolist()
+        for kind in ("synthetic-1", "chain36", "all-invalid"):
+            sig = engine_sig(kind)
+            coverage = np.full(2_200_000, 30, dtype=np.int32)
+            before = cso.COUNTS["seg_sort"]
+            got = call_pipeline_step(sig, coverage, engine_params("default"), device=card)
+            assert cso.COUNTS["seg_sort"] == before + 2
+            want = call_pipeline_step(sig, coverage, engine_params("default"), device="cpu")
+            for k, v in want.items():
+                g = got[k].cpu()
+                assert g.dtype == v.dtype, (kind, k)
+                if v.dtype == torch.float32:
+                    g, v = g.view(torch.int32), v.view(torch.int32)
+                assert g.tolist() == v.tolist(), (kind, k)
+        packed = fuzz_call_batch(7, 4096)
+        packed = packed[:, packed[5] > 0].copy()
+        packed[3] = np.arange(packed.shape[1], dtype=np.int32)
+        payload = tdc.pack_mesh_payload((packed, META, [None] * packed.shape[1], None), 4)
+        args = (payload["shards"], payload["offsets"], payload["window_len"],
+                np.full((4, 1), tdc.MESH_HALO_BP, dtype=np.int32))
+        before = cso.COUNTS["seg_sort"]
+        on_card = tmesh.build_sharded_assign(["cuda:0"] * 4, **META)(*args)
+        assert cso.COUNTS["seg_sort"] == before + 4 * 2   # sort and seed, fold
+        assert on_card["rows"].tolist() == tmesh.build_sharded_assign(["cpu"] * 4, **META)(
+            *args)["rows"].tolist()
+    finally:
+        tc.lexsort = real_lexsort
+    assert lexsorts == []
