@@ -41,13 +41,24 @@
 //     larger one's head (and count) is appended to the warp list, from the
 //     list's front, or past kWarpMax to the block list, from its back (a
 //     warp's appends by one atomic each).
-//   * seg_tiers, tier 0: a resident grid, a warp a warp-list segment: up to
-//     64 elements, two a lane, each ranked by shuffles and compares; more,
-//     its keys and offsets in the warp's slice of dynamic shared memory;
-//     tier 1: a block a block-list segment, which first finds its end (a
-//     block-wide search for the next head, 2,048 elements a step), its keys
-//     in dynamic shared memory up to kBlockMax elements and in a global
-//     scratch buffer at the segment's own range past it. Both check first
+//   * seg_tiers, one resident launch. The warp tier: a warp takes up to 32
+//     consecutive warp-list entries in one load (fewer where the list is
+//     short, so that every resident warp has a group), compacts those of at
+//     most 32 elements and those of 33-64, prefix-sums the small ones'
+//     counts by shuffles, and deals them to its lanes: a pass takes as many
+//     consecutive small segments as fit in 32 lanes, one element a lane,
+//     each lane ranking its element by shuffles and compares against its
+//     own segment's lanes (the loop runs to the pass's largest segment); a
+//     segment of 33-64 is a pass of its own, two elements a lane. The next
+//     pass's base entries and keys are loaded before this pass is ranked
+//     and written (two in flight). A segment of 65 or more: its keys and
+//     offsets in the warp's slice of dynamic shared memory. Then the block
+//     tier, in the same blocks once their warps are done: a block a
+//     block-list segment, taken by an atomic cursor, which first finds its
+//     end (a block-wide search for the next head, 2,048 elements a step),
+//     its keys in dynamic shared memory up to kBlockMax elements and in a
+//     global scratch buffer at the segment's own range past it (an empty
+//     block list costs no launch). The shared-memory paths check first
 //     whether the keys are in order already (the invalid suffix, whose keys
 //     are all INT32_MAX, and presorted runs are): then the identity. Else a
 //     bitonic network with every comparator ascending (the first step of
@@ -62,19 +73,34 @@
 // seed (the bins and the seed boundaries), the resplit's splits, the inner
 // fold's merge flags (each kind's plain version: ops/cluster_sorts.py).
 //
-// seg_gather: out_c[x] = col_c[order[x]] for up to kMaxCols columns of 1, 4
-// or 8 bytes an element (bool, int32, float32 as bits, int64), a row of
-// blocks a column (kGatherBlocks an SM), each thread kGatherUnroll
-// elements an iteration, the column pointers in the kernel's parameters.
+// The gather, out_c[x] = col_c[order[x]] for up to kMaxCols columns of 1, 4
+// or 8 bytes an element (bool, int32, float32 as bits, int64) a launch, the
+// column pointers in the kernel's parameters (read from the constant bank:
+// __grid_constant__), in one of three layouts, each right for any
+// permutation (the wrapper picks one by n and the caller's word on the
+// permutation: ops/cluster_sorts.gather_layout):
+//   * gather_by_column (columns; up to 2^20 elements, every call task): a
+//     row of blocks a column, the permutation read again for each, from the
+//     L2 cache, which holds a batch of that size;
+//   * seg_gather (chunked; past 2^20, elements moved within their
+//     segments): a block reads a chunk of kChunk permutation entries once,
+//     into shared memory as int32, then copies every column for the chunk,
+//     16-byte stores;
+//   * stage_rows, then gather_rows (rows; past 2^20, elements moved to
+//     random places, as the engine's sort and seed moves them): the columns
+//     packed into rows of 16-byte multiples (8-byte columns first, then 4,
+//     then bytes), each element's row read through the permutation at once
+//     (a row of up to 32 bytes is one sector), then written out as columns.
 //
 // Bound: bytes. seg_sort must read seg_start (1 byte), k1 (4), k2 (4 where
 // given) and the base permutation (8 where given) and write the int64
 // permutation (8) an element; the compares (a comparison sort's
-// cnt * log2(cnt) a segment) are below the card's integer rate. seg_gather
+// cnt * log2(cnt) a segment) are below the card's integer rate. The gather
 // must read the permutation (8) and each column's element and write it (2
 // times its size). The random reads through a permutation are the cost:
 // each touches a 32-byte sector for 1 to 8 useful bytes, unless the
-// permutation is near the identity, as it is inside small segments.
+// permutation is near the identity, as it is inside small segments (every
+// stage's but sort and seed's).
 // seg_marks must read its columns once and write its outputs once (each
 // element also reads its predecessor's, from the same cache lines).
 
@@ -92,7 +118,7 @@ namespace {
 
 typedef unsigned long long u64;
 
-constexpr int kThreads = 256;       // seg_runs' and seg_gather's blocks
+constexpr int kThreads = 256;       // seg_runs', seg_gather's and gather_by_column's blocks
 constexpr int kTierThreads = 512;   // seg_tiers' blocks (16 warps, or a block a segment)
 constexpr int kTinyCap = 8;         // the most elements a thread sorts in registers
 constexpr int kTinyMax = SORT_TINY_MAX;    // the thread tier's largest segment
@@ -100,11 +126,55 @@ constexpr int kWarpMax = SORT_WARP_MAX;    // the warp tier's largest segment
 constexpr int kBlockMax = SORT_BLOCK_MAX;  // a block's largest segment in shared memory
 static_assert(kTinyMax >= 1 && kTinyMax <= kTinyCap, "a thread sorts 1 to kTinyCap");
 static_assert(kWarpMax >= kTinyMax && kBlockMax >= kWarpMax, "the tiers ascend");
-constexpr int kMaxCols = 32;        // columns a seg_gather launch takes
+constexpr int kMaxCols = 32;        // columns a gather launch takes
 constexpr int kSearchStep = 4;      // elements a thread tests a step of a block's end search
-constexpr int kGatherUnroll = 4;    // elements a seg_gather thread takes an iteration
-constexpr int kGatherBlocks = 4;    // seg_gather's blocks an SM, a column
+constexpr int kChunk = 2048;        // output positions a seg_gather block takes at a time
+constexpr int kGatherUnroll = 4;    // elements a gather_by_column thread takes an iteration
+constexpr int kGatherBlocks = 4;    // gather_by_column's blocks an SM, a column
+constexpr int kChunkBlocks = 8;     // seg_gather's blocks an SM
+constexpr int kRowElems = 128;      // elements (and threads) of a row layout block
+constexpr int kRowBlocks = 16;      // the row layout's blocks an SM
 constexpr unsigned kFull = 0xffffffffu;
+
+// The warp tier's time by phase, in a build with -DSORT_PHASE_CLOCKS only
+// (tools/time_cluster_sorts.py --split): each warp sums the clock64() cycles
+// between its stamps by phase (kLoads: the list entries, the base entries
+// and the keys, waited for; kRanks: the ranks, or the in-order check and the
+// bitonic network; kWrites: the permutation entries) and adds them to
+// g_phase_clocks when it ends. Without the flag the stamps are empty and
+// the file compiles to the same code.
+enum Phase { kLoads = 0, kRanks = 1, kWrites = 2, kPhases = 3 };
+#ifdef SORT_PHASE_CLOCKS
+__device__ u64 g_phase_clocks[kPhases + 1];  // + one word that keeps the waits alive
+struct PhaseClock {
+  long long t;
+  u64 sum[kPhases];
+  u64 sink;
+  __device__ void start() {
+    t = clock64();
+    sum[0] = sum[1] = sum[2] = sink = 0;
+  }
+  __device__ void stamp(int p) {
+    const long long now = clock64();
+    sum[p] += static_cast<u64>(now - t);
+    t = now;
+  }
+  // an instruction that reads v, so that a stamp after it waits for v's load
+  __device__ void settle(u64 v) { asm volatile("xor.b64 %0, %0, %1;" : "+l"(sink) : "l"(v)); }
+  __device__ void flush(int lane) {
+    if (lane != 0) return;
+    for (int p = 0; p < kPhases; ++p) atomicAdd(&g_phase_clocks[p], sum[p]);
+    atomicXor(&g_phase_clocks[kPhases], sink);
+  }
+};
+#else
+struct PhaseClock {
+  __device__ void start() {}
+  __device__ void stamp(int) {}
+  __device__ void settle(u64) {}
+  __device__ void flush(int) {}
+};
+#endif
 
 // a sort's inputs and output (k2, base and alone may be null)
 struct Sort {
@@ -130,8 +200,24 @@ __device__ __forceinline__ u64 key_of(const Sort& a, int64_t src) {
 }
 
 // (ka, ia) sorts before (kb, ib): the key, then the offset
-__device__ __forceinline__ bool before(u64 ka, int ia, u64 kb, int ib) {
+template <typename K>
+__device__ __forceinline__ bool before(K ka, int ia, K kb, int ib) {
   return ka < kb || (ka == kb && ia < ib);
+}
+
+// The warp tier's key of original element src: the (k1, k2) pair as key_of
+// gives it (u64), or, for a sort without k2, k1 alone as 32 bits (key_of's
+// high half; its low half is 0), which halves each rank step's shuffles and
+// compares.
+template <typename Key>
+__device__ __forceinline__ Key tier_key(const Sort& a, int64_t src);
+template <>
+__device__ __forceinline__ u64 tier_key<u64>(const Sort& a, int64_t src) {
+  return key_of(a, src);
+}
+template <>
+__device__ __forceinline__ unsigned tier_key<unsigned>(const Sort& a, int64_t src) {
+  return static_cast<unsigned>(a.k1[src]) ^ 0x80000000u;
 }
 
 // an element left where it is, a segment of its own (alone, read through base)
@@ -260,43 +346,174 @@ seg_runs(Sort a, int2* __restrict__ lists, int32_t* __restrict__ counts) {
   }
 }
 
-// a warp's segment [h, h + cnt): up to 64 elements in two registers a lane
-// (elements lane and lane + 32), each ranked against the others by
-// shuffles; more, their keys and offsets in K and I (the warp's slice of
-// shared memory), the identity if they are in order, else the bitonic
-// network
-__device__ void warp_segment(const Sort& a, int h, int cnt, u64* K, int* I, int lane) {
-  if (cnt <= 64) {
-    const int i1 = lane + 32;
-    const int64_t s0 = lane < cnt ? src_of(a, h + lane) : 0;
-    const int64_t s1 = i1 < cnt ? src_of(a, h + i1) : 0;
-    const u64 k0 = lane < cnt ? key_of(a, s0) : 0;
-    const u64 k1 = i1 < cnt ? key_of(a, s1) : 0;
-    int r0 = 0, r1 = 0;
-    for (int j = 0; j < min(cnt, 32); ++j) {
-      const u64 kj = __shfl_sync(kFull, k0, j);
-      r0 += before(kj, j, k0, lane);
-      r1 += before(kj, j, k1, i1);
-    }
-    for (int j = 32; j < cnt; ++j) {
-      const u64 kj = __shfl_sync(kFull, k1, j - 32);
-      r0 += before(kj, j, k0, lane);
-      r1 += before(kj, j, k1, i1);
-    }
-    if (lane < cnt) a.perm[h + r0] = s0;
-    if (i1 < cnt) a.perm[h + r1] = s1;
-    return;
+// A warp's unit of work in the warp tier: a pass of small segments (up to
+// 32 elements each) packed one element a lane, or one segment of 33 to 64
+// elements, two a lane (elements r and r + 32). Each lane holds its
+// element's segment head h and count cnt (0: the lane has no element), the
+// lane s that holds the segment's element 0, its offset r in the segment,
+// the original elements and their keys; top is the largest count of the
+// unit's segments (warp-uniform; 0: no unit).
+template <typename Key>
+struct Unit {
+  int h, cnt, s, r, top;
+  int64_t src0, src1;
+  Key k0, k1;
+};
+
+// A warp's group of up to 32 warp-list entries (one a lane, read in one
+// load), with the segments of 65 or more taken out: the small ones (up to
+// 32 elements) first, then those of 33 to 64, compacted in that order to
+// lanes 0 to ns + nm - 1 (e), and the small ones' counts summed by shuffles
+// (incl, inclusive; excl, exclusive).
+struct Group {
+  int2 e;
+  int ns, nm, incl, excl;
+};
+
+// The next unit of group g from entry `cursor` on (advanced past it), its
+// base entries and keys loaded: a pass takes as many consecutive small
+// segments as fit in 32 lanes, each lane finding its segment by the bits of
+// the segments' first lanes; a segment of 33-64 is a unit of its own.
+template <typename Key>
+__device__ __forceinline__ Unit<Key> next_unit(const Sort& a, const Group& g, int& cursor,
+                                               int lane) {
+  Unit<Key> u;
+  if (cursor < g.ns) {
+    const int base = __shfl_sync(kFull, g.excl, cursor);
+    const bool fits = lane >= cursor && lane < g.ns && g.incl - base <= 32;
+    const unsigned taken = __ballot_sync(kFull, fits);  // lanes cursor to last
+    const int last = 31 - __clz(taken);
+    const int used = __shfl_sync(kFull, g.incl, last) - base;
+    const unsigned firsts = __reduce_or_sync(kFull, fits ? 1u << (g.excl - base) : 0u);
+    const unsigned upto = firsts & ((2u << lane) - 1u);  // its segment's first lane and those before
+    const bool on = lane < used;
+    const int from = cursor + (on ? __popc(upto) - 1 : 0);
+    u.h = __shfl_sync(kFull, g.e.x, from);
+    const int cnt = __shfl_sync(kFull, g.e.y, from);
+    u.s = on ? 31 - __clz(upto) : 0;
+    u.r = lane - u.s;
+    u.cnt = on ? cnt : 0;
+    u.top = __reduce_max_sync(kFull, fits ? g.e.y : 0);
+    cursor = last + 1;
+  } else if (cursor < g.ns + g.nm) {
+    u.h = __shfl_sync(kFull, g.e.x, cursor);
+    u.cnt = __shfl_sync(kFull, g.e.y, cursor);
+    u.s = 0;
+    u.r = lane;
+    u.top = u.cnt;
+    ++cursor;
+  } else {
+    u.h = u.cnt = u.s = u.r = u.top = 0;
   }
+  u.src0 = u.r < u.cnt ? src_of(a, u.h + u.r) : 0;
+  u.src1 = u.r + 32 < u.cnt ? src_of(a, u.h + u.r + 32) : 0;
+  u.k0 = u.r < u.cnt ? tier_key<Key>(a, u.src0) : 0;
+  u.k1 = u.r + 32 < u.cnt ? tier_key<Key>(a, u.src1) : 0;
+  return u;
+}
+
+// a unit's ranks by shuffles and compares (each lane against its own
+// segment's elements; the loop runs to the unit's largest segment) and its
+// permutation entries
+template <typename Key>
+__device__ __forceinline__ void rank_unit(const Sort& a, const Unit<Key>& u, PhaseClock& clk) {
+  int r0 = 0, r1 = 0;
+  if (u.top <= 32) {
+    for (int j = 0; j < u.top; ++j) {
+      const Key kj = __shfl_sync(kFull, u.k0, (u.s + j) & 31);
+      r0 += j < u.cnt && before(kj, j, u.k0, u.r);
+    }
+  } else {
+    for (int j = 0; j < 32; ++j) {
+      const Key kj = __shfl_sync(kFull, u.k0, j);
+      r0 += before(kj, j, u.k0, u.r);
+      r1 += before(kj, j, u.k1, u.r + 32);
+    }
+    for (int j = 32; j < u.top; ++j) {
+      const Key kj = __shfl_sync(kFull, u.k1, j - 32);
+      r0 += before(kj, j, u.k0, u.r);
+      r1 += before(kj, j, u.k1, u.r + 32);
+    }
+  }
+  clk.stamp(kRanks);
+  if (u.r < u.cnt) a.perm[u.h + r0] = u.src0;
+  if (u.r + 32 < u.cnt) a.perm[u.h + r1] = u.src1;
+  clk.stamp(kWrites);
+}
+
+// a warp's segment [h, h + cnt) of more than 64 elements: its keys and
+// offsets in K and I (the warp's slice of shared memory), the identity if
+// they are in order, else the bitonic network
+__device__ void warp_large(const Sort& a, int h, int cnt, u64* K, int* I, int lane,
+                           PhaseClock& clk) {
   for (int x = lane; x < cnt; x += 32) {
     K[x] = key_of(a, src_of(a, h + x));
     I[x] = x;
   }
   __syncwarp();
+  clk.stamp(kLoads);
   bool down = false;
   for (int x = lane; x + 1 < cnt; x += 32) down |= K[x + 1] < K[x];
   if (__any_sync(kFull, down)) bitonic<false>(K, I, cnt, lane, 32);
+  clk.stamp(kRanks);
   for (int x = lane; x < cnt; x += 32) a.perm[h + x] = src_of(a, h + I[x]);
   __syncwarp();  // the slice is read before the next segment writes it
+  clk.stamp(kWrites);
+}
+
+// The warp tier: a warp takes `per` consecutive list entries at a time (up
+// to 32, one a lane, in one load; the next group's read before this one is
+// sorted), sorts the segments of 65 or more one at a time (warp_large),
+// then the others unit by unit, the next unit's base entries and keys
+// loaded before this one's ranks (two units in flight). G: the warp's 32
+// slots of shared memory for the compaction. Key: tier_key's.
+template <typename Key>
+__device__ void warp_tier(const Sort& a, const int2* __restrict__ lists, int total, int per,
+                          u64* K, int* I, int2* G, int lane, int first, int stride) {
+  PhaseClock clk;
+  clk.start();
+  const unsigned below = (1u << lane) - 1u;
+  int g0 = first;
+  int2 e = lane < per && g0 + lane < total ? lists[g0 + lane] : make_int2(0, 0);
+  while (g0 < total) {
+    const int g1 = g0 + stride;
+    const int2 e1 = lane < per && g1 + lane < total ? lists[g1 + lane] : make_int2(0, 0);
+    const bool large = e.y > 64, mid = e.y > 32 && !large, small = e.y > 0 && e.y <= 32;
+    for (unsigned m = __ballot_sync(kFull, large); m; m &= m - 1) {
+      const int l = __ffs(m) - 1;
+      warp_large(a, __shfl_sync(kFull, e.x, l), __shfl_sync(kFull, e.y, l), K, I, lane, clk);
+    }
+    const unsigned ms = __ballot_sync(kFull, small), mm = __ballot_sync(kFull, mid);
+    Group g;
+    g.ns = __popc(ms);
+    g.nm = __popc(mm);
+    if (small) G[__popc(ms & below)] = e;
+    if (mid) G[g.ns + __popc(mm & below)] = e;
+    __syncwarp();
+    g.e = lane < g.ns + g.nm ? G[lane] : make_int2(0, 0);
+    __syncwarp();  // every lane has read G before the next group writes it
+    const int c = lane < g.ns ? g.e.y : 0;
+    g.incl = c;
+    for (int d = 1; d < 32; d <<= 1) {
+      const int v = __shfl_up_sync(kFull, g.incl, d);
+      if (lane >= d) g.incl += v;
+    }
+    g.excl = g.incl - c;
+    int cursor = 0;
+    Unit<Key> cur = next_unit<Key>(a, g, cursor, lane);
+    clk.settle(cur.k0 ^ cur.k1);
+    clk.stamp(kLoads);
+    while (cur.top) {
+      const Unit<Key> nxt = next_unit<Key>(a, g, cursor, lane);
+      clk.settle(nxt.k0 ^ nxt.k1);
+      clk.stamp(kLoads);
+      rank_unit(a, cur, clk);
+      cur = nxt;
+    }
+    g0 = g1;
+    e = e1;
+  }
+  clk.flush(lane);
 }
 
 // the count of the block-list segment at h, which has no head in
@@ -336,29 +553,41 @@ __device__ void block_segment(const Sort& a, int h, int cnt, u64* K, int* I) {
   __syncthreads();  // K and I are read before the next segment writes them
 }
 
-// tier 0: a resident grid, a warp a warp-list segment, each warp's slice of
-// kWarpMax keys and offsets in the dynamic shared memory; tier 1: a block a
-// block-list segment, in the dynamic shared memory (kBlockMax keys and
-// offsets) or past it in the scratch buffers at its range
+// One resident launch for both tiers. The warp tier: each warp's slice of
+// kWarpMax keys and offsets in the dynamic shared memory, `per` entries a
+// group (every resident warp a group where the list is short, 32 where it
+// is long). Then the block tier, in the same blocks once their warps are
+// done: each block takes the next block-list entry by an atomic cursor
+// (counts[2]), its keys in the dynamic shared memory (kBlockMax keys and
+// offsets) or past it in the scratch buffers at its range. An empty block
+// list costs one atomic a block, and no launch.
 __global__ void __launch_bounds__(kTierThreads)
-seg_tiers(Sort a, const int2* __restrict__ lists, const int32_t* __restrict__ counts,
-          u64* scratch_k, int32_t* scratch_i, int tier) {
+seg_tiers(Sort a, const int2* __restrict__ lists, int32_t* __restrict__ counts,
+          u64* scratch_k, int32_t* scratch_i) {
   extern __shared__ u64 smem[];
-  if (tier == 0) {
-    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, per_block = blockDim.x >> 5;
+  __shared__ int2 groups[kTierThreads / 32][32];
+  __shared__ int found, next;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, per_block = blockDim.x >> 5;
+  {
     u64* K = smem + static_cast<size_t>(warp) * kWarpMax;
     int* I = reinterpret_cast<int*>(smem + static_cast<size_t>(per_block) * kWarpMax) +
              static_cast<size_t>(warp) * kWarpMax;
-    const int total = counts[0];
-    for (int w = blockIdx.x * per_block + warp; w < total; w += gridDim.x * per_block) {
-      const int2 e = lists[w];
-      warp_segment(a, e.x, e.y, K, I, lane);
+    const int total = counts[0], warps = gridDim.x * per_block;
+    const int per = min(32, max(1, (total + warps - 1) / warps));
+    const int first = (blockIdx.x * per_block + warp) * per;
+    if (a.k2) {
+      warp_tier<u64>(a, lists, total, per, K, I, groups[warp], lane, first, warps * per);
+    } else {
+      warp_tier<unsigned>(a, lists, total, per, K, I, groups[warp], lane, first, warps * per);
     }
-    return;
   }
-  __shared__ int found;
   const int total = counts[1];
-  for (int b = blockIdx.x; b < total; b += gridDim.x) {
+  for (;;) {
+    __syncthreads();  // the slices (or the last segment's keys) are read; `next` is free
+    if (threadIdx.x == 0) next = total > 0 ? atomicAdd(&counts[2], 1) : total;
+    __syncthreads();
+    const int b = next;
+    if (b >= total) return;
     const int2 e = lists[a.n - 1 - b];
     const int h = e.x;
     const int cnt = e.y >= 0 ? e.y : block_count(a, h, &found);
@@ -370,23 +599,108 @@ seg_tiers(Sort a, const int2* __restrict__ lists, const int32_t* __restrict__ co
   }
 }
 
-// a launch's columns: pointers and element sizes (1, 4 or 8 bytes)
+// a launch's columns: pointers, element sizes (1, 4 or 8 bytes) and, for
+// the row layout, each column's byte offset in a row of `row` bytes
 struct Cols {
   const void* src[kMaxCols];
   void* dst[kMaxCols];
   int size[kMaxCols];
-  int count;
+  int offset[kMaxCols];
+  int count, row;
 };
 
-// out_c[x] = col_c[order[x]] for the column of blockIdx.y: a grid-stride
-// loop of kGatherUnroll elements a thread an iteration, their loads issued
-// before their stores. The blocks start in order of the column, so the
-// random reads of one or two columns at a time share the L2 cache (on the
-// H100, a thread that took every column of its element held them all at
-// once: 0.29 ms for the engine's ten columns at 2^21, against 0.24 ms for
-// ten takes); each block takes many elements (a block of 256 elements a
-// column spent more time starting blocks than reading: 0.84 ms). The
-// column's pointer is read from the parameters by an unrolled select.
+// 16 bytes of V = 16 / sizeof(T) elements, as one vector store takes them
+template <typename T>
+__device__ __forceinline__ uint4 pack16(const T* v) {
+  if constexpr (sizeof(T) == 8) {
+    return make_uint4(static_cast<unsigned>(v[0]), static_cast<unsigned>(v[0] >> 32),
+                      static_cast<unsigned>(v[1]), static_cast<unsigned>(v[1] >> 32));
+  } else if constexpr (sizeof(T) == 4) {
+    return make_uint4(v[0], v[1], v[2], v[3]);
+  } else {
+    unsigned w[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      w[q] = v[4 * q] | (v[4 * q + 1] << 8) | (v[4 * q + 2] << 16) |
+             (static_cast<unsigned>(v[4 * q + 3]) << 24);
+    return make_uint4(w[0], w[1], w[2], w[3]);
+  }
+}
+
+// The chunk's m output positions x0 + i of one column: dst[x0 + i] =
+// src[idx[i]], V = 16 / sizeof(T) elements a thread (their sources read
+// from the shared index by one vector load, then loaded, then stored as 16
+// bytes where dst is 16-byte aligned), the ragged end one element a thread.
+template <typename T>
+__device__ __forceinline__ void copy_chunk(const T* __restrict__ src, T* __restrict__ dst,
+                                           const int* idx, int x0, int m) {
+  constexpr int V = 16 / sizeof(T);
+  int done = 0;
+  if ((reinterpret_cast<uintptr_t>(dst) & 15) == 0) {
+    const int nv = m / V;
+#pragma unroll 2
+    for (int v = threadIdx.x; v < nv; v += blockDim.x) {
+      int j[V];
+      if constexpr (V == 2) {
+        const int2 q = reinterpret_cast<const int2*>(idx)[v];
+        j[0] = q.x;
+        j[1] = q.y;
+      } else {
+#pragma unroll
+        for (int u = 0; u < V; u += 4) {
+          const int4 q = reinterpret_cast<const int4*>(idx + V * v)[u / 4];
+          j[u] = q.x;
+          j[u + 1] = q.y;
+          j[u + 2] = q.z;
+          j[u + 3] = q.w;
+        }
+      }
+      T vals[V];
+#pragma unroll
+      for (int u = 0; u < V; ++u) vals[u] = src[j[u]];
+      reinterpret_cast<uint4*>(dst + x0)[v] = pack16(vals);
+    }
+    done = nv * V;
+  }
+  for (int i = done + threadIdx.x; i < m; i += blockDim.x) dst[x0 + i] = src[idx[i]];
+}
+
+// seg_gather (the chunked layout): a resident grid, a block kChunk
+// consecutive output positions at a time. The block reads the chunk's
+// permutation entries once, into shared memory as int32, then copies every
+// column of the launch for the chunk, its threads covering each column in
+// turn: the permutation is read once an element, not once a column, and
+// each write is a coalesced 16-byte store. The columns are read from the
+// parameters, which stay in the constant bank (__grid_constant__).
+__global__ void __launch_bounds__(kThreads)
+seg_gather(const int64_t* __restrict__ order, const __grid_constant__ Cols c, int n) {
+  __shared__ __align__(16) int idx[kChunk];
+  for (int x0 = blockIdx.x * kChunk; x0 < n; x0 += gridDim.x * kChunk) {
+    const int m = min(kChunk, n - x0);
+    for (int i = threadIdx.x; i < m; i += blockDim.x) idx[i] = static_cast<int>(order[x0 + i]);
+    __syncthreads();
+    for (int j = 0; j < c.count; ++j) {
+      if (c.size[j] == 4) {
+        copy_chunk(static_cast<const uint32_t*>(c.src[j]), static_cast<uint32_t*>(c.dst[j]),
+                   idx, x0, m);
+      } else if (c.size[j] == 1) {
+        copy_chunk(static_cast<const uint8_t*>(c.src[j]), static_cast<uint8_t*>(c.dst[j]),
+                   idx, x0, m);
+      } else {
+        copy_chunk(static_cast<const u64*>(c.src[j]), static_cast<u64*>(c.dst[j]), idx, x0, m);
+      }
+    }
+    __syncthreads();  // idx is read before the next chunk writes it
+  }
+}
+
+// gather_by_column (the column layout): out_c[x] = col_c[order[x]] for the
+// column of blockIdx.y, a grid-stride loop of kGatherUnroll elements a
+// thread an iteration, their loads issued before their stores; the
+// permutation is read once a column. Its parameters are read through the
+// constant bank by the column's index: selected by an unrolled compare
+// instead, the same kernel took twice as long at n = 65,536 (0.0165 ms
+// against 0.006-0.007; PERF.md §6).
 template <typename T>
 __device__ __forceinline__ void gather_column(const int64_t* __restrict__ order,
                                               const T* __restrict__ src, T* __restrict__ dst,
@@ -408,26 +722,106 @@ __device__ __forceinline__ void gather_column(const int64_t* __restrict__ order,
 }
 
 __global__ void __launch_bounds__(kThreads)
-seg_gather(const int64_t* __restrict__ order, Cols c, int n) {
-  const void* src = nullptr;
-  void* dst = nullptr;
-  int size = 0;
-#pragma unroll
-  for (int j = 0; j < kMaxCols; ++j) {
-    if (j == static_cast<int>(blockIdx.y)) {
-      src = c.src[j];
-      dst = c.dst[j];
-      size = c.size[j];
-    }
-  }
-  if (size == 4) {
-    gather_column(order, static_cast<const int32_t*>(src), static_cast<int32_t*>(dst), n);
-  } else if (size == 1) {
-    gather_column(order, static_cast<const uint8_t*>(src), static_cast<uint8_t*>(dst), n);
+gather_by_column(const int64_t* __restrict__ order, const __grid_constant__ Cols c, int n) {
+  const int j = blockIdx.y;
+  if (c.size[j] == 4) {
+    gather_column(order, static_cast<const int32_t*>(c.src[j]), static_cast<int32_t*>(c.dst[j]),
+                  n);
+  } else if (c.size[j] == 1) {
+    gather_column(order, static_cast<const uint8_t*>(c.src[j]), static_cast<uint8_t*>(c.dst[j]),
+                  n);
   } else {
-    gather_column(order, static_cast<const int64_t*>(src), static_cast<int64_t*>(dst), n);
+    gather_column(order, static_cast<const int64_t*>(c.src[j]), static_cast<int64_t*>(c.dst[j]),
+                  n);
   }
 }
+
+// The row layout's tile: kRowElems rows of c.row / 4 + 1 words in shared
+// memory (the odd stride keeps a warp's word accesses to one row each on 32
+// banks); an element's column j at byte c.offset[j] of its row.
+__device__ __forceinline__ void column_to_tile(const Cols& c, int j, uint32_t* row, int x) {
+  const int off = c.offset[j];
+  if (c.size[j] == 4) {
+    row[off / 4] = static_cast<const uint32_t*>(c.src[j])[x];
+  } else if (c.size[j] == 1) {
+    reinterpret_cast<uint8_t*>(row)[off] = static_cast<const uint8_t*>(c.src[j])[x];
+  } else {
+    const u64 v = static_cast<const u64*>(c.src[j])[x];
+    row[off / 4] = static_cast<uint32_t>(v);
+    row[off / 4 + 1] = static_cast<uint32_t>(v >> 32);
+  }
+}
+
+__device__ __forceinline__ void tile_to_column(const Cols& c, int j, const uint32_t* row, int x) {
+  const int off = c.offset[j];
+  if (c.size[j] == 4) {
+    static_cast<uint32_t*>(c.dst[j])[x] = row[off / 4];
+  } else if (c.size[j] == 1) {
+    static_cast<uint8_t*>(c.dst[j])[x] = reinterpret_cast<const uint8_t*>(row)[off];
+  } else {
+    static_cast<u64*>(c.dst[j])[x] = row[off / 4] | (static_cast<u64>(row[off / 4 + 1]) << 32);
+  }
+}
+
+// stage_rows (the row layout's first pass): every column of element x packed
+// into row x of `rows` (c.row bytes, a multiple of 16): a thread an element
+// into the tile, then the tile out as 16-byte stores.
+__global__ void __launch_bounds__(kRowElems)
+stage_rows(const __grid_constant__ Cols c, uint8_t* __restrict__ rows, int n) {
+  extern __shared__ uint32_t tile[];
+  const int words = c.row / 4, stride = words + 1;
+  for (int x0 = blockIdx.x * kRowElems; x0 < n; x0 += gridDim.x * kRowElems) {
+    const int m = min(kRowElems, n - x0);
+    if (static_cast<int>(threadIdx.x) < m) {
+      for (int j = 0; j < c.count; ++j)
+        column_to_tile(c, j, tile + threadIdx.x * stride, x0 + threadIdx.x);
+    }
+    __syncthreads();
+    uint32_t* out = reinterpret_cast<uint32_t*>(rows + static_cast<size_t>(x0) * c.row);
+    for (int q = 4 * threadIdx.x; q < m * words; q += 4 * blockDim.x) {
+      const int t = q / words;  // q to q + 3 lie in row t: words is a multiple of 4
+      const uint32_t* w = tile + t * stride + (q - t * words);
+      *reinterpret_cast<uint4*>(out + q) = make_uint4(w[0], w[1], w[2], w[3]);
+    }
+    __syncthreads();  // the tile is read before the next rows write it
+  }
+}
+
+// gather_rows (the row layout's second pass): out_c[x] = col_c[order[x]]
+// for every column at once: each element's row read through the permutation
+// as 16-byte loads (a 32-byte row is one sector, where the column layout
+// reads one sector a column), into the tile, then each column written out
+// coalesced.
+__global__ void __launch_bounds__(kRowElems)
+gather_rows(const int64_t* __restrict__ order, const uint8_t* __restrict__ rows,
+            const __grid_constant__ Cols c, int n) {
+  extern __shared__ uint32_t tile[];
+  __shared__ int64_t from[kRowElems];
+  const int words = c.row / 4, stride = words + 1, quads = words / 4;
+  for (int x0 = blockIdx.x * kRowElems; x0 < n; x0 += gridDim.x * kRowElems) {
+    const int m = min(kRowElems, n - x0);
+    if (static_cast<int>(threadIdx.x) < m) from[threadIdx.x] = order[x0 + threadIdx.x];
+    __syncthreads();
+    for (int q = threadIdx.x; q < m * quads; q += blockDim.x) {
+      const int t = q / quads, w = 4 * (q - t * quads);
+      const uint4 v = *reinterpret_cast<const uint4*>(rows + from[t] * c.row + 4 * w);
+      uint32_t* d = tile + t * stride + w;
+      d[0] = v.x;
+      d[1] = v.y;
+      d[2] = v.z;
+      d[3] = v.w;
+    }
+    __syncthreads();
+    if (static_cast<int>(threadIdx.x) < m) {
+      for (int j = 0; j < c.count; ++j)
+        tile_to_column(c, j, tile + threadIdx.x * stride, x0 + threadIdx.x);
+    }
+    __syncthreads();  // the tile and `from` are read before the next rows write them
+  }
+}
+
+// the gather layouts (ops/cluster_sorts.GATHER_LAYOUTS, in that order)
+enum Layout { kChunked = 0, kRows = 1, kByColumn = 2 };
 
 // ---- seg_marks: a stage's per-element predicate in one pass --------------
 
@@ -508,18 +902,18 @@ __global__ void __launch_bounds__(kThreads) seg_marks(Marks m) {
   }
 }
 
-// the dynamic shared memory of a seg_tiers block: tier 0, 16 warps' slices
-// of kWarpMax keys and offsets; tier 1, kBlockMax of them
+// the dynamic shared memory of a seg_tiers block: 16 warps' slices of
+// kWarpMax keys and offsets, or a block segment's kBlockMax of them
 constexpr size_t kWarpSmem =
     (sizeof(u64) + sizeof(int)) * static_cast<size_t>(kWarpMax) * (kTierThreads / 32);
 constexpr size_t kBlockSmem = (sizeof(u64) + sizeof(int)) * static_cast<size_t>(kBlockMax);
 constexpr size_t kTierSmem = kWarpSmem > kBlockSmem ? kWarpSmem : kBlockSmem;
 
 // What the launches on one device need: its SMs and the seg_tiers blocks one
-// SM holds at once in each tier, after the shared memory attribute is set;
-// cached by device (the queries cost host time on every call otherwise).
+// SM holds at once, after the shared memory attribute is set; cached by
+// device (the queries cost host time on every call otherwise).
 struct Config {
-  int dev = -1, sms = 0, warp_blocks = 0, block_blocks = 0;
+  int dev = -1, sms = 0, tier_blocks = 0;
 };
 
 cudaError_t make_config(int dev, Config* c) {
@@ -528,13 +922,10 @@ cudaError_t make_config(int dev, Config* c) {
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&c->sms, cudaDevAttrMultiProcessorCount, dev);
   if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&c->warp_blocks, seg_tiers, kTierThreads,
-                                                        kWarpSmem);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&c->block_blocks, seg_tiers,
-                                                        kTierThreads, kBlockSmem);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&c->tier_blocks, seg_tiers, kTierThreads,
+                                                        kTierSmem);
   if (err != cudaSuccess) return err;
-  if (c->warp_blocks < 1 || c->block_blocks < 1) return cudaErrorInvalidConfiguration;
+  if (c->tier_blocks < 1) return cudaErrorInvalidConfiguration;
   c->dev = dev;
   return cudaSuccess;
 }
@@ -577,27 +968,38 @@ int launch_sort(const Sort& a, int32_t* lists, int32_t* counts, u64* scratch_k,
   Config cfg;
   cudaError_t err = config_for(&cfg);
   if (err == cudaSuccess) err = mark(events, 0, s);
-  if (err == cudaSuccess) err = cudaMemsetAsync(counts, 0, 2 * sizeof(int32_t), s);
+  if (err == cudaSuccess) err = cudaMemsetAsync(counts, 0, 3 * sizeof(int32_t), s);
   if (err != cudaSuccess) return static_cast<int>(err);
   int2* entries = reinterpret_cast<int2*>(lists);
   seg_runs<<<(a.n + kThreads - 1) / kThreads, kThreads, 0, s>>>(a, entries, counts);
   err = cudaGetLastError();
   if (err == cudaSuccess) err = mark(events, 1, s);
   if (err != cudaSuccess) return static_cast<int>(err);
-  // at most n / (kTinyMax + 1) segments reach the warp list, n / (kWarpMax + 1) the block list
-  const long long warp_segments = a.n / (kTinyMax + 1);
-  seg_tiers<<<grid(cfg.sms, cfg.warp_blocks, (warp_segments + 15) / 16), kTierThreads,
-              kWarpSmem, s>>>(a, entries, counts, scratch_k, scratch_i, 0);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  seg_tiers<<<grid(cfg.sms, cfg.block_blocks, a.n / (kWarpMax + 1)), kTierThreads, kBlockSmem,
-              s>>>(a, entries, counts, scratch_k, scratch_i, 1);
+  // at most n / (kTinyMax + 1) segments reach the warp list (16 a block at
+  // the least, when each warp takes one), n / (kWarpMax + 1) the block list
+  const long long warp_blocks = (a.n / (kTinyMax + 1) + 15) / 16;
+  const long long block_blocks = a.n / (kWarpMax + 1);
+  seg_tiers<<<grid(cfg.sms, cfg.tier_blocks, warp_blocks > block_blocks ? warp_blocks
+                                                                       : block_blocks),
+              kTierThreads, kTierSmem, s>>>(a, entries, counts, scratch_k, scratch_i);
   err = cudaGetLastError();
   if (err == cudaSuccess) err = mark(events, 2, s);
   return static_cast<int>(err);
 }
 
 }  // namespace
+
+#ifdef SORT_PHASE_CLOCKS
+// The warp tier's cycles by phase summed over its warps since the last
+// call (kPhases words to out, on the host), then zeroed; a build with
+// -DSORT_PHASE_CLOCKS only. Synchronous.
+extern "C" int sort_phase_clocks(uint64_t* out) {
+  cudaError_t err = cudaMemcpyFromSymbol(out, g_phase_clocks, kPhases * sizeof(u64));
+  static const u64 zero[kPhases + 1] = {};
+  if (err == cudaSuccess) err = cudaMemcpyToSymbol(g_phase_clocks, zero, sizeof(zero));
+  return static_cast<int>(err);
+}
+#endif
 
 // The permutation of a stable sort of each contiguous segment of n elements
 // by (k1, k2): seg_start uint8 [n] (nonzero at a segment's head; element 0
@@ -606,11 +1008,11 @@ int launch_sort(const Sort& a, int32_t* lists, int32_t* counts, u64* scratch_k,
 // alone uint8 [n] or null (read through base: a nonzero element stays where
 // it is, a segment of its own, and the element after it starts one);
 // perm int64 [n]; scratch: lists int32 [2n] (8-byte aligned), counts int32
-// [2], scratch_k uint64 [n] and scratch_i int32 [n] (a segment past
+// [3], scratch_k uint64 [n] and scratch_i int32 [n] (a segment past
 // kBlockMax); events: null, or three CUDA events recorded before the
-// memset, after the run pass and after the tiers (a timing tool's). A memset
-// and three launches on stream s; returns the first error (a shared memory
-// size the card refuses included).
+// memset, after the run pass and after the tiers (a timing tool's). A
+// memset and two launches on stream s; returns the first error (a shared
+// memory size the card refuses included).
 extern "C" int seg_sort(const uint8_t* seg_start, const int32_t* k1, const int32_t* k2,
                         const int64_t* base, const uint8_t* alone, int64_t* perm,
                         int32_t* lists, int32_t* counts, uint64_t* scratch_k,
@@ -626,22 +1028,40 @@ extern "C" int seg_sort(const uint8_t* seg_start, const int32_t* k1, const int32
 }
 
 // dst[c][x] = src[c][order[x]] for x < n and each of ncols columns of
-// sizes[c] bytes an element (1, 4 or 8): one launch for every kMaxCols
-// columns, on stream s; returns the first error.
+// sizes[c] bytes an element (1, 4 or 8), in one of the layouts of
+// ops/cluster_sorts.GATHER_LAYOUTS (Layout): every kMaxCols columns one
+// seg_gather launch (kChunked), a stage_rows and a gather_rows launch
+// through `rows` (kRows: rows_bytes bytes, at least n times the widest
+// launch's row, 16-byte aligned) or one gather_by_column launch
+// (kByColumn), on stream s; returns the first error.
+// events: null, or three CUDA events recorded before the first launch,
+// between a row layout's two and after the last (a timing tool's).
 extern "C" int gather_columns(const int64_t* order, const void* const* src, void* const* dst,
-                              const int32_t* sizes, int ncols, int n, cudaStream_t s) {
-  if (n <= 0 || ncols <= 0) return static_cast<int>(cudaErrorInvalidValue);
+                              const int32_t* sizes, int ncols, int n, int layout,
+                              uint8_t* rows, long long rows_bytes, cudaEvent_t const* events,
+                              cudaStream_t s) {
+  if (n <= 0 || ncols <= 0 || layout < kChunked || layout > kByColumn)
+    return static_cast<int>(cudaErrorInvalidValue);
   Config cfg;
   const cudaError_t cfg_err = config_for(&cfg);
   if (cfg_err != cudaSuccess) {
     cudaGetLastError();
     return static_cast<int>(cfg_err);
   }
-  const long long chunk = static_cast<long long>(kThreads) * kGatherUnroll;
-  const int blocks = grid(cfg.sms, kGatherBlocks, (n + chunk - 1) / chunk);
+  cudaError_t err = mark(events, 0, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
   for (int c0 = 0; c0 < ncols; c0 += kMaxCols) {
     Cols c{};
     c.count = ncols - c0 < kMaxCols ? ncols - c0 : kMaxCols;
+    // a row: the 8-byte columns first, then the 4-byte, then the bytes
+    for (int size = 8; size >= 1; size /= 2) {
+      for (int j = 0; j < c.count; ++j) {
+        if (sizes[c0 + j] != size) continue;
+        c.offset[j] = c.row;
+        c.row += size;
+      }
+    }
+    c.row = (c.row + 15) / 16 * 16;
     for (int j = 0; j < c.count; ++j) {
       const int size = sizes[c0 + j];
       if (size != 1 && size != 4 && size != 8) return static_cast<int>(cudaErrorInvalidValue);
@@ -649,11 +1069,29 @@ extern "C" int gather_columns(const int64_t* order, const void* const* src, void
       c.dst[j] = dst[c0 + j];
       c.size[j] = size;
     }
-    seg_gather<<<dim3(blocks, c.count), kThreads, 0, s>>>(order, c, n);
-    const cudaError_t err = cudaGetLastError();
+    if (layout == kRows) {
+      if (rows == nullptr || static_cast<long long>(c.row) * n > rows_bytes ||
+          (reinterpret_cast<uintptr_t>(rows) & 15) != 0)
+        return static_cast<int>(cudaErrorInvalidValue);
+      const int blocks = grid(cfg.sms, kRowBlocks, (n + kRowElems - 1) / kRowElems);
+      const size_t tile = sizeof(uint32_t) * kRowElems * (c.row / 4 + 1);
+      stage_rows<<<blocks, kRowElems, tile, s>>>(c, rows, n);
+      err = cudaGetLastError();
+      if (err == cudaSuccess) err = mark(events, 1, s);
+      if (err != cudaSuccess) return static_cast<int>(err);
+      gather_rows<<<blocks, kRowElems, tile, s>>>(order, rows, c, n);
+    } else if (layout == kByColumn) {
+      const long long per = static_cast<long long>(kThreads) * kGatherUnroll;
+      const int blocks = grid(cfg.sms, kGatherBlocks, (n + per - 1) / per);
+      gather_by_column<<<dim3(blocks, c.count), kThreads, 0, s>>>(order, c, n);
+    } else {
+      seg_gather<<<grid(cfg.sms, kChunkBlocks, (n + kChunk - 1) / kChunk), kThreads, 0, s>>>(
+          order, c, n);
+    }
+    err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  return 0;
+  return static_cast<int>(mark(events, 2, s));
 }
 
 // A stage's per-element predicate over n elements (seg_marks; kind and

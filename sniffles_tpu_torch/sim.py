@@ -962,7 +962,15 @@ def call_stats_batch(kind: str, size: int, seed: int) -> dict:
     return out
 
 
-SEG_SORT_KINDS = ("tiers", "random", "equal", "limits", "invalid", "huge")
+SEG_SORT_KINDS = ("tiers", "random", "equal", "limits", "invalid", "huge", "packed")
+
+# the "packed" population's fixed runs: 9-32-element segments whose sums fall
+# on, just under and just over a warp's 32 lanes, single segments either
+# side of 32 and 64, a 32 after a 1, and elements alone (segments of one)
+# between packed segments
+_PACKED_RUNS = ([16, 16], [9, 23], [10, 11, 11], [32], [15, 16], [10, 21], [9, 9, 9],
+                [16, 17], [9, 24], [11, 11, 11], [32], [33], [64], [65], [1, 32],
+                [12, 1, 12, 1, 20], [9, 1, 9, 1, 9, 1, 9])
 
 
 def seg_sort_batch(kind: str, size: int, seed: int) -> dict:
@@ -983,7 +991,10 @@ def seg_sort_batch(kind: str, size: int, seed: int) -> dict:
         valid, segments of 1 to 600;
       "invalid": every element invalid, segments of 1 to 300;
       "huge": one segment of 2^20 elements (size >= 2^20 + 4,096), keys
-        from a range of 1,000, then small segments and an invalid tail."""
+        from a range of 1,000, then small segments and an invalid tail;
+      "packed": the warp tier's packing of small segments (_PACKED_RUNS,
+        then segments of 9 to 32 elements up to the end, all valid: the
+        last segments end at `size`), keys from a range of 64 (ties)."""
     from sniffles_tpu_torch.ops.cluster_sorts import BLOCK_MAX, TINY_MAX, WARP_MAX
     rng = np.random.default_rng(seed)
     limits = np.array([_I32_MIN, _I32_MIN + 1, -1, 0, 1, _I32_MAX - 1, _I32_MAX], np.int64)
@@ -1002,6 +1013,9 @@ def seg_sort_batch(kind: str, size: int, seed: int) -> dict:
         n_invalid = 1024
     elif kind == "invalid":
         n_invalid = size
+    elif kind == "packed":
+        sizes = [k for run in _PACKED_RUNS for k in run]
+        n_invalid = 0
     elif kind not in ("random", "equal", "limits"):
         raise ValueError(f"no seg_sort batch of kind {kind!r}")
     if kind == "limits":
@@ -1012,6 +1026,7 @@ def seg_sort_batch(kind: str, size: int, seed: int) -> dict:
     top = BLOCK_MAX + 2 if kind == "equal" else 600
     while free > 0:
         k = min(int(rng.geometric(1 / 40)) if kind in ("random", "huge") else
+                int(rng.integers(9, 33)) if kind == "packed" else
                 int(rng.integers(1, top + 1)), top, free)
         sizes.append(k)
         free -= k

@@ -1,12 +1,14 @@
 #!/usr/bin/env python3
-"""Device time of the clustering's segmented sorts (`ops/cluster_sorts.py`,
-the kernels of csrc/cluster_sorts.cu) against their bound, their plain
-versions and one torch.sort, and each tier threshold from both sides:
+"""Device time of the clustering's segmented sorts and gathers
+(`ops/cluster_sorts.py`, the kernels of csrc/cluster_sorts.cu) against
+their bound, their plain versions and one PyTorch call, and each tier
+threshold from both sides:
 
-    python3 sniffles_tpu_torch/tools/time_cluster_sorts.py [--n 2097152]
+    python3 sniffles_tpu_torch/tools/time_cluster_sorts.py [--n 2097152] [--dense DIR] [--split]
+    PYTHONPATH=DIR python3 sniffles_tpu_torch/tools/time_cluster_sorts.py ...
 
-Cases of n elements (`cases`), each a seg_sort call's inputs on the card
-as the main path builds them (ops/clustering.py):
+Sort cases of n elements (`cases`), each a seg_sort call's inputs on the
+card as the main path builds them (ops/clustering.py):
   - "engine sort and seed": the engine step's first sort at chip_smoke.py
     phase 10d's inputs (`signatures.synthetic_batch`, n/40 sites, seed 42,
     a genome span of 900 kb): each run of equal (svtype, bin) of the int64
@@ -17,29 +19,51 @@ as the main path builds them (ops/clustering.py):
     elements alone;
   - "chain resplit": the same on sim.relax_chain_batch(n) (568 tiled
     36-link chains, merged segments of up to 3,689);
+  - "packed": sim.seg_sort_batch's "packed" population (segments of 9 to
+    32 elements, the warp tier's packing), the padding alone;
   - "K a segment" (SEGMENT_SIZES): segments of K elements, keys from a
     range of 64 (ties), the tier thresholds' populations.
+Each case prints its segment-size histogram (HISTOGRAM_BINS: segments and
+elements) and the two lists' counts (the warp tier's, the block tier's).
 For each it holds the kernels against the plain version on CPU copies,
 then prints the wrapper's device time (CUDA events, the card asleep ahead
-of the start event, the mean of 10 calls after one that warms up), the run
-pass's and the tiers' between CUDA events that the entry point records
-(split_ms; torch.profiler was seen to drop kernels in a process that had
-profiled before), the plain version's
-on the card (the ops/segments.lexsort chain), the one stable torch.sort
-of the int64 (segment id, key) pair that gives the same permutation (no
-base; the ids made beforehand), and the bound: the bytes the function must
-move at 3.35 TB/s (`sort_bytes`). Then the gather of the engine's sort and
-seed (every column of the batch through its permutation) against its
-plain version (an index a column) and its bound (`gather_bytes`), and the
-resplit's predicate (seg_marks) against its plain version. Then, for
-each threshold of ops/cluster_sorts.TIERS, its populations through the tier
-on either side of it, each side a build of its own (all built at once
-first), and ptxas's registers and spills, and the card's nvidia-smi name
-and power limit. `kernel_rows` gives chip_smoke.py its rows of the four
-kernels. Needs a CUDA card; `--device cpu` builds the cases and holds the
-segmented formulation against the plain one (a dry run).
+of the start event, the mean of REPS calls after one that warms up), the
+run pass's, the warp tier's and the block tier's between CUDA events that
+the entry point records (split_ms), the plain version's on the card (the
+ops/segments.lexsort chain), the one stable torch.sort of the int64
+(segment id, key) pair that gives the same permutation (no base; the ids
+made beforehand), and the bound: the bytes the function must move at
+3.35 TB/s (`sort_bytes`).
+
+Gather cases (`gather_sites`): every gather_columns call of the main
+paths on its own real inputs, captured as the stage calls it: the engine
+step's sort and seed (a global permutation) and resplit on the engine's
+batch; the call task's sort and seed, fold, resplit_child_ids and both
+phase_tallies sorts on sim.fuzz_call_batch(1, n); with --dense DIR, the
+five gathers of dense3's widest call task (tools/profile_call_task.py's
+dense leg, written to DIR on its first run). Each is held against its
+plain version and timed in every layout of ops/cluster_sorts.GATHER_LAYOUTS,
+beside the plain version (an index a column), the library call
+(torch.index_select, one call a column) and its bound (`gather_bytes`).
+Then the resplit's predicate (seg_marks) against its plain version, and
+the local layouts' crossover: a call task's five gathers in each at n =
+2^15 to 2^21 (`layout_crossover`).
+
+--split builds csrc/cluster_sorts.cu with ops/cluster_sorts.PHASE_CLOCKS
+and prints, for each sort case, the warp tier's cycles by phase (its
+list entries and keys loaded, ranked, written), summed over its warps.
+Then, for each threshold of ops/cluster_sorts.TIERS, its populations
+through the tier on either side of it, each side a build of its own (all
+built at once first), ptxas's registers and spills of every kernel, and
+the card's nvidia-smi name and power limit. `kernel_rows` gives
+chip_smoke.py its rows of the kernels. A package without a feature (an
+older tree under PYTHONPATH: no layouts, no phase clocks) is timed
+without it. Needs a CUDA card; `--device cpu` builds every case at a
+small n and holds the segmented formulation and every captured gather
+against the plain versions (a dry run).
 """
 import argparse
+import contextlib
 import os
 import subprocess
 import sys
@@ -53,18 +77,32 @@ sys.path.append(REPO)     # after PYTHONPATH, so that a package there comes firs
 REPS = 10
 SLEEP_CYCLES = 2_000_000     # about 1 ms of device sleep ahead of each call
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM, at the full 700 W power limit
-SEGMENT_SIZES = (1, 8, 9, 256, 257, 512, 8192, 8193, 16384)
+SEGMENT_SIZES = (1, 4, 8, 9, 16, 32, 33, 64, 65, 256, 257, 512, 8192, 8193, 16384)
+HISTOGRAM_BINS = ((1, 1), (2, 8), (9, 16), (17, 32), (33, 64), (65, 256), (257, 8192),
+                  (8193, None))
+PHASES = ("loads", "ranks", "writes")      # csrc/cluster_sorts.cu Phase
 INT32_MAX = 2 ** 31 - 1
-KERNEL_NAMES = ("seg_runs", "seg_tiers", "seg_gather", "seg_marks")   # csrc/cluster_sorts.cu
+# the kernels of csrc/cluster_sorts.cu, as ptxas names them
+KERNEL_NAMES = ("seg_runs", "seg_tiers", "seg_gather", "gather_rows", "stage_rows",
+                "gather_by_column", "seg_marks")
 ENGINE_PARAMS = dict(cluster_r=2.5, cluster_repeat_h=1.5, cluster_repeat_h_max=1000.0,
                      cluster_merge_bnd=1000, global_repeat=False, binsize=100)
+CLUSTER_PARAMS = dict(cluster_r=2.5, cluster_repeat_h=1.5, cluster_repeat_h_max=1000.0,
+                      cluster_merge_bnd=1000, cluster_merge_len=0.22, minsvlen=50,
+                      exact_sweep=False)
+
+
+def engine_signatures(n: int, device: str) -> dict:
+    from sniffles_tpu_torch.signatures import synthetic_batch
+    return {k: torch.as_tensor(np.asarray(v)).to(device) for k, v in synthetic_batch(
+        n, n // 40, seed=42, genome_span=900_000, batch_size=n).as_dict().items()}
 
 
 def engine_sorts(sig: dict) -> dict:
     """{case: (seg_start, k1, k2, base, alone, segment ids)} of the engine step's two
     sorts on `sig` (tensors of one device; the resplit's boundaries from the
-    step's own sort and relaxation there), and the sort and seed's gather
-    inputs under "gather": (permutation, columns)."""
+    step's own sort and relaxation there), and the resplit's predicate
+    inputs under "marks"."""
     from sniffles_tpu_torch.ops import clustering as tc, segments as ts
     from sniffles_tpu_torch.ops import cluster_sorts as cso
     from sniffles_tpu_torch.ops.merge_relax import merge_relax
@@ -79,7 +117,6 @@ def engine_sorts(sig: dict) -> dict:
     alone = ~(valid | shared)
     seg = ts.segment_ids_from_boundaries(cso.seg_heads(starts, alone[first]))
     out = {"engine sort and seed": (starts, tie, None, first, alone, seg)}
-    out["gather"] = (cso.seg_sort(starts, tie, None, first, alone), sig)
     s, boundary, bin_ = tc.sort_and_seed(sig, 100)
     boundary, _ = merge_relax(s, boundary, bin_, **ENGINE_PARAMS)
     svbin = torch.div(s["svlen"].abs(), 20, rounding_mode="floor") * 20
@@ -95,23 +132,25 @@ def engine_sorts(sig: dict) -> dict:
 
 def cases(n: int, device: str) -> dict:
     """{case: (seg_start, k1, k2, base, alone, segment ids)} on `device`, and
-    "gather": the engine's sort and seed's (permutation, columns)."""
-    from sniffles_tpu_torch.signatures import synthetic_batch
-    from sniffles_tpu_torch.sim import relax_chain_batch
-    sig = {k: torch.as_tensor(np.asarray(v)).to(device) for k, v in synthetic_batch(
-        n, n // 40, seed=42, genome_span=900_000, batch_size=n).as_dict().items()}
-    engine = engine_sorts(sig)
+    "marks": the engine resplit's predicate inputs."""
+    from sniffles_tpu_torch.sim import SEG_SORT_KINDS, relax_chain_batch, seg_sort_batch
+    engine = engine_sorts(engine_signatures(n, device))
     out = {"engine sort and seed": engine["engine sort and seed"],
            "engine resplit": engine["resplit"]}
     chain = {k: torch.as_tensor(np.asarray(v)).to(device)
              for k, v in relax_chain_batch(n).items()}
     out["chain resplit"] = engine_sorts(chain)["resplit"]
+    if "packed" in SEG_SORT_KINDS:      # an older package has no such population
+        b = seg_sort_batch("packed", n, 5)
+        seg = torch.from_numpy(b["seg_id"]).to(device)
+        out["packed"] = (_starts(seg), torch.from_numpy(b["k1"]).to(device),
+                         torch.from_numpy(b["k2"]).to(device), None,
+                         torch.from_numpy(~b["valid"]).to(device), seg)
     rng = np.random.default_rng(11)
     for k in SEGMENT_SIZES:
         seg = torch.arange(n, dtype=torch.int32, device=device) // k
         out[f"{k} a segment"] = (_starts(seg), torch.from_numpy(
             rng.integers(0, 64, n).astype(np.int32)).to(device), None, None, None, seg)
-    out["gather"] = engine["gather"]
     out["marks"] = engine["marks"]
     return out
 
@@ -121,19 +160,40 @@ def _starts(seg):
     return starts(seg)
 
 
+def segment_sizes(seg: torch.Tensor) -> np.ndarray:
+    """Each segment's element count, from a case's segment ids (0, 1, ... in
+    array order; the elements alone segments of their own)."""
+    return np.bincount(seg.cpu().numpy().astype(np.int64))
+
+
 def tiny_elements(seg: torch.Tensor, tiny: int) -> int:
-    """The elements in segments of at most `tiny` (the thread tier's), from
-    a case's segment ids (0, 1, ... in array order; the elements alone
-    segments of their own)."""
-    sizes = np.bincount(seg.cpu().numpy())
+    """The elements in segments of at most `tiny` (the thread tier's)."""
+    sizes = segment_sizes(seg)
     return int(sizes[sizes <= tiny].sum())
+
+
+def histogram(seg: torch.Tensor, tiers: tuple) -> str:
+    """The case's segments and elements in each of HISTOGRAM_BINS, and the
+    two lists' counts under `tiers` (the warp list: segments of tiny + 1 to
+    warp elements; the block list: larger ones)."""
+    sizes = segment_sizes(seg)
+    parts = []
+    for lo, hi in HISTOGRAM_BINS:
+        pick = (sizes >= lo) & (sizes <= (hi if hi is not None else sizes.max(initial=0)))
+        label = f"{lo}" if lo == hi else f"{lo}-{hi}" if hi else f">{lo - 1}"
+        parts.append(f"{label}: {int(pick.sum())} ({int(sizes[pick].sum())} elements)")
+    tiny, warp = tiers[0], tiers[1]
+    warp_list = int(((sizes > tiny) & (sizes <= warp)).sum())
+    block_list = int((sizes > warp).sum())
+    return (f"segments {'; '.join(parts)}; warp list {warp_list}, block list {block_list}")
 
 
 def sort_bytes(n: int, tiny: int, with_k2: bool, with_base: bool, with_alone: bool) -> tuple:
     """(run pass, tiers) bytes the function must move: seg_start and alone
-    (where given) read once by the run pass; each element's keys (k1, k2 where given, the base
-    entry where given) read once and its int64 permutation entry written
-    once, by the tier that sorts it (tiny: the thread tier's elements)."""
+    (where given) read once by the run pass; each element's keys (k1, k2
+    where given, the base entry where given) read once and its int64
+    permutation entry written once, by the tier that sorts it (tiny: the
+    thread tier's elements)."""
     per = 4 + 4 * with_k2 + 8 * with_base + 8
     return n * (1 + with_alone) + tiny * per, (n - tiny) * per
 
@@ -162,22 +222,56 @@ def queued_ms(fn) -> float:
 
 
 def split_ms(case) -> dict:
-    """{"seg_runs": ms, "seg_tiers": ms}: the entry point's own CUDA events
-    around the run pass (with its memset) and around the two tiers, the mean
-    of REPS calls after one that warms up, the card asleep ahead of each."""
+    """{"seg_runs": ms, "seg_tiers": ms, "warp tier": ms, "block tier": ms}:
+    the entry point's own CUDA events around the run pass (with its
+    memset) and around each tier, the mean of REPS calls after one that
+    warms up, the card asleep ahead of each. A package whose entry point
+    records three events gives the two tiers as one."""
     from sniffles_tpu_torch.ops import cluster_sorts as cso
-    evs = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    count = getattr(cso, "SORT_EVENTS", 3)
+    evs = [torch.cuda.Event(enable_timing=True) for _ in range(count)]
     for e in evs:
         e.record()          # creates the events the entry point records again
-    runs = tiers = 0.0
+    total = np.zeros(count - 1)
     for rep in range(REPS + 1):
         torch.cuda._sleep(SLEEP_CYCLES)
         cso.launch_seg_sort(*case[:5], events=evs)
         torch.cuda.synchronize()
         if rep:
-            runs += evs[0].elapsed_time(evs[1])
-            tiers += evs[1].elapsed_time(evs[2])
-    return {"seg_runs": runs / REPS, "seg_tiers": tiers / REPS}
+            total += [evs[i].elapsed_time(evs[i + 1]) for i in range(count - 1)]
+    total /= REPS
+    out = {"seg_runs": float(total[0]), "seg_tiers": float(total[1:].sum())}
+    if count == 4:
+        out.update({"warp tier": float(total[1]), "block tier": float(total[2])})
+    return out
+
+
+def phase_split(case) -> dict | None:
+    """{phase: share of the warp tier's cycles}, and "cycles": their sum
+    over the warps, of REPS calls of the PHASE_CLOCKS build; None where
+    the package has no such build."""
+    from sniffles_tpu_torch.ops import _build
+    from sniffles_tpu_torch.ops import cluster_sorts as cso
+    if not hasattr(cso, "PHASE_CLOCKS"):
+        return None
+    import ctypes
+    fn = _build.load("cluster_sorts", cso.nvcc_defines() + (cso.PHASE_CLOCKS,)).sort_phase_clocks
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p]
+    out = (ctypes.c_uint64 * len(PHASES))()
+    cso.launch_seg_sort(*case[:5], clocks=True)
+    torch.cuda.synchronize()
+    if fn(out) != 0:                    # zeroes the sums after the warm-up call
+        raise SystemExit("time_cluster_sorts: reading the phase clocks failed")
+    for _ in range(REPS):
+        cso.launch_seg_sort(*case[:5], clocks=True)
+    torch.cuda.synchronize()
+    if fn(out) != 0:
+        raise SystemExit("time_cluster_sorts: reading the phase clocks failed")
+    cycles = [int(v) for v in out]
+    total = sum(cycles)
+    return {"cycles": total / REPS,
+            **{p: (c / total if total else 0.0) for p, c in zip(PHASES, cycles)}}
 
 
 def library_sort(case):
@@ -202,8 +296,8 @@ def hold(case, label, tiers=None) -> torch.Tensor:
 
 
 def sort_row(case, label) -> dict:
-    """The kernels of one case held and timed: ms (the wrapper), by kernel,
-    plain_ms, library_ms, the bounds."""
+    """The kernels of one case held and timed: ms (the wrapper), by kernel
+    and tier, plain_ms, library_ms, the bounds."""
     from sniffles_tpu_torch.ops import cluster_sorts as cso
     seg_start, k1, k2, base, alone, seg = case
     want = hold(case, label)
@@ -221,17 +315,133 @@ def sort_row(case, label) -> dict:
             "bound_ms": (runs_b + tiers_b) / HBM_BYTES_PER_S * 1e3}
 
 
-def gather_row(order, columns) -> dict:
+@contextlib.contextmanager
+def captured_gathers(segmented: bool):
+    """Every gather_columns call of the block as [(stage, order, columns)],
+    the stage named by the calling function (a second call of one stage
+    numbered); copies of the inputs. With `segmented`, the stages take their
+    segmented formulation on CPU tensors too (ops/clustering.on_card)."""
+    from sniffles_tpu_torch.ops import cluster_sorts as cso, clustering as tc
+    real, real_on_card, kept = cso.gather_columns, tc.on_card, []
+
+    def keep(order, columns, *args, **kw):
+        stage = sys._getframe(1).f_code.co_name
+        seen = sum(1 for s, _, _ in kept if s.split(" (")[0] == stage)
+        kept.append((f"{stage} ({seen + 1})" if seen else stage, order.clone(),
+                     {k: v.clone() if isinstance(v, torch.Tensor) else v
+                      for k, v in columns.items()}))
+        return real(order, columns, *args, **kw)
+    cso.gather_columns = keep
+    if segmented:
+        tc.on_card = lambda t, what: True
+    try:
+        yield kept
+    finally:
+        cso.gather_columns, tc.on_card = real, real_on_card
+
+
+def gather_sites(n: int, device: str, dense_dir: str | None = None,
+                 call_task: bool = True) -> dict:
+    """{label: (order, columns)}: every gather_columns call of the engine's
+    clustering on its batch at n, of a call task on sim.fuzz_call_batch(1,
+    n) (with `call_task`), and (dense_dir) of dense3's widest call task."""
+    from sniffles_tpu_torch.ops import clustering as tc
+    from sniffles_tpu_torch.sim import fuzz_call_batch
+    from sniffles_tpu_torch.tools.profile_call_task import call_meta, dense_largest
+    meta = call_meta()
+    out = {}
+    with captured_gathers(device == "cpu") as kept:
+        tc.cluster_signatures(engine_signatures(n, device), **CLUSTER_PARAMS)
+    out.update((f"engine {stage}", (order, cols)) for stage, order, cols in kept)
+    if call_task:
+        with captured_gathers(device == "cpu") as kept:
+            tc.call_task_packed(torch.as_tensor(fuzz_call_batch(1, n)).to(device), **meta)
+        out.update((f"fuzz {stage}", (order, cols)) for stage, order, cols in kept)
+    if dense_dir:
+        packed = dense_largest(dense_dir, device)
+        with captured_gathers(device == "cpu") as kept:
+            tc.call_task_packed(torch.as_tensor(packed).to(device), **meta)
+        out.update((f"dense3 largest {stage} (n = {packed.shape[1]})", (order, cols))
+                   for stage, order, cols in kept)
+    return out
+
+
+CROSSOVER_SIZES = tuple(1 << k for k in range(15, 22))
+TASK_N = 1 << 16     # dense3's widest call task (chip_smoke.py phase 4)
+
+
+def layout_crossover(device: str = "cuda") -> list:
+    """[(n, {layout: ms})]: the five gathers of a call task on
+    sim.fuzz_call_batch(1, n), each timed in every layout (the two local
+    ones: chunked and columns) and summed, for n in CROSSOVER_SIZES: where
+    the one layout overtakes the other."""
+    from sniffles_tpu_torch.ops import clustering as tc
+    from sniffles_tpu_torch.sim import fuzz_call_batch
+    from sniffles_tpu_torch.tools.profile_call_task import call_meta
+    meta, out = call_meta(), []
+    for n in CROSSOVER_SIZES:
+        with captured_gathers(device == "cpu") as kept:
+            tc.call_task_packed(torch.as_tensor(fuzz_call_batch(1, n)).to(device), **meta)
+        total = {}
+        for layout in (x for x in gather_layouts() if x != "rows"):
+            for stage, order, cols in kept:
+                hold_gather(order, cols, layout, f"{stage} at n = {n}")
+                total[layout] = total.get(layout, 0.0) + (
+                    queued_ms(lambda: run_gather(order, cols, layout)) if device != "cpu" else 0.0)
+        out.append((n, total))
+    return out
+
+
+def gather_layouts() -> tuple:
+    """The package's gather layouts (ops/cluster_sorts.GATHER_LAYOUTS), or
+    (None,): an older package with one."""
     from sniffles_tpu_torch.ops import cluster_sorts as cso
-    want = cso.gather_columns_plain(order.cpu(), {k: v.cpu() for k, v in columns.items()})
-    got = cso.gather_columns(order, columns)
+    return getattr(cso, "GATHER_LAYOUTS", (None,))
+
+
+def run_gather(order, columns, layout):
+    """The gather in `layout` (the kernels' entry point), or the package's
+    own choice where `layout` is None (an older package) or the tensors lie
+    on the CPU (the plain version)."""
+    from sniffles_tpu_torch.ops import cluster_sorts as cso
+    if layout is None or order.device.type == "cpu":
+        return cso.gather_columns(order, columns)
+    return cso.launch_gather(order, columns, layout)[0]
+
+
+def hold_gather(order, columns, layout, label) -> None:
+    from sniffles_tpu_torch.ops import cluster_sorts as cso
+    want = cso.gather_columns_plain(order.cpu(), {k: v.cpu() if isinstance(v, torch.Tensor)
+                                                  else v for k, v in columns.items()})
+    got = run_gather(order, columns, layout)
     for k, v in want.items():
-        if not torch.equal(got[k].cpu(), v):
-            raise SystemExit(f"time_cluster_sorts: the gather differs from the plain version ({k})")
+        if isinstance(v, torch.Tensor) and not torch.equal(got[k].cpu(), v):
+            raise SystemExit(f"time_cluster_sorts: {label}: the {layout or ''} gather differs "
+                             f"from the plain version ({k})")
+
+
+def library_gather(order, columns):
+    """torch's own index, one call a column (index_select)."""
+    n = order.shape[0]
+    cols = [v for v in columns.values()
+            if isinstance(v, torch.Tensor) and v.dim() == 1 and v.shape[0] == n]
+    return lambda: [torch.index_select(v, 0, order) for v in cols]
+
+
+def gather_row(order, columns, label="gather") -> dict:
+    """One call site's gather held and timed in every layout: {"ms":
+    {layout: ms}, plain_ms, library_ms, bytes, bound_ms, columns}."""
+    from sniffles_tpu_torch.ops import cluster_sorts as cso
+    ms = {}
+    for layout in gather_layouts():
+        hold_gather(order, columns, layout, label)
+        ms[layout or "the package's"] = queued_ms(lambda: run_gather(order, columns, layout))
     b = gather_bytes(order, columns)
-    return {"ms": queued_ms(lambda: cso.gather_columns(order, columns)),
-            "plain_ms": queued_ms(lambda: cso.gather_columns_plain(order, columns)),
-            "library_ms": None, "bytes": b, "bound_ms": b / HBM_BYTES_PER_S * 1e3}
+    return {"ms": ms, "plain_ms": queued_ms(lambda: cso.gather_columns_plain(order, columns)),
+            "library_ms": queued_ms(library_gather(order, columns)), "bytes": b,
+            "bound_ms": b / HBM_BYTES_PER_S * 1e3,
+            "columns": sum(1 for v in columns.values() if isinstance(v, torch.Tensor)
+                           and v.dim() == 1 and v.shape[0] == order.shape[0])}
 
 
 def marks_row(seg, svbin, svtype) -> dict:
@@ -250,32 +460,83 @@ def marks_row(seg, svbin, svtype) -> dict:
             "library_ms": None, "bytes": b, "bound_ms": b / HBM_BYTES_PER_S * 1e3}
 
 
+def gather_split_ms(order, columns) -> dict:
+    """{"stage_rows": ms, "gather_rows": ms}: the row layout's two kernels
+    between the entry point's own CUDA events, the mean of REPS calls after
+    one that warms up, the card asleep ahead of each."""
+    from sniffles_tpu_torch.ops import cluster_sorts as cso
+    evs = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    for e in evs:
+        e.record()
+    total = np.zeros(2)
+    for rep in range(REPS + 1):
+        torch.cuda._sleep(SLEEP_CYCLES)
+        cso.launch_gather(order, columns, "rows", events=evs)
+        torch.cuda.synchronize()
+        if rep:
+            total += [evs[0].elapsed_time(evs[1]), evs[1].elapsed_time(evs[2])]
+    total /= REPS
+    return {"stage_rows": float(total[0]), "gather_rows": float(total[1])}
+
+
+def column_bytes(order, columns) -> int:
+    """Each column's elements once (what the row layout's first kernel must
+    read, and its second must write)."""
+    return (gather_bytes(order, columns) - 8 * order.shape[0]) // 2
+
+
 def kernel_rows(n: int = 1 << 21) -> dict:
-    """chip_smoke.py's rows of the four kernels at the engine step's n:
-    seg_runs and seg_tiers on the resplit's sort (the one with a torch.sort
-    of the same permutation), seg_gather on the sort and seed's gather,
-    seg_marks on the resplit's predicate;
-    each kernel's ms between CUDA events (split_ms; the gather is one
-    launch), plain_ms the plain version of its wrapper on the card,
-    bound_ms the bytes of its part of the function."""
+    """chip_smoke.py's rows of the kernels at the engine step's n, each held
+    against its plain version first: seg_runs and seg_tiers on the
+    resplit's sort (the one with a torch.sort of the same permutation,
+    between the entry point's CUDA events), seg_gather on the resplit's
+    gather (a local permutation, the chunked layout: one launch),
+    stage_rows and gather_rows on sort and seed's (a random permutation,
+    the row layout, between the entry point's events), gather_by_column on
+    a call task's fold at TASK_N (the column layout, as every call task of
+    the main path takes), seg_marks on the
+    resplit's predicate; plain_ms the plain version of the wrapper on the
+    card, library_ms one PyTorch call of the same function where there is
+    one (torch.sort; index_select, one call a column), bound_ms the bytes
+    of each kernel's part of the function."""
     c = cases(n, "cuda")
     r = sort_row(c["engine resplit"], "engine resplit")
-    g = gather_row(*c["gather"])
+    sites = gather_sites(n, "cuda", call_task=False)
+    local = gather_row(*sites["engine _resplit"], "engine _resplit")
+    glob = gather_row(*sites["engine sort_and_seed"], "engine sort_and_seed")
+    task = gather_row(*gather_sites(TASK_N, "cuda")["fuzz merge_inner_fold"],
+                      "a call task's fold")
+    order, columns = sites["engine sort_and_seed"]
+    split = gather_split_ms(order, columns)
     m = marks_row(*c["marks"])
     common = {"max_abs_err": 0, "bound_by": "bytes"}
+    to_ms = 1e3 / HBM_BYTES_PER_S
     return {
         "seg_runs": {**common, "ms": r["split"]["seg_runs"],
                      "plain_ms": r["plain_ms"], "library_ms": r["library_ms"],
-                     "bound_ms": r["bytes"][0] / HBM_BYTES_PER_S * 1e3},
+                     "bound_ms": r["bytes"][0] * to_ms},
         "seg_tiers": {**common, "ms": r["split"]["seg_tiers"],
                       "plain_ms": r["plain_ms"], "library_ms": r["library_ms"],
-                      "bound_ms": r["bytes"][1] / HBM_BYTES_PER_S * 1e3},
-        "seg_gather": {**common, "ms": g["ms"],
-                       "plain_ms": g["plain_ms"], "library_ms": None,
-                       "bound_ms": g["bound_ms"]},
+                      "bound_ms": r["bytes"][1] * to_ms},
+        "seg_gather": {**common, "ms": local["ms"]["chunked"],
+                       "plain_ms": local["plain_ms"], "library_ms": local["library_ms"],
+                       "bound_ms": local["bound_ms"]},
+        "gather_by_column": {**common, "ms": task["ms"]["columns"],
+                             "plain_ms": task["plain_ms"], "library_ms": task["library_ms"],
+                             "bound_ms": task["bound_ms"]},
+        # the gather's bytes split between the two: the columns read by the
+        # first, the permutation read and the columns written by the second
+        "stage_rows": {**common, "ms": split["stage_rows"], "plain_ms": glob["plain_ms"],
+                       "library_ms": glob["library_ms"],
+                       "bound_ms": column_bytes(order, columns) * to_ms},
+        "gather_rows": {**common, "ms": split["gather_rows"], "plain_ms": glob["plain_ms"],
+                        "library_ms": glob["library_ms"],
+                        "bound_ms": (glob["bytes"] - column_bytes(order, columns)) * to_ms},
         "seg_marks": {**common, "ms": m["ms"], "plain_ms": m["plain_ms"], "library_ms": None,
                       "bound_ms": m["bound_ms"]},
-        "wrappers": {"seg_sort": r, "gather_columns": g, "resplit_marks": m}}
+        "wrappers": {"seg_sort": r, "gather_columns (local)": local,
+                     "gather_columns (global)": glob, "gather_columns (a call task)": task,
+                     "resplit_marks": m}}
 
 
 def threshold_cases(tiers: tuple) -> list:
@@ -283,35 +544,61 @@ def threshold_cases(tiers: tuple) -> list:
     tier on either side of it (tiers as ops/cluster_sorts.TIERS), and the
     engine's sorts under a warp tier of twice the room (fewer warps an SM)."""
     t, w, b = tiers
-    return [("8 a segment", [(f"thread tier (tiny {t})", (t, w, b)),
-                             ("warp tier (tiny 4)", (4, w, b))]),
+    return [("4 a segment", [(f"thread tier (tiny {t})", (t, w, b)),
+                             ("warp tier (tiny 2)", (2, w, b))]),
+            ("8 a segment", [(f"thread tier (tiny {t})", (t, w, b)),
+                             ("warp tier (tiny 4)", (4, w, b)),
+                             ("warp tier (tiny 2)", (2, w, b))]),
+            ("packed", [(f"tiny {t}", (t, w, b)), ("tiny 4", (4, w, b))]),
             ("256 a segment", [(f"warp tier (warp {w})", (t, w, b)),
                                ("block tier (warp 255)", (t, 255, b))]),
             ("512 a segment", [(f"block tier (warp {w})", (t, w, b)),
                                ("warp tier (warp 512)", (t, 512, b))]),
-            ("engine sort and seed", [(f"warp {w}", (t, w, b)), ("warp 512", (t, 512, b))]),
-            ("engine resplit", [(f"warp {w}", (t, w, b)), ("warp 512", (t, 512, b))]),
+            ("engine sort and seed", [(f"warp {w}", (t, w, b)), ("warp 512", (t, 512, b)),
+                                      ("tiny 4", (4, w, b)), ("block 4096", (t, w, 4096))]),
+            ("engine resplit", [(f"warp {w}", (t, w, b)), ("warp 512", (t, 512, b)),
+                                ("tiny 4", (4, w, b)), ("block 4096", (t, w, 4096))]),
             ("8192 a segment", [(f"block in shared memory (block {b})", (t, w, b)),
                                 ("block over global scratch (block 8191)", (t, w, 8191)),
                                 ("one block an SM (block 16384)", (t, w, 16384))]),
             ("16384 a segment", [(f"block over global scratch (block {b})", (t, w, b)),
                                  ("block in shared memory (block 16384)", (t, w, 16384))]),
-            ("chain resplit", [(f"block {b}", (t, w, b)),
+            ("chain resplit", [(f"block {b}", (t, w, b)), ("block 4096", (t, w, 4096)),
                                ("one block an SM (block 16384)", (t, w, 16384))])]
+
+
+def dry_run(n: int) -> int:
+    """--device cpu: every sort case built and held (the plain version on
+    both sides), its histogram, and every gather call site captured on the
+    segmented formulation and held against the plain version."""
+    from sniffles_tpu_torch.ops import cluster_sorts as cso
+    for label, case in cases(n, "cpu").items():
+        if label != "marks":
+            hold(case, label)
+            print(f"{label}: {n} elements, {int(case[0].sum())} segments; "
+                  f"{histogram(case[5], cso.TIERS)}")
+    for label, (order, cols) in gather_sites(n, "cpu").items():
+        hold_gather(order, cols, None, label)
+        columns = sum(1 for v in cols.values() if isinstance(v, torch.Tensor) and v.dim() == 1
+                      and v.shape[0] == order.shape[0])
+        print(f"gather {label}: {columns} columns, {gather_bytes(order, cols)} bytes == plain")
+    return 0
 
 
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--n", type=int, default=1 << 21)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--dense", default=None, help="directory of the dense leg's BAM")
+    ap.add_argument("--split", action="store_true",
+                    help="the warp tier's cycles by phase (a PHASE_CLOCKS build)")
+    ap.add_argument("--no-thresholds", action="store_true")
     args = ap.parse_args()
     from sniffles_tpu_torch.ops import cluster_sorts as cso
+    print(f"time_cluster_sorts: the package at "
+          f"{os.path.dirname(os.path.dirname(os.path.dirname(cso.__file__)))}", flush=True)
     if args.device == "cpu":
-        for label, case in cases(args.n, "cpu").items():
-            if label not in ("gather", "marks"):
-                hold(case, label)
-                print(f"{label}: {args.n} elements, {int(case[0].sum())} segments")
-        return 0
+        return dry_run(args.n)
     if not torch.cuda.is_available():
         print("time_cluster_sorts: no CUDA device is visible", file=sys.stderr)
         return 2
@@ -321,34 +608,54 @@ def main() -> int:
     for label, case in all_cases.items():
         if label == "marks":
             r = marks_row(*case)
-            what = "the engine resplit's predicate (seg_marks)"
-        elif label == "gather":
-            r = gather_row(*case)
-            what = f"gather of the engine's sort and seed ({len(case[1])} columns)"
-        else:
-            r = sort_row(case, label)
-            what = f"{label}: {int(case[0].sum())} segments"
+            print(f"the engine resplit's predicate (seg_marks): == plain (bit-exact); "
+                  f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.5f} ms "
+                  f"({r['bytes']} bytes), {100 * r['bound_ms'] / r['ms']:.1f} % of it",
+                  flush=True)
+            continue
+        print(f"{label}: {histogram(case[5], cso.TIERS)}", flush=True)
+        r = sort_row(case, label)
         lib = f"{r['library_ms']:.4f}" if r["library_ms"] is not None else "none"
-        if "split" in r:
-            what += (f" (between the entry point's events: seg_runs {r['split']['seg_runs']:.4f}"
-                     f" ms, seg_tiers {r['split']['seg_tiers']:.4f} ms)")
-        print(f"{what}: == plain (bit-exact); the wrapper {r['ms']:.4f} ms, plain "
-              f"{r['plain_ms']:.4f} ms, torch.sort {lib} ms, bound "
-              f"{r['bound_ms']:.5f} ms ({sum(np.atleast_1d(r['bytes']))} bytes), "
-              f"{100 * r['bound_ms'] / r['ms']:.1f} % of it", flush=True)
-    variants = {tiers for _, sides in threshold_cases(cso.TIERS) for _, tiers in sides}
-    started = [_build.start_build("cluster_sorts", defines=cso.nvcc_defines(v))
-               for v in variants]
-    for s in started:
-        _build.finish_build(s)
-    for label, sides in threshold_cases(cso.TIERS):
-        case = all_cases[label]
-        times = []
-        for side, tiers in sides:
-            hold(case, label, tiers)
-            ms = queued_ms(lambda: cso.launch_seg_sort(*case[:5], tiers=tiers))
-            times.append(f"{side} {ms:.4f} ms")
-        print(f"threshold, {label}: the kernels (== plain): {'; '.join(times)}", flush=True)
+        split = ", ".join(f"{k} {v:.4f} ms" for k, v in r["split"].items())
+        tiers_bound = r["bytes"][1] / HBM_BYTES_PER_S * 1e3
+        print(f"  == plain (bit-exact); the wrapper {r['ms']:.4f} ms ({split}), plain "
+              f"{r['plain_ms']:.4f} ms, torch.sort {lib} ms, bound {r['bound_ms']:.5f} ms "
+              f"({sum(r['bytes'])} bytes), {100 * r['bound_ms'] / r['ms']:.1f} % of it; the "
+              f"tiers' bound {tiers_bound:.5f} ms, "
+              f"{100 * tiers_bound / max(r['split']['seg_tiers'], 1e-9):.1f} % of them",
+              flush=True)
+        if args.split:
+            ph = phase_split(case)
+            print("  warp tier by phase: " + ("no phase clocks in this package" if ph is None
+                  else f"{ph['cycles']:.4g} warp-cycles a call; " + ", ".join(
+                      f"{p} {100 * ph[p]:.1f} %" for p in PHASES)), flush=True)
+    for label, (order, cols) in gather_sites(args.n, "cuda", args.dense).items():
+        r = gather_row(order, cols, label)
+        times = ", ".join(f"{k} {v:.4f} ms ({100 * r['bound_ms'] / v:.1f} %)"
+                          for k, v in r["ms"].items())
+        print(f"gather {label}: {r['columns']} columns, == plain in every layout; {times}; "
+              f"plain {r['plain_ms']:.4f} ms, index_select a column {r['library_ms']:.4f} ms, "
+              f"bound {r['bound_ms']:.5f} ms ({r['bytes']} bytes)", flush=True)
+    if "columns" in gather_layouts():
+        for n, total in layout_crossover():
+            print(f"gather layouts at n = {n}, a call task's five gathers summed: " + ", ".join(
+                f"{k} {v:.4f} ms" for k, v in total.items()), flush=True)
+    if not args.no_thresholds:
+        variants = {tiers for _, sides in threshold_cases(cso.TIERS) for _, tiers in sides}
+        started = [_build.start_build("cluster_sorts", defines=cso.nvcc_defines(v))
+                   for v in variants]
+        for s in started:
+            _build.finish_build(s)
+        for label, sides in threshold_cases(cso.TIERS):
+            case = all_cases.get(label)
+            if case is None:
+                continue
+            times = []
+            for side, tiers in sides:
+                hold(case, label, tiers)
+                ms = queued_ms(lambda: cso.launch_seg_sort(*case[:5], tiers=tiers))
+                times.append(f"{side} {ms:.4f} ms")
+            print(f"threshold, {label}: the kernels (== plain): {'; '.join(times)}", flush=True)
     log = _build.finish_build(_build.start_build("cluster_sorts", ptxas_verbose=True))
     kernel = None
     for line in log.splitlines():

@@ -126,6 +126,12 @@ def test_seg_sort_plain_equals_jnp_lexsort(kind):
     got = cs.seg_sort(starts(b["seg_id"]), torch.from_numpy(k1), torch.from_numpy(k2),
                       alone=alone)
     assert np.array_equal(got.numpy(), want2)
+    # and every segment of one element marked alone too (between the packed
+    # segments of "packed")
+    single = np.bincount(b["seg_id"])[b["seg_id"]] == 1
+    got = cs.seg_sort(starts(b["seg_id"]), torch.from_numpy(k1), torch.from_numpy(k2),
+                      alone=torch.from_numpy(single | ~b["valid"]))
+    assert np.array_equal(got.numpy(), want2)
 
 
 def test_seg_heads_make_each_element_alone_a_segment():
@@ -137,7 +143,7 @@ def test_seg_heads_make_each_element_alone_a_segment():
     assert cs.seg_sort(seg_start, k1, alone=alone).tolist() == [1, 0, 2, 3, 4, 5]
 
 
-@pytest.mark.parametrize("kind", ["tiers", "random", "limits"])
+@pytest.mark.parametrize("kind", ["tiers", "random", "limits", "packed"])
 def test_seg_sort_through_a_base_permutation(kind):
     """With base: the element at position x is original element base[x];
     the result is base composed with the sort of the keys read through it,
@@ -465,6 +471,47 @@ def test_wrappers_take_the_plain_version_on_the_cpu_and_count_nothing():
     assert all(torch.equal(x, y) for x, y in zip(cs.seed_marks(k, k, valid, 100),
                                                    cs.seed_marks_plain(k, k, valid, 100)))
     assert all(v == 0 for v in cs.COUNTS.values())
+
+
+@pytest.mark.parametrize("unordered", [False, True])
+def test_gather_columns_takes_the_plain_version_in_either_order(unordered):
+    """On CPU tensors the gather is the plain version whatever the caller
+    says of its permutation (the word only picks the kernels' layout),
+    counting nothing; sort_and_seed and cluster_signatures pass it
+    through unchanged."""
+    cs.reset_counts()
+    rng = np.random.default_rng(4)
+    order = torch.from_numpy(rng.permutation(1000))
+    cols = {"i": torch.arange(1000, dtype=torch.int32), "b": torch.rand(1000) < 0.5,
+            "l": torch.arange(1000, dtype=torch.int64), "n": torch.tensor(3)}
+    out = cs.gather_columns(order, cols, unordered)
+    for k in ("i", "b", "l"):
+        assert torch.equal(out[k], cols[k][order])
+    assert out["n"] is cols["n"]
+    sig = tc.packed_signatures(torch.from_numpy(fuzz_call_batch(3, 2048)))
+    with segmented():
+        want = tc.sort_and_seed(sig, 100)
+        got = tc.sort_and_seed(sig, 100, unordered)
+    for w, g in zip(want, got):
+        assert all(torch.equal(w[k], g[k]) for k in w) if isinstance(w, dict) else torch.equal(w, g)
+    assert all(v == 0 for v in cs.COUNTS.values())
+
+
+@pytest.mark.parametrize("n,unordered,layout", [
+    (1, False, "columns"), (cs.COLUMNS_MAX, True, "columns"),
+    (cs.COLUMNS_MAX + 1, False, "chunked"), (cs.COLUMNS_MAX + 1, True, "rows"),
+    (1 << 21, False, "chunked"), (1 << 21, True, "rows")])
+def test_gather_layout_by_size_and_order(n, unordered, layout):
+    """The column layout up to COLUMNS_MAX elements, past it the chunked
+    one, or the rows for an unordered permutation; each a layout of the
+    kernels with its kernels named."""
+    assert cs.gather_layout(n, unordered) == layout
+    assert layout in cs.GATHER_LAYOUTS and set(cs.GATHER_KERNELS[layout]) <= set(cs.KERNELS)
+
+
+def test_launch_gather_refuses_a_layout_it_lacks():
+    with pytest.raises(ValueError, match="no layout 'diagonal'"):
+        cs.launch_gather(torch.arange(4), {"a": torch.zeros(4)}, "diagonal")
 
 
 def test_wrappers_and_stages_raise_on_another_device():

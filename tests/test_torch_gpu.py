@@ -950,24 +950,29 @@ def held_seg_sort(card, seg_start, k1, k2=None, base=None, alone=None, tiers=Non
     if tiers is None:
         assert cso.COUNTS["seg_sort"] == before["seg_sort"] + 1
         assert cso.COUNTS["seg_runs"] == before["seg_runs"] + 1
-        assert cso.COUNTS["seg_tiers"] == before["seg_tiers"] + 2
+        assert cso.COUNTS["seg_tiers"] == before["seg_tiers"] + 1
     assert got.dtype == torch.int64
     assert torch.equal(got.cpu(), want)
 
 
-SEG_SORT_KINDS = ["tiers", "random", "equal", "limits", "invalid", "huge"]
+SEG_SORT_KINDS = ["tiers", "random", "equal", "limits", "invalid", "huge", "packed"]
 
 
 @pytest.mark.parametrize("kind", SEG_SORT_KINDS)
 def test_seg_sort_kernel_matches_plain_version(card, kind):
     """Every sim.seg_sort_batch population (each tier threshold from both
     sides, presorted and all-equal segments, keys at the int32 limits, no
-    valid element, a segment of 2^20), with two keys, one key and through
-    a base permutation."""
+    valid element, a segment of 2^20, the warp tier's packed segments of 9
+    to 64), with two keys, one key and through a base permutation."""
     seg_start, k1, k2, invalid = seg_sort_case(kind)
     held_seg_sort(card, seg_start, k1, k2)
     held_seg_sort(card, seg_start, k1)
     held_seg_sort(card, seg_start, k1, k2, alone=invalid)
+    # every segment of one element marked alone too (between "packed"'s
+    # packed segments)
+    seg_id = torch.cumsum(seg_start.to(torch.int64), 0) - 1
+    single = torch.bincount(seg_id)[seg_id] == 1
+    held_seg_sort(card, seg_start, k1, k2, alone=invalid | single)
     base = torch.from_numpy(np.random.default_rng(1).permutation(k1.shape[0]))
     inverse = torch.argsort(base)
     held_seg_sort(card, seg_start, k1[inverse], k2[inverse], base)
@@ -1001,7 +1006,7 @@ def test_seg_sort_each_tier_on_every_population(card, sort_tier_builds, tiers):
     scratch; (8, 8, 8): the thread tier, then that scratch; (1, 32, 32): a
     warp up to 32, then that scratch; (2, 512, 16384): a warp up to 512, a
     block's shared memory up to 16,384: the kernels == the plain version."""
-    for kind in ("tiers", "random", "equal", "limits"):
+    for kind in ("tiers", "random", "equal", "limits", "packed"):
         seg_start, k1, k2, invalid = seg_sort_case(kind, seed=7)
         held_seg_sort(card, seg_start, k1, k2, tiers=tiers)
         held_seg_sort(card, seg_start, k1, k2, alone=invalid, tiers=tiers)
@@ -1013,7 +1018,7 @@ def test_seg_sort_events_time_its_parts(card):
     from sniffles_tpu_torch.ops import cluster_sorts as cso
     seg_start, k1, k2, invalid = seg_sort_case("random")
     want = cso.seg_sort_plain(seg_start, k1, k2, None, invalid)
-    evs = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    evs = [torch.cuda.Event(enable_timing=True) for _ in range(cso.SORT_EVENTS)]
     for e in evs:
         e.record()
     got = cso.launch_seg_sort(seg_start.to(card), k1.to(card), k2.to(card),
@@ -1057,11 +1062,81 @@ def test_gather_columns_kernel_matches_plain_version(card):
         torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
     assert cso.COUNTS["gather_columns"] == before["gather_columns"] + 1
-    assert cso.COUNTS["seg_gather"] == before["seg_gather"] + 2
+    # n at most COLUMNS_MAX: the column layout
+    assert cso.COUNTS["gather_by_column"] == before["gather_by_column"] + 2
     assert got["count"] is on_card["count"]
     for k, v in want.items():
         if k != "count":
             assert got[k].dtype == v.dtype and torch.equal(got[k].cpu(), v), k
+
+
+def gather_case(n, seed, local):
+    """A permutation of n (random, or `local`: each element moved within a
+    segment of up to 40, as the stages after sort and seed move theirs) and
+    40 columns of bool, int32, float32 and int64 (two launches of 32)."""
+    rng = np.random.default_rng(seed)
+    if local:
+        sizes = rng.integers(1, 41, n)
+        heads = np.cumsum(np.r_[0, sizes])
+        heads = heads[heads < n]
+        order = np.concatenate([h + rng.permutation(min(k, n - h))
+                                for h, k in zip(heads, sizes)])
+    else:
+        order = rng.permutation(n)
+    makers = [lambda: torch.from_numpy(rng.random(n) < 0.5),
+              lambda: torch.from_numpy(rng.integers(-2 ** 31, 2 ** 31, n, dtype=np.int64)
+                                       .astype(np.int32)),
+              lambda: torch.from_numpy(rng.standard_normal(n).astype(np.float32)),
+              lambda: torch.from_numpy(rng.integers(-2 ** 62, 2 ** 62, n))]
+    return torch.from_numpy(order), {f"c{i}": makers[i % 4]() for i in range(40)}
+
+
+@pytest.mark.parametrize("n", [1, 15, 2047, 2048, 100_003])
+@pytest.mark.parametrize("local", [False, True], ids=["random", "local"])
+def test_gather_columns_each_layout_matches_plain_version(card, n, local):
+    """Every layout of GATHER_LAYOUTS (the chunked one, the rows, a row of
+    blocks a column) on mixed element sizes, past kMaxCols columns, at n
+    below, at and past a chunk and not a multiple of one, through a random
+    and a local permutation, with each layout's launches; a column that is
+    not 16-byte aligned (a view one element in) taken too."""
+    from sniffles_tpu_torch.ops import cluster_sorts as cso
+    order, cols = gather_case(n, 3, local)
+    cols["odd"] = torch.arange(n + 1, dtype=torch.int32)[1:]
+    want = cso.gather_columns_plain(order, cols)
+    on = {k: v.to(card) for k, v in cols.items()}
+    on["odd"] = torch.arange(n + 1, dtype=torch.int32, device=card)[1:]
+    for layout in cso.GATHER_LAYOUTS:
+        got, launches = cso.launch_gather(order.to(card), on, layout)
+        torch.cuda.synchronize()
+        assert launches == {k: 2 for k in cso.GATHER_KERNELS[layout]}, layout
+        for k, v in want.items():
+            assert got[k].dtype == v.dtype and torch.equal(got[k].cpu(), v), (layout, k)
+
+
+@pytest.mark.parametrize("unordered", [False, True])
+def test_gather_columns_picks_its_layout_by_size(card, unordered):
+    """Past COLUMNS_MAX elements the wrapper launches the chunked layout, or
+    the rows where the caller calls its permutation unordered, and counts
+    that layout's kernels; the result == the plain version."""
+    from sniffles_tpu_torch.ops import cluster_sorts as cso
+    n = cso.COLUMNS_MAX + 4099
+    order, cols = gather_case(n, 5, not unordered)
+    want = cso.gather_columns_plain(order, cols)
+    before = dict(cso.COUNTS)
+    got = cso.gather_columns(order.to(card), {k: v.to(card) for k, v in cols.items()},
+                             unordered)
+    torch.cuda.synchronize()
+    for k in cso.GATHER_KERNELS["rows" if unordered else "chunked"]:
+        assert cso.COUNTS[k] == before[k] + 2, k
+    for k, v in want.items():
+        assert torch.equal(got[k].cpu(), v), k
+
+
+def test_gather_columns_refuses_a_layout_it_lacks(card):
+    from sniffles_tpu_torch.ops import cluster_sorts as cso
+    with pytest.raises(ValueError, match="no layout"):
+        cso.launch_gather(torch.arange(4, device=card), {"a": torch.zeros(4, device=card)},
+                          "diagonal")
 
 
 def marks_case(n, seed):
