@@ -29,15 +29,14 @@ Phases, each of which must pass:
      sim.greedy_flush_wide_payloads;
   2e. the clustering's segmented sorts (csrc/cluster_sorts.cu: the run
      pass and the thread tier, the warp and block tiers, the gather of
-     many columns in every layout, the stages' predicates) against their
+     many columns, the stages' predicates) against their
      plain versions on CPU copies of the same inputs, bit for bit:
      sim.seg_sort_batch's populations (segments of 1, of each tier
      threshold and one either side of it, presorted and all-equal
      segments, keys at the int32 limits, no valid element, a segment of
      2^20, the warp tier's packed segments of 9 to 64) with two keys, one
      key and through a base permutation; then every seg_sort,
-     gather_columns (and each gather again in every layout) and predicate
-     call of call_task_packed on sim.fuzz_call_batch seeds 1 and 2 (n =
+     gather_columns and predicate call of call_task_packed on sim.fuzz_call_batch seeds 1 and 2 (n =
      32,768) and sim.edge_call_batches(), and of the engine's clustering on
      phase 10d's 2^21 batch and on chain2^21 (segments of up to 3,689: the
      block tier);
@@ -219,10 +218,9 @@ Then (5) the kernels' timings on the inputs of the main paths' largest
 launches (CUDA events) beside their bounds and plain versions (the
 greedy's: combine256's dispatch of the most candidates, the kernel against
 the torch loop on the card; the segmented sorts' at the engine step's 2^21
-signatures, beside one torch.sort of the same permutation, the resplit's
-gather (a local permutation, the chunked layout) and sort and seed's (a
-random one, the row layout) and a call task's fold at n = 65,536 (the
-column layout), each in every layout, beside index_select a column), the
+signatures, beside one torch.sort of the same permutation, sort and
+seed's gather (a random permutation), the resplit's (a local one) and a
+call task's fold at n = 65,536, each beside index_select a column), the
 sweep's device time on phase 2b's fuzz batches and chain, the fused
 sweep of phase 2c's k = 4 stack against its k single sweeps, the host
 synchronisations of call_task_packed and batched_call_task on the card
@@ -699,8 +697,8 @@ def captured_sorts():
                      perm.cpu()))
         return perm
 
-    def keep_gather(order, columns, unordered=False):
-        out = gather(order, columns, unordered)
+    def keep_gather(order, columns):
+        out = gather(order, columns)
         kept.append(("gather", (order.cpu(), {k: cpu(v) for k, v in columns.items()}),
                      {k: cpu(v) for k, v in out.items()}))
         return out
@@ -743,16 +741,6 @@ def hold_sorts(kept, what) -> tuple:
                     isinstance(v, torch.Tensor) and not torch.equal(got[k], v)
                     for k, v in want.items()):
                 fail(f"{what}: gather_columns call {gathers} differs from its plain version")
-            # every layout on the same inputs (launches outside the main
-            # path's counts, which phase 4 reads after its own run)
-            order, columns = args
-            on = {k: v.cuda() if isinstance(v, torch.Tensor) else v for k, v in columns.items()}
-            for layout in cso.GATHER_LAYOUTS:
-                out = cso.launch_gather(order.cuda(), on, layout)[0]
-                if any(isinstance(v, torch.Tensor) and not torch.equal(out[k].cpu(), v)
-                       for k, v in want.items()):
-                    fail(f"{what}: gather_columns call {gathers} in the {layout} layout "
-                         f"differs from its plain version")
             gathers += 1
     return sorts, gathers, marks, largest
 
@@ -830,12 +818,10 @@ def check_cluster_sorts(meta):
 def check_sort_launches(launches, tasks, what):
     """A call task's five sorts and gathers (sort and seed, the fold, the
     resplit's child ids, the two tallies), one launch of the run pass and
-    one of the tiers a sort, one gather launch a gather (the column layout:
-    a task has at most cluster_sorts.COLUMNS_MAX elements), and two
-    predicates (the seeds, the fold), one launch each."""
+    one of the tiers a sort, one gather launch a gather, and two predicates
+    (the seeds, the fold), one launch each."""
     want = {"seg_sort": 5 * tasks, "gather_columns": 5 * tasks, "marks": 2 * tasks,
-            "seg_runs": 5 * tasks, "seg_tiers": 5 * tasks, "seg_gather": 0,
-            "gather_by_column": 5 * tasks, "stage_rows": 0, "gather_rows": 0,
+            "seg_runs": 5 * tasks, "seg_tiers": 5 * tasks, "seg_gather": 5 * tasks,
             "seg_marks": 2 * tasks}
     if launches != want:
         fail(f"{what}: the segmented sorts launched {launches}, want {want} for {tasks} tasks")
@@ -1109,38 +1095,34 @@ def time_sweep_kernel(inputs, state, meta):
 # the XLA work each kernel of csrc/cluster_sorts.cu takes the place of: the
 # resplit's lexsort of _cluster_body (where the run pass and the tiers are
 # timed, beside one torch.sort of the same permutation), _apply_order (the
-# gathers: the chunked layout timed on the resplit's, the row layout on
-# sort and seed's, the column layout on a call task's fold at n = 65,536),
-# and the resplit's split predicate (where seg_marks is timed)
+# gather, timed on sort and seed's), and the resplit's split predicate
+# (where seg_marks is timed)
 SORT_REPLACES = {"seg_runs": "sniffles_tpu/ops/clustering.py:775",
                  "seg_tiers": "sniffles_tpu/ops/clustering.py:775",
                  "seg_gather": "sniffles_tpu/ops/clustering.py:57",
-                 "gather_by_column": "sniffles_tpu/ops/clustering.py:57",
-                 "stage_rows": "sniffles_tpu/ops/clustering.py:57",
-                 "gather_rows": "sniffles_tpu/ops/clustering.py:57",
                  "seg_marks": "sniffles_tpu/ops/clustering.py:788"}
 
 
 def time_cluster_sorts() -> dict:
     """Phase 5's rows of the segmented sorts at the engine step's 2^21
     signatures (tools/time_cluster_sorts.kernel_rows: the resplit's sort,
-    its gather (a local permutation) and sort and seed's (a random one),
-    and a call task's fold at dense3's width; each held against its plain
-    version first): {kernel: row}."""
+    sort and seed's gather (a random permutation) and the resplit's (a
+    local one), and a call task's fold at dense3's width; each held against
+    its plain version first): {kernel: row}."""
     from sniffles_tpu_torch.tools.time_cluster_sorts import TASK_N, kernel_rows
     rows = kernel_rows(1 << 21)
-    where = {"gather_columns (global)": "at 2^21, the engine's sort and seed",
+    where = {"gather_columns (sort and seed)": "at 2^21, the engine's sort and seed",
+             "gather_columns (resplit)": "at 2^21, the engine's resplit",
              "gather_columns (a call task)": f"at n = {TASK_N}, a call task's fold"}
     for name, r in rows.pop("wrappers").items():
         lib = f"{r['library_ms']:.4f} ms" if r["library_ms"] is not None else "none"
         stage = where.get(name, "at 2^21, the engine's resplit")
-        if isinstance(r["ms"], dict):   # a gather, in every layout
-            ms = ", ".join(f"{k} {v:.4f} ms ({100 * r['bound_ms'] / v:.1f} % of the bound)"
-                           for k, v in r["ms"].items())
-            print(f"  {name} ({stage}, {r['columns']} columns): {ms}; "
+        if "columns" in r:   # a gather
+            print(f"  {name} ({stage}, {r['columns']} columns): {r['ms']:.4f} ms, "
                   f"plain {r['plain_ms']:.4f} ms, index_select a column {lib}, bound "
                   f"{r['bound_ms']:.5f} ms ({r['bytes']} bytes at "
-                  f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s)", flush=True)
+                  f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s), {100 * r['bound_ms'] / r['ms']:.1f} % "
+                  f"of it", flush=True)
             continue
         split = "".join(f", {k} {v:.4f} ms" for k, v in r.get("split", {}).items())
         print(f"  {name} ({stage}): the wrapper {r['ms']:.4f} ms{split}, "

@@ -73,24 +73,12 @@
 // seed (the bins and the seed boundaries), the resplit's splits, the inner
 // fold's merge flags (each kind's plain version: ops/cluster_sorts.py).
 //
-// The gather, out_c[x] = col_c[order[x]] for up to kMaxCols columns of 1, 4
-// or 8 bytes an element (bool, int32, float32 as bits, int64) a launch, the
-// column pointers in the kernel's parameters (read from the constant bank:
-// __grid_constant__), in one of three layouts, each right for any
-// permutation (the wrapper picks one by n and the caller's word on the
-// permutation: ops/cluster_sorts.gather_layout):
-//   * gather_by_column (columns; up to 2^20 elements, every call task): a
-//     row of blocks a column, the permutation read again for each, from the
-//     L2 cache, which holds a batch of that size;
-//   * seg_gather (chunked; past 2^20, elements moved within their
-//     segments): a block reads a chunk of kChunk permutation entries once,
-//     into shared memory as int32, then copies every column for the chunk,
-//     16-byte stores;
-//   * stage_rows, then gather_rows (rows; past 2^20, elements moved to
-//     random places, as the engine's sort and seed moves them): the columns
-//     packed into rows of 16-byte multiples (8-byte columns first, then 4,
-//     then bytes), each element's row read through the permutation at once
-//     (a row of up to 32 bytes is one sector), then written out as columns.
+// seg_gather: out_c[x] = col_c[order[x]] for up to kMaxCols columns of 1,
+// 4 or 8 bytes an element (bool, int32, float32 as bits, int64) a launch,
+// the column pointers in the kernel's parameters (__grid_constant__), right
+// for any permutation: a block reads a chunk's permutation entries once, into
+// shared memory as int32, then copies every column for the chunk as 16-byte
+// units, the chunk shrunk on a small batch so that the grid fills every SM.
 //
 // Bound: bytes. seg_sort must read seg_start (1 byte), k1 (4), k2 (4 where
 // given) and the base permutation (8 where given) and write the int64
@@ -118,7 +106,7 @@ namespace {
 
 typedef unsigned long long u64;
 
-constexpr int kThreads = 256;       // seg_runs', seg_gather's and gather_by_column's blocks
+constexpr int kThreads = 256;       // seg_runs' and seg_gather's blocks
 constexpr int kTierThreads = 512;   // seg_tiers' blocks (16 warps, or a block a segment)
 constexpr int kTinyCap = 8;         // the most elements a thread sorts in registers
 constexpr int kTinyMax = SORT_TINY_MAX;    // the thread tier's largest segment
@@ -128,12 +116,8 @@ static_assert(kTinyMax >= 1 && kTinyMax <= kTinyCap, "a thread sorts 1 to kTinyC
 static_assert(kWarpMax >= kTinyMax && kBlockMax >= kWarpMax, "the tiers ascend");
 constexpr int kMaxCols = 32;        // columns a gather launch takes
 constexpr int kSearchStep = 4;      // elements a thread tests a step of a block's end search
-constexpr int kChunk = 2048;        // output positions a seg_gather block takes at a time
-constexpr int kGatherUnroll = 4;    // elements a gather_by_column thread takes an iteration
-constexpr int kGatherBlocks = 4;    // gather_by_column's blocks an SM, a column
+constexpr int kChunk = 2048;        // the most output positions a seg_gather block takes at a time
 constexpr int kChunkBlocks = 8;     // seg_gather's blocks an SM
-constexpr int kRowElems = 128;      // elements (and threads) of a row layout block
-constexpr int kRowBlocks = 16;      // the row layout's blocks an SM
 constexpr unsigned kFull = 0xffffffffu;
 
 // The warp tier's time by phase, in a build with -DSORT_PHASE_CLOCKS only
@@ -599,14 +583,15 @@ seg_tiers(Sort a, const int2* __restrict__ lists, int32_t* __restrict__ counts,
   }
 }
 
-// a launch's columns: pointers, element sizes (1, 4 or 8 bytes) and, for
-// the row layout, each column's byte offset in a row of `row` bytes
+// a launch's columns: pointers and element sizes (1, 4 or 8 bytes), and a
+// full chunk's 16-byte units of each (chunk * size / 16): column j's are the
+// units unit[j] to unit[j + 1] - 1
 struct Cols {
   const void* src[kMaxCols];
   void* dst[kMaxCols];
   int size[kMaxCols];
-  int offset[kMaxCols];
-  int count, row;
+  int unit[kMaxCols + 1];
+  int count, chunk;
 };
 
 // 16 bytes of V = 16 / sizeof(T) elements, as one vector store takes them
@@ -627,201 +612,96 @@ __device__ __forceinline__ uint4 pack16(const T* v) {
   }
 }
 
-// The chunk's m output positions x0 + i of one column: dst[x0 + i] =
-// src[idx[i]], V = 16 / sizeof(T) elements a thread (their sources read
-// from the shared index by one vector load, then loaded, then stored as 16
-// bytes where dst is 16-byte aligned), the ragged end one element a thread.
+// One 16-byte unit of a column: dst[i + v] = src[idx[i + v]] for its V =
+// 16 / sizeof(T) elements, their sources read from the shared index as
+// vectors, the V loads issued together, one 16-byte store (dst + i is
+// 16-byte aligned).
 template <typename T>
-__device__ __forceinline__ void copy_chunk(const T* __restrict__ src, T* __restrict__ dst,
-                                           const int* idx, int x0, int m) {
+__device__ __forceinline__ void copy_unit(const void* src_, void* dst_, const int* idx, int i) {
   constexpr int V = 16 / sizeof(T);
-  int done = 0;
-  if ((reinterpret_cast<uintptr_t>(dst) & 15) == 0) {
-    const int nv = m / V;
-#pragma unroll 2
-    for (int v = threadIdx.x; v < nv; v += blockDim.x) {
-      int j[V];
-      if constexpr (V == 2) {
-        const int2 q = reinterpret_cast<const int2*>(idx)[v];
-        j[0] = q.x;
-        j[1] = q.y;
-      } else {
+  const T* __restrict__ src = static_cast<const T*>(src_);
+  T v[V];
+  if constexpr (V == 2) {
+    const int2 q = *reinterpret_cast<const int2*>(idx + i);
+    v[0] = src[q.x];
+    v[1] = src[q.y];
+  } else {
 #pragma unroll
-        for (int u = 0; u < V; u += 4) {
-          const int4 q = reinterpret_cast<const int4*>(idx + V * v)[u / 4];
-          j[u] = q.x;
-          j[u + 1] = q.y;
-          j[u + 2] = q.z;
-          j[u + 3] = q.w;
-        }
-      }
-      T vals[V];
-#pragma unroll
-      for (int u = 0; u < V; ++u) vals[u] = src[j[u]];
-      reinterpret_cast<uint4*>(dst + x0)[v] = pack16(vals);
+    for (int u = 0; u < V; u += 4) {
+      const int4 q = *reinterpret_cast<const int4*>(idx + i + u);
+      v[u] = src[q.x];
+      v[u + 1] = src[q.y];
+      v[u + 2] = src[q.z];
+      v[u + 3] = src[q.w];
     }
-    done = nv * V;
   }
-  for (int i = done + threadIdx.x; i < m; i += blockDim.x) dst[x0 + i] = src[idx[i]];
+  *reinterpret_cast<uint4*>(static_cast<T*>(dst_) + i) = pack16(v);
 }
 
-// seg_gather (the chunked layout): a resident grid, a block kChunk
-// consecutive output positions at a time. The block reads the chunk's
-// permutation entries once, into shared memory as int32, then copies every
-// column of the launch for the chunk, its threads covering each column in
-// turn: the permutation is read once an element, not once a column, and
-// each write is a coalesced 16-byte store. The columns are read from the
-// parameters, which stay in the constant bank (__grid_constant__).
+template <typename T>
+__device__ __forceinline__ void copy_one(const void* src, void* dst, int to, int from) {
+  static_cast<T*>(dst)[to] = static_cast<const T*>(src)[from];
+}
+
+// seg_gather: a resident grid, a block c.chunk consecutive output positions
+// at a time (kChunk, or fewer where the batch is too small to give every SM
+// kChunkBlocks blocks of kChunk: the entry point's chunk). The block reads
+// the chunk's permutation entries once, into shared memory as int32, then
+// its threads take the 16-byte units of all the chunk's columns at once, in
+// column order, each unit's loads issued together and written as one
+// coalesced 16-byte store; a partial last chunk an element a thread. The
+// permutation is read once an element, not once a column. The columns'
+// pointers, sizes and units are copied from the parameters to shared
+// memory, where a unit's column is found by a binary search.
 __global__ void __launch_bounds__(kThreads)
 seg_gather(const int64_t* __restrict__ order, const __grid_constant__ Cols c, int n) {
   __shared__ __align__(16) int idx[kChunk];
-  for (int x0 = blockIdx.x * kChunk; x0 < n; x0 += gridDim.x * kChunk) {
-    const int m = min(kChunk, n - x0);
+  __shared__ const void* src[kMaxCols];
+  __shared__ void* dst[kMaxCols];
+  __shared__ int size[kMaxCols], unit[kMaxCols + 1];
+  for (int j = threadIdx.x; j <= c.count; j += blockDim.x) {
+    unit[j] = c.unit[j];
+    if (j < c.count) {
+      src[j] = c.src[j];
+      dst[j] = c.dst[j];
+      size[j] = c.size[j];
+    }
+  }
+  // the chunk loop's first __syncthreads orders these writes before any read
+  for (int x0 = blockIdx.x * c.chunk; x0 < n; x0 += gridDim.x * c.chunk) {
+    const int m = min(c.chunk, n - x0);
     for (int i = threadIdx.x; i < m; i += blockDim.x) idx[i] = static_cast<int>(order[x0 + i]);
     __syncthreads();
-    for (int j = 0; j < c.count; ++j) {
-      if (c.size[j] == 4) {
-        copy_chunk(static_cast<const uint32_t*>(c.src[j]), static_cast<uint32_t*>(c.dst[j]),
-                   idx, x0, m);
-      } else if (c.size[j] == 1) {
-        copy_chunk(static_cast<const uint8_t*>(c.src[j]), static_cast<uint8_t*>(c.dst[j]),
-                   idx, x0, m);
-      } else {
-        copy_chunk(static_cast<const u64*>(c.src[j]), static_cast<u64*>(c.dst[j]), idx, x0, m);
+    if (m == c.chunk) {
+      for (int u = threadIdx.x; u < unit[c.count]; u += blockDim.x) {
+        int j = 0;  // the unit's column: the last j with unit[j] <= u
+#pragma unroll
+        for (int step = kMaxCols / 2; step > 0; step /= 2)
+          if (j + step < c.count && unit[j + step] <= u) j += step;
+        const int i = (u - unit[j]) * (16 / size[j]);
+        if (size[j] == 4) {
+          copy_unit<uint32_t>(src[j], static_cast<uint32_t*>(dst[j]) + x0, idx, i);
+        } else if (size[j] == 1) {
+          copy_unit<uint8_t>(src[j], static_cast<uint8_t*>(dst[j]) + x0, idx, i);
+        } else {
+          copy_unit<u64>(src[j], static_cast<u64*>(dst[j]) + x0, idx, i);
+        }
+      }
+    } else {
+      for (int e = threadIdx.x; e < m * c.count; e += blockDim.x) {
+        const int j = e / m, i = e - j * m;
+        if (size[j] == 4) {
+          copy_one<uint32_t>(src[j], dst[j], x0 + i, idx[i]);
+        } else if (size[j] == 1) {
+          copy_one<uint8_t>(src[j], dst[j], x0 + i, idx[i]);
+        } else {
+          copy_one<u64>(src[j], dst[j], x0 + i, idx[i]);
+        }
       }
     }
     __syncthreads();  // idx is read before the next chunk writes it
   }
 }
-
-// gather_by_column (the column layout): out_c[x] = col_c[order[x]] for the
-// column of blockIdx.y, a grid-stride loop of kGatherUnroll elements a
-// thread an iteration, their loads issued before their stores; the
-// permutation is read once a column. Its parameters are read through the
-// constant bank by the column's index: selected by an unrolled compare
-// instead, the same kernel took twice as long at n = 65,536 (0.0165 ms
-// against 0.006-0.007; PERF.md §6).
-template <typename T>
-__device__ __forceinline__ void gather_column(const int64_t* __restrict__ order,
-                                              const T* __restrict__ src, T* __restrict__ dst,
-                                              int n) {
-  const int stride = gridDim.x * blockDim.x;
-  for (int x0 = blockIdx.x * blockDim.x + threadIdx.x; x0 < n; x0 += kGatherUnroll * stride) {
-    T v[kGatherUnroll];
-#pragma unroll
-    for (int r = 0; r < kGatherUnroll; ++r) {
-      const int x = x0 + r * stride;
-      if (x < n) v[r] = src[order[x]];
-    }
-#pragma unroll
-    for (int r = 0; r < kGatherUnroll; ++r) {
-      const int x = x0 + r * stride;
-      if (x < n) dst[x] = v[r];
-    }
-  }
-}
-
-__global__ void __launch_bounds__(kThreads)
-gather_by_column(const int64_t* __restrict__ order, const __grid_constant__ Cols c, int n) {
-  const int j = blockIdx.y;
-  if (c.size[j] == 4) {
-    gather_column(order, static_cast<const int32_t*>(c.src[j]), static_cast<int32_t*>(c.dst[j]),
-                  n);
-  } else if (c.size[j] == 1) {
-    gather_column(order, static_cast<const uint8_t*>(c.src[j]), static_cast<uint8_t*>(c.dst[j]),
-                  n);
-  } else {
-    gather_column(order, static_cast<const int64_t*>(c.src[j]), static_cast<int64_t*>(c.dst[j]),
-                  n);
-  }
-}
-
-// The row layout's tile: kRowElems rows of c.row / 4 + 1 words in shared
-// memory (the odd stride keeps a warp's word accesses to one row each on 32
-// banks); an element's column j at byte c.offset[j] of its row.
-__device__ __forceinline__ void column_to_tile(const Cols& c, int j, uint32_t* row, int x) {
-  const int off = c.offset[j];
-  if (c.size[j] == 4) {
-    row[off / 4] = static_cast<const uint32_t*>(c.src[j])[x];
-  } else if (c.size[j] == 1) {
-    reinterpret_cast<uint8_t*>(row)[off] = static_cast<const uint8_t*>(c.src[j])[x];
-  } else {
-    const u64 v = static_cast<const u64*>(c.src[j])[x];
-    row[off / 4] = static_cast<uint32_t>(v);
-    row[off / 4 + 1] = static_cast<uint32_t>(v >> 32);
-  }
-}
-
-__device__ __forceinline__ void tile_to_column(const Cols& c, int j, const uint32_t* row, int x) {
-  const int off = c.offset[j];
-  if (c.size[j] == 4) {
-    static_cast<uint32_t*>(c.dst[j])[x] = row[off / 4];
-  } else if (c.size[j] == 1) {
-    static_cast<uint8_t*>(c.dst[j])[x] = reinterpret_cast<const uint8_t*>(row)[off];
-  } else {
-    static_cast<u64*>(c.dst[j])[x] = row[off / 4] | (static_cast<u64>(row[off / 4 + 1]) << 32);
-  }
-}
-
-// stage_rows (the row layout's first pass): every column of element x packed
-// into row x of `rows` (c.row bytes, a multiple of 16): a thread an element
-// into the tile, then the tile out as 16-byte stores.
-__global__ void __launch_bounds__(kRowElems)
-stage_rows(const __grid_constant__ Cols c, uint8_t* __restrict__ rows, int n) {
-  extern __shared__ uint32_t tile[];
-  const int words = c.row / 4, stride = words + 1;
-  for (int x0 = blockIdx.x * kRowElems; x0 < n; x0 += gridDim.x * kRowElems) {
-    const int m = min(kRowElems, n - x0);
-    if (static_cast<int>(threadIdx.x) < m) {
-      for (int j = 0; j < c.count; ++j)
-        column_to_tile(c, j, tile + threadIdx.x * stride, x0 + threadIdx.x);
-    }
-    __syncthreads();
-    uint32_t* out = reinterpret_cast<uint32_t*>(rows + static_cast<size_t>(x0) * c.row);
-    for (int q = 4 * threadIdx.x; q < m * words; q += 4 * blockDim.x) {
-      const int t = q / words;  // q to q + 3 lie in row t: words is a multiple of 4
-      const uint32_t* w = tile + t * stride + (q - t * words);
-      *reinterpret_cast<uint4*>(out + q) = make_uint4(w[0], w[1], w[2], w[3]);
-    }
-    __syncthreads();  // the tile is read before the next rows write it
-  }
-}
-
-// gather_rows (the row layout's second pass): out_c[x] = col_c[order[x]]
-// for every column at once: each element's row read through the permutation
-// as 16-byte loads (a 32-byte row is one sector, where the column layout
-// reads one sector a column), into the tile, then each column written out
-// coalesced.
-__global__ void __launch_bounds__(kRowElems)
-gather_rows(const int64_t* __restrict__ order, const uint8_t* __restrict__ rows,
-            const __grid_constant__ Cols c, int n) {
-  extern __shared__ uint32_t tile[];
-  __shared__ int64_t from[kRowElems];
-  const int words = c.row / 4, stride = words + 1, quads = words / 4;
-  for (int x0 = blockIdx.x * kRowElems; x0 < n; x0 += gridDim.x * kRowElems) {
-    const int m = min(kRowElems, n - x0);
-    if (static_cast<int>(threadIdx.x) < m) from[threadIdx.x] = order[x0 + threadIdx.x];
-    __syncthreads();
-    for (int q = threadIdx.x; q < m * quads; q += blockDim.x) {
-      const int t = q / quads, w = 4 * (q - t * quads);
-      const uint4 v = *reinterpret_cast<const uint4*>(rows + from[t] * c.row + 4 * w);
-      uint32_t* d = tile + t * stride + w;
-      d[0] = v.x;
-      d[1] = v.y;
-      d[2] = v.z;
-      d[3] = v.w;
-    }
-    __syncthreads();
-    if (static_cast<int>(threadIdx.x) < m) {
-      for (int j = 0; j < c.count; ++j)
-        tile_to_column(c, j, tile + threadIdx.x * stride, x0 + threadIdx.x);
-    }
-    __syncthreads();  // the tile and `from` are read before the next rows write them
-  }
-}
-
-// the gather layouts (ops/cluster_sorts.GATHER_LAYOUTS, in that order)
-enum Layout { kChunked = 0, kRows = 1, kByColumn = 2 };
 
 // ---- seg_marks: a stage's per-element predicate in one pass --------------
 
@@ -1028,70 +908,43 @@ extern "C" int seg_sort(const uint8_t* seg_start, const int32_t* k1, const int32
 }
 
 // dst[c][x] = src[c][order[x]] for x < n and each of ncols columns of
-// sizes[c] bytes an element (1, 4 or 8), in one of the layouts of
-// ops/cluster_sorts.GATHER_LAYOUTS (Layout): every kMaxCols columns one
-// seg_gather launch (kChunked), a stage_rows and a gather_rows launch
-// through `rows` (kRows: rows_bytes bytes, at least n times the widest
-// launch's row, 16-byte aligned) or one gather_by_column launch
-// (kByColumn), on stream s; returns the first error.
-// events: null, or three CUDA events recorded before the first launch,
-// between a row layout's two and after the last (a timing tool's).
+// sizes[c] bytes an element (1, 4 or 8; each dst 16-byte aligned): one
+// seg_gather launch every kMaxCols columns on stream s; returns the first
+// error.
 extern "C" int gather_columns(const int64_t* order, const void* const* src, void* const* dst,
-                              const int32_t* sizes, int ncols, int n, int layout,
-                              uint8_t* rows, long long rows_bytes, cudaEvent_t const* events,
-                              cudaStream_t s) {
-  if (n <= 0 || ncols <= 0 || layout < kChunked || layout > kByColumn)
-    return static_cast<int>(cudaErrorInvalidValue);
+                              const int32_t* sizes, int ncols, int n, cudaStream_t s) {
+  if (n <= 0 || ncols <= 0) return static_cast<int>(cudaErrorInvalidValue);
   Config cfg;
   const cudaError_t cfg_err = config_for(&cfg);
   if (cfg_err != cudaSuccess) {
     cudaGetLastError();
     return static_cast<int>(cfg_err);
   }
-  cudaError_t err = mark(events, 0, s);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  // the chunk: kChunk, or on a batch too small to give every SM
+  // kChunkBlocks blocks of it, n over those blocks, a multiple of 16
+  const long long blocks = static_cast<long long>(cfg.sms) * kChunkBlocks;
+  const long long even = ((n + blocks - 1) / blocks + 15) / 16 * 16;
+  const int chunk = static_cast<int>(even < kChunk ? even : kChunk);
   for (int c0 = 0; c0 < ncols; c0 += kMaxCols) {
     Cols c{};
     c.count = ncols - c0 < kMaxCols ? ncols - c0 : kMaxCols;
-    // a row: the 8-byte columns first, then the 4-byte, then the bytes
-    for (int size = 8; size >= 1; size /= 2) {
-      for (int j = 0; j < c.count; ++j) {
-        if (sizes[c0 + j] != size) continue;
-        c.offset[j] = c.row;
-        c.row += size;
-      }
-    }
-    c.row = (c.row + 15) / 16 * 16;
+    c.chunk = chunk;
     for (int j = 0; j < c.count; ++j) {
       const int size = sizes[c0 + j];
-      if (size != 1 && size != 4 && size != 8) return static_cast<int>(cudaErrorInvalidValue);
+      if ((size != 1 && size != 4 && size != 8) ||
+          (reinterpret_cast<uintptr_t>(dst[c0 + j]) & 15) != 0)
+        return static_cast<int>(cudaErrorInvalidValue);
       c.src[j] = src[c0 + j];
       c.dst[j] = dst[c0 + j];
       c.size[j] = size;
+      c.unit[j + 1] = c.unit[j] + chunk * size / 16;
     }
-    if (layout == kRows) {
-      if (rows == nullptr || static_cast<long long>(c.row) * n > rows_bytes ||
-          (reinterpret_cast<uintptr_t>(rows) & 15) != 0)
-        return static_cast<int>(cudaErrorInvalidValue);
-      const int blocks = grid(cfg.sms, kRowBlocks, (n + kRowElems - 1) / kRowElems);
-      const size_t tile = sizeof(uint32_t) * kRowElems * (c.row / 4 + 1);
-      stage_rows<<<blocks, kRowElems, tile, s>>>(c, rows, n);
-      err = cudaGetLastError();
-      if (err == cudaSuccess) err = mark(events, 1, s);
-      if (err != cudaSuccess) return static_cast<int>(err);
-      gather_rows<<<blocks, kRowElems, tile, s>>>(order, rows, c, n);
-    } else if (layout == kByColumn) {
-      const long long per = static_cast<long long>(kThreads) * kGatherUnroll;
-      const int blocks = grid(cfg.sms, kGatherBlocks, (n + per - 1) / per);
-      gather_by_column<<<dim3(blocks, c.count), kThreads, 0, s>>>(order, c, n);
-    } else {
-      seg_gather<<<grid(cfg.sms, kChunkBlocks, (n + kChunk - 1) / kChunk), kThreads, 0, s>>>(
-          order, c, n);
-    }
-    err = cudaGetLastError();
+    seg_gather<<<grid(cfg.sms, kChunkBlocks, (n + chunk - 1) / chunk), kThreads, 0, s>>>(
+        order, c, n);
+    const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  return static_cast<int>(mark(events, 2, s));
+  return static_cast<int>(cudaSuccess);
 }
 
 // A stage's per-element predicate over n elements (seg_marks; kind and

@@ -25,10 +25,10 @@ segments and sorts those of at most TINY_MAX elements by a thread each
 (`seg_runs`), a warp a segment up to WARP_MAX (segments of up to 32 dealt
 several to a warp) and a block a larger one, in shared memory up to
 BLOCK_MAX elements and in a global scratch buffer past it (`seg_tiers`,
-one launch for both), a gather of up to 32 columns a launch in the layout
-gather_layout picks (`gather_by_column`; `seg_gather`; `stage_rows` and
-`gather_rows`), and the predicates, one launch each (`seg_marks`). No host
-synchronisation, no cap on a segment's size.
+one launch for both), a gather of up to 32 columns a launch that reads
+the permutation once an element (`seg_gather`), and the predicates, one
+launch each (`seg_marks`). No host synchronisation, no cap on a segment's
+size.
 The thresholds are built into the kernels (nvcc_defines), chosen on the card
 by tools/time_cluster_sorts.py (PERF.md).
 """
@@ -42,11 +42,10 @@ from sniffles_tpu_torch.ops._call_consts import SVTYPE_CODES
 from sniffles_tpu_torch.ops.segments import lexsort, segment_ids_from_boundaries, shift_prev
 
 # Launches by the wrappers: "seg_sort", "gather_columns" and "marks" one a
-# call, and one a launch of each kernel of csrc/cluster_sorts.cu (a gather
-# launches its layout's kernels once for every 32 columns); they add to them
-# only where they launch the kernels.
-KERNELS = ("seg_runs", "seg_tiers", "seg_gather", "stage_rows", "gather_rows",
-           "gather_by_column", "seg_marks")
+# call, and one a launch of each kernel of csrc/cluster_sorts.cu (seg_gather
+# once for every 32 columns); they add to them only where they launch the
+# kernels.
+KERNELS = ("seg_runs", "seg_tiers", "seg_gather", "seg_marks")
 COUNTS = {"seg_sort": 0, "gather_columns": 0, "marks": 0, **{k: 0 for k in KERNELS}}
 
 # the stage predicates of the seg_marks kernel (its MarkKind)
@@ -63,36 +62,9 @@ WARP_MAX = 256
 BLOCK_MAX = 8192
 TIERS = (TINY_MAX, WARP_MAX, BLOCK_MAX)
 
-# element sizes the gather kernels move, and the columns a launch takes
+# element sizes the gather kernel moves, and the columns a launch takes
 _GATHER_SIZES = (1, 4, 8)
 _MAX_COLS = 32
-
-# The gather's layouts (csrc/cluster_sorts.cu Layout, in its order) and
-# each one's kernels, each right for any permutation: "chunked", a block
-# reads a chunk's permutation entries once and copies every column for it
-# (seg_gather); "rows", the columns packed into rows and each element's row
-# read at once (stage_rows, gather_rows); "columns", a row of blocks a
-# column, the permutation read once a column (gather_by_column). The
-# wrapper picks one by n and the caller's word on the permutation
-# (gather_layout): up to COLUMNS_MAX elements, whose columns and
-# permutation the L2 cache holds, the column layout is the fastest; past
-# it, chunked where each element moves within its segment, rows where it
-# moves to a random place (tools/time_cluster_sorts.py's crossover and
-# call sites; PERF.md §6).
-GATHER_LAYOUTS = ("chunked", "rows", "columns")
-COLUMNS_MAX = 1 << 20
-GATHER_KERNELS = {"chunked": ("seg_gather",), "rows": ("stage_rows", "gather_rows"),
-                  "columns": ("gather_by_column",)}
-
-
-def gather_layout(n: int, unordered: bool = False) -> str:
-    """The layout of a gather of n elements (GATHER_LAYOUTS): the column
-    layout up to COLUMNS_MAX, past it the row layout where the permutation
-    sends each element to a random place (`unordered`), else the chunked
-    one."""
-    if n <= COLUMNS_MAX:
-        return "columns"
-    return "rows" if unordered else "chunked"
 
 # the CUDA events a timing tool gives launch_seg_sort (before the memset,
 # after the run pass, after the tiers), and the -D flag of the build whose
@@ -230,38 +202,26 @@ def gather_columns_plain(order: torch.Tensor, columns: dict) -> dict:
     return {k: v[order] if _is_column(v, n) else v for k, v in columns.items()}
 
 
-def gather_columns(order: torch.Tensor, columns: dict, unordered: bool = False) -> dict:
+def gather_columns(order: torch.Tensor, columns: dict) -> dict:
     """gather_columns_plain: on CPU tensors the plain version, on CUDA
-    tensors the gather kernels in gather_layout's layout (launch_gather;
-    `unordered`: the permutation sends elements to random places), on any
-    other device an exception."""
+    tensors the gather kernel (launch_gather), on any other device an
+    exception."""
     if not on_card(order, "gather"):
         return gather_columns_plain(order, columns)
-    out, launches = launch_gather(order, columns, gather_layout(order.shape[0], unordered))
+    out, launches = launch_gather(order, columns)
     if launches:
         COUNTS["gather_columns"] += 1
-        for k, v in launches.items():
-            COUNTS[k] += v
+        COUNTS["seg_gather"] += launches
     return out
 
 
-def row_bytes(sizes: list) -> int:
-    """The row layout's bytes a row: each launch's element sizes (kMaxCols
-    columns a launch) summed and rounded up to 16, the widest launch's."""
-    return max(-(-sum(sizes[c:c + _MAX_COLS]) // 16) * 16 for c in range(0, len(sizes),
-                                                                       _MAX_COLS))
-
-
-def launch_gather(order: torch.Tensor, columns: dict, layout: str, events=None) -> tuple:
+def launch_gather(order: torch.Tensor, columns: dict) -> tuple:
     """The kernels' entry point gather_columns on CUDA tensors: every [n]
     column of 1, 4 or 8 bytes an element (bool, int32, float32 as bits,
-    int64), 32 columns a launch, in `layout` (GATHER_LAYOUTS), on the
-    current stream; other entries as they are. `events`: None, or three
-    recorded torch.cuda.Events that the entry point records again before
-    the first launch, between the row layout's two and after the last
-    (tools/time_cluster_sorts.py). Returns (the gathered dict, {kernel:
-    launches}). Counts nothing; raises on a column of another element size
-    or device, on n of 2^31 or more and when a launch fails."""
+    int64), 32 columns a launch, on the current stream; other entries as
+    they are. Returns (the gathered dict, the launches). Counts nothing;
+    raises on a column of another element size or device, on n of 2^31 or
+    more and when a launch fails."""
     from sniffles_tpu_torch.ops import _build
     from sniffles_tpu_torch.ops.clustering import _launch
     dev, n = order.device, order.shape[0]
@@ -269,9 +229,7 @@ def launch_gather(order: torch.Tensor, columns: dict, layout: str, events=None) 
         raise ValueError(f"gather_columns: order is {order.dtype} {tuple(order.shape)}, "
                          f"want int64 [n]")
     if n >= 2 ** 31:
-        raise ValueError(f"gather_columns: {n} elements, the kernels take fewer than 2^31")
-    if layout not in GATHER_LAYOUTS:
-        raise ValueError(f"gather_columns: no layout {layout!r}, want one of {GATHER_LAYOUTS}")
+        raise ValueError(f"gather_columns: {n} elements, the kernel takes fewer than 2^31")
     order = order.contiguous()
     out, src, dst = {}, [], []
     for k, v in columns.items():
@@ -282,29 +240,21 @@ def launch_gather(order: torch.Tensor, columns: dict, layout: str, events=None) 
             raise ValueError(f"gather_columns: {k} is {v.dtype} on {v.device}, want 1, 4 or "
                              f"8 bytes an element on {dev}")
         v = v.contiguous()
-        out[k] = torch.empty_like(v)
+        out[k] = torch.empty_like(v)   # new storage: 16-byte aligned, as the kernel stores
         src.append(v)
         dst.append(out[k])
     if n == 0 or not src:
-        return out, {}
-    sizes = [v.element_size() for v in src]
-    rows = (torch.empty((n * row_bytes(sizes),), dtype=torch.uint8, device=dev)
-            if layout == "rows" else None)
+        return out, 0
     fn = _build.load("cluster_sorts", nvcc_defines()).gather_columns
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
-                   + [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p])
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
     ptrs = ctypes.c_void_p * len(src)
-    marks = None if events is None else (ctypes.c_void_p * 3)(*[e.cuda_event for e in events])
+    sizes = (ctypes.c_int32 * len(src))(*[v.element_size() for v in src])
     rc = _launch(fn, dev, order.data_ptr(), ptrs(*[v.data_ptr() for v in src]),
-                 ptrs(*[v.data_ptr() for v in dst]), (ctypes.c_int32 * len(src))(*sizes),
-                 len(src), n, GATHER_LAYOUTS.index(layout),
-                 None if rows is None else rows.data_ptr(), 0 if rows is None else rows.numel(),
-                 marks)
+                 ptrs(*[v.data_ptr() for v in dst]), sizes, len(src), n)
     if rc != 0:
         raise RuntimeError(f"gather_columns launch failed with CUDA error {rc}")
-    per = -(-len(src) // _MAX_COLS)
-    return out, {k: per for k in GATHER_KERNELS[layout]}
+    return out, -(-len(src) // _MAX_COLS)
 
 
 # ---------------------------------------------------------------------------

@@ -599,7 +599,7 @@ def seed_key(svtype: torch.Tensor, bin_: torch.Tensor) -> torch.Tensor:
     return svtype.to(torch.int64) * (1 << 32) + (bin_.to(torch.int64) + (1 << 31))
 
 
-def sort_and_seed(sig: dict, binsize: int, unordered: bool = False):
+def sort_and_seed(sig: dict, binsize: int):
     """Steps 1-2 of _cluster_body: the batch sorted by (svtype, seed bin,
     insertion order), invalid slots last, and its seed boundaries (a
     svtype or bin change). Returns (sorted dict, boundary, bin_).
@@ -609,10 +609,8 @@ def sort_and_seed(sig: dict, binsize: int, unordered: bool = False):
     permutation as one stable torch.sort of the masked (svtype, bin) pair
     as an int64 key (seed_key), each run of equal key (a seed) sorted by
     the masked tie (cluster_sorts.seg_sort through the first sort's
-    permutation), and one gather of every column (`unordered`: the batch
-    is in no order, as the engine's synthetic batches are, so the sort sends
-    each element to a random place: cluster_sorts.gather_layout). The
-    seeds: cluster_sorts.seed_marks (one launch on the card)."""
+    permutation), and one gather of every column. The seeds:
+    cluster_sorts.seed_marks (one launch on the card)."""
     valid = sig["valid"]
     # Within a bin the HOST keeps scan/insertion order (leadtab lists,
     # reference: leadprov.py:400-418), and the sweep's subsampled
@@ -629,7 +627,7 @@ def sort_and_seed(sig: dict, binsize: int, unordered: bool = False):
         # that key (svtype and bin at INT32_MAX): then the run sorts by the tie
         shared = (valid & (sv_m == INT32_MAX) & (bin_m == INT32_MAX)).any()
         order = cluster_sorts.seg_sort(_starts(key), tie, base=first, alone=~(valid | shared))
-        s = cluster_sorts.gather_columns(order, sig, unordered)
+        s = cluster_sorts.gather_columns(order, sig)
     else:
         order = lexsort((tie, bin_m, sv_m))
         s = {k: v[order] for k, v in sig.items()}
@@ -861,8 +859,7 @@ def _resplit(s: dict, boundary, *, resplit_binsize: int, minsvlen, cluster_merge
 def cluster_signatures(sig: dict, *, cluster_r, cluster_repeat_h, cluster_repeat_h_max,
                        cluster_merge_bnd, cluster_merge_len, minsvlen, binsize: int = 100,
                        resplit_binsize: int = 20, do_resplit: bool = True,
-                       global_repeat: bool = False, exact_sweep: bool = True,
-                       unordered: bool = False) -> dict:
+                       global_repeat: bool = False, exact_sweep: bool = True) -> dict:
     """
     Cluster a signature batch (sniffles_tpu/ops/clustering.py:801,
     _cluster_body :641). `sig` is a dict of equal-length tensors: pos,
@@ -874,7 +871,6 @@ def cluster_signatures(sig: dict, *, cluster_r, cluster_repeat_h, cluster_repeat
     relaxation (the fused engine's path; ops/merge_relax.py, the kernel of
     csrc/merge_relax.cu). Scalars are numbers or 0-d tensors; the
     relaxation reads them as float32 (cluster_merge_bnd as int32).
-    `unordered`: the batch is in no order (sort_and_seed's gather).
 
     Returns the sorted signature arrays plus `cluster_id` per element and
     `n_clusters` (an int32 0-d tensor on the batch's device), and
@@ -882,7 +878,7 @@ def cluster_signatures(sig: dict, *, cluster_r, cluster_repeat_h, cluster_repeat
     int32 0-d tensor).
     """
     from sniffles_tpu_torch.ops.merge_relax import merge_relax
-    s, boundary, bin_ = sort_and_seed(sig, binsize, unordered)
+    s, boundary, bin_ = sort_and_seed(sig, binsize)
     sweep = dict(cluster_r=cluster_r, cluster_repeat_h=cluster_repeat_h,
                  cluster_repeat_h_max=cluster_repeat_h_max,
                  cluster_merge_bnd=cluster_merge_bnd, global_repeat=global_repeat,

@@ -142,10 +142,6 @@ def call_pipeline_step(sig: dict, coverage, params: dict, region_offset=0,
         # the fused path: the parallel relaxation (a documented deviation
         # of the JAX package); the production call path uses the exact sweep
         exact_sweep=False,
-        # the engine's batches (signatures.synthetic_batch, the bench's and
-        # chip_smoke.py's) place each signature at a random site: the sort
-        # sends each element to a random place
-        unordered=True,
     )
     if info is not None:
         info["merge_rounds"] = clustered.pop("merge_rounds")

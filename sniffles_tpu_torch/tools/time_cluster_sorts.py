@@ -42,12 +42,12 @@ batch; the call task's sort and seed, fold, resplit_child_ids and both
 phase_tallies sorts on sim.fuzz_call_batch(1, n); with --dense DIR, the
 five gathers of dense3's widest call task (tools/profile_call_task.py's
 dense leg, written to DIR on its first run). Each is held against its
-plain version and timed in every layout of ops/cluster_sorts.GATHER_LAYOUTS,
-beside the plain version (an index a column), the library call
-(torch.index_select, one call a column) and its bound (`gather_bytes`).
-Then the resplit's predicate (seg_marks) against its plain version, and
-the local layouts' crossover: a call task's five gathers in each at n =
-2^15 to 2^21 (`layout_crossover`).
+plain version and timed beside the plain version (an index a column), the
+library call (torch.index_select, one call a column) and its bound
+(`gather_bytes`). Then the resplit's predicate (seg_marks) against its
+plain version, and a call task's five gathers summed at n = 2^15 to 2^21
+(`task_gathers_by_size`: where the kernel's chunk shrinks to fill the
+card and where it does not).
 
 --split builds csrc/cluster_sorts.cu with ops/cluster_sorts.PHASE_CLOCKS
 and prints, for each sort case, the warp tier's cycles by phase (its
@@ -57,10 +57,10 @@ through the tier on either side of it, each side a build of its own (all
 built at once first), ptxas's registers and spills of every kernel, and
 the card's nvidia-smi name and power limit. `kernel_rows` gives
 chip_smoke.py its rows of the kernels. A package without a feature (an
-older tree under PYTHONPATH: no layouts, no phase clocks) is timed
-without it. Needs a CUDA card; `--device cpu` builds every case at a
-small n and holds the segmented formulation and every captured gather
-against the plain versions (a dry run).
+older tree under PYTHONPATH: no phase clocks) is timed without it. Needs
+a CUDA card; `--device cpu` builds every case at a small n and holds the
+segmented formulation and every captured gather against the plain
+versions (a dry run).
 """
 import argparse
 import contextlib
@@ -83,8 +83,7 @@ HISTOGRAM_BINS = ((1, 1), (2, 8), (9, 16), (17, 32), (33, 64), (65, 256), (257, 
 PHASES = ("loads", "ranks", "writes")      # csrc/cluster_sorts.cu Phase
 INT32_MAX = 2 ** 31 - 1
 # the kernels of csrc/cluster_sorts.cu, as ptxas names them
-KERNEL_NAMES = ("seg_runs", "seg_tiers", "seg_gather", "gather_rows", "stage_rows",
-                "gather_by_column", "seg_marks")
+KERNEL_NAMES = ("seg_runs", "seg_tiers", "seg_gather", "seg_marks")
 ENGINE_PARAMS = dict(cluster_r=2.5, cluster_repeat_h=1.5, cluster_repeat_h_max=1000.0,
                      cluster_merge_bnd=1000, global_repeat=False, binsize=100)
 CLUSTER_PARAMS = dict(cluster_r=2.5, cluster_repeat_h=1.5, cluster_repeat_h_max=1000.0,
@@ -366,58 +365,45 @@ def gather_sites(n: int, device: str, dense_dir: str | None = None,
     return out
 
 
-CROSSOVER_SIZES = tuple(1 << k for k in range(15, 22))
+TASK_SIZES = tuple(1 << k for k in range(15, 22))
 TASK_N = 1 << 16     # dense3's widest call task (chip_smoke.py phase 4)
 
 
-def layout_crossover(device: str = "cuda") -> list:
-    """[(n, {layout: ms})]: the five gathers of a call task on
-    sim.fuzz_call_batch(1, n), each timed in every layout (the two local
-    ones: chunked and columns) and summed, for n in CROSSOVER_SIZES: where
-    the one layout overtakes the other."""
+def task_gathers_by_size(device: str = "cuda") -> list:
+    """[(n, ms)]: the five gathers of a call task on sim.fuzz_call_batch(1,
+    n), each held and timed, summed, for n in TASK_SIZES."""
     from sniffles_tpu_torch.ops import clustering as tc
     from sniffles_tpu_torch.sim import fuzz_call_batch
     from sniffles_tpu_torch.tools.profile_call_task import call_meta
     meta, out = call_meta(), []
-    for n in CROSSOVER_SIZES:
+    for n in TASK_SIZES:
         with captured_gathers(device == "cpu") as kept:
             tc.call_task_packed(torch.as_tensor(fuzz_call_batch(1, n)).to(device), **meta)
-        total = {}
-        for layout in (x for x in gather_layouts() if x != "rows"):
-            for stage, order, cols in kept:
-                hold_gather(order, cols, layout, f"{stage} at n = {n}")
-                total[layout] = total.get(layout, 0.0) + (
-                    queued_ms(lambda: run_gather(order, cols, layout)) if device != "cpu" else 0.0)
+        total = 0.0
+        for stage, order, cols in kept:
+            hold_gather(order, cols, f"{stage} at n = {n}")
+            if device != "cpu":
+                total += queued_ms(lambda: run_gather(order, cols))
         out.append((n, total))
     return out
 
 
-def gather_layouts() -> tuple:
-    """The package's gather layouts (ops/cluster_sorts.GATHER_LAYOUTS), or
-    (None,): an older package with one."""
+def run_gather(order, columns):
+    """The package's gather: the kernel on CUDA tensors, the plain version
+    on CPU ones."""
     from sniffles_tpu_torch.ops import cluster_sorts as cso
-    return getattr(cso, "GATHER_LAYOUTS", (None,))
+    return cso.gather_columns(order, columns)
 
 
-def run_gather(order, columns, layout):
-    """The gather in `layout` (the kernels' entry point), or the package's
-    own choice where `layout` is None (an older package) or the tensors lie
-    on the CPU (the plain version)."""
-    from sniffles_tpu_torch.ops import cluster_sorts as cso
-    if layout is None or order.device.type == "cpu":
-        return cso.gather_columns(order, columns)
-    return cso.launch_gather(order, columns, layout)[0]
-
-
-def hold_gather(order, columns, layout, label) -> None:
+def hold_gather(order, columns, label) -> None:
     from sniffles_tpu_torch.ops import cluster_sorts as cso
     want = cso.gather_columns_plain(order.cpu(), {k: v.cpu() if isinstance(v, torch.Tensor)
                                                   else v for k, v in columns.items()})
-    got = run_gather(order, columns, layout)
+    got = run_gather(order, columns)
     for k, v in want.items():
         if isinstance(v, torch.Tensor) and not torch.equal(got[k].cpu(), v):
-            raise SystemExit(f"time_cluster_sorts: {label}: the {layout or ''} gather differs "
-                             f"from the plain version ({k})")
+            raise SystemExit(f"time_cluster_sorts: {label}: the gather differs from the plain "
+                             f"version ({k})")
 
 
 def library_gather(order, columns):
@@ -429,15 +415,13 @@ def library_gather(order, columns):
 
 
 def gather_row(order, columns, label="gather") -> dict:
-    """One call site's gather held and timed in every layout: {"ms":
-    {layout: ms}, plain_ms, library_ms, bytes, bound_ms, columns}."""
+    """One call site's gather held and timed: {ms, plain_ms, library_ms,
+    bytes, bound_ms, columns}."""
     from sniffles_tpu_torch.ops import cluster_sorts as cso
-    ms = {}
-    for layout in gather_layouts():
-        hold_gather(order, columns, layout, label)
-        ms[layout or "the package's"] = queued_ms(lambda: run_gather(order, columns, layout))
+    hold_gather(order, columns, label)
     b = gather_bytes(order, columns)
-    return {"ms": ms, "plain_ms": queued_ms(lambda: cso.gather_columns_plain(order, columns)),
+    return {"ms": queued_ms(lambda: run_gather(order, columns)),
+            "plain_ms": queued_ms(lambda: cso.gather_columns_plain(order, columns)),
             "library_ms": queued_ms(library_gather(order, columns)), "bytes": b,
             "bound_ms": b / HBM_BYTES_PER_S * 1e3,
             "columns": sum(1 for v in columns.values() if isinstance(v, torch.Tensor)
@@ -460,54 +444,25 @@ def marks_row(seg, svbin, svtype) -> dict:
             "library_ms": None, "bytes": b, "bound_ms": b / HBM_BYTES_PER_S * 1e3}
 
 
-def gather_split_ms(order, columns) -> dict:
-    """{"stage_rows": ms, "gather_rows": ms}: the row layout's two kernels
-    between the entry point's own CUDA events, the mean of REPS calls after
-    one that warms up, the card asleep ahead of each."""
-    from sniffles_tpu_torch.ops import cluster_sorts as cso
-    evs = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
-    for e in evs:
-        e.record()
-    total = np.zeros(2)
-    for rep in range(REPS + 1):
-        torch.cuda._sleep(SLEEP_CYCLES)
-        cso.launch_gather(order, columns, "rows", events=evs)
-        torch.cuda.synchronize()
-        if rep:
-            total += [evs[0].elapsed_time(evs[1]), evs[1].elapsed_time(evs[2])]
-    total /= REPS
-    return {"stage_rows": float(total[0]), "gather_rows": float(total[1])}
-
-
-def column_bytes(order, columns) -> int:
-    """Each column's elements once (what the row layout's first kernel must
-    read, and its second must write)."""
-    return (gather_bytes(order, columns) - 8 * order.shape[0]) // 2
-
-
 def kernel_rows(n: int = 1 << 21) -> dict:
     """chip_smoke.py's rows of the kernels at the engine step's n, each held
     against its plain version first: seg_runs and seg_tiers on the
     resplit's sort (the one with a torch.sort of the same permutation,
-    between the entry point's CUDA events), seg_gather on the resplit's
-    gather (a local permutation, the chunked layout: one launch),
-    stage_rows and gather_rows on sort and seed's (a random permutation,
-    the row layout, between the entry point's events), gather_by_column on
-    a call task's fold at TASK_N (the column layout, as every call task of
-    the main path takes), seg_marks on the
-    resplit's predicate; plain_ms the plain version of the wrapper on the
-    card, library_ms one PyTorch call of the same function where there is
-    one (torch.sort; index_select, one call a column), bound_ms the bytes
-    of each kernel's part of the function."""
+    between the entry point's CUDA events), seg_gather on sort and seed's
+    gather (a random permutation, 10 columns: PR 16's site), seg_marks on
+    the resplit's predicate; plain_ms the plain version of the wrapper on
+    the card, library_ms one PyTorch call of the same function where there
+    is one (torch.sort; index_select, one call a column), bound_ms the
+    bytes of each kernel's part of the function. Under "wrappers" also the
+    resplit's gather (a local permutation) and a call task's fold at
+    TASK_N."""
     c = cases(n, "cuda")
     r = sort_row(c["engine resplit"], "engine resplit")
     sites = gather_sites(n, "cuda", call_task=False)
-    local = gather_row(*sites["engine _resplit"], "engine _resplit")
     glob = gather_row(*sites["engine sort_and_seed"], "engine sort_and_seed")
+    local = gather_row(*sites["engine _resplit"], "engine _resplit")
     task = gather_row(*gather_sites(TASK_N, "cuda")["fuzz merge_inner_fold"],
                       "a call task's fold")
-    order, columns = sites["engine sort_and_seed"]
-    split = gather_split_ms(order, columns)
     m = marks_row(*c["marks"])
     common = {"max_abs_err": 0, "bound_by": "bytes"}
     to_ms = 1e3 / HBM_BYTES_PER_S
@@ -518,24 +473,12 @@ def kernel_rows(n: int = 1 << 21) -> dict:
         "seg_tiers": {**common, "ms": r["split"]["seg_tiers"],
                       "plain_ms": r["plain_ms"], "library_ms": r["library_ms"],
                       "bound_ms": r["bytes"][1] * to_ms},
-        "seg_gather": {**common, "ms": local["ms"]["chunked"],
-                       "plain_ms": local["plain_ms"], "library_ms": local["library_ms"],
-                       "bound_ms": local["bound_ms"]},
-        "gather_by_column": {**common, "ms": task["ms"]["columns"],
-                             "plain_ms": task["plain_ms"], "library_ms": task["library_ms"],
-                             "bound_ms": task["bound_ms"]},
-        # the gather's bytes split between the two: the columns read by the
-        # first, the permutation read and the columns written by the second
-        "stage_rows": {**common, "ms": split["stage_rows"], "plain_ms": glob["plain_ms"],
-                       "library_ms": glob["library_ms"],
-                       "bound_ms": column_bytes(order, columns) * to_ms},
-        "gather_rows": {**common, "ms": split["gather_rows"], "plain_ms": glob["plain_ms"],
-                        "library_ms": glob["library_ms"],
-                        "bound_ms": (glob["bytes"] - column_bytes(order, columns)) * to_ms},
+        "seg_gather": {**common, "ms": glob["ms"], "plain_ms": glob["plain_ms"],
+                       "library_ms": glob["library_ms"], "bound_ms": glob["bound_ms"]},
         "seg_marks": {**common, "ms": m["ms"], "plain_ms": m["plain_ms"], "library_ms": None,
                       "bound_ms": m["bound_ms"]},
-        "wrappers": {"seg_sort": r, "gather_columns (local)": local,
-                     "gather_columns (global)": glob, "gather_columns (a call task)": task,
+        "wrappers": {"seg_sort": r, "gather_columns (sort and seed)": glob,
+                     "gather_columns (resplit)": local, "gather_columns (a call task)": task,
                      "resplit_marks": m}}
 
 
@@ -578,7 +521,7 @@ def dry_run(n: int) -> int:
             print(f"{label}: {n} elements, {int(case[0].sum())} segments; "
                   f"{histogram(case[5], cso.TIERS)}")
     for label, (order, cols) in gather_sites(n, "cpu").items():
-        hold_gather(order, cols, None, label)
+        hold_gather(order, cols, label)
         columns = sum(1 for v in cols.values() if isinstance(v, torch.Tensor) and v.dim() == 1
                       and v.shape[0] == order.shape[0])
         print(f"gather {label}: {columns} columns, {gather_bytes(order, cols)} bytes == plain")
@@ -631,15 +574,13 @@ def main() -> int:
                       f"{p} {100 * ph[p]:.1f} %" for p in PHASES)), flush=True)
     for label, (order, cols) in gather_sites(args.n, "cuda", args.dense).items():
         r = gather_row(order, cols, label)
-        times = ", ".join(f"{k} {v:.4f} ms ({100 * r['bound_ms'] / v:.1f} %)"
-                          for k, v in r["ms"].items())
-        print(f"gather {label}: {r['columns']} columns, == plain in every layout; {times}; "
-              f"plain {r['plain_ms']:.4f} ms, index_select a column {r['library_ms']:.4f} ms, "
-              f"bound {r['bound_ms']:.5f} ms ({r['bytes']} bytes)", flush=True)
-    if "columns" in gather_layouts():
-        for n, total in layout_crossover():
-            print(f"gather layouts at n = {n}, a call task's five gathers summed: " + ", ".join(
-                f"{k} {v:.4f} ms" for k, v in total.items()), flush=True)
+        print(f"gather {label}: {r['columns']} columns, == plain; {r['ms']:.4f} ms "
+              f"({100 * r['bound_ms'] / r['ms']:.1f} % of the bound); plain "
+              f"{r['plain_ms']:.4f} ms, index_select a column {r['library_ms']:.4f} ms, bound "
+              f"{r['bound_ms']:.5f} ms ({r['bytes']} bytes)", flush=True)
+    for n, total in task_gathers_by_size():
+        print(f"gather at n = {n}, a call task's five gathers summed: {total:.4f} ms",
+              flush=True)
     if not args.no_thresholds:
         variants = {tiers for _, sides in threshold_cases(cso.TIERS) for _, tiers in sides}
         started = [_build.start_build("cluster_sorts", defines=cso.nvcc_defines(v))

@@ -475,43 +475,59 @@ def test_wrappers_take_the_plain_version_on_the_cpu_and_count_nothing():
 
 @pytest.mark.parametrize("unordered", [False, True])
 def test_gather_columns_takes_the_plain_version_in_either_order(unordered):
-    """On CPU tensors the gather is the plain version whatever the caller
-    says of its permutation (the word only picks the kernels' layout),
-    counting nothing; sort_and_seed and cluster_signatures pass it
-    through unchanged."""
+    """On CPU tensors the gather is the plain version, counting nothing,
+    whether its permutation sends each element to a random place (as the
+    engine's sort and seed does) or keeps it inside its segment; other
+    entries pass as they are."""
     cs.reset_counts()
     rng = np.random.default_rng(4)
-    order = torch.from_numpy(rng.permutation(1000))
+    order = (rng.permutation(1000) if unordered
+             else np.concatenate([s + rng.permutation(10) for s in range(0, 1000, 10)]))
+    order = torch.from_numpy(order)
     cols = {"i": torch.arange(1000, dtype=torch.int32), "b": torch.rand(1000) < 0.5,
             "l": torch.arange(1000, dtype=torch.int64), "n": torch.tensor(3)}
-    out = cs.gather_columns(order, cols, unordered)
+    out = cs.gather_columns(order, cols)
     for k in ("i", "b", "l"):
         assert torch.equal(out[k], cols[k][order])
     assert out["n"] is cols["n"]
-    sig = tc.packed_signatures(torch.from_numpy(fuzz_call_batch(3, 2048)))
-    with segmented():
-        want = tc.sort_and_seed(sig, 100)
-        got = tc.sort_and_seed(sig, 100, unordered)
-    for w, g in zip(want, got):
-        assert all(torch.equal(w[k], g[k]) for k in w) if isinstance(w, dict) else torch.equal(w, g)
     assert all(v == 0 for v in cs.COUNTS.values())
 
 
-@pytest.mark.parametrize("n,unordered,layout", [
-    (1, False, "columns"), (cs.COLUMNS_MAX, True, "columns"),
-    (cs.COLUMNS_MAX + 1, False, "chunked"), (cs.COLUMNS_MAX + 1, True, "rows"),
-    (1 << 21, False, "chunked"), (1 << 21, True, "rows")])
-def test_gather_layout_by_size_and_order(n, unordered, layout):
-    """The column layout up to COLUMNS_MAX elements, past it the chunked
-    one, or the rows for an unordered permutation; each a layout of the
-    kernels with its kernels named."""
-    assert cs.gather_layout(n, unordered) == layout
-    assert layout in cs.GATHER_LAYOUTS and set(cs.GATHER_KERNELS[layout]) <= set(cs.KERNELS)
+# (n, columns): the kernel's chunks are multiples of 16 elements, a launch
+# takes 32 columns; n off both, and more columns than a launch takes
+@pytest.mark.parametrize("n,ncols", [(1, 3), (15, 5), (16, 4), (17, 33), (1000, 7),
+                                     (4099, 40)])
+def test_gather_columns_equals_jax_take(n, ncols):
+    """gather_columns on every element size it moves (bool, int32, float32,
+    int64) equals the JAX package's _apply_order (a jnp.take a column),
+    bit for bit, through a random and a segment-local permutation."""
+    rng = np.random.default_rng(n + ncols)
+    cols = {}
+    for j in range(ncols):
+        kind = j % 4
+        cols[f"c{j}"] = (rng.random(n) < 0.5 if kind == 0
+                         else rng.integers(-2 ** 31, 2 ** 31, n, dtype=np.int64).astype(np.int32)
+                         if kind == 1 else rng.standard_normal(n).astype(np.float32)
+                         if kind == 2 else rng.integers(-2 ** 62, 2 ** 62, n, dtype=np.int64))
+    seg = np.sort(rng.integers(0, max(1, n // 8), n))
+    for order in (rng.permutation(n), np.lexsort((rng.random(n), seg))):
+        got = cs.gather_columns(torch.from_numpy(order),
+                                {k: torch.from_numpy(v) for k, v in cols.items()})
+        with jax.enable_x64(True):
+            want = jc._apply_order({k: jnp.asarray(v) for k, v in cols.items()},
+                                   jnp.asarray(order))
+            for k, v in want.items():
+                assert got[k].numpy().dtype == np.asarray(v).dtype, k
+                assert np.array_equal(got[k].numpy().view(np.uint8),
+                                      np.asarray(v).view(np.uint8)), k
 
 
-def test_launch_gather_refuses_a_layout_it_lacks():
-    with pytest.raises(ValueError, match="no layout 'diagonal'"):
-        cs.launch_gather(torch.arange(4), {"a": torch.zeros(4)}, "diagonal")
+def test_launch_gather_refuses_2_to_the_31_elements():
+    """The kernel keeps the chunk's permutation entries as int32: the
+    entry point refuses n of 2^31 or more before it reads a tensor."""
+    order = torch.empty(2 ** 31, dtype=torch.int64, device="meta")
+    with pytest.raises(ValueError, match="fewer than 2"):
+        cs.launch_gather(order, {"a": torch.empty(2 ** 31, dtype=torch.int32, device="meta")})
 
 
 def test_wrappers_and_stages_raise_on_another_device():

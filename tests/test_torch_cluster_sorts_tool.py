@@ -78,11 +78,19 @@ def test_captured_gathers_name_each_stage():
         tc.call_task_packed(torch.as_tensor(fuzz_call_batch(3, 2048)), **call_meta())
     assert [s for s, _, _ in kept] == [site.split(" ", 1)[1] for site in GATHER_SITES[2:]]
     for _, order, cols in kept:
-        tool.hold_gather(order, cols, None, "capture")
+        tool.hold_gather(order, cols, "capture")
     assert tc.on_card is cso.on_card
 
 
-@pytest.mark.parametrize("sizes,row", [([4] * 7 + [1] * 3, 32), ([4] * 17 + [1] * 2, 80),
-                                       ([8] * 40, 256), ([1], 16), ([8, 4, 1], 16)])
-def test_row_bytes_round_each_launch_to_16(sizes, row):
-    assert cso.row_bytes(sizes) == row
+# element sizes of a stage's columns: sort and seed's and the fold's mixes,
+# more columns than a launch takes, a lone byte column, one of each size
+@pytest.mark.parametrize("sizes", [[4] * 7 + [1] * 3, [4] * 17 + [1] * 2, [8] * 40, [1],
+                                   [8, 4, 1]])
+def test_gather_bytes_read_the_permutation_once(sizes):
+    """The gather's bound: the int64 permutation read once an element, each
+    column read and written once, whatever the columns a launch takes; a
+    0-d entry moves nothing."""
+    dtypes = {1: torch.bool, 4: torch.int32, 8: torch.int64}
+    cols = {f"c{j}": torch.zeros(100, dtype=dtypes[k]) for j, k in enumerate(sizes)}
+    cols["count"] = torch.tensor(7)
+    assert tool.gather_bytes(torch.arange(100), cols) == 100 * (8 + 2 * sum(sizes))

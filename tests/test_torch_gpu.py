@@ -1062,8 +1062,7 @@ def test_gather_columns_kernel_matches_plain_version(card):
         torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
     assert cso.COUNTS["gather_columns"] == before["gather_columns"] + 1
-    # n at most COLUMNS_MAX: the column layout
-    assert cso.COUNTS["gather_by_column"] == before["gather_by_column"] + 2
+    assert cso.COUNTS["seg_gather"] == before["seg_gather"] + 2
     assert got["count"] is on_card["count"]
     for k, v in want.items():
         if k != "count":
@@ -1091,52 +1090,34 @@ def gather_case(n, seed, local):
     return torch.from_numpy(order), {f"c{i}": makers[i % 4]() for i in range(40)}
 
 
-@pytest.mark.parametrize("n", [1, 15, 2047, 2048, 100_003])
+# n below, at and past the kernel's kChunk (2,048) and off its multiples,
+# where the chunk shrinks to fill every SM (a multiple of 16) and where it
+# does not
+@pytest.mark.parametrize("n", [1, 15, 2047, 2048, 100_003, 65_536 + 5, (1 << 21) + 7])
 @pytest.mark.parametrize("local", [False, True], ids=["random", "local"])
-def test_gather_columns_each_layout_matches_plain_version(card, n, local):
-    """Every layout of GATHER_LAYOUTS (the chunked one, the rows, a row of
-    blocks a column) on mixed element sizes, past kMaxCols columns, at n
-    below, at and past a chunk and not a multiple of one, through a random
-    and a local permutation, with each layout's launches; a column that is
-    not 16-byte aligned (a view one element in) taken too."""
+def test_gather_columns_each_chunk_matches_plain_version(card, n, local):
+    """The gather kernel on mixed element sizes, past kMaxCols columns, at
+    each chunk size, through a random and a local permutation, with its
+    launches (two); a column that is not 16-byte aligned (a view one
+    element in) taken too."""
     from sniffles_tpu_torch.ops import cluster_sorts as cso
     order, cols = gather_case(n, 3, local)
     cols["odd"] = torch.arange(n + 1, dtype=torch.int32)[1:]
     want = cso.gather_columns_plain(order, cols)
     on = {k: v.to(card) for k, v in cols.items()}
     on["odd"] = torch.arange(n + 1, dtype=torch.int32, device=card)[1:]
-    for layout in cso.GATHER_LAYOUTS:
-        got, launches = cso.launch_gather(order.to(card), on, layout)
-        torch.cuda.synchronize()
-        assert launches == {k: 2 for k in cso.GATHER_KERNELS[layout]}, layout
-        for k, v in want.items():
-            assert got[k].dtype == v.dtype and torch.equal(got[k].cpu(), v), (layout, k)
-
-
-@pytest.mark.parametrize("unordered", [False, True])
-def test_gather_columns_picks_its_layout_by_size(card, unordered):
-    """Past COLUMNS_MAX elements the wrapper launches the chunked layout, or
-    the rows where the caller calls its permutation unordered, and counts
-    that layout's kernels; the result == the plain version."""
-    from sniffles_tpu_torch.ops import cluster_sorts as cso
-    n = cso.COLUMNS_MAX + 4099
-    order, cols = gather_case(n, 5, not unordered)
-    want = cso.gather_columns_plain(order, cols)
-    before = dict(cso.COUNTS)
-    got = cso.gather_columns(order.to(card), {k: v.to(card) for k, v in cols.items()},
-                             unordered)
+    got, launches = cso.launch_gather(order.to(card), on)
     torch.cuda.synchronize()
-    for k in cso.GATHER_KERNELS["rows" if unordered else "chunked"]:
-        assert cso.COUNTS[k] == before[k] + 2, k
+    assert launches == 2
     for k, v in want.items():
-        assert torch.equal(got[k].cpu(), v), k
+        assert got[k].dtype == v.dtype and torch.equal(got[k].cpu(), v), k
 
 
-def test_gather_columns_refuses_a_layout_it_lacks(card):
+def test_gather_columns_refuses_another_element_size(card):
     from sniffles_tpu_torch.ops import cluster_sorts as cso
-    with pytest.raises(ValueError, match="no layout"):
-        cso.launch_gather(torch.arange(4, device=card), {"a": torch.zeros(4, device=card)},
-                          "diagonal")
+    with pytest.raises(ValueError, match="want 1, 4 or 8 bytes"):
+        cso.gather_columns(torch.arange(4, device=card),
+                           {"a": torch.zeros(4, dtype=torch.int16, device=card)})
 
 
 def marks_case(n, seed):
