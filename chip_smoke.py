@@ -660,11 +660,6 @@ def time_greedy_kernel(kept) -> dict:
 
 # -- phase 2e: the clustering's segmented sorts ------------------------------
 
-# the widths of sim.seg_sort_batch's populations (huge: one segment of 2^20)
-SEG_SORT_WIDTH = 65536
-SEG_SORT_HUGE_WIDTH = (1 << 20) + 8192
-
-
 @contextlib.contextmanager
 def captured_sorts():
     """Every seg_sort, gather_columns and stage-predicate call of the block
@@ -750,8 +745,8 @@ def seg_sort_population(kind):
     starts, the keys masked to INT32_MAX where not valid, the invalid
     elements."""
     from sniffles_tpu_torch.ops.clustering import _starts
-    from sniffles_tpu_torch.sim import seg_sort_batch
-    b = seg_sort_batch(kind, SEG_SORT_HUGE_WIDTH if kind == "huge" else SEG_SORT_WIDTH, 5)
+    from sniffles_tpu_torch.sim import seg_sort_batch, seg_sort_width
+    b = seg_sort_batch(kind, seg_sort_width(kind), 5)
     valid = torch.from_numpy(b["valid"])
     big = 2 ** 31 - 1
     return (_starts(torch.from_numpy(b["seg_id"])),
@@ -782,11 +777,17 @@ def check_cluster_sorts(meta):
             cso.seg_sort(seg_start, k1, k2)
             cso.seg_sort(seg_start, k1)
             cso.seg_sort(seg_start, k1, k2, alone=invalid)
+            # every segment of one element alone too ("tiles": as a tile's last
+            # and first elements)
+            seg_id = torch.cumsum(seg_start.to(torch.int64), 0) - 1
+            single = torch.bincount(seg_id)[seg_id] == 1
+            cso.seg_sort(seg_start, k1, k2, alone=invalid | single)
             cso.seg_sort(seg_start, k1[inverse], k2[inverse], base, invalid[inverse])
+            cso.seg_sort(seg_start, k1[inverse], k2[inverse], base, (invalid | single)[inverse])
         sorts, _, _, largest = hold_sorts(kept, "sim.seg_sort_batch")
     print(f"    sim.seg_sort_batch's populations {', '.join(SEG_SORT_KINDS)} (each with two "
-          f"keys, one, the padding alone, and through a base permutation): {sorts} seg_sort "
-          f"calls == plain, "
+          f"keys, one, the padding alone, every segment of one alone too, and through a base "
+          f"permutation with both): {sorts} seg_sort calls == plain, "
           f"segments up to {largest} (tiers {cso.TIERS})", flush=True)
     callers = {f"fuzz n=32768 seed {seed}": fuzz_call_batch(seed, 32768) for seed in (1, 2)}
     callers.update((f"edge {k}", v) for k, v in edge_call_batches().items())

@@ -102,6 +102,16 @@
 #error "build with the tier thresholds of ops/cluster_sorts.py (its nvcc_defines)"
 #endif
 
+// A timing tool's variant of the run pass (tools/time_cluster_sorts.py
+// --split): -DSORT_RUN_PARTS=k stops seg_runs after its k-th part (1: the
+// heads, 2: each head's next head, 3: the lists' appends, 4: the thread
+// tier, the whole pass and the default), so that the differences of their
+// times split the pass. A variant's permutation is not complete: only a
+// timing tool builds one.
+#ifndef SORT_RUN_PARTS
+#define SORT_RUN_PARTS 4
+#endif
+
 namespace {
 
 typedef unsigned long long u64;
@@ -119,6 +129,11 @@ constexpr int kSearchStep = 4;      // elements a thread tests a step of a block
 constexpr int kChunk = 2048;        // the most output positions a seg_gather block takes at a time
 constexpr int kChunkBlocks = 8;     // seg_gather's blocks an SM
 constexpr unsigned kFull = 0xffffffffu;
+constexpr int kRunParts = SORT_RUN_PARTS;
+static_assert(kRunParts >= 1 && kRunParts <= 4, "the run pass has four parts");
+
+// v computed, in a variant that stops before its use (an empty asm that reads it)
+__device__ __forceinline__ void keep(unsigned v) { asm volatile("" ::"r"(v)); }
 
 // The warp tier's time by phase, in a build with -DSORT_PHASE_CLOCKS only
 // (tools/time_cluster_sorts.py --split): each warp sums the clock64() cycles
@@ -280,6 +295,10 @@ seg_runs(Sort a, int2* __restrict__ lists, int32_t* __restrict__ counts) {
   if (i0 >= n) return;  // the whole warp
   const bool head = i < n && is_head(a, i);
   const unsigned m = __ballot_sync(kFull, head);
+  if (kRunParts == 1) {
+    keep(m);
+    return;
+  }
   if (m == 0) return;  // the whole warp: no segment starts here
   // the warp's last segment: the next head after it, searched by the warp
   // window by window up to kWarpMax past its head (-1: not found so far)
@@ -297,6 +316,10 @@ seg_runs(Sort a, int2* __restrict__ lists, int32_t* __restrict__ counts) {
       next = b + __ffs(hit) - 1;
       break;
     }
+  }
+  if (kRunParts == 2) {
+    keep(static_cast<unsigned>(next));
+    return;
   }
   int cnt = 0;
   bool big = false;
@@ -321,6 +344,7 @@ seg_runs(Sort a, int2* __restrict__ lists, int32_t* __restrict__ counts) {
   at_b = __shfl_sync(kFull, at_b, 0);
   if (to_warp) lists[at_w + __popc(mw & below)] = make_int2(i, cnt);
   if (to_block) lists[n - 1 - (at_b + __popc(mb & below))] = make_int2(i, big ? -1 : cnt);
+  if (kRunParts == 3) return;
   if (head && !big && cnt <= kTinyMax) {
     if (cnt == 1) {
       a.perm[i] = src_of(a, i);
@@ -849,11 +873,12 @@ int launch_sort(const Sort& a, int32_t* lists, int32_t* counts, u64* scratch_k,
   cudaError_t err = config_for(&cfg);
   if (err == cudaSuccess) err = mark(events, 0, s);
   if (err == cudaSuccess) err = cudaMemsetAsync(counts, 0, 3 * sizeof(int32_t), s);
+  if (err == cudaSuccess) err = mark(events, 1, s);
   if (err != cudaSuccess) return static_cast<int>(err);
   int2* entries = reinterpret_cast<int2*>(lists);
   seg_runs<<<(a.n + kThreads - 1) / kThreads, kThreads, 0, s>>>(a, entries, counts);
   err = cudaGetLastError();
-  if (err == cudaSuccess) err = mark(events, 1, s);
+  if (err == cudaSuccess) err = mark(events, 2, s);
   if (err != cudaSuccess) return static_cast<int>(err);
   // at most n / (kTinyMax + 1) segments reach the warp list (16 a block at
   // the least, when each warp takes one), n / (kWarpMax + 1) the block list
@@ -863,7 +888,7 @@ int launch_sort(const Sort& a, int32_t* lists, int32_t* counts, u64* scratch_k,
                                                                        : block_blocks),
               kTierThreads, kTierSmem, s>>>(a, entries, counts, scratch_k, scratch_i);
   err = cudaGetLastError();
-  if (err == cudaSuccess) err = mark(events, 2, s);
+  if (err == cudaSuccess) err = mark(events, 3, s);
   return static_cast<int>(err);
 }
 
@@ -889,8 +914,9 @@ extern "C" int sort_phase_clocks(uint64_t* out) {
 // it is, a segment of its own, and the element after it starts one);
 // perm int64 [n]; scratch: lists int32 [2n] (8-byte aligned), counts int32
 // [3], scratch_k uint64 [n] and scratch_i int32 [n] (a segment past
-// kBlockMax); events: null, or three CUDA events recorded before the
-// memset, after the run pass and after the tiers (a timing tool's). A
+// kBlockMax); events: null, or four CUDA events recorded before the
+// memset, after it, after the run pass and after the tiers (a timing
+// tool's). A
 // memset and two launches on stream s; returns the first error (a shared
 // memory size the card refuses included).
 extern "C" int seg_sort(const uint8_t* seg_start, const int32_t* k1, const int32_t* k2,

@@ -86,6 +86,53 @@ constexpr int kSharedMax = 48 * 1024;
 constexpr int kWarpsMax = 4;
 constexpr unsigned kFull = 0xffffffffu;
 
+// A step's cycles by part, in a build with -DGREEDY_STEP_CLOCKS only
+// (tools/time_combine_greedy.py --split): every lane sums the clock64()
+// cycles between its stamps by part (kLoad: the candidate's values, loaded
+// a step ahead, waited for; kProbe: the probe trips; kReduce: the warp
+// reductions; kUpdate: lane 0's update of the target slot, the assign
+// write and the __syncwarp), and lane 0 adds its sums and its steps to
+// g_step_clocks when its row ends. Without the flag the stamps are empty
+// and the file compiles to the same code.
+enum Part { kLoad = 0, kProbe = 1, kReduce = 2, kUpdate = 3, kParts = 4 };
+#ifdef GREEDY_STEP_CLOCKS
+// the parts' cycles, the steps, and one word that keeps the waits alive
+__device__ unsigned long long g_step_clocks[kParts + 2];
+struct StepClock {
+  long long t;
+  unsigned long long sum[kParts];
+  unsigned long long steps, sink;
+  __device__ void start() {
+    t = clock64();
+    for (int p = 0; p < kParts; ++p) sum[p] = 0;
+    steps = sink = 0;
+  }
+  __device__ void stamp(int p) {
+    const long long now = clock64();
+    sum[p] += static_cast<unsigned long long>(now - t);
+    t = now;
+    steps += p == kUpdate;
+  }
+  // an instruction that reads v, so that a stamp after it waits for v
+  __device__ void settle(unsigned v) {
+    asm volatile("xor.b64 %0, %0, %1;" : "+l"(sink) : "l"(static_cast<unsigned long long>(v)));
+  }
+  __device__ void flush(int lane) {
+    if (lane != 0) return;
+    for (int p = 0; p < kParts; ++p) atomicAdd(&g_step_clocks[p], sum[p]);
+    atomicAdd(&g_step_clocks[kParts], steps);
+    atomicXor(&g_step_clocks[kParts + 1], sink);
+  }
+};
+#else
+struct StepClock {
+  __device__ void start() {}
+  __device__ void stamp(int) {}
+  __device__ void settle(unsigned) {}
+  __device__ void flush(int) {}
+};
+#endif
+
 struct Gates {
   float cm, limit, eps, tiny, forced_at;
   int cmm;
@@ -135,7 +182,9 @@ struct Candidate {
 template <bool kGrid>
 __device__ int step(const Row& st, int slots, int& ngroups, const Candidate& c, int i, int K,
                     const int* __restrict__ ed, int H, int cp, const Gates& g, int lane,
-                    int& flags) {
+                    int& flags, StepClock& clk) {
+  clk.settle(c.pos ^ c.len ^ c.alt ^ c.hord ^ c.ed);
+  clk.stamp(kLoad);
   const float len_f = __int2float_rn(c.len);
   int best_key = kInt32Max, best_slot = kInt32Max;
   bool amb = false, miss = false;
@@ -203,12 +252,16 @@ __device__ int step(const Row& st, int slots, int& ngroups, const Candidate& c, 
       }
     }
   }
+  clk.settle(best_key ^ best_slot ^ amb ^ (miss << 1));
+  clk.stamp(kProbe);
   const int min_key = __reduce_min_sync(kFull, best_key);
   const int min_slot = __reduce_min_sync(kFull, best_key == min_key ? best_slot : kInt32Max);
   const bool amb_hit = __any_sync(kFull, amb);
   const bool miss_hit = __any_sync(kFull, miss);
   const bool found = min_key < kInt32Max;
   const int tgt = found ? min_slot : ngroups;
+  clk.settle(tgt ^ amb_hit ^ (miss_hit << 1));
+  clk.stamp(kReduce);
   if (lane == 0) {
     int over = 0;
     if (tgt < slots && kGrid && !found) {
@@ -267,13 +320,17 @@ __global__ void greedy_grid_kernel(const int* __restrict__ c_pos, const int* __r
     return c;
   };
   int ngroups = 0, flags = 0;
+  StepClock clk;
+  clk.start();
   Candidate cur = cnt > 0 ? load(0) : Candidate{};
   for (int i = 0; i < cnt; ++i) {
     const Candidate next = i + 1 < cnt ? load(i + 1) : cur;
-    const int tgt = step<true>(st, L, ngroups, cur, i, K, nullptr, 0, 0, g, lane, flags);
+    const int tgt = step<true>(st, L, ngroups, cur, i, K, nullptr, 0, 0, g, lane, flags, clk);
     if (lane == 0) assign[row + i] = tgt;
+    clk.stamp(kUpdate);
     cur = next;
   }
+  clk.flush(lane);
   if (lane == 0) segflags[s] = flags;
 }
 
@@ -298,11 +355,15 @@ __global__ void greedy_flush_kernel(const int* __restrict__ c_pos, const int* __
   for (int i = cnt + lane; i < cp; i += 32) assign[i] = -1;
   __syncwarp();
   int ngroups = n_groups0, flags = 0;
+  StepClock clk;
+  clk.start();
   for (int i = 0; i < cnt; ++i) {
     const Candidate c{c_pos[i], c_len[i], c_alt[i], -1, -1};
-    const int tgt = step<false>(st, G, ngroups, c, i, 0, ed, H, cp, g, lane, flags);
+    const int tgt = step<false>(st, G, ngroups, c, i, 0, ed, H, cp, g, lane, flags, clk);
     if (lane == 0) assign[i] = tgt;
+    clk.stamp(kUpdate);
   }
+  clk.flush(lane);
   if (lane == 0) {
     flags_out[0] = (flags & kFlagAmbiguous) ? 1 : 0;
     flags_out[1] = (flags & kFlagEdMiss) ? 1 : 0;
@@ -323,6 +384,18 @@ Gates gates_of(int cmm, int cm_bits, int limit_bits, int eps_bits, int tiny_bits
 }
 
 }  // namespace
+
+#ifdef GREEDY_STEP_CLOCKS
+// The steps' cycles by part summed over the rows since the last call, and
+// the steps (kParts + 1 words to out, on the host), then zeroed; a build
+// with -DGREEDY_STEP_CLOCKS only. Synchronous.
+extern "C" int greedy_step_clocks(uint64_t* out) {
+  cudaError_t err = cudaMemcpyFromSymbol(out, g_step_clocks, (kParts + 1) * sizeof(uint64_t));
+  static const unsigned long long zero[kParts + 2] = {};
+  if (err == cudaSuccess) err = cudaMemcpyToSymbol(g_step_clocks, zero, sizeof(zero));
+  return static_cast<int>(err);
+}
+#endif
 
 // The grid greedy on (S, L) int32 grids c_pos, c_len, c_alt, c_hord, counts
 // (S,), ed (S, K, W); writes assign (S, L) and segflags (S,). The rows'

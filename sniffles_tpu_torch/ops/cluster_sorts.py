@@ -61,16 +61,32 @@ TINY_MAX = 8
 WARP_MAX = 256
 BLOCK_MAX = 8192
 TIERS = (TINY_MAX, WARP_MAX, BLOCK_MAX)
+# the elements of a run pass's tile (a block of seg_runs), built into the
+# kernel as a -D flag (nvcc_defines) so that the tests' tile edges
+# (sim.seg_sort_batch's "tiles") follow it
+RUN_TILE = 4096
 
 # element sizes the gather kernel moves, and the columns a launch takes
 _GATHER_SIZES = (1, 4, 8)
 _MAX_COLS = 32
 
 # the CUDA events a timing tool gives launch_seg_sort (before the memset,
-# after the run pass, after the tiers), and the -D flag of the build whose
-# warp tier sums its cycles by phase
-SORT_EVENTS = 3
+# after it, after the run pass, after the tiers) and the parts they bound;
+# the -D flag of the build whose warp tier sums its cycles by phase; the
+# parts of the run pass, and the -D flag of a variant that stops after the
+# k-th of them (tools/time_cluster_sorts.py --split)
+SORT_EVENT_PARTS = ("memset", "run pass", "tiers")
+SORT_EVENTS = len(SORT_EVENT_PARTS) + 1
 PHASE_CLOCKS = "-DSORT_PHASE_CLOCKS"
+RUN_PARTS = ("heads", "next head", "appends", "thread tier")
+
+
+def run_parts_define(k: int) -> str:
+    """The -D flag of the run pass's variant that stops after its k-th part
+    (1 to len(RUN_PARTS); the last is the whole pass)."""
+    if not 1 <= k <= len(RUN_PARTS):
+        raise ValueError(f"the run pass has parts 1 to {len(RUN_PARTS)}, not {k}")
+    return f"-DSORT_RUN_PARTS={int(k)}"
 
 
 def reset_counts() -> None:
@@ -149,13 +165,16 @@ def _checked(t: torch.Tensor, name: str, dtype: torch.dtype, n: int, dev) -> tor
 
 
 def launch_seg_sort(seg_start, k1, k2=None, base=None, alone=None,
-                    tiers: tuple = TIERS, events=None, clocks: bool = False) -> torch.Tensor:
+                    tiers: tuple = TIERS, events=None, clocks: bool = False,
+                    run_parts: int | None = None) -> torch.Tensor:
     """The kernels' entry point seg_sort on CUDA tensors (a memset, the run
     pass, the tiers' one launch) on the current stream of their
     device; no launch for n = 0. `events`: None, or SORT_EVENTS recorded
     torch.cuda.Events that the entry point records again before the memset,
-    after the run pass and after the tiers; `clocks`: the build with
-    PHASE_CLOCKS (tools/time_cluster_sorts.py).
+    after it, after the run pass and after the tiers; `clocks`: the build
+    with PHASE_CLOCKS; `run_parts`: the variant whose run pass stops after
+    that part (run_parts_define; its permutation is not complete). Both for
+    tools/time_cluster_sorts.py.
     Counts nothing; raises on an input of another type, shape or device and
     when a launch fails."""
     from sniffles_tpu_torch.ops import _build
@@ -173,7 +192,8 @@ def launch_seg_sort(seg_start, k1, k2=None, base=None, alone=None,
     counts = torch.empty((3,), dtype=torch.int32, device=dev)    # warp, block list; cursor
     scratch_k = torch.empty((n,), dtype=torch.int64, device=dev)   # a segment past BLOCK_MAX
     scratch_i = torch.empty((n,), dtype=torch.int32, device=dev)
-    defines = nvcc_defines(tiers) + ((PHASE_CLOCKS,) if clocks else ())
+    defines = (nvcc_defines(tiers) + ((PHASE_CLOCKS,) if clocks else ())
+               + ((run_parts_define(run_parts),) if run_parts is not None else ()))
     fn = _build.load("cluster_sorts", defines).seg_sort
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]

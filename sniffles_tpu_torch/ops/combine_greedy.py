@@ -76,6 +76,10 @@ SHARED_STATE_MAX = 48 * 1024
 MAX_ED_HEADS = 32
 # the grid greedy's inputs, in _greedy_grid_loop's order (task_grids)
 GRID_KEYS = ("c_pos", "c_len", "c_alt", "c_hord", "counts", "ed")
+# the -D flag of the kernel's build that sums a step's cycles by part, and
+# the parts (csrc/combine_greedy.cu Part; tools/time_combine_greedy.py --split)
+STEP_CLOCKS = "-DGREEDY_STEP_CLOCKS"
+STEP_PARTS = ("load", "probe", "reduce", "update")
 
 
 def reset_counts() -> None:
@@ -195,6 +199,27 @@ def gate_bits(cm: int, cmm: int, limit: float) -> dict:
     return dict(zip(("cm_f", "limit_f", "eps_f", "tiny_f", "forced_at"), bits))
 
 
+def div_magic(n: int) -> tuple:
+    """The kernel's exact division by a group's size n (1 <= n < 2^31), the
+    model the CPU tests hold to floor division: (m, s) with s =
+    ceil(log2 n) and m = ceil(2^(31 + s) / n) < 2^32, so that x // n ==
+    (x * m) >> (31 + s) for every 0 <= x < 2^31 (division by an invariant
+    integer, Granlund and Montgomery: x (m n - 2^(31 + s)) / (n 2^(31 + s))
+    stays below 1 / n). csrc/combine_greedy.cu caches m in each slot when
+    lane 0 founds or joins it (its table for n <= SEG_LMAX)."""
+    if not 1 <= n < 2 ** 31:
+        raise ValueError(f"div_magic: n = {n} is not in [1, 2^31)")
+    s = (n - 1).bit_length()
+    return -(-(1 << (31 + s)) // n), s
+
+
+def magic_div(x, m: int, s: int):
+    """x // n for 0 <= x < 2^31 by div_magic(n)'s (m, s), as the kernel
+    computes it: the 64-bit product x * m shifted right by 31 + s (x an int
+    or a uint64 numpy array)."""
+    return (x * m) >> (31 + s)
+
+
 def _kernel_gates(cm: int, cmm: int, limit: float) -> tuple:
     """The kernel's gate arguments: cmm, the five bits of gate_bits, and
     the flags limit > 0 (the identity gate) and limit < 1 (pass_same)."""
@@ -248,26 +273,29 @@ def flush_inputs(c_pos, c_len, c_alt, g_psum, g_lsum, g_n, g_head, ed) -> dict:
     return out
 
 
-def _entry(name: str, argtypes: list):
-    """Entry point `name` of csrc/combine_greedy.cu (built at first use)."""
+def _entry(name: str, argtypes: list, defines: tuple = ()):
+    """Entry point `name` of csrc/combine_greedy.cu, built with `defines` at
+    first use."""
     from sniffles_tpu_torch.ops import _build
-    fn = getattr(_build.load("combine_greedy"), name)
+    fn = getattr(_build.load("combine_greedy", defines), name)
     fn.restype = ctypes.c_int
     fn.argtypes = argtypes + [ctypes.c_void_p]   # the stream
     return fn
 
 
-def launch_grid(inputs: dict, *, cm: int, cmm: int, limit: float):
+def launch_grid(inputs: dict, *, cm: int, cmm: int, limit: float, clocks: bool = False):
     """One launch of the grid kernel (greedy_grid) on grid_inputs' CUDA
-    tensors, on the device's current stream. Returns (assign (S, L),
-    segflags (S,)); counts nothing; raises when the launch is refused."""
+    tensors, on the device's current stream (`clocks`: the STEP_CLOCKS
+    build, a timing tool's). Returns (assign (S, L), segflags (S,)); counts
+    nothing; raises when the launch is refused."""
     from sniffles_tpu_torch.ops.clustering import _launch
     c_pos, ed = inputs["c_pos"], inputs["ed"]
     dev = c_pos.device
     S, L = c_pos.shape
     assign = torch.empty((S, L), dtype=torch.int32, device=dev)
     segflags = torch.empty((S,), dtype=torch.int32, device=dev)
-    fn = _entry("greedy_grid", [ctypes.c_void_p] * 8 + [ctypes.c_int] * 12)
+    fn = _entry("greedy_grid", [ctypes.c_void_p] * 8 + [ctypes.c_int] * 12,
+                (STEP_CLOCKS,) if clocks else ())
     rc = _launch(fn, dev, *(inputs[k].data_ptr() for k in
                             ("c_pos", "c_len", "c_alt", "c_hord", "counts", "ed")),
                  assign.data_ptr(), segflags.data_ptr(), S, L, ed.shape[1], ed.shape[2],

@@ -519,6 +519,99 @@ def _no_ed_table(payload: dict) -> dict:
     return dict(payload, ed_segs=z, ed_rows=z, ed_cols=z, ed_vals=z)
 
 
+def _sparse_ed(rng, hords: np.ndarray, c_len: np.ndarray, counts, table: float,
+               top: float) -> dict:
+    """The sparse ED entries of a grid payload: each head row used by a
+    segment row (its c_hord ordinals) x candidate with probability `table`,
+    the distance drawn from 0 to top times the candidate's |length|."""
+    segs, rows, cols, vals = [], [], [], []
+    for s in range(len(counts)):
+        n = int(counts[s])
+        for h in range(int(hords[s, :n].max(initial=-1)) + 1):
+            for j in range(n):
+                if rng.random() < table:
+                    segs.append(s)
+                    rows.append(h)
+                    cols.append(j)
+                    vals.append(int(rng.integers(0, int(top * abs(int(c_len[s, j]))) + 2)))
+    as32 = lambda v: np.array(v, dtype=np.int32)  # noqa: E731
+    return {"ed_segs": as32(segs), "ed_rows": as32(rows), "ed_cols": as32(cols),
+            "ed_vals": as32(vals)}
+
+
+def _head_ordinals(c_alt: np.ndarray, counts, heads: int = 8) -> np.ndarray:
+    """c_hord as the packer assigns it: each row's first `heads` distinct
+    alts in order, -1 for the others and past a row's count."""
+    c_hord = np.full(c_alt.shape, -1, np.int32)
+    for s in range(len(counts)):
+        ords = {}
+        for j in range(int(counts[s])):
+            a = int(c_alt[s, j])
+            if a not in ords and len(ords) < heads:
+                ords[a] = len(ords)
+            c_hord[s, j] = ords.get(a, -1)
+    return c_hord
+
+
+def greedy_group_counts_payload(rng, groups=(40, 70, 140), joins: int = 2) -> dict:
+    """A grid payload whose row r founds groups[r] groups or more (one
+    candidate a site first, sites 1,000 bp apart, lengths 80-120: at cm 10
+    no candidate reaches another site's group), then joins them `joins`
+    times each in a random order, alts from 4 (ED entries of 0 to 1.2
+    times the length, so that some joins fail the identity gate at limit
+    0.5 and found groups of their own): the live groups of its rows cross a
+    warp's 32 slots, 64 and 128, the step's probe trips."""
+    S = len(groups)
+    L = max(g * (1 + joins) for g in groups)
+    counts = np.array([g * (1 + joins) for g in groups], np.int32)
+    c_pos = np.zeros((S, L), np.int32)
+    c_len = np.zeros((S, L), np.int32)
+    c_alt = np.zeros((S, L), np.int32)
+    for s, g in enumerate(groups):
+        site_len = rng.integers(80, 121, size=g)
+        ks = np.r_[rng.permutation(g), rng.integers(0, g, size=g * joins)]
+        c_pos[s, :len(ks)] = 500 + 1000 * ks + rng.integers(-20, 21, size=len(ks))
+        c_len[s, :len(ks)] = site_len[ks] + rng.integers(-3, 4, size=len(ks))
+        c_alt[s, :len(ks)] = rng.integers(0, 4, size=len(ks))
+    c_hord = _head_ordinals(c_alt, counts)
+    return {"c_pos": c_pos, "c_len": c_len, "c_alt": c_alt, "c_hord": c_hord,
+            "counts": counts, **_sparse_ed(rng, c_hord, c_len, counts, 0.8, 1.2)}
+
+
+def greedy_long_group_payload(rng) -> dict:
+    """One row of NMAX + 40 candidates that join one group (alt 0, within
+    15 bp and 5 bp of length 300) until its size passes NMAX, every 100th
+    at a second site with alt 1: the group's cached mean, root and divisor
+    change on every step, up to n = 1,054."""
+    from sniffles_tpu_torch.ops._greedy_consts import NMAX
+    L = NMAX + 40
+    second = np.arange(L) % 100 == 99
+    c_pos = np.where(second, 50_000, 1000) + rng.integers(-15, 16, size=L)
+    c_len = 300 + rng.integers(-5, 6, size=L)
+    c_alt = second.astype(np.int32)[None, :]
+    counts = np.array([L], np.int32)
+    c_hord = _head_ordinals(c_alt, counts)
+    c_len = c_len.astype(np.int32)[None, :]
+    return {"c_pos": c_pos.astype(np.int32)[None, :], "c_len": c_len, "c_alt": c_alt,
+            "c_hord": c_hord, "counts": counts,
+            **_sparse_ed(rng, c_hord, c_len, counts, 0.5, 0.3)}
+
+
+def greedy_tiny_payload(rng) -> dict:
+    """Rows whose candidates have lengths of 0, 1, 2 and below 0, so that a
+    group's length mean is 0, negative or under 1: the identity ratio's
+    denominator max(mean, tiny) at tiny, and a cached root of 0."""
+    S, L = 3, 24
+    c_pos = (rng.integers(0, 3, size=(S, 1)) * 5000 + rng.integers(-10, 11, size=(S, L)))
+    c_len = rng.choice((0, 0, 1, 2, -5, 40), size=(S, L))
+    c_alt = rng.integers(0, 3, size=(S, L)).astype(np.int32)
+    counts = np.array([L, L - 5, 7], np.int32)
+    c_hord = _head_ordinals(c_alt, counts)
+    c_len = c_len.astype(np.int32)
+    return {"c_pos": c_pos.astype(np.int32), "c_len": c_len, "c_alt": c_alt, "c_hord": c_hord,
+            "counts": counts, **_sparse_ed(rng, c_hord, c_len, counts, 0.9, 1.0)}
+
+
 def greedy_task_payloads() -> list[tuple[str, dict, dict]]:
     """(label, payload, meta) of the whole-task grid greedy
     (run_combine_greedy_task), which the CPU tests hold against the JAX
@@ -535,7 +628,14 @@ def greedy_task_payloads() -> list[tuple[str, dict, dict]]:
       - "group overflow": one group past NMAX members;
       - "one long segment": one row of SEG_LMAX = 2,048 candidates at 64
         sites (well over a warp's 32 groups), at limits 0.7 and 0;
-      - "many segments": 16,384 rows of one candidate, at limits 0.7 and 0.
+      - "many segments": 16,384 rows of one candidate, at limits 0.7 and 0;
+      - "group counts": rows whose live groups cross 32, 64 and 128
+        (greedy_group_counts_payload), at cm 10 with limits 0.5 and 0;
+      - "long group": one group joined until its size passes NMAX
+        (greedy_long_group_payload), at limit 0.7 (the identity gate on;
+        "group overflow" has limit 0);
+      - "tiny ratios": group length means of 0, below 0 and under 1
+        (greedy_tiny_payload), at limits 0.7 and 0.
     """
     from sniffles_tpu_torch.ops._greedy_consts import NMAX, SEG_LMAX
     out = []
@@ -585,6 +685,14 @@ def greedy_task_payloads() -> list[tuple[str, dict, dict]]:
     for limit in (0.7, 0.0):
         out.append(("many segments", _no_ed_table(many), {"cm": 250, "cmm": 1000,
                                                           "limit": limit}))
+    counts = greedy_group_counts_payload(np.random.default_rng(13))
+    for limit in (0.5, 0.0):
+        out.append(("group counts", counts, {"cm": 10, "cmm": 120, "limit": limit}))
+    long_group = greedy_long_group_payload(np.random.default_rng(14))
+    tiny = greedy_tiny_payload(np.random.default_rng(15))
+    out.append(("long group", long_group, {"cm": 250, "cmm": 1000, "limit": 0.7}))
+    for limit in (0.7, 0.0):
+        out.append(("tiny ratios", tiny, {"cm": 250, "cmm": 1000, "limit": limit}))
     return out
 
 
@@ -962,7 +1070,40 @@ def call_stats_batch(kind: str, size: int, seed: int) -> dict:
     return out
 
 
-SEG_SORT_KINDS = ("tiers", "random", "equal", "limits", "invalid", "huge", "packed")
+SEG_SORT_KINDS = ("tiers", "random", "equal", "limits", "invalid", "huge", "packed", "tiles")
+
+
+def seg_sort_width(kind: str) -> int:
+    """The width the tests build each seg_sort_batch population at: 2^20 +
+    8,192 for "huge", 62,302 for "tiles" (not a multiple of the run pass's
+    tile, so that its last tile is partial), 65,536 for the others."""
+    return {"huge": (1 << 20) + 8192, "tiles": 62_302}.get(kind, 65_536)
+
+
+def _tile_edge_sizes(rng, valid_n: int) -> list:
+    """The "tiles" population's segments: at the run pass's tile edges
+    (ops/cluster_sorts.RUN_TILE elements a tile), a segment across a
+    boundary; heads whose next head lies exactly WARP_MAX and WARP_MAX + 1
+    past them across a boundary, from a tile's middle and from its last
+    element; elements of their own as a tile's last and first elements; a
+    thread-tier segment across a boundary; a head on a tile's first
+    element; a segment longer than a tile; a warp segment that ends on a
+    boundary. Fillers of 1 to 40 elements between them, up to valid_n."""
+    from sniffles_tpu_torch.ops.cluster_sorts import RUN_TILE as T, TINY_MAX, WARP_MAX as W
+    placed = [(T - 20, 50), (2 * T - 100, W), (3 * T - 100, W + 1), (4 * T - 1, W),
+              (5 * T - 1, W + 1), (6 * T - 1, 1), (6 * T, 1), (7 * T - 2, 1), (7 * T - 1, 1),
+              (7 * T, 1), (8 * T - 3, TINY_MAX), (9 * T, 40), (10 * T - 50, T + 100),
+              (12 * T - W, W), (13 * T - 1, 2)]
+    sizes, at = [], 0
+    for start, k in placed:
+        if start + k > valid_n:
+            break
+        while at < start:
+            sizes.append(min(int(rng.integers(1, 41)), start - at))
+            at += sizes[-1]
+        sizes.append(k)
+        at += k
+    return sizes
 
 # the "packed" population's fixed runs: 9-32-element segments whose sums fall
 # on, just under and just over a warp's 32 lanes, single segments either
@@ -994,7 +1135,9 @@ def seg_sort_batch(kind: str, size: int, seed: int) -> dict:
         from a range of 1,000, then small segments and an invalid tail;
       "packed": the warp tier's packing of small segments (_PACKED_RUNS,
         then segments of 9 to 32 elements up to the end, all valid: the
-        last segments end at `size`), keys from a range of 64 (ties)."""
+        last segments end at `size`), keys from a range of 64 (ties);
+      "tiles": the run pass's tile edges (_tile_edge_sizes), then segments
+        of 1 to 600, keys from a range of 64, a tenth invalid."""
     from sniffles_tpu_torch.ops.cluster_sorts import BLOCK_MAX, TINY_MAX, WARP_MAX
     rng = np.random.default_rng(seed)
     limits = np.array([_I32_MIN, _I32_MIN + 1, -1, 0, 1, _I32_MAX - 1, _I32_MAX], np.int64)
@@ -1016,6 +1159,8 @@ def seg_sort_batch(kind: str, size: int, seed: int) -> dict:
     elif kind == "packed":
         sizes = [k for run in _PACKED_RUNS for k in run]
         n_invalid = 0
+    elif kind == "tiles":
+        sizes = _tile_edge_sizes(rng, size - n_invalid)
     elif kind not in ("random", "equal", "limits"):
         raise ValueError(f"no seg_sort batch of kind {kind!r}")
     if kind == "limits":

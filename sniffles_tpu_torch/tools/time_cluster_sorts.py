@@ -5,6 +5,7 @@ their bound, their plain versions and one PyTorch call, and each tier
 threshold from both sides:
 
     python3 sniffles_tpu_torch/tools/time_cluster_sorts.py [--n 2097152] [--dense DIR] [--split]
+        [--cases "engine resplit,engine sort and seed"] [--no-thresholds]
     PYTHONPATH=DIR python3 sniffles_tpu_torch/tools/time_cluster_sorts.py ...
 
 Sort cases of n elements (`cases`), each a seg_sort call's inputs on the
@@ -51,7 +52,12 @@ card and where it does not).
 
 --split builds csrc/cluster_sorts.cu with ops/cluster_sorts.PHASE_CLOCKS
 and prints, for each sort case, the warp tier's cycles by phase (its
-list entries and keys loaded, ranked, written), summed over its warps.
+list entries and keys loaded, ranked, written), summed over its warps,
+and the run pass's time by part (ops/cluster_sorts.RUN_PARTS: the
+heads, each head's next head, the lists' appends, the thread tier; and
+the memset ahead of it), from its variants that stop after each part
+(`run_split`). --cases A,B times only the sort cases so named (no
+gathers, no task sizes).
 Then, for each threshold of ops/cluster_sorts.TIERS, its populations
 through the tier on either side of it, each side a build of its own (all
 built at once first), ptxas's registers and spills of every kernel, and
@@ -189,12 +195,14 @@ def histogram(seg: torch.Tensor, tiers: tuple) -> str:
 
 def sort_bytes(n: int, tiny: int, with_k2: bool, with_base: bool, with_alone: bool) -> tuple:
     """(run pass, tiers) bytes the function must move: seg_start and alone
-    (where given) read once by the run pass; each element's keys (k1, k2
-    where given, the base entry where given) read once and its int64
-    permutation entry written once, by the tier that sorts it (tiny: the
-    thread tier's elements)."""
+    (where given) read once by the run pass, and where alone is read
+    through a base permutation, the base entry too (alone[base[x]]); each
+    element's keys (k1, k2 where given, the base entry where given) read
+    once and its int64 permutation entry written once, by the tier that
+    sorts it (tiny: the thread tier's elements)."""
     per = 4 + 4 * with_k2 + 8 * with_base + 8
-    return n * (1 + with_alone) + tiny * per, (n - tiny) * per
+    runs = n * (1 + with_alone + 8 * (with_alone and with_base))
+    return runs + tiny * per, (n - tiny) * per
 
 
 def gather_bytes(order: torch.Tensor, columns: dict) -> int:
@@ -220,29 +228,63 @@ def queued_ms(fn) -> float:
     return total / REPS
 
 
-def split_ms(case) -> dict:
-    """{"seg_runs": ms, "seg_tiers": ms, "warp tier": ms, "block tier": ms}:
-    the entry point's own CUDA events around the run pass (with its
-    memset) and around each tier, the mean of REPS calls after one that
-    warms up, the card asleep ahead of each. A package whose entry point
-    records three events gives the two tiers as one."""
+def split_ms(case, run_parts: int | None = None) -> dict:
+    """{"seg_runs": ms (the run pass with its memset), "seg_tiers": ms,
+    and "memset", "run pass" where the package names its events apart}:
+    the entry point's own CUDA events around each part, the mean of REPS
+    calls after one that warms up, the card asleep ahead of each.
+    `run_parts`: the run pass's variant that stops after that part
+    (ops/cluster_sorts.run_parts_define)."""
     from sniffles_tpu_torch.ops import cluster_sorts as cso
-    count = getattr(cso, "SORT_EVENTS", 3)
-    evs = [torch.cuda.Event(enable_timing=True) for _ in range(count)]
+    parts = getattr(cso, "SORT_EVENT_PARTS", ("run pass and memset", "tiers"))
+    evs = [torch.cuda.Event(enable_timing=True) for _ in range(len(parts) + 1)]
     for e in evs:
         e.record()          # creates the events the entry point records again
-    total = np.zeros(count - 1)
+    kw = {} if run_parts is None else {"run_parts": run_parts}
+    total = np.zeros(len(parts))
     for rep in range(REPS + 1):
         torch.cuda._sleep(SLEEP_CYCLES)
-        cso.launch_seg_sort(*case[:5], events=evs)
+        cso.launch_seg_sort(*case[:5], events=evs, **kw)
         torch.cuda.synchronize()
         if rep:
-            total += [evs[i].elapsed_time(evs[i + 1]) for i in range(count - 1)]
-    total /= REPS
-    out = {"seg_runs": float(total[0]), "seg_tiers": float(total[1:].sum())}
-    if count == 4:
-        out.update({"warp tier": float(total[1]), "block tier": float(total[2])})
+            total += [evs[i].elapsed_time(evs[i + 1]) for i in range(len(parts))]
+    ms = dict(zip(parts, (float(t) for t in total / REPS)))
+    if "memset" not in ms:
+        return {"seg_runs": ms["run pass and memset"], "seg_tiers": ms["tiers"]}
+    return {"seg_runs": ms["memset"] + ms["run pass"], "seg_tiers": ms["tiers"],
+            "memset": ms["memset"], "run pass": ms["run pass"]}
+
+
+def run_split(case) -> dict | None:
+    """{part: ms} of the run pass (ops/cluster_sorts.RUN_PARTS): the run
+    pass's time (between the entry point's events) in each variant that
+    stops after part k, less the one before it, and "memset"; None where
+    the package has no such variants. Build the variants first
+    (build_run_variants)."""
+    from sniffles_tpu_torch.ops import cluster_sorts as cso
+    if not hasattr(cso, "RUN_PARTS"):
+        return None
+    out, before = {}, 0.0
+    for k, part in enumerate(cso.RUN_PARTS, start=1):
+        ms = split_ms(case, run_parts=k)
+        out[part] = ms["run pass"] - before
+        before = ms["run pass"]
+        out["memset"] = ms["memset"]
+    out["run pass"] = before
     return out
+
+
+def build_run_variants() -> None:
+    """Every run-pass variant of the package (run_split's), built at once."""
+    from sniffles_tpu_torch.ops import _build
+    from sniffles_tpu_torch.ops import cluster_sorts as cso
+    if not hasattr(cso, "RUN_PARTS"):
+        return
+    started = [_build.start_build("cluster_sorts", defines=cso.nvcc_defines()
+                                  + (cso.run_parts_define(k),))
+               for k in range(1, len(cso.RUN_PARTS) + 1)]
+    for s in started:
+        _build.finish_build(s)
 
 
 def phase_split(case) -> dict | None:
@@ -536,7 +578,10 @@ def main() -> int:
     ap.add_argument("--split", action="store_true",
                     help="the warp tier's cycles by phase (a PHASE_CLOCKS build)")
     ap.add_argument("--no-thresholds", action="store_true")
+    ap.add_argument("--cases", default="",
+                    help="only these sort cases, comma-separated (no gathers)")
     args = ap.parse_args()
+    only = [c for c in args.cases.split(",") if c]
     from sniffles_tpu_torch.ops import cluster_sorts as cso
     print(f"time_cluster_sorts: the package at "
           f"{os.path.dirname(os.path.dirname(os.path.dirname(cso.__file__)))}", flush=True)
@@ -548,6 +593,13 @@ def main() -> int:
     os.environ.pop("SNIFFLES_TPU_FORCE_CPU", None)
     from sniffles_tpu_torch.ops import _build
     all_cases = cases(args.n, "cuda")
+    if only:
+        unknown = set(only) - set(all_cases)
+        if unknown:
+            raise SystemExit(f"time_cluster_sorts: no case {', '.join(sorted(unknown))}")
+        all_cases = {k: v for k, v in all_cases.items() if k in only}
+    if args.split:
+        build_run_variants()
     for label, case in all_cases.items():
         if label == "marks":
             r = marks_row(*case)
@@ -572,6 +624,12 @@ def main() -> int:
             print("  warp tier by phase: " + ("no phase clocks in this package" if ph is None
                   else f"{ph['cycles']:.4g} warp-cycles a call; " + ", ".join(
                       f"{p} {100 * ph[p]:.1f} %" for p in PHASES)), flush=True)
+            rs = run_split(case)
+            print("  run pass by part: " + ("no run-pass variants in this package" if rs is None
+                  else ", ".join(f"{k} {v:.4f} ms" for k, v in rs.items())), flush=True)
+    if only:
+        print(smi_line())
+        return 0
     for label, (order, cols) in gather_sites(args.n, "cuda", args.dense).items():
         r = gather_row(order, cols, label)
         print(f"gather {label}: {r['columns']} columns, == plain; {r['ms']:.4f} ms "
@@ -604,10 +662,15 @@ def main() -> int:
             kernel = next((k for k in KERNEL_NAMES if k in line), "?")
         elif "registers" in line or "spill" in line:
             print(f"  ptxas {kernel}: {line.split(':', 1)[-1].strip()}")
+    print(smi_line())
+    return 0
+
+
+def smi_line() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
-    print(smi.stdout.strip() if smi.returncode == 0 else "nvidia-smi failed")
-    return 0
+    return smi.stdout.strip() if smi.returncode == 0 else "nvidia-smi failed"
 
 
 if __name__ == "__main__":

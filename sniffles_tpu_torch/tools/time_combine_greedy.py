@@ -4,7 +4,7 @@
 
     python3 sniffles_tpu_torch/tools/time_combine_greedy.py [--dir DIR]
         [--cohorts combine256,combine256-bam] [--samples 256] [--jobs 8]
-        [--json-out FILE]
+        [--json-out FILE] [--dispatches FILE] [--split]
     PYTHONPATH=DIR python3 sniffles_tpu_torch/tools/time_combine_greedy.py ...
 
 Cohorts (built under --dir, and reused when they are there):
@@ -30,6 +30,16 @@ start to result on the host clock). Then:
     the bound (`bound`: the bytes the kernel must move at 3.35 TB/s, the
     live slots' operations);
   - the share of the measured combine's wall in its greedy dispatches.
+--dispatches FILE keeps every cohort's captured dispatches (payload, meta,
+result, padded shapes, wall) in FILE, a pickle, and reads them from FILE
+when it is there instead of building the cohorts and running their
+combines (no wall split then): a CPU dry run captures them once, and each
+later run on the card times the same dispatches.
+--split (on the card) also runs each cohort's largest dispatch (the most
+candidates) through a build of the kernel with ops/combine_greedy.
+STEP_CLOCKS and prints the cycles of a step by part (STEP_PARTS: the
+candidate's load, the probe trips, the warp reductions, the update),
+summed over the rows' steps.
 The card's nvidia-smi name and power limit close the output. `--device
 cpu` is a dry run on the CPU (the plain version, SNIFFLES_TPU_FORCE_CPU):
 the capture, the shapes and the split, no device time.
@@ -40,6 +50,7 @@ import glob
 import io
 import json
 import os
+import pickle
 import subprocess
 import sys
 import time
@@ -301,6 +312,72 @@ def time_cohort(cg, name: str, kept: list, has_kernel: bool) -> list:
     return rows
 
 
+def step_split(cg, d: dict) -> dict | None:
+    """A dispatch's steps by part: its grid run once through the kernel's
+    STEP_CLOCKS build (held to the plain version), then {part: cycles a
+    step} (ops/combine_greedy.STEP_PARTS; a step's cycles averaged over
+    every row's steps), "cycles" (their sum) and "steps"; None where the
+    package has no such build."""
+    if not hasattr(cg, "STEP_CLOCKS"):
+        return None
+    import ctypes
+    from sniffles_tpu_torch.ops import _build
+    fn = _build.load("combine_greedy", (cg.STEP_CLOCKS,)).greedy_step_clocks
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p]
+    out = (ctypes.c_uint64 * (len(cg.STEP_PARTS) + 1))()
+    args, kw, _ = device_inputs(cg, d)
+    gates = {k: kw[k] for k in ("cm", "cmm", "limit")}
+    want = cg.run_combine_greedy_task(d["payload"], d["meta"], "cpu")
+    run = lambda: cg.launch_grid(cg.grid_inputs(*args), clocks=True, **gates)  # noqa: E731
+    run()
+    torch.cuda.synchronize()
+    if fn(out) != 0:                    # zeroes the sums after the warm-up launch
+        raise SystemExit("time_combine_greedy: reading the step clocks failed")
+    held(run(), want, "the STEP_CLOCKS build")
+    torch.cuda.synchronize()
+    if fn(out) != 0:
+        raise SystemExit("time_combine_greedy: reading the step clocks failed")
+    cycles, steps = [int(v) for v in out[:-1]], int(out[-1])
+    per = {p: c / max(steps, 1) for p, c in zip(cg.STEP_PARTS, cycles)}
+    return {**per, "cycles": sum(per.values()), "steps": steps}
+
+
+def captured(args, names: list, cpu: bool) -> dict:
+    """{cohort: (kept dispatches, the combine's wall in s or None)}: read
+    from --dispatches FILE where it is there, else each cohort built under
+    --dir and its device combine run in this process (on the card once to
+    warm up, then measured), the dispatches then kept in FILE where one is
+    named."""
+    if args.dispatches and os.path.exists(args.dispatches):
+        with open(args.dispatches, "rb") as f:
+            saved = pickle.load(f)
+        missing = [n for n in names if n not in saved]
+        if missing:
+            raise SystemExit(f"time_combine_greedy: {args.dispatches} holds no "
+                             f"{', '.join(missing)}")
+        print(f"  the dispatches of {', '.join(names)} read from {args.dispatches}", flush=True)
+        return {n: (saved[n], None) for n in names}
+    t0 = time.perf_counter()
+    cohorts = {n: build_cohort(n, args.dir, args.samples, args.jobs) for n in names}
+    print(f"  cohorts {', '.join(f'{n} ({len(s)} SNFs)' for n, s in cohorts.items())} in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    if not cpu:
+        from sniffles_tpu_torch.ops import _build
+        _build.build_all()
+    out = {}
+    for name, snfs in cohorts.items():
+        vcf = os.path.join(args.dir, f"{name}.vcf")
+        if not cpu:
+            run_device_combine(snfs, vcf)      # warm: the context and the kernels' modules
+        out[name] = run_device_combine(snfs, vcf)
+    if args.dispatches:
+        os.makedirs(os.path.dirname(os.path.abspath(args.dispatches)), exist_ok=True)
+        with open(args.dispatches, "wb") as f:
+            pickle.dump({n: kept for n, (kept, _) in out.items()}, f)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--dir", default=os.path.join(REPO, "build", "time_combine_greedy"))
@@ -309,6 +386,10 @@ def main(argv=None) -> int:
     ap.add_argument("--jobs", type=int, default=8)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--json-out", default="")
+    ap.add_argument("--dispatches", default="",
+                    help="a pickle of the captured dispatches: written, or read when there")
+    ap.add_argument("--split", action="store_true",
+                    help="a step's cycles by part on each cohort's largest dispatch")
     args = ap.parse_args(argv)
     names = [n for n in args.cohorts.split(",") if n]
     if any(n not in COHORTS for n in names):
@@ -326,24 +407,14 @@ def main(argv=None) -> int:
     print(f"time_combine_greedy: the package at "
           f"{os.path.dirname(os.path.dirname(cg.__file__))}, "
           f"{'with' if has_kernel else 'without'} the greedy kernel", flush=True)
-    t0 = time.perf_counter()
-    cohorts = {n: build_cohort(n, args.dir, args.samples, args.jobs) for n in names}
-    print(f"  cohorts {', '.join(f'{n} ({len(s)} SNFs)' for n, s in cohorts.items())} in "
-          f"{time.perf_counter() - t0:.1f} s", flush=True)
-    if not cpu:
-        from sniffles_tpu_torch.ops import _build
-        _build.build_all()
     report = {}
-    for name, snfs in cohorts.items():
-        vcf = os.path.join(args.dir, f"{name}.vcf")
-        if not cpu:
-            run_device_combine(snfs, vcf)      # warm: the context and the kernels' modules
-        kept, wall = run_device_combine(snfs, vcf)
-        parts = split(kept, wall)
-        print(f"  [{name}] the device combine in process: {wall:.3f} s, of which "
-              f"{parts['greedy_s']:.3f} s in {parts['dispatches']} greedy dispatches "
-              f"({100 * parts['greedy_share']:.1f} %), the rest {parts['rest_s']:.3f} s",
-              flush=True)
+    for name, (kept, wall) in captured(args, names, cpu).items():
+        parts = split(kept, wall) if wall is not None else None
+        if parts is not None:
+            print(f"  [{name}] the device combine in process: {wall:.3f} s, of which "
+                  f"{parts['greedy_s']:.3f} s in {parts['dispatches']} greedy dispatches "
+                  f"({100 * parts['greedy_share']:.1f} %), the rest {parts['rest_s']:.3f} s",
+                  flush=True)
         if cpu:
             for j, d in enumerate(kept):
                 print(f"  [{name}] dispatch {j}: {dispatch_row(d)} (CPU dry run: no device "
@@ -359,6 +430,15 @@ def main(argv=None) -> int:
                  f"{sum(r['kernel']['launches'] for r in rows)} launches (the wrapper's count)"
                  if has_kernel else ""),
               flush=True)
+        if args.split:
+            d = max(kept, key=lambda d: int(np.asarray(d["payload"]["counts"]).sum()))
+            sp = step_split(cg, d)
+            report[name]["step_split"] = sp
+            print(f"  [{name}] the largest dispatch's steps by part (the STEP_CLOCKS build): "
+                  + ("no step clocks in this package" if sp is None else
+                     f"{sp['cycles']:.1f} cycles a step over {sp['steps']} row steps; "
+                     + ", ".join(f"{p} {sp[p]:.1f} ({100 * sp[p] / sp['cycles']:.1f} %)"
+                                 for p in cg.STEP_PARTS)), flush=True)
     if not cpu:
         smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                               "--format=csv,noheader"], capture_output=True, text=True,

@@ -41,7 +41,7 @@ from sniffles_tpu.ops import clustering as jc  # noqa: E402
 from sniffles_tpu_torch.ops import cluster_sorts as cs  # noqa: E402
 from sniffles_tpu_torch.ops import clustering as tc  # noqa: E402
 from sniffles_tpu_torch.sim import (SEG_SORT_KINDS, edge_call_batches,  # noqa: E402
-                                   fuzz_call_batch, seg_sort_batch)
+                                   fuzz_call_batch, seg_sort_batch, seg_sort_width)
 
 INT32_MAX = 2 ** 31 - 1
 META = dict(cluster_r=2.5, cluster_repeat_h=1.5, cluster_repeat_h_max=1000.0,
@@ -111,8 +111,7 @@ def starts(seg_id) -> torch.Tensor:
 
 @pytest.mark.parametrize("kind", SEG_SORT_KINDS)
 def test_seg_sort_plain_equals_jnp_lexsort(kind):
-    size = (1 << 20) + 8192 if kind == "huge" else 65536
-    b = seg_sort_batch(kind, size, 5)
+    b = seg_sort_batch(kind, seg_sort_width(kind), 5)
     k1, k2, seg = masked(b)
     want2 = np.asarray(jnp.lexsort((k2, k1, seg)))
     want1 = np.asarray(jnp.lexsort((k1, seg)))
@@ -134,6 +133,25 @@ def test_seg_sort_plain_equals_jnp_lexsort(kind):
     assert np.array_equal(got.numpy(), want2)
 
 
+def test_tiles_population_sits_on_the_run_pass_tile_edges():
+    """sim.seg_sort_batch's "tiles": at the run pass's tile edges (RUN_TILE
+    elements a tile), a segment across a boundary, heads whose next head
+    lies WARP_MAX and WARP_MAX + 1 past them across one (from a tile's
+    middle and its last element), segments of one as a tile's last and
+    first elements, a thread-tier segment across a boundary, a segment
+    longer than a tile; its width leaves the last tile partial."""
+    T, W = cs.RUN_TILE, cs.WARP_MAX
+    width = seg_sort_width("tiles")
+    b = seg_sort_batch("tiles", width, 5)
+    sizes = np.bincount(b["seg_id"])
+    at = dict(zip(np.r_[0, np.cumsum(sizes)[:-1]].tolist(), sizes.tolist()))
+    want = {T - 20: 50, 2 * T - 100: W, 3 * T - 100: W + 1, 4 * T - 1: W, 5 * T - 1: W + 1,
+            6 * T - 1: 1, 6 * T: 1, 8 * T - 3: cs.TINY_MAX, 9 * T: 40, 10 * T - 50: T + 100,
+            12 * T - W: W}
+    assert {k: at.get(k) for k in want} == want
+    assert width % T and b["valid"].sum() < width and b["valid"][:width - width // 10].all()
+
+
 def test_seg_heads_make_each_element_alone_a_segment():
     seg_start = torch.tensor([True, False, False, False, True, False])
     alone = torch.tensor([False, False, True, False, False, True])
@@ -143,7 +161,7 @@ def test_seg_heads_make_each_element_alone_a_segment():
     assert cs.seg_sort(seg_start, k1, alone=alone).tolist() == [1, 0, 2, 3, 4, 5]
 
 
-@pytest.mark.parametrize("kind", ["tiers", "random", "limits", "packed"])
+@pytest.mark.parametrize("kind", ["tiers", "random", "limits", "packed", "tiles"])
 def test_seg_sort_through_a_base_permutation(kind):
     """With base: the element at position x is original element base[x];
     the result is base composed with the sort of the keys read through it,

@@ -63,7 +63,10 @@ def test_gather_and_sort_bytes():
     cols = {"a": torch.zeros(10, dtype=torch.int32), "b": torch.zeros(10, dtype=torch.bool),
             "c": torch.zeros(10, dtype=torch.int64), "n": torch.tensor(3)}
     assert tool.gather_bytes(order, cols) == 10 * 8 + 2 * 10 * (4 + 1 + 8)
-    assert tool.sort_bytes(100, 10, True, True, True) == (200 + 10 * 24, 90 * 24)
+    # the run pass reads alone through base: the base entry too
+    assert tool.sort_bytes(100, 10, True, True, True) == (100 * (1 + 1 + 8) + 10 * 24, 90 * 24)
+    assert tool.sort_bytes(100, 10, True, True, False) == (100 + 10 * 24, 90 * 24)
+    assert tool.sort_bytes(100, 10, True, False, True) == (200 + 10 * 16, 90 * 16)
     assert tool.sort_bytes(100, 0, False, False, False) == (100, 100 * 12)
 
 

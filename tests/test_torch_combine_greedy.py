@@ -176,12 +176,44 @@ def test_long_segment_and_many_segments_match_jax(label):
             assert out["assign"].shape == (16_384, 1) and (out["assign"] == 0).all()
 
 
+def test_group_counts_cross_the_probe_trips():
+    """Rows whose live groups cross 32, 64 and 128 (a probe trip a warp's
+    32 slots), at limits 0.5 and 0: the port == the JAX package."""
+    cases = task_cases("group counts")
+    assert [m["limit"] for _, m in cases] == [0.5, 0.0]
+    for payload, meta in cases:
+        out = assert_same_result(payload, meta)
+        groups = [int(out["assign"][s, :c].max()) + 1 for s, c in enumerate(payload["counts"])]
+        assert groups[0] > 32 and groups[1] > 64 and groups[2] > 128, groups
+
+
+def test_long_group_passes_nmax():
+    """One group joined until its size passes NMAX, the identity gate on:
+    the overflow flag, in both packages."""
+    (payload, meta), = task_cases("long group")
+    assert meta["limit"] == 0.7
+    out = assert_same_result(payload, meta)
+    assert (out["assign"][0] == 0).sum() > NMAX
+    assert out["seg_flags"].tolist() == [SEGF_N_OVERFLOW]
+
+
+def test_tiny_ratios():
+    """Group length means of 0, below 0 and under 1 (the identity ratio's
+    denominator at tiny), at limits 0.7 and 0: the port == the JAX
+    package."""
+    cases = task_cases("tiny ratios")
+    assert [m["limit"] for _, m in cases] == [0.7, 0.0]
+    for payload, meta in cases:
+        assert (payload["c_len"] <= 0).any()
+        assert_same_result(payload, meta)
+
+
 def test_every_task_payload_is_held():
     """Every label of sim.greedy_task_payloads is held by a test above."""
     from sniffles_tpu_torch.sim import greedy_task_payloads
     held = {f"fuzz seed {k}" for k in range(6)} | {
         "exact ties", "near threshold", "ed miss", "width-1 table", "group overflow",
-        "one long segment", "many segments"}
+        "one long segment", "many segments", "group counts", "long group", "tiny ratios"}
     assert {name for name, _, _ in greedy_task_payloads()} == held
 
 

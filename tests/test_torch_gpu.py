@@ -469,7 +469,7 @@ def test_flush_greedy_on_cuda_matches_plain(card):
 # the labels of sniffles_tpu_torch.sim.greedy_task_payloads
 GREEDY_TASK_LABELS = [f"fuzz seed {k}" for k in range(6)] + [
     "exact ties", "near threshold", "ed miss", "width-1 table", "group overflow",
-    "one long segment", "many segments"]
+    "one long segment", "many segments", "group counts", "long group", "tiny ratios"]
 
 
 def greedy_task_cases(label):
@@ -922,9 +922,8 @@ def seg_sort_case(kind, seed=5):
     """sim.seg_sort_batch's population as the callers give it: segment
     starts, the keys masked to INT32_MAX where not valid, the invalid
     elements (CPU tensors)."""
-    from sniffles_tpu_torch.sim import seg_sort_batch
-    size = (1 << 20) + 8192 if kind == "huge" else 65536
-    b = seg_sort_batch(kind, size, seed)
+    from sniffles_tpu_torch.sim import seg_sort_batch, seg_sort_width
+    b = seg_sort_batch(kind, seg_sort_width(kind), seed)
     valid = torch.from_numpy(b["valid"])
     big = 2 ** 31 - 1
     k1 = torch.where(valid, torch.from_numpy(b["k1"]), big)
@@ -955,7 +954,7 @@ def held_seg_sort(card, seg_start, k1, k2=None, base=None, alone=None, tiers=Non
     assert torch.equal(got.cpu(), want)
 
 
-SEG_SORT_KINDS = ["tiers", "random", "equal", "limits", "invalid", "huge", "packed"]
+SEG_SORT_KINDS = ["tiers", "random", "equal", "limits", "invalid", "huge", "packed", "tiles"]
 
 
 @pytest.mark.parametrize("kind", SEG_SORT_KINDS)
@@ -963,7 +962,8 @@ def test_seg_sort_kernel_matches_plain_version(card, kind):
     """Every sim.seg_sort_batch population (each tier threshold from both
     sides, presorted and all-equal segments, keys at the int32 limits, no
     valid element, a segment of 2^20, the warp tier's packed segments of 9
-    to 64), with two keys, one key and through a base permutation."""
+    to 64, the run pass's tile edges), with two keys, one key and through a
+    base permutation."""
     seg_start, k1, k2, invalid = seg_sort_case(kind)
     held_seg_sort(card, seg_start, k1, k2)
     held_seg_sort(card, seg_start, k1)
@@ -1006,7 +1006,7 @@ def test_seg_sort_each_tier_on_every_population(card, sort_tier_builds, tiers):
     scratch; (8, 8, 8): the thread tier, then that scratch; (1, 32, 32): a
     warp up to 32, then that scratch; (2, 512, 16384): a warp up to 512, a
     block's shared memory up to 16,384: the kernels == the plain version."""
-    for kind in ("tiers", "random", "equal", "limits", "packed"):
+    for kind in ("tiers", "random", "equal", "limits", "packed", "tiles"):
         seg_start, k1, k2, invalid = seg_sort_case(kind, seed=7)
         held_seg_sort(card, seg_start, k1, k2, tiers=tiers)
         held_seg_sort(card, seg_start, k1, k2, alone=invalid, tiers=tiers)
@@ -1025,7 +1025,8 @@ def test_seg_sort_events_time_its_parts(card):
                               alone=invalid.to(card), events=evs)
     torch.cuda.synchronize()
     assert torch.equal(got.cpu(), want)
-    assert evs[0].elapsed_time(evs[1]) > 0 and evs[1].elapsed_time(evs[2]) > 0
+    assert cso.SORT_EVENTS == len(cso.SORT_EVENT_PARTS) + 1
+    assert all(evs[i].elapsed_time(evs[i + 1]) > 0 for i in range(len(evs) - 1))
 
 
 def test_seg_sort_refused_shared_memory_raises(card, sort_tier_builds):
