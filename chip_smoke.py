@@ -1106,13 +1106,14 @@ SORT_REPLACES = {"seg_runs": "sniffles_tpu/ops/clustering.py:775",
 
 def time_cluster_sorts() -> dict:
     """Phase 5's rows of the segmented sorts at the engine step's 2^21
-    signatures (tools/time_cluster_sorts.kernel_rows: the resplit's sort,
-    sort and seed's gather (a random permutation) and the resplit's (a
+    signatures (tools/time_cluster_sorts.kernel_rows: the resplit's sort and
+    sort and seed's, sort and seed's gather (a random permutation) and the resplit's (a
     local one), and a call task's fold at dense3's width; each held against
     its plain version first): {kernel: row}."""
     from sniffles_tpu_torch.tools.time_cluster_sorts import TASK_N, kernel_rows
     rows = kernel_rows(1 << 21)
-    where = {"gather_columns (sort and seed)": "at 2^21, the engine's sort and seed",
+    where = {"seg_sort (sort and seed)": "at 2^21, the engine's sort and seed",
+             "gather_columns (sort and seed)": "at 2^21, the engine's sort and seed",
              "gather_columns (resplit)": "at 2^21, the engine's resplit",
              "gather_columns (a call task)": f"at n = {TASK_N}, a call task's fold"}
     for name, r in rows.pop("wrappers").items():
@@ -1126,11 +1127,13 @@ def time_cluster_sorts() -> dict:
                   f"of it", flush=True)
             continue
         split = "".join(f", {k} {v:.4f} ms" for k, v in r.get("split", {}).items())
+        runs_bound = r["bytes"][0] / HBM_BYTES_PER_S * 1e3
         print(f"  {name} ({stage}): the wrapper {r['ms']:.4f} ms{split}, "
               f"plain {r['plain_ms']:.4f} ms, one torch.sort {lib}, bound "
               f"{r['bound_ms']:.5f} ms ({sum(np.atleast_1d(r['bytes']))} bytes at "
-              f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s), {100 * r['bound_ms'] / r['ms']:.1f} % of it",
-              flush=True)
+              f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s), {100 * r['bound_ms'] / r['ms']:.1f} % of it; "
+              f"seg_runs with its memset against the run pass's bound {runs_bound:.5f} ms: "
+              f"{100 * runs_bound / r['split']['seg_runs']:.1f} %", flush=True)
     for name, r in rows.items():
         print(f"  {name}: {r['ms']:.4f} ms (CUDA events) against a bound of "
               f"{r['bound_ms']:.5f} ms, {100 * r['bound_ms'] / r['ms']:.1f} % of it", flush=True)

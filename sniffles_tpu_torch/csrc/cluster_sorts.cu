@@ -30,17 +30,24 @@
 // a segment: the callers mark their invalid suffix so, which the lexsort
 // leaves in place, and which one block would otherwise have to walk as one
 // large segment.
-//   * seg_runs, a thread an element, a warp 32 consecutive elements: the
-//     segment heads (seg_start, element 0, the elements alone and the ones
-//     after them) by a ballot; a head's end is
-//     the next head in the warp's ballot or, for the warp's last head, the
-//     first head of the windows of 32 after it that the warp loads, up to
-//     kWarpMax past the head (a segment past it is known only as large).
-//     A segment of at most kTinyMax elements is sorted by its head's thread
-//     in registers (each element's rank by compares with the others); a
-//     larger one's head (and count) is appended to the warp list, from the
-//     list's front, or past kWarpMax to the block list, from its back (a
-//     warp's appends by one atomic each).
+//   * seg_runs, a block a tile of kTile consecutive elements, a thread 16
+//     of them read as 16-byte vectors (seg_start, and alone where no base
+//     is given; where alone is read through base, a warp reads its 512
+//     elements' base entries coalesced and alone through them, all issued
+//     before the first use, and ballots make the words): the block builds
+//     the tile's head bitmask in shared memory
+//     (seg_start, element 0, the elements alone and the ones after them),
+//     each element's head tested once, alone[x - 1] taken from the
+//     neighbouring element, with a halo of kWarpMax + 1 elements past the
+//     tile's end (tested there) and the one element before it. A head's
+//     count is the distance to the next set bit, exact where it lies at
+//     most kWarpMax past the head (at most kWarpMax / 32 + 1 words of the
+//     bitmask; the position n counts as a head), else unknown (-1). A
+//     segment of at most kTinyMax elements is sorted by its head's thread in
+//     registers (each element's rank by compares with the others); a larger
+//     one's head and count is appended to the warp list, from the list's
+//     front, or past kWarpMax to the block list, from its back: the block
+//     prefix-sums its threads' appends and makes one atomic a list.
 //   * seg_tiers, one resident launch. The warp tier: a warp takes up to 32
 //     consecutive warp-list entries in one load (fewer where the list is
 //     short, so that every resident warp has a group), compacts those of at
@@ -80,8 +87,9 @@
 // shared memory as int32, then copies every column for the chunk as 16-byte
 // units, the chunk shrunk on a small batch so that the grid fills every SM.
 //
-// Bound: bytes. seg_sort must read seg_start (1 byte), k1 (4), k2 (4 where
-// given) and the base permutation (8 where given) and write the int64
+// Bound: bytes. seg_sort must read seg_start (1 byte), alone (1 where
+// given; through base, the base entry too: 8), k1 (4), k2 (4 where given)
+// and the base permutation (8 where given) and write the int64
 // permutation (8) an element; the compares (a comparison sort's
 // cnt * log2(cnt) a segment) are below the card's integer rate. The gather
 // must read the permutation (8) and each column's element and write it (2
@@ -98,8 +106,9 @@
 
 #include <cuda_runtime.h>
 
-#if !defined(SORT_TINY_MAX) || !defined(SORT_WARP_MAX) || !defined(SORT_BLOCK_MAX)
-#error "build with the tier thresholds of ops/cluster_sorts.py (its nvcc_defines)"
+#if !defined(SORT_TINY_MAX) || !defined(SORT_WARP_MAX) || !defined(SORT_BLOCK_MAX) || \
+    !defined(SORT_RUN_TILE)
+#error "build with the tier thresholds and the tile of ops/cluster_sorts.py (its nvcc_defines)"
 #endif
 
 // A timing tool's variant of the run pass (tools/time_cluster_sorts.py
@@ -124,6 +133,12 @@ constexpr int kWarpMax = SORT_WARP_MAX;    // the warp tier's largest segment
 constexpr int kBlockMax = SORT_BLOCK_MAX;  // a block's largest segment in shared memory
 static_assert(kTinyMax >= 1 && kTinyMax <= kTinyCap, "a thread sorts 1 to kTinyCap");
 static_assert(kWarpMax >= kTinyMax && kBlockMax >= kWarpMax, "the tiers ascend");
+constexpr int kTile = SORT_RUN_TILE;       // seg_runs' elements a block
+constexpr int kPer = kTile / kThreads;     // a seg_runs thread's: one 16-byte vector
+static_assert(kPer == 16 && kPer * kThreads == kTile, "a run-pass thread takes 16 elements");
+constexpr int kHalo = kWarpMax + 1;        // the elements past a tile whose heads it tests
+constexpr int kTileWords = kTile / 32;     // the head bitmask's words: the tile's,
+constexpr int kHeadWords = (kTile + kHalo + 31) / 32;  // and the halo's after them
 constexpr int kMaxCols = 32;        // columns a gather launch takes
 constexpr int kSearchStep = 4;      // elements a thread tests a step of a block's end search
 constexpr int kChunk = 2048;        // the most output positions a seg_gather block takes at a time
@@ -175,7 +190,8 @@ struct PhaseClock {
 };
 #endif
 
-// a sort's inputs and output (k2, base and alone may be null)
+// a sort's inputs and output (k2, base and alone may be null); vec:
+// seg_start, base and alone are 16-byte aligned (seg_runs' vector loads)
 struct Sort {
   const uint8_t* seg_start;
   const int32_t* k1;
@@ -184,6 +200,7 @@ struct Sort {
   const uint8_t* alone;
   int64_t* perm;
   int n;
+  bool vec;
 };
 
 // the original element at position x
@@ -283,73 +300,212 @@ __device__ void bitonic(u64* K, int* I, int cnt, int tid, int threads) {
   }
 }
 
-// A run pass (see the file's note): the heads, each segment's count where
-// it is at most kWarpMax past its head, the thread tier, and the two lists
-// (an entry: head, count, or -1 for a block-list segment of unknown count).
+// bit k: byte k of the 16 bytes v is nonzero
+__device__ __forceinline__ unsigned nonzero16(uint4 v) {
+  const unsigned w[4] = {v.x, v.y, v.z, v.w};
+  unsigned bits = 0;
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    // 0x80 in each nonzero byte (no carry crosses a byte), then its 4 bits
+    const unsigned t = ((((w[q] & 0x7f7f7f7fu) + 0x7f7f7f7fu) | w[q]) & 0x80808080u) >> 7;
+    bits |= ((t | (t >> 7) | (t >> 14) | (t >> 21)) & 0xfu) << (4 * q);
+  }
+  return bits;
+}
+
+// Lane l's seg_start and alone flags of element p + stride k + l for k < K
+// (false at or past lim), as bit k of seg and al: every read issued before
+// the first is used (the base entries read coalesced, then alone through
+// them, one random read an element).
+template <int K>
+__device__ __forceinline__ void lane_bits(const Sort& a, long long p, int stride, long long lim,
+                                          int lane, unsigned& seg, unsigned& al) {
+  int64_t src[K];
+  seg = al = 0;
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const long long x = p + static_cast<long long>(stride) * k + lane;
+    const bool in = x < lim;
+    seg |= static_cast<unsigned>(in && a.seg_start[x] != 0) << k;
+    src[k] = !in ? -1 : (a.base ? a.base[x] : x);
+  }
+  if (a.alone) {
+#pragma unroll
+    for (int k = 0; k < K; ++k)
+      al |= static_cast<unsigned>(src[k] >= 0 && a.alone[src[k]] != 0) << k;
+  }
+}
+
+// The seg_start and alone bits (bit k: element x0 + k) of a run-pass
+// thread's kPer elements, 0 past n. Where the tile is whole: without base,
+// one 16-byte vector of each (where the pointers allow); with alone read
+// through base, the warp's 16 words of 32 elements (lane_bits), each made
+// by a ballot, each lane keeping its half word. Else an element at a time.
+__device__ __forceinline__ void load_bits(const Sort& a, int x0, bool whole, int lane,
+                                          unsigned& seg, unsigned& al) {
+  seg = al = 0;
+  if (whole && a.alone && a.base) {
+    unsigned ls, la;
+    lane_bits<kPer>(a, x0 - kPer * lane, 32, a.n, lane, ls, la);  // the warp's 16 words
+    const int shift = kPer * (lane & 1);
+#pragma unroll
+    for (int k = 0; k < kPer; ++k) {
+      const unsigned ws = __ballot_sync(kFull, (ls >> k) & 1u);
+      const unsigned wa = __ballot_sync(kFull, (la >> k) & 1u);
+      if (k == lane >> 1) {
+        seg = (ws >> shift) & 0xffffu;
+        al = (wa >> shift) & 0xffffu;
+      }
+    }
+    return;
+  }
+  if (whole && a.vec) {
+    seg = nonzero16(*reinterpret_cast<const uint4*>(a.seg_start + x0));
+    if (a.alone) al = nonzero16(*reinterpret_cast<const uint4*>(a.alone + x0));
+    return;
+  }
+  for (int k = 0; k < kPer; ++k) {
+    const int x = x0 + k;
+    if (x < a.n) {
+      seg |= static_cast<unsigned>(a.seg_start[x] != 0) << k;
+      al |= static_cast<unsigned>(is_alone(a, x)) << k;
+    }
+  }
+}
+
+// the next set bit of the head bitmask after tile offset r, if it lies at
+// most kWarpMax past r, else -1 (at most kWarpMax / 32 + 1 words read)
+__device__ __forceinline__ int next_head(const unsigned* heads, int r) {
+  const int lim = r + kWarpMax;
+  int w = (r + 1) >> 5;
+  unsigned bits = heads[w] & (~0u << ((r + 1) & 31));
+  while (!bits && (w + 1) * 32 <= lim) bits = heads[++w];
+  const int q = bits ? w * 32 + __ffs(bits) - 1 : INT_MAX;
+  return q <= lim ? q : -1;
+}
+
+// The run pass (see the file's note), a block a tile of kTile elements
+// from t0, a thread kPer of them from x0: (1) the head bitmask of the
+// tile and its halo in shared memory; (2) each of the thread's heads' count
+// (0: more than kWarpMax, unknown); (3) the appends, one atomic a list a
+// block at offsets from a block-wide prefix sum of its threads' appends;
+// (4) the thread tier. An entry: head, count, or -1 for a block-list
+// segment of unknown count. A SORT_RUN_PARTS variant stops after part k.
 __global__ void __launch_bounds__(kThreads)
 seg_runs(Sort a, int2* __restrict__ lists, int32_t* __restrict__ counts) {
-  const int n = a.n;
-  const int lane = threadIdx.x & 31;
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  const int i0 = i - lane;
-  if (i0 >= n) return;  // the whole warp
-  const bool head = i < n && is_head(a, i);
-  const unsigned m = __ballot_sync(kFull, head);
+  constexpr int kHaloWords = kHeadWords - kTileWords;
+  __shared__ unsigned heads[kHeadWords];
+  __shared__ unsigned halo_seg[kHaloWords], halo_alone[kHaloWords];
+  __shared__ unsigned last_alone[kThreads / 32];  // each warp's last thread's alone bits
+  __shared__ int warp_sum[kThreads / 32];
+  __shared__ int base_w, base_b;
+  __shared__ bool alone_before;                    // the element before the tile
+  const int n = a.n, tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int t0 = blockIdx.x * kTile, x0 = t0 + tid * kPer;
+  const int left = n - x0;  // the thread's elements before n
+  if (tid == 0) alone_before = t0 > 0 && is_alone(a, t0 - 1);
+  unsigned seg, al;
+  load_bits(a, x0, n - t0 >= kTile, lane, seg, al);
+  unsigned before = __shfl_up_sync(kFull, al, 1) >> (kPer - 1);  // alone[x0 - 1]
+  if (lane == 31) last_alone[warp] = al;
+  // the halo's seg_start and alone words: warp w's words w, w + 8, ...
+  // (their reads issued together; words past the halo read nothing)
+  {
+    constexpr int kWarps = kThreads / 32, kRounds = (kHaloWords + kWarps - 1) / kWarps;
+    const long long h0 = static_cast<long long>(t0) + kTile;
+    const long long lim = min(static_cast<long long>(n), h0 + 32 * kHaloWords);
+    unsigned ls, la;
+    lane_bits<kRounds>(a, h0 + 32 * warp, 32 * kWarps, lim, lane, ls, la);
+#pragma unroll
+    for (int k = 0; k < kRounds; ++k) {
+      const unsigned ws = __ballot_sync(kFull, (ls >> k) & 1u);
+      const unsigned wa = __ballot_sync(kFull, (la >> k) & 1u);
+      const int hw = warp + kWarps * k;
+      if (lane == 0 && hw < kHaloWords) {
+        halo_seg[hw] = ws;
+        halo_alone[hw] = wa;
+      }
+    }
+  }
+  __syncthreads();
+  if (lane == 0) before = warp ? last_alone[warp - 1] >> (kPer - 1) : alone_before;
+  if (tid < kHaloWords) {
+    // the halo's heads: bit k of word hw is position p + k (the position n
+    // a head; none past it)
+    const long long p = static_cast<long long>(t0) + kTile + 32 * tid;
+    const unsigned wa = halo_alone[tid];
+    const unsigned carry = tid ? halo_alone[tid - 1] >> 31 : last_alone[kThreads / 32 - 1] >> (kPer - 1);
+    unsigned word = halo_seg[tid] | wa | (wa << 1) | (carry & 1u);
+    if (n - p < 32) word = n < p ? 0u : (word & ((1u << (n - p)) - 1u)) | (1u << (n - p));
+    heads[kTileWords + tid] = word;
+  }
+  // bit k: x0 + k is a head (or is n)
+  unsigned h = (seg | al | (al << 1) | (before & 1u)) & 0xffffu;
+  if (x0 == 0) h |= 1u;
+  if (left >= 0 && left < kPer) h = (h & ((1u << left) - 1u)) | (1u << left);
+  const unsigned mine = left >= kPer ? h : (left > 0 ? h & ((1u << left) - 1u) : 0u);
+  const unsigned hi = __shfl_down_sync(kFull, h, 1);
+  if (!(lane & 1)) heads[tid >> 1] = h | (hi << 16);
+  __syncthreads();
   if (kRunParts == 1) {
-    keep(m);
+    keep(h);
     return;
   }
-  if (m == 0) return;  // the whole warp: no segment starts here
-  // the warp's last segment: the next head after it, searched by the warp
-  // window by window up to kWarpMax past its head (-1: not found so far)
-  const int h_last = i0 + 31 - __clz(m);
-  int next = -1;
-  for (int b = i0 + 32;; b += 32) {
-    if (b >= n) {
-      next = n;
-      break;
-    }
-    if (b > h_last + kWarpMax) break;
-    const int x = b + lane;
-    const unsigned hit = __ballot_sync(kFull, x < n && is_head(a, x));
-    if (hit) {
-      next = b + __ffs(hit) - 1;
-      break;
-    }
+  // the count of the thread's last head, from the bitmask (0: unknown)
+  int last = 0;
+  if (mine) {
+    const int r = tid * kPer + 31 - __clz(mine);
+    const int q = next_head(heads, r);
+    last = q >= 0 ? q - r : 0;
+  }
+  auto count_of = [&](int k) {
+    const unsigned above = h & ~((2u << k) - 1u);
+    return above ? __ffs(above) - 1 - k : last;
+  };
+  int nw = 0, nb = 0;
+  for (unsigned m = mine; m; m &= m - 1) {
+    const int cnt = count_of(__ffs(m) - 1);
+    nw += cnt > kTinyMax && cnt <= kWarpMax;
+    nb += cnt <= 0 || cnt > kWarpMax;
   }
   if (kRunParts == 2) {
-    keep(static_cast<unsigned>(next));
+    keep(nw | (nb << 16));
     return;
   }
-  int cnt = 0;
-  bool big = false;
-  if (head) {
-    const unsigned above = m & ~((2u << lane) - 1u);  // the heads after this lane's
-    if (above) {
-      cnt = __ffs(above) - 1 - lane;
-    } else if (next >= 0) {
-      cnt = next - i;
-    } else {
-      big = true;
-    }
+  // the block's appends: a prefix sum of (warp entries, block entries), a
+  // pair of 16-bit halves (a tile holds at most kTile heads)
+  const int pair = nw | (nb << 16);
+  int incl = pair;
+  for (int d = 1; d < 32; d <<= 1) {
+    const int v = __shfl_up_sync(kFull, incl, d);
+    if (lane >= d) incl += v;
   }
-  const bool to_warp = head && !big && cnt > kTinyMax && cnt <= kWarpMax;
-  const bool to_block = head && (big || cnt > kWarpMax);
-  const unsigned mw = __ballot_sync(kFull, to_warp), mb = __ballot_sync(kFull, to_block);
-  const unsigned below = (1u << lane) - 1u;
-  int at_w = 0, at_b = 0;
-  if (lane == 0 && mw) at_w = atomicAdd(&counts[0], __popc(mw));
-  if (lane == 0 && mb) at_b = atomicAdd(&counts[1], __popc(mb));
-  at_w = __shfl_sync(kFull, at_w, 0);
-  at_b = __shfl_sync(kFull, at_b, 0);
-  if (to_warp) lists[at_w + __popc(mw & below)] = make_int2(i, cnt);
-  if (to_block) lists[n - 1 - (at_b + __popc(mb & below))] = make_int2(i, big ? -1 : cnt);
-  if (kRunParts == 3) return;
-  if (head && !big && cnt <= kTinyMax) {
-    if (cnt == 1) {
-      a.perm[i] = src_of(a, i);
-    } else {
-      tiny_sort(a, i, cnt);
+  if (lane == 31) warp_sum[warp] = incl;
+  __syncthreads();
+  int at = incl - pair, total = 0;
+#pragma unroll
+  for (int v = 0; v < kThreads / 32; ++v) {
+    at += v < warp ? warp_sum[v] : 0;
+    total += warp_sum[v];
+  }
+  if (tid == 0) {
+    base_w = (total & 0xffff) ? atomicAdd(&counts[0], total & 0xffff) : 0;
+    base_b = (total >> 16) ? atomicAdd(&counts[1], total >> 16) : 0;
+  }
+  __syncthreads();
+  int at_w = base_w + (at & 0xffff), at_b = base_b + (at >> 16);
+  for (unsigned m = mine; m; m &= m - 1) {
+    const int k = __ffs(m) - 1, x = x0 + k, cnt = count_of(k);
+    if (cnt <= 0 || cnt > kWarpMax) {
+      lists[n - 1 - at_b++] = make_int2(x, cnt > 0 ? cnt : -1);
+    } else if (cnt > kTinyMax) {
+      lists[at_w++] = make_int2(x, cnt);
+    } else if (kRunParts == 4) {
+      if (cnt == 1) {
+        a.perm[x] = src_of(a, x);
+      } else {
+        tiny_sort(a, x, cnt);
+      }
     }
   }
 }
@@ -876,7 +1032,7 @@ int launch_sort(const Sort& a, int32_t* lists, int32_t* counts, u64* scratch_k,
   if (err == cudaSuccess) err = mark(events, 1, s);
   if (err != cudaSuccess) return static_cast<int>(err);
   int2* entries = reinterpret_cast<int2*>(lists);
-  seg_runs<<<(a.n + kThreads - 1) / kThreads, kThreads, 0, s>>>(a, entries, counts);
+  seg_runs<<<(a.n + kTile - 1) / kTile, kThreads, 0, s>>>(a, entries, counts);
   err = cudaGetLastError();
   if (err == cudaSuccess) err = mark(events, 2, s);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -924,8 +1080,10 @@ extern "C" int seg_sort(const uint8_t* seg_start, const int32_t* k1, const int32
                         int32_t* lists, int32_t* counts, uint64_t* scratch_k,
                         int32_t* scratch_i, int n, cudaEvent_t const* events,
                         cudaStream_t s) {
-  if (n <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const int err = launch_sort(Sort{seg_start, k1, k2, base, alone, perm, n}, lists, counts,
+  if (n <= 0 || n > INT_MAX - 2 * kTile) return static_cast<int>(cudaErrorInvalidValue);
+  auto aligned = [](const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; };
+  const bool vec = aligned(seg_start) && aligned(base) && aligned(alone);
+  const int err = launch_sort(Sort{seg_start, k1, k2, base, alone, perm, n, vec}, lists, counts,
                               reinterpret_cast<u64*>(scratch_k), scratch_i, events, s);
   // a refused attribute, memset or occupancy query leaves its error behind as
   // the last error; clear it, so that it is not read after a later launch

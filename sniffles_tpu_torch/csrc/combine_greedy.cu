@@ -41,25 +41,38 @@
 // slots [0, ngroups) in a loop whose trip count is the same for every lane,
 // compute each slot's gates and key, and keep their first minimum; two
 // __reduce_min_sync give the minimum key and its lowest slot, two
-// __any_sync the flags; lane 0 updates the target slot (joined, or founded
-// at slot ngroups), writes assign and ORs the row's flags; __syncwarp
-// orders its writes before the next step's reads. The grid's identity gate
-// reads the row's ED table at ed[s, hord, min(i, W - 1)]: lanes k < K hold
-// column i of the table's K head rows and each slot takes its head row's
-// value by a shuffle (K <= 32). A width-1 table (W = 1, all missing) is
-// read at column 0 by every step, as the plain version reads it. The
-// flush's gate reads ed[clamp(head, 0, H - 1), i].
+// __any_sync the flags; every lane computes the target slot's new record
+// (joined, or founded at slot ngroups) and lane 0 writes it, writes assign
+// and ORs the row's flags; __syncwarp orders its writes before the next
+// step's reads. The grid's identity gate reads the row's ED table at
+// ed[s, hord, min(i, W - 1)]: lanes k < K hold column i of the table's K
+// head rows and each slot takes its head row's value by a shuffle (K <=
+// 32). A width-1 table (W = 1, all missing) is read at column 0 by every
+// step, as the plain version reads it. The flush's gate reads
+// ed[clamp(head, 0, H - 1), i].
 //
-// The row's state is five int32 arrays of its slots (psum, lsum, n, head,
-// hord: 20 bytes a slot). A grid row's lives in the block's shared memory:
-// the packer sends a segment of more than SEG_LMAX = 2,048 candidates to the
-// host, so L <= 2,048 and a row takes at most 40 KB of a block's 48 KB (a
+// Only one slot changes a step, so a slot keeps beside its sums what the
+// probe would otherwise recompute every step from them: the length mean
+// lmf = lsum / n (__fdiv_rn, as the probe computed it), its root sl =
+// sqrt(max(lmf, 0)) (__fsqrt_rn) and the magic number m of an exact
+// division by n (div_magic below; ops/combine_greedy.div_magic is its
+// model, held to floor division on the CPU for every n up to SEG_LMAX).
+// The radius cm sqrt(max(min(lmf, len), 0)) becomes cm min(sl, sqrt_len),
+// sqrt_len = sqrt(max(len, 0)) once a step: a correctly rounded root is
+// monotone, so the two are equal bit for bit (also held on the CPU); the
+// key's two divisions by n become multiplies by m and shifts. A slot is a
+// record of eight int32, read as two 16-byte words: psum, lsum, n, head;
+// hord (the grid's; -1 in the flush), lmf and sl as bits, m.
+//
+// A grid row's records live in the block's dynamic shared memory, 32
+// bytes a slot: the packer sends a segment of more than SEG_LMAX = 2,048
+// candidates to the host, so L <= 2,048 and a row takes at most 64 KB (a
 // warp a block there, up to four warps a block below); greedy_grid refuses
 // a larger L. A grid row's state is written when a group is founded, so
 // the shared memory is never cleared. The flush's one row of G slots lives
-// in shared memory where 20 G bytes fit in 48 KB, else in a global scratch
-// buffer of 5 x G int32 the wrapper passes; it copies its G initial slots
-// in first.
+// in shared memory where 32 G bytes fit in 64 KB, else in a global scratch
+// buffer of 8 x G int32 the wrapper passes; it copies its G initial slots
+// in first, their caches computed as it copies them.
 //
 // What bounds it: the trajectory is a chain of dependent steps, each a
 // read of the candidate, a probe of every live group and a warp reduction,
@@ -67,7 +80,12 @@
 // step; the bytes (the grids, the ED table, assign) and the operations
 // (the live slots of every step, about 40 int32 and float32 operations
 // each) are far below a millisecond. The next candidate's values and ED
-// column are loaded while the current step runs.
+// column are loaded while the current step runs. The caches shorten the
+// probe of each live slot and lengthen the update by a division and a
+// root: they pay where a step probes many groups (sim's "group counts"
+// rows: 14-17 % a step on an H100), not where it probes about one, as
+// combine's cohorts do, whose steps go to fixed costs
+// (tools/time_combine_greedy.py --split; PERF.md).
 #include <cstdint>
 #include <cstring>
 
@@ -81,17 +99,55 @@ constexpr int kNmax = 1024;          // _greedy_consts.NMAX
 constexpr int kFlagAmbiguous = 1;    // SEGF_AMBIGUOUS
 constexpr int kFlagEdMiss = 2;       // SEGF_ED_MISS
 constexpr int kFlagNOverflow = 4;    // SEGF_N_OVERFLOW
-constexpr int kStateWords = 5;       // psum, lsum, n, head, hord
-constexpr int kSharedMax = 48 * 1024;
+constexpr int kRecordWords = 8;      // a slot: psum, lsum, n, head; hord, lmf, sl, m
+constexpr int kSharedMax = 64 * 1024;  // a block's records (an opt-in past 48 KB)
+constexpr int kSharedDefault = 48 * 1024;
 constexpr int kWarpsMax = 4;
+constexpr int kMagicMax = 2048;      // _greedy_consts.SEG_LMAX: div_magic's table
 constexpr unsigned kFull = 0xffffffffu;
+
+// The exact division of 0 <= x < 2^31 by n >= 1 (Granlund and Montgomery,
+// division by an invariant integer): with s = ceil(log2 n) and m =
+// ceil(2^(31 + s) / n) < 2^32, x / n == (x m) >> (31 + s), since x (m n -
+// 2^(31 + s)) / (n 2^(31 + s)) < 1 / n. The m of n <= kMagicMax from a
+// table in constant memory that the compiler makes (a step's update reads
+// one entry, the same in every lane); past it by a 64-bit division.
+constexpr int div_shift(int n) {
+  int s = 0;
+  while (s < 31 && (1u << s) < static_cast<unsigned>(n)) ++s;
+  return s;
+}
+struct MagicTable {
+  unsigned m[kMagicMax + 1];
+};
+constexpr MagicTable make_magic_table() {
+  MagicTable t{};
+  for (int n = 1; n <= kMagicMax; ++n)
+    t.m[n] = static_cast<unsigned>(((1ull << (31 + div_shift(n))) + n - 1) / n);
+  return t;
+}
+__constant__ MagicTable kMagic = make_magic_table();
+
+__device__ __forceinline__ unsigned div_magic(int n) {
+  if (n <= kMagicMax) return kMagic.m[n];
+  const unsigned long long d = static_cast<unsigned>(n);
+  return static_cast<unsigned>(((1ull << (31 + (32 - __clz(n - 1)))) + d - 1) / d);
+}
+
+// x / n for 0 <= x < 2^31 and n >= 1 by n's magic number m
+__device__ __forceinline__ int div_by(int x, unsigned m, int n) {
+  const int s = 32 - __clz(n - 1);  // ceil(log2 n): 0 for n = 1
+  return static_cast<int>((static_cast<unsigned long long>(static_cast<unsigned>(x)) * m) >>
+                          (31 + s));
+}
 
 // A step's cycles by part, in a build with -DGREEDY_STEP_CLOCKS only
 // (tools/time_combine_greedy.py --split): every lane sums the clock64()
 // cycles between its stamps by part (kLoad: the candidate's values, loaded
 // a step ahead, waited for; kProbe: the probe trips; kReduce: the warp
-// reductions; kUpdate: lane 0's update of the target slot, the assign
-// write and the __syncwarp), and lane 0 adds its sums and its steps to
+// reductions; kUpdate: the target slot's new record computed and written
+// by lane 0, the assign write and the __syncwarp), and lane 0 adds its sums
+// and its steps to
 // g_step_clocks when its row ends. Without the flag the stamps are empty
 // and the file compiles to the same code.
 enum Part { kLoad = 0, kProbe = 1, kReduce = 2, kUpdate = 3, kParts = 4 };
@@ -154,16 +210,19 @@ __device__ __forceinline__ int abs_wrap(int a) {
   return a < 0 ? static_cast<int>(0u - static_cast<unsigned>(a)) : a;
 }
 
+// A row's slot records: slot j at rec[2 j] (psum, lsum, n, head) and
+// rec[2 j + 1] (hord, lmf and sl as bits, m).
 struct Row {
-  int* psum;
-  int* lsum;
-  int* n;
-  int* head;
-  int* hord;
+  int4* rec;
 };
 
-__device__ __forceinline__ Row row_state(int* base, int slots) {
-  return Row{base, base + slots, base + 2 * slots, base + 3 * slots, base + 4 * slots};
+// the cached half of a slot of n members whose lengths sum to lsum: hord,
+// lmf and its root as bits, m (0 and no division where n < 1: the probe
+// skips such a slot)
+__device__ __forceinline__ int4 slot_caches(int hord, int lsum, int n) {
+  const float lmf = n >= 1 ? __fdiv_rn(__int2float_rn(lsum), __int2float_rn(n)) : 0.0f;
+  return make_int4(hord, __float_as_int(lmf), __float_as_int(__fsqrt_rn(fmaxf(lmf, 0.0f))),
+                   n >= 1 ? static_cast<int>(div_magic(n)) : 0);
 }
 
 struct Candidate {
@@ -176,7 +235,7 @@ struct Candidate {
 // into `flags`; a target at or past the row's `slots` (a flush given no
 // free slot) changes no state, as the plain version's one-hot update
 // matches no slot there. kGrid: the grid's identity gate (the ED column by
-// head row, in the lanes' `c.ed`) and its fresh founding (the slot's state
+// head row, in the lanes' `c.ed`) and its fresh founding (the slot's record
 // written, not added to); else the flush's (the table `ed` of H rows of
 // width cp, read at column i).
 template <bool kGrid>
@@ -186,25 +245,24 @@ __device__ int step(const Row& st, int slots, int& ngroups, const Candidate& c, 
   clk.settle(c.pos ^ c.len ^ c.alt ^ c.hord ^ c.ed);
   clk.stamp(kLoad);
   const float len_f = __int2float_rn(c.len);
+  const float sqrt_len = __fsqrt_rn(fmaxf(len_f, 0.0f));
   int best_key = kInt32Max, best_slot = kInt32Max;
   bool amb = false, miss = false;
   for (int base = 0; base < ngroups; base += 32) {
     const int j = base + lane;
     const bool live = j < ngroups;
-    int n = 0, psum = 0, lsum = 0, head = 0, hord = -1;
+    int4 ra = make_int4(0, 0, 0, 0), rb = make_int4(-1, 0, 0, 0);
     if (live) {
-      n = st.n[j];
-      psum = st.psum[j];
-      lsum = st.lsum[j];
-      head = st.head[j];
-      if (kGrid) hord = st.hord[j];
+      ra = st.rec[2 * j];
+      rb = st.rec[2 * j + 1];
     }
+    const int psum = ra.x, lsum = ra.y, n = ra.z, head = ra.w;
     int d_ed = -1;
     if (g.use_ed) {
       if (kGrid) {
         // every lane shuffles, live or not: the trip count is uniform
-        const bool tab = hord >= 0 && hord < K;
-        const int v = __shfl_sync(kFull, c.ed, tab ? hord : 0);
+        const bool tab = rb.x >= 0 && rb.x < K;
+        const int v = __shfl_sync(kFull, c.ed, tab ? rb.x : 0);
         d_ed = tab ? v : -1;
       } else if (live) {
         const int h = head < 0 ? 0 : (head > H - 1 ? H - 1 : head);
@@ -218,9 +276,8 @@ __device__ int step(const Row& st, int slots, int& ngroups, const Candidate& c, 
     const float nf = __int2float_rn(n);
     const bool cap_ok = D <= mul_wrap(n, g.cmm);
     const bool shorter_pos = lsum > 0 && c.len > 0;
-    const float lmf = __fdiv_rn(__int2float_rn(lsum), nf);
-    const float shorter_f = fminf(lmf, len_f);
-    const float thr_f = __fmul_rn(g.cm, __fsqrt_rn(fmaxf(shorter_f, 0.0f)));
+    const float lmf = __int_as_float(rb.y);
+    const float thr_f = __fmul_rn(g.cm, fminf(__int_as_float(rb.z), sqrt_len));
     const float dist_f = __fdiv_rn(__int2float_rn(D), nf);
     const bool forced = thr_f >= g.forced_at;
     const bool pass2 = dist_f <= thr_f || forced;
@@ -242,10 +299,15 @@ __device__ int step(const Row& st, int slots, int& ngroups, const Candidate& c, 
       amb |= pre && amb2;
     }
     if (eligible) {
-      // D >= 0 and n >= 1: truncation is floor division
-      const int q = D / n;
+      // floor(D / n) 2^20 + floor((D mod n) 2^20 / n), each division by the
+      // slot's magic number where the dividend is not negative (D >= 0 and
+      // r 2^20 < 2^31 under the packer's guards; C's division, as before,
+      // where a caller passes more)
+      const unsigned m = static_cast<unsigned>(rb.w);
+      const int q = D >= 0 ? div_by(D, m, n) : D / n;
       const int r = D - q * n;
-      const int key = add_wrap(mul_wrap(q, kScale), mul_wrap(r, kScale) / n);
+      const int frac = mul_wrap(r, kScale);
+      const int key = add_wrap(mul_wrap(q, kScale), frac >= 0 ? div_by(frac, m, n) : frac / n);
       if (key < best_key) {  // strict: this lane's first minimum
         best_key = key;
         best_slot = j;
@@ -262,34 +324,42 @@ __device__ int step(const Row& st, int slots, int& ngroups, const Candidate& c, 
   const int tgt = found ? min_slot : ngroups;
   clk.settle(tgt ^ amb_hit ^ (miss_hit << 1));
   clk.stamp(kReduce);
-  if (lane == 0) {
-    int over = 0;
-    if (tgt < slots && kGrid && !found) {
-      // a founded grid slot was never written: its state starts at zero
-      st.psum[tgt] = c.pos;
-      st.lsum[tgt] = c.len;
-      st.n[tgt] = 1;
-      st.head[tgt] = c.alt;
-      st.hord[tgt] = c.hord;
-    } else if (tgt < slots) {
-      const int n_t = st.n[tgt];
-      over = n_t + 1 > kNmax;
-      st.psum[tgt] = add_wrap(st.psum[tgt], c.pos);
-      st.lsum[tgt] = add_wrap(st.lsum[tgt], c.len);
-      st.n[tgt] = n_t + 1;
-      if (!found) st.head[tgt] = c.alt;
+  // the target's new record, computed by every lane (each reads the same
+  // words), written by lane 0
+  int over = 0;
+  if (tgt < slots) {
+    int4 ra, rb;
+    if (kGrid && !found) {
+      // a founded grid slot was never written: its sums start at zero, its
+      // mean is the length (a division by 1), its root sqrt_len
+      ra = make_int4(c.pos, c.len, 1, c.alt);
+      rb = make_int4(c.hord, __float_as_int(len_f), __float_as_int(sqrt_len),
+                     static_cast<int>(div_magic(1)));
+    } else {
+      ra = st.rec[2 * tgt];
+      over = ra.z + 1 > kNmax;
+      ra.x = add_wrap(ra.x, c.pos);
+      ra.y = add_wrap(ra.y, c.len);
+      ra.z = ra.z + 1;
+      if (!found) ra.w = c.alt;
+      rb = slot_caches(st.rec[2 * tgt + 1].x, ra.y, ra.z);
     }
+    if (lane == 0) {
+      st.rec[2 * tgt] = ra;
+      st.rec[2 * tgt + 1] = rb;
+    }
+  }
+  if (lane == 0)
     flags |= (amb_hit ? kFlagAmbiguous : 0) | (miss_hit ? kFlagEdMiss : 0)
              | (over ? kFlagNOverflow : 0);
-  }
   ngroups += found ? 0 : 1;
   __syncwarp();
   return tgt;
 }
 
 // the block's dynamic shared memory
-__device__ __forceinline__ int* shared_state() {
-  extern __shared__ int smem[];
+__device__ __forceinline__ int4* shared_state() {
+  extern __shared__ int4 smem[];
   return smem;
 }
 
@@ -303,7 +373,7 @@ __global__ void greedy_grid_kernel(const int* __restrict__ c_pos, const int* __r
   const int warp = threadIdx.x >> 5;
   const int64_t s = static_cast<int64_t>(blockIdx.x) * (blockDim.x >> 5) + warp;
   if (s >= S) return;
-  const Row st = row_state(shared_state() + warp * kStateWords * L, L);
+  const Row st{shared_state() + static_cast<size_t>(warp) * 2 * L};
   const int64_t row = s * L;
   int cnt = counts[s];
   cnt = cnt < 0 ? 0 : (cnt > L ? L : cnt);
@@ -342,14 +412,12 @@ __global__ void greedy_flush_kernel(const int* __restrict__ c_pos, const int* __
                                     const int* __restrict__ g_n, const int* __restrict__ g_head,
                                     int G, const int* __restrict__ ed, int H, int n_groups0,
                                     int* __restrict__ assign, int* __restrict__ flags_out,
-                                    int* scratch, Gates g) {
+                                    int4* scratch, Gates g) {
   const int lane = threadIdx.x & 31;
-  const Row st = row_state(scratch != nullptr ? scratch : shared_state(), G);
+  const Row st{scratch != nullptr ? scratch : shared_state()};
   for (int j = lane; j < G; j += 32) {
-    st.psum[j] = g_psum[j];
-    st.lsum[j] = g_lsum[j];
-    st.n[j] = g_n[j];
-    st.head[j] = g_head[j];
+    st.rec[2 * j] = make_int4(g_psum[j], g_lsum[j], g_n[j], g_head[j]);
+    st.rec[2 * j + 1] = slot_caches(-1, g_lsum[j], g_n[j]);
   }
   const int cnt = c_count < 0 ? 0 : (c_count > cp ? cp : c_count);
   for (int i = cnt + lane; i < cp; i += 32) assign[i] = -1;
@@ -397,23 +465,34 @@ extern "C" int greedy_step_clocks(uint64_t* out) {
 }
 #endif
 
+// dynamic shared memory of `bytes` for `kernel`: past the default 48 KB,
+// the attribute that allows it first
+template <typename Kernel>
+cudaError_t allow_shared(Kernel kernel, size_t bytes) {
+  if (bytes <= static_cast<size_t>(kSharedDefault)) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(bytes));
+}
+
 // The grid greedy on (S, L) int32 grids c_pos, c_len, c_alt, c_hord, counts
 // (S,), ed (S, K, W); writes assign (S, L) and segflags (S,). The rows'
-// state is in shared memory, L * 20 bytes a warp: an L past 48 KB of it
-// (2,457) is refused. The float32 constants come as their bits. Returns the
+// records are in shared memory, L * 32 bytes a warp: an L past 64 KB of it
+// (2,048) is refused. The float32 constants come as their bits. Returns the
 // launch's CUDA error (0 when it was accepted).
 extern "C" int greedy_grid(const int32_t* c_pos, const int32_t* c_len, const int32_t* c_alt,
                            const int32_t* c_hord, const int32_t* counts, const int32_t* ed,
                            int32_t* assign, int32_t* segflags, int S, int L, int K, int W,
                            int cmm, int cm_bits, int limit_bits, int eps_bits, int tiny_bits,
                            int forced_bits, int use_ed, int pass_same, cudaStream_t stream) {
-  const int64_t row_bytes = static_cast<int64_t>(kStateWords) * L * sizeof(int);
+  const int64_t row_bytes = static_cast<int64_t>(kRecordWords) * L * sizeof(int);
   if (S <= 0 || L <= 0 || K <= 0 || K > 32 || W <= 0 || row_bytes > kSharedMax)
     return static_cast<int>(cudaErrorInvalidValue);
   int warps = static_cast<int>(kSharedMax / row_bytes);
   warps = warps > kWarpsMax ? kWarpsMax : warps;
   const int blocks = (S + warps - 1) / warps;
   const size_t smem = static_cast<size_t>(warps) * row_bytes;
+  const cudaError_t err = allow_shared(greedy_grid_kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
   greedy_grid_kernel<<<blocks, 32 * warps, smem, stream>>>(
       c_pos, c_len, c_alt, c_hord, counts, ed, assign, segflags, S, L, K, W,
       gates_of(cmm, cm_bits, limit_bits, eps_bits, tiny_bits, forced_bits, use_ed, pass_same));
@@ -423,8 +502,9 @@ extern "C" int greedy_grid(const int32_t* c_pos, const int32_t* c_len, const int
 // The flush greedy on candidates c_pos, c_len, c_alt (cp,), of which the
 // first c_count are real, group slots g_psum, g_lsum, g_n, g_head (G,) and
 // ed (H, cp); writes assign (cp,) and flags (3,): ambiguous, ed_miss,
-// n_overflow. scratch: null for the row's state in shared memory (20 G
-// bytes, at most 48 KB), else 5 * G int32 of global memory.
+// n_overflow. scratch: null for the row's records in shared memory (32 G
+// bytes, at most 64 KB), else 8 * G int32 of global memory (16-byte
+// aligned).
 extern "C" int greedy_flush(const int32_t* c_pos, const int32_t* c_len, const int32_t* c_alt,
                             int c_count, int cp, const int32_t* g_psum, const int32_t* g_lsum,
                             const int32_t* g_n, const int32_t* g_head, int G, const int32_t* ed,
@@ -432,13 +512,16 @@ extern "C" int greedy_flush(const int32_t* c_pos, const int32_t* c_len, const in
                             int32_t* scratch, int cmm, int cm_bits, int limit_bits,
                             int eps_bits, int tiny_bits, int forced_bits, int use_ed,
                             int pass_same, cudaStream_t stream) {
-  if (cp <= 0 || G <= 0 || H <= 0 || n_groups0 < 0 || n_groups0 > G)
-    return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = scratch == nullptr
-                          ? static_cast<size_t>(kStateWords) * G * sizeof(int) : 0;
+                          ? static_cast<size_t>(kRecordWords) * G * sizeof(int) : 0;
+  if (cp <= 0 || G <= 0 || H <= 0 || n_groups0 < 0 || n_groups0 > G || smem > kSharedMax ||
+      (reinterpret_cast<uintptr_t>(scratch) & 15) != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t err = allow_shared(greedy_flush_kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
   greedy_flush_kernel<<<1, 32, smem, stream>>>(
       c_pos, c_len, c_alt, c_count, cp, g_psum, g_lsum, g_n, g_head, G, ed, H, n_groups0,
-      assign, flags, scratch,
+      assign, flags, reinterpret_cast<int4*>(scratch),
       gates_of(cmm, cm_bits, limit_bits, eps_bits, tiny_bits, forced_bits, use_ed, pass_same));
   return static_cast<int>(cudaGetLastError());
 }

@@ -96,9 +96,11 @@ def reset_counts() -> None:
 
 def nvcc_defines(tiers: tuple = TIERS) -> tuple:
     """The -D flags of csrc/cluster_sorts.cu for the thresholds (tiny, warp,
-    block); the kernel's static_asserts refuse a set that does not fit it."""
+    block) and the run pass's tile (RUN_TILE); the kernel's static_asserts
+    refuse a set that does not fit it."""
     names = ("SORT_TINY_MAX", "SORT_WARP_MAX", "SORT_BLOCK_MAX")
-    return tuple(f"-D{k}={int(v)}" for k, v in zip(names, tiers, strict=True))
+    return tuple(f"-D{k}={int(v)}" for k, v in zip(names, tiers, strict=True)) + (
+        f"-DSORT_RUN_TILE={RUN_TILE}",)
 
 
 def seg_heads(seg_start: torch.Tensor, alone: torch.Tensor | None = None) -> torch.Tensor:

@@ -65,13 +65,14 @@ INT32_MAX = 2 ** 31 - 1
 # it; a flush's c_count).
 COUNTS = {"launches": 0, "segments": 0, "steps": 0}
 
-# The kernel keeps a row's state (psum, lsum, n, head, hord: 5 int32 a
-# slot) in a block's shared memory, 48 KB without an opt-in: a grid row
-# always (the packer's SEG_LMAX = 2,048 keeps L within it; grid_inputs
-# refuses more), the flush's one row where its G slots fit, else a global
-# scratch buffer the wrapper allocates.
-STATE_WORDS = 5
-SHARED_STATE_MAX = 48 * 1024
+# The kernel keeps a row's state (a record of 8 int32 a slot: psum, lsum,
+# n, head; hord, and the caches of the length mean, its root and the magic
+# number of a division by n) in a block's shared memory, up to 64 KB: a
+# grid row always (the packer's SEG_LMAX = 2,048 keeps L within it;
+# grid_inputs refuses more), the flush's one row where its G slots fit,
+# else a global scratch buffer the wrapper allocates.
+STATE_WORDS = 8
+SHARED_STATE_MAX = 64 * 1024
 # lanes of a warp: the grid's ED column is shuffled from lanes k < K
 MAX_ED_HEADS = 32
 # the grid greedy's inputs, in _greedy_grid_loop's order (task_grids)
@@ -319,7 +320,7 @@ def launch_flush(inputs: dict, c_count: int, n_groups0: int, *, cm: int, cmm: in
     assign = torch.empty((cp,), dtype=torch.int32, device=dev)
     flags = torch.empty((3,), dtype=torch.int32, device=dev)
     scratch = (None if 4 * STATE_WORDS * G <= SHARED_STATE_MAX
-               else torch.empty((STATE_WORDS, G), dtype=torch.int32, device=dev))
+               else torch.empty((G, STATE_WORDS), dtype=torch.int32, device=dev))
     fn = _entry("greedy_flush", [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2
                 + [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
                                            ctypes.c_int] + [ctypes.c_void_p] * 3

@@ -783,7 +783,8 @@ def greedy_flush_wide_payloads() -> list[tuple[dict, dict]]:
     """(payload, meta) of run_combine_greedy whose one row does not fit a
     block's shared memory, so that the flush kernel keeps its state in
     global scratch: 2,100 initial groups 100 bp apart (G = 64 + 4,096
-    slots, 83,200 bytes of state) and 60 candidates, at limits 0 and 0.7.
+    slots, 133,120 bytes of slot records) and 60 candidates, at limits 0
+    and 0.7.
     The groups' heads are three 40 bp alleles; a candidate carries one of
     them, a copy with one base changed, or a fourth allele, which fails
     the identity gate against every head (at 0.7 it founds a group). Every

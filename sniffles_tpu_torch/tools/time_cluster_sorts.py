@@ -495,11 +495,13 @@ def kernel_rows(n: int = 1 << 21) -> dict:
     the resplit's predicate; plain_ms the plain version of the wrapper on
     the card, library_ms one PyTorch call of the same function where there
     is one (torch.sort; index_select, one call a column), bound_ms the
-    bytes of each kernel's part of the function. Under "wrappers" also the
+    bytes of each kernel's part of the function. Under "wrappers" also
+    sort and seed's sort (alone read through its base permutation), the
     resplit's gather (a local permutation) and a call task's fold at
     TASK_N."""
     c = cases(n, "cuda")
     r = sort_row(c["engine resplit"], "engine resplit")
+    seed = sort_row(c["engine sort and seed"], "engine sort and seed")
     sites = gather_sites(n, "cuda", call_task=False)
     glob = gather_row(*sites["engine sort_and_seed"], "engine sort_and_seed")
     local = gather_row(*sites["engine _resplit"], "engine _resplit")
@@ -519,7 +521,8 @@ def kernel_rows(n: int = 1 << 21) -> dict:
                        "library_ms": glob["library_ms"], "bound_ms": glob["bound_ms"]},
         "seg_marks": {**common, "ms": m["ms"], "plain_ms": m["plain_ms"], "library_ms": None,
                       "bound_ms": m["bound_ms"]},
-        "wrappers": {"seg_sort": r, "gather_columns (sort and seed)": glob,
+        "wrappers": {"seg_sort": r, "seg_sort (sort and seed)": seed,
+                     "gather_columns (sort and seed)": glob,
                      "gather_columns (resplit)": local, "gather_columns (a call task)": task,
                      "resplit_marks": m}}
 
@@ -628,6 +631,7 @@ def main() -> int:
             print("  run pass by part: " + ("no run-pass variants in this package" if rs is None
                   else ", ".join(f"{k} {v:.4f} ms" for k, v in rs.items())), flush=True)
     if only:
+        print_ptxas()
         print(smi_line())
         return 0
     for label, (order, cols) in gather_sites(args.n, "cuda", args.dense).items():
@@ -655,6 +659,14 @@ def main() -> int:
                 ms = queued_ms(lambda: cso.launch_seg_sort(*case[:5], tiers=tiers))
                 times.append(f"{side} {ms:.4f} ms")
             print(f"threshold, {label}: the kernels (== plain): {'; '.join(times)}", flush=True)
+    print_ptxas()
+    print(smi_line())
+    return 0
+
+
+def print_ptxas() -> None:
+    """ptxas's registers, shared memory and spills of each kernel."""
+    from sniffles_tpu_torch.ops import _build
     log = _build.finish_build(_build.start_build("cluster_sorts", ptxas_verbose=True))
     kernel = None
     for line in log.splitlines():
@@ -662,8 +674,6 @@ def main() -> int:
             kernel = next((k for k in KERNEL_NAMES if k in line), "?")
         elif "registers" in line or "spill" in line:
             print(f"  ptxas {kernel}: {line.split(':', 1)[-1].strip()}")
-    print(smi_line())
-    return 0
 
 
 def smi_line() -> str:

@@ -4,7 +4,7 @@
 
     python3 sniffles_tpu_torch/tools/time_combine_greedy.py [--dir DIR]
         [--cohorts combine256,combine256-bam] [--samples 256] [--jobs 8]
-        [--json-out FILE] [--dispatches FILE] [--split]
+        [--json-out FILE] [--dispatches FILE] [--split] [--no-loop]
     PYTHONPATH=DIR python3 sniffles_tpu_torch/tools/time_combine_greedy.py ...
 
 Cohorts (built under --dir, and reused when they are there):
@@ -35,6 +35,10 @@ result, padded shapes, wall) in FILE, a pickle, and reads them from FILE
 when it is there instead of building the cohorts and running their
 combines (no wall split then): a CPU dry run captures them once, and each
 later run on the card times the same dispatches.
+--no-loop times the kernel alone (the torch loop is still held).
+--cohorts "group counts" (SIM_COHORTS) takes sim.greedy_task_payloads'
+payloads of that label in place of a cohort's dispatches: rows of many
+groups, where a step probes several trips.
 --split (on the card) also runs each cohort's largest dispatch (the most
 candidates) through a build of the kernel with ops/combine_greedy.
 STEP_CLOCKS and prints the cycles of a step by part (STEP_PARTS: the
@@ -65,6 +69,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)
 sys.path.append(REPO)     # after PYTHONPATH, so that a package there comes first
 
 COHORTS = ("combine256", "combine256-bam")
+SIM_COHORTS = ("group counts",)           # sim.greedy_task_payloads' labels (sim_dispatches)
 COHORT_SEED = 2024                        # chip_smoke.py's COHORT_SEED
 BAM_COHORT = dict(ref_len=600_000, depth=12, site_gap=(2_000, 3_500))  # bench.py's leg
 REPS = 3
@@ -272,9 +277,10 @@ def held(out, want: dict, what: str) -> None:
         raise SystemExit(f"time_combine_greedy: {what} differs from the plain version")
 
 
-def time_cohort(cg, name: str, kept: list, has_kernel: bool) -> list:
-    """Per dispatch of a cohort: its shape, bound, the torch loop's and the
-    kernel's times (each held to the CPU's result), printed and returned."""
+def time_cohort(cg, name: str, kept: list, has_kernel: bool, loop_too: bool = True) -> list:
+    """Per dispatch of a cohort: its shape, bound, the torch loop's (where
+    `loop_too`) and the kernel's times (each held to the CPU's result),
+    printed and returned."""
     loop = getattr(cg, "greedy_grid_plain", cg._greedy_grid_loop)
     rows = []
     for j, d in enumerate(kept):
@@ -286,7 +292,9 @@ def time_cohort(cg, name: str, kept: list, has_kernel: bool) -> list:
                                  "differs from the plain version on the CPU")
         row = {**dispatch_row(d), **bound(d), "cli_wall_ms": 1e3 * d["wall"]}
         held(loop(*args, **kw), want, f"{name} dispatch {j}, the torch loop")
-        row["loop"] = timed(lambda: loop(*args, **kw), sleep=False)
+        row["loop"] = (timed(lambda: loop(*args, **kw), sleep=False) if loop_too
+                       else {"ms": float("nan"), "host_ms": float("nan"),
+                             "launches": float("nan")})
         if has_kernel:
             launches = cg.COUNTS["launches"]
             held(cg._greedy_grid_loop(*args, **kw), want, f"{name} dispatch {j}, the kernel")
@@ -358,14 +366,17 @@ def captured(args, names: list, cpu: bool) -> dict:
                              f"{', '.join(missing)}")
         print(f"  the dispatches of {', '.join(names)} read from {args.dispatches}", flush=True)
         return {n: (saved[n], None) for n in names}
+    from sniffles_tpu_torch.ops import combine_greedy as cg
+    out = {n: (sim_dispatches(cg, [n]), None) for n in names if n in SIM_COHORTS}
     t0 = time.perf_counter()
-    cohorts = {n: build_cohort(n, args.dir, args.samples, args.jobs) for n in names}
-    print(f"  cohorts {', '.join(f'{n} ({len(s)} SNFs)' for n, s in cohorts.items())} in "
-          f"{time.perf_counter() - t0:.1f} s", flush=True)
-    if not cpu:
+    cohorts = {n: build_cohort(n, args.dir, args.samples, args.jobs) for n in names
+               if n not in SIM_COHORTS}
+    if cohorts:
+        print(f"  cohorts {', '.join(f'{n} ({len(s)} SNFs)' for n, s in cohorts.items())} in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+    if not cpu and cohorts:
         from sniffles_tpu_torch.ops import _build
         _build.build_all()
-    out = {}
     for name, snfs in cohorts.items():
         vcf = os.path.join(args.dir, f"{name}.vcf")
         if not cpu:
@@ -375,6 +386,24 @@ def captured(args, names: list, cpu: bool) -> dict:
         os.makedirs(os.path.dirname(os.path.abspath(args.dispatches)), exist_ok=True)
         with open(args.dispatches, "wb") as f:
             pickle.dump({n: kept for n, (kept, _) in out.items()}, f)
+    return out
+
+
+def sim_dispatches(cg, labels: list) -> list:
+    """sim.greedy_task_payloads' payloads under `labels`, kept as
+    captured_dispatches keeps a dispatch (its result the plain version's
+    on the CPU, no wall): rows of many groups ("group counts": 67, 122 and
+    258 at limit 0.5), where a step probes several trips."""
+    from sniffles_tpu_torch.sim import greedy_task_payloads
+    out = []
+    for label, payload, meta in greedy_task_payloads():
+        if label in labels:
+            grids = cg.task_grids(payload)
+            out.append({"payload": payload, "meta": meta, "wall": 0.0,
+                        "result": cg.run_combine_greedy_task(payload, meta, "cpu"),
+                        "padded": {"grid": grids["c_pos"].shape, "ed": grids["ed"].shape}})
+    if not out:
+        raise SystemExit(f"time_combine_greedy: no sim payload {', '.join(labels)}")
     return out
 
 
@@ -390,10 +419,13 @@ def main(argv=None) -> int:
                     help="a pickle of the captured dispatches: written, or read when there")
     ap.add_argument("--split", action="store_true",
                     help="a step's cycles by part on each cohort's largest dispatch")
+    ap.add_argument("--no-loop", action="store_true",
+                    help="the kernel alone: the torch loop held, not timed")
     args = ap.parse_args(argv)
     names = [n for n in args.cohorts.split(",") if n]
-    if any(n not in COHORTS for n in names):
-        ap.error(f"--cohorts: choose from {', '.join(COHORTS)}")
+    if any(n not in COHORTS + SIM_COHORTS for n in names) and not (
+            args.dispatches and os.path.exists(args.dispatches)):
+        ap.error(f"--cohorts: choose from {', '.join(COHORTS + SIM_COHORTS)}")
     cpu = args.device == "cpu"
     if cpu:
         os.environ["SNIFFLES_TPU_FORCE_CPU"] = "1"
@@ -421,7 +453,8 @@ def main(argv=None) -> int:
                       "time)", flush=True)
             report[name] = {"split": parts, "dispatches": [dispatch_row(d) for d in kept]}
             continue
-        report[name] = {"split": parts, "dispatches": time_cohort(cg, name, kept, has_kernel)}
+        report[name] = {"split": parts,
+                        "dispatches": time_cohort(cg, name, kept, has_kernel, not args.no_loop)}
         rows = report[name]["dispatches"]
         print(f"  [{name}] all dispatches: torch loop "
               f"{sum(r['loop']['ms'] for r in rows):.3f} ms, "

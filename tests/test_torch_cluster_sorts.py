@@ -568,7 +568,10 @@ def test_wrappers_and_stages_raise_on_another_device():
 
 def test_nvcc_defines_name_the_thresholds():
     assert cs.nvcc_defines() == ("-DSORT_TINY_MAX=8", "-DSORT_WARP_MAX=256",
-                                 "-DSORT_BLOCK_MAX=8192")
+                                 "-DSORT_BLOCK_MAX=8192", "-DSORT_RUN_TILE=4096")
+    assert cs.run_parts_define(2) == "-DSORT_RUN_PARTS=2"
+    with pytest.raises(ValueError):
+        cs.run_parts_define(len(cs.RUN_PARTS) + 1)
     from sniffles_tpu_torch.ops import _build
     assert "cluster_sorts" in _build.KERNEL_SOURCES
     assert _build.default_defines("cluster_sorts") == cs.nvcc_defines()

@@ -375,7 +375,7 @@ def test_flush_past_shared_memory_matches_jax(limit):
 def test_grid_rows_past_shared_memory_are_refused():
     """The grid kernel keeps every row's state in shared memory: grid_inputs
     takes rows of SEG_LMAX = 2,048 slots (the packer's largest segment,
-    40 KB of state) and refuses the next padded width, 4,096."""
+    64 KB of slot records) and refuses the next padded width, 4,096."""
     import torch
     assert 4 * tcg.STATE_WORDS * SEG_LMAX <= tcg.SHARED_STATE_MAX
     for L in (SEG_LMAX, 2 * SEG_LMAX):

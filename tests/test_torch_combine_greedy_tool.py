@@ -77,3 +77,28 @@ def test_time_tool_captures_and_splits_a_small_cohort(tmp_path):
     report = json.loads(out.read_text())
     assert report["combine256"]["split"]["dispatches"] == len(got["rows"])
     assert report["combine256"]["dispatches"] == got["rows"]
+
+
+def test_sim_dispatches_keep_the_payloads_as_a_capture():
+    """--cohorts "group counts": sim.greedy_task_payloads' payloads of that
+    label kept as captured dispatches (each result the plain version's),
+    whose rows probe many groups a step."""
+    r = subprocess.run([sys.executable, "-c", SIM], capture_output=True, text=True,
+                       env=child_env(), timeout=600)
+    assert r.returncode == 0, r.stderr[-3000:]
+    got = json.loads(r.stdout.strip().splitlines()[-1])
+    assert got["limits"] == [0.5, 0.0]
+    for row, probes in zip(got["rows"], got["probes"]):
+        assert row["S"] == 3 and row["max_count"] == 420 and row["limit_on"] in (True, False)
+        assert probes > 30 * row["candidates"]
+
+
+SIM = r"""
+import json
+from sniffles_tpu_torch.ops import combine_greedy as tcg
+from sniffles_tpu_torch.tools import time_combine_greedy as tool
+kept = tool.sim_dispatches(tcg, ["group counts"])
+print(json.dumps({"limits": [d["meta"]["limit"] for d in kept],
+                  "rows": [tool.dispatch_row(d) for d in kept],
+                  "probes": [tool.bound(d)["probes"] for d in kept]}))
+"""

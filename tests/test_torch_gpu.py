@@ -510,7 +510,7 @@ def test_grid_greedy_kernel_matches_plain(card, label):
 
 def test_greedy_kernel_refused_launch_raises(card):
     """A launch the card's entry points refuse (grid rows whose state
-    would pass a block's 48 KB of shared memory, which grid_inputs also
+    would pass a block's 64 KB of shared memory, which grid_inputs also
     refuses; a flush whose ED table has no row) raises instead of
     returning stale memory."""
     from sniffles_tpu_torch.ops import combine_greedy as tcg
