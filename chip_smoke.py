@@ -1127,13 +1127,16 @@ def time_cluster_sorts() -> dict:
                   f"of it", flush=True)
             continue
         split = "".join(f", {k} {v:.4f} ms" for k, v in r.get("split", {}).items())
-        runs_bound = r["bytes"][0] / HBM_BYTES_PER_S * 1e3
+        runs = ""
+        if "split" in r:   # a sort: (run pass, tiers) bytes
+            runs_bound = r["bytes"][0] / HBM_BYTES_PER_S * 1e3
+            runs = (f"; seg_runs with its memset against the run pass's bound "
+                    f"{runs_bound:.5f} ms: {100 * runs_bound / r['split']['seg_runs']:.1f} %")
         print(f"  {name} ({stage}): the wrapper {r['ms']:.4f} ms{split}, "
               f"plain {r['plain_ms']:.4f} ms, one torch.sort {lib}, bound "
               f"{r['bound_ms']:.5f} ms ({sum(np.atleast_1d(r['bytes']))} bytes at "
-              f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s), {100 * r['bound_ms'] / r['ms']:.1f} % of it; "
-              f"seg_runs with its memset against the run pass's bound {runs_bound:.5f} ms: "
-              f"{100 * runs_bound / r['split']['seg_runs']:.1f} %", flush=True)
+              f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s), {100 * r['bound_ms'] / r['ms']:.1f} % of it"
+              f"{runs}", flush=True)
     for name, r in rows.items():
         print(f"  {name}: {r['ms']:.4f} ms (CUDA events) against a bound of "
               f"{r['bound_ms']:.5f} ms, {100 * r['bound_ms'] / r['ms']:.1f} % of it", flush=True)
