@@ -147,9 +147,8 @@ __device__ __forceinline__ int div_by(int x, unsigned m, int n) {
 // a step ahead, waited for; kProbe: the probe trips; kReduce: the warp
 // reductions; kUpdate: the target slot's new record computed and written
 // by lane 0, the assign write and the __syncwarp), and lane 0 adds its sums
-// and its steps to
-// g_step_clocks when its row ends. Without the flag the stamps are empty
-// and the file compiles to the same code.
+// and its steps to g_step_clocks when its row ends. Without the flag the
+// stamps are empty and the file compiles to the same code.
 enum Part { kLoad = 0, kProbe = 1, kReduce = 2, kUpdate = 3, kParts = 4 };
 #ifdef GREEDY_STEP_CLOCKS
 // the parts' cycles, the steps, and one word that keeps the waits alive
