@@ -35,11 +35,11 @@
 //     is given; where alone is read through base, a warp reads its 512
 //     elements' base entries coalesced and alone through them, all issued
 //     before the first use, and ballots make the words): the block builds
-//     the tile's head bitmask in shared memory
-//     (seg_start, element 0, the elements alone and the ones after them),
-//     each element's head tested once, alone[x - 1] taken from the
-//     neighbouring element, with a halo of kWarpMax + 1 elements past the
-//     tile's end (tested there) and the one element before it. A head's
+//     the tile's head bitmask in shared memory (seg_start, element 0, the
+//     elements alone and the ones after them), each element's head tested
+//     once, alone[x - 1] taken from the neighbouring element, with a halo
+//     of kWarpMax + 1 elements past the tile's end (tested there) and the
+//     one element before it. A head's
 //     count is the distance to the next set bit, exact where it lies at
 //     most kWarpMax past the head (at most kWarpMax / 32 + 1 words of the
 //     bitmask; the position n counts as a head), else unknown (-1). A
