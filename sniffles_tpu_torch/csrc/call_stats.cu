@@ -122,6 +122,64 @@ constexpr unsigned kSortedChains = 0x0F, kArrayChains = 0x30,
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int INS = 0, DEL = 1;
 
+// A cluster's cycles by part in each of the warp and block tiers, in a
+// build with -DSTAT_CLOCKS only (tools/time_call_stats.py --split): the
+// warp's lane 0, or the block's thread 0, sums the clock64() cycles between
+// its stamps by part (kEntry: the list entries and permutation entries;
+// kGather: the columns through the permutation; kSort; kMedians: the
+// medians, the support count and the extent; kChains: the float32 sums;
+// kWrite: the row; kWait: a block's barriers) and adds them, and its count
+// of clusters, to g_stat_clocks when it ends. In a block, the chains run
+// beside the sort and the medians on a warp of their own: its lane 0 adds
+// only its kChains cycles, thread 0 every other part. A stamp after
+// settle(v) waits for v. Without the flag the stamps are empty and the file
+// compiles to the same code.
+enum Part { kEntry, kGather, kSort, kMedians, kChains, kWrite, kWait, kParts };
+enum Tier { kWarpTier, kBlockTier, kTiers };
+constexpr int kClockWords = kParts + 1;  // a tier's parts, then its clusters
+#ifdef STAT_CLOCKS
+__device__ unsigned long long g_stat_clocks[kTiers * kClockWords + 1];  // + a sink word
+struct StatClock {
+  long long t;
+  unsigned long long sum[kParts];
+  unsigned long long clusters;
+  unsigned sink;
+  __device__ __forceinline__ void start() {
+    t = clock64();
+    for (int p = 0; p < kParts; ++p) sum[p] = 0;
+    clusters = 0;
+    sink = 0;
+  }
+  __device__ __forceinline__ void stamp(int p) {
+    const long long now = clock64();
+    sum[p] += static_cast<unsigned long long>(now - t);
+    t = now;
+  }
+  __device__ __forceinline__ void settle(int v) {
+    asm volatile("xor.b32 %0, %0, %1;" : "+r"(sink) : "r"(v));
+  }
+  __device__ __forceinline__ void cluster() { ++clusters; }
+  // adds the parts of `parts` (a bit a part), and the clusters where kEntry
+  // is among them
+  __device__ __forceinline__ void flush(Tier tier, unsigned parts) {
+    unsigned long long* g = g_stat_clocks + tier * kClockWords;
+    for (int p = 0; p < kParts; ++p)
+      if ((parts >> p) & 1) atomicAdd(&g[p], sum[p]);
+    if (clusters && ((parts >> kEntry) & 1)) atomicAdd(&g[kParts], clusters);
+    atomicXor(&g_stat_clocks[kTiers * kClockWords], static_cast<unsigned long long>(sink));
+  }
+};
+#else
+struct StatClock {
+  __device__ __forceinline__ void start() {}
+  __device__ __forceinline__ void stamp(int) {}
+  __device__ __forceinline__ void settle(int) {}
+  __device__ __forceinline__ void cluster() {}
+  __device__ __forceinline__ void flush(Tier, unsigned) {}
+};
+#endif
+constexpr unsigned kAllParts = (1u << kParts) - 1;
+
 // the order of ops/call_stats.KEYS
 enum Row { kSvtype, kSvlen, kPos, kEnd, kRawPos, kPosMin, kPosMax, kStdevPos, kStdevLen,
            kSupport, kLeadCount, kQual, kFwd, kRev, kNm, kNStrands, kRows };
@@ -710,7 +768,7 @@ __device__ __forceinline__ int pair_median_modes(int v0, int v1, int cnt, int la
 // registers, sorted by shuffles; the sorted svlen and pos lists and the
 // mapq and NM terms (array order) stored to the warp's lists for the chains.
 __device__ void pair_cluster(const Columns& col, int64_t o0, int64_t o1, int cnt, int* L,
-                             size_t stride, int lane, Stats& t) {
+                             size_t stride, int lane, Stats& t, StatClock& clk) {
   const bool in0 = lane < cnt, in1 = lane + 32 < cnt;
   int v[3][2];
   v[0][0] = in0 ? col.svlen[o0] : INT_MAX;
@@ -733,6 +791,8 @@ __device__ void pair_cluster(const Columns& col, int64_t o0, int64_t o1, int cnt
   }
   t.fwd = __reduce_add_sync(kFull, f);
   t.sv = __reduce_max_sync(kFull, sv);
+  clk.settle(v[0][0] ^ v[0][1] ^ v[1][0] ^ v[1][1] ^ v[2][0] ^ v[2][1]);
+  clk.stamp(kGather);
   int p = 1;
   while (p < cnt) p <<= 1;
   for (int k = 2; k <= p; k <<= 1) {
@@ -741,6 +801,8 @@ __device__ void pair_cluster(const Columns& col, int64_t o0, int64_t o1, int cnt
       for (int r = 0; r < 3; ++r) pair_step(v[r][0], v[r][1], k, j, lane);
     }
   }
+  clk.settle(v[0][0] ^ v[0][1] ^ v[1][0] ^ v[1][1] ^ v[2][0] ^ v[2][1]);
+  clk.stamp(kSort);
   bool s0, s1;
   pair_starts(v[2][0], v[2][1], cnt, lane, s0, s1);
   t.support = __popc(__ballot_sync(kFull, s0)) + __popc(__ballot_sync(kFull, s1));
@@ -748,6 +810,8 @@ __device__ void pair_cluster(const Columns& col, int64_t o0, int64_t o1, int cnt
   t.pos_c = pair_median_modes(v[1][0], v[1][1], cnt, lane);
   t.pos_min = __shfl_sync(kFull, v[1][0], 0);
   t.pos_max = cnt > 32 ? __shfl_sync(kFull, v[1][1], cnt - 33) : __shfl_sync(kFull, v[1][0], cnt - 1);
+  clk.settle(t.support ^ t.svlen_c ^ t.pos_c ^ t.pos_min ^ t.pos_max);
+  clk.stamp(kMedians);
   if (in0) {
     L[lane] = v[0][0];
     L[stride + lane] = v[1][0];
@@ -889,6 +953,8 @@ stat_warps(Columns col, const int4* __restrict__ lists, const int32_t* __restric
   int4 after = w + warps < total ? lists[w + warps] : none;
   int64_t o0 = kPairMax && lane < next.z ? col.order[next.y + lane] : 0;
   int64_t o1 = kPairMax && lane + 32 < next.z ? col.order[next.y + lane + 32] : 0;
+  StatClock clk;
+  clk.start();
   for (; w < total; w += warps) {
     const int4 e = next;
     const int64_t p0 = o0, p1 = o1;
@@ -899,26 +965,36 @@ stat_warps(Columns col, const int4* __restrict__ lists, const int32_t* __restric
     const int c = e.x, s = e.y, cnt = e.z;
     Stats t;
     t.cnt = cnt;
+    clk.stamp(kEntry);
     if (cnt <= kPairMax) {
-      pair_cluster(col, p0, p1, cnt, L, stride, lane, t);
+      pair_cluster(col, p0, p1, cnt, L, stride, lane, t, clk);
     } else {
       int fwd = 0, sv = INT_MIN;
       gather(col, s, cnt, L, stride, lane, 32, fwd, sv);
       t.fwd = __reduce_add_sync(kFull, fwd);
       t.sv = __reduce_max_sync(kFull, sv);
       __syncwarp();
+      clk.stamp(kGather);
       sort_lists(L, stride, cnt, 0, 1, lane, kWarp);
+      clk.stamp(kSort);
       t.support = distinct(L + 2 * stride, cnt, lane);
       t.svlen_c = median_modes(L, cnt, lane);
       t.pos_c = median_modes(L + stride, cnt, lane);
       t.pos_min = L[stride];
       t.pos_max = L[stride + cnt - 1];
+      clk.settle(t.pos_min ^ t.pos_max);
+      clk.stamp(kMedians);
     }
     t.sv = max(t.sv, e.w ? -1 : INT_MIN);
     chain_stats(chain_sum(L, stride, cnt, lane, kAllChains), cnt, fused, t);
+    clk.settle(__float_as_int(t.stdev_len) ^ __float_as_int(t.stdev_pos));
+    clk.stamp(kChains);
     if (lane == 0) write_live(out, n, c, t);
     __syncwarp();  // the slice is read before the next cluster writes it
+    clk.stamp(kWrite);
+    clk.cluster();
   }
+  if (lane == 0) clk.flush(kWarpTier, kAllParts);
 }
 
 // The cluster of entry e (slot c, run [s, s + cnt), invalid mark), by the
@@ -930,14 +1006,17 @@ stat_warps(Columns col, const int4* __restrict__ lists, const int32_t* __restric
 // in global scratch, so that each copy knows its lists' memory.
 __device__ __forceinline__ void block_cluster(const Columns& col, int4 e, int* L, size_t stride,
                                               int32_t* __restrict__ out, int n, bool fused,
-                                              int* ints, float* sums, int* sh) {
+                                              int* ints, float* sums, int* sh, StatClock& clk) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int c = e.x, s = e.y, cnt = e.z;
   if (threadIdx.x == 0) {
     ints[0] = 0;
     ints[1] = INT_MIN;
   }
+  clk.settle(cnt);
+  clk.stamp(kEntry);
   __syncthreads();
+  clk.stamp(kWait);
   int fwd = 0, sv = INT_MIN;
   gather(col, s, cnt, L, stride, threadIdx.x, blockDim.x, fwd, sv);
   fwd = __reduce_add_sync(kFull, fwd);
@@ -946,14 +1025,20 @@ __device__ __forceinline__ void block_cluster(const Columns& col, int4 e, int* L
     atomicAdd(&ints[0], fwd);
     atomicMax(&ints[1], sv);
   }
+  clk.stamp(kGather);
   __syncthreads();
+  clk.stamp(kWait);
   if (warp < kMedianWarps) {
     sort_lists(L, stride, cnt, warp, kMedianWarps, lane, kMedianGroup);
+    clk.stamp(kSort);
   } else {  // the mapq and NM sums need no sort
     const float acc = chain_sum(L, stride, cnt, lane, kArrayChains);
     if ((kArrayChains >> lane) & 1) sums[lane] = acc;
+    clk.settle(__float_as_int(acc));
+    clk.stamp(kChains);
   }
   __syncthreads();
+  clk.stamp(kWait);
   if (warp < kMedianWarps) {
     const int svlen_c = block_median_modes(L, cnt, warp, lane, sh);
     const int pos_c = block_median_modes(L + stride, cnt, warp, lane, sh);
@@ -963,11 +1048,15 @@ __device__ __forceinline__ void block_cluster(const Columns& col, int4 e, int* L
       ints[3] = pos_c;
       ints[4] = support;
     }
+    clk.stamp(kMedians);
   } else {
     const float acc = chain_sum(L, stride, cnt, lane, kSortedChains);
     if ((kSortedChains >> lane) & 1) sums[lane] = acc;
+    clk.settle(__float_as_int(acc));
+    clk.stamp(kChains);
   }
   __syncthreads();
+  clk.stamp(kWait);
   if (threadIdx.x == 0) {
     Stats t;
     t.cnt = cnt;
@@ -985,7 +1074,10 @@ __device__ __forceinline__ void block_cluster(const Columns& col, int4 e, int* L
     t.nm_sum = sums[5];
     write_live(out, n, c, t);
   }
+  clk.stamp(kWrite);
   __syncthreads();  // the lists and ints are read before the next cluster writes them
+  clk.stamp(kWait);
+  clk.cluster();
 }
 
 // A block a cluster of the block list: its five lists in the dynamic
@@ -999,15 +1091,20 @@ stat_blocks(Columns col, const int4* __restrict__ lists, const int32_t* __restri
   __shared__ float sums[6];
   __shared__ int sh[kMedianWarps + 1];
   const int total = counts[1];
+  StatClock clk;
+  clk.start();
   for (int b = blockIdx.x; b < total; b += gridDim.x) {
     const int4 e = lists[n - 1 - b];
     if (e.z <= kBlockMax) {
-      block_cluster(col, e, smem, static_cast<size_t>(e.z), out, n, fused, ints, sums, sh);
+      block_cluster(col, e, smem, static_cast<size_t>(e.z), out, n, fused, ints, sums, sh, clk);
     } else {
       block_cluster(col, e, scratch + e.y, static_cast<size_t>(n), out, n, fused, ints, sums,
-                    sh);
+                    sh, clk);
     }
   }
+  // thread 0 the block's path, the chains' warp's lane 0 its chains
+  if (threadIdx.x == 0) clk.flush(kBlockTier, kAllParts & ~(1u << kChains));
+  if (threadIdx.x == kMedianWarps * 32) clk.flush(kBlockTier, 1u << kChains);
 }
 
 // the dynamic shared memory of a stat_warps block and of a stat_blocks block
@@ -1108,6 +1205,20 @@ int launch_all(const int32_t* cid_sorted, const int64_t* order, const int32_t* c
 }
 
 }  // namespace
+
+#ifdef STAT_CLOCKS
+// The warp and block tiers' cycles by part and their clusters summed since
+// the last call (kTiers * kClockWords words to out, on the host: each
+// tier's kParts parts, then its clusters), then zeroed; a build with
+// -DSTAT_CLOCKS only. Synchronous.
+extern "C" int stat_clocks(uint64_t* out) {
+  cudaError_t err =
+      cudaMemcpyFromSymbol(out, g_stat_clocks, kTiers * kClockWords * sizeof(uint64_t));
+  static const unsigned long long zero[kTiers * kClockWords + 1] = {};
+  if (err == cudaSuccess) err = cudaMemcpyToSymbol(g_stat_clocks, zero, sizeof(zero));
+  return static_cast<int>(err);
+}
+#endif
 
 // The statistics of n slots: the cid sort's sorted masked ids [n] (int32)
 // and permutation [n] (int64), the raw cluster_id, valid (bool bytes),

@@ -61,6 +61,14 @@ WARP_MAX = 256
 BLOCK_MAX = 5632
 TIERS = (TINY_MAX, PAIR_MAX, WARP_MAX, BLOCK_MAX)
 
+# The -D flag of the build whose warp and block tiers sum a cluster's
+# cycles by part (csrc/call_stats.cu's StatClock), read by stat_clocks:
+# CLOCK_PARTS words a tier, then its clusters (tools/time_call_stats.py
+# --split).
+CLOCKS = "-DSTAT_CLOCKS"
+CLOCK_TIERS = ("stat_warps", "stat_blocks")
+CLOCK_PARTS = ("entry", "gather", "sort", "medians", "chains", "write", "wait")
+
 # the output keys after n_clusters, in the order of the kernel's 16 rows of
 # one int32 tensor (the float32 keys are rows of their bits)
 KEYS = ("svtype", "svlen", "pos", "end", "raw_pos_center", "pos_min", "pos_max",
@@ -201,14 +209,14 @@ def nvcc_defines(tiers: tuple = TIERS) -> tuple:
 
 
 def launch_kernels(inputs: dict, n_clusters, fused: bool = False,
-                   tiers: tuple = TIERS) -> dict:
+                   tiers: tuple = TIERS, clocks: bool = False) -> dict:
     """The kernels' entry point call_stats on kernel_inputs (two memsets,
     the run pass, the slot pass, the warp and the block tiers) on the
     current stream of the tensors' device, from the build with the
     thresholds `tiers` (as nvcc_defines; another set than TIERS is a
-    library of its own, built at first use); no launch for n = 0. Counts
-    nothing; raises when a launch fails or the card refuses a tier's
-    shared memory."""
+    library of its own, built at first use) and, with `clocks`, CLOCKS;
+    no launch for n = 0. Counts nothing; raises when a launch fails or the
+    card refuses a tier's shared memory."""
     from sniffles_tpu_torch.ops import _build
     from sniffles_tpu_torch.ops.clustering import _launch
     c = inputs
@@ -220,7 +228,8 @@ def launch_kernels(inputs: dict, n_clusters, fused: bool = False,
         lists = torch.empty((4 * n,), dtype=torch.int32, device=dev)      # the tiers' slots
         has_invalid = torch.empty((n,), dtype=torch.uint8, device=dev)
         lists_big = torch.empty((5, n), dtype=torch.int32, device=dev)    # past BLOCK_MAX
-        fn = _build.load("call_stats", nvcc_defines(tiers)).call_stats
+        fn = _build.load("call_stats", nvcc_defines(tiers) + ((CLOCKS,) if clocks else ())
+                         ).call_stats
         fn.restype = ctypes.c_int
         fn.argtypes = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
         # a bool is one byte, 0 or 1: the kernel reads valid as its bytes

@@ -3,7 +3,7 @@
 csrc/call_stats.cu) by how the n slots are filled, for whichever
 `sniffles_tpu_torch` comes first on the import path:
 
-    python3 sniffles_tpu_torch/tools/time_call_stats.py [--n 2097152]
+    python3 sniffles_tpu_torch/tools/time_call_stats.py [--n 2097152] [--split]
     PYTHONPATH=DIR python3 sniffles_tpu_torch/tools/time_call_stats.py
 
 Cases of n slots (`populations`):
@@ -15,7 +15,14 @@ Cases of n slots (`populations`):
   - "K a slot" for K in 8, 40, 256, 4096 and 32768: slot k holds elements
     kK..kK+K-1 of the engine's columns; 8 is the thread tier's largest
     cluster, 40 the engine's count of live slots, 256 the warp tier's
-    largest, 4096 a block's, 32768 past a block's shared memory.
+    largest, 4096 a block's, 32768 past a block's shared memory;
+  - "chain": the tiled 36-link chain (`sim.relax_chain_batch(n)`, chain2^21
+    at the default n) clustered as the engine clusters, n/36 clusters of
+    up to 3,689 elements: the block tier's.
+Each case prints its clusters in the warp and block tiers on the exact
+path and on the chain path (`window_paths`: a cluster whose trimmed
+windows' s1 and s2 all pass the exactness test, Σ|x| and Σx² at most 2^24,
+and one where some sum runs the sequential chain).
 For each it holds the kernels against the plain version on CPU copies
 (every key and slot bit for bit), then prints the device time of the
 wrapper (the sort and the kernels) and of the kernels alone (CUDA events,
@@ -29,10 +36,17 @@ population through the tier on either side of it, each side a build of
 its own (all built at once first): the engine's and 40 a slot through a
 warp's registers and through its shared memory; then ptxas's registers
 and spills of the kernels and the card's nvidia-smi name and power limit.
-Needs a CUDA card; `--device cpu` builds the populations and holds
-nothing (a dry run).
+--split runs first, on the build with ops/call_stats.CLOCKS (where the
+package has it): each population's clusters in the warp and block tiers
+and their cycles a cluster by part (`clock_split`: the list and
+permutation entries, the gather, the sort, the medians and support, the
+chains, the row, a block's barrier waits; a block's chains run on a warp
+of their own beside its path), after it is held against the plain version.
+Needs a CUDA card; `--device cpu` builds the populations, counts their
+exact and chain paths and holds nothing (a dry run).
 """
 import argparse
+import ctypes
 import os
 import subprocess
 import sys
@@ -46,6 +60,7 @@ sys.path.append(REPO)     # after PYTHONPATH, so that a package there comes firs
 REPS = 10
 SLEEP_CYCLES = 2_000_000     # about 1 ms of device sleep ahead of each call
 SLOT_SIZES = (8, 40, 256, 4096, 32768)
+EXACT_LIMIT = 1 << 24        # a float32 sum of integer terms is exact up to it
 
 
 def populations(n: int, device: str) -> dict:
@@ -68,7 +83,132 @@ def populations(n: int, device: str) -> dict:
              "all invalid": dict(engine, valid=torch.zeros_like(engine["valid"])),
              "singletons": slots_of(1)}
     cases.update((f"{k} a slot", slots_of(k)) for k in SLOT_SIZES)
+    cases["chain"] = chain_clustered(n, device)
     return cases
+
+
+def chain_clustered(n: int, device: str) -> dict:
+    """The tiled chain of n slots (sim.relax_chain_batch) clustered with
+    the engine's parameters (chip_smoke.py phase 10d's chain2^21)."""
+    from sniffles_tpu_torch.ops import clustering as tc
+    from sniffles_tpu_torch.sim import relax_chain_batch
+    sig = {k: torch.as_tensor(v).to(device) for k, v in relax_chain_batch(n).items()}
+    out = tc.cluster_signatures(sig, cluster_r=2.5, cluster_repeat_h=1.5,
+                                cluster_repeat_h_max=1000.0, cluster_merge_bnd=1000,
+                                cluster_merge_len=0.22, minsvlen=50, exact_sweep=False)
+    out.pop("merge_rounds")
+    return out
+
+
+def window_paths(c: dict, tiers: tuple) -> dict:
+    """{tier kernel: (clusters on the exact path, on the chain path, window
+    sums on the chain)} of a clustered batch (torch, any device): a
+    cluster of the warp tier (TINY_MAX < cnt <= WARP_MAX of `tiers`) or
+    the block tier (cnt > WARP_MAX) is on the exact path when each of its
+    four trimmed-window sums (s1 and s2 of svlen and of pos: ranks [trim,
+    cnt - trim) of the sorted list, centered on the window's minimum with
+    int32 wrap) passes its test, sum |x| <= 2^24 for s1 and sum x^2 <= 2^24
+    for s2, and so adds exactly in any order; else on the chain path."""
+    tiny, _, warp_max, _ = tiers
+    n = c["pos"].shape[0]
+    cid = c["cluster_id"].cpu().to(torch.int64)
+    mask = c["valid"].cpu() & (cid >= 0) & (cid < n)
+    ids = cid[mask]
+    cnt = torch.bincount(ids, minlength=n)
+    start = torch.cumsum(cnt, 0) - cnt
+    trim = cnt * 25 // 100
+    chained = torch.zeros(n, dtype=torch.int64)
+    for key in ("svlen", "pos"):
+        v = c[key].cpu().to(torch.int64)[mask]
+        order = torch.argsort(ids * (1 << 33) + (v + (1 << 31)))
+        ids_s, v_s = ids[order], v[order]
+        rank = torch.arange(ids_s.numel()) - start[ids_s]
+        lo = trim[ids_s]
+        inside = (rank >= lo) & (rank < cnt[ids_s] - lo)
+        shift = v_s[(start + trim).clamp(max=max(v_s.numel() - 1, 0))] if v_s.numel() else v_s
+        d = (v_s - shift[ids_s] + (1 << 31)) % (1 << 32) - (1 << 31)
+        s1 = torch.zeros(n, dtype=torch.int64).index_add_(0, ids_s, torch.where(
+            inside, d.abs(), 0))
+        s2 = torch.zeros(n, dtype=torch.int64).index_add_(0, ids_s, torch.where(
+            inside, (d * d).clamp(max=EXACT_LIMIT + 1), 0))
+        chained += (s1 > EXACT_LIMIT).to(torch.int64) + (s2 > EXACT_LIMIT).to(torch.int64)
+    out = {}
+    for k, sel in (("stat_warps", (cnt > tiny) & (cnt <= warp_max)),
+                   ("stat_blocks", cnt > warp_max)):
+        out[k] = (int((sel & (chained == 0)).sum()), int((sel & (chained > 0)).sum()),
+                  int(chained[sel].sum()))
+    return out
+
+
+def paths_text(paths: dict) -> str:
+    return "; ".join(f"{k}: {e} clusters exact, {ch} on the chain ({s} sums)"
+                     for k, (e, ch, s) in paths.items())
+
+
+def parse_clocks(words, tiers=("stat_warps", "stat_blocks"),
+                 parts=("entry", "gather", "sort", "medians", "chains", "write", "wait")
+                 ) -> dict:
+    """The stat_clocks words (a tier's parts, then its clusters) as {tier:
+    {"clusters": k, "path": cycles a cluster on the stamping thread's path
+    (a block's without its chains, which run beside it), part: cycles a
+    cluster}}; a tier with no cluster gives {"clusters": 0}."""
+    out = {}
+    stride = len(parts) + 1
+    for t, tier in enumerate(tiers):
+        w = [int(x) for x in words[t * stride:(t + 1) * stride]]
+        k = w[-1]
+        if not k:
+            out[tier] = {"clusters": 0}
+            continue
+        cycles = {p: w[i] / k for i, p in enumerate(parts)}
+        beside = ("chains",) if tier == "stat_blocks" else ()
+        out[tier] = {"clusters": k, "path": sum(v for p, v in cycles.items() if p not in beside),
+                     **cycles}
+    return out
+
+
+def split_text(split: dict) -> str:
+    """A clock_split's tiers as text: cycles a cluster, each part's share
+    of the path (a block's chains as cycles beside it)."""
+    out = []
+    for tier, d in split.items():
+        if not d["clusters"]:
+            out.append(f"{tier}: no cluster")
+            continue
+        parts = [f"{p} {v / d['path']:.1%}" for p, v in d.items()
+                 if p not in ("clusters", "path") and not (tier == "stat_blocks" and p == "chains")]
+        extra = (f"; chains beside it {d['chains']:.0f} cycles"
+                 if tier == "stat_blocks" else "")
+        out.append(f"{tier}: {d['clusters']} clusters, {d['path']:.0f} cycles a cluster "
+                   f"({', '.join(parts)}{extra})")
+    return " | ".join(out)
+
+
+def clock_split(cs, c: dict, want: dict, case: str) -> dict | None:
+    """parse_clocks of REPS calls of the CLOCKS build on the case (held
+    against the plain version first); None where the package has no such
+    build."""
+    from sniffles_tpu_torch.ops import _build
+    if not hasattr(cs, "CLOCKS"):
+        return None
+    fn = _build.load("call_stats", cs.nvcc_defines() + (cs.CLOCKS,)).stat_clocks
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p]
+    out = (ctypes.c_uint64 * (len(cs.CLOCK_TIERS) * (len(cs.CLOCK_PARTS) + 1)))()
+    inputs = cs.kernel_inputs(c)
+    held(cs.launch_kernels(inputs, c["n_clusters"], True, clocks=True), want, case)
+    torch.cuda.synchronize()
+    if fn(out) != 0:                    # zeroes the sums after the call that held it
+        raise SystemExit("time_call_stats: reading the clocks failed")
+    for _ in range(REPS):
+        cs.launch_kernels(inputs, c["n_clusters"], True, clocks=True)
+    torch.cuda.synchronize()
+    if fn(out) != 0:
+        raise SystemExit("time_call_stats: reading the clocks failed")
+    got = parse_clocks(out, cs.CLOCK_TIERS, cs.CLOCK_PARTS)
+    for d in got.values():
+        d["clusters"] //= REPS
+    return got
 
 
 def queued_ms(fn) -> float:
@@ -142,11 +282,14 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--n", type=int, default=1 << 21)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--split", action="store_true",
+                    help="first each population's cycles a cluster by part (the CLOCKS build)")
     args = ap.parse_args()
     if args.device == "cpu":
+        from sniffles_tpu_torch.ops import call_stats as cs
         for case, c in populations(args.n, "cpu").items():
             live = int(torch.unique(c["cluster_id"][c["valid"]]).numel())
-            print(f"{case}: {args.n} slots, {live} live")
+            print(f"{case}: {args.n} slots, {live} live; {paths_text(window_paths(c, cs.TIERS))}")
         return 0
     if not torch.cuda.is_available():
         print("time_call_stats: no CUDA device is visible", file=sys.stderr)
@@ -156,6 +299,14 @@ def main() -> int:
     from sniffles_tpu_torch.ops import call_stats as cs
     print(f"time_call_stats: the package at {os.path.dirname(os.path.dirname(cs.__file__))}")
     cases = populations(args.n, "cuda")
+    if args.split and hasattr(cs, "CLOCKS"):
+        _build.finish_build(_build.start_build("call_stats",
+                                               defines=cs.nvcc_defines() + (cs.CLOCKS,)))
+        for case, c in cases.items():
+            want = cs.call_statistics_plain({k: v.cpu() for k, v in c.items()}, True)
+            split = clock_split(cs, c, want, case)
+            print(f"split, {case}: {split_text(split)}; {paths_text(window_paths(c, cs.TIERS))}",
+                  flush=True)
     for case, c in cases.items():
         want = cs.call_statistics_plain({k: v.cpu() for k, v in c.items()}, True)
         held(cs.launch_call_statistics(c, True), want, case)
@@ -164,7 +315,8 @@ def main() -> int:
         kernels_ms = queued_ms(lambda: cs.launch_kernels(inputs, c["n_clusters"], True))
         split = by_kernel(lambda: cs.launch_call_statistics(c, True))
         live = int((want["lead_count"] > 0).sum())
-        print(f"{case}: {args.n} slots, {live} live; == plain (bit-exact); the wrapper "
+        print(f"{case}: {args.n} slots, {live} live ({paths_text(window_paths(c, cs.TIERS))}); "
+              f"== plain (bit-exact); the wrapper "
               f"{ms:.4f} ms, the kernels alone {kernels_ms:.4f} ms; by kernel (us, launches "
               f"a call): " + "; ".join(
                   f"{short(k)} {us:.1f} x{n:.0f}"
