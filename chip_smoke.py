@@ -349,6 +349,11 @@ CALL_STATS_GATHER_BYTES = 8 + 28
 # network does (its bitonic network pads to a power of two and does
 # log^2 steps: that is its cost, not the function's)
 CALL_STATS_OPS_PER_COMPARE = 3 * 3
+# the latency of a dependent float32 add on the H100 (cycles), at the 1.98
+# GHz boost clock: a cluster's NM sum is a chain of cnt such adds in array
+# order, which no kernel shortens (the plain version's arithmetic)
+FADD_LATENCY_CYCLES = 4
+SM_CLOCK_HZ = 1.98e9
 
 
 def fail(msg: str) -> None:
@@ -2915,8 +2920,8 @@ def call_stats_bound_ms(n, bytes_per_element):
     return max(by_bytes, by_ops) * 1e3, "bytes" if by_bytes >= by_ops else "operations"
 
 
-def call_stats_kernel_bounds(counts, n):
-    """{kernel: (bound ms, "bytes" or "operations")} of each kernel of
+def call_stats_kernel_parts(counts, n):
+    """{kernel: (bytes ms, operations ms, chain ms)} of each kernel of
     csrc/call_stats.cu on n slots whose clusters have `counts` elements
     (lead_count, numpy), split by the tiers of ops/call_stats.py: the bytes
     each must move (stat_runs: the masked id, cluster id and valid byte of
@@ -2924,9 +2929,12 @@ def call_stats_kernel_bounds(counts, n):
     invalid mark, the rows of the empty slots and of the thread tier's
     clusters, those clusters' gathers, the other live slots' list entries;
     stat_warps and stat_blocks: their clusters' runs, list entries, marks,
-    gathers and rows) and the operations (CALL_STATS_OPS_PER_ELEMENT an
-    element, and the cnt * log2(cnt) compares of a comparison sort of each
-    cluster's lists, CALL_STATS_OPS_PER_COMPARE each)."""
+    gathers and rows) at the HBM rate, the operations
+    (CALL_STATS_OPS_PER_ELEMENT an element, and the cnt * log2(cnt) compares
+    of a comparison sort of each cluster's lists,
+    CALL_STATS_OPS_PER_COMPARE each) at the int32 rate, and the latency
+    floor of the tier's longest sequential chain: its largest cluster's NM
+    sum, cnt dependent float32 adds at FADD_LATENCY_CYCLES each."""
     from sniffles_tpu_torch.ops import call_stats as cs
     counts = counts.astype(np.int64)
     live = counts > 0
@@ -2949,10 +2957,18 @@ def call_stats_kernel_bounds(counts, n):
     n_ops = {"stat_runs": 4 * n, "stat_slots": slots_ops + 4 * n,
              "stat_warps": work(tiers["stat_warps"])[1],
              "stat_blocks": work(tiers["stat_blocks"])[1]}
+    chain = {k: int(counts[sel].max()) if sel.any() else 0 for k, sel in tiers.items()}
+    return {k: (n_bytes[k] / HBM_BYTES_PER_S * 1e3, n_ops[k] / INT32_OPS_PER_S * 1e3,
+                chain.get(k, 0) * FADD_LATENCY_CYCLES / SM_CLOCK_HZ * 1e3) for k in cs.KERNELS}
+
+
+def call_stats_kernel_bounds(counts, n):
+    """{kernel: (bound ms, "bytes" or "operations")}: the larger of
+    call_stats_kernel_parts' three (a chain's latency is of operations)."""
     out = {}
-    for k in cs.KERNELS:
-        by_bytes, by_ops = n_bytes[k] / HBM_BYTES_PER_S, n_ops[k] / INT32_OPS_PER_S
-        out[k] = (max(by_bytes, by_ops) * 1e3, "bytes" if by_bytes >= by_ops else "operations")
+    for k, (by_bytes, by_ops, by_chain) in call_stats_kernel_parts(counts, n).items():
+        bound = max(by_bytes, by_ops, by_chain)
+        out[k] = (bound, "bytes" if by_bytes >= bound else "operations")
     return out
 
 
@@ -3001,7 +3017,7 @@ def time_call_stats(clustered, chain, relax, params, ptxas_log):
     chain_counts = tcs.call_statistics_plain({k: v.cpu() for k, v in chain_cl.items()},
                                              True)["lead_count"].numpy()
     crafted = (("edge", 8192, 4), ("edge", 8192, 5), ("random", 8192, 3), ("tiers", 65536, 8),
-               ("huge", 32768, 9))
+               ("huge", 32768, 9), ("sums", 65536, 10))
     for kind, size, seed in crafted:
         b = {k: torch.as_tensor(v).cuda() for k, v in call_stats_batch(kind, size, seed).items()}
         for fused in (False, True):
@@ -3061,6 +3077,8 @@ def time_call_stats(clustered, chain, relax, params, ptxas_log):
     chain_plain_ms = cuda_ms(lambda: tcs.call_statistics_plain(chain_cl, True), 3)
     bounds = call_stats_kernel_bounds(counts, n)
     chain_bounds = call_stats_kernel_bounds(chain_counts, n)
+    parts = call_stats_kernel_parts(counts, n)
+    chain_parts = call_stats_kernel_parts(chain_counts, n)
     rows = {"call_stats": {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
                            "bound_by": bound_by, "max_abs_err": 0}}
     for k in tcs.KERNELS:
@@ -3069,10 +3087,14 @@ def time_call_stats(clustered, chain, relax, params, ptxas_log):
         k_bound, k_by = (chain_bounds if on_chain else bounds)[k]
         rows[k] = {"ms": k_us / 1e3, "plain_ms": chain_plain_ms if on_chain else plain_ms,
                    "bound_ms": k_bound, "bound_by": k_by, "max_abs_err": 0}
+        by_bytes, by_ops, by_chain = (chain_parts if on_chain else parts)[k]
         print(f"  {k} ({'the tiled chain' if on_chain else 'the step batch'}, n={n}): "
               f"{k_us / 1e3:.4f} ms on the device (torch.profiler); bound "
-              f"{k_bound * 1e3:.3f} us ({k_by}), {k_bound * 1e3 / max(k_us, 1e-9):.3%} of it; "
-              f"ptxas: {ptxas_summary(ptxas_log, k)}", flush=True)
+              f"{k_bound * 1e3:.3f} us ({k_by}; the larger of bytes {by_bytes * 1e3:.3f} us, "
+              f"operations {by_ops * 1e3:.3f} us and the longest chain's latency "
+              f"{by_chain * 1e3:.3f} us), {k_bound * 1e3 / max(k_us, 1e-9):.3%} of it; the bytes "
+              f"alone {by_bytes * 1e3 / max(k_us, 1e-9):.3%} of it; ptxas: "
+              f"{ptxas_summary(ptxas_log, k)}", flush=True)
     # max_abs_err: against the plain version on the same inputs (CPU
     # copies), held bit for bit above
     return rows

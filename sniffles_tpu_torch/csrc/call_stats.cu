@@ -40,12 +40,15 @@
 // permutation and sorts them itself: a sort of a cluster's values gives
 // the same sorted list whatever the order of equal values, so no global
 // sort by value is needed, and every statistic reads the sorted lists on
-// chip. The sorts are bitonic networks with every comparator ascending
-// (the first step of each merge compares mirrored pairs), padded with
-// INT32_MAX past cnt, which sorts last and is never read: in registers the
-// padding is real; in memory it is virtual (a comparator whose upper
-// element lies past cnt would keep INT32_MAX there and is skipped). Valid
-// values may be INT32_MAX or INT32_MIN; the comparisons are signed int32.
+// chip. Valid values may be INT32_MAX or INT32_MIN; the comparisons are
+// signed int32.
+//
+// The trimmed windows' s1 and s2 are exact integer reductions where their
+// terms allow (sum |x| <= 2^24 for s1, sum x^2 <= 2^24 for s2: every
+// partial sum of the float32 chain is then an integer that float32 holds,
+// so the chain gives the integer sum in any order), else the chain itself,
+// term by term in sorted order; so is the block tier's mapq sum (sum |q|
+// <= 2^24). NM's sum is always its chain in array order.
 //
 // Tiers by the cluster's size cnt (the thresholds are build-time constants,
 // -DSTAT_TINY_MAX, -DSTAT_PAIR_MAX, -DSTAT_WARP_MAX, -DSTAT_BLOCK_MAX from
@@ -57,34 +60,38 @@
 //     compare-exchanges; each larger cluster's entry (slot, run, count,
 //     invalid mark) goes to the warp or the block list (a warp's appends by
 //     one atomic);
-//   * stat_warps, a warp a cluster of cnt <= kWarpMax, the next cluster's
-//     entry and permutation entries loaded while it works on one: up to
-//     kPairMax elements in two registers a lane, sorted by shuffles, the
-//     medians and the support count by ballots and scans over them; past
-//     that, the lists in the warp's slice of shared memory, sorted as the
-//     block's below. Then the six float32 chains (s1 and s2 of svlen and of
-//     pos, the mapq and NM sums) are each summed by a lane of its own, term
-//     by term from shared memory, in lockstep;
-//   * stat_blocks, a block a cluster of cnt > kWarpMax: five lists (svlen,
-//     pos, read, sorted; mapq and NM as float32 in array order) in dynamic
-//     shared memory up to kBlockMax elements (20 bytes each), past it in a
-//     global scratch buffer at the cluster's run. The block sorts them:
-//     each chunk of 64 in registers, then each wider merge's steps of 64
-//     apart or more in memory and its last six in registers, by all warps
-//     but the last, whose lanes meanwhile sum the mapq and NM chains (array
-//     order needs no sort). Then those warps take the medians and the
-//     support count (a range of the list each, meeting at a named barrier)
-//     while the last one's lanes sum the trimmed windows' four chains.
+//   * stat_warps, a warp a cluster of the warp list, the next one's entry
+//     and permutation entries loaded while it works: up to kPairMax elements
+//     in two registers a lane (a coalesced gather), svlen and pos sorted by
+//     shuffles (a network of 32 up to 32 elements), the read ids counted
+//     unsorted by __match_any_sync, the medians from 64-bit masks of the
+//     runs' ends, the windows' and mapq's sums by __reduce_add_sync, NM's
+//     chain from the warp's slice of shared memory, four terms a load; past
+//     that, the lists in the warp's slice, sorted by a bitonic network
+//     there; the row by 16 lanes, its divisions and roots once a warp;
+//   * stat_blocks, a block a cluster of cnt > kWarpMax: its lists (svlen,
+//     pos, read ids, a scratch list) in dynamic shared memory up to
+//     kBlockMax elements (16 bytes each; three blocks an SM), past it in a
+//     global scratch buffer at the cluster's run. Seven warps gather, count
+//     the distinct read ids by a hash table (no sort), then radix-sort pos
+//     and svlen at once (5-bit digits counted in registers by ballots, only
+//     the passes each list's range needs: no padding, a few barriers a
+//     pass), then take the extents, the windows' sums in int64 and the
+//     medians of both lists in one set of passes. The last warp meanwhile
+//     sums NM in array order straight through the permutation, its 32 lanes
+//     loading kAhead batches ahead of the adds, then runs pos's window
+//     chains, where their test fails, once pos is sorted (a named barrier
+//     the sorting warps arrive at).
 //
 // Bound: bytes. An element's masked id and permutation (12 bytes), its
 // cluster id, valid byte, svlen, pos, read id, mapq, strand, svtype and NM
 // (33) are read, and 64 bytes a slot written; the operations (a few dozen
-// an element, the sorts' log^2 steps on chip) are below the card's integer
-// rate. Most slots are empty (the live ones are the low ids), so their rows
-// are written a thread a slot, coalesced. A chain's sum is sequential (one
+// an element, the sorts' steps on chip) are below the card's integer rate.
+// Most slots are empty (the live ones are the low ids), so their rows are
+// written a thread a slot, coalesced. A chain's sum is sequential (one
 // dependent float32 add an element), which bounds a large cluster by
-// latency, not by bytes: the lanes that hold the six chains run them at
-// once, a batch of kBatch terms loaded and converted ahead of their adds.
+// latency: NM's on the block's last warp takes two instructions a term
+// (a shuffle, an add), its loads far ahead.
 
 #include <algorithm>
 #include <climits>
@@ -102,8 +109,9 @@ namespace {
 
 constexpr int kThreads = 256;       // stat_slots' and stat_warps' blocks
 constexpr int kRunThreads = 256;    // stat_runs: a thread an element
-constexpr int kBlockThreads = 512;  // stat_blocks: a block a cluster
-constexpr int kMedianWarps = kBlockThreads / 32 - 1;  // its last warp sums the chains
+constexpr int kBlockThreads = 256;  // stat_blocks: a block a cluster
+constexpr int kSortWarps = kBlockThreads / 32 - 1;  // its last warp sums the NM chain
+constexpr int kSortThreads = kSortWarps * 32;
 constexpr int kTinyCap = 8;         // the most elements a thread sorts in registers
 constexpr int kTinyMax = STAT_TINY_MAX;    // the thread tier's largest cluster
 constexpr int kPairMax = STAT_PAIR_MAX;    // a warp's largest in registers (0: none)
@@ -113,12 +121,15 @@ static_assert(kTinyMax >= 0 && kTinyMax <= kTinyCap, "a thread sorts at most kTi
 static_assert(kPairMax == 0 || kPairMax == 64, "a warp's two registers a lane hold 64");
 static_assert(kWarpMax >= kTinyMax && kWarpMax >= 1 && kBlockMax >= kWarpMax,
               "the tiers ascend");
-constexpr int kBatch = 8;           // a chain's terms loaded ahead of their adds
-constexpr int kLists = 5;           // svlen, pos, read (sorted); mapq, NM (array order)
-// the lanes of chain_sum's chains: s1 and s2 of svlen and pos (sorted
-// order), the mapq and NM sums (array order)
-constexpr unsigned kSortedChains = 0x0F, kArrayChains = 0x30,
-                   kAllChains = kSortedChains | kArrayChains;
+constexpr int kBatch = 8;           // a lane's chain terms loaded ahead of their adds
+constexpr int kAhead = 8;           // the NM chain's batches of 32 loaded ahead of their adds
+constexpr int kWarpLists = 5;       // a warp's slice: svlen, pos, read ids; NM, mapq
+constexpr int kDigitBits = 5;       // a radix pass's digit: 5 bits, a lane a digit
+constexpr int kRadixChunks = 4;     // a radix pass's chunks of 32 a warp takes at a time
+constexpr int kDigits = 1 << kDigitBits;
+constexpr int kBlockLists = 4;      // a block's: svlen, pos, read ids, the sort's scratch
+constexpr unsigned kExact = 1u << 24;  // integer terms add exactly in float32 up to it
+constexpr unsigned kClamp = 1u << 25;  // a test's term, clamped past kExact
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int INS = 0, DEL = 1;
 
@@ -241,11 +252,11 @@ __device__ __forceinline__ float stdev_of(float s1, float s2, int k, bool fused)
   return __fsqrt_rn(var);
 }
 
-__device__ void write_live(int32_t* __restrict__ out, int n, int c, const Stats& t) {
-  const float div = __int2float_rn(t.cnt);
+// the integer row values of a live slot, in the order of Row (the float
+// keys' rows and qual left to the caller)
+__device__ __forceinline__ void int_rows(const Stats& t, int (&v)[kRows]) {
   const int rev = t.cnt - t.fwd;
   const bool is_ins = t.sv == INS, is_del = t.sv == DEL;
-  int v[kRows];
   v[kSvtype] = t.sv;
   v[kSvlen] = t.svlen_c;
   v[kPos] = is_del ? wrap_add(t.pos_c, t.svlen_c) : t.pos_c;
@@ -253,18 +264,62 @@ __device__ void write_live(int32_t* __restrict__ out, int n, int c, const Stats&
   v[kRawPos] = t.pos_c;
   v[kPosMin] = t.pos_min;
   v[kPosMax] = t.pos_max;
-  v[kStdevPos] = __float_as_int(t.stdev_pos);
-  v[kStdevLen] = __float_as_int(t.stdev_len);
   v[kSupport] = t.support;
   v[kLeadCount] = t.cnt;
-  v[kQual] = to_i32(floorf(__fdiv_rn(t.mapq_sum, div)));
   v[kFwd] = t.fwd;
   v[kRev] = rev;
-  v[kNm] = __float_as_int(__fdiv_rn(t.nm_sum, div));
   v[kNStrands] = (t.fwd > 0 && rev > 0) ? 2 : 1;
+}
+
+// the row values of a live slot, in the order of Row
+__device__ __forceinline__ void row_values(const Stats& t, int (&v)[kRows]) {
+  const float div = __int2float_rn(t.cnt);
+  int_rows(t, v);
+  v[kStdevPos] = __float_as_int(t.stdev_pos);
+  v[kStdevLen] = __float_as_int(t.stdev_len);
+  v[kQual] = to_i32(floorf(__fdiv_rn(t.mapq_sum, div)));
+  v[kNm] = __float_as_int(__fdiv_rn(t.nm_sum, div));
+}
+
+// a live slot's row by one thread
+__device__ void write_live(int32_t* __restrict__ out, int n, int c, const Stats& t) {
+  int v[kRows];
+  row_values(t, v);
 #pragma unroll
   for (int r = 0; r < kRows; ++r) out[static_cast<size_t>(r) * n + c] = v[r];
 }
+
+// A live slot's row by a warp, lane r < kRows storing row r, from t (its
+// stdev fields unused) and the windows' sums (s1 and s2 of svlen, then of
+// pos): the float keys' divisions and roots made once for the warp, each
+// lane on its own operands (the stdevs on lanes kStdevLen and kStdevPos,
+// the means on kQual and kNm).
+__device__ __forceinline__ void write_rows(int32_t* __restrict__ out, int n, int c,
+                                          const Stats& t, const float (&sums)[4], bool fused,
+                                          int lane) {
+  const bool len_lane = lane == kStdevLen;
+  const float sd = stdev_of(len_lane ? sums[0] : sums[2], len_lane ? sums[1] : sums[3],
+                            t.cnt - 2 * trim_of(t.cnt), fused);
+  const float mean = __fdiv_rn(lane == kQual ? t.mapq_sum : t.nm_sum, __int2float_rn(t.cnt));
+  int v[kRows];
+  int_rows(t, v);
+  v[kStdevPos] = v[kStdevLen] = __float_as_int(sd);
+  v[kQual] = to_i32(floorf(mean));
+  v[kNm] = __float_as_int(mean);
+  int mine = v[0];
+#pragma unroll
+  for (int r = 1; r < kRows; ++r) mine = lane == r ? v[r] : mine;
+  if (lane < kRows) out[static_cast<size_t>(lane) * n + c] = mine;
+}
+
+// |d| as unsigned (INT32_MIN: 2^31), clamped to kClamp
+__device__ __forceinline__ unsigned abs_term(int d) {
+  const unsigned a = d < 0 ? 0u - static_cast<unsigned>(d) : static_cast<unsigned>(d);
+  return min(a, kClamp);
+}
+
+// d^2 from abs_term(d), clamped to kClamp
+__device__ __forceinline__ unsigned sq_term(unsigned a) { return a <= 4096u ? a * a : kClamp; }
 
 // ---- a thread a cluster: registers ----------------------------------------
 
@@ -410,52 +465,57 @@ __device__ void tiny_slot(const Columns& col, int32_t* __restrict__ out, int n, 
 
 // ---- a warp or a block a cluster: lists on chip ---------------------------
 
-// The lists of a cluster: list r at L + r * stride, elements [0, cnt).
-// Gathers them through the permutation, a thread (of `step`) two elements
-// an iteration in array order (both elements' loads issued before the
-// stores), and returns the thread's share of the strand count and of the
-// svtype max.
-__device__ void gather(const Columns& col, int s, int cnt, int* L, size_t stride, int tid,
-                       int step, int& fwd, int& sv) {
-  for (int i = tid; i < cnt; i += 2 * step) {
-    const int i2 = i + step;
+// A warp's cluster of more than kPairMax elements: its lists at L (list r
+// at L + r * stride: svlen, pos and the read ids to sort; NM and mapq as
+// float32 in array order), gathered through the permutation, a lane two
+// elements an iteration in array order (both elements' loads issued before
+// the stores); the lane's share of the strand count, the svtype max and the
+// mapq sums (sum q; sum |q|, clamped a term: abs_term).
+__device__ void warp_gather(const Columns& col, int s, int cnt, int* L, size_t stride, int lane,
+                            int& fwd, int& sv, int& qs, unsigned& qa) {
+  for (int i = lane; i < cnt; i += 64) {
+    const int i2 = i + 32;
     const bool two = i2 < cnt;
     const int64_t o = col.order[s + i], o2 = two ? col.order[s + i2] : o;
     const int a = col.svlen[o], b = col.pos[o], r = col.read_id[o], q = col.mapq[o];
-    const int a2 = col.svlen[o2], b2 = col.pos[o2], r2 = col.read_id[o2], q2 = col.mapq[o2];
+    const int a2 = col.svlen[o2], b2 = col.pos[o2], r2 = col.read_id[o2];
+    const int q2 = two ? col.mapq[o2] : 0;
     const float x = col.nm[o], x2 = col.nm[o2];
-    const int f = col.strand[o] > 0, f2 = two && col.strand[o2] > 0;
+    fwd += (col.strand[o] > 0) + (two && col.strand[o2] > 0);
     sv = max(sv, max(col.svtype[o], two ? col.svtype[o2] : INT_MIN));
-    fwd += f + f2;
+    qs = wrap_add(qs, wrap_add(q, q2));
+    qa = min(qa + min(abs_term(q) + abs_term(q2), kClamp), kClamp);
     L[i] = a;
     L[stride + i] = b;
     L[2 * stride + i] = r;
-    L[3 * stride + i] = __float_as_int(__int2float_rn(q));
-    L[4 * stride + i] = __float_as_int(x);
+    L[3 * stride + i] = __float_as_int(x);
+    L[4 * stride + i] = __float_as_int(__int2float_rn(q));
     if (two) {
       L[i2] = a2;
       L[stride + i2] = b2;
       L[2 * stride + i2] = r2;
-      L[3 * stride + i2] = __float_as_int(__int2float_rn(q2));
-      L[4 * stride + i2] = __float_as_int(x2);
+      L[3 * stride + i2] = __float_as_int(x2);
+      L[4 * stride + i2] = __float_as_int(__int2float_rn(q2));
     }
   }
 }
 
-// the barrier of the block's warps 0 .. kMedianWarps - 1 (named barrier 1)
-__device__ __forceinline__ void median_bar() {
-  asm volatile("bar.sync 1, %0;" ::"r"(kMedianWarps * 32) : "memory");
-}
-
-// who works together on a cluster's lists
-enum Group { kWarp, kMedianGroup };
-
-__device__ __forceinline__ void sync_group(Group group) {
-  if (group == kWarp) {
-    __syncwarp();
-  } else {
-    median_bar();
+// The float32 sum of src[0, cnt) term by term from 0, as the plain version
+// adds it, on every lane (src 16-byte aligned in shared memory: a load
+// broadcasts four terms).
+__device__ float list_chain(const float* src, int cnt) {
+  const float4* v = reinterpret_cast<const float4*>(src);
+  float acc = 0.0f;
+  int j = 0;
+  for (; j + 16 <= cnt; j += 16) {
+    const float4 a = v[j / 4], b = v[j / 4 + 1], c = v[j / 4 + 2], d = v[j / 4 + 3];
+    const float x[16] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w,
+                         c.x, c.y, c.z, c.w, d.x, d.y, d.z, d.w};
+#pragma unroll
+    for (int u = 0; u < 16; ++u) acc = __fadd_rn(acc, x[u]);
   }
+  for (; j < cnt; ++j) acc = __fadd_rn(acc, src[j]);
+  return acc;
 }
 
 // One step of the bitonic network (every comparator ascending) on a warp's
@@ -480,13 +540,42 @@ __device__ __forceinline__ void pair_step(int& v0, int& v1, int k, int j, int la
   }
 }
 
-// One comparator step of the bitonic sort of lists 0-2 in memory: a merge
-// of width k, elements j apart (j >= 64), by `step` threads. A comparator
-// whose upper element lies past cnt is skipped (the virtual padding is
-// INT32_MAX).
-__device__ void memory_step(int* L, size_t stride, int cnt, int p, int k, int j, int tid,
-                            int step) {
-  for (int t = tid; t < (p >> 1); t += step) {
+// The same step on 32 elements, element i in lane i.
+__device__ __forceinline__ void lane_step(int& v, int k, int j, int lane) {
+  const int m = j == (k >> 1) ? k - 1 : j;
+  const int w = __shfl_xor_sync(kFull, v, m);
+  v = (lane & j) == 0 ? min(v, w) : max(v, w);
+}
+
+// Two lists' bitonic sorts at once, unrolled: of 32 elements (a0, b0), or of
+// 64 in pairs (a0, a1), (b0, b1).
+__device__ __forceinline__ void sort32x2(int& a0, int& b0, int lane) {
+#pragma unroll
+  for (int k = 2; k <= 32; k <<= 1) {
+#pragma unroll
+    for (int j = k >> 1; j > 0; j >>= 1) {
+      lane_step(a0, k, j, lane);
+      lane_step(b0, k, j, lane);
+    }
+  }
+}
+
+__device__ __forceinline__ void sort64x2(int& a0, int& a1, int& b0, int& b1, int lane) {
+#pragma unroll
+  for (int k = 2; k <= 64; k <<= 1) {
+#pragma unroll
+    for (int j = k >> 1; j > 0; j >>= 1) {
+      pair_step(a0, a1, k, j, lane);
+      pair_step(b0, b1, k, j, lane);
+    }
+  }
+}
+
+// One comparator step of the bitonic sort of a warp's lists 0-2 in memory: a
+// merge of width k, elements j apart (j >= 64). A comparator whose upper
+// element lies past cnt is skipped (the virtual padding is INT32_MAX).
+__device__ void memory_step(int* L, size_t stride, int cnt, int p, int k, int j, int lane) {
+  for (int t = lane; t < (p >> 1); t += 32) {
     const int q = t & (j - 1), head = 2 * (t - q);
     const int lo = head + q;
     const int hi = j == (k >> 1) ? head + 2 * j - 1 - q : lo + j;
@@ -506,11 +595,10 @@ __device__ void memory_step(int* L, size_t stride, int cnt, int p, int k, int j,
 
 // The steps of a merge of width k (from the one of width `from`: 2 for a
 // whole sort of each chunk) that lie within chunks of 64 elements, in
-// registers: warp w of `warps` loads chunk w, w + warps, ... of lists 0-2
-// (INT32_MAX past cnt), runs the steps and stores the elements before cnt.
-__device__ void chunk_steps(int* L, size_t stride, int cnt, int p, int from, int k, int warp,
-                            int warps, int lane) {
-  for (int base = warp * 64; base < p; base += warps * 64) {
+// registers: the warp loads each chunk of lists 0-2 (INT32_MAX past cnt),
+// runs the steps and stores the elements before cnt.
+__device__ void chunk_steps(int* L, size_t stride, int cnt, int p, int from, int k, int lane) {
+  for (int base = 0; base < p; base += 64) {
     const int i0 = base + lane, i1 = i0 + 32;
     int v[3][2];
 #pragma unroll
@@ -532,35 +620,24 @@ __device__ void chunk_steps(int* L, size_t stride, int cnt, int p, int from, int
   }
 }
 
-// The bitonic sort of lists 0-2 (svlen, pos, read), each of cnt elements,
-// by `warps` warps (a warp, or the block's median warps), every comparator
-// ascending: the first step of a merge of width k pairs mirrored elements,
-// the later ones elements j apart. The steps within chunks of 64 run in
-// registers (each chunk whole first, then the last six steps of each wider
-// merge), the others in memory.
-__device__ void sort_lists(int* L, size_t stride, int cnt, int warp, int warps, int lane,
-                           Group group) {
+// The bitonic sort of a warp's lists 0-2 (svlen, pos, read), each of cnt
+// elements, every comparator ascending: the first step of a merge of width
+// k pairs mirrored elements, the later ones elements j apart. The steps
+// within chunks of 64 run in registers (each chunk whole first, then the
+// last six steps of each wider merge), the others in memory.
+__device__ void sort_lists(int* L, size_t stride, int cnt, int lane) {
   int p = 1;
   while (p < cnt) p <<= 1;
-  chunk_steps(L, stride, cnt, p, 2, min(p, 64), warp, warps, lane);
-  sync_group(group);
+  chunk_steps(L, stride, cnt, p, 2, min(p, 64), lane);
+  __syncwarp();
   for (int k = 128; k <= p; k <<= 1) {
     for (int j = k >> 1; j >= 64; j >>= 1) {
-      memory_step(L, stride, cnt, p, k, j, warp * 32 + lane, warps * 32);
-      sync_group(group);
+      memory_step(L, stride, cnt, p, k, j, lane);
+      __syncwarp();
     }
-    chunk_steps(L, stride, cnt, p, k, k, warp, warps, lane);
-    sync_group(group);
+    chunk_steps(L, stride, cnt, p, k, k, lane);
+    __syncwarp();
   }
-}
-
-// inclusive max over lanes 0..lane
-__device__ __forceinline__ int scan_max(int v, int lane) {
-  for (int d = 1; d < 32; d <<= 1) {
-    const int u = __shfl_up_sync(kFull, v, d);
-    if (lane >= d) v = max(v, u);
-  }
-  return v;
 }
 
 // the lane of the (k+1)-th set bit of m (m has more than k set bits)
@@ -571,8 +648,9 @@ __device__ __forceinline__ int nth_set(unsigned m, int k) {
 
 // One chunk of 32 elements, at base, of a sorted list v[0, cnt): the lane's
 // element i = base + lane, its value, whether it ends a run of equal values
-// and the length of that run; `open` carries the start of the run open at
-// the chunk's first element into the next chunk.
+// and the length of that run (from the last start at or before it, by a
+// ballot of the starts); `open` carries the start of the run open at the
+// chunk's last element into the next chunk.
 struct Chunk {
   int value;
   bool ends;
@@ -584,11 +662,15 @@ __device__ __forceinline__ Chunk chunk_at(const int* v, int cnt, int base, int l
   const bool in = i < cnt;
   Chunk c;
   c.value = in ? v[i] : 0;
-  const bool starts = in && (i == 0 || v[i - 1] != c.value);
-  c.ends = in && (i + 1 == cnt || v[i + 1] != c.value);
-  const int rs = max(scan_max(starts ? i : -1, lane), open);
-  c.len = i - rs + 1;
-  open = __shfl_sync(kFull, rs, 31);
+  const int up = __shfl_up_sync(kFull, c.value, 1), down = __shfl_down_sync(kFull, c.value, 1);
+  const int before = lane == 0 ? (in && i > 0 ? v[i - 1] : 0) : up;
+  const int after = lane == 31 ? (i + 1 < cnt ? v[i + 1] : 0) : down;
+  const bool starts = in && (i == 0 || before != c.value);
+  c.ends = in && (i + 1 == cnt || after != c.value);
+  const unsigned m = __ballot_sync(kFull, starts);
+  const unsigned upto = m & (kFull >> (31 - lane));
+  c.len = i - (upto ? base + 31 - __clz(upto) : open) + 1;
+  open = m ? base + 31 - __clz(m) : open;
   return c;
 }
 
@@ -629,10 +711,106 @@ __device__ int distinct(const int* v, int cnt, int lane) {
   return count;
 }
 
-// ---- a block's cluster: the medians and the support by kMedianWarps -----
-// Warp w of them takes the chunks of 32 [w * per, (w + 1) * per) of the
-// list, and meets the others at a named barrier (the last warp of the
-// block sums the chains meanwhile, so __syncthreads is not theirs).
+// ---- the trimmed windows' sums: exact reductions, or the chains ----------
+// The window is ranks [lo, hi) = [trim, cnt - trim) of the sorted list,
+// its terms d = v - v[lo] (int32 wrap). Where sum |d| <= 2^24, every
+// partial sum of the float32 chain is an integer of at most 2^24, so every
+// add is exact and the chain gives the integer sum in any order; where
+// sum d^2 <= 2^24, so does s2's chain (each square too is exact). The
+// tests' terms are clamped to kClamp, past 2^24, so their sums cannot wrap.
+
+// The window's sums from a warp's lanes' shares (sd: sum d with int32 wrap;
+// a and q: sums of abs_term and sq_term, each at most kClamp): s1 and s2,
+// and the sums that must run their chains (bit 0 s1, bit 1 s2).
+__device__ __forceinline__ unsigned warp_window_sums(int sd, unsigned a, unsigned q, float& s1,
+                                                     float& s2) {
+  const unsigned A = __reduce_add_sync(kFull, a), Q = __reduce_add_sync(kFull, q);
+  s1 = __int2float_rn(__reduce_add_sync(kFull, sd));
+  s2 = __uint2float_rn(Q);
+  return (A > kExact ? 1u : 0u) | (Q > kExact ? 2u : 0u);
+}
+
+// the window of the sorted list v[0, cnt) in shared memory, by a warp
+__device__ unsigned list_window(const int* v, int cnt, int lane, float& s1, float& s2) {
+  const int lo = trim_of(cnt), hi = cnt - lo;
+  s1 = s2 = 0.0f;
+  if (hi - lo < 2) return 0;
+  const int shift = v[lo];
+  int sd = 0;
+  unsigned a = 0, q = 0;
+  for (int i = lo + lane; i < hi; i += 32) {
+    const int d = wrap_sub(v[i], shift);
+    const unsigned ad = abs_term(d);
+    sd = wrap_add(sd, d);
+    a = min(a + ad, kClamp);
+    q = min(q + sq_term(ad), kClamp);
+  }
+  return warp_window_sums(sd, a, q, s1, s2);
+}
+
+// the window of a sorted pair (cnt <= 64; lo <= 16, so v[lo] is in v0)
+__device__ __forceinline__ unsigned pair_window(int v0, int v1, int cnt, int lane, float& s1,
+                                                float& s2) {
+  const int lo = trim_of(cnt), hi = cnt - lo;
+  s1 = s2 = 0.0f;
+  if (hi - lo < 2) return 0;
+  const int shift = __shfl_sync(kFull, v0, lo);
+  const int d0 = lane >= lo && lane < hi ? wrap_sub(v0, shift) : 0;
+  const int d1 = lane + 32 >= lo && lane + 32 < hi ? wrap_sub(v1, shift) : 0;
+  const unsigned a0 = abs_term(d0), a1 = abs_term(d1);
+  return warp_window_sums(wrap_add(d0, d1), min(a0 + a1, kClamp),
+                          min(sq_term(a0) + sq_term(a1), kClamp), s1, s2);
+}
+
+// The chains of the window sums flagged in `chains` (bit l on lane l: 0 and
+// 1 s1 and s2 of the svlen window, 2 and 3 those of pos), a lane each, in
+// lockstep: term by term in sorted order from 0, as the plain version adds
+// them, from the sorted lists len and pos. Returns the lane's sum (0 on the
+// other lanes).
+__device__ float window_chain(const int* len, const int* pos, int cnt, int lane,
+                              unsigned chains) {
+  const int trim = trim_of(cnt), k = cnt - 2 * trim;
+  const bool square = lane & 1;
+  const int n_terms = lane < 4 && ((chains >> lane) & 1) ? k : 0;
+  const int* src = (lane < 2 ? len : pos) + trim;
+  const int shift = n_terms ? src[0] : 0;
+  float acc = 0.0f;
+  int j = 0;
+  for (; j + kBatch <= n_terms; j += kBatch) {  // a batch's terms ahead of its adds
+    float x[kBatch];
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const float y = __int2float_rn(wrap_sub(src[j + u], shift));
+      x[u] = square ? __fmul_rn(y, y) : y;
+    }
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) acc = __fadd_rn(acc, x[u]);
+  }
+  for (; j < n_terms; ++j) {
+    const float y = __int2float_rn(wrap_sub(src[j], shift));
+    acc = __fadd_rn(acc, square ? __fmul_rn(y, y) : y);
+  }
+  return acc;
+}
+
+// ---- a block's cluster: a sorting group of kSortWarps warps -------------
+// Warp w of them takes the chunks of 32 [w * per, (w + 1) * per) of a list,
+// and meets the others at a named barrier (the block's last warp sums the
+// NM chain meanwhile, so __syncthreads is not theirs).
+
+// the barrier of the block's warps 0 .. kSortWarps - 1 (named barrier 1)
+__device__ __forceinline__ void group_bar() {
+  asm volatile("bar.sync 1, %0;" ::"r"(kSortThreads) : "memory");
+}
+
+// named barrier 2 of the whole block: the sorting warps arrive (the pos
+// list sorted and its window tested), the last warp waits for them
+__device__ __forceinline__ void pos_ready_arrive() {
+  asm volatile("bar.arrive 2, %0;" ::"r"(kBlockThreads) : "memory");
+}
+__device__ __forceinline__ void pos_ready_wait() {
+  asm volatile("bar.sync 2, %0;" ::"r"(kBlockThreads) : "memory");
+}
 
 // the first index of the run of equal values that holds v[i] (v sorted)
 __device__ __forceinline__ int run_start(const int* v, int i) {
@@ -651,220 +829,654 @@ __device__ __forceinline__ int run_start(const int* v, int i) {
 
 // [first, last) of the warp's chunks of a list of cnt elements
 __device__ __forceinline__ void warp_range(int cnt, int warp, int& first, int& last) {
-  const int per = ((cnt + 31) / 32 + kMedianWarps - 1) / kMedianWarps;
+  const int per = ((cnt + 31) / 32 + kSortWarps - 1) / kSortWarps;
   first = min(cnt, warp * per * 32);
   last = min(cnt, (warp + 1) * per * 32);
 }
 
-// the sum of every median warp's x (sh: kMedianWarps ints of scratch)
+// the sum of every sorting warp's x (sh: kSortWarps ints of scratch)
 __device__ __forceinline__ int block_sum(int x, int warp, int lane, int* sh) {
   if (lane == 0) sh[warp] = x;
-  median_bar();
+  group_bar();
   int total = 0;
-  for (int w = 0; w < kMedianWarps; ++w) total += sh[w];
-  median_bar();  // before sh is written again
+  for (int w = 0; w < kSortWarps; ++w) total += sh[w];
+  group_bar();  // before sh is written again
   return total;
 }
 
-// util.median_modes of the sorted list v[0, cnt), as median_modes, by the
-// median warps; the value on each of their threads (sh: kMedianWarps + 1 ints)
-__device__ int block_median_modes(const int* v, int cnt, int warp, int lane, int* sh) {
+// util.median_modes of the sorted lists a[0, cnt) and b[0, cnt) at once,
+// as median_modes, by the sorting warps (warp w of them takes the chunks of
+// 32 [w * per, (w + 1) * per) of each list): the first pass stores each
+// run's length at its end (0 elsewhere) in la and lb (free lists), so that
+// the later passes read it; the medians on each of their threads (sh:
+// 2 * kSortWarps + 2 ints).
+__device__ void block_median_modes2(const int* a, const int* b, int* la, int* lb, int cnt,
+                                    int warp, int lane, int* sh, int& med_a, int& med_b) {
   int first, last;
   warp_range(cnt, warp, first, last);
-  const int start = first < last ? run_start(v, first) : 0;
-  int top = 0, open = start;
+  int open_a = first < last ? run_start(a, first) : 0;
+  int open_b = first < last ? run_start(b, first) : 0;
+  int top_a = 0, top_b = 0;
+#pragma unroll 2
   for (int base = first; base < last; base += 32) {
-    const Chunk c = chunk_at(v, cnt, base, lane, open);
-    top = max(top, __reduce_max_sync(kFull, c.ends ? c.len : 0));
+    const Chunk ca = chunk_at(a, cnt, base, lane, open_a);
+    const Chunk cb = chunk_at(b, cnt, base, lane, open_b);
+    const int i = base + lane, len_a = ca.ends ? ca.len : 0, len_b = cb.ends ? cb.len : 0;
+    if (i < last) {
+      la[i] = len_a;
+      lb[i] = len_b;
+    }
+    top_a = max(top_a, len_a);
+    top_b = max(top_b, len_b);
   }
-  if (lane == 0) sh[warp] = top;
-  median_bar();
-  top = 0;
-  for (int w = 0; w < kMedianWarps; ++w) top = max(top, sh[w]);
-  median_bar();
-  int kept = 0;
-  open = start;
-  for (int base = first; base < last; base += 32) {
-    const Chunk c = chunk_at(v, cnt, base, lane, open);
-    kept += __popc(__ballot_sync(kFull, c.ends && top - c.len < 3));
+  top_a = __reduce_max_sync(kFull, top_a);
+  top_b = __reduce_max_sync(kFull, top_b);
+  if (lane == 0) {
+    sh[warp] = top_a;
+    sh[kSortWarps + warp] = top_b;
   }
-  if (lane == 0) sh[warp] = kept;
-  median_bar();
-  int before = 0, total = 0;
-  for (int w = 0; w < kMedianWarps; ++w) {
-    before += w < warp ? sh[w] : 0;
-    total += sh[w];
+  group_bar();
+  top_a = top_b = 0;
+  for (int w = 0; w < kSortWarps; ++w) {
+    top_a = max(top_a, sh[w]);
+    top_b = max(top_b, sh[kSortWarps + w]);
   }
-  const int target = total / 2;
-  if (target >= before && target < before + kept) {  // the warp that holds it
-    int seen = before;
-    open = start;
-    for (int base = first; base < last; base += 32) {
-      const Chunk c = chunk_at(v, cnt, base, lane, open);
-      const unsigned m = __ballot_sync(kFull, c.ends && top - c.len < 3);
-      const int here = __popc(m);
-      if (seen + here > target) {
-        const int med = __shfl_sync(kFull, c.value, nth_set(m, target - seen));
-        if (lane == 0) sh[kMedianWarps] = med;
-        break;
+  group_bar();
+  int kept_a = 0, kept_b = 0;  // the runs kept: within 2 of the longest
+#pragma unroll 4
+  for (int i = first + lane; i < last; i += 32) {
+    const int x = la[i], y = lb[i];
+    kept_a += x > 0 && top_a - x < 3;
+    kept_b += y > 0 && top_b - y < 3;
+  }
+  kept_a = __reduce_add_sync(kFull, kept_a);
+  kept_b = __reduce_add_sync(kFull, kept_b);
+  if (lane == 0) {
+    sh[warp] = kept_a;
+    sh[kSortWarps + warp] = kept_b;
+  }
+  group_bar();
+  int before_a = 0, total_a = 0, before_b = 0, total_b = 0;
+  for (int w = 0; w < kSortWarps; ++w) {
+    before_a += w < warp ? sh[w] : 0;
+    total_a += sh[w];
+    before_b += w < warp ? sh[kSortWarps + w] : 0;
+    total_b += sh[kSortWarps + w];
+  }
+  group_bar();  // before sh is written again
+  // the kept end of rank n_kept / 2, by the warp that holds it
+#pragma unroll
+  for (int l = 0; l < 2; ++l) {
+    const int* v = l == 0 ? a : b;
+    const int* lens = l == 0 ? la : lb;
+    const int top = l == 0 ? top_a : top_b, before = l == 0 ? before_a : before_b;
+    const int target = (l == 0 ? total_a : total_b) / 2;
+    if (target >= before && target < before + (l == 0 ? kept_a : kept_b)) {
+      int seen = before;
+      for (int base = first; base < last; base += 32) {
+        const int i = base + lane, x = i < last ? lens[i] : 0;
+        const unsigned m = __ballot_sync(kFull, x > 0 && top - x < 3);
+        const int here = __popc(m);
+        if (seen + here > target) {
+          const int at = base + nth_set(m, target - seen);
+          if (lane == 0) sh[2 * kSortWarps + l] = v[at];
+          break;
+        }
+        seen += here;
       }
-      seen += here;
     }
   }
-  median_bar();
-  const int med = sh[kMedianWarps];
-  median_bar();
-  return med;
+  group_bar();
+  med_a = sh[2 * kSortWarps];
+  med_b = sh[2 * kSortWarps + 1];
+  group_bar();
 }
 
-// the distinct values of the sorted list v[0, cnt), by the median warps
-__device__ int block_distinct(const int* v, int cnt, int warp, int lane, int* sh) {
+// A block's cluster's run permutation entries copied to list 3 at R (as
+// int32: n < 2^31) by the sorting warps, coalesced, eight loads ahead of
+// their stores.
+__device__ void block_entries(const Columns& col, int s, int cnt, int* idx, int tid) {
+  for (int i0 = tid; i0 < cnt; i0 += 8 * kSortThreads) {
+    int64_t o[8];
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      const int i = i0 + u * kSortThreads;
+      o[u] = i < cnt ? col.order[s + i] : 0;
+    }
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      const int i = i0 + u * kSortThreads;
+      if (i < cnt) idx[i] = static_cast<int>(o[u]);
+    }
+  }
+}
+
+// A block's cluster's columns through its permutation entries idx, by the
+// sorting warps, four elements a thread at a time (every load issued before
+// the first store): with kReads, the read ids to list 2 at R and the
+// thread's share of the strand count, the svtype max and the mapq sums (sum
+// q; sum |q|, clamped a term); else svlen and pos to lists 0 and 1.
+template <bool kReads>
+__device__ void block_gather(const Columns& col, int cnt, const int* idx, int* R, size_t stride,
+                             int tid, int& fwd, int& sv, long long& qs, unsigned long long& qa) {
+  constexpr int kU = 4;
+  for (int i0 = tid; i0 < cnt; i0 += kU * kSortThreads) {
+    int o[kU], a[kU], b[kU];
+#pragma unroll
+    for (int u = 0; u < kU; ++u) {
+      const int i = i0 + u * kSortThreads;
+      o[u] = i < cnt ? idx[i] : -1;
+    }
+    if (kReads) {
+      int q[kU], f[kU], v[kU];
+#pragma unroll
+      for (int u = 0; u < kU; ++u) {
+        const bool in = o[u] >= 0;
+        a[u] = in ? col.read_id[o[u]] : 0;
+        q[u] = in ? col.mapq[o[u]] : 0;
+        f[u] = in && col.strand[o[u]] > 0;
+        v[u] = in ? col.svtype[o[u]] : INT_MIN;
+      }
+#pragma unroll
+      for (int u = 0; u < kU; ++u) {
+        if (o[u] >= 0) R[2 * stride + i0 + u * kSortThreads] = a[u];
+        fwd += f[u];
+        sv = max(sv, v[u]);
+        qs += q[u];
+        qa += abs_term(q[u]);
+      }
+    } else {
+#pragma unroll
+      for (int u = 0; u < kU; ++u) {
+        const bool in = o[u] >= 0;
+        a[u] = in ? col.svlen[o[u]] : 0;
+        b[u] = in ? col.pos[o[u]] : 0;
+      }
+#pragma unroll
+      for (int u = 0; u < kU; ++u) {
+        if (o[u] >= 0) {
+          R[i0 + u * kSortThreads] = a[u];
+          R[stride + i0 + u * kSortThreads] = b[u];
+        }
+      }
+    }
+  }
+}
+
+// the min and the max of every sorting warp's lo and hi (sh: 2 * kSortWarps
+// ints of scratch), on each of their threads
+__device__ __forceinline__ void group_min_max(int& lo, int& hi, int warp, int lane, int* sh) {
+  lo = __reduce_min_sync(kFull, lo);
+  hi = __reduce_max_sync(kFull, hi);
+  if (lane == 0) {
+    sh[warp] = lo;
+    sh[kSortWarps + warp] = hi;
+  }
+  group_bar();
+  for (int w = 0; w < kSortWarps; ++w) {
+    lo = min(lo, sh[w]);
+    hi = max(hi, sh[kSortWarps + w]);
+  }
+  group_bar();  // before sh is written again
+}
+
+// the digit of a radix pass: (v - lo) as unsigned (the order of the signed
+// values), kDigitBits bits from shift
+__device__ __forceinline__ int key_digit(int v, int lo, int shift) {
+  return static_cast<int>(((static_cast<unsigned>(v) - static_cast<unsigned>(lo)) >> shift) &
+                          (kDigits - 1));
+}
+
+// From a chunk's ballots of its digits' bits (bits[k]: the lanes whose digit
+// has bit k), the lanes (of `valid`) whose digit is d.
+__device__ __forceinline__ unsigned digit_lanes(const unsigned (&bits)[kDigitBits], int d,
+                                                unsigned valid) {
+  unsigned m = valid;
+#pragma unroll
+  for (int k = 0; k < kDigitBits; ++k) m &= ((d >> k) & 1) ? bits[k] : ~bits[k];
+  return m;
+}
+
+// the lanes of chunk u of a radix pass's group at base (kRadixChunks chunks
+// of 32) that lie before last
+__device__ __forceinline__ unsigned chunk_lanes(int base, int u, int last) {
+  const int left = last - base - 32 * u;
+  return left >= 32 ? kFull : left > 0 ? (1u << left) - 1 : 0u;
+}
+
+// A radix pass's counts of a warp's range [first, last) of src: lane d's
+// count of digit d, kRadixChunks chunks at a time (their loads first).
+__device__ __forceinline__ int radix_counts(const int* __restrict__ src, int first, int last,
+                                            int lo, int shift, int lane) {
+  int run = 0;
+  for (int base = first; base < last; base += 32 * kRadixChunks) {
+    int d[kRadixChunks];
+#pragma unroll
+    for (int u = 0; u < kRadixChunks; ++u) {
+      const int i = base + 32 * u + lane;
+      d[u] = i < last ? key_digit(src[i], lo, shift) : 0;
+    }
+#pragma unroll
+    for (int u = 0; u < kRadixChunks; ++u) {
+      unsigned bits[kDigitBits];
+#pragma unroll
+      for (int k = 0; k < kDigitBits; ++k) bits[k] = __ballot_sync(kFull, (d[u] >> k) & 1);
+      run += __popc(digit_lanes(bits, lane, chunk_lanes(base, u, last)));
+    }
+  }
+  return run;
+}
+
+// A radix pass's scatter of a warp's range [first, last) of src into dst,
+// lane d's run the next slot of digit d: an element's slot is its digit's
+// next one (a shuffle from lane digit) plus its rank among the chunk's
+// lanes of that digit; kRadixChunks chunks at a time (their loads first).
+__device__ __forceinline__ void radix_scatter(const int* __restrict__ src, int* __restrict__ dst,
+                                              int first, int last, int lo, int shift, int lane,
+                                              int run) {
+  const unsigned below = (1u << lane) - 1;
+  for (int base = first; base < last; base += 32 * kRadixChunks) {
+    int x[kRadixChunks];
+#pragma unroll
+    for (int u = 0; u < kRadixChunks; ++u) {
+      const int i = base + 32 * u + lane;
+      x[u] = i < last ? src[i] : 0;
+    }
+#pragma unroll
+    for (int u = 0; u < kRadixChunks; ++u) {
+      const unsigned valid = chunk_lanes(base, u, last);
+      const int d = key_digit(x[u], lo, shift);
+      unsigned bits[kDigitBits];
+#pragma unroll
+      for (int k = 0; k < kDigitBits; ++k) bits[k] = __ballot_sync(kFull, (d >> k) & 1);
+      const int at = __shfl_sync(kFull, run, d) + __popc(digit_lanes(bits, d, valid) & below);
+      if ((valid >> lane) & 1) dst[at] = x[u];
+      run += __popc(digit_lanes(bits, lane, valid));
+    }
+  }
+}
+
+// The sorts of two lists, a[0, cnt) and b[0, cnt), ascending, by the
+// sorting warps at once (their passes share the barriers and the scans, and
+// each warp's chunks of the two interleave): an LSD radix sort of the keys
+// v - min (as unsigned, so the order is the signed order), kDigitBits-bit
+// digits (a lane a digit: kDigits == 32), only as many passes as each
+// list's range max - min needs (none for a list of equal values), between
+// the list and its scratch list (sa, sb). A pass: each warp counts the
+// digits of its contiguous range, lane d the count of digit d in a register
+// (from kDigitBits ballots a chunk of 32: no atomics, no counts in shared
+// memory); one scan of the counts (digit-major, then by warp, a sorting
+// thread an entry); each warp scatters its range in order, an element's
+// slot its digit's next one plus its rank among the chunk's lanes of its
+// digit (stable, so the passes compose). sh: 2 * kSortWarps +
+// 2 * kSortThreads ints of shared memory. a and b end as the lists that
+// hold the sorted values, sa and sb as the free ones.
+__device__ void block_sort2(int*& a, int*& sa, int*& b, int*& sb, int cnt, int tid, int warp,
+                            int lane, int* sh) {
+  static_assert(kDigits == 32 && kDigits * kSortWarps == kSortThreads, "a lane a digit");
+  int lo_a = INT_MAX, hi_a = INT_MIN, lo_b = INT_MAX, hi_b = INT_MIN;
+  for (int i = tid; i < cnt; i += kSortThreads) {
+    lo_a = min(lo_a, a[i]);
+    hi_a = max(hi_a, a[i]);
+    lo_b = min(lo_b, b[i]);
+    hi_b = max(hi_b, b[i]);
+  }
+  group_min_max(lo_a, hi_a, warp, lane, sh);
+  group_min_max(lo_b, hi_b, warp, lane, sh);
+  const unsigned range_a = static_cast<unsigned>(hi_a) - static_cast<unsigned>(lo_a);
+  const unsigned range_b = static_cast<unsigned>(hi_b) - static_cast<unsigned>(lo_b);
   int first, last;
   warp_range(cnt, warp, first, last);
-  int count = 0;
-  for (int base = first; base < last; base += 32) {
-    const int i = base + lane;
-    count += __popc(__ballot_sync(kFull, i < cnt && (i == 0 || v[i - 1] != v[i])));
+  int* totals = sh;                      // the scans' warp totals: a's, then b's
+  int* counts = sh + 2 * kSortWarps;     // a's, then b's: digit d, warp w at d * kSortWarps + w
+  for (int shift = 0; shift < 32 && ((range_a | range_b) >> shift) != 0; shift += kDigitBits) {
+    const bool pass_a = (range_a >> shift) != 0, pass_b = (range_b >> shift) != 0;
+    if (pass_a) counts[lane * kSortWarps + warp] = radix_counts(a, first, last, lo_a, shift, lane);
+    if (pass_b)
+      counts[kSortThreads + lane * kSortWarps + warp] = radix_counts(b, first, last, lo_b, shift,
+                                                                     lane);
+    group_bar();
+    {  // the exclusive scans of the counts, a sorting thread an entry of each
+      const int x = pass_a ? counts[tid] : 0, y = pass_b ? counts[kSortThreads + tid] : 0;
+      int ix = x, iy = y;
+#pragma unroll
+      for (int d = 1; d < 32; d <<= 1) {
+        const int ux = __shfl_up_sync(kFull, ix, d), uy = __shfl_up_sync(kFull, iy, d);
+        if (lane >= d) {
+          ix += ux;
+          iy += uy;
+        }
+      }
+      if (lane == 31) {
+        totals[warp] = ix;
+        totals[kSortWarps + warp] = iy;
+      }
+      group_bar();
+      int bx = ix - x, by = iy - y;
+      for (int k = 0; k < warp; ++k) {
+        bx += totals[k];
+        by += totals[kSortWarps + k];
+      }
+      counts[tid] = bx;
+      counts[kSortThreads + tid] = by;
+      group_bar();
+    }
+    if (pass_a) radix_scatter(a, sa, first, last, lo_a, shift, lane, counts[lane * kSortWarps + warp]);
+    if (pass_b)
+      radix_scatter(b, sb, first, last, lo_b, shift, lane,
+                    counts[kSortThreads + lane * kSortWarps + warp]);
+    group_bar();
+    if (pass_a) {
+      int* t = a;
+      a = sa;
+      sa = t;
+    }
+    if (pass_b) {
+      int* t = b;
+      b = sb;
+      sb = t;
+    }
   }
-  return block_sum(count, warp, lane, sh);
 }
 
-// ---- a warp's cluster of at most kPairMax elements: registers ------------
-// Element i of a list is in register i / 32 of lane i % 32 (as pair_step);
-// the padding past cnt is INT32_MAX.
-
-// whether each of the pair's elements starts a run of equal values (its
-// predecessor differs); only elements before cnt
-__device__ __forceinline__ void pair_starts(int v0, int v1, int cnt, int lane, bool& s0,
-                                            bool& s1) {
-  const int up0 = __shfl_up_sync(kFull, v0, 1), up1 = __shfl_up_sync(kFull, v1, 1);
-  const int last0 = __shfl_sync(kFull, v0, 31);
-  s0 = lane < cnt && (lane == 0 || up0 != v0);
-  s1 = lane + 32 < cnt && (lane == 0 ? last0 : up1) != v1;
+// The distinct values of v[0, cnt) (unsorted) by the sorting warps: each
+// inserted into a hash table of 2 * cnt slots (tab0, then tab1: cnt each,
+// two free lists) by atomicCAS with linear probing, a thread's four inserts
+// in flight at once, INT32_MIN marking an empty slot (the value INT32_MIN
+// itself counted apart); the inserts that found their slot empty, summed
+// (sh: kSortWarps ints).
+__device__ int hashed_distinct(const int* v, int cnt, int* tab0, int* tab1, int tid, int warp,
+                               int lane, int* sh) {
+  for (int t = tid; t < cnt; t += kSortThreads) {
+    tab0[t] = INT_MIN;
+    tab1[t] = INT_MIN;
+  }
+  group_bar();  // the table's slots are empty before any insert
+  const unsigned size = 2u * static_cast<unsigned>(cnt);
+  int fresh = 0;
+  bool has_min = false;
+  constexpr int kU = 4;  // a thread's inserts in flight at once
+  for (int i0 = tid; i0 < cnt; i0 += kU * kSortThreads) {
+    int x[kU];
+    unsigned t[kU];
+    bool open[kU];
+#pragma unroll
+    for (int u = 0; u < kU; ++u) {
+      const int i = i0 + u * kSortThreads;
+      x[u] = i < cnt ? v[i] : INT_MIN;
+      has_min |= i < cnt && x[u] == INT_MIN;
+      open[u] = x[u] != INT_MIN;
+      t[u] = static_cast<unsigned>(
+          (static_cast<unsigned long long>(static_cast<unsigned>(x[u]) * 0x9E3779B1u) * size) >>
+          32);
+    }
+    bool any = true;
+    while (any) {  // a probe of every open insert at once
+      any = false;
+#pragma unroll
+      for (int u = 0; u < kU; ++u) {
+        if (!open[u]) continue;
+        int* slot = t[u] < static_cast<unsigned>(cnt) ? tab0 + t[u] : tab1 + (t[u] - cnt);
+        const int old = atomicCAS(slot, INT_MIN, x[u]);
+        if (old == INT_MIN || old == x[u]) {
+          fresh += old == INT_MIN;
+          open[u] = false;
+        } else {
+          t[u] = t[u] + 1 == size ? 0 : t[u] + 1;
+          any = true;
+        }
+      }
+    }
+  }
+  return block_sum(__reduce_add_sync(kFull, fresh), warp, lane, sh) +
+         (block_sum(__any_sync(kFull, has_min), warp, lane, sh) > 0);
 }
 
-// util.median_modes of a sorted pair, as median_modes
+// sd, a and q summed over the sorting warps, on each of their threads (sh64:
+// 3 * kSortWarps of scratch)
+__device__ __forceinline__ void group_sum3(long long& sd, unsigned long long& a,
+                                           unsigned long long& q, int warp, int lane,
+                                           long long* sh64) {
+#pragma unroll
+  for (int d = 16; d > 0; d >>= 1) {
+    sd += __shfl_xor_sync(kFull, sd, d);
+    a += __shfl_xor_sync(kFull, a, d);
+    q += __shfl_xor_sync(kFull, q, d);
+  }
+  if (lane == 0) {
+    sh64[3 * warp] = sd;
+    sh64[3 * warp + 1] = static_cast<long long>(a);
+    sh64[3 * warp + 2] = static_cast<long long>(q);
+  }
+  group_bar();
+  sd = 0;
+  a = q = 0;
+  for (int w = 0; w < kSortWarps; ++w) {
+    sd += sh64[3 * w];
+    a += static_cast<unsigned long long>(sh64[3 * w + 1]);
+    q += static_cast<unsigned long long>(sh64[3 * w + 2]);
+  }
+  group_bar();  // before sh64 is written again
+}
+
+// the window of the sorted list v[0, cnt) by the sorting warps, in int64
+__device__ unsigned block_window(const int* v, int cnt, int tid, int warp, int lane,
+                                 long long* sh64, float& s1, float& s2) {
+  const int lo = trim_of(cnt), hi = cnt - lo;
+  s1 = s2 = 0.0f;
+  if (hi - lo < 2) return 0;
+  const int shift = v[lo];
+  long long sd = 0;
+  unsigned long long a = 0, q = 0;
+  for (int i = lo + tid; i < hi; i += kSortThreads) {
+    const int d = wrap_sub(v[i], shift);
+    const unsigned ad = abs_term(d);
+    sd += d;
+    a += ad;
+    q += sq_term(ad);
+  }
+  group_sum3(sd, a, q, warp, lane, sh64);
+  s1 = __ll2float_rn(sd);
+  s2 = __ull2float_rn(q);
+  return (a > kExact ? 1u : 0u) | (q > kExact ? 2u : 0u);
+}
+
+// a chain's term from its element's index o in the columns: NM, or mapq
+// as float32 (0 where o < 0: past the run)
+__device__ __forceinline__ float chain_term(const Columns& col, int64_t o, bool nm) {
+  if (o < 0) return 0.0f;
+  return nm ? col.nm[o] : __int2float_rn(col.mapq[o]);
+}
+
+// the permutation entry of element i of the run at s (-1 past cnt)
+__device__ __forceinline__ int64_t run_entry(const Columns& col, int s, int i, int cnt) {
+  return i < cnt ? col.order[s + i] : -1;
+}
+
+// The float32 sum of a cluster's NM (nm) or mapq terms in array order, term
+// by term from 0, as the plain version adds them, by a warp: lane l loads
+// the term of element base + l, its permutation entry 2 * kAhead batches of
+// 32 ahead of the adds and the term kAhead ahead, so that neither load
+// waits; every lane makes the adds from shuffles (two instructions a term
+// in a whole batch; the same sum on every lane).
+__device__ float array_chain(const Columns& col, int s, int cnt, int lane, bool nm) {
+  int64_t ord[kAhead];
+  float buf[kAhead];
+#pragma unroll
+  for (int b = 0; b < kAhead; ++b) buf[b] = chain_term(col, run_entry(col, s, b * 32 + lane, cnt), nm);
+#pragma unroll
+  for (int b = 0; b < kAhead; ++b) ord[b] = run_entry(col, s, (b + kAhead) * 32 + lane, cnt);
+  float acc = 0.0f;
+  for (int base = 0; base < cnt; base += 32 * kAhead) {
+#pragma unroll
+    for (int b = 0; b < kAhead; ++b) {
+      const float x = buf[b];
+      buf[b] = chain_term(col, ord[b], nm);
+      ord[b] = run_entry(col, s, base + (b + 2 * kAhead) * 32 + lane, cnt);
+      const int here = cnt - base - b * 32;
+      if (here >= 32) {
+#pragma unroll
+        for (int u = 0; u < 32; ++u) acc = __fadd_rn(acc, __shfl_sync(kFull, x, u));
+      } else {
+        for (int u = 0; u < here; ++u) acc = __fadd_rn(acc, __shfl_sync(kFull, x, u));
+      }
+    }
+  }
+  return acc;
+}
+
+// ---- a warp's cluster ----------------------------------------------------
+
+// util.median_modes of a sorted pair (cnt <= 64, element i in register i /
+// 32 of lane i % 32): the runs' ends as a mask of 64 bits, a run's length
+// from the end before it, the kept runs' ends by ballots, and the kept end
+// of rank n_kept / 2
+__device__ __forceinline__ int run_len(unsigned long long ends, int i) {
+  const unsigned long long below = ends & ((1ull << i) - 1);
+  return below ? i - (63 - __clzll(below)) : i + 1;
+}
+
+// the lane whose bit of m is its (k+1)-th set bit (-1 where none is)
+__device__ __forceinline__ int nth_lane(unsigned m, int k, int lane) {
+  const bool hit = ((m >> lane) & 1) && __popc(m & ((1u << lane) - 1)) == k;
+  return __ffs(__ballot_sync(kFull, hit)) - 1;
+}
+
 __device__ __forceinline__ int pair_median_modes(int v0, int v1, int cnt, int lane) {
-  bool s0, s1;
-  pair_starts(v0, v1, cnt, lane, s0, s1);
-  const int i0 = lane, i1 = lane + 32;
-  const int dn0 = __shfl_down_sync(kFull, v0, 1), dn1 = __shfl_down_sync(kFull, v1, 1);
   const int first1 = __shfl_sync(kFull, v1, 0);
-  const bool e0 = i0 < cnt && (i0 + 1 == cnt || (lane == 31 ? first1 : dn0) != v0);
-  const bool e1 = i1 < cnt && (i1 + 1 == cnt || dn1 != v1);
-  const int rs0 = scan_max(s0 ? i0 : -1, lane);
-  const int rs1 = max(scan_max(s1 ? i1 : -1, lane), __shfl_sync(kFull, rs0, 31));
-  const int l0 = i0 - rs0 + 1, l1 = i1 - rs1 + 1;
+  const int dn0 = __shfl_down_sync(kFull, v0, 1), dn1 = __shfl_down_sync(kFull, v1, 1);
+  const bool e0 = lane < cnt && (lane + 1 == cnt || (lane == 31 ? first1 : dn0) != v0);
+  const bool e1 = lane + 32 < cnt && (lane + 33 == cnt || dn1 != v1);
+  const unsigned long long ends =
+      __ballot_sync(kFull, e0) | (static_cast<unsigned long long>(__ballot_sync(kFull, e1)) << 32);
+  const int l0 = run_len(ends, lane), l1 = run_len(ends, lane + 32);
   const int top = __reduce_max_sync(kFull, max(e0 ? l0 : 0, e1 ? l1 : 0));
   const unsigned m0 = __ballot_sync(kFull, e0 && top - l0 < 3);
   const unsigned m1 = __ballot_sync(kFull, e1 && top - l1 < 3);
   const int n0 = __popc(m0), target = (n0 + __popc(m1)) / 2;
-  return target < n0 ? __shfl_sync(kFull, v0, nth_set(m0, target))
-                     : __shfl_sync(kFull, v1, nth_set(m1, target - n0));
+  const int t0 = nth_lane(m0, target, lane), t1 = nth_lane(m1, target - n0, lane);
+  const int a = __shfl_sync(kFull, v0, t0 & 31), b = __shfl_sync(kFull, v1, t1 & 31);
+  return target < n0 ? a : b;
+}
+
+// the distinct values among a pair's elements before cnt, unsorted: equal
+// values within a register by __match_any_sync (the lowest lane of each
+// counts), and the second register's against all 32 of the first
+__device__ __forceinline__ int pair_distinct(int r0, int r1, int cnt, int lane) {
+  const bool in0 = lane < cnt, in1 = lane + 32 < cnt;
+  const unsigned below = (1u << lane) - 1;
+  const unsigned m0 = __match_any_sync(kFull, r0) & __ballot_sync(kFull, in0);
+  const unsigned m1 = __match_any_sync(kFull, r1) & __ballot_sync(kFull, in1);
+  bool seen = false;
+  if (cnt > 32) {  // every lane's first element is valid
+#pragma unroll
+    for (int l = 0; l < 32; ++l) seen |= __shfl_sync(kFull, r0, l) == r1;
+  }
+  return __popc(__ballot_sync(kFull, in0 && (m0 & below) == 0)) +
+         __popc(__ballot_sync(kFull, in1 && (m1 & below) == 0 && !seen));
 }
 
 // A warp's cluster of cnt <= kPairMax elements, its permutation entries
-// o0 (element lane) and o1 (element lane + 32) loaded: gathered into
-// registers, sorted by shuffles; the sorted svlen and pos lists and the
-// mapq and NM terms (array order) stored to the warp's lists for the chains.
-__device__ void pair_cluster(const Columns& col, int64_t o0, int64_t o1, int cnt, int* L,
-                             size_t stride, int lane, Stats& t, StatClock& clk) {
+// o0 (element lane) and o1 (element lane + 32) loaded: its columns
+// gathered into registers; the strand count, the svtype max and the mapq
+// sum by reductions (mapq's chain where sum |q| passes 2^24); NM's chain
+// from the warp's slice in array order; svlen and pos sorted by shuffles
+// (a network of 32 for up to 32 elements), the read ids counted unsorted;
+// the medians, the support, the extent and the windows' sums in registers.
+// Returns the window sums that must run their chains (window_chain's
+// bits), whose lists it has then stored to the slice L.
+__device__ unsigned pair_cluster(const Columns& col, int64_t o0, int64_t o1, int cnt, int* L,
+                                 size_t stride, int lane, Stats& t, float (&sums)[4],
+                                 StatClock& clk) {
   const bool in0 = lane < cnt, in1 = lane + 32 < cnt;
-  int v[3][2];
-  v[0][0] = in0 ? col.svlen[o0] : INT_MAX;
-  v[0][1] = in1 ? col.svlen[o1] : INT_MAX;
-  v[1][0] = in0 ? col.pos[o0] : INT_MAX;
-  v[1][1] = in1 ? col.pos[o1] : INT_MAX;
-  v[2][0] = in0 ? col.read_id[o0] : INT_MAX;
-  v[2][1] = in1 ? col.read_id[o1] : INT_MAX;
+  int a0 = in0 ? col.svlen[o0] : INT_MAX, a1 = in1 ? col.svlen[o1] : INT_MAX;
+  int b0 = in0 ? col.pos[o0] : INT_MAX, b1 = in1 ? col.pos[o1] : INT_MAX;
+  const int r0 = in0 ? col.read_id[o0] : 0, r1 = in1 ? col.read_id[o1] : 0;
   const int q0 = in0 ? col.mapq[o0] : 0, q1 = in1 ? col.mapq[o1] : 0;
   const float x0 = in0 ? col.nm[o0] : 0.0f, x1 = in1 ? col.nm[o1] : 0.0f;
   const int f = (in0 && col.strand[o0] > 0) + (in1 && col.strand[o1] > 0);
   const int sv = max(in0 ? col.svtype[o0] : INT_MIN, in1 ? col.svtype[o1] : INT_MIN);
-  if (in0) {
-    L[3 * stride + lane] = __float_as_int(__int2float_rn(q0));
-    L[4 * stride + lane] = __float_as_int(x0);
-  }
-  if (in1) {
-    L[3 * stride + lane + 32] = __float_as_int(__int2float_rn(q1));
-    L[4 * stride + lane + 32] = __float_as_int(x1);
-  }
+  float* nm = reinterpret_cast<float*>(L + 3 * stride);
+  float* mq = reinterpret_cast<float*>(L + 4 * stride);
+  if (in0) nm[lane] = x0;
+  if (in1) nm[lane + 32] = x1;
   t.fwd = __reduce_add_sync(kFull, f);
   t.sv = __reduce_max_sync(kFull, sv);
-  clk.settle(v[0][0] ^ v[0][1] ^ v[1][0] ^ v[1][1] ^ v[2][0] ^ v[2][1]);
-  clk.stamp(kGather);
-  int p = 1;
-  while (p < cnt) p <<= 1;
-  for (int k = 2; k <= p; k <<= 1) {
-    for (int j = k >> 1; j > 0; j >>= 1) {
-#pragma unroll
-      for (int r = 0; r < 3; ++r) pair_step(v[r][0], v[r][1], k, j, lane);
-    }
-  }
-  clk.settle(v[0][0] ^ v[0][1] ^ v[1][0] ^ v[1][1] ^ v[2][0] ^ v[2][1]);
-  clk.stamp(kSort);
-  bool s0, s1;
-  pair_starts(v[2][0], v[2][1], cnt, lane, s0, s1);
-  t.support = __popc(__ballot_sync(kFull, s0)) + __popc(__ballot_sync(kFull, s1));
-  t.svlen_c = pair_median_modes(v[0][0], v[0][1], cnt, lane);
-  t.pos_c = pair_median_modes(v[1][0], v[1][1], cnt, lane);
-  t.pos_min = __shfl_sync(kFull, v[1][0], 0);
-  t.pos_max = cnt > 32 ? __shfl_sync(kFull, v[1][1], cnt - 33) : __shfl_sync(kFull, v[1][0], cnt - 1);
-  clk.settle(t.support ^ t.svlen_c ^ t.pos_c ^ t.pos_min ^ t.pos_max);
-  clk.stamp(kMedians);
-  if (in0) {
-    L[lane] = v[0][0];
-    L[stride + lane] = v[1][0];
-  }
-  if (in1) {
-    L[lane + 32] = v[0][1];
-    L[stride + lane + 32] = v[1][1];
+  const unsigned qa = __reduce_add_sync(kFull, min(abs_term(q0) + abs_term(q1), kClamp));
+  const int qs = __reduce_add_sync(kFull, wrap_add(q0, q1));
+  if (qa > kExact) {  // mapq's own chain
+    if (in0) mq[lane] = __int2float_rn(q0);
+    if (in1) mq[lane + 32] = __int2float_rn(q1);
   }
   __syncwarp();
-}
-
-// a chain's term: a centered int32 value as float32 (squared for s2), or a
-// float32 from its bits
-__device__ __forceinline__ float chain_term(int w, int shift, bool centered, bool square) {
-  const float x = centered ? __int2float_rn(wrap_sub(w, shift)) : __int_as_float(w);
-  return square ? __fmul_rn(x, x) : x;
-}
-
-// The six float32 chains of a cluster's lists, a lane each, in lockstep:
-// lanes 0 and 1 s1 and s2 of the trimmed svlen window, 2 and 3 those of
-// pos (sorted order), lane 4 the mapq sum and lane 5 the NM sum (array
-// order); term by term from 0, as the plain version adds them. Only the
-// lanes of the mask `lanes` sum. Returns the lane's sum (0 on the other
-// lanes, and on 0-3 for a window under 2).
-__device__ float chain_sum(const int* L, size_t stride, int cnt, int lane, unsigned lanes) {
-  const int trim = trim_of(cnt), k = cnt - 2 * trim;
-  const bool centered = lane < 4, square = centered && (lane & 1);
-  const int list = centered ? lane >> 1 : (lane == 4 ? 3 : 4);
-  const int len = !((lanes >> lane) & 1) ? 0 : centered ? (k < 2 ? 0 : k) : cnt;
-  const int* src = L + list * stride + (centered ? trim : 0);
-  const int shift = centered && len ? src[0] : 0;  // the window's minimum
-  float acc = 0.0f;
-  int j = 0;
-  for (; j + kBatch <= len; j += kBatch) {  // a batch's terms ahead of its adds
-    float x[kBatch];
-#pragma unroll
-    for (int u = 0; u < kBatch; ++u) x[u] = chain_term(src[j + u], shift, centered, square);
-#pragma unroll
-    for (int u = 0; u < kBatch; ++u) acc = __fadd_rn(acc, x[u]);
+  clk.settle(a0 ^ a1 ^ b0 ^ b1 ^ r0 ^ r1);
+  clk.stamp(kGather);
+  t.nm_sum = list_chain(nm, cnt);
+  t.mapq_sum = qa > kExact ? list_chain(mq, cnt) : __int2float_rn(qs);
+  clk.settle(__float_as_int(t.nm_sum) ^ __float_as_int(t.mapq_sum));
+  clk.stamp(kChains);
+  if (cnt <= 32) {
+    sort32x2(a0, b0, lane);
+  } else {
+    sort64x2(a0, a1, b0, b1, lane);
   }
-  for (; j < len; ++j) acc = __fadd_rn(acc, chain_term(src[j], shift, centered, square));
-  return acc;
+  clk.settle(a0 ^ a1 ^ b0 ^ b1);
+  clk.stamp(kSort);
+  t.support = pair_distinct(r0, r1, cnt, lane);
+  t.svlen_c = pair_median_modes(a0, a1, cnt, lane);
+  t.pos_c = pair_median_modes(b0, b1, cnt, lane);
+  t.pos_min = __shfl_sync(kFull, b0, 0);
+  t.pos_max = cnt > 32 ? __shfl_sync(kFull, b1, cnt - 33) : __shfl_sync(kFull, b0, cnt - 1);
+  clk.settle(t.support ^ t.svlen_c ^ t.pos_c ^ t.pos_min ^ t.pos_max);
+  clk.stamp(kMedians);
+  const unsigned chains = pair_window(a0, a1, cnt, lane, sums[0], sums[1]) |
+                          (pair_window(b0, b1, cnt, lane, sums[2], sums[3]) << 2);
+  if (chains) {  // the sorted lists the chains read
+    if (in0) {
+      L[lane] = a0;
+      L[stride + lane] = b0;
+    }
+    if (in1) {
+      L[lane + 32] = a1;
+      L[stride + lane + 32] = b1;
+    }
+    __syncwarp();
+  }
+  return chains;
 }
 
-// The statistics of a chain_sum's lanes, on every lane of the warp.
-__device__ void chain_stats(float acc, int cnt, bool fused, Stats& t) {
-  const float s = __shfl_sync(kFull, acc, 0), s2 = __shfl_sync(kFull, acc, 1);
-  const float p = __shfl_sync(kFull, acc, 2), p2 = __shfl_sync(kFull, acc, 3);
-  t.mapq_sum = __shfl_sync(kFull, acc, 4);
-  t.nm_sum = __shfl_sync(kFull, acc, 5);
-  const int k = cnt - 2 * trim_of(cnt);
-  t.stdev_len = stdev_of(s, s2, k, fused);
-  t.stdev_pos = stdev_of(p, p2, k, fused);
+// A warp's cluster of more than kPairMax elements: its lists gathered into
+// the warp's slice L (warp_gather); the NM and mapq sums (mapq's exact
+// where sum |q| <= 2^24, else its chain); svlen, pos and the read ids
+// sorted there; the medians, the support and the extent from the sorted
+// lists; the windows' sums by the lanes. Returns the window sums that must
+// run their chains.
+__device__ unsigned list_cluster(const Columns& col, int s, int cnt, int* L, size_t stride,
+                                 int lane, Stats& t, float (&sums)[4], StatClock& clk) {
+  int fwd = 0, sv = INT_MIN, qs = 0;
+  unsigned qa = 0;
+  warp_gather(col, s, cnt, L, stride, lane, fwd, sv, qs, qa);
+  t.fwd = __reduce_add_sync(kFull, fwd);
+  t.sv = __reduce_max_sync(kFull, sv);
+  qa = __reduce_add_sync(kFull, qa);
+  qs = __reduce_add_sync(kFull, qs);
+  __syncwarp();
+  clk.stamp(kGather);
+  t.nm_sum = list_chain(reinterpret_cast<const float*>(L + 3 * stride), cnt);
+  t.mapq_sum = qa > kExact ? list_chain(reinterpret_cast<const float*>(L + 4 * stride), cnt)
+                           : __int2float_rn(qs);
+  clk.stamp(kChains);
+  sort_lists(L, stride, cnt, lane);
+  clk.stamp(kSort);
+  t.support = distinct(L + 2 * stride, cnt, lane);
+  t.svlen_c = median_modes(L, cnt, lane);
+  t.pos_c = median_modes(L + stride, cnt, lane);
+  t.pos_min = L[stride];
+  t.pos_max = L[stride + cnt - 1];
+  clk.settle(t.pos_min ^ t.pos_max);
+  clk.stamp(kMedians);
+  return list_window(L, cnt, lane, sums[0], sums[1]) |
+         (list_window(L + stride, cnt, lane, sums[2], sums[3]) << 2);
 }
 
 // A run pass, a thread an element: the ends of each slot's run of the
@@ -934,21 +1546,23 @@ stat_slots(Columns col, const int32_t* __restrict__ runs, int4* __restrict__ lis
   }
 }
 
-// A resident grid, a warp a cluster of the warp list, its five lists in
-// the warp's slice of the dynamic shared memory (kLists * stride ints;
-// stride is kWarpMax, a kernel argument all the same: as a constant, ptxas
-// gives the kernel 48 registers and spills, 4 % slower, PERF.md).
+// A resident grid, a warp a cluster of the warp list, the next cluster's
+// entry and permutation entries loaded while it works on one (and the
+// entry after it, so that only its columns' loads wait); its lists in
+// registers up to kPairMax elements, past it in the warp's slice of the
+// dynamic shared memory (kWarpLists * stride ints, stride kWarpMax rounded
+// up to 4 ints, a kernel argument all the same: as a constant, ptxas gave
+// the PR 14 kernel 48 registers and spills, 4 % slower); the row by 16
+// lanes.
 __global__ void __launch_bounds__(kThreads)
 stat_warps(Columns col, const int4* __restrict__ lists, const int32_t* __restrict__ counts,
            int32_t* __restrict__ out, int n, bool fused, int stride) {
   extern __shared__ int smem[];
   const int lane = threadIdx.x & 31, wib = threadIdx.x >> 5, per_block = blockDim.x >> 5;
-  int* L = smem + static_cast<size_t>(wib) * kLists * stride;
+  int* L = smem + static_cast<size_t>(wib) * kWarpLists * stride;
   const int total = counts[0], warps = gridDim.x * per_block;
   const int4 none = make_int4(0, 0, 0, 0);
   int w = blockIdx.x * per_block + wib;
-  // ahead of the cluster in hand: the next one's entry and permutation
-  // entries, and the entry after it, so that only its columns' loads wait
   int4 next = w < total ? lists[w] : none;
   int4 after = w + warps < total ? lists[w + warps] : none;
   int64_t o0 = kPairMax && lane < next.z ? col.order[next.y + lane] : 0;
@@ -966,30 +1580,21 @@ stat_warps(Columns col, const int4* __restrict__ lists, const int32_t* __restric
     Stats t;
     t.cnt = cnt;
     clk.stamp(kEntry);
-    if (cnt <= kPairMax) {
-      pair_cluster(col, p0, p1, cnt, L, stride, lane, t, clk);
-    } else {
-      int fwd = 0, sv = INT_MIN;
-      gather(col, s, cnt, L, stride, lane, 32, fwd, sv);
-      t.fwd = __reduce_add_sync(kFull, fwd);
-      t.sv = __reduce_max_sync(kFull, sv);
-      __syncwarp();
-      clk.stamp(kGather);
-      sort_lists(L, stride, cnt, 0, 1, lane, kWarp);
-      clk.stamp(kSort);
-      t.support = distinct(L + 2 * stride, cnt, lane);
-      t.svlen_c = median_modes(L, cnt, lane);
-      t.pos_c = median_modes(L + stride, cnt, lane);
-      t.pos_min = L[stride];
-      t.pos_max = L[stride + cnt - 1];
-      clk.settle(t.pos_min ^ t.pos_max);
-      clk.stamp(kMedians);
-    }
+    float sums[4];
+    const unsigned chains = kPairMax && cnt <= kPairMax
+                                ? pair_cluster(col, p0, p1, cnt, L, stride, lane, t, sums, clk)
+                                : list_cluster(col, s, cnt, L, stride, lane, t, sums, clk);
     t.sv = max(t.sv, e.w ? -1 : INT_MIN);
-    chain_stats(chain_sum(L, stride, cnt, lane, kAllChains), cnt, fused, t);
-    clk.settle(__float_as_int(t.stdev_len) ^ __float_as_int(t.stdev_pos));
+    if (chains) {
+      const float acc = window_chain(L, L + stride, cnt, lane, chains);
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const float x = __shfl_sync(kFull, acc, q);
+        if ((chains >> q) & 1) sums[q] = x;
+      }
+    }
     clk.stamp(kChains);
-    if (lane == 0) write_live(out, n, c, t);
+    write_rows(out, n, c, t, sums, fused, lane);
     __syncwarp();  // the slice is read before the next cluster writes it
     clk.stamp(kWrite);
     clk.cluster();
@@ -997,120 +1602,200 @@ stat_warps(Columns col, const int4* __restrict__ lists, const int32_t* __restric
   if (lane == 0) clk.flush(kWarpTier, kAllParts);
 }
 
+// what a block's warps share of its cluster
+struct BlockShared {
+  int fwd, sv, svlen_c, pos_c, support, pos_min, pos_max;
+  unsigned chains;                 // the window sums that must run their chains
+  int svlen_at, pos_at;            // the sorted svlen and pos lists' offsets from R
+  unsigned long long mapq_a;       // sum |q| (clamped a term)
+  long long mapq_s;                // sum q
+  float sums[4];                   // the windows' s1 and s2 (svlen, pos)
+  float nm, mapq;                  // the array-order chains
+};
+
 // The cluster of entry e (slot c, run [s, s + cnt), invalid mark), by the
-// block: its five lists at L (list r at L + r * stride), gathered by every
-// thread; the median warps sort them while the last warp's lanes 4 and 5
-// sum the mapq and NM chains (array order); then the median warps take the
-// svlen and pos medians and the support count while its lanes 0-3 sum the
-// trimmed windows' chains. Inlined twice, for lists in shared memory and
-// in global scratch, so that each copy knows its lists' memory.
-__device__ __forceinline__ void block_cluster(const Columns& col, int4 e, int* L, size_t stride,
+// block, its lists at R (list r at R + r * stride: svlen, pos, read ids and
+// a scratch list). The sorting warps copy the run's permutation entries to
+// list 3, gather the read ids (and count strands, the svtype max and the
+// mapq sums), count the distinct read ids by a hash table in lists 0 and 1,
+// gather svlen and pos there, sort both at once (lists 2 and 3 their
+// scratch), then take pos's extent and both windows' exact sums (pos's
+// first: the last warp may then run its chains) and both medians.
+// Meanwhile the last warp sums NM in array order through the permutation,
+// then pos's window chains. The svlen window's chains that fail their
+// test, and the mapq sum where sum |q| passes 2^24, run on the last warp at
+// the end. Inlined once, for lists in shared memory or in global scratch
+// alike (a copy for each would double the kernel's code).
+__device__ __forceinline__ void block_cluster(const Columns& col, int4 e, int* R, size_t stride,
                                               int32_t* __restrict__ out, int n, bool fused,
-                                              int* ints, float* sums, int* sh, StatClock& clk) {
+                                              BlockShared& bs, int* sh, long long* sh64,
+                                              StatClock& clk) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int c = e.x, s = e.y, cnt = e.z;
   if (threadIdx.x == 0) {
-    ints[0] = 0;
-    ints[1] = INT_MIN;
+    bs.fwd = 0;
+    bs.sv = INT_MIN;
+    bs.mapq_s = 0;
+    bs.mapq_a = 0;
   }
   clk.settle(cnt);
   clk.stamp(kEntry);
   __syncthreads();
   clk.stamp(kWait);
-  int fwd = 0, sv = INT_MIN;
-  gather(col, s, cnt, L, stride, threadIdx.x, blockDim.x, fwd, sv);
-  fwd = __reduce_add_sync(kFull, fwd);
-  sv = __reduce_max_sync(kFull, sv);
-  if (lane == 0) {
-    atomicAdd(&ints[0], fwd);
-    atomicMax(&ints[1], sv);
-  }
-  clk.stamp(kGather);
-  __syncthreads();
-  clk.stamp(kWait);
-  if (warp < kMedianWarps) {
-    sort_lists(L, stride, cnt, warp, kMedianWarps, lane, kMedianGroup);
+  if (warp < kSortWarps) {
+    const int tid = threadIdx.x;
+    int fwd = 0, sv = INT_MIN;
+    long long qs = 0;
+    unsigned long long qa = 0;
+    block_entries(col, s, cnt, R + 3 * stride, tid);
+    group_bar();
+    block_gather<true>(col, cnt, R + 3 * stride, R, stride, tid, fwd, sv, qs, qa);
+    fwd = __reduce_add_sync(kFull, fwd);
+    sv = __reduce_max_sync(kFull, sv);
+#pragma unroll
+    for (int d = 16; d > 0; d >>= 1) {
+      qs += __shfl_xor_sync(kFull, qs, d);
+      qa += __shfl_xor_sync(kFull, qa, d);
+    }
+    if (lane == 0) {
+      atomicAdd(&bs.fwd, fwd);
+      atomicMax(&bs.sv, sv);
+      atomicAdd(reinterpret_cast<unsigned long long*>(&bs.mapq_s),
+                static_cast<unsigned long long>(qs));
+      atomicAdd(&bs.mapq_a, qa);
+    }
+    clk.stamp(kGather);
+    group_bar();
+    clk.stamp(kWait);
+    // the read ids' distinct values by a hash table in lists 0 and 1, then
+    // svlen and pos gathered there
+    const int support = hashed_distinct(R + 2 * stride, cnt, R, R + stride, tid, warp, lane, sh);
+    clk.stamp(kMedians);
+    block_gather<false>(col, cnt, R + 3 * stride, R, stride, tid, fwd, sv, qs, qa);
+    group_bar();
+    clk.stamp(kGather);
+    // pos and svlen sorted at once, the read ids' list and list 3 their
+    // scratch; then each one's statistics
+    int *pos = R + stride, *pos_free = R + 3 * stride, *len = R, *len_free = R + 2 * stride;
+    block_sort2(pos, pos_free, len, len_free, cnt, tid, warp, lane, sh);
     clk.stamp(kSort);
-  } else {  // the mapq and NM sums need no sort
-    const float acc = chain_sum(L, stride, cnt, lane, kArrayChains);
-    if ((kArrayChains >> lane) & 1) sums[lane] = acc;
-    clk.settle(__float_as_int(acc));
-    clk.stamp(kChains);
-  }
-  __syncthreads();
-  clk.stamp(kWait);
-  if (warp < kMedianWarps) {
-    const int svlen_c = block_median_modes(L, cnt, warp, lane, sh);
-    const int pos_c = block_median_modes(L + stride, cnt, warp, lane, sh);
-    const int support = block_distinct(L + 2 * stride, cnt, warp, lane, sh);
+    float s1, s2;
+    unsigned chains = block_window(pos, cnt, tid, warp, lane, sh64, s1, s2) << 2;
     if (threadIdx.x == 0) {
-      ints[2] = svlen_c;
-      ints[3] = pos_c;
-      ints[4] = support;
+      bs.pos_min = pos[0];
+      bs.pos_max = pos[cnt - 1];
+      bs.pos_at = static_cast<int>(pos - R);
+      bs.sums[2] = s1;
+      bs.sums[3] = s2;
+      bs.chains = chains;  // pos's, for the last warp's chains
+    }
+    pos_ready_arrive();
+    chains |= block_window(len, cnt, tid, warp, lane, sh64, s1, s2);
+    int pos_c, svlen_c;
+    block_median_modes2(pos, len, pos_free, len_free, cnt, warp, lane, sh, pos_c, svlen_c);
+    if (threadIdx.x == 0) {
+      bs.pos_c = pos_c;
+      bs.svlen_c = svlen_c;
+      bs.svlen_at = static_cast<int>(len - R);
+      bs.sums[0] = s1;
+      bs.sums[1] = s2;
+      bs.support = support;
+      bs.chains = chains;
     }
     clk.stamp(kMedians);
-  } else {
-    const float acc = chain_sum(L, stride, cnt, lane, kSortedChains);
-    if ((kSortedChains >> lane) & 1) sums[lane] = acc;
-    clk.settle(__float_as_int(acc));
+  } else {  // the NM sum needs no sort
+    const float nm = array_chain(col, s, cnt, lane, true);
+    if (lane == 0) bs.nm = nm;
+    // pos's window chains once its list is sorted, beside the other sorts
+    pos_ready_wait();
+    const unsigned pos_chains = bs.chains & 0xCu;
+    if (pos_chains) {
+      const int* pos = R + bs.pos_at;
+      const float acc = window_chain(pos, pos, cnt, lane, pos_chains);
+#pragma unroll
+      for (int q = 2; q < 4; ++q) {
+        const float x = __shfl_sync(kFull, acc, q);
+        if (lane == 0 && ((pos_chains >> q) & 1)) bs.sums[q] = x;
+      }
+    }
+    clk.settle(__float_as_int(nm));
     clk.stamp(kChains);
   }
   __syncthreads();
   clk.stamp(kWait);
-  if (threadIdx.x == 0) {
+  const unsigned chains = bs.chains & 0x3u;  // svlen's: pos's ran beside the sorts
+  const bool mapq_exact = bs.mapq_a <= kExact;
+  if (chains || !mapq_exact) {  // the chains the tests left, on the last warp
+    if (warp == kSortWarps) {
+      if (chains) {
+        const float acc = window_chain(R + bs.svlen_at, R + bs.pos_at, cnt, lane, chains);
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const float x = __shfl_sync(kFull, acc, q);
+          if (lane == 0 && ((chains >> q) & 1)) bs.sums[q] = x;
+        }
+      }
+      if (!mapq_exact) {
+        const float mq = array_chain(col, s, cnt, lane, false);
+        if (lane == 0) bs.mapq = mq;
+      }
+      clk.stamp(kChains);
+    }
+    __syncthreads();
+    clk.stamp(kWait);
+  }
+  if (warp == 0) {
     Stats t;
     t.cnt = cnt;
-    t.fwd = ints[0];
-    t.sv = max(ints[1], e.w ? -1 : INT_MIN);
-    t.svlen_c = ints[2];
-    t.pos_c = ints[3];
-    t.support = ints[4];
-    t.pos_min = L[stride];
-    t.pos_max = L[stride + cnt - 1];
-    const int k = cnt - 2 * trim_of(cnt);
-    t.stdev_len = stdev_of(sums[0], sums[1], k, fused);
-    t.stdev_pos = stdev_of(sums[2], sums[3], k, fused);
-    t.mapq_sum = sums[4];
-    t.nm_sum = sums[5];
-    write_live(out, n, c, t);
+    t.fwd = bs.fwd;
+    t.sv = max(bs.sv, e.w ? -1 : INT_MIN);
+    t.svlen_c = bs.svlen_c;
+    t.pos_c = bs.pos_c;
+    t.support = bs.support;
+    t.pos_min = bs.pos_min;
+    t.pos_max = bs.pos_max;
+    t.mapq_sum = mapq_exact ? __ll2float_rn(bs.mapq_s) : bs.mapq;
+    t.nm_sum = bs.nm;
+    const float sums[4] = {bs.sums[0], bs.sums[1], bs.sums[2], bs.sums[3]};
+    write_rows(out, n, c, t, sums, fused, lane);
   }
   clk.stamp(kWrite);
-  __syncthreads();  // the lists and ints are read before the next cluster writes them
+  __syncthreads();  // the lists and bs are read before the next cluster writes them
   clk.stamp(kWait);
   clk.cluster();
 }
 
-// A block a cluster of the block list: its five lists in the dynamic
-// shared memory (cnt <= kBlockMax, kLists * cnt ints) or, past it, in the
-// scratch rows at the cluster's run (scratch + r * n + s).
+// A block a cluster of the block list: its four lists in the dynamic
+// shared memory (cnt <= kBlockMax, kBlockLists * cnt ints) or, past it, in
+// the scratch rows at the cluster's run (scratch + r * n + s).
 __global__ void __launch_bounds__(kBlockThreads)
 stat_blocks(Columns col, const int4* __restrict__ lists, const int32_t* __restrict__ counts,
             int32_t* scratch, int32_t* __restrict__ out, int n, bool fused) {
   extern __shared__ int smem[];
-  __shared__ int ints[5];  // the strand count, svtype max, the medians, support
-  __shared__ float sums[6];
-  __shared__ int sh[kMedianWarps + 1];
+  __shared__ BlockShared bs;
+  __shared__ int sh[2 * kSortWarps + 2 * kSortThreads];  // warps' values; the radix counts
+  __shared__ long long sh64[3 * kSortWarps];
   const int total = counts[1];
   StatClock clk;
   clk.start();
   for (int b = blockIdx.x; b < total; b += gridDim.x) {
     const int4 e = lists[n - 1 - b];
-    if (e.z <= kBlockMax) {
-      block_cluster(col, e, smem, static_cast<size_t>(e.z), out, n, fused, ints, sums, sh, clk);
-    } else {
-      block_cluster(col, e, scratch + e.y, static_cast<size_t>(n), out, n, fused, ints, sums,
-                    sh, clk);
-    }
+    const bool on_chip = e.z <= kBlockMax;
+    block_cluster(col, e, on_chip ? smem : scratch + e.y, static_cast<size_t>(on_chip ? e.z : n),
+                  out, n, fused, bs, sh, sh64, clk);
   }
-  // thread 0 the block's path, the chains' warp's lane 0 its chains
+  // thread 0 the block's path, the last warp's lane 0 its chains
   if (threadIdx.x == 0) clk.flush(kBlockTier, kAllParts & ~(1u << kChains));
-  if (threadIdx.x == kMedianWarps * 32) clk.flush(kBlockTier, 1u << kChains);
+  if (threadIdx.x == kSortWarps * 32) clk.flush(kBlockTier, 1u << kChains);
 }
 
 // the dynamic shared memory of a stat_warps block and of a stat_blocks block
-constexpr size_t kWarpSmem = sizeof(int) * kLists * static_cast<size_t>(kWarpMax) *
+// a warp's list stride: kWarpMax rounded up to 4 ints, so that every list
+// of its slice is 16-byte aligned (list_chain's loads)
+constexpr int kWarpStride = (kWarpMax + 3) & ~3;
+constexpr size_t kWarpSmem = sizeof(int) * kWarpLists * static_cast<size_t>(kWarpStride) *
                              (kThreads / 32);
-constexpr size_t kBlockSmem = sizeof(int) * kLists * static_cast<size_t>(kBlockMax);
+constexpr size_t kBlockSmem = sizeof(int) * kBlockLists * static_cast<size_t>(kBlockMax);
 
 // What the launches on one device need: its SMs, the blocks of each kernel
 // one SM holds at once, after the warp and block tiers' shared memory
@@ -1196,7 +1881,7 @@ int launch_all(const int32_t* cid_sorted, const int64_t* order, const int32_t* c
   const long long warp_clusters = n / (kTinyMax + 1);
   stat_warps<<<grid(cfg.sms, cfg.warps, (warp_clusters + kThreads / 32 - 1) / (kThreads / 32)),
                kThreads, kWarpSmem, s>>>(col, reinterpret_cast<const int4*>(lists), counts, out,
-                                         n, fused, kWarpMax);
+                                         n, fused, kWarpStride);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   stat_blocks<<<grid(cfg.sms, cfg.blocks, n / (kWarpMax + 1)), kBlockThreads, kBlockSmem, s>>>(
@@ -1225,7 +1910,7 @@ extern "C" int stat_clocks(uint64_t* out) {
 // svlen, pos, read_id, mapq, strand, svtype (int32) and nm (float) [n];
 // scratch: runs int32 [2n + 2] (the runs, then the two list counts), lists
 // int32 [4n] (16-byte aligned, an entry of four ints a listed slot),
-// has_invalid uint8 [n], lists_big int32 [5, n] (the lists of a cluster
+// has_invalid uint8 [n], lists_big int32 [4, n] (the lists of a cluster
 // past kBlockMax); out int32 [16, n] in the rows of
 // ops/call_stats.KEYS (float rows as bits). The tiers: a thread a cluster
 // of at most kTinyMax (<= 8) elements, a warp one of at most kWarpMax, a

@@ -49,16 +49,15 @@ COUNTS = {"launches": 0, **{k: 0 for k in KERNELS}}
 # The tiers by a cluster's element count, chosen on the card by
 # tools/time_call_stats.py (PERF.md) and built into the kernels as -D flags
 # (nvcc_defines): a thread a cluster up to TINY_MAX (at most the kernel's 8
-# registers a list), a warp up to WARP_MAX (20 bytes an element of the
+# registers a list), a warp up to WARP_MAX (12 bytes an element of the
 # warp's slice of shared memory; up to PAIR_MAX, 0 or 64, in two registers
 # a lane instead), a block beyond, its lists in dynamic shared memory up to
-# BLOCK_MAX elements (20 bytes each: two blocks an SM fit the H100's shared
-# memory, which beat one block of twice the room) and in global scratch
-# past it.
+# BLOCK_MAX elements (16 bytes each: three blocks an SM fit the H100's
+# shared memory) and in global scratch past it.
 TINY_MAX = 8
 PAIR_MAX = 64
 WARP_MAX = 256
-BLOCK_MAX = 5632
+BLOCK_MAX = 4096
 TIERS = (TINY_MAX, PAIR_MAX, WARP_MAX, BLOCK_MAX)
 
 # The -D flag of the build whose warp and block tiers sum a cluster's
@@ -227,7 +226,7 @@ def launch_kernels(inputs: dict, n_clusters, fused: bool = False,
         runs = torch.empty((2 * n + 2,), dtype=torch.int32, device=dev)  # runs, list counts
         lists = torch.empty((4 * n,), dtype=torch.int32, device=dev)      # the tiers' slots
         has_invalid = torch.empty((n,), dtype=torch.uint8, device=dev)
-        lists_big = torch.empty((5, n), dtype=torch.int32, device=dev)    # past BLOCK_MAX
+        lists_big = torch.empty((4, n), dtype=torch.int32, device=dev)    # past BLOCK_MAX
         fn = _build.load("call_stats", nvcc_defines(tiers) + ((CLOCKS,) if clocks else ())
                          ).call_stats
         fn.restype = ctypes.c_int

@@ -937,6 +937,86 @@ def _nm_binades(rng, size: int) -> np.ndarray:
         np.float32(2.0) ** rng.integers(-36, 4, size)).astype(np.float32)
 
 
+EXACT_LIMIT = 1 << 24     # integer terms add exactly in float32 while their sums stay within it
+
+
+def _window_values(rng, cnt: int, terms, base: int) -> np.ndarray:
+    """cnt values whose sorted trimmed window (ranks [trim, cnt - trim),
+    trim = cnt * 25 // 100) is base + terms (terms[0] == 0, the rest at
+    least 0): the trimmed quarters strictly below and above it."""
+    trim = cnt * 25 // 100
+    terms = np.sort(np.asarray(terms, dtype=np.int64))
+    if terms.size != cnt - 2 * trim or terms[0] != 0:
+        raise ValueError(f"a window of {cnt} holds {cnt - 2 * trim} terms from 0")
+    below = base - rng.integers(1, 1000, trim)
+    above = base + terms[-1] + rng.integers(1, 1000, trim)
+    return np.concatenate([below, base + terms, above])
+
+
+def _abs_edge(k: int, past: bool) -> np.ndarray:
+    """k window terms from 0 whose sum is 2^24 (one past it with `past`)."""
+    q, r = divmod(EXACT_LIMIT, k - 1)
+    terms = np.r_[0, np.full(k - 1, q)]
+    terms[-1] += r + int(past)
+    return terms
+
+
+def _square_edge(k: int, past: bool) -> np.ndarray:
+    """k window terms from 0 whose squares sum to 2^24 (one past it with
+    `past`): m terms of 2^a with m 4^a = 2^24, the rest 0 (one of them 1)."""
+    a = 7
+    while (EXACT_LIMIT >> (2 * a)) > k - 2:
+        a += 1
+    m = EXACT_LIMIT >> (2 * a)
+    terms = np.r_[np.zeros(k - m, np.int64), np.full(m, 1 << a)]
+    terms[1] = int(past)
+    return terms
+
+
+def _sums_clusters(rng) -> list:
+    """The "sums" batch's clusters. At sizes 40 (a warp's registers), 200 (a
+    warp's shared memory), 1,000 (a block's shared memory) and 5,000 (a
+    block's global scratch): four clusters whose pos and svlen windows put
+    sum |x| and sum x^2 at 2^24 and one past it (each sum on its exact path
+    at the limit, on its chain one past it), crossed between pos and
+    svlen; at 1,000 and 5,000 a narrow spread (every sum exact) and a wide
+    one (every window sum on its chain). Mapq 255 in clusters of 256 (the
+    warp tier's largest); clusters of 40 and 300 whose mapq sum |q| is
+    2^24 and one past it, and whose mapq terms of both signs near 2^24
+    round in the float32 chain (its integer sum differs)."""
+    out = []
+    for cnt in (40, 200, 1000, 5000):
+        k = cnt - 2 * (cnt * 25 // 100)
+        edges = [(_abs_edge(k, False), _square_edge(k, False)),
+                 (_abs_edge(k, True), _square_edge(k, True)),
+                 (_square_edge(k, False), _abs_edge(k, False)),
+                 (_square_edge(k, True), _abs_edge(k, True))]
+        for pos_terms, len_terms in edges:
+            c = _stats_cluster(rng, cnt, 0, 0, 0, 0)
+            c["pos"] = _window_values(rng, cnt, pos_terms, int(rng.integers(10 ** 6, 10 ** 8)))
+            c["svlen"] = _window_values(rng, cnt, len_terms, int(rng.integers(-5000, 5000)))
+            c["nm"] = _nm_binades(rng, cnt)
+            out.append(c)
+        if cnt >= 1000:
+            out.append(_stats_cluster(rng, cnt, 50_000_000, 20, 300, 10))
+            out.append(_stats_cluster(rng, cnt, 90_000_000, 10 ** 6, -800, 10 ** 5))
+    for _ in range(2):
+        c = _stats_cluster(rng, 256, int(rng.integers(10 ** 6, 10 ** 8)), 300, 500, 30)
+        c["mapq"][:] = 255
+        out.append(c)
+    for cnt in (40, 300):
+        for past in (False, True):
+            c = _stats_cluster(rng, cnt, int(rng.integers(10 ** 6, 10 ** 8)), 300, 500, 30)
+            c["mapq"] = _abs_edge(cnt, past)
+            out.append(c)
+        c = _stats_cluster(rng, cnt, int(rng.integers(10 ** 6, 10 ** 8)), 300, 500, 30)
+        mixed = np.zeros(cnt, np.int64)
+        mixed[:4] = EXACT_LIMIT + 1, 1, -EXACT_LIMIT, 3
+        c["mapq"] = mixed
+        out.append(c)
+    return out
+
+
 def call_stats_batch(kind: str, size: int, seed: int) -> dict:
     """A clustered batch for call_statistics (the columns it reads, numpy,
     and n_clusters), in shuffled array order, so a cluster's elements are
@@ -953,7 +1033,9 @@ def call_stats_batch(kind: str, size: int, seed: int) -> dict:
     and one above and below each, and of 1 and 2, with ties, NM across 40 binades,
     and int32 limits in the clusters at each threshold. "huge" (size >=
     32,768): one cluster of 25,000 elements, past a block's shared memory,
-    with ties and values at the int32 limits, beside clusters of 1 to 60."""
+    with ties and values at the int32 limits, beside clusters of 1 to 60.
+    "sums" (size >= 65,536): the edges of the kernels' exact sums
+    (_sums_clusters)."""
     rng = np.random.default_rng(seed)
     clusters, invalid_only = [], []
     if kind == "random":
@@ -1016,6 +1098,11 @@ def call_stats_batch(kind: str, size: int, seed: int) -> dict:
                 c["nm"] = _nm_binades(rng, k)
                 clusters.append(c)
         invalid_only = [int(x) for x in rng.integers(1, 6, 8)]
+    elif kind == "sums":
+        if size < 65536:
+            raise ValueError("the sums batch needs 65,536 slots")
+        clusters = _sums_clusters(rng)
+        invalid_only = [int(x) for x in rng.integers(1, 6, 6)]
     elif kind == "huge":
         if size < 32768:
             raise ValueError("the huge batch needs 32,768 slots")

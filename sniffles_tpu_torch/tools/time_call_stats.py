@@ -3,7 +3,7 @@
 csrc/call_stats.cu) by how the n slots are filled, for whichever
 `sniffles_tpu_torch` comes first on the import path:
 
-    python3 sniffles_tpu_torch/tools/time_call_stats.py [--n 2097152] [--split]
+    python3 sniffles_tpu_torch/tools/time_call_stats.py [--n 2097152] [--split] [--no-thresholds]
     PYTHONPATH=DIR python3 sniffles_tpu_torch/tools/time_call_stats.py
 
 Cases of n slots (`populations`):
@@ -274,8 +274,12 @@ def threshold_cases(cs) -> list:
             ("256 a slot", [(f"warp tier (warp {w})", (t, p, w, b)),
                             ("block tier (warp 255)", (t, p, 255, b))]),
             ("4096 a slot", [(f"block in shared memory (block {b})", (t, p, w, b)),
+                             ("two blocks an SM (block 5632)", (t, p, w, 5632)),
                              ("one block an SM (block 11264)", (t, p, w, 11264)),
-                             ("block over global scratch (block 4095)", (t, p, w, 4095))])]
+                             ("block over global scratch (block 4095)", (t, p, w, 4095))]),
+            ("chain", [(f"block in shared memory (block {b})", (t, p, w, b)),
+                       ("two blocks an SM (block 5632)", (t, p, w, 5632)),
+                       ("past 2048 over global scratch (block 2048)", (t, p, w, 2048))])]
 
 
 def main() -> int:
@@ -284,6 +288,8 @@ def main() -> int:
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--split", action="store_true",
                     help="first each population's cycles a cluster by part (the CLOCKS build)")
+    ap.add_argument("--no-thresholds", action="store_true",
+                    help="skip the tier thresholds from both sides")
     args = ap.parse_args()
     if args.device == "cpu":
         from sniffles_tpu_torch.ops import call_stats as cs
@@ -322,7 +328,7 @@ def main() -> int:
                   f"{short(k)} {us:.1f} x{n:.0f}"
                   for k, (us, n) in sorted(split.items(), key=lambda kv: -kv[1][0])),
               flush=True)
-    if hasattr(cs, "TIERS"):
+    if hasattr(cs, "TIERS") and not args.no_thresholds:
         variants = {tiers for _, sides in threshold_cases(cs) for _, tiers in sides}
         started = [_build.start_build("call_stats", defines=cs.nvcc_defines(v))
                    for v in variants]

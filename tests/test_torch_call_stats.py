@@ -8,8 +8,12 @@ elements, invalid elements, empty and invalid-only slots), "edge"
 (8,192 slots: clusters of 1 to 5 elements, one of 5,000, ties in the
 modes, values at the int32 limits, a centered svlen spanning 2^29, NM
 across 40 binades), "tiers" (65,536 slots: a cluster at each of the
-kernels' tier thresholds and one above and below each) and "huge" (32,768
-slots: a cluster of 25,000 elements, past a block's shared memory).
+kernels' tier thresholds and one above and below each), "huge" (32,768
+slots: a cluster of 25,000 elements, past a block's shared memory) and
+"sums" (65,536 slots: the trimmed windows' sum |x| and sum x^2 at 2^24 and
+one past it in each tier, mapq sums at and past it, mapq 255 in clusters
+of 256, narrow and wide spreads past 256: the kernels' exact sums and
+their chains).
 
 Tolerance: 0. Every key, every slot, bit for bit (float32 keys by their
 bits). The JAX function's two arithmetics, as its callers run it:
@@ -41,7 +45,7 @@ from sniffles_tpu_torch.ops.segments import INT32_MAX  # noqa: E402
 from sniffles_tpu_torch.sim import call_stats_batch  # noqa: E402
 
 BATCHES = [("random", 1024, 1), ("random", 1024, 2), ("random", 8192, 3), ("edge", 8192, 4),
-           ("edge", 8192, 5), ("tiers", 65536, 8), ("huge", 32768, 9)]
+           ("edge", 8192, 5), ("tiers", 65536, 8), ("huge", 32768, 9), ("sums", 65536, 10)]
 BATCH_IDS = [f"{k}-{n}-seed{s}" for k, n, s in BATCHES]
 
 
@@ -109,6 +113,39 @@ def test_edge_batch_reaches_its_edges():
     assert wrap.min() == -2 ** 31 and wrap.max() == 2 ** 31 - 1
 
 
+def test_sums_batch_reaches_its_edges():
+    """The "sums" batch: in the warp and the block tiers, clusters whose
+    trimmed-window sums all pass the exactness test and clusters with sums
+    past it (tools/time_call_stats.window_paths); a cluster past
+    BLOCK_MAX; mapq 255 in clusters of 256; a mapq sum |q| of exactly
+    2^24, and a mapq chain whose float32 sum is not the integer sum."""
+    from sniffles_tpu_torch.tools.time_call_stats import window_paths
+    b = call_stats_batch("sums", 65536, 10)
+    t = torch_batch(b)
+    out = cs.call_statistics_plain(t, True)
+    counts = out["lead_count"].numpy()
+    assert {40, 200, 256, 300, 1000, 5000} <= set(counts.tolist())
+    assert counts.max() > cs.BLOCK_MAX
+    paths = window_paths(t, cs.TIERS)
+    for tier in ("stat_warps", "stat_blocks"):
+        exact, chain, sums = paths[tier]
+        assert exact >= 2 and chain >= 8 and sums > chain, (tier, paths[tier])
+    live = b["valid"] & (b["cluster_id"] >= 0)
+    mapq_abs = np.zeros(65536, np.int64)
+    np.add.at(mapq_abs, b["cluster_id"][live], np.abs(b["mapq"][live].astype(np.int64)))
+    assert (mapq_abs == 1 << 24).sum() == 2 and (mapq_abs == (1 << 24) + 1).sum() == 2
+    full = [c for c in np.flatnonzero(counts == 256)
+            if (b["mapq"][live & (b["cluster_id"] == c)] == 255).all()]
+    assert len(full) == 2
+    # the mixed-sign mapq terms: the float32 chain in array order rounds
+    mixed = [c for c in np.flatnonzero(counts > 0)
+             if (b["mapq"][live & (b["cluster_id"] == c)] == -(1 << 24)).any()]
+    assert len(mixed) == 2
+    for c in mixed:
+        q = b["mapq"][live & (b["cluster_id"] == c)]
+        assert int(np.add.reduce(q.astype(np.float32), dtype=np.float32)) != int(q.sum())
+
+
 def test_wrapper_takes_the_plain_version_on_the_cpu():
     b = torch_batch(call_stats_batch("random", 1024, 6))
     before = dict(cs.COUNTS)
@@ -148,14 +185,19 @@ def test_tier_batches_reach_every_tier():
     """The "tiers" batch holds a cluster at each tier threshold and one
     above and below it; the "huge" batch one past a block's shared memory;
     the thresholds fit the kernels (a thread's registers hold TINY_MAX
-    elements, a warp's two registers a lane PAIR_MAX; a warp's and a
-    block's lists, 20 bytes an element, fit the H100's 227 KB of shared
+    elements, a warp's two registers a lane PAIR_MAX; a warp's lists, 20
+    bytes an element, and a block's, 16, fit the H100's 227 KB of shared
     memory a block)."""
     src = open(cs.__file__.replace("ops/call_stats.py", "csrc/call_stats.cu")).read()
     cap = int(src.split("constexpr int kTinyCap = ")[1].split(";")[0])
     assert 0 <= cs.TINY_MAX <= cap and cs.TINY_MAX < cs.WARP_MAX < cs.BLOCK_MAX
     assert cs.PAIR_MAX in (0, 64) and cs.PAIR_MAX <= cs.WARP_MAX
-    assert 8 * 20 * cs.WARP_MAX <= 232_448 and 20 * cs.BLOCK_MAX <= 232_448
+    # a warp's slice: 5 lists of 4 bytes; a block's: 4 (the sort's scratch)
+    warp_lists = int(src.split("constexpr int kWarpLists = ")[1].split(";")[0])
+    block_lists = int(src.split("constexpr int kBlockLists = ")[1].split(";")[0])
+    assert (warp_lists, block_lists) == (5, 4)
+    assert 8 * 4 * warp_lists * cs.WARP_MAX <= 232_448
+    assert 4 * block_lists * cs.BLOCK_MAX <= 232_448
     assert cs.TIERS == (cs.TINY_MAX, cs.PAIR_MAX, cs.WARP_MAX, cs.BLOCK_MAX)
     counts = set(cs.call_statistics_plain(torch_batch(call_stats_batch("tiers", 65536, 8)),
                                           True)["lead_count"].tolist())
@@ -189,8 +231,9 @@ def test_smoke_times_a_kernel_by_its_recorded_launches(monkeypatch):
     launches the profiler recorded (a profile that dropped 9 calls of 10
     reads the same), a profile with a kernel missing is retaken, and the
     script fails when every one misses it; call_stats_kernel_bounds counts
-    a comparison sort's cnt * log2(cnt) compares, so a tiled chain's block
-    tier is bound by its bytes."""
+    a comparison sort's cnt * log2(cnt) compares and the latency of the
+    largest cluster's NM chain, so 16 clusters of 3,689 are bound by their
+    chain and 568 by their bytes."""
     import importlib.util
     import pathlib
     from sniffles_tpu_torch.tools import time_call_stats
@@ -209,11 +252,20 @@ def test_smoke_times_a_kernel_by_its_recorded_launches(monkeypatch):
     n = 1 << 16
     counts = np.zeros(n, np.int64)
     counts[:16] = 3689
-    bound, by = smoke.call_stats_kernel_bounds(counts, n)["stat_blocks"]
-    assert by == "bytes"
+    by_bytes, by_ops, by_chain = smoke.call_stats_kernel_parts(counts, n)["stat_blocks"]
+    assert by_bytes > by_ops
     ops = 16 * 3689 * (smoke.CALL_STATS_OPS_PER_ELEMENT
                        + np.log2(3689) * smoke.CALL_STATS_OPS_PER_COMPARE)
-    assert bound > ops / smoke.INT32_OPS_PER_S * 1e3
+    assert by_ops == pytest.approx(ops / smoke.INT32_OPS_PER_S * 1e3)
+    # beside bytes and operations, the largest cluster's NM chain: 3,689
+    # dependent float32 adds; the bound is the larger of the three
+    assert by_chain == pytest.approx(3689 * smoke.FADD_LATENCY_CYCLES / smoke.SM_CLOCK_HZ * 1e3)
+    bound, by = smoke.call_stats_kernel_bounds(counts, n)["stat_blocks"]
+    assert bound == max(by_bytes, by_ops, by_chain) == by_chain and by == "operations"
+    many = np.zeros(1 << 21, np.int64)
+    many[:568] = 3689
+    bound, by = smoke.call_stats_kernel_bounds(many, 1 << 21)["stat_blocks"]
+    assert by == "bytes" and bound == smoke.call_stats_kernel_parts(many, 1 << 21)["stat_blocks"][0]
 
 
 def test_timing_tool_populations():

@@ -745,7 +745,8 @@ def test_sharded_step_on_cuda_matches_the_cpu(card):
 # cluster by its size
 
 CALL_STATS_BATCHES = [("random", 1024, 1), ("random", 8192, 3), ("edge", 8192, 4),
-                      ("edge", 8192, 5), ("tiers", 65536, 8), ("huge", 32768, 9)]
+                      ("edge", 8192, 5), ("tiers", 65536, 8), ("huge", 32768, 9),
+                      ("sums", 65536, 10)]
 
 
 def call_stats_inputs(kind, n, seed):
