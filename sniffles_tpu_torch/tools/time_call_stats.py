@@ -29,8 +29,9 @@ wrapper (the sort and the kernels) and of the kernels alone (CUDA events,
 the card asleep ahead of the start event so that the host's launch work
 stays out, the mean of 10 calls after one that warms up), and the
 wrapper's device time by kernel (torch.profiler over 10 calls: each
-kernel's device us and launches a call). Then, where the package builds
-its tier thresholds into the kernels (ops/call_stats.TIERS: TINY_MAX,
+kernel's device us and launches a call). Then (unless --no-thresholds),
+where the package builds its tier thresholds into the kernels
+(ops/call_stats.TIERS: TINY_MAX,
 PAIR_MAX, WARP_MAX, BLOCK_MAX), the kernels alone at each threshold's
 population through the tier on either side of it, each side a build of
 its own (all built at once first): the engine's and 40 a slot through a
