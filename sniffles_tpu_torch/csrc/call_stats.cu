@@ -105,6 +105,16 @@
 #error "build with the tier thresholds of ops/call_stats.py (its nvcc_defines)"
 #endif
 
+// A timing tool's variant of the entry point (tools/time_call_stats.py):
+// -DSTAT_RUN_PARTS=k returns after the k-th launch of ops/call_stats.RUN_PARTS
+// (1: the memset of the runs, 2: the memset of the invalid marks, 3: the run
+// pass), so that the differences of their times split the run pass and its
+// memsets. 0, the default, launches everything. Only a timing tool builds a
+// variant; its rows are not written.
+#ifndef STAT_RUN_PARTS
+#define STAT_RUN_PARTS 0
+#endif
+
 namespace {
 
 constexpr int kThreads = 256;       // stat_slots' and stat_warps' blocks
@@ -132,6 +142,8 @@ constexpr unsigned kExact = 1u << 24;  // integer terms add exactly in float32 u
 constexpr unsigned kClamp = 1u << 25;  // a test's term, clamped past kExact
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int INS = 0, DEL = 1;
+constexpr int kRunParts = STAT_RUN_PARTS;
+static_assert(kRunParts >= 0 && kRunParts <= 3, "the run pass and its memsets are three parts");
 
 // A cluster's cycles by part in each of the warp and block tiers, in a
 // build with -DSTAT_CLOCKS only (tools/time_call_stats.py --split): the
@@ -1865,12 +1877,13 @@ int launch_all(const int32_t* cid_sorted, const int64_t* order, const int32_t* c
   cudaError_t err = config_for(&cfg);
   if (err == cudaSuccess)
     err = cudaMemsetAsync(runs, 0, sizeof(int32_t) * (2 * static_cast<size_t>(n) + 2), s);
+  if (kRunParts == 1) return static_cast<int>(err);
   if (err == cudaSuccess) err = cudaMemsetAsync(has_invalid, 0, static_cast<size_t>(n), s);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  if (kRunParts == 2 || err != cudaSuccess) return static_cast<int>(err);
   stat_runs<<<(n + kRunThreads - 1) / kRunThreads, kRunThreads, 0, s>>>(
       cid_sorted, cluster_id, valid, runs, has_invalid, n);
   err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
+  if (kRunParts == 3 || err != cudaSuccess) return static_cast<int>(err);
 
   int32_t* counts = runs + 2 * static_cast<size_t>(n);
   stat_slots<<<grid(cfg.sms, cfg.slots, (n + kThreads - 1) / kThreads), kThreads, 0, s>>>(

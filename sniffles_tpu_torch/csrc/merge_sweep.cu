@@ -135,6 +135,46 @@ constexpr int kCounts = 5;
 
 using BlockScan = cub::BlockScan<int, kCutThreads>;
 
+// The partition's cycles by part, in a build with -DCUTS_CLOCKS only
+// (tools/time_merge_sweep.py --split): a barrier ahead of each stamp, then
+// thread 0 adds the clock64() cycles since the last stamp to the part's sum
+// (kInitial: the initial cuts; kScans: a pass's two block scans and the
+// mirror; kWalk: a pass's walk and its __syncthreads_or; kCopy: the final
+// copy; kHeads: the count, its scan and the heads), and at the end its sums
+// and one task to g_cuts_clocks. The build also has an empty kernel of the
+// same block (cuts_empty), the launch floor. Without the flag the stamps are
+// empty and the file compiles to the same code.
+enum CutPart { kInitial, kScans, kWalk, kCopy, kHeads, kCutParts };
+#ifdef CUTS_CLOCKS
+__device__ unsigned long long g_cuts_clocks[kCutParts + 1];  // the parts, then the tasks
+struct CutClock {
+  long long t;
+  unsigned long long sum[kCutParts];
+  __device__ __forceinline__ void start() {
+    __syncthreads();
+    t = clock64();
+    for (int p = 0; p < kCutParts; ++p) sum[p] = 0;
+  }
+  __device__ __forceinline__ void stamp(int p) {
+    __syncthreads();
+    const long long now = clock64();
+    sum[p] += static_cast<unsigned long long>(now - t);
+    t = now;
+  }
+  __device__ __forceinline__ void flush() {
+    if (threadIdx.x != 0) return;
+    for (int p = 0; p < kCutParts; ++p) atomicAdd(&g_cuts_clocks[p], sum[p]);
+    atomicAdd(&g_cuts_clocks[kCutParts], 1ULL);
+  }
+};
+#else
+struct CutClock {
+  __device__ __forceinline__ void start() {}
+  __device__ __forceinline__ void stamp(int) {}
+  __device__ __forceinline__ void flush() {}
+};
+#endif
+
 struct MaxOp {
   __device__ int operator()(int a, int b) const { return a > b ? a : b; }
 };
@@ -180,6 +220,8 @@ __global__ void __launch_bounds__(kCutThreads) sweep_cuts_kernel(
   const int live = min(max(*nseeds_ptr, 0), n);
   const int chunk = (live + kCutThreads - 1) / kCutThreads;
   const int a = min(t * chunk, live), b = min(a + chunk, live);
+  CutClock clk;
+  clk.start();
 
   // initial cuts: a svtype's first seed, a gap beyond both caps
   int first = live, last = -1;
@@ -193,6 +235,7 @@ __global__ void __launch_bounds__(kCutThreads) sweep_cuts_kernel(
     }
   }
 
+  clk.stamp(kInitial);
   uint8_t* cur = cut;
   uint8_t* out = spare;
   int passes = 0;
@@ -210,6 +253,7 @@ __global__ void __launch_bounds__(kCutThreads) sweep_cuts_kernel(
     mirror[kCutThreads - 1 - t] = reversed;
     __syncthreads();
     after = mirror[t];
+    clk.stamp(kScans);
 
     // judge each cut of the chunk once its next cut is known
     bool dropped = false;
@@ -238,6 +282,7 @@ __global__ void __launch_bounds__(kCutThreads) sweep_cuts_kernel(
     uint8_t* swap = cur;
     cur = out;
     out = swap;
+    clk.stamp(kWalk);
   }
 
   // the final cut flags of the live slots into `cut`; after a collapse,
@@ -249,6 +294,7 @@ __global__ void __launch_bounds__(kCutThreads) sweep_cuts_kernel(
       cut[j] = cur[j];
     }
   }
+  clk.stamp(kCopy);
 
   // the segment heads, in order
   int count = 0;
@@ -265,7 +311,13 @@ __global__ void __launch_bounds__(kCutThreads) sweep_cuts_kernel(
     counts[kPasses] = passes;
     counts[kCollapsed] = changed;
   }
+  clk.stamp(kHeads);
+  clk.flush();
 }
+
+#ifdef CUTS_CLOCKS
+__global__ void __launch_bounds__(kCutThreads) empty_kernel() {}
+#endif
 
 __global__ void __launch_bounds__(kSweepThreads) merge_sweep_kernel(
     const int32_t* __restrict__ seed_type, const int32_t* __restrict__ start_bp,
@@ -372,6 +424,24 @@ extern "C" int sweep_cuts(const int32_t* seed_type, const int32_t* start_bp,
                                               heads, counts, n, cluster_r, const_gap);
   return static_cast<int>(cudaGetLastError());
 }
+
+#ifdef CUTS_CLOCKS
+// The partition's cycles by part and its tasks summed since the last call
+// (kCutParts + 1 words to out, on the host), then zeroed; and k blocks of an
+// empty kernel of sweep_cuts' block on stream s. A -DCUTS_CLOCKS build only.
+extern "C" int cuts_clocks(uint64_t* out) {
+  cudaError_t err = cudaMemcpyFromSymbol(out, g_cuts_clocks, sizeof(g_cuts_clocks));
+  static const unsigned long long zero[kCutParts + 1] = {};
+  if (err == cudaSuccess) err = cudaMemcpyToSymbol(g_cuts_clocks, zero, sizeof(zero));
+  return static_cast<int>(err);
+}
+
+extern "C" int cuts_empty(int k, cudaStream_t s) {
+  if (k <= 0 || k > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  empty_kernel<<<k, kCutThreads, 0, s>>>();
+  return static_cast<int>(cudaGetLastError());
+}
+#endif
 
 extern "C" int merge_sweep(const int32_t* seed_type, const int32_t* start_bp,
                            const int32_t* lo, const float* posf, const float* svlenf,

@@ -67,6 +67,18 @@ TIERS = (TINY_MAX, PAIR_MAX, WARP_MAX, BLOCK_MAX)
 CLOCKS = "-DSTAT_CLOCKS"
 CLOCK_TIERS = ("stat_warps", "stat_blocks")
 CLOCK_PARTS = ("entry", "gather", "sort", "medians", "chains", "write", "wait")
+# The launches of the entry point up to the run pass, in order, and the -D
+# flag of a variant that returns after the k-th of them (tools/
+# time_call_stats.py: the run pass with its memsets, split).
+RUN_PARTS = ("runs memset", "marks memset", "run pass")
+
+
+def run_parts_define(k: int) -> str:
+    """The -D flag of the entry point's variant that returns after the
+    k-th launch of RUN_PARTS (1 to len(RUN_PARTS))."""
+    if not 1 <= k <= len(RUN_PARTS):
+        raise ValueError(f"the run pass has parts 1 to {len(RUN_PARTS)}, not {k}")
+    return f"-DSTAT_RUN_PARTS={int(k)}"
 
 # the output keys after n_clusters, in the order of the kernel's 16 rows of
 # one int32 tensor (the float32 keys are rows of their bits)
@@ -208,14 +220,16 @@ def nvcc_defines(tiers: tuple = TIERS) -> tuple:
 
 
 def launch_kernels(inputs: dict, n_clusters, fused: bool = False,
-                   tiers: tuple = TIERS, clocks: bool = False) -> dict:
+                   tiers: tuple = TIERS, clocks: bool = False, run_parts: int = 0) -> dict:
     """The kernels' entry point call_stats on kernel_inputs (two memsets,
     the run pass, the slot pass, the warp and the block tiers) on the
     current stream of the tensors' device, from the build with the
     thresholds `tiers` (as nvcc_defines; another set than TIERS is a
-    library of its own, built at first use) and, with `clocks`, CLOCKS;
-    no launch for n = 0. Counts nothing; raises when a launch fails or the
-    card refuses a tier's shared memory."""
+    library of its own, built at first use), with `clocks` CLOCKS and
+    with `run_parts` k > 0 the variant that returns after RUN_PARTS[k - 1]
+    (a timing tool's: its rows are not written); no launch for n = 0.
+    Counts nothing; raises when a launch fails or the card refuses a
+    tier's shared memory."""
     from sniffles_tpu_torch.ops import _build
     from sniffles_tpu_torch.ops.clustering import _launch
     c = inputs
@@ -228,7 +242,7 @@ def launch_kernels(inputs: dict, n_clusters, fused: bool = False,
         has_invalid = torch.empty((n,), dtype=torch.uint8, device=dev)
         lists_big = torch.empty((4, n), dtype=torch.int32, device=dev)    # past BLOCK_MAX
         fn = _build.load("call_stats", nvcc_defines(tiers) + ((CLOCKS,) if clocks else ())
-                         ).call_stats
+                         + ((run_parts_define(run_parts),) if run_parts else ())).call_stats
         fn.restype = ctypes.c_int
         fn.argtypes = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
         # a bool is one byte, 0 or 1: the kernel reads valid as its bytes

@@ -78,6 +78,11 @@ PICK_CAP = 256
 # each for a single task and for a fused batch of tasks alike; it adds to
 # them only where it launches the kernels.
 COUNTS = {"launches": 0, "sweep_cuts": 0}
+# The -D flag of the build whose partition sums its cycles by part
+# (csrc/merge_sweep.cu's CutClock), read by cuts_clocks: the parts, then
+# the tasks (tools/time_merge_sweep.py --split).
+CUTS_CLOCKS = "-DCUTS_CLOCKS"
+CUTS_CLOCK_PARTS = ("initial", "scans", "walk", "copy", "heads")
 
 
 def reset_counts() -> None:
@@ -470,9 +475,9 @@ def _task_row(tensors: dict, t: int) -> dict:
     return {key: v[t:t + 1] if key in _PER_TASK else v[t] for key, v in tensors.items()}
 
 
-def _kernel(name: str, argtypes: list):
+def _kernel(name: str, argtypes: list, defines: tuple | None = None):
     from sniffles_tpu_torch.ops import _build
-    fn = getattr(_build.load("merge_sweep"), name)
+    fn = getattr(_build.load("merge_sweep", defines), name)
     fn.restype = ctypes.c_int
     fn.argtypes = argtypes
     return fn
@@ -493,15 +498,16 @@ def _tasks(inputs: dict) -> int:
 
 
 def launch_sweep_cuts(inputs: dict, state: dict, n: int, *, cluster_r,
-                      cluster_repeat_h_max, cluster_merge_bnd):
+                      cluster_repeat_h_max, cluster_merge_bnd, clocks: bool = False):
     """One launch of the kernel's entry point sweep_cuts on CUDA tensors
-    that merge_sweep has checked, one block a task. Returns (cut flags,
-    uint8 shaped as seed_type, of which each task's first nseeds are set;
-    the segment heads, int32 of that shape, of which each task's first
-    `segments` are set; counts, [5] or [k, 5]). Counts nothing; raises
-    when the launch fails."""
+    that merge_sweep has checked, one block a task, from the CUTS_CLOCKS
+    build with `clocks`. Returns (cut flags, uint8 shaped as seed_type, of
+    which each task's first nseeds are set; the segment heads, int32 of
+    that shape, of which each task's first `segments` are set; counts, [5]
+    or [k, 5]). Counts nothing; raises when the launch fails."""
     fn = _kernel("sweep_cuts", [ctypes.c_void_p] * 8 + [ctypes.c_int] * 2
-                 + [ctypes.c_float] * 2 + [ctypes.c_void_p])
+                 + [ctypes.c_float] * 2 + [ctypes.c_void_p],
+                 (CUTS_CLOCKS,) if clocks else None)
     seed_type = inputs["seed_type"]
     k = _tasks(inputs)
     cut = torch.empty(seed_type.shape, dtype=torch.uint8, device=seed_type.device)

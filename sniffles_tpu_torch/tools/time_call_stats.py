@@ -43,6 +43,14 @@ and their cycles a cluster by part (`clock_split`: the list and
 permutation entries, the gather, the sort, the medians and support, the
 chains, the row, a block's barrier waits; a block's chains run on a warp
 of their own beside its path), after it is held against the plain version.
+Each population also prints the run pass with its memsets as one time
+(the entry point's variant that returns after the run pass, CUDA events as
+above) and each of its launches (ops/call_stats.RUN_PARTS: the time of the
+variant that returns after it less the one before; `run_split`), the
+masking of the ids ahead of the sort (the package's `sort_keys` where it
+has one, else the torch.where of the wrapper), and the library call that
+computes every slot's run start, torch.searchsorted of the sorted ids for
+0..n.
 Needs a CUDA card; `--device cpu` builds the populations, counts their
 exact and chain paths and holds nothing (a dry run).
 """
@@ -261,6 +269,59 @@ def held(got: dict, want: dict, case: str) -> None:
             raise SystemExit(f"time_call_stats: {case}: {k} differs from the plain version")
 
 
+def parts_from_times(parts, times) -> dict:
+    """{part: ms} from the times of the variants that stop after each of
+    `parts` in turn (each part: its variant's time less the one before),
+    and "total": the last variant's."""
+    out, before = {}, 0.0
+    for part, ms in zip(parts, times, strict=True):
+        out[part] = ms - before
+        before = ms
+    out["total"] = before
+    return out
+
+
+def run_split(cs, inputs: dict, n_clusters) -> dict | None:
+    """parts_from_times of the entry point's RUN_PARTS variants on a case's
+    kernel inputs, and the masking's and torch.searchsorted's ms (see the
+    module's docstring); None where the package has no such variants.
+    Build the variants first (build_run_variants)."""
+    if not hasattr(cs, "RUN_PARTS"):
+        return None
+    times = [queued_ms(lambda: cs.launch_kernels(inputs, n_clusters, True, run_parts=k))
+             for k in range(1, len(cs.RUN_PARTS) + 1)]
+    out = parts_from_times(cs.RUN_PARTS, times)
+    if hasattr(cs, "sort_keys"):
+        out["masking"] = ("stat_keys", queued_ms(lambda: cs.sort_keys(inputs)))
+    else:
+        out["masking"] = ("torch.where", queued_ms(lambda: torch.where(
+            inputs["valid"], inputs["cluster_id"], 2 ** 31 - 1)))
+    cid_s = inputs["sort"][0]
+    slots = torch.arange(cid_s.shape[0] + 1, dtype=torch.int32, device=cid_s.device)
+    out["searchsorted"] = queued_ms(lambda: torch.searchsorted(cid_s, slots))
+    return out
+
+
+def run_split_text(split: dict) -> str:
+    parts = ", ".join(f"{k} {v:.4f}" for k, v in split.items()
+                      if k not in ("total", "masking", "searchsorted"))
+    label, mask_ms = split["masking"]
+    return (f"the run pass with its memsets {split['total']:.4f} ms ({parts}); the masking "
+            f"({label}) {mask_ms:.4f} ms; torch.searchsorted {split['searchsorted']:.4f} ms")
+
+
+def build_run_variants(cs) -> None:
+    """Every RUN_PARTS variant of the package, built at once."""
+    from sniffles_tpu_torch.ops import _build
+    if not hasattr(cs, "RUN_PARTS"):
+        return
+    started = [_build.start_build("call_stats", defines=cs.nvcc_defines()
+                                  + (cs.run_parts_define(k),))
+               for k in range(1, len(cs.RUN_PARTS) + 1)]
+    for s in started:
+        _build.finish_build(s)
+
+
 def threshold_cases(cs) -> list:
     """(case, [(label, tiers)]): each tier threshold's population through
     the tier on either side of it (tiers as ops/call_stats.TIERS)."""
@@ -297,6 +358,10 @@ def main() -> int:
         for case, c in populations(args.n, "cpu").items():
             live = int(torch.unique(c["cluster_id"][c["valid"]]).numel())
             print(f"{case}: {args.n} slots, {live} live; {paths_text(window_paths(c, cs.TIERS))}")
+        if hasattr(cs, "RUN_PARTS"):
+            variants = (f"{cs.run_parts_define(k)} {part}"
+                        for k, part in enumerate(cs.RUN_PARTS, start=1))
+            print(f"run pass variants: {'; '.join(variants)}")
         return 0
     if not torch.cuda.is_available():
         print("time_call_stats: no CUDA device is visible", file=sys.stderr)
@@ -306,6 +371,7 @@ def main() -> int:
     from sniffles_tpu_torch.ops import call_stats as cs
     print(f"time_call_stats: the package at {os.path.dirname(os.path.dirname(cs.__file__))}")
     cases = populations(args.n, "cuda")
+    build_run_variants(cs)
     if args.split and hasattr(cs, "CLOCKS"):
         _build.finish_build(_build.start_build("call_stats",
                                                defines=cs.nvcc_defines() + (cs.CLOCKS,)))
@@ -321,13 +387,15 @@ def main() -> int:
         ms = queued_ms(lambda: cs.launch_call_statistics(c, True))
         kernels_ms = queued_ms(lambda: cs.launch_kernels(inputs, c["n_clusters"], True))
         split = by_kernel(lambda: cs.launch_call_statistics(c, True))
+        runs = run_split(cs, inputs, c["n_clusters"])
         live = int((want["lead_count"] > 0).sum())
         print(f"{case}: {args.n} slots, {live} live ({paths_text(window_paths(c, cs.TIERS))}); "
               f"== plain (bit-exact); the wrapper "
               f"{ms:.4f} ms, the kernels alone {kernels_ms:.4f} ms; by kernel (us, launches "
               f"a call): " + "; ".join(
                   f"{short(k)} {us:.1f} x{n:.0f}"
-                  for k, (us, n) in sorted(split.items(), key=lambda kv: -kv[1][0])),
+                  for k, (us, n) in sorted(split.items(), key=lambda kv: -kv[1][0]))
+              + (f"; {run_split_text(runs)}" if runs else ""),
               flush=True)
     if hasattr(cs, "TIERS") and not args.no_thresholds:
         variants = {tiers for _, sides in threshold_cases(cs) for _, tiers in sides}

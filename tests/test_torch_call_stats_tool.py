@@ -9,6 +9,7 @@ import subprocess
 import sys
 
 import numpy as np
+import pytest
 import torch
 
 from sniffles_tpu_torch.ops import call_stats as cs
@@ -32,6 +33,31 @@ def test_dry_run_builds_every_population_and_counts_its_paths():
         assert "stat_warps: " in line and "stat_blocks: " in line, line
     block = next(ln for ln in lines if ln.startswith("4096 a slot:"))
     assert "stat_blocks: 0 clusters exact, 1 on the chain" in block
+    variants = next(ln for ln in lines if ln.startswith("run pass variants: "))
+    for k, part in enumerate(cs.RUN_PARTS, start=1):
+        assert f"-DSTAT_RUN_PARTS={k} {part}" in variants
+
+
+def test_run_split_parts_from_the_variants_times():
+    """The run pass with its memsets split from the variants that return
+    after each launch: each part its variant's time less the one before,
+    the total the last variant's; the text names each part, the masking
+    and torch.searchsorted; every variant's flag is one the source reads."""
+    got = tool.parts_from_times(("a", "b", "c"), (0.002, 0.005, 0.0125))
+    assert got["a"] == 0.002 and abs(got["b"] - 0.003) < 1e-12
+    assert abs(got["c"] - 0.0075) < 1e-12 and got["total"] == 0.0125
+    got["masking"] = ("torch.where", 0.0107)
+    got["searchsorted"] = 0.03
+    text = tool.run_split_text(got)
+    assert text.startswith("the run pass with its memsets 0.0125 ms (a 0.0020, b 0.0030, c 0.0075)")
+    assert "the masking (torch.where) 0.0107 ms; torch.searchsorted 0.0300 ms" in text
+    with pytest.raises(ValueError):
+        tool.parts_from_times(("a", "b"), (1.0,))
+    with pytest.raises(ValueError):
+        cs.run_parts_define(len(cs.RUN_PARTS) + 1)
+    src = open(cs.__file__.replace("ops/call_stats.py", "csrc/call_stats.cu")).read()
+    assert "#ifndef STAT_RUN_PARTS" in src
+    assert f"kRunParts <= {len(cs.RUN_PARTS)}" in src
 
 
 def test_clock_words_parse_into_cycles_a_cluster():
