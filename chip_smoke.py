@@ -15,7 +15,9 @@ Phases, each of which must pass:
   2b. the merge sweep's two kernels (the sound-cut partition, sweep_cuts,
      then a thread per segment, merge_sweep) against their plain PyTorch
      versions (run on the CPU copies of the same inputs), bit for bit in
-     the cut flags, the counts and every state array: fuzz batches whose
+     the cut flags, the heads, the counts and every state array (the
+     partition with its candidate cuts in shared memory and in its global
+     scratch): fuzz batches whose
      seeds merge, at the dense call tasks' padded widths n = 32,768 and
      n = 65,536 and at n = 512, the edges nseeds = 0, one seed, one
      fragmented read and a single-svtype chain, and the partition's
@@ -189,8 +191,9 @@ Phases, each of which must pass:
      wrapper, the kernels alone, the plain version on the card, the bound,
      no host synchronisation, the engine step's statistics stage through
      tools/profile_engine.py, the kernels alone on each population of
-     tools/time_call_stats.py, held first, and each of the four kernels by
-     torch.profiler beside its bound and ptxas's report);
+     tools/time_call_stats.py, held first, torch.searchsorted beside the
+     run pass and torch.where beside the sort's keys, and each of the five
+     kernels by torch.profiler beside its bound and ptxas's report);
      and at 2^21 signatures each kernel against
      its plain version on the card (bit for bit) and timed (CUDA events)
      beside its bound, the relaxation's rounds, the step's device time,
@@ -336,10 +339,10 @@ CALL_STATS_OPS_PER_ELEMENT = 30
 # clustered batch's seven int32 columns, nm and valid read once (33), the
 # 16 int32 rows written once (64)
 CALL_STATS_BYTES = 33 + 64
-# the same for the kernels alone: the sorted masked ids and the int64
-# permutation of the one sort (12), the raw cluster id, valid, svlen, pos,
-# read id, mapq, strand, svtype and NM (33), the 16 rows (64)
-CALL_STATS_KERNEL_BYTES = 12 + 33 + 64
+# the same for the kernels after the sort (the entry point call_stats):
+# the sorted keys and the int64 permutation of the one sort (12), svlen,
+# pos, read id, mapq, strand, svtype and NM (28), the 16 rows (64)
+CALL_STATS_KERNEL_BYTES = 12 + 28 + 64
 # a kernel's reads of an element it gathers: its permutation entry and the
 # seven columns (svlen, pos, read id, mapq, strand, svtype, NM)
 CALL_STATS_GATHER_BYTES = 8 + 28
@@ -349,6 +352,11 @@ CALL_STATS_GATHER_BYTES = 8 + 28
 # network does (its bitonic network pads to a power of two and does
 # log^2 steps: that is its cost, not the function's)
 CALL_STATS_OPS_PER_COMPARE = 3 * 3
+# int32 operations an element of the sort's keys (two range tests, the
+# valid select, the add of n), and an item of the run pass's merge (the
+# compare, the select, the store, the advance)
+KEY_OPS = 4
+RUN_OPS = 4
 # the latency of a dependent float32 add on the H100 (cycles), at the 1.98
 # GHz boost clock: a cluster's NM sum is a chain of cnt such adds in array
 # order, which no kernel shortens (the plain version's arithmetic)
@@ -854,23 +862,28 @@ def cuts_params(meta):
 
 def check_sweep_kernel(inputs, state, meta, label):
     """The partition kernel's cut flags (the nseeds live ones, all it
-    writes) and counts == its plain version's; then one sweep on the card
-    from `state` (both kernels), held against the plain version
-    (hold_against_plain). Returns the max |kernel - plain| over the float
-    arrays."""
+    writes), heads and counts == its plain version's, its candidate cuts in
+    shared memory (the default) and in its global scratch (a threshold of
+    0); then one sweep on the card from `state` (both kernels), held
+    against the plain version (hold_against_plain). Returns the max
+    |kernel - plain| over the float arrays."""
     from sniffles_tpu_torch.ops import clustering as tc
     n = inputs["seed_type"].shape[0]
     nseeds = int(inputs["nseeds"][0])
-    cut, _, cut_counts = tc.launch_sweep_cuts(inputs, state, n, **cuts_params(meta))
-    cut = cut.cpu()[:nseeds]
-    plain_cut, _, plain_counts = tc.sweep_cuts_plain(
+    plain_cut, plain_heads, plain_counts = tc.sweep_cuts_plain(
         {k: v.cpu() for k, v in inputs.items()}, {k: v.cpu() for k, v in state.items()},
         **cuts_params(meta))
     plain_cut = plain_cut[:nseeds]
-    if not torch.equal(cut, plain_cut) or not torch.equal(cut_counts.cpu(), plain_counts):
-        fail(f"sweep_cuts kernel differs from its plain version on {label}: counts "
-             f"{cut_counts.tolist()} plain {plain_counts.tolist()}, "
-             f"{int((cut != plain_cut).sum())} cut flags differ")
+    for smem in (-1, 0):
+        cut, heads, cut_counts = tc.launch_sweep_cuts(inputs, state, n, **cuts_params(meta),
+                                                      smem_cands=smem)
+        cut = cut.cpu()[:nseeds]
+        heads = heads.cpu()[:int(plain_counts[2])].tolist()
+        if (not torch.equal(cut, plain_cut) or heads != plain_heads.tolist()
+                or not torch.equal(cut_counts.cpu(), plain_counts)):
+            fail(f"sweep_cuts kernel ({'global scratch' if smem == 0 else 'shared memory'}) "
+                 f"differs from its plain version on {label}: counts {cut_counts.tolist()} "
+                 f"plain {plain_counts.tolist()}, {int((cut != plain_cut).sum())} cut flags differ")
     kernel_state = {k: v.clone() for k, v in state.items()}
     counts = tc.merge_sweep(inputs, kernel_state, **sweep_params(meta)).tolist()
     torch.cuda.synchronize()
@@ -2924,13 +2937,16 @@ def call_stats_kernel_parts(counts, n):
     """{kernel: (bytes ms, operations ms, chain ms)} of each kernel of
     csrc/call_stats.cu on n slots whose clusters have `counts` elements
     (lead_count, numpy), split by the tiers of ops/call_stats.py: the bytes
-    each must move (stat_runs: the masked id, cluster id and valid byte of
-    every element, a live slot's run; stat_slots: every slot's run and
-    invalid mark, the rows of the empty slots and of the thread tier's
+    each must move (stat_keys: every element's cluster id and valid byte
+    read, its key written; stat_runs: the sorted keys read, the n + 1 run
+    starts and n invalid marks written; stat_slots: every slot's run start
+    and invalid mark, the rows of the empty slots and of the thread tier's
     clusters, those clusters' gathers, the other live slots' list entries;
     stat_warps and stat_blocks: their clusters' runs, list entries, marks,
     gathers and rows) at the HBM rate, the operations
-    (CALL_STATS_OPS_PER_ELEMENT an element, and the cnt * log2(cnt) compares
+    (stat_keys: KEY_OPS an element; stat_runs: RUN_OPS an item of the merge
+    of 2n slot ids and n keys; the tiers: CALL_STATS_OPS_PER_ELEMENT an
+    element, and the cnt * log2(cnt) compares
     of a comparison sort of each cluster's lists,
     CALL_STATS_OPS_PER_COMPARE each) at the int32 rate, and the latency
     floor of the tier's longest sequential chain: its largest cluster's NM
@@ -2949,12 +2965,13 @@ def call_stats_kernel_parts(counts, n):
                 elements * CALL_STATS_OPS_PER_ELEMENT
                 + float(compares[sel].sum()) * CALL_STATS_OPS_PER_COMPARE)
     slots_bytes, slots_ops = work(tiers["stat_slots"])
-    n_bytes = {"stat_runs": 9 * n + 8 * int(live.sum()),
-               "stat_slots": 9 * n + 64 * int((~live).sum()) + slots_bytes - 13 * int(
+    n_bytes = {"stat_keys": 9 * n, "stat_runs": 9 * n + 4,
+               "stat_slots": 5 * n + 4 + 64 * int((~live).sum()) + slots_bytes - 13 * int(
                    tiers["stat_slots"].sum()) + 4 * int((live & ~tiers["stat_slots"]).sum()),
                "stat_warps": work(tiers["stat_warps"])[0],
                "stat_blocks": work(tiers["stat_blocks"])[0]}
-    n_ops = {"stat_runs": 4 * n, "stat_slots": slots_ops + 4 * n,
+    n_ops = {"stat_keys": KEY_OPS * n, "stat_runs": RUN_OPS * 3 * n,
+             "stat_slots": slots_ops + 4 * n,
              "stat_warps": work(tiers["stat_warps"])[1],
              "stat_blocks": work(tiers["stat_blocks"])[1]}
     chain = {k: int(counts[sel].max()) if sel.any() else 0 for k, sel in tiers.items()}
@@ -3045,11 +3062,21 @@ def time_call_stats(clustered, chain, relax, params, ptxas_log):
     torch.cuda.synchronize()
     bound, bound_by = call_stats_bound_ms(n, CALL_STATS_BYTES)
     kbound, kbound_by = call_stats_bound_ms(n, CALL_STATS_KERNEL_BYTES)
+    # the library call beside the run pass: every slot's run start by
+    # torch.searchsorted of the sorted keys (the invalid marks aside); and
+    # the parent's masking ahead of the sort, beside stat_keys
+    keys_s = inputs["sort"][0]
+    slot_ids = torch.arange(n + 1, dtype=torch.int32, device=keys_s.device)
+    search_ms = queued_ms(lambda: torch.searchsorted(keys_s, slot_ids), 10)
+    where_ms = queued_ms(lambda: torch.where(inputs["valid"], inputs["cluster_id"], 2 ** 31 - 1),
+                         10)
     fig = profile(n, 1, "cuda")
     us, launches, _, _ = fig["split"].get("statistics", (0.0, 0.0, {}, 0.0))
-    print(f"  call_stats n={n} ({int(nc)} clusters): the wrapper (the id sort, 2 memsets, the run "
-          f"pass, the slot pass, the warp and block tiers) {ms:.4f} ms on the device "
-          f"({call_ms:.4f} ms a call), the kernels and memsets alone {kernels_ms:.4f} ms; plain "
+    print(f"  call_stats n={n} ({int(nc)} clusters): the wrapper (the sort's keys, the sort, the "
+          f"run pass, the slot pass, the warp and block tiers; no memset) {ms:.4f} ms on the "
+          f"device ({call_ms:.4f} ms a call), the kernels after the sort {kernels_ms:.4f} ms; "
+          f"torch.searchsorted of the sorted keys for 0..n {search_ms:.4f} ms, torch.where of "
+          f"the ids {where_ms:.4f} ms; plain "
           f"{plain_ms:.2f} ms on the card; no host synchronisation (sync debug mode 'error'); "
           f"bound {bound * 1e3:.3f} us ({bound_by}: {CALL_STATS_BYTES * n} bytes at "
           f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s; {CALL_STATS_OPS_PER_ELEMENT * n} int32 ops at "
@@ -3086,7 +3113,8 @@ def time_call_stats(clustered, chain, relax, params, ptxas_log):
         k_us = (chain_split if on_chain else split)[k]
         k_bound, k_by = (chain_bounds if on_chain else bounds)[k]
         rows[k] = {"ms": k_us / 1e3, "plain_ms": chain_plain_ms if on_chain else plain_ms,
-                   "bound_ms": k_bound, "bound_by": k_by, "max_abs_err": 0}
+                   "bound_ms": k_bound, "bound_by": k_by, "max_abs_err": 0,
+                   "library_ms": search_ms if k == "stat_runs" else None}
         by_bytes, by_ops, by_chain = (chain_parts if on_chain else parts)[k]
         print(f"  {k} ({'the tiled chain' if on_chain else 'the step batch'}, n={n}): "
               f"{k_us / 1e3:.4f} ms on the device (torch.profiler); bound "
@@ -3598,7 +3626,7 @@ def main() -> int:
         **engine_rows[2]["call_stats"], "library_ms": None}] + [{
         "name": k, "route": "cuda", "source": "sniffles_tpu_torch/csrc/call_stats.cu",
         "replaces": "sniffles_tpu/ops/clustering.py:1262", "launches": engine_launches[k],
-        **engine_rows[2][k], "library_ms": None} for k in cs.KERNELS] + [{
+        **engine_rows[2][k]} for k in cs.KERNELS] + [{
         "name": "combine_greedy", "route": "cuda",
         "source": "sniffles_tpu_torch/csrc/combine_greedy.cu",
         "replaces": "sniffles_tpu/ops/combine_greedy.py:180",

@@ -30,11 +30,19 @@
 //     raw ids), INT32_MIN where nothing does; pos_min and pos_max the ends
 //     of the sorted pos list (INT32_MAX and INT32_MIN for an empty slot);
 //   * the bounds (calculate_bounds) in int32 arithmetic that wraps.
-// Input: one stable sort by the masked cluster id (INT32_MAX where not
-// valid): its sorted ids and permutation, which give each cluster's
-// elements in array order, and the raw columns. Every element of a masked
-// id in [0, n) is valid, so a run of the sorted ids is a cluster; ids
-// outside [0, n) are ignored, as the segment ops drop them.
+// Input: one stable sort of the keys of stat_keys (a valid element's
+// cluster id c in [0, n) as c, an invalid element's raw id r in [0, n) as
+// n + r, any other INT32_MAX): its sorted keys and permutation, which give
+// each cluster's elements in array order, and the raw columns. Every key
+// below n is a valid element's, so a run of them is a cluster; a key in
+// [n, 2n) marks slot key - n as named by an invalid element; ids outside
+// [0, n) are ignored, as the segment ops drop them.
+//
+// The run pass (stat_runs) merges the slot ids 0..2n-1 with the sorted keys
+// along the merge path, in tiles of equal work whatever the gaps between the
+// keys, and writes every slot's run start (n + 1 of them: slot c's run is
+// [start[c], start[c + 1])) and every invalid mark, each once: nothing is
+// zeroed ahead of it.
 //
 // Each live cluster gathers its svlen, pos and read ids through the
 // permutation and sorts them itself: a sort of a cluster's values gives
@@ -54,12 +62,12 @@
 // -DSTAT_TINY_MAX, -DSTAT_PAIR_MAX, -DSTAT_WARP_MAX, -DSTAT_BLOCK_MAX from
 // ops/call_stats.py TINY_MAX, PAIR_MAX, WARP_MAX, BLOCK_MAX):
 //   * stat_slots, a thread a slot over all n slots (a resident grid,
-//     coalesced): an empty slot gets the identities of the plain version's
-//     reductions; a cluster of cnt <= kTinyMax (<= kTinyCap) is done in the
-//     thread, its values in registers, sorted by a fixed network of 19
-//     compare-exchanges; each larger cluster's entry (slot, run, count,
-//     invalid mark) goes to the warp or the block list (a warp's appends by
-//     one atomic);
+//     coalesced; its run from two neighbouring starts): an empty slot gets
+//     the identities of the plain version's reductions; a cluster of
+//     cnt <= kTinyMax (<= kTinyCap) is done in the thread, its values in
+//     registers, sorted by a fixed network of 19 compare-exchanges; each
+//     larger cluster's entry (slot, run, count, invalid mark) goes to the
+//     warp or the block list (a warp's appends by one atomic);
 //   * stat_warps, a warp a cluster of the warp list, the next one's entry
 //     and permutation entries loaded while it works: up to kPairMax elements
 //     in two registers a lane (a coalesced gather), svlen and pos sorted by
@@ -83,9 +91,11 @@
 //     chains, where their test fails, once pos is sorted (a named barrier
 //     the sorting warps arrive at).
 //
-// Bound: bytes. An element's masked id and permutation (12 bytes), its
-// cluster id, valid byte, svlen, pos, read id, mapq, strand, svtype and NM
-// (33) are read, and 64 bytes a slot written; the operations (a few dozen
+// Bound: bytes. An element's cluster id and valid byte are read and its key
+// written (9 bytes, stat_keys); its sorted key and permutation (12), its
+// svlen, pos, read id, mapq, strand, svtype and NM (28) are read, a slot's
+// run start and mark written and read back (10), and 64 bytes a slot
+// written; the operations (a few dozen
 // an element, the sorts' steps on chip) are below the card's integer rate.
 // Most slots are empty (the live ones are the low ids), so their rows are
 // written a thread a slot, coalesced. A chain's sum is sequential (one
@@ -106,11 +116,9 @@
 #endif
 
 // A timing tool's variant of the entry point (tools/time_call_stats.py):
-// -DSTAT_RUN_PARTS=k returns after the k-th launch of ops/call_stats.RUN_PARTS
-// (1: the memset of the runs, 2: the memset of the invalid marks, 3: the run
-// pass), so that the differences of their times split the run pass and its
-// memsets. 0, the default, launches everything. Only a timing tool builds a
-// variant; its rows are not written.
+// -DSTAT_RUN_PARTS=1 returns after the run pass (ops/call_stats.RUN_PARTS),
+// so that its time is the run pass's alone. 0, the default, launches
+// everything. Only a timing tool builds a variant; its rows are not written.
 #ifndef STAT_RUN_PARTS
 #define STAT_RUN_PARTS 0
 #endif
@@ -118,7 +126,20 @@
 namespace {
 
 constexpr int kThreads = 256;       // stat_slots' and stat_warps' blocks
-constexpr int kRunThreads = 256;    // stat_runs: a thread an element
+constexpr int kKeyThreads = 256;    // stat_keys' blocks,
+constexpr int kKeyItems = 4;        // and a thread's elements a round
+constexpr int kRunThreads = 256;    // stat_runs' blocks,
+constexpr int kRunItems = 16;       // a thread's merge steps a tile,
+constexpr int kRunTile = kRunThreads * kRunItems;  // a tile's diagonals of the merge
+constexpr int kProbes = 4;          // a lane's probes a round of a block's first split
+constexpr int kWinLoads = (kRunTile + kRunThreads) / kRunThreads;  // a thread's of a window
+// the words of a tile's keys (kRunTile + 1) and of its slots (kRunTile) in
+// shared memory, one word skipped every 32 (pad): a warp's lanes, about
+// kRunItems keys or slots apart, then read and write distinct banks
+constexpr int kWinPad = kRunTile + 1 + (kRunTile + 1) / 32 + 1;
+constexpr int kRunPad = kRunTile + kRunTile / 32;
+__device__ __forceinline__ int pad(int k) { return k + (k >> 5); }
+constexpr int kMaxSlots = 1 << 30;  // n below it: the keys of the invalid marks, n + r, fit int32
 constexpr int kBlockThreads = 256;  // stat_blocks: a block a cluster
 constexpr int kSortWarps = kBlockThreads / 32 - 1;  // its last warp sums the NM chain
 constexpr int kSortThreads = kSortWarps * 32;
@@ -143,7 +164,7 @@ constexpr unsigned kClamp = 1u << 25;  // a test's term, clamped past kExact
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int INS = 0, DEL = 1;
 constexpr int kRunParts = STAT_RUN_PARTS;
-static_assert(kRunParts >= 0 && kRunParts <= 3, "the run pass and its memsets are three parts");
+static_assert(kRunParts == 0 || kRunParts == 1, "the entry point's parts up to the run pass: one");
 
 // A cluster's cycles by part in each of the warp and block tiers, in a
 // build with -DSTAT_CLOCKS only (tools/time_call_stats.py --split): the
@@ -217,7 +238,7 @@ struct Columns {
   const int32_t* strand;
   const int32_t* svtype;
   const float* nm;
-  const uint8_t* has_invalid;
+  const uint8_t* marks;  // the invalid marks: an invalid element names the slot
 };
 
 // what a live slot's row is made of
@@ -423,7 +444,7 @@ __device__ void tiny_slot(const Columns& col, int32_t* __restrict__ out, int n, 
   float x[kTinyCap];
   Stats t;
   t.cnt = cnt;
-  t.sv = col.has_invalid[c] ? -1 : INT_MIN;
+  t.sv = col.marks[c] ? -1 : INT_MIN;
   t.fwd = 0;
 #pragma unroll
   for (int j = 0; j < kTinyCap; ++j) {
@@ -1491,24 +1512,168 @@ __device__ unsigned list_cluster(const Columns& col, int s, int cnt, int* L, siz
          (list_window(L + stride, cnt, lane, sums[2], sums[3]) << 2);
 }
 
-// A run pass, a thread an element: the ends of each slot's run of the
-// sorted masked ids (runs[c] = start, runs[n + c] = end; zero for an empty
-// slot, set by the memset before), and the slots that an invalid element
-// names.
-__global__ void stat_runs(const int32_t* __restrict__ cid_sorted,
-                          const int32_t* __restrict__ cluster_id,
-                          const uint8_t* __restrict__ valid, int32_t* __restrict__ runs,
-                          uint8_t* __restrict__ has_invalid, int n) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const int c = cid_sorted[i];
-  if (c >= 0 && c < n) {
-    if (i == 0 || cid_sorted[i - 1] != c) runs[c] = i;
-    if (i + 1 == n || cid_sorted[i + 1] != c) runs[n + c] = i + 1;
+// The sort's keys, ahead of the wrapper's one stable sort (a thread four
+// elements, a grid-stride loop, coalesced): a valid element of id c in
+// [0, n) keys c, an invalid one of raw id r in [0, n) keys n + r, any other
+// INT32_MAX (n < 2^30, so 2n - 1 < INT32_MAX). Sorted, the keys below n are
+// the clusters' runs, each in array order, and those in [n, 2n) the invalid
+// elements by raw id: the run pass reads both from the one sorted array.
+__global__ void __launch_bounds__(kKeyThreads)
+stat_keys(const int32_t* __restrict__ cluster_id, const uint8_t* __restrict__ valid,
+          int32_t* __restrict__ keys, int n) {
+  const int stride = gridDim.x * blockDim.x;
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n; i += kKeyItems * stride) {
+    int c[kKeyItems];
+    bool v[kKeyItems];
+#pragma unroll
+    for (int u = 0; u < kKeyItems; ++u) {  // every load issued before the first store
+      const int e = i + u * stride;
+      c[u] = e < n ? cluster_id[e] : -1;
+      v[u] = e < n && valid[e];
+    }
+#pragma unroll
+    for (int u = 0; u < kKeyItems; ++u) {
+      const int e = i + u * stride;
+      if (e < n) keys[e] = c[u] < 0 || c[u] >= n ? INT_MAX : v[u] ? c[u] : n + c[u];
+    }
   }
-  if (!valid[i]) {
-    const int r = cluster_id[i];
-    if (r >= 0 && r < n) has_invalid[r] = 1;  // every writer writes 1
+}
+
+// The merge of the slots 0..2n-1 (A, implicit: A[i] = i) with the n sorted
+// keys (B), a slot ahead of an equal key: slot c < n is taken when lower_bound
+// of c has been passed, so the B index at which it is taken is its run's start
+// (start[n] included), and slot n + r finds key n + r there exactly when an
+// invalid element names r. The split at diagonal d (the slots among the first
+// d items of the merge) is the least i in [max(0, d - n), min(d, 2n)] that is
+// not ahead of B[d - 1 - i]. first_split finds it for a block's first tile, by
+// a warp: kProbes * 32 probes a round, about three rounds at n = 2^21.
+__device__ int first_split(const int32_t* __restrict__ keys, int n, long long d, int lane) {
+  constexpr int kWidth = 32 * kProbes;
+  long long lo = max(0LL, d - n), hi = min(d, 2LL * n);
+  while (lo < hi) {
+    const long long step = (hi - lo + kWidth - 1) / kWidth;
+    bool before[kProbes];  // every probe's load issued before the first ballot
+#pragma unroll
+    for (int q = 0; q < kProbes; ++q) {
+      const long long p = lo + (q * 32 + lane) * step;
+      before[q] = p < hi && p <= keys[d - 1 - p];
+    }
+    int ahead = 0;
+#pragma unroll
+    for (int q = 0; q < kProbes; ++q) ahead += __popc(__ballot_sync(kFull, before[q]));
+    // probes in order: the first `ahead` of them are ahead of their keys
+    if (ahead == 0) {
+      hi = lo;
+    } else {
+      const long long last = lo + (ahead - 1) * step;
+      hi = min(hi, last + step);
+      lo = last + 1;
+    }
+  }
+  return static_cast<int>(lo);
+}
+
+// The split at diagonal dt of a tile whose window `win` holds the keys from
+// j0 on (nb of them before the merge's end; key k at word pad(k)) and whose
+// slots start at i0 (na of them), by binary search in shared memory.
+__device__ __forceinline__ int tile_split(const int* win, int i0, int na, int nb, int dt) {
+  int lo = max(0, dt - nb), hi = min(dt, na);
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (i0 + mid <= win[pad(dt - 1 - mid)]) lo = mid + 1;
+    else hi = mid;
+  }
+  return lo;
+}
+
+// A tile's window, the keys from j0 on (dn + 1 of them, INT32_MAX past the
+// n keys), loaded into registers: every load issued before the first use.
+__device__ __forceinline__ void load_window(const int32_t* __restrict__ keys, int n, int j0,
+                                            int dn, int (&v)[kWinLoads]) {
+#pragma unroll
+  for (int q = 0; q < kWinLoads; ++q) {
+    const int k = threadIdx.x + q * kRunThreads;
+    v[q] = k <= dn && k < n - j0 ? keys[j0 + k] : INT_MAX;
+  }
+}
+
+// The run pass: every slot's run start (starts[c], c = 0..n; slot c's run is
+// [starts[c], starts[c + 1])) and invalid mark (marks[r], r < n), each written
+// once, so nothing is zeroed ahead of it; and the two list counts zeroed.
+// Balanced by the merge path: the 3n items of the merge above are cut into
+// tiles of kRunTile diagonals, and a block takes a contiguous range of them,
+// whatever the gaps between the keys (all invalid: every slot's start is 0;
+// K a slot: one gap of nearly n slots). Its first tile's split comes from a
+// warp's search (first_split); a tile's window, the kRunTile + 1 keys from
+// its start split, goes to shared memory (coalesced loads, the next tile's
+// in flight while this one merges), its end split and each thread's split
+// at its kRunItems diagonals are found there by binary search, and the
+// thread merges kRunItems steps, a shared-memory access a step (a key read
+// as the merge passes it, or a slot's start written); the slots' starts and
+// marks go out from shared memory, coalesced. The next tile starts at this
+// one's end split.
+__global__ void __launch_bounds__(kRunThreads)
+stat_runs(const int32_t* __restrict__ keys, int32_t* __restrict__ starts,
+          uint8_t* __restrict__ marks, int32_t* __restrict__ counts, int n, long long tiles) {
+  __shared__ int win[kWinPad];  // the tile's keys, and the one after them (padded)
+  // each of the tile's slots (padded): the B index at which it is taken,
+  // and in bit 31 whether the key there equals it
+  __shared__ int tslot[kRunPad];
+  __shared__ int split;  // the slots before the block's first tile
+  const int t = threadIdx.x;
+  const long long total = 3LL * n;
+  const long long first = tiles * blockIdx.x / gridDim.x;
+  const long long last = tiles * (blockIdx.x + 1) / gridDim.x;
+  if (blockIdx.x == 0 && t < 2) counts[t] = 0;
+  if (first >= last) return;
+  long long d0 = first * kRunTile;
+  if (t < 32) {
+    const int i = first_split(keys, n, d0, t);
+    if (t == 0) split = i;
+  }
+  __syncthreads();
+  int i0 = split;
+  int j0 = static_cast<int>(d0 - i0);
+  int dn = static_cast<int>(min(static_cast<long long>(kRunTile), total - d0));
+  int v[kWinLoads];
+  load_window(keys, n, j0, dn, v);
+  for (long long tile = first; tile < last; ++tile) {
+#pragma unroll
+    for (int q = 0; q < kWinLoads; ++q) {
+      const int k = t + q * kRunThreads;
+      if (k <= dn) win[pad(k)] = v[q];
+    }
+    __syncthreads();
+    const int nb = min(dn, n - j0), na = static_cast<int>(min(static_cast<long long>(dn),
+                                                              2LL * n - i0));
+    // the tile's end split (every thread, the same reads), then the next
+    // tile's window in flight
+    const int taken = tile_split(win, i0, na, nb, dn);
+    const int i1 = i0 + taken, j1 = j0 + dn - taken;
+    const int dn1 = static_cast<int>(min(static_cast<long long>(kRunTile), total - d0 - dn));
+    if (tile + 1 < last) load_window(keys, n, j1, dn1, v);
+    const int dt = min(t * kRunItems, dn), de = min(dt + kRunItems, dn);
+    int i = tile_split(win, i0, na, nb, dt), j = dt - i;
+    int b = win[pad(j)];
+    for (int step = dt; step < de; ++step) {
+      if (i < na && i0 + i <= b) {
+        tslot[pad(i)] = (j0 + j) | (static_cast<int>(i0 + i == b) << 31);
+        ++i;
+      } else {
+        b = win[pad(++j)];
+      }
+    }
+    __syncthreads();
+    for (int k = t; k < taken; k += kRunThreads) {
+      const int a = i0 + k, s = tslot[pad(k)];
+      if (a <= n) starts[a] = s & INT_MAX;
+      if (a >= n) marks[a - n] = static_cast<unsigned>(s) >> 31;
+    }
+    i0 = i1;
+    j0 = j1;
+    d0 += dn;
+    dn = dn1;
+    __syncthreads();  // the window and the tile's slots are read before the next tile's
   }
 }
 
@@ -1521,7 +1686,7 @@ __global__ void stat_runs(const int32_t* __restrict__ cid_sorted,
 // counts[1] of them), a warp's appends by one atomic: an entry (slot, run
 // start, count, invalid mark) each.
 __global__ void __launch_bounds__(kThreads)
-stat_slots(Columns col, const int32_t* __restrict__ runs, int4* __restrict__ lists,
+stat_slots(Columns col, const int32_t* __restrict__ starts, int4* __restrict__ lists,
            int32_t* __restrict__ counts, int32_t* __restrict__ out, int n, bool fused) {
   const int lane = threadIdx.x & 31;
   const int threads = gridDim.x * blockDim.x;
@@ -1529,9 +1694,9 @@ stat_slots(Columns col, const int32_t* __restrict__ runs, int4* __restrict__ lis
   for (int base = blockIdx.x * blockDim.x + (threadIdx.x & ~31); base < n; base += threads) {
     const int c = base + lane;
     int s = 0, cnt = 0;
-    if (c < n) {
-      s = runs[c];
-      cnt = runs[n + c] - s;
+    if (c < n) {  // two neighbouring starts, coalesced
+      s = starts[c];
+      cnt = starts[c + 1] - s;
     }
     const bool to_warp = cnt > kTinyMax && cnt <= kWarpMax;
     const bool to_block = cnt > kWarpMax;
@@ -1542,13 +1707,13 @@ stat_slots(Columns col, const int32_t* __restrict__ runs, int4* __restrict__ lis
     at_w = __shfl_sync(kFull, at_w, 0);
     at_b = __shfl_sync(kFull, at_b, 0);
     if (to_warp || to_block) {
-      const int4 entry = make_int4(c, s, cnt, col.has_invalid[c]);
+      const int4 entry = make_int4(c, s, cnt, col.marks[c]);
       if (to_warp) lists[at_w + __popc(mw & below)] = entry;
       if (to_block) lists[n - 1 - (at_b + __popc(mb & below))] = entry;
     }
     if (c >= n) continue;
     if (cnt == 0) {
-      const int v[kRows] = {col.has_invalid[c] ? -1 : INT_MIN, 0, 0, 0, 0, INT_MAX, INT_MIN,
+      const int v[kRows] = {col.marks[c] ? -1 : INT_MIN, 0, 0, 0, 0, INT_MAX, INT_MIN,
                             0, 0, 0, 0, 0, 0, 0, 0, 0};
 #pragma unroll
       for (int r = 0; r < kRows; ++r) out[static_cast<size_t>(r) * n + c] = v[r];
@@ -1814,7 +1979,7 @@ constexpr size_t kBlockSmem = sizeof(int) * kBlockLists * static_cast<size_t>(kB
 // attributes are set. Cached by device, since the queries cost host time on
 // every call otherwise.
 struct Config {
-  int dev = -1, sms = 0, slots = 0, warps = 0, blocks = 0;
+  int dev = -1, sms = 0, keys = 0, runs = 0, slots = 0, warps = 0, blocks = 0;
 };
 
 cudaError_t make_config(int dev, Config* c) {
@@ -1827,6 +1992,10 @@ cudaError_t make_config(int dev, Config* c) {
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&c->sms, cudaDevAttrMultiProcessorCount, dev);
   if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&c->keys, stat_keys, kKeyThreads, 0);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&c->runs, stat_runs, kRunThreads, 0);
+  if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&c->slots, stat_slots, kThreads, 0);
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&c->warps, stat_warps, kThreads,
@@ -1836,7 +2005,8 @@ cudaError_t make_config(int dev, Config* c) {
                                                         block_smem);
   if (err != cudaSuccess) return err;
   // a tier whose shared memory no SM holds
-  if (c->slots < 1 || c->warps < 1 || c->blocks < 1) return cudaErrorInvalidConfiguration;
+  if (c->keys < 1 || c->runs < 1 || c->slots < 1 || c->warps < 1 || c->blocks < 1)
+    return cudaErrorInvalidConfiguration;
   c->dev = dev;
   return cudaSuccess;
 }
@@ -1869,23 +2039,19 @@ int grid(int sms, int per_sm, long long most) {
   return static_cast<int>(std::max(1LL, std::min(static_cast<long long>(sms) * per_sm, most)));
 }
 
-int launch_all(const int32_t* cid_sorted, const int64_t* order, const int32_t* cluster_id,
-               const uint8_t* valid, const Columns& col, int32_t* runs, int32_t* lists,
-               uint8_t* has_invalid, int32_t* lists_big, int32_t* out, int n, bool fused,
+int launch_all(const int32_t* keys, const Columns& col, int32_t* runs, int32_t* lists,
+               uint8_t* marks, int32_t* lists_big, int32_t* out, int n, bool fused,
                cudaStream_t s) {
   Config cfg;
   cudaError_t err = config_for(&cfg);
-  if (err == cudaSuccess)
-    err = cudaMemsetAsync(runs, 0, sizeof(int32_t) * (2 * static_cast<size_t>(n) + 2), s);
-  if (kRunParts == 1) return static_cast<int>(err);
-  if (err == cudaSuccess) err = cudaMemsetAsync(has_invalid, 0, static_cast<size_t>(n), s);
-  if (kRunParts == 2 || err != cudaSuccess) return static_cast<int>(err);
-  stat_runs<<<(n + kRunThreads - 1) / kRunThreads, kRunThreads, 0, s>>>(
-      cid_sorted, cluster_id, valid, runs, has_invalid, n);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long tiles = (3LL * n + kRunTile - 1) / kRunTile;
+  int32_t* counts = runs + n + 1;
+  stat_runs<<<grid(cfg.sms, cfg.runs, tiles), kRunThreads, 0, s>>>(keys, runs, marks, counts, n,
+                                                                   tiles);
   err = cudaGetLastError();
-  if (kRunParts == 3 || err != cudaSuccess) return static_cast<int>(err);
+  if (kRunParts == 1 || err != cudaSuccess) return static_cast<int>(err);
 
-  int32_t* counts = runs + 2 * static_cast<size_t>(n);
   stat_slots<<<grid(cfg.sms, cfg.slots, (n + kThreads - 1) / kThreads), kThreads, 0, s>>>(
       col, runs, reinterpret_cast<int4*>(lists), counts, out, n, fused);
   err = cudaGetLastError();
@@ -1918,32 +2084,47 @@ extern "C" int stat_clocks(uint64_t* out) {
 }
 #endif
 
-// The statistics of n slots: the cid sort's sorted masked ids [n] (int32)
-// and permutation [n] (int64), the raw cluster_id, valid (bool bytes),
+// The sort's keys (the kernel stat_keys) of n elements: cluster_id (int32)
+// and valid (bool bytes) [n] to keys int32 [n], on stream s; n < 2^30.
+// Returns the launch's error.
+extern "C" int sort_keys(const int32_t* cluster_id, const uint8_t* valid, int32_t* keys, int n,
+                         cudaStream_t s) {
+  if (n <= 0 || n >= kMaxSlots) return static_cast<int>(cudaErrorInvalidValue);
+  Config cfg;
+  cudaError_t err = config_for(&cfg);
+  if (err != cudaSuccess) {
+    cudaGetLastError();
+    return static_cast<int>(err);
+  }
+  const long long rounds = (n + kKeyThreads * kKeyItems - 1) / (kKeyThreads * kKeyItems);
+  stat_keys<<<grid(cfg.sms, cfg.keys, rounds), kKeyThreads, 0, s>>>(cluster_id, valid, keys, n);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The statistics of n slots (n < 2^30): the sort of stat_keys' keys, its
+// sorted keys [n] (int32) and permutation [n] (int64), and the raw columns
 // svlen, pos, read_id, mapq, strand, svtype (int32) and nm (float) [n];
-// scratch: runs int32 [2n + 2] (the runs, then the two list counts), lists
-// int32 [4n] (16-byte aligned, an entry of four ints a listed slot),
-// has_invalid uint8 [n], lists_big int32 [4, n] (the lists of a cluster
-// past kBlockMax); out int32 [16, n] in the rows of
-// ops/call_stats.KEYS (float rows as bits). The tiers: a thread a cluster
-// of at most kTinyMax (<= 8) elements, a warp one of at most kWarpMax, a
-// block a larger one, in shared memory up to kBlockMax. Two memsets and
-// four launches on stream s; returns the first error (a shared memory size
-// the card refuses included).
-extern "C" int call_stats(const int32_t* cid_sorted, const int64_t* order,
-                          const int32_t* cluster_id, const uint8_t* valid, const int32_t* svlen,
+// scratch: runs int32 [n + 3] (the n + 1 run starts, then the two list
+// counts), lists int32 [4n] (16-byte aligned, an entry of four ints a listed
+// slot), marks uint8 [n] (the invalid marks), lists_big int32 [4, n] (the
+// lists of a cluster past kBlockMax); out int32 [16, n] in the rows of
+// ops/call_stats.KEYS (float rows as bits). The run pass writes every start,
+// mark and count before the tiers read them: no memset. The tiers: a thread
+// a cluster of at most kTinyMax (<= 8) elements, a warp one of at most
+// kWarpMax, a block a larger one, in shared memory up to kBlockMax. Four
+// launches on stream s; returns the first error (a shared memory size the
+// card refuses included).
+extern "C" int call_stats(const int32_t* keys, const int64_t* order, const int32_t* svlen,
                           const int32_t* pos, const int32_t* read_id, const int32_t* mapq,
                           const int32_t* strand, const int32_t* svtype, const float* nm,
-                          int32_t* runs, int32_t* lists, uint8_t* has_invalid,
-                          int32_t* lists_big, int32_t* out, int n, int fused,
-                          cudaStream_t s) {
-  if (n <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const int err = launch_all(cid_sorted, order, cluster_id, valid,
-                             Columns{order, svlen, pos, read_id, mapq, strand, svtype, nm,
-                                     has_invalid},
-                             runs, lists, has_invalid, lists_big, out, n, fused != 0, s);
-  // a refused attribute, memset or occupancy query leaves its error behind
-  // as the last error; clear it, so that it is not read after a later launch
+                          int32_t* runs, int32_t* lists, uint8_t* marks, int32_t* lists_big,
+                          int32_t* out, int n, int fused, cudaStream_t s) {
+  if (n <= 0 || n >= kMaxSlots) return static_cast<int>(cudaErrorInvalidValue);
+  const int err = launch_all(
+      keys, Columns{order, svlen, pos, read_id, mapq, strand, svtype, nm, marks}, runs, lists,
+      marks, lists_big, out, n, fused != 0, s);
+  // a refused attribute or occupancy query leaves its error behind as the
+  // last error; clear it, so that it is not read after a later launch
   if (err != 0) cudaGetLastError();
   return err;
 }

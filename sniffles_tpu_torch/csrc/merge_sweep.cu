@@ -52,15 +52,21 @@
 // each, in bin order. The JAX lines take the left span from the per-slot
 // span array at index segid - 1, which is the left segment's span only
 // where every earlier segment is one seed; the proof needs the left
-// segment's, and that is the span taken here. Each thread owns a
-// contiguous chunk of the live slots; a block-wide max scan of the chunks'
-// last cuts and a reversed min scan of their first cuts give each chunk
-// the cut before it and the cut after it, and the thread judges its own
-// cuts in one walk. The cut flags double-buffer in global memory, where
-// each thread only ever touches its own chunk, and the passes run with no
-// host synchronisation. Only the nseeds live flags are written: the sweep
-// reads a flag only at a live slot.
-//
+// segment's, and that is the span taken here. Only an initial cut can
+// survive a pass, so the block stages the initial cuts (candidates) once,
+// from the live seeds' columns read with coalesced loads: each one's
+// start_bp, the end_bp of the seed before it and its slot, 12 bytes, in
+// shared memory up to kSmemCands of them (past it, in the task's global
+// scratch, the same code on other pointers). The partition is a bit a
+// candidate; a pass finds each cut's neighbours from the bits of its word
+// and, across words, from a block scan of the words' last and first cuts
+// (warp shuffles and one exchange of the warp totals; the first pass, every
+// candidate alive, needs none), judges the cuts a warp a word, and writes
+// the next bits by ballots: three barriers a pass (one on the first), no
+// read of global memory but the cuts' own columns where they lie there.
+// The passes run with no host synchronisation. Only the nseeds live flags
+// are written (the sweep reads a flag only at a live slot), and the heads,
+// in order, from the bits by popcounts.
 // The sweep (merge_sweep, a thread per segment, each task's grid row sized
 // from n; threads past the task's segment count exit). Each thread runs the sequential
 // loop body from its segment's head, with the grid's lane rules
@@ -108,11 +114,14 @@
 // seed plus two a merge, each a handful of dependent loads, a merge also
 // its range metrics over up to 199 picks); bytes and operations are far
 // below a microsecond. The sweep takes the longest segment's chain (the
-// depth) where the single thread took the task's, plus the fixpoint's
-// passes, each a walk of one chunk and two block scans.
+// depth) where the single thread took the task's, plus the partition's
+// staging and passes, each three barriers and a word a warp.
 
+#include <algorithm>
+#include <climits>
 #include <cstdint>
-#include <cub/block/block_scan.cuh>
+#include <mutex>
+
 #include <cuda_runtime.h>
 
 #include "range_metrics.cuh"
@@ -125,6 +134,11 @@ using sniffles::range_metrics;
 
 constexpr int kSvtypeBnd = 4;
 constexpr int kCutThreads = 1024;   // sweep_cuts' block, one a task
+// the most candidate cuts a task holds in shared memory (cand_ints(18,432)
+// ints: 230,400 bytes of the H100's 232,448 a block); past it, in global
+// scratch
+constexpr int kSmemCands = 18432;
+constexpr int kStageItems = 4;      // consecutive seeds a thread stages at a time
 constexpr int kMaxPasses = 24;
 constexpr int kSweepThreads = 128;
 // every svtype's head frozen (a single device, no mesh shard)
@@ -132,16 +146,15 @@ constexpr int kAllHeads = 0xFF;
 // the slots of counts (SWEEP_COUNTS in ops/clustering.py)
 constexpr int kIterations = 0, kDepth = 1, kSegments = 2, kPasses = 3, kCollapsed = 4;
 constexpr int kCounts = 5;
-
-using BlockScan = cub::BlockScan<int, kCutThreads>;
+constexpr unsigned kFull = 0xffffffffu;
 
 // The partition's cycles by part, in a build with -DCUTS_CLOCKS only
 // (tools/time_merge_sweep.py --split): a barrier ahead of each stamp, then
 // thread 0 adds the clock64() cycles since the last stamp to the part's sum
-// (kInitial: the initial cuts; kScans: a pass's two block scans and the
-// mirror; kWalk: a pass's walk and its __syncthreads_or; kCopy: the final
-// copy; kHeads: the count, its scan and the heads), and at the end its sums
-// and one task to g_cuts_clocks. The build also has an empty kernel of the
+// (kInitial: the staging of the candidate cuts; kScans: a pass's scan of
+// the words; kWalk: a pass's judging and its __syncthreads_or; kCopy: the
+// collapse; kHeads: the count, its scan, the flags and the heads), and at
+// the end its sums and one task to g_cuts_clocks. The build also has an empty kernel of the
 // same block (cuts_empty), the launch floor. Without the flag the stamps are
 // empty and the file compiles to the same code.
 enum CutPart { kInitial, kScans, kWalk, kCopy, kHeads, kCutParts };
@@ -175,134 +188,308 @@ struct CutClock {
 };
 #endif
 
-struct MaxOp {
-  __device__ int operator()(int a, int b) const { return a > b ? a : b; }
-};
-struct MinOp {
-  __device__ int operator()(int a, int b) const { return a < b ? a : b; }
-};
-
 __device__ __forceinline__ bool type_cut(const int32_t* __restrict__ seed_type, int j) {
   return j == 0 || seed_type[j] != seed_type[j - 1];
 }
 
-// Whether the cut before seed c survives a pass, given the cuts before
-// (prev) and after (next: a cut slot, or nseeds) it.
-__device__ __forceinline__ bool keep_cut(const int32_t* __restrict__ seed_type,
-                                         const int32_t* __restrict__ start_bp,
-                                         const int32_t* __restrict__ end_bp, int c, int prev,
-                                         int next, float cluster_r, float const_gap) {
-  if (type_cut(seed_type, c)) return true;
-  const float gap = __int2float_rn(start_bp[c] - end_bp[c - 1]);
-  const float span_l = __int2float_rn(end_bp[c - 1] - start_bp[prev]);
-  const float span_r = __int2float_rn(end_bp[next - 1] - start_bp[c]);
-  return gap > const_gap && gap > __fmul_rn(cluster_r, fminf(span_l, span_r));
+// A task's candidate cuts, in slot order: the initial cuts (the only cuts
+// a pass can keep): S the start_bp of the candidate's seed, E the end_bp of
+// the seed before it, P its slot, with bit 31 set at a type cut; and 32
+// candidates a word: A the alive bits (this pass's partition), N the next
+// pass's; Bf and Af a word's last alive candidate before it (-1 for none)
+// and first after it (INT_MAX for none). cand_ints(cap) ints hold cap
+// candidates, in shared memory or in the task's global scratch.
+struct Cands {
+  int* S;
+  int* E;
+  int* P;
+  unsigned* A;
+  unsigned* N;
+  int* Bf;
+  int* Af;
+};
+
+__host__ __device__ constexpr size_t cand_words(long long cap) {
+  return static_cast<size_t>((cap + 31) / 32);
+}
+__host__ __device__ constexpr size_t cand_ints(long long cap) {
+  return 3 * static_cast<size_t>(cap) + 4 * cand_words(cap);
 }
 
-__global__ void __launch_bounds__(kCutThreads) sweep_cuts_kernel(
-    const int32_t* __restrict__ seed_type, const int32_t* __restrict__ start_bp,
-    const int32_t* __restrict__ end_bp, const int32_t* __restrict__ nseeds_ptr,
-    uint8_t* cut, uint8_t* spare, int32_t* heads, int32_t* counts, int n, float cluster_r,
-    float const_gap) {
-  // this block's task
-  const size_t row = static_cast<size_t>(blockIdx.x) * n;
-  seed_type += row;
-  start_bp += row;
-  end_bp += row;
-  nseeds_ptr += blockIdx.x;
-  cut += row;
-  spare += row;
-  heads += row;
-  counts += blockIdx.x * kCounts;
-  __shared__ typename BlockScan::TempStorage scan;
-  __shared__ int mirror[kCutThreads];
-  const int t = threadIdx.x;
-  const int live = min(max(*nseeds_ptr, 0), n);
-  const int chunk = (live + kCutThreads - 1) / kCutThreads;
-  const int a = min(t * chunk, live), b = min(a + chunk, live);
-  CutClock clk;
-  clk.start();
+__device__ __forceinline__ Cands cands_at(int* base, int cap) {
+  const size_t words = cand_words(cap);
+  unsigned* w = reinterpret_cast<unsigned*>(base + 3 * static_cast<size_t>(cap));
+  return Cands{base, base + cap, base + 2 * static_cast<size_t>(cap), w, w + words,
+               reinterpret_cast<int*>(w + 2 * words), reinterpret_cast<int*>(w + 3 * words)};
+}
 
-  // initial cuts: a svtype's first seed, a gap beyond both caps
-  int first = live, last = -1;
-  for (int j = a; j < b; ++j) {
-    const bool c = type_cut(seed_type, j) ||
-                   __int2float_rn(start_bp[j] - end_bp[j - 1]) > const_gap;
-    cut[j] = c;
-    if (c) {
-      first = min(first, j);
-      last = j;
-    }
+// The exclusive sum of x over the block's threads before this one, and
+// (*total) over all of them: warp shuffles, then the warp totals through
+// wsum, scanned by shuffles in every warp. A barrier inside; a caller
+// reusing wsum puts a barrier between two calls.
+__device__ __forceinline__ int block_excl_sum(int x, int* total, int* wsum) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, warps = blockDim.x >> 5;
+  int inc = x;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int v = __shfl_up_sync(kFull, inc, o);
+    if (lane >= o) inc += v;
   }
+  if (lane == 31) wsum[warp] = inc;
+  __syncthreads();
+  const int w = lane < warps ? wsum[lane] : 0;
+  int winc = w;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int v = __shfl_up_sync(kFull, winc, o);
+    if (lane >= o) winc += v;
+  }
+  *total = __shfl_sync(kFull, winc, 31);
+  return __shfl_sync(kFull, winc - w, warp) + inc - x;
+}
 
+// kStageItems consecutive values of a column from j0 on (j0 a multiple of
+// kStageItems), 0 past `live`: one 16-byte load where the column is 16-byte
+// aligned, else one load a value.
+__device__ __forceinline__ int4 stage_load(const int32_t* __restrict__ col, int j0, int live,
+                                           bool vec) {
+  if (vec && j0 + kStageItems <= live) return *reinterpret_cast<const int4*>(col + j0);
+  return make_int4(j0 < live ? col[j0] : 0, j0 + 1 < live ? col[j0 + 1] : 0,
+                   j0 + 2 < live ? col[j0 + 2] : 0, j0 + 3 < live ? col[j0 + 3] : 0);
+}
+
+// The candidates among the live seeds, every seed read once (coalesced:
+// kStageItems consecutive seeds a thread, by 16-byte loads where the
+// columns are aligned; a seed's predecessor from the lane before, the
+// first lane's by a load of its own): a svtype's first seed, or a gap
+// beyond both caps in float32. Writes the first `cap` of them, in order,
+// into c (S, E, and P with the type cut in bit 31), and a 0 cut flag for
+// every live seed; returns how many there are.
+__device__ __forceinline__ int stage_cands(const Cands& c, int cap,
+                                           const int32_t* __restrict__ seed_type,
+                                           const int32_t* __restrict__ start_bp,
+                                           const int32_t* __restrict__ end_bp, uint8_t* cut,
+                                           int live, float const_gap, int* wsum) {
+  static_assert(kStageItems == 4, "a thread stages one int4 of each column");
+  const int lane = threadIdx.x & 31;
+  const uintptr_t at = reinterpret_cast<uintptr_t>(seed_type) |
+                       reinterpret_cast<uintptr_t>(start_bp) | reinterpret_cast<uintptr_t>(end_bp);
+  const bool vec = (at & 15) == 0;
+  int m = 0;
+  for (int base = 0; base < live; base += blockDim.x * kStageItems) {
+    const int j0 = base + threadIdx.x * kStageItems;
+    const int4 sv = stage_load(start_bp, j0, live, vec);
+    const int4 tv = stage_load(seed_type, j0, live, vec);
+    const int4 ev = stage_load(end_bp, j0, live, vec);
+    // the seed before j0: the lane before's last, the first lane's loaded
+    int tp = __shfl_up_sync(kFull, tv.w, 1), ep = __shfl_up_sync(kFull, ev.w, 1);
+    if (lane == 0) {
+      tp = j0 > 0 && j0 < live ? seed_type[j0 - 1] : 0;
+      ep = j0 > 0 && j0 < live ? end_bp[j0 - 1] : 0;
+    }
+    const int sj[kStageItems] = {sv.x, sv.y, sv.z, sv.w};
+    const int ty[kStageItems] = {tv.x, tv.y, tv.z, tv.w};
+    const int ej[kStageItems] = {ep, ev.x, ev.y, ev.z};  // the end_bp before each seed
+    const int tq[kStageItems] = {tp, tv.x, tv.y, tv.z};  // and the svtype
+    unsigned cand = 0, type = 0;
+#pragma unroll
+    for (int u = 0; u < kStageItems; ++u) {
+      const int j = j0 + u;
+      if (j >= live) continue;
+      const bool t = j == 0 || ty[u] != tq[u];
+      type |= static_cast<unsigned>(t) << u;
+      cand |= static_cast<unsigned>(t || __int2float_rn(sj[u] - ej[u]) > const_gap) << u;
+      cut[j] = 0;
+    }
+    int total;
+    int k = m + block_excl_sum(__popc(cand), &total, wsum);
+#pragma unroll
+    for (int u = 0; u < kStageItems; ++u) {
+      if (!((cand >> u) & 1)) continue;
+      if (k < cap) {
+        c.S[k] = sj[u];
+        c.E[k] = ej[u];
+        c.P[k] = (j0 + u) | static_cast<int>(((type >> u) & 1) << 31);
+      }
+      ++k;
+    }
+    m += total;
+    __syncthreads();  // wsum is read before the next tile writes it
+  }
+  return m;
+}
+
+// A pass's neighbours across words: each word's last alive candidate
+// before it (Bf) and first after it (Af). Each thread takes a run of words:
+// their last and first alive candidates, scanned across the block by warp
+// shuffles and one exchange of the warp totals (wa, wb). Two barriers.
+__device__ __forceinline__ void find_neighbours(const Cands& c, int words, int* wa, int* wb,
+                                                CutClock& clk) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, warps = blockDim.x >> 5;
+  const int per = (words + warps * 32 - 1) / (warps * 32);
+  const int w0 = min(static_cast<int>(threadIdx.x) * per, words), w1 = min(w0 + per, words);
+  int last = -1, first = INT_MAX;
+  for (int w = w0; w < w1; ++w) {
+    const unsigned a = c.A[w];
+    if (a && first == INT_MAX) first = 32 * w + __ffs(a) - 1;
+    if (a) last = 32 * w + 31 - __clz(a);
+  }
+  int mx = last, mn = first;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int up = __shfl_up_sync(kFull, mx, o), down = __shfl_down_sync(kFull, mn, o);
+    if (lane >= o) mx = max(mx, up);
+    if (lane + o < 32) mn = min(mn, down);
+  }
+  if (lane == 31) wa[warp] = mx;
+  if (lane == 0) wb[warp] = mn;
+  __syncthreads();
+  // the warps' totals, scanned the same way in every warp
+  int va = lane < warps ? wa[lane] : -1, vb = lane < warps ? wb[lane] : INT_MAX;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int up = __shfl_up_sync(kFull, va, o), down = __shfl_down_sync(kFull, vb, o);
+    if (lane >= o) va = max(va, up);
+    if (lane + o < 32) vb = min(vb, down);
+  }
+  const int ahead = __shfl_sync(kFull, va, (warp + 31) & 31);
+  const int behind = __shfl_sync(kFull, vb, (warp + 1) & 31);
+  int before = __shfl_up_sync(kFull, mx, 1), after = __shfl_down_sync(kFull, mn, 1);
+  if (lane == 0) before = -1;
+  if (lane == 31) after = INT_MAX;
+  if (warp > 0) before = max(before, ahead);
+  if (warp + 1 < warps) after = min(after, behind);
+  for (int w = w0; w < w1; ++w) {
+    c.Bf[w] = before;
+    const unsigned a = c.A[w];
+    if (a) before = 32 * w + 31 - __clz(a);
+  }
+  for (int w = w1 - 1; w >= w0; --w) {
+    c.Af[w] = after;
+    const unsigned a = c.A[w];
+    if (a) after = 32 * w + __ffs(a) - 1;
+  }
+  __syncthreads();
+  clk.stamp(kScans);
+}
+
+// One pass over the m candidates (words of them): a cut that is not a type
+// cut is kept while gap > cluster_r * min(span_left, span_right) in float32,
+// the spans those of the segments either side of it in this pass's partition
+// (A); writes the next partition into N. The neighbours across words come
+// from find_neighbours (the first pass, every candidate alive, needs none);
+// then a warp a word, a lane a candidate, the neighbours inside the word
+// from its bits. Three barriers (one on the first pass); returns whether
+// any cut was dropped (block-uniform).
+__device__ __forceinline__ bool cut_pass(const Cands& c, int m, int words, int e_last,
+                                         float cluster_r, bool first_pass, int* wa, int* wb,
+                                         CutClock& clk) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, warps = blockDim.x >> 5;
+  if (!first_pass) find_neighbours(c, words, wa, wb, clk);
+
+  bool dropped = false;
+  for (int w = warp; w < words; w += warps) {
+    const int k = 32 * w + lane;
+    const unsigned a = first_pass ? __ballot_sync(kFull, k < m) : c.A[w];
+    bool keep = (a >> lane) & 1;
+    if (keep && c.P[k] >= 0) {  // alive, and not a type cut
+      // a type cut (candidate 0 is one) lies before every other cut
+      const unsigned lower = a & ((1u << lane) - 1);
+      const unsigned upper = lane == 31 ? 0u : a & ~((2u << lane) - 1);
+      // the first pass: every candidate alive, the neighbours k -/+ 1
+      const int prev = first_pass ? k - 1 : lower ? 32 * w + 31 - __clz(lower) : c.Bf[w];
+      const int next = first_pass ? k + 1 : upper ? 32 * w + __ffs(upper) - 1 : c.Af[w];
+      const int s_k = c.S[k], e_k = c.E[k];
+      const float gap = __int2float_rn(s_k - e_k);
+      const float span_l = __int2float_rn(e_k - c.S[prev]);
+      const float span_r = __int2float_rn((next < m ? c.E[next] : e_last) - s_k);
+      keep = gap > __fmul_rn(cluster_r, fminf(span_l, span_r));
+    }
+    const unsigned kept = __ballot_sync(kFull, keep);
+    if (lane == 0) c.N[w] = kept;
+    dropped |= kept != a;
+  }
+  dropped = __syncthreads_or(dropped);
+  clk.stamp(kWalk);
+  return dropped;
+}
+
+// The passes over a task's m staged candidates and its outputs: the cut
+// flags (1 at each final cut; stage_cands wrote the 0s), the heads in
+// order (a warp a word: each word's offset from a scan of the words'
+// counts, by every warp itself up to 32 words, else by the block; a lane a
+// cut), the counts. Inlined once for shared memory
+// and once for the global scratch, so that each copy addresses its own
+// memory.
+__device__ __forceinline__ void partition(Cands c, int m, int e_last, uint8_t* cut,
+                                          int32_t* heads, int32_t* counts, float cluster_r,
+                                          int* wsum, int* wa, int* wb, CutClock& clk) {
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5, warps = blockDim.x >> 5;
+  const int words = static_cast<int>(cand_words(m));
   clk.stamp(kInitial);
-  uint8_t* cur = cut;
-  uint8_t* out = spare;
+
   int passes = 0;
   bool changed = true;
   while (changed && passes < kMaxPasses) {
     ++passes;
-    // the last cut before this chunk, and the first cut after it (a scan
-    // of the chunks in reverse order, through `mirror`)
-    int before, after, reversed;
-    BlockScan(scan).ExclusiveScan(last, before, -1, MaxOp());
-    mirror[kCutThreads - 1 - t] = first;
-    __syncthreads();
-    BlockScan(scan).ExclusiveScan(mirror[t], reversed, live, MinOp());
-    __syncthreads();
-    mirror[kCutThreads - 1 - t] = reversed;
-    __syncthreads();
-    after = mirror[t];
-    clk.stamp(kScans);
-
-    // judge each cut of the chunk once its next cut is known
-    bool dropped = false;
-    int prev = before, pending = -1, pending_prev = -1;
-    first = live;
-    last = -1;
-    for (int j = a; j <= b; ++j) {
-      if (j < b && !cur[j]) {
-        out[j] = 0;
-        continue;
-      }
-      if (pending >= 0) {
-        const bool keep = keep_cut(seed_type, start_bp, end_bp, pending, pending_prev,
-                                   j < b ? j : after, cluster_r, const_gap);
-        out[pending] = keep;
-        dropped |= !keep;
-        if (keep) {
-          first = min(first, pending);
-          last = pending;
-        }
-      }
-      pending_prev = prev;
-      pending = prev = j;
-    }
-    changed = __syncthreads_or(dropped);
-    uint8_t* swap = cur;
-    cur = out;
-    out = swap;
-    clk.stamp(kWalk);
+    changed = cut_pass(c, m, words, e_last, cluster_r, passes == 1, wa, wb, clk);
+    unsigned* swap = c.A;
+    c.A = c.N;
+    c.N = swap;
   }
-
-  // the final cut flags of the live slots into `cut`; after a collapse,
-  // the type cuts only
-  for (int j = a; j < b; ++j) {
-    if (changed) {
-      cut[j] = type_cut(seed_type, j);
-    } else if (cur != cut) {
-      cut[j] = cur[j];
+  // after a collapse, the type cuts only (a warp a word)
+  if (changed) {
+    for (int w = warp; w < words; w += warps) {
+      const int k = 32 * w + lane;
+      const unsigned type = __ballot_sync(kFull, k < m && c.P[k] < 0);
+      if (lane == 0) c.A[w] = type;
     }
+    __syncthreads();
   }
   clk.stamp(kCopy);
 
-  // the segment heads, in order
-  int count = 0;
-  for (int j = a; j < b; ++j) count += cut[j];
-  int offset, segments;
-  BlockScan(scan).ExclusiveSum(count, offset, segments);
-  for (int j = a; j < b; ++j) {
-    if (cut[j]) heads[offset++] = j;
+  // each word's first head: a thread's run of words, its offset from the
+  // block's sum of their counts (into Bf, free after the passes)
+  int segments;
+  if (words <= 32) {
+    // up to 32 words: every warp scans their counts itself, no barrier
+    const unsigned mine = lane < words ? c.A[lane] : 0u;
+    int inc = __popc(mine);
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int v = __shfl_up_sync(kFull, inc, o);
+      if (lane >= o) inc += v;
+    }
+    segments = __shfl_sync(kFull, inc, 31);
+    const int first = inc - __popc(mine);
+    for (int w = warp; w < words; w += warps) {
+      const unsigned a = __shfl_sync(kFull, mine, w);
+      const int at = __shfl_sync(kFull, first, w);
+      if ((a >> lane) & 1) {
+        const int slot = c.P[32 * w + lane] & INT_MAX;
+        cut[slot] = 1;
+        heads[at + __popc(a & ((1u << lane) - 1))] = slot;
+      }
+    }
+  } else {
+    const int per = (words + warps * 32 - 1) / (warps * 32);
+    const int w0 = min(t * per, words), w1 = min(w0 + per, words);
+    int count = 0;
+    for (int w = w0; w < w1; ++w) count += __popc(c.A[w]);
+    int offset = block_excl_sum(count, &segments, wsum);
+    for (int w = w0; w < w1; ++w) {
+      c.Bf[w] = offset;
+      offset += __popc(c.A[w]);
+    }
+    __syncthreads();
+    for (int w = warp; w < words; w += warps) {
+      const unsigned a = c.A[w];
+      if ((a >> lane) & 1) {
+        const int slot = c.P[32 * w + lane] & INT_MAX;
+        cut[slot] = 1;
+        heads[c.Bf[w] + __popc(a & ((1u << lane) - 1))] = slot;
+      }
+    }
   }
   if (t == 0) {
     counts[kIterations] = 0;
@@ -312,6 +499,51 @@ __global__ void __launch_bounds__(kCutThreads) sweep_cuts_kernel(
     counts[kCollapsed] = changed;
   }
   clk.stamp(kHeads);
+}
+
+// The partition of one task a block. A candidate cut (an initial cut: a
+// svtype's first seed, or a gap beyond both caps) is the only kind of cut a
+// pass can keep, so the passes run over the candidates alone, staged once
+// from the live seeds' columns by coalesced loads into shared memory (up to
+// smem_cap of them; past it, staged again into the task's global scratch:
+// the same code on other pointers). The cut flags are bits, one word a 32
+// candidates; a pass judges every cut on the last pass's bits (see
+// cut_pass) with three barriers, and nothing is read back from global
+// memory. Only the final flags (0 for every live seed, then 1 at each cut)
+// and the heads are written; after kMaxPasses passes that still changed the
+// partition, the type cuts only.
+__global__ void __launch_bounds__(kCutThreads) sweep_cuts_kernel(
+    const int32_t* __restrict__ seed_type, const int32_t* __restrict__ start_bp,
+    const int32_t* __restrict__ end_bp, const int32_t* __restrict__ nseeds_ptr, uint8_t* cut,
+    int32_t* scratch, int32_t* heads, int32_t* counts, int n, int smem_cap, float cluster_r,
+    float const_gap) {
+  extern __shared__ int smem[];
+  __shared__ int wsum[32], wa[32], wb[32];
+  // this block's task
+  const size_t row = static_cast<size_t>(blockIdx.x) * n;
+  seed_type += row;
+  start_bp += row;
+  end_bp += row;
+  nseeds_ptr += blockIdx.x;
+  cut += row;
+  heads += row;
+  scratch += static_cast<size_t>(blockIdx.x) * cand_ints(n);
+  counts += blockIdx.x * kCounts;
+  CutClock clk;
+  clk.start();
+
+  const int live = min(max(*nseeds_ptr, 0), n);
+  const int e_last = live > 0 ? end_bp[live - 1] : 0;  // in flight during the staging
+  const int m = stage_cands(cands_at(smem, smem_cap), smem_cap, seed_type, start_bp, end_bp,
+                            cut, live, const_gap, wsum);
+  if (m <= smem_cap) {
+    partition(cands_at(smem, smem_cap), m, e_last, cut, heads, counts, cluster_r, wsum, wa, wb,
+              clk);
+  } else {
+    stage_cands(cands_at(scratch, n), n, seed_type, start_bp, end_bp, cut, live, const_gap,
+                wsum);
+    partition(cands_at(scratch, n), m, e_last, cut, heads, counts, cluster_r, wsum, wa, wb, clk);
+  }
   clk.flush();
 }
 
@@ -408,20 +640,48 @@ __global__ void __launch_bounds__(kSweepThreads) merge_sweep_kernel(
   atomicMax(&counts[kDepth], static_cast<int32_t>(it));
 }
 
+// sweep_cuts' largest dynamic shared memory (kSmemCands candidates), its
+// attribute set once a device: a launch past 48 KB needs it
+cudaError_t cuts_smem() {
+  constexpr int kDevices = 64;
+  static std::mutex mu;
+  static bool done[kDevices] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  std::lock_guard<std::mutex> lock(mu);
+  if (dev < kDevices && done[dev]) return cudaSuccess;
+  err = cudaFuncSetAttribute(sweep_cuts_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(cand_ints(kSmemCands) * sizeof(int)));
+  if (err == cudaSuccess && dev < kDevices) done[dev] = true;
+  return err;
+}
+
 }  // namespace
 
 // Both entry points take k tasks of n slots each ([k, n] arrays, nseeds
 // [k], counts [k, 5]; merge_sweep also head_mask [k]); k = 1 is a single
 // task. sweep_cuts takes no head mask: a type change is an unconditional
 // cut (the JAX package's proof, clustering.py:296-311, holds whatever the
-// head's pointer start), so the partition does not depend on it.
+// head's pointer start), so the partition does not depend on it. Its
+// scratch holds cand_ints(n) ints a task ([k, cand_ints(n)]), read only by a
+// task with more candidates than shared memory takes: min(smem_cands,
+// kSmemCands) of them (smem_cands < 0: kSmemCands).
 extern "C" int sweep_cuts(const int32_t* seed_type, const int32_t* start_bp,
                           const int32_t* end_bp, const int32_t* nseeds, uint8_t* cut,
-                          uint8_t* spare, int32_t* heads, int32_t* counts, int n, int k,
-                          float cluster_r, float const_gap, cudaStream_t s) {
+                          int32_t* scratch, int32_t* heads, int32_t* counts, int n, int k,
+                          float cluster_r, float const_gap, int smem_cands, cudaStream_t s) {
   if (n <= 0 || k <= 0 || k > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  sweep_cuts_kernel<<<k, kCutThreads, 0, s>>>(seed_type, start_bp, end_bp, nseeds, cut, spare,
-                                              heads, counts, n, cluster_r, const_gap);
+  const int cap = std::min(n, smem_cands < 0 ? kSmemCands : std::min(smem_cands, kSmemCands));
+  const size_t bytes = cand_ints(cap) * sizeof(int);
+  const cudaError_t err = cuts_smem();
+  if (err != cudaSuccess) {
+    cudaGetLastError();
+    return static_cast<int>(err);
+  }
+  sweep_cuts_kernel<<<k, kCutThreads, bytes, s>>>(seed_type, start_bp, end_bp, nseeds, cut,
+                                                  scratch, heads, counts, n, cap, cluster_r,
+                                                  const_gap);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -8,10 +8,14 @@ fused=True).
 
 `call_statistics` is the wrapper: on CPU tensors the plain version
 (`call_statistics_plain`, torch ops), on CUDA tensors the kernels of
-csrc/call_stats.cu after one stable sort in torch, or an exception. The
-sort is by the masked cluster id (`sorted_ids`); it puts each cluster's
-elements together in array order. The kernels: a run pass over the sorted
-ids, then each live cluster gathers its values through the permutation
+csrc/call_stats.cu around one stable sort in torch, or an exception. The
+sort is of the keys of `sort_keys` (a valid element's cluster id, an
+invalid element's raw id r as n + r; `sorted_ids`); it puts each
+cluster's elements together in array order, and the invalid elements
+after them by raw id. The kernels: the keys (stat_keys), a run pass over
+the sorted keys that writes every slot's run start and invalid mark
+(stat_runs, balanced along the merge path; nothing is zeroed ahead of
+it), then each live cluster gathers its values through the permutation
 and sorts them on chip, by a thread (at most TINY_MAX elements, in
 registers), a warp (at most WARP_MAX, in shared memory) or a block (in
 shared memory up to BLOCK_MAX elements, past it in a global scratch
@@ -40,10 +44,12 @@ from sniffles_tpu_torch.ops.stats import seg_median_modes, seg_trimmed_stdev
 SVTYPE_INS, SVTYPE_DEL = SVTYPE_CODES["INS"], SVTYPE_CODES["DEL"]
 
 # Launches by the wrapper (call_statistics): "launches" one a call, and one
-# a call for each kernel of csrc/call_stats.cu (the run pass, the slot pass
-# with the thread tier, the warp tier, the block tier); it adds to them only
-# where it launches the kernels.
-KERNELS = ("stat_runs", "stat_slots", "stat_warps", "stat_blocks")
+# a call for each kernel of csrc/call_stats.cu (the sort's keys, the run
+# pass, the slot pass with the thread tier, the warp tier, the block tier);
+# it adds to them only where it launches the kernels.
+KERNELS = ("stat_keys", "stat_runs", "stat_slots", "stat_warps", "stat_blocks")
+# the kernels' slot count is below it: an invalid mark's key n + r fits int32
+MAX_SLOTS = 1 << 30
 COUNTS = {"launches": 0, **{k: 0 for k in KERNELS}}
 
 # The tiers by a cluster's element count, chosen on the card by
@@ -69,8 +75,8 @@ CLOCK_TIERS = ("stat_warps", "stat_blocks")
 CLOCK_PARTS = ("entry", "gather", "sort", "medians", "chains", "write", "wait")
 # The launches of the entry point up to the run pass, in order, and the -D
 # flag of a variant that returns after the k-th of them (tools/
-# time_call_stats.py: the run pass with its memsets, split).
-RUN_PARTS = ("runs memset", "marks memset", "run pass")
+# time_call_stats.py: the run pass alone; no memset runs ahead of it).
+RUN_PARTS = ("run pass",)
 
 
 def run_parts_define(k: int) -> str:
@@ -182,12 +188,50 @@ def call_statistics(clustered: dict, fused: bool = False) -> dict:
     return out
 
 
+def sort_keys_plain(clustered: dict) -> torch.Tensor:
+    """The plain PyTorch version of the kernel stat_keys: int32 [n] keys,
+    a valid element's cluster id c in [0, n) as c, an invalid element's raw
+    id r in [0, n) as n + r, any other element INT32_MAX."""
+    cid, valid = clustered["cluster_id"], clustered["valid"]
+    n = cid.shape[0]
+    inside = (cid >= 0) & (cid < n)
+    return torch.where(inside, torch.where(valid, cid, cid + n), INT32_MAX).to(torch.int32)
+
+
+def sort_keys(clustered: dict) -> torch.Tensor:
+    """The sort's keys (sort_keys_plain): on CPU tensors the plain version,
+    on CUDA tensors the kernel stat_keys on the current stream (int32
+    cluster_id and bool valid, contiguous; n below MAX_SLOTS), or an
+    exception. Counts nothing."""
+    cid, valid = clustered["cluster_id"], clustered["valid"]
+    if not cid.is_cuda:
+        return sort_keys_plain(clustered)
+    from sniffles_tpu_torch.ops import _build
+    from sniffles_tpu_torch.ops.clustering import _launch
+    n = cid.shape[0]
+    if n >= MAX_SLOTS:
+        raise ValueError(f"call_statistics: {n} slots, the kernels take fewer than {MAX_SLOTS}")
+    if cid.dtype != torch.int32 or valid.dtype != torch.bool or not (
+            cid.is_contiguous() and valid.is_contiguous()):
+        raise ValueError("stat_keys takes contiguous int32 cluster ids and bool valid flags")
+    keys = torch.empty_like(cid)
+    if n:
+        fn = _build.load("call_stats").sort_keys
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p]
+        # a bool is one byte, 0 or 1: the kernel reads valid as its bytes
+        rc = _launch(fn, cid.device, cid.data_ptr(), valid.view(torch.uint8).data_ptr(),
+                     keys.data_ptr(), n)
+        if rc != 0:
+            raise RuntimeError(f"stat_keys launch failed with CUDA error {rc}")
+    return keys
+
+
 def sorted_ids(clustered: dict) -> tuple:
-    """The wrapper's one sort: (sorted masked cluster ids, permutation) of
-    the stable sort of where(valid, cluster_id, INT32_MAX). Each cluster's
-    elements are one run, in array order."""
-    masked = torch.where(clustered["valid"], clustered["cluster_id"], INT32_MAX)
-    return torch.sort(masked, stable=True)
+    """The wrapper's one sort: (sorted keys, permutation) of the stable
+    sort of sort_keys. Each cluster's elements are one run, in array
+    order, the invalid elements after every cluster by raw id."""
+    return torch.sort(sort_keys(clustered), stable=True)
 
 
 def kernel_inputs(clustered: dict) -> dict:
@@ -221,8 +265,8 @@ def nvcc_defines(tiers: tuple = TIERS) -> tuple:
 
 def launch_kernels(inputs: dict, n_clusters, fused: bool = False,
                    tiers: tuple = TIERS, clocks: bool = False, run_parts: int = 0) -> dict:
-    """The kernels' entry point call_stats on kernel_inputs (two memsets,
-    the run pass, the slot pass, the warp and the block tiers) on the
+    """The kernels' entry point call_stats on kernel_inputs (the run pass,
+    the slot pass, the warp and the block tiers) on the
     current stream of the tensors' device, from the build with the
     thresholds `tiers` (as nvcc_defines; another set than TIERS is a
     library of its own, built at first use), with `clocks` CLOCKS and
@@ -236,21 +280,19 @@ def launch_kernels(inputs: dict, n_clusters, fused: bool = False,
     dev, n = c["pos"].device, c["pos"].shape[0]
     out = torch.empty((len(KEYS), n), dtype=torch.int32, device=dev)
     if n:
-        cid_s, order = c["sort"]
-        runs = torch.empty((2 * n + 2,), dtype=torch.int32, device=dev)  # runs, list counts
-        lists = torch.empty((4 * n,), dtype=torch.int32, device=dev)      # the tiers' slots
-        has_invalid = torch.empty((n,), dtype=torch.uint8, device=dev)
-        lists_big = torch.empty((4, n), dtype=torch.int32, device=dev)    # past BLOCK_MAX
+        keys_s, order = c["sort"]
+        runs = torch.empty((n + 3,), dtype=torch.int32, device=dev)   # run starts, list counts
+        lists = torch.empty((4 * n,), dtype=torch.int32, device=dev)  # the tiers' slots
+        marks = torch.empty((n,), dtype=torch.uint8, device=dev)      # the invalid marks
+        lists_big = torch.empty((4, n), dtype=torch.int32, device=dev)  # past BLOCK_MAX
         fn = _build.load("call_stats", nvcc_defines(tiers) + ((CLOCKS,) if clocks else ())
                          + ((run_parts_define(run_parts),) if run_parts else ())).call_stats
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
-        # a bool is one byte, 0 or 1: the kernel reads valid as its bytes
-        rc = _launch(fn, dev, cid_s.data_ptr(), order.data_ptr(), c["cluster_id"].data_ptr(),
-                     c["valid"].view(torch.uint8).data_ptr(), c["svlen"].data_ptr(),
+        fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+        rc = _launch(fn, dev, keys_s.data_ptr(), order.data_ptr(), c["svlen"].data_ptr(),
                      c["pos"].data_ptr(), c["read_id"].data_ptr(), c["mapq"].data_ptr(),
                      c["strand"].data_ptr(), c["svtype"].data_ptr(), c["nm"].data_ptr(),
-                     runs.data_ptr(), lists.data_ptr(), has_invalid.data_ptr(),
+                     runs.data_ptr(), lists.data_ptr(), marks.data_ptr(),
                      lists_big.data_ptr(), out.data_ptr(), n, int(bool(fused)))
         if rc != 0:
             raise RuntimeError(f"call_stats launch failed with CUDA error {rc}")

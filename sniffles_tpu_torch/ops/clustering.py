@@ -497,28 +497,41 @@ def _tasks(inputs: dict) -> int:
     return 1 if seed_type.dim() == 1 else seed_type.shape[0]
 
 
+def cut_scratch_ints(n: int) -> int:
+    """The int32 words of a task's global scratch in sweep_cuts (its
+    cand_ints(n)): three a candidate cut (its start, the end before it,
+    its slot) and four words a 32 of them (the alive and next bits, and a
+    word's neighbouring alive cuts)."""
+    return 3 * n + 4 * ((n + 31) // 32)
+
+
 def launch_sweep_cuts(inputs: dict, state: dict, n: int, *, cluster_r,
-                      cluster_repeat_h_max, cluster_merge_bnd, clocks: bool = False):
+                      cluster_repeat_h_max, cluster_merge_bnd, clocks: bool = False,
+                      smem_cands: int = -1):
     """One launch of the kernel's entry point sweep_cuts on CUDA tensors
     that merge_sweep has checked, one block a task, from the CUTS_CLOCKS
-    build with `clocks`. Returns (cut flags, uint8 shaped as seed_type, of
-    which each task's first nseeds are set; the segment heads, int32 of
-    that shape, of which each task's first `segments` are set; counts, [5]
-    or [k, 5]). Counts nothing; raises when the launch fails."""
+    build with `clocks`. A task holds its candidate cuts in shared memory
+    up to the kernel's threshold (smem_cands >= 0 lowers it: a test's
+    way to the global path) and in a global scratch past it. Returns (cut
+    flags, uint8 shaped as seed_type, of which each task's first nseeds are
+    set; the segment heads, int32 of that shape, of which each task's first
+    `segments` are set; counts, [5] or [k, 5]). Counts nothing; raises when
+    the launch fails."""
     fn = _kernel("sweep_cuts", [ctypes.c_void_p] * 8 + [ctypes.c_int] * 2
-                 + [ctypes.c_float] * 2 + [ctypes.c_void_p],
+                 + [ctypes.c_float] * 2 + [ctypes.c_int, ctypes.c_void_p],
                  (CUTS_CLOCKS,) if clocks else None)
     seed_type = inputs["seed_type"]
     k = _tasks(inputs)
     cut = torch.empty(seed_type.shape, dtype=torch.uint8, device=seed_type.device)
-    spare = torch.empty_like(cut)
+    scratch = torch.empty((k, cut_scratch_ints(n)), dtype=torch.int32, device=seed_type.device)
     heads = torch.empty(seed_type.shape, dtype=torch.int32, device=seed_type.device)
     counts = torch.empty(seed_type.shape[:-1] + (len(SWEEP_COUNTS),), dtype=torch.int32,
                          device=seed_type.device)
     rc = _launch(fn, seed_type.device, seed_type.data_ptr(), inputs["start_bp"].data_ptr(),
                  state["end_bp"].data_ptr(), inputs["nseeds"].data_ptr(), cut.data_ptr(),
-                 spare.data_ptr(), heads.data_ptr(), counts.data_ptr(), n, k,
-                 float(cluster_r), max(float(cluster_merge_bnd), float(cluster_repeat_h_max)))
+                 scratch.data_ptr(), heads.data_ptr(), counts.data_ptr(), n, k,
+                 float(cluster_r), max(float(cluster_merge_bnd), float(cluster_repeat_h_max)),
+                 int(smem_cands))
     if rc != 0:
         raise RuntimeError(f"sweep_cuts launch failed with CUDA error {rc}")
     return cut, heads, counts

@@ -418,8 +418,8 @@ def main() -> int:
     kernel = None
     for line in log.splitlines():
         if "Compiling entry" in line:
-            kernel = next((k for k in ("stat_runs", "stat_slots", "stat_warps", "stat_blocks",
-                                       "call_stats_kernel") if k in line), "?")
+            kernel = next((k for k in ("stat_keys", "stat_runs", "stat_slots", "stat_warps",
+                                       "stat_blocks", "call_stats_kernel") if k in line), "?")
         elif "registers" in line or "spill" in line:
             print(f"  ptxas {kernel}: {line.split('info    :', 1)[-1].strip()}")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

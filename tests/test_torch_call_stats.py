@@ -166,19 +166,25 @@ def test_wrapper_raises_on_another_device():
 
 
 def test_id_sort_keeps_each_cluster_in_array_order():
-    """The wrapper's one sort (sorted_ids): the masked ids ascending, the
-    invalid elements (INT32_MAX) last, and each cluster's elements one run
-    in array order, which the kernels' mapq and NM sums need; ids outside
-    [0, n) and valid elements whose id is INT32_MAX included."""
+    """The wrapper's one sort (sorted_ids) of the keys of sort_keys: a
+    valid element's id in [0, n) ascending, each cluster's elements one
+    run in array order, which the kernels' mapq and NM sums need; then an
+    invalid element's raw id r in [0, n) as n + r (the invalid marks, by
+    raw id); every other element (ids outside [0, n), valid elements whose
+    id is INT32_MAX) INT32_MAX, last."""
     b = torch_batch(call_stats_batch("edge", 8192, 4))
     rng = np.random.default_rng(3)
     b["cluster_id"][torch.as_tensor(rng.choice(8192, 40, replace=False))] = torch.as_tensor(
         np.r_[np.full(10, -5), np.full(10, 9000), np.full(10, INT32_MAX), np.full(10, -1)]
         .astype(np.int32))
     cid_s, order = cs.sorted_ids(b)
-    mcid = torch.where(b["valid"], b["cluster_id"], INT32_MAX)
-    assert order.tolist() == sorted(range(8192), key=lambda i: (int(mcid[i]), i))
-    assert cid_s.tolist() == mcid[order].tolist()
+    cid = b["cluster_id"].to(torch.int64)
+    inside = (cid >= 0) & (cid < 8192)
+    keys = torch.where(inside, torch.where(b["valid"], cid, cid + 8192), INT32_MAX)
+    assert not bool(b["valid"].all()) and bool((inside & ~b["valid"]).any())
+    assert order.tolist() == sorted(range(8192), key=lambda i: (int(keys[i]), i))
+    assert cid_s.dtype == torch.int32 and cid_s.tolist() == keys[order].tolist()
+    assert torch.equal(cs.sort_keys(b), cs.sort_keys_plain(b))
 
 
 def test_tier_batches_reach_every_tier():

@@ -57,7 +57,7 @@ def test_run_split_parts_from_the_variants_times():
         cs.run_parts_define(len(cs.RUN_PARTS) + 1)
     src = open(cs.__file__.replace("ops/call_stats.py", "csrc/call_stats.cu")).read()
     assert "#ifndef STAT_RUN_PARTS" in src
-    assert f"kRunParts <= {len(cs.RUN_PARTS)}" in src
+    assert f"kRunParts == {len(cs.RUN_PARTS)}" in src
 
 
 def test_clock_words_parse_into_cycles_a_cluster():

@@ -1,11 +1,13 @@
 """Card-only tests of the PyTorch/CUDA port: the hand-written CUDA kernels
-(edit distance; the merge sweep's partition and segment walks; the fused
+(edit distance; the merge sweep's partition, its candidate cuts in shared
+memory and in global scratch, and segment walks; the fused
 engine's relaxation, one cooperative launch, on every engine input and
 on 2^16 slots of tiled 36-link chains, with its grid and time stamps; its
 candidate tail at odd widths under three flag sets; the call statistics'
-run pass and its thread, warp and block tiers on seeded, edge, tier and
-huge batches, under other tier thresholds, and on the engine's 2^16
-batch, and on the call task, the call path's mesh step and the engine;
+keys, run pass and thread, warp and block tiers on seeded, edge, tier
+and huge batches, under other tier thresholds, on the run pass's edge
+layouts, on the engine's 2^16 batch, and on the call task, the call
+path's mesh step and the engine;
 the clustering's segmented sorts and gather on every sim.seg_sort_batch
 population, under other tier thresholds, with no host synchronisation,
 and on every caller) against their plain
@@ -196,6 +198,80 @@ def test_merge_sweep_kernel_matches_plain_version(card, seed, size, svtypes):
         assert torch.equal(got, plain[k]), k
     assert int(kernel["alive"].sum()) < int(inputs["nseeds"][0])
     assert bool(counts[4]) == (seed == "cascade")
+
+
+def candidate_cuts(inputs, state):
+    """The initial cuts of a task (its live seeds' svtype changes and gaps
+    beyond both caps): the candidates sweep_cuts stages."""
+    live = int(inputs["nseeds"][0])
+    st, sb, eb = (inputs["seed_type"].cpu(), inputs["start_bp"].cpu(), state["end_bp"].cpu())
+    j = torch.arange(live)
+    prev = (j - 1).clamp(min=0)
+    gap = (sb[:live] - eb[prev]).to(torch.float32)
+    limit = max(CUTS["cluster_merge_bnd"], CUTS["cluster_repeat_h_max"])
+    return int(((j == 0) | (st[:live] != st[prev]) | (gap > limit)).sum())
+
+
+def held_cuts(inputs, state, n, **kw):
+    """sweep_cuts' cut flags (the live ones), heads and counts == the plain
+    partition's."""
+    cut, heads, counts = tc.launch_sweep_cuts(inputs, state, n, **CUTS, **kw)
+    plain_cut, plain_heads, plain_counts = tc.sweep_cuts_plain(
+        {k: v.cpu() for k, v in inputs.items()}, {k: v.cpu() for k, v in state.items()}, **CUTS)
+    live, segments = int(inputs["nseeds"][0]), int(plain_counts[2])
+    assert torch.equal(cut.cpu()[:live], plain_cut[:live])
+    assert heads.cpu()[:segments].tolist() == plain_heads.tolist()
+    assert torch.equal(counts.cpu(), plain_counts)
+    return plain_counts
+
+
+@pytest.mark.parametrize("case", ["fuzz 32768", "chain", "cascade", "bnd-chains"])
+def test_sweep_cuts_on_both_sides_of_the_shared_memory_threshold(card, case):
+    """A task's candidates in shared memory (the default, and a threshold
+    of exactly its candidates) and in the global scratch (one candidate
+    fewer, and none): the same flags, heads and counts as the plain
+    partition; the cascade layout takes the fixpoint's collapse at pass
+    24 on both paths."""
+    from sniffles_tpu_torch.sim import fuzz_call_batch, sweep_layout_batches
+    batch = {"fuzz 32768": lambda: fuzz_call_batch(1, 32768),
+             "chain": lambda: fuzz_call_batch(99, 4096, svtypes=(1,))}.get(
+        case, lambda: sweep_layout_batches()[case])()
+    packed = torch.from_numpy(batch).to(card)
+    inputs, state = tc.sweep_inputs(*tc.sort_and_seed(tc.packed_signatures(packed), 100), 100)
+    m = candidate_cuts(inputs, state)
+    assert m > 1
+    for smem in (-1, m, m - 1, 0):
+        counts = held_cuts(inputs, state, packed.shape[1], smem_cands=smem)
+    assert bool(counts[4]) == (case == "cascade")
+    if case == "cascade":
+        assert int(counts[3]) == tc.MAX_CUT_PASSES
+
+
+def test_sweep_cuts_past_the_threshold_by_default(card):
+    """A task of more candidate cuts than a block's shared memory holds
+    (fuzz at 2^20 slots: more words of them than threads) takes the global
+    path by itself, with the plain partition's results; as one of k = 2
+    tasks beside one that fits, each block its own path."""
+    from sniffles_tpu_torch.sim import fuzz_call_batch
+    n = 1 << 20
+    tasks = []
+    for seed, size in ((6, n), (2, 2048)):
+        packed = torch.from_numpy(np.pad(fuzz_call_batch(seed, size), ((0, 0), (0, n - size))))
+        tasks.append(tc.sweep_inputs(*tc.sort_and_seed(tc.packed_signatures(packed.to(card)),
+                                                       100), 100))
+    src = open(tc.__file__.replace("ops/clustering.py", "csrc/merge_sweep.cu")).read()
+    threshold = int(src.split("constexpr int kSmemCands = ")[1].split(";")[0])
+    assert candidate_cuts(*tasks[0]) > max(threshold, 32 * 1024)
+    for inputs, state in tasks:
+        held_cuts(inputs, state, n)
+    stacked = [tc._stack_tasks([t[i] for t in tasks]) for i in (0, 1)]
+    cut, heads, counts = tc.launch_sweep_cuts(*stacked, n, **CUTS)
+    for t, (inputs, state) in enumerate(tasks):
+        one_cut, one_heads, one_counts = tc.launch_sweep_cuts(inputs, state, n, **CUTS)
+        live, segments = int(inputs["nseeds"][0]), int(one_counts[2])
+        assert torch.equal(cut[t, :live].cpu(), one_cut[:live].cpu())
+        assert torch.equal(heads[t, :segments].cpu(), one_heads[:segments].cpu())
+        assert torch.equal(counts[t].cpu(), one_counts.cpu())
 
 
 @pytest.mark.parametrize("mask", [0x00, 0x0A, 0xF5])
@@ -813,6 +889,52 @@ def test_call_stats_kernel_on_a_single_slot_and_all_invalid(card):
     none = call_stats_inputs("random", 1024, 2)
     none["valid"][:] = False
     held_call_stats(card, none, False)
+
+
+# the run pass's layouts (tests/test_torch_run_layout.py's, at the card's
+# tile): (n, cluster ids, valid flags) over call_stats_batch's columns
+def _run_layouts():
+    rng = np.random.default_rng(20)
+    big = 1 << 17
+    return {
+        "n=1 valid": (1, [0], [True]),
+        "n=1 invalid": (1, [0], [False]),
+        "n off the tile": (2049, rng.integers(0, 700, 2049), rng.random(2049) < 0.8),
+        "all invalid": (3001, rng.integers(0, 3000, 3001), np.zeros(3001, dtype=bool)),
+        "one cluster of n": (4099, np.zeros(4099, dtype=int), np.ones(4099, dtype=bool)),
+        "the last slot live": (4097, [4096] * 3 + [0] * 4094, np.ones(4097, dtype=bool)),
+        "K a slot": (5000, np.arange(5000) // 37, np.ones(5000, dtype=bool)),
+        "diagonals inside runs": (big, rng.permutation(np.arange(big) // 3000),
+                                  rng.random(big) < 0.9),
+    }
+
+
+RUN_LAYOUTS = list(_run_layouts())
+
+
+def run_layout_batch(label):
+    """call_stats_batch("random")'s columns (CPU tensors) with a run
+    layout's n, cluster ids and valid flags."""
+    from sniffles_tpu_torch.sim import call_stats_batch
+    n, cid, valid = _run_layouts()[label]
+    b = {k: torch.as_tensor(v) for k, v in call_stats_batch("random", max(n, 1024), 11).items()}
+    b = {k: v if k == "n_clusters" else v[:n].clone() for k, v in b.items()}
+    b["cluster_id"] = torch.as_tensor(np.asarray(cid, dtype=np.int32))
+    b["valid"] = torch.as_tensor(np.asarray(valid, dtype=bool))
+    return b
+
+
+@pytest.mark.parametrize("label", RUN_LAYOUTS)
+def test_call_stats_on_the_run_layouts(card, label):
+    """The whole statistics on the run pass's edge layouts == the plain
+    version, every key and slot (fused and not), and the sort's keys of
+    the kernel stat_keys == sort_keys_plain's."""
+    from sniffles_tpu_torch.ops import call_stats as cs
+    b = run_layout_batch(label)
+    keys = cs.sort_keys({k: b[k].to(card) for k in ("cluster_id", "valid")})
+    assert keys.cpu().tolist() == cs.sort_keys_plain(b).tolist()
+    for fused in (False, True):
+        held_call_stats(card, b, fused)
 
 
 # thresholds (tiny, pair, warp, block) that send the clusters of every
