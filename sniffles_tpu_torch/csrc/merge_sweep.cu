@@ -448,8 +448,7 @@ __device__ __forceinline__ void partition(Cands c, int m, int e_last, uint8_t* c
   }
   clk.stamp(kCopy);
 
-  // each word's first head: a thread's run of words, its offset from the
-  // block's sum of their counts (into Bf, free after the passes)
+  // each word's first head, then a warp a word writes its heads
   int segments;
   if (words <= 32) {
     // up to 32 words: every warp scans their counts itself, no barrier
@@ -472,6 +471,8 @@ __device__ __forceinline__ void partition(Cands c, int m, int e_last, uint8_t* c
       }
     }
   } else {
+    // a thread's run of words, its offset from the block's sum of their
+    // counts (into Bf, free after the passes)
     const int per = (words + warps * 32 - 1) / (warps * 32);
     const int w0 = min(t * per, words), w1 = min(w0 + per, words);
     int count = 0;

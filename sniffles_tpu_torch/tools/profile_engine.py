@@ -20,9 +20,10 @@ Prints, a step: the device time of each stage's kernels (the profiler's
 kernels under the stage's range), its launches and its three largest
 kernels; the device interval of each stage between two CUDA events
 recorded around it (idle gaps included, a cross-check that needs no
-profiler); the device time of kernels under no stage; the step's time
-between CUDA events outside the profiler; and the card's nvidia-smi name
-and power limit. With --trace, writes the chrome trace there. Needs a
+profiler); the device time of kernels under no stage; tail_runs (the
+tail's run pass) beside its byte bound (the cluster ids read, a run start
+a cluster written); the step's time between CUDA events outside the
+profiler; and the card's nvidia-smi name and power limit. With --trace, writes the chrome trace there. Needs a
 CUDA card, unless --device cpu (a dry run of the stages on the CPU).
 """
 import argparse
@@ -40,6 +41,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)
 sys.path.append(REPO)     # after PYTHONPATH, so that a package there comes first
 
 PREFIX = "stage: "
+HBM_BYTES_PER_S = 3.35e12    # the H100's device memory rate (the tail_runs bound)
 
 
 def stage_targets() -> list:
@@ -140,13 +142,14 @@ def profile(n: int, steps: int, device: str, trace: str | None = None) -> dict:
     marks = []
     with staged(marks), torch.profiler.profile(activities=acts) as prof:
         for _ in range(steps):
-            call_pipeline_step(sig, coverage, params)
+            last = call_pipeline_step(sig, coverage, params)
         sync()
     if trace:
         prof.export_chrome_trace(trace)
     split = stage_split(prof.events(), steps)
     out = {"split": split, "device_us": sum(v[0] for v in split.values()),
-           "interval_ms": defaultdict(float), "step_ms": None}
+           "interval_ms": defaultdict(float), "step_ms": None,
+           "n_clusters": int(last["n_clusters"])}
     for label, start, stop in marks:
         out["interval_ms"][label] += start.elapsed_time(stop) / steps
     if on_card:
@@ -184,6 +187,14 @@ def main() -> int:
               + (f", {interval:9.4f} ms between its events" if interval is not None else "")
               + "".join(f"; {v / 1e3:.4f} ms {k[:60]}" for k, v in top))
     print(f"  all kernels {fig['device_us'] / 1e3:.4f} ms")
+    runs_us = sum(us for name, us in split.get("tail", (0, 0, {}, 0))[2].items()
+                  if "tail_runs" in name)
+    runs_bytes = 4 * args.n + 4 * (fig["n_clusters"] + 1)
+    bound_ms = runs_bytes / HBM_BYTES_PER_S * 1e3
+    print(f"  tail_runs {runs_us / 1e3:.4f} ms of the tail stage; its bound {bound_ms:.5f} ms "
+          f"({runs_bytes} bytes at {HBM_BYTES_PER_S / 1e12:.2f} TB/s: the {args.n} cluster ids "
+          f"read, the {fig['n_clusters'] + 1} run starts written)"
+          + (f", {bound_ms * 1e3 / runs_us:.1%} of it" if runs_us else ""))
     if fig["step_ms"] is not None:
         print(f"  the step between CUDA events (10 steps, no profiler): {fig['step_ms']:.4f} ms")
     if args.device != "cpu" and fig["device_us"] == 0:
