@@ -46,9 +46,20 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+// A timing tool's variant of the run pass (tools/profile_engine.py
+// --tail-split): -DTAIL_RUN_PARTS=1 launches its grid and returns at once
+// (the empty launch), 2 issues its loads and stores nothing the data asks
+// for (the loads alone; ops/candidate_tail.RUN_PARTS). 0, the default, is
+// the pass. Only a timing tool builds a variant; its starts are not written.
+#ifndef TAIL_RUN_PARTS
+#define TAIL_RUN_PARTS 0
+#endif
+
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kRunParts = TAIL_RUN_PARTS;
+static_assert(kRunParts >= 0 && kRunParts <= 2, "the run pass's parts: the launch, the loads");
 constexpr int INS = 0, DEL = 1, DUP = 2, INV = 3, BND = 4, SINGLE_LEFT = 5, SINGLE_RIGHT = 6;
 
 // the order of INT_KEYS, FLOAT_KEYS and BOOL_KEYS in ops/candidate_tail.py
@@ -146,10 +157,20 @@ __device__ __forceinline__ bool before(float a, float b) {
 __global__ void __launch_bounds__(kThreads) tail_runs(const int32_t* __restrict__ cluster_id,
                                                       int32_t* __restrict__ run_start, int n) {
   const int j = blockIdx.x * blockDim.x + threadIdx.x;
-  if (j > n) return;
+  if (kRunParts == 1 || j > n) return;
   const int from = j == 0 ? 0 : max(cluster_id[j - 1] + 1, 0);
   const int to = j == n ? (from <= n ? from : -1) : min(cluster_id[j], n);
+  if (kRunParts == 2) {  // a store no id below INT_MAX asks for keeps the loads
+    if (to == INT_MAX) run_start[0] = from;
+    return;
+  }
   for (int c = from; c <= to; ++c) run_start[c] = j;
+}
+
+// the run pass on stream s (run_start: n + 1 int32)
+cudaError_t launch_runs(const int32_t* cluster_id, int32_t* run_start, int n, cudaStream_t s) {
+  tail_runs<<<n / kThreads + 1, kThreads, 0, s>>>(cluster_id, run_start, n);
+  return cudaGetLastError();
 }
 
 __global__ void __launch_bounds__(kThreads) candidate_tail_kernel(
@@ -419,12 +440,22 @@ extern "C" int candidate_tail(const int32_t* svtype, const int32_t* svlen, const
                               int n, int len, int region_offset, int binsize, TailParams p,
                               cudaStream_t s) {
   if (n <= 0 || len <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  tail_runs<<<n / kThreads + 1, kThreads, 0, s>>>(cluster_id, run_start, n);
-  cudaError_t err = cudaGetLastError();
+  const cudaError_t err = launch_runs(cluster_id, run_start, n, s);
   if (err != cudaSuccess) return static_cast<int>(err);
   candidate_tail_kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0, s>>>(
       svtype, svlen, pos, support, lead_count, n_strands, stdev_pos, stdev_len, nm, valid,
       cluster_id, run_start, n_clusters, support_sa, cov, dyn, out_i, out_f, out_b, n, len,
       region_offset, binsize, p);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The run pass alone (the kernel tail_runs, the first launch of
+// candidate_tail): cluster_id int32 [n] (ascending) to run_start int32
+// [n + 1], of which the entries 0..clamp(cluster_id[n - 1] + 1, 0, n) are
+// written; on stream s. For the tests and the timing tools. Returns the
+// launch's error.
+extern "C" int tail_run_starts(const int32_t* cluster_id, int32_t* run_start, int n,
+                               cudaStream_t s) {
+  if (n <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(launch_runs(cluster_id, run_start, n, s));
 }

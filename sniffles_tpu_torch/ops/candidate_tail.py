@@ -32,9 +32,14 @@ from sniffles_tpu_torch.ops.genotype_batch import (genotype_batch, log10_constan
 from sniffles_tpu_torch.ops.qc_batch import qc_batch
 from sniffles_tpu_torch.ops.segments import seg_sum
 
-# Launches of the kernel by the wrapper (candidate_tail), one a step; it
+# Launches of the kernel by the wrapper (candidate_tail), one a step (each
+# is a launch of the run pass tail_runs, then of candidate_tail_kernel); it
 # adds to it only where it launches the kernel.
 COUNTS = {"launches": 0}
+
+# The run pass's timing variants (csrc/candidate_tail.cu, -DTAIL_RUN_PARTS=k):
+# the k-th stops after this part. Only a timing tool builds them.
+RUN_PARTS = ("empty launch", "loads")
 
 # the output keys, by type (the kernel writes them as rows of one int32,
 # one float32 and one uint8 tensor, in this order)
@@ -73,6 +78,13 @@ def reset_counts() -> None:
     COUNTS["launches"] = 0
 
 
+def run_parts_define(k: int) -> str:
+    """The -D flag of the run pass's variant that stops after RUN_PARTS[k - 1]."""
+    if not 1 <= k <= len(RUN_PARTS):
+        raise ValueError(f"the run pass has parts 1 to {len(RUN_PARTS)}, not {k}")
+    return f"-DTAIL_RUN_PARTS={int(k)}"
+
+
 def _host_value(v):
     return v.item() if isinstance(v, torch.Tensor) else v
 
@@ -92,6 +104,22 @@ def cluster_nm_plain(nm, valid, cluster_id, lead_count):
     n = nm.shape[0]
     total = seg_sum(torch.where(valid, nm, 0.0).to(torch.float32), cluster_id, n)
     return total / torch.clamp(lead_count, min=1).to(torch.float32)
+
+
+def written_runs(cluster_id) -> int:
+    """How many leading entries of run_start the run pass writes:
+    clamp(cluster_id[-1] + 1, 0, n) + 1 (a host synchronisation)."""
+    n = cluster_id.shape[0]
+    return min(max(int(cluster_id[-1]) + 1, 0), n) + 1
+
+
+def tail_runs_plain(cluster_id):
+    """The run pass's plain version: run_start[c], the first element j with
+    cluster_id[j] >= c (n where none), for c up to clamp(cluster_id[-1] + 1,
+    0, n), as int32 (cluster ids ascend along the array)."""
+    cid = cluster_id.to(torch.int32).contiguous()
+    slots = torch.arange(written_runs(cid), dtype=torch.int32, device=cid.device)
+    return torch.searchsorted(cid, slots, out_int32=True)
 
 
 def candidate_tail_plain(stats: dict, support_sa, coverage, elements: dict, params: dict,
@@ -214,3 +242,27 @@ def launch_candidate_tail(stats: dict, support_sa, coverage, elements: dict, par
     out.update(zip(FLOAT_KEYS, out_f))
     out.update(zip(BOOL_KEYS, out_b))
     return out
+
+
+def launch_tail_runs(cluster_id, run_parts: int = 0):
+    """The run pass alone (the entry point tail_run_starts) on a CUDA int32
+    tensor of ascending cluster ids [n], on the current stream of its
+    device: run_start int32 [n + 1], whose first written_runs(cluster_id)
+    entries are tail_runs_plain's and the rest unwritten. `run_parts` k > 0:
+    the timing variant that stops after RUN_PARTS[k - 1] (nothing written).
+    Counts nothing; raises when the launch fails."""
+    from sniffles_tpu_torch.ops import _build
+    from sniffles_tpu_torch.ops.clustering import _launch
+    if cluster_id.device.type != "cuda" or cluster_id.dtype != torch.int32:
+        raise ValueError("tail_runs: a CUDA int32 tensor of cluster ids")
+    cid = cluster_id.reshape(-1).contiguous()
+    n = cid.shape[0]
+    run_start = torch.empty((n + 1,), dtype=torch.int32, device=cid.device)
+    fn = _build.load("candidate_tail",
+                     (run_parts_define(run_parts),) if run_parts else None).tail_run_starts
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+    rc = _launch(fn, cid.device, cid.data_ptr(), run_start.data_ptr(), n)
+    if rc != 0:
+        raise RuntimeError(f"tail_runs launch failed with CUDA error {rc}")
+    return run_start

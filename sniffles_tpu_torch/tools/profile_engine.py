@@ -2,6 +2,8 @@
 """Where the device time of the fused engine's step goes, by stage.
 
     python3 sniffles_tpu_torch/tools/profile_engine.py [--n 2097152] [--steps 3] [--trace PATH]
+    python3 sniffles_tpu_torch/tools/profile_engine.py --tail-split [--dense DIR]
+    PYTHONPATH=DIR python3 sniffles_tpu_torch/tools/profile_engine.py --tail-split
 
 Runs `parallel/engine.call_pipeline_step` on chip_smoke.py phase 10d's
 inputs (`signatures.synthetic_batch`, n/40 sites, seed 42, a genome span
@@ -22,9 +24,27 @@ kernels; the device interval of each stage between two CUDA events
 recorded around it (idle gaps included, a cross-check that needs no
 profiler); the device time of kernels under no stage; tail_runs (the
 tail's run pass) beside its byte bound (the cluster ids read, a run start
-a cluster written); the step's time between CUDA events outside the
-profiler; and the card's nvidia-smi name and power limit. With --trace, writes the chrome trace there. Needs a
+a cluster written) and beside torch.searchsorted of the step's cluster ids
+(the library call that computes the same starts; CUDA events, the card
+asleep ahead of the start event); the step's time between CUDA events
+outside the profiler; and the card's nvidia-smi name and power limit.
+With --trace, writes the chrome trace there. Needs a
 CUDA card, unless --device cpu (a dry run of the stages on the CPU).
+
+--tail-split takes the tail's run pass apart instead, for whichever
+`sniffles_tpu_torch` comes first on the import path, on the cluster ids
+the engine's step hands the tail (`tail_ids`) at three layouts: the
+engine's 2^N step (the inputs above), dense3's chr1 (chip_smoke.py phase
+10b: bench.py's dense leg, 3 contigs of 2 Mb at depth 60, seed 17, written
+to DIR or read from it when it holds sim.bam; the port's lead provider over
+chr1) and chain2^N (sim.relax_chain_batch, phase 10d). Each layout's pass
+is held bit for bit against ops/candidate_tail.tail_runs_plain, then
+timed, by CUDA events (the mean of 10 calls after one that warms up, the
+card asleep ahead of the start event) and by torch.profiler (the kernel's
+device us over 10 calls): the empty launch of its grid and its loads alone
+(ops/candidate_tail.RUN_PARTS, a -DTAIL_RUN_PARTS build each), the pass,
+and torch.searchsorted of the ids for 0..clamp(last + 1, 0, n); beside its
+byte bound.
 """
 import argparse
 import bisect
@@ -32,6 +52,7 @@ import contextlib
 import os
 import subprocess
 import sys
+import tempfile
 from collections import defaultdict
 
 import numpy as np
@@ -124,6 +145,113 @@ def engine_inputs(n: int, device: str):
     return sig, coverage, default_params()
 
 
+def tail_ids(sig, coverage, params) -> torch.Tensor:
+    """The cluster ids that the engine's step hands its candidate tail."""
+    from sniffles_tpu_torch.parallel import engine
+    kept, tail = [], engine.candidate_tail
+
+    def keep(stats, support_sa, coverage, elements, params, **kw):
+        kept.append(elements["cluster_id"])
+        return tail(stats, support_sa, coverage, elements, params, **kw)
+    engine.candidate_tail = keep
+    try:
+        engine.call_pipeline_step(sig, coverage, params)
+    finally:
+        engine.candidate_tail = tail
+    return kept[0].to(torch.int32).contiguous()
+
+
+def dense_chr1_inputs(dense_dir: str, device: str):
+    """dense3's chr1 as chip_smoke.py phase 10b steps it: the port's lead
+    provider's leads with a length (by position) and its coverage."""
+    from sniffles_tpu_torch.config import SnifflesConfig
+    from sniffles_tpu_torch.io.bam import AlignmentFile
+    from sniffles_tpu_torch.leads import LeadProvider
+    from sniffles_tpu_torch.parallel.engine import default_params, to_device
+    from sniffles_tpu_torch.region import Region
+    from sniffles_tpu_torch.signatures import from_leads
+    from sniffles_tpu_torch.sim import dense_layout, write_dataset
+    from sniffles_tpu_torch.tools.profile_call_task import DENSE
+    bam = os.path.join(dense_dir, "sim.bam")
+    if not os.path.exists(bam):
+        os.makedirs(dense_dir, exist_ok=True)
+        bam, _ = write_dataset(dense_dir, svs=dense_layout(DENSE["ref_len"]), **DENSE)
+    config = SnifflesConfig("--input", bam, "--vcf", "out.vcf")
+    f = AlignmentFile(bam, "rb", require_index=True)
+    provider = LeadProvider(config, 0, "chr1")
+    provider.build_leadtab([Region("chr1", 0, f.get_reference_length("chr1"))], f)
+    leads = sorted((ld for tab in provider.leadtab.values() for binned in tab.values()
+                    for ld in binned if ld.svlen is not None), key=lambda ld: ld.ref_start)
+    sig, coverage = to_device(from_leads(leads).as_dict(),
+                              provider.coverage.astype(np.int32), device)
+    return sig, coverage, default_params()
+
+
+def tail_layouts(n: int, device: str, dense_dir: str) -> dict:
+    """{layout: the cluster ids the step hands the tail} (see the module's
+    docstring)."""
+    from sniffles_tpu_torch.parallel.engine import default_params, to_device
+    from sniffles_tpu_torch.sim import relax_chain_batch
+    chain, coverage = to_device(relax_chain_batch(n), np.full(1_000_000, 30, dtype=np.int32),
+                                device)
+    return {f"engine 2^{n.bit_length() - 1}": tail_ids(*engine_inputs(n, device)),
+            "dense3-chr1": tail_ids(*dense_chr1_inputs(dense_dir, device)),
+            f"chain2^{n.bit_length() - 1}": tail_ids(chain, coverage, default_params())}
+
+
+def tail_split(n: int, device: str, dense_dir: str) -> dict:
+    """{layout: {"parts": {part: (CUDA-event ms, profiler us)}, "bound":
+    (ms, bytes), "n": ids}} of the run pass on each tail_layouts layout (see the
+    module's docstring); held against tail_runs_plain first. On the CPU,
+    the layouts and their plain starts only (a dry run)."""
+    from sniffles_tpu_torch.ops import _build, candidate_tail as ct
+    from sniffles_tpu_torch.tools.time_call_stats import by_kernel, queued_ms
+    on_card = device != "cpu"
+    parts = getattr(ct, "RUN_PARTS", ())
+    if on_card:
+        started = [_build.start_build("candidate_tail", defines=(ct.run_parts_define(k),))
+                   for k in range(1, len(parts) + 1)]
+        for st in started:
+            _build.finish_build(st)
+    out = {}
+    for label, cid in tail_layouts(n, device, dense_dir).items():
+        want = ct.tail_runs_plain(cid)
+        runs_bytes = 4 * cid.shape[0] + 4 * want.shape[0]
+        row = {"n": cid.shape[0], "bound": (runs_bytes / HBM_BYTES_PER_S * 1e3, runs_bytes),
+               "parts": {}}
+        out[label] = row
+        if not on_card:
+            continue
+        got = ct.launch_tail_runs(cid)[:want.shape[0]]
+        if not torch.equal(got, want):
+            raise SystemExit(f"profile_engine: {label}: tail_runs differs from tail_runs_plain")
+        slots = torch.arange(want.shape[0], dtype=torch.int32, device=cid.device)
+        calls = [(part, lambda k=k: ct.launch_tail_runs(cid, run_parts=k))
+                 for k, part in enumerate(parts, start=1)]
+        calls += [("pass", lambda: ct.launch_tail_runs(cid)),
+                  ("torch.searchsorted", lambda: torch.searchsorted(cid, slots, out_int32=True))]
+        for part, fn in calls:
+            kernels = by_kernel(fn)
+            us = sum(v[0] for k, v in kernels.items()
+                     if part == "torch.searchsorted" or "tail_runs" in k)
+            row["parts"][part] = (queued_ms(fn), us)
+    return out
+
+
+def print_tail_split(split: dict) -> None:
+    print(f"the tail's run pass (tail_runs) by part, ms by CUDA events (the mean of 10) and "
+          f"us by torch.profiler; each layout held against tail_runs_plain first:")
+    for label, row in split.items():
+        bound_ms, runs_bytes = row["bound"]
+        parts = "; ".join(f"{part} {ms:.4f} ms, {us:.1f} us"
+                          for part, (ms, us) in row["parts"].items())
+        pass_us = row["parts"].get("pass", (0.0, 0.0))[1]
+        share = f", the pass {bound_ms * 1e3 / pass_us:.1%} of it (profiler)" if pass_us else ""
+        print(f"  {label} (n={row['n']}): {parts or 'not measured (no card)'}; bound "
+              f"{bound_ms:.5f} ms ({runs_bytes} bytes at {HBM_BYTES_PER_S / 1e12:.2f} TB/s)"
+              f"{share}")
+
+
 def profile(n: int, steps: int, device: str, trace: str | None = None) -> dict:
     """Runs the profile and returns its figures: split (stage_split),
     interval_ms {stage: device ms a step between its CUDA events, on the
@@ -149,7 +277,7 @@ def profile(n: int, steps: int, device: str, trace: str | None = None) -> dict:
     split = stage_split(prof.events(), steps)
     out = {"split": split, "device_us": sum(v[0] for v in split.values()),
            "interval_ms": defaultdict(float), "step_ms": None,
-           "n_clusters": int(last["n_clusters"])}
+           "n_clusters": int(last["n_clusters"]), "searchsorted_ms": None}
     for label, start, stop in marks:
         out["interval_ms"][label] += start.elapsed_time(stop) / steps
     if on_card:
@@ -160,6 +288,12 @@ def profile(n: int, steps: int, device: str, trace: str | None = None) -> dict:
         stop.record()
         sync()
         out["step_ms"] = start.elapsed_time(stop) / 10
+        from sniffles_tpu_torch.ops.candidate_tail import written_runs
+        from sniffles_tpu_torch.tools.time_call_stats import queued_ms
+        cid = tail_ids(sig, coverage, params)
+        slots = torch.arange(written_runs(cid), dtype=torch.int32, device=cid.device)
+        out["searchsorted_ms"] = queued_ms(lambda: torch.searchsorted(cid, slots,
+                                                                      out_int32=True))
     return out
 
 
@@ -169,12 +303,22 @@ def main() -> int:
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--trace", default=None, help="chrome trace output path")
+    ap.add_argument("--tail-split", action="store_true",
+                    help="the tail's run pass by part on three layouts instead")
+    ap.add_argument("--dense", default=None,
+                    help="dense3's directory for --tail-split (default: a temporary one)")
     args = ap.parse_args()
     if args.device != "cpu":
         if not torch.cuda.is_available():
             print("profile_engine: no CUDA device is visible", file=sys.stderr)
             return 2
         os.environ.pop("SNIFFLES_TPU_FORCE_CPU", None)
+    if args.tail_split:
+        with contextlib.ExitStack() as stack:
+            dense_dir = args.dense or stack.enter_context(tempfile.TemporaryDirectory())
+            print_tail_split(tail_split(args.n, args.device, dense_dir))
+        print_smi(args.device)
+        return 0
     fig = profile(args.n, args.steps, args.device, args.trace)
     split = fig["split"]
     print(f"engine step n={args.n} on {args.device}, {args.steps} profiled steps; a step:")
@@ -194,18 +338,24 @@ def main() -> int:
     print(f"  tail_runs {runs_us / 1e3:.4f} ms of the tail stage; its bound {bound_ms:.5f} ms "
           f"({runs_bytes} bytes at {HBM_BYTES_PER_S / 1e12:.2f} TB/s: the {args.n} cluster ids "
           f"read, the {fig['n_clusters'] + 1} run starts written)"
-          + (f", {bound_ms * 1e3 / runs_us:.1%} of it" if runs_us else ""))
+          + (f", {bound_ms * 1e3 / runs_us:.1%} of it" if runs_us else "")
+          + (f"; torch.searchsorted of the step's ids {fig['searchsorted_ms']:.4f} ms (CUDA "
+             f"events)" if fig["searchsorted_ms"] is not None else ""))
     if fig["step_ms"] is not None:
         print(f"  the step between CUDA events (10 steps, no profiler): {fig['step_ms']:.4f} ms")
     if args.device != "cpu" and fig["device_us"] == 0:
         print("  device time by kernel: not measured (the profiler recorded no device events); "
               "the intervals between CUDA events above stand")
-    if args.device != "cpu":
+    print_smi(args.device)
+    return 0
+
+
+def print_smi(device: str) -> None:
+    if device != "cpu":
         smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                               "--format=csv,noheader"], capture_output=True, text=True,
                              timeout=60)
         print(smi.stdout.strip() if smi.returncode == 0 else "nvidia-smi failed")
-    return 0
 
 
 if __name__ == "__main__":
