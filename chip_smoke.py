@@ -203,7 +203,10 @@ Phases, each of which must pass:
      (sim.relax_chain_batch: the 32-round cap binds), held against its
      plain version (boundaries and rounds), timed beside it and its bound,
      with no host synchronisation; the tail's registers and spills from
-     phase 1's ptxas report.
+     phase 1's ptxas report; the tail's run pass (tail_runs) alone on the
+     step's 2^21 cluster ids, held bit for bit against tail_runs_plain,
+     timed (torch.profiler and CUDA events) beside its byte bound and
+     torch.searchsorted of the same ids.
   11. the port's benchmark and its differential fuzz, each in a child
      process: `python -m sniffles_tpu_torch.bench` with BENCH_CONTIGS=1,
      BENCH_PAIRS=1, BENCH_SKIP_SCALE=1 and BENCH_SKIP_COMBINE=1 (the quick
@@ -2874,6 +2877,7 @@ def time_engine_kernels(sig, coverage, params, ptxas_log, stats_ptxas_log):
     tail_bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
     tail_ops_ms = tail_ops / FP32_OPS_PER_S * 1e3
     tail_bound = max(tail_bytes_ms, tail_ops_ms)
+    runs_row = time_tail_runs(clustered["cluster_id"], ptxas_log)
     print(f"  candidate_tail ptxas: {ptxas_summary(ptxas_log, 'candidate_tail_kernel')}",
           flush=True)
     print(f"  candidate_tail n={n}: kernel {tail_ms:.4f} ms on the device ({tail_call_ms:.4f} "
@@ -2921,7 +2925,43 @@ def time_engine_kernels(sig, coverage, params, ptxas_log, stats_ptxas_log):
              "bound_by": relax_by},
             {"ms": tail_ms, "plain_ms": tail_plain_ms, "bound_ms": tail_bound,
              "bound_by": "bytes" if tail_bytes_ms >= tail_ops_ms else "operations"},
-            stats_rows)
+            stats_rows, runs_row)
+
+
+def time_tail_runs(cluster_id, ptxas_log):
+    """The tail's run pass alone on the step's cluster ids: held bit for bit
+    against tail_runs_plain (torch.searchsorted on the card), then its
+    device time by torch.profiler (the JSON row's) and by CUDA events,
+    beside its byte bound (the ids read once, the written starts), the
+    plain version's time and torch.searchsorted's (the library call: its
+    kernels by torch.profiler, and CUDA events). Returns the JSON row."""
+    from sniffles_tpu_torch.ops import candidate_tail as ct
+    from sniffles_tpu_torch.tools.time_call_stats import by_kernel
+    cid = cluster_id.to(torch.int32).contiguous()
+    n = cid.shape[0]
+    want = ct.tail_runs_plain(cid)
+    got = ct.launch_tail_runs(cid)[:want.shape[0]]
+    if not torch.equal(got, want):
+        fail(f"tail_runs differs from tail_runs_plain on the step's {n} cluster ids")
+    run = lambda: ct.launch_tail_runs(cid)  # noqa: E731
+    slots = torch.arange(want.shape[0], dtype=torch.int32, device=cid.device)
+    search = lambda: torch.searchsorted(cid, slots, out_int32=True)  # noqa: E731
+    us = launch_us(run, ("tail_runs",))["tail_runs"]
+    events_ms = queued_ms(run, 10)
+    search_us = sum(v[0] for v in by_kernel(search).values())
+    search_ms = queued_ms(search, 10)
+    plain_ms = cuda_ms(lambda: ct.tail_runs_plain(cid), 10)
+    n_bytes = 4 * n + 4 * want.shape[0]
+    bound = n_bytes / HBM_BYTES_PER_S * 1e3
+    print(f"  tail_runs ptxas: {ptxas_summary(ptxas_log, 'tail_runs')}", flush=True)
+    print(f"  tail_runs n={n} ({want.shape[0]} starts): == tail_runs_plain (bit-exact); "
+          f"{us / 1e3:.4f} ms on the device (torch.profiler; {events_ms:.4f} ms by CUDA "
+          f"events), plain {plain_ms:.4f} ms; torch.searchsorted of the ids {search_us / 1e3:.4f}"
+          f" ms (torch.profiler; {search_ms:.4f} ms by CUDA events); bound {bound * 1e3:.3f} us "
+          f"({n_bytes} bytes at {HBM_BYTES_PER_S / 1e12:.2f} TB/s), {bound * 1e3 / us:.3%} of it",
+          flush=True)
+    return {"ms": us / 1e3, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": "bytes",
+            "library_ms": search_us / 1e3, "max_abs_err": 0}
 
 
 def call_stats_bound_ms(n, bytes_per_element):
@@ -3619,6 +3659,10 @@ def main() -> int:
         "replaces": "sniffles_tpu/parallel/engine.py:133",
         "launches": engine_launches["candidate_tail"], "max_abs_err": 0,
         **engine_rows[1], "library_ms": None}, {
+        "name": "tail_runs", "route": "cuda",
+        "source": "sniffles_tpu_torch/csrc/candidate_tail.cu",
+        "replaces": "sniffles_tpu/ops/clustering.py:1296",
+        "launches": engine_launches["candidate_tail"], **engine_rows[3]}, {
         "name": "call_stats", "route": "cuda",
         "source": "sniffles_tpu_torch/csrc/call_stats.cu",
         "replaces": "sniffles_tpu/ops/clustering.py:1262",

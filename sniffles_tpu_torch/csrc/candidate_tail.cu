@@ -41,9 +41,12 @@
 // (scratch, n + 1 int32, not counted in the bound), so the run's loads go
 // out ahead of the in-order sum; the wrapper launches no conversion.
 
+#include <algorithm>
 #include <climits>
 #include <cmath>
 #include <cstdint>
+#include <mutex>
+
 #include <cuda_runtime.h>
 
 // A timing tool's variant of the run pass (tools/profile_engine.py
@@ -57,7 +60,11 @@
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 256;     // candidate_tail_kernel's blocks
+constexpr int kRunThreads = 256;  // tail_runs' blocks,
+constexpr int kRunVecs = 4;       // a lane's int4 loads a round,
+constexpr int kRunChunk = 32 * kRunVecs;  // and a warp's vectors a round (a chunk)
+constexpr unsigned kFull = 0xffffffffu;
 constexpr int kRunParts = TAIL_RUN_PARTS;
 static_assert(kRunParts >= 0 && kRunParts <= 2, "the run pass's parts: the launch, the loads");
 constexpr int INS = 0, DEL = 1, DUP = 2, INV = 3, BND = 4, SINGLE_LEFT = 5, SINGLE_RIGHT = 6;
@@ -150,26 +157,127 @@ __device__ __forceinline__ bool before(float a, float b) {
   return na < nb;
 }
 
-// run_start[c] = the first element j with cluster_id[j] >= c, for every c
-// up to cluster_id[n - 1] + 1 (cluster ids ascend along the array): the
-// element j writes the ids in (cluster_id[j - 1], cluster_id[j]], and the
-// end (j = n) the one past the last id.
-__global__ void __launch_bounds__(kThreads) tail_runs(const int32_t* __restrict__ cluster_id,
-                                                      int32_t* __restrict__ run_start, int n) {
-  const int j = blockIdx.x * blockDim.x + threadIdx.x;
-  if (kRunParts == 1 || j > n) return;
-  const int from = j == 0 ? 0 : max(cluster_id[j - 1] + 1, 0);
-  const int to = j == n ? (from <= n ? from : -1) : min(cluster_id[j], n);
-  if (kRunParts == 2) {  // a store no id below INT_MAX asks for keeps the loads
-    if (to == INT_MAX) run_start[0] = from;
-    return;
-  }
-  for (int c = from; c <= to; ++c) run_start[c] = j;
+// The ids in (prev, cur], clamped to [0, n], start at element j: the run
+// pass's write for element j (prev the id before it, -1 for j = 0); an id
+// at or past n starts no slot after slot n.
+__device__ __forceinline__ void write_starts(int32_t* __restrict__ run_start, int prev, int cur,
+                                             int j, int n) {
+  const int from = prev < 0 ? 0 : (prev >= n ? n + 1 : prev + 1);
+  const int to = min(cur, n);
+  for (int c = from; c <= to; ++c) run_start[c] = j;  // more than one only at a gap
 }
 
-// the run pass on stream s (run_start: n + 1 int32)
+// The end (j = n): the slot after the last id, where it is at most n.
+__device__ __forceinline__ void write_end(int32_t* __restrict__ run_start, int last, int n) {
+  write_starts(run_start, last, last < n ? max(last + 1, 0) : -1, n, n);
+}
+
+// run_start[c] = the first element j with cluster_id[j] >= c, for every c
+// up to clamp(cluster_id[n - 1] + 1, 0, n) (cluster ids ascend along the
+// array): element j writes the ids in (cluster_id[j - 1], cluster_id[j]],
+// and the end (j = n) the one past the last id.
+//
+// Bound: bytes (the ids read once, a start a cluster written). The ids
+// from `head` (0-3: those before the first 16-byte boundary) are read as
+// `vecs` int4 vectors, in chunks of kRunChunk vectors dealt contiguously to
+// the grid's warps (the resident grid, no more blocks than chunks): a lane
+// loads kRunVecs vectors of a round, 32 lanes apart, every load issued
+// before the first store, so the card has the whole array in flight at
+// once. An element's left neighbour is the previous lane's last id
+// (__shfl_up_sync), lane 0's the last lane's of the round's previous
+// vector or the id before the warp's chunk (one load a warp): no id is
+// loaded twice but those. The grid's last thread takes the head, the ids
+// after the last vector (0-3) and the end, by scalar loads.
+__global__ void __launch_bounds__(kRunThreads) tail_runs(const int32_t* __restrict__ cluster_id,
+                                                         int32_t* __restrict__ run_start, int n,
+                                                         int head, int vecs) {
+  if (kRunParts == 1) return;
+  const int lane = threadIdx.x & 31;
+  const long long warps = static_cast<long long>(gridDim.x) * (kRunThreads / 32);
+  const long long warp = static_cast<long long>(blockIdx.x) * (kRunThreads / 32) +
+                         (threadIdx.x >> 5);
+  const long long chunks = (vecs + kRunChunk - 1) / kRunChunk;
+  const int c0 = static_cast<int>(chunks * warp / warps);
+  const int c1 = static_cast<int>(chunks * (warp + 1) / warps);
+  const int4* __restrict__ vec = reinterpret_cast<const int4*>(cluster_id + head);
+  int carry = -1;  // the id before the warp's next vector
+  if (c0 < c1 && (c0 > 0 || head > 0)) carry = cluster_id[head + 4 * c0 * kRunChunk - 1];
+  for (int c = c0; c < c1; ++c) {
+    int4 x[kRunVecs];
+#pragma unroll
+    for (int u = 0; u < kRunVecs; ++u) {  // every load issued before the first store
+      const int k = c * kRunChunk + u * 32 + lane;
+      x[u] = k < vecs ? vec[k] : make_int4(0, 0, 0, 0);
+    }
+    if (kRunParts == 2) {  // a store no ascending ids ask for keeps the loads
+      int folded = carry;
+#pragma unroll
+      for (int u = 0; u < kRunVecs; ++u) folded ^= x[u].x ^ x[u].y ^ x[u].z ^ x[u].w;
+      if (folded == INT_MIN + 1) run_start[0] = folded;
+      continue;
+    }
+#pragma unroll
+    for (int u = 0; u < kRunVecs; ++u) {
+      const int up = __shfl_up_sync(kFull, x[u].w, 1);
+      const int prev = lane == 0 ? carry : up;
+      carry = __shfl_sync(kFull, x[u].w, 31);
+      const int k = c * kRunChunk + u * 32 + lane;
+      if (k < vecs) {
+        const int j = head + 4 * k;
+        write_starts(run_start, prev, x[u].x, j, n);
+        write_starts(run_start, x[u].x, x[u].y, j + 1, n);
+        write_starts(run_start, x[u].y, x[u].z, j + 2, n);
+        write_starts(run_start, x[u].z, x[u].w, j + 3, n);
+      }
+    }
+  }
+  if (kRunParts == 0 && warp == warps - 1 && lane == 31) {
+    for (int j = 0; j < head; ++j)
+      write_starts(run_start, j == 0 ? -1 : cluster_id[j - 1], cluster_id[j], j, n);
+    for (int j = head + 4 * vecs; j < n; ++j)
+      write_starts(run_start, j == 0 ? -1 : cluster_id[j - 1], cluster_id[j], j, n);
+    write_end(run_start, cluster_id[n - 1], n);
+  }
+}
+
+// The blocks of tail_runs the current device holds at once (its SMs times
+// the blocks an SM holds), cached by device: the queries cost host time.
+cudaError_t resident_runs(int* out) {
+  constexpr int kDevices = 64;
+  static std::mutex mu;
+  static int cache[kDevices] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  std::lock_guard<std::mutex> lock(mu);
+  if (dev < kDevices && cache[dev] > 0) {
+    *out = cache[dev];
+    return cudaSuccess;
+  }
+  int sms = 0, per_sm = 0;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, tail_runs, kRunThreads, 0);
+  if (err != cudaSuccess) return err;
+  *out = std::max(1, sms * per_sm);
+  if (dev < kDevices) cache[dev] = *out;
+  return cudaSuccess;
+}
+
+// the run pass on stream s (run_start: n + 1 int32; cluster_id 4-byte
+// aligned, any 16-byte offset: a view's)
 cudaError_t launch_runs(const int32_t* cluster_id, int32_t* run_start, int n, cudaStream_t s) {
-  tail_runs<<<n / kThreads + 1, kThreads, 0, s>>>(cluster_id, run_start, n);
+  const uintptr_t at = reinterpret_cast<uintptr_t>(cluster_id);
+  if (at % 4 != 0) return cudaErrorMisalignedAddress;
+  const int head = std::min(static_cast<int>((16 - at % 16) % 16 / 4), n);
+  const int vecs = (n - head) / 4;
+  int resident = 0;
+  const cudaError_t err = resident_runs(&resident);
+  if (err != cudaSuccess) return err;
+  const long long chunks = (vecs + kRunChunk - 1) / kRunChunk;
+  const long long wanted = (chunks + kRunThreads / 32 - 1) / (kRunThreads / 32);
+  const int grid = static_cast<int>(std::max(1LL, std::min<long long>(resident, wanted)));
+  tail_runs<<<grid, kRunThreads, 0, s>>>(cluster_id, run_start, n, head, vecs);
   return cudaGetLastError();
 }
 

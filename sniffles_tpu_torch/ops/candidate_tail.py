@@ -40,6 +40,11 @@ COUNTS = {"launches": 0}
 # The run pass's timing variants (csrc/candidate_tail.cu, -DTAIL_RUN_PARTS=k):
 # the k-th stops after this part. Only a timing tool builds them.
 RUN_PARTS = ("empty launch", "loads")
+# The run pass's ids a lane a round and a warp's chunk (csrc/candidate_tail.cu:
+# 4 * kRunVecs and 4 * kRunChunk; the edge layouts of sim.tail_run_layouts
+# straddle them)
+RUN_LANE_IDS = 16
+RUN_CHUNK_IDS = 512
 
 # the output keys, by type (the kernel writes them as rows of one int32,
 # one float32 and one uint8 tensor, in this order)

@@ -914,6 +914,39 @@ def relax_chain_batch(size: int, links: int = 36, spacing: int = 1_100_000) -> d
 _I32_MIN, _I32_MAX = -2 ** 31, 2 ** 31 - 1
 
 
+def tail_run_layouts(n: int, seed: int = 7) -> dict[str, np.ndarray]:
+    """{label: ascending cluster ids, int32} at the edges of the candidate tail's
+    run pass (csrc/candidate_tail.cu tail_runs), n > 600 ids for the wide
+    ones: one id (inside, past n, negative), a lane's ids and one, a chunk's
+    less one, n just off a chunk, one cluster of n, a cluster an element
+    (n + 1 starts), gaps, leading negative ids, all negative, ids at and
+    past n up to INT32_MAX, every id past n, and one gap of n - 5 ids."""
+    from sniffles_tpu_torch.ops.candidate_tail import RUN_CHUNK_IDS, RUN_LANE_IDS
+    rng = np.random.default_rng(seed)
+    off = n // RUN_CHUNK_IDS * RUN_CHUNK_IDS + 1
+    cat = np.concatenate
+    full = np.full
+    layouts = {
+        "n = 1": [0],
+        "n = 1 past n": [3],
+        "n = 1 negative": [-1],
+        "a lane's ids and one": np.sort(rng.integers(0, 5, RUN_LANE_IDS + 1)),
+        "a chunk's ids less one": np.sort(rng.integers(0, 40, RUN_CHUNK_IDS - 1)),
+        "off the chunk": np.sort(rng.integers(0, off // 30, off)),
+        "one cluster of n": np.zeros(n),
+        "a cluster an element": np.arange(n),
+        "gaps": np.cumsum(rng.integers(0, 2, n) * rng.choice([1, 1, 1, 5, 40], n)),
+        "leading negative ids": cat([full(37, -7), full(3, -1),
+                                     np.sort(rng.integers(0, n // 8, n - 40))]),
+        "all negative": full(300, -2),
+        "ids at and past n": cat([np.sort(rng.integers(0, n // 4, n - 60)), full(20, n),
+                                  full(20, n + 3), full(20, 2 ** 31 - 1)]),
+        "first id past n": full(n, n + 1),
+        "one huge gap": cat([np.zeros(10), full(n - 10, n - 5)]),
+    }
+    return {k: np.asarray(v, dtype=np.int64).astype(np.int32) for k, v in layouts.items()}
+
+
 def _stats_cluster(rng, size: int, center: int, spread: int, svlen: int, len_spread: int,
                    step: int = 1) -> dict:
     """One cluster's columns: positions and lengths about their centers,

@@ -3,7 +3,10 @@
 memory and in global scratch, and segment walks; the fused
 engine's relaxation, one cooperative launch, on every engine input and
 on 2^16 slots of tiled 36-link chains, with its grid and time stamps; its
-candidate tail at odd widths under three flag sets; the call statistics'
+candidate tail at odd widths under three flag sets and with its cluster
+ids in a view off the 16-byte boundary, and the tail's run pass alone on
+sim.tail_run_layouts at 2^21 ids and the engine's ids, in a view at each
+16-byte offset; the call statistics'
 keys, run pass and thread, warp and block tiers on seeded, edge, tier
 and huge batches, under other tier thresholds, on the run pass's edge
 layouts, on the engine's 2^16 batch, and on the call task, the call
@@ -21,6 +24,8 @@ the JAX package, so on the card it runs without them:
 
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
 """
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -28,6 +33,7 @@ import torch
 from sniffles_tpu_torch.ops import clustering as tc
 from sniffles_tpu_torch.ops import edit_distance_batch as ted
 from sniffles_tpu_torch.ops.edit_distance import edit_distance
+from sniffles_tpu_torch.sim import tail_run_layouts
 
 pytestmark = pytest.mark.gpu
 
@@ -719,10 +725,11 @@ def engine_params(flags):
     return p
 
 
-def held_tail(card, sig, params, cov_len=2_200_000, offset=0):
+def held_tail(card, sig, params, cov_len=2_200_000, offset=0, ids_offset=0):
     """The tail on the card against its plain version on CPU copies of the
     same statistics (clustered on the CPU), every key bit for bit; one
-    launch."""
+    launch. `ids_offset`: the card's cluster ids in a view that many int32
+    past a 16-byte boundary."""
     from sniffles_tpu_torch.ops import candidate_tail as ct
     from sniffles_tpu_torch.ops.segments import seg_sum
     sig = {k: torch.as_tensor(v) for k, v in sig.items()}
@@ -738,11 +745,11 @@ def held_tail(card, sig, params, cov_len=2_200_000, offset=0):
     want = ct.candidate_tail(stats, support_sa, coverage, clustered, params,
                              region_offset=offset)
     launches = ct.COUNTS["launches"]
+    elements = {k: v.to(card) for k, v in clustered.items() if isinstance(v, torch.Tensor)}
+    elements["cluster_id"] = view_at(elements["cluster_id"], ids_offset)
     got = ct.candidate_tail({k: v.to(card) if isinstance(v, torch.Tensor) else v
                              for k, v in stats.items()}, support_sa.to(card),
-                            coverage.to(card), {k: v.to(card) for k, v in clustered.items()
-                                                if isinstance(v, torch.Tensor)},
-                            params, region_offset=offset)
+                            coverage.to(card), elements, params, region_offset=offset)
     torch.cuda.synchronize()
     assert ct.COUNTS["launches"] == launches + 1
     assert set(got) == set(want)
@@ -755,6 +762,50 @@ def held_tail(card, sig, params, cov_len=2_200_000, offset=0):
             assert g.tolist() == v.tolist(), k
 
 
+def view_at(t, offset):
+    """t's values in a view `offset` elements into a fresh buffer (its data
+    pointer offset * 4 bytes past the allocator's 512-byte boundary)."""
+    buf = torch.full((t.shape[0] + offset,), -99, dtype=t.dtype, device=t.device)
+    view = buf[offset:]
+    view.copy_(t)
+    return view
+
+
+@functools.lru_cache(maxsize=1)
+def tail_layouts_2_21():
+    from sniffles_tpu_torch.sim import tail_run_layouts
+    return tail_run_layouts(1 << 21)
+
+
+@pytest.mark.parametrize("offset", [0, 1, 2, 3])
+@pytest.mark.parametrize("label", list(tail_run_layouts(700)))
+def test_tail_runs_kernel_matches_plain_version(card, label, offset):
+    """The tail's run pass alone on sim.tail_run_layouts at 2^21 ids, in a
+    view at each 16-byte offset: its written starts == tail_runs_plain bit
+    for bit (the plain version's torch.searchsorted on the card)."""
+    from sniffles_tpu_torch.ops import candidate_tail as ct
+    cid = view_at(torch.as_tensor(tail_layouts_2_21()[label]).to(card), offset)
+    assert cid.data_ptr() % 16 == 4 * offset
+    want = ct.tail_runs_plain(cid)
+    got = ct.launch_tail_runs(cid)
+    torch.cuda.synchronize()
+    assert torch.equal(got[:want.shape[0]], want)
+
+
+def test_tail_runs_kernel_on_the_engine_batch(card):
+    """The run pass on the cluster ids the engine's 2^16 step hands its
+    tail, at each 16-byte offset, == tail_runs_plain."""
+    from sniffles_tpu_torch.ops import candidate_tail as ct
+    from sniffles_tpu_torch.tools.profile_engine import engine_inputs, tail_ids
+    cid = tail_ids(*engine_inputs(1 << 16, "cuda"))
+    want = ct.tail_runs_plain(cid)
+    assert want.shape[0] > 1000
+    for offset in range(4):
+        got = ct.launch_tail_runs(view_at(cid, offset))
+        torch.cuda.synchronize()
+        assert torch.equal(got[:want.shape[0]], want), offset
+
+
 @pytest.mark.parametrize("flags", ["default", "mosaic", "auto-qc-nm"])
 @pytest.mark.parametrize("kind", ["synthetic-3", "all-invalid", "outside"])
 def test_candidate_tail_kernel_matches_plain_version(card, kind, flags):
@@ -763,6 +814,14 @@ def test_candidate_tail_kernel_matches_plain_version(card, kind, flags):
     sig = engine_sig("synthetic-3" if kind == "outside" else kind)
     cov_len, offset = (400_000, 300_000) if kind == "outside" else (2_200_000, 0)
     held_tail(card, sig, engine_params(flags), cov_len, offset)
+
+
+@pytest.mark.parametrize("ids_offset", [1, 2, 3])
+def test_candidate_tail_kernel_on_a_misaligned_view(card, ids_offset):
+    """The whole tail with its cluster ids in a view off the 16-byte
+    boundary (a shard's, say): its run pass reads them by scalar loads up
+    to the boundary."""
+    held_tail(card, engine_sig("synthetic-3"), engine_params("default"), ids_offset=ids_offset)
 
 
 @pytest.mark.parametrize("flags", ["default", "mosaic", "auto-qc-nm"])

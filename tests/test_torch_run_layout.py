@@ -15,7 +15,18 @@ sources):
     over the candidate cuts alone, a bit each, neighbours from the words'
     bits and the scans of their last and first alive cuts) against
     sweep_cuts_plain: cut flags, heads and counts, the fixpoint's collapse
-    at pass 24 included.
+    at pass 24 included;
+  - the candidate tail's run pass of csrc/candidate_tail.cu (tail_runs: the
+    ids before the first 16-byte boundary and after the last vector by
+    scalar loads, int4 vectors in chunks dealt to the warps, kRunVecs a
+    lane a round, each element's left neighbour from the previous lane or
+    the chunk's last vector before it): every element visited once, every
+    start written once, the starts against tail_runs_plain and numpy on
+    n = 1, n off a lane's and a chunk's ids, one cluster of n, a cluster an
+    element, gaps, leading negative ids, ids at and past n, and views at an
+    offset of 1-3 int32 from a 16-byte boundary; and tail_runs_plain's
+    starts, summed as the kernel sums a cluster's NM, against the JAX
+    package's seg_mean.
 """
 import math
 import os
@@ -26,8 +37,10 @@ import pytest
 import torch
 
 from sniffles_tpu_torch.ops import call_stats as cs
+from sniffles_tpu_torch.ops import candidate_tail as ct
 from sniffles_tpu_torch.ops import clustering as tc
-from sniffles_tpu_torch.sim import edge_call_batches, fuzz_call_batch, sweep_layout_batches
+from sniffles_tpu_torch.sim import (edge_call_batches, fuzz_call_batch, sweep_layout_batches,
+                                    tail_run_layouts)
 
 INT32_MAX = 2 ** 31 - 1
 CSRC = os.path.join(os.path.dirname(cs.__file__), "..", "csrc")
@@ -330,3 +343,156 @@ def test_partition_scratch_and_threshold():
     assert tc.cut_scratch_ints(cap) * 4 <= 232_448 - 3 * 32 * 4
     assert tc.cut_scratch_ints(1) == 3 + 4 and tc.cut_scratch_ints(33) == 99 + 8
     assert math.ceil(cap / 32) * 32 == cap
+
+
+# ---------------------------------------------------------------------------
+# the candidate tail's run pass
+
+TAIL_THREADS = const("candidate_tail.cu", "kRunThreads")
+TAIL_VECS = const("candidate_tail.cu", "kRunVecs")
+
+
+def tail_run_pass(cid, offset=0, resident=132 * 8, threads=TAIL_THREADS, vecs_a_lane=TAIL_VECS):
+    """tail_runs on the ids `cid` (a list) whose element 0 lies `offset`
+    int32 past a 16-byte boundary, on a resident grid of `resident`
+    blocks: run_start [n + 1] (None where unwritten); every element j in
+    [0, n] visited once and every start written once."""
+    n = len(cid)
+    head = min((4 - offset % 4) % 4, n)
+    vecs = (n - head) // 4
+    chunk = 32 * vecs_a_lane
+    chunks = -(-vecs // chunk)
+    per_block = threads // 32
+    warps = max(1, min(resident, -(-chunks // per_block))) * per_block
+    starts, seen = [None] * (n + 1), [0] * (n + 1)
+
+    def write(prev, cur, j):
+        seen[j] += 1
+        first = 0 if prev < 0 else (n + 1 if prev >= n else prev + 1)
+        for c in range(first, min(cur, n) + 1):
+            assert starts[c] is None, (c, j)
+            starts[c] = j
+
+    for w in range(warps):
+        c0, c1 = chunks * w // warps, chunks * (w + 1) // warps
+        carry = cid[head + 4 * c0 * chunk - 1] if c0 < c1 and (c0 > 0 or head > 0) else -1
+        for c in range(c0, c1):
+            ks = [[c * chunk + u * 32 + lane for lane in range(32)] for u in range(vecs_a_lane)]
+            x = [[cid[head + 4 * k:head + 4 * k + 4] if k < vecs else [0] * 4 for k in row]
+                 for row in ks]
+            for u, row in enumerate(ks):
+                for lane, k in enumerate(row):
+                    if k < vecs:
+                        ids = [carry if lane == 0 else x[u][lane - 1][3]] + x[u][lane]
+                        for e in range(4):
+                            write(ids[e], ids[e + 1], head + 4 * k + e)
+                carry = x[u][31][3]
+    for j in list(range(head)) + list(range(head + 4 * vecs, n)):
+        write(cid[j - 1] if j else -1, cid[j], j)
+    last = cid[-1]
+    write(last, max(last + 1, 0) if last < n else -1, n)
+    assert seen == [1] * (n + 1)
+    return starts
+
+
+def searchsorted_starts(cid):
+    """run_start's written entries by numpy: the lower bound of each id
+    0..clamp(cid[-1] + 1, 0, n)."""
+    n = len(cid)
+    return np.searchsorted(np.asarray(cid, dtype=np.int64),
+                           np.arange(min(max(cid[-1] + 1, 0), n) + 1), side="left").tolist()
+
+
+def test_tail_run_layout_constants():
+    """The ids a lane and a chunk that sim.tail_run_layouts straddles are
+    the source's."""
+    assert ct.RUN_LANE_IDS == 4 * TAIL_VECS
+    assert ct.RUN_CHUNK_IDS == 4 * 32 * TAIL_VECS
+
+
+TAIL_LAYOUTS = tail_run_layouts(5000)
+
+
+@pytest.mark.parametrize("offset", [0, 1, 2, 3])
+@pytest.mark.parametrize("label", list(TAIL_LAYOUTS))
+def test_tail_run_layouts(label, offset):
+    """The kernel's index rules (tail_run_pass) on every edge layout and
+    alignment: the written starts == tail_runs_plain == numpy, none past
+    them; the wrapper's CPU path takes no kernel."""
+    cid = TAIL_LAYOUTS[label].tolist()
+    want = searchsorted_starts(cid)
+    plain = ct.tail_runs_plain(torch.tensor(cid, dtype=torch.int32))
+    assert plain.dtype == torch.int32 and plain.tolist() == want
+    assert ct.written_runs(torch.tensor(cid, dtype=torch.int32)) == len(want)
+    starts = tail_run_pass(cid, offset)
+    assert starts[:len(want)] == want
+    assert all(v is None for v in starts[len(want):])
+
+
+@pytest.mark.parametrize("resident", [1, 2, 3])
+def test_tail_run_pass_on_a_small_grid(resident):
+    """Grids of 1-3 blocks: a warp takes several chunks in turn, its carry
+    from round to round; views at every offset."""
+    for label, ids in tail_run_layouts(9000, seed=2).items():
+        cid = ids.tolist()
+        want = searchsorted_starts(cid)
+        for offset in range(4):
+            assert tail_run_pass(cid, offset, resident)[:len(want)] == want, (label, offset)
+
+
+def test_tail_run_source_rules():
+    """The rules the mirror copies, as the source writes them: the head
+    from the pointer's 16-byte offset, the grid no wider than the chunks,
+    a warp's chunks."""
+    src = open(os.path.join(CSRC, "candidate_tail.cu")).read()
+    for rule in ("const int head = std::min(static_cast<int>((16 - at % 16) % 16 / 4), n);",
+                 "const int vecs = (n - head) / 4;",
+                 "constexpr int kRunChunk = 32 * kRunVecs;",
+                 "const int c0 = static_cast<int>(chunks * warp / warps);",
+                 "const int k = c * kRunChunk + u * 32 + lane;",
+                 "const int prev = lane == 0 ? carry : up;"):
+        assert rule in src, rule
+
+
+def test_tail_runs_launcher_refuses_cpu_tensors():
+    """The run pass's launcher takes CUDA tensors only: on the CPU the tail
+    runs its plain version, never a kernel."""
+    with pytest.raises(ValueError):
+        ct.launch_tail_runs(torch.zeros(4, dtype=torch.int32))
+
+
+@pytest.mark.parametrize("seed", [3, 11])
+def test_tail_runs_plain_nm_matches_jax_seg_mean(seed, monkeypatch):
+    """tail_runs_plain's starts, each cluster's NM summed over its run in
+    array order in float32 as candidate_tail_kernel sums it and divided by
+    max(lead_count, 1), == the JAX package's seg_mean (jitted) bit for
+    bit, and == the plain tail's nm, on a seeded clustered batch."""
+    jax = pytest.importorskip("jax")
+    from sniffles_tpu.ops import segments as jseg
+    from sniffles_tpu_torch.signatures import synthetic_batch
+    monkeypatch.setenv("SNIFFLES_TPU_FORCE_CPU", "1")
+    n = 4096
+    sig = {k: torch.as_tensor(v) for k, v in synthetic_batch(
+        3000, 70, seed=seed, genome_span=2_000_000, batch_size=n).as_dict().items()}
+    clustered = tc.cluster_signatures(sig, cluster_r=2.5, cluster_repeat_h=1.5,
+                                      cluster_repeat_h_max=1000.0, cluster_merge_bnd=1000,
+                                      cluster_merge_len=0.22, minsvlen=50, exact_sweep=False)
+    lead_count = tc.call_statistics(clustered, fused=True)["lead_count"].numpy()
+    cid = clustered["cluster_id"].to(torch.int32)
+    nm = clustered["nm"].numpy().astype(np.float32)
+    valid = clustered["valid"].numpy()
+    starts = ct.tail_runs_plain(cid).tolist()
+    ours = np.zeros(n, dtype=np.float32)
+    for c in range(len(starts) - 1):
+        acc = np.float32(0.0)
+        for j in range(starts[c], starts[c + 1]):
+            acc = np.float32(acc + (nm[j] if valid[j] else np.float32(0.0)))
+        ours[c] = acc
+    ours = ours / np.maximum(lead_count, 1).astype(np.float32)
+    seg_mean = jax.jit(jseg.seg_mean, static_argnums=3)
+    want = np.asarray(seg_mean(nm, cid.numpy(), valid, n))
+    assert int(cid[-1]) + 2 == len(starts) and len(starts) > 50
+    assert ours.view(np.int32).tolist() == want.view(np.int32).tolist()
+    plain = ct.cluster_nm_plain(clustered["nm"], clustered["valid"], clustered["cluster_id"],
+                                torch.as_tensor(lead_count))
+    assert plain.numpy().view(np.int32).tolist() == want.view(np.int32).tolist()
