@@ -2953,7 +2953,7 @@ def time_tail_runs(cluster_id, ptxas_log):
     plain_ms = cuda_ms(lambda: ct.tail_runs_plain(cid), 10)
     n_bytes = 4 * n + 4 * want.shape[0]
     bound = n_bytes / HBM_BYTES_PER_S * 1e3
-    print(f"  tail_runs ptxas: {ptxas_summary(ptxas_log, 'tail_runs')}", flush=True)
+    print(f"  tail_runs<4> ptxas: {ptxas_summary(ptxas_log, 'tail_runsILi4')}", flush=True)
     print(f"  tail_runs n={n} ({want.shape[0]} starts): == tail_runs_plain (bit-exact); "
           f"{us / 1e3:.4f} ms on the device (torch.profiler; {events_ms:.4f} ms by CUDA "
           f"events), plain {plain_ms:.4f} ms; torch.searchsorted of the ids {search_us / 1e3:.4f}"

@@ -62,8 +62,7 @@ namespace {
 
 constexpr int kThreads = 256;     // candidate_tail_kernel's blocks
 constexpr int kRunThreads = 256;  // tail_runs' blocks,
-constexpr int kRunVecs = 4;       // a lane's int4 loads a round,
-constexpr int kRunChunk = 32 * kRunVecs;  // and a warp's vectors a round (a chunk)
+constexpr int kRunVecs = 4;       // and a lane's int4 loads a round, at most
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kRunParts = TAIL_RUN_PARTS;
 static_assert(kRunParts >= 0 && kRunParts <= 2, "the run pass's parts: the launch, the loads");
@@ -179,49 +178,51 @@ __device__ __forceinline__ void write_end(int32_t* __restrict__ run_start, int l
 //
 // Bound: bytes (the ids read once, a start a cluster written). The ids
 // from `head` (0-3: those before the first 16-byte boundary) are read as
-// `vecs` int4 vectors, in chunks of kRunChunk vectors dealt contiguously to
-// the grid's warps (the resident grid, no more blocks than chunks): a lane
-// loads kRunVecs vectors of a round, 32 lanes apart, every load issued
-// before the first store, so the card has the whole array in flight at
-// once. An element's left neighbour is the previous lane's last id
+// `vecs` int4 vectors, in chunks of 32 * V vectors, `per_warp` chunks to
+// each of the grid's warps in order (the resident grid, no more blocks than
+// chunks): a lane loads V vectors of a round, 32 lanes apart, every load
+// issued before the first store, so that the card has the whole array in
+// flight at once. V is kRunVecs where the chunks give each SM a block's
+// warps, fewer on a small batch (more warps, less work a lane). An
+// element's left neighbour is the previous lane's last id
 // (__shfl_up_sync), lane 0's the last lane's of the round's previous
-// vector or the id before the warp's chunk (one load a warp): no id is
-// loaded twice but those. The grid's last thread takes the head, the ids
-// after the last vector (0-3) and the end, by scalar loads.
+// vector or the id before the warp's first chunk (one load a warp): no id
+// is loaded twice but those. The grid's last thread takes the head, the
+// ids after the last vector (0-3) and the end, by scalar loads.
+template <int V>
 __global__ void __launch_bounds__(kRunThreads) tail_runs(const int32_t* __restrict__ cluster_id,
                                                          int32_t* __restrict__ run_start, int n,
-                                                         int head, int vecs) {
+                                                         int head, int vecs, int per_warp) {
   if (kRunParts == 1) return;
+  constexpr int kChunk = 32 * V;
   const int lane = threadIdx.x & 31;
-  const long long warps = static_cast<long long>(gridDim.x) * (kRunThreads / 32);
-  const long long warp = static_cast<long long>(blockIdx.x) * (kRunThreads / 32) +
-                         (threadIdx.x >> 5);
-  const long long chunks = (vecs + kRunChunk - 1) / kRunChunk;
-  const int c0 = static_cast<int>(chunks * warp / warps);
-  const int c1 = static_cast<int>(chunks * (warp + 1) / warps);
+  const int warps = gridDim.x * (kRunThreads / 32);
+  const int warp = blockIdx.x * (kRunThreads / 32) + (threadIdx.x >> 5);
+  const int chunks = (vecs + kChunk - 1) / kChunk;
+  const int c0 = min(warp * per_warp, chunks), c1 = min(c0 + per_warp, chunks);
   const int4* __restrict__ vec = reinterpret_cast<const int4*>(cluster_id + head);
   int carry = -1;  // the id before the warp's next vector
-  if (c0 < c1 && (c0 > 0 || head > 0)) carry = cluster_id[head + 4 * c0 * kRunChunk - 1];
+  if (c0 < c1 && (c0 > 0 || head > 0)) carry = cluster_id[head + 4 * c0 * kChunk - 1];
   for (int c = c0; c < c1; ++c) {
-    int4 x[kRunVecs];
+    int4 x[V];
 #pragma unroll
-    for (int u = 0; u < kRunVecs; ++u) {  // every load issued before the first store
-      const int k = c * kRunChunk + u * 32 + lane;
+    for (int u = 0; u < V; ++u) {  // every load issued before the first store
+      const int k = c * kChunk + u * 32 + lane;
       x[u] = k < vecs ? vec[k] : make_int4(0, 0, 0, 0);
     }
     if (kRunParts == 2) {  // a store no ascending ids ask for keeps the loads
       int folded = carry;
 #pragma unroll
-      for (int u = 0; u < kRunVecs; ++u) folded ^= x[u].x ^ x[u].y ^ x[u].z ^ x[u].w;
+      for (int u = 0; u < V; ++u) folded ^= x[u].x ^ x[u].y ^ x[u].z ^ x[u].w;
       if (folded == INT_MIN + 1) run_start[0] = folded;
       continue;
     }
 #pragma unroll
-    for (int u = 0; u < kRunVecs; ++u) {
+    for (int u = 0; u < V; ++u) {
       const int up = __shfl_up_sync(kFull, x[u].w, 1);
       const int prev = lane == 0 ? carry : up;
       carry = __shfl_sync(kFull, x[u].w, 31);
-      const int k = c * kRunChunk + u * 32 + lane;
+      const int k = c * kChunk + u * 32 + lane;
       if (k < vecs) {
         const int j = head + 4 * k;
         write_starts(run_start, prev, x[u].x, j, n);
@@ -240,28 +241,47 @@ __global__ void __launch_bounds__(kRunThreads) tail_runs(const int32_t* __restri
   }
 }
 
-// The blocks of tail_runs the current device holds at once (its SMs times
-// the blocks an SM holds), cached by device: the queries cost host time.
-cudaError_t resident_runs(int* out) {
+// The current device's SMs and the blocks of tail_runs it holds at once,
+// cached by device: the queries cost host time.
+struct RunGrid {
+  int sms = 0, resident = 0;
+};
+
+cudaError_t run_grid(RunGrid* out) {
   constexpr int kDevices = 64;
   static std::mutex mu;
-  static int cache[kDevices] = {};
+  static RunGrid cache[kDevices];
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   std::lock_guard<std::mutex> lock(mu);
-  if (dev < kDevices && cache[dev] > 0) {
+  if (dev < kDevices && cache[dev].resident > 0) {
     *out = cache[dev];
     return cudaSuccess;
   }
-  int sms = 0, per_sm = 0;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  RunGrid g;
+  int per_sm = 0;
+  err = cudaDeviceGetAttribute(&g.sms, cudaDevAttrMultiProcessorCount, dev);
   if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, tail_runs, kRunThreads, 0);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, tail_runs<kRunVecs>,
+                                                        kRunThreads, 0);
   if (err != cudaSuccess) return err;
-  *out = std::max(1, sms * per_sm);
-  if (dev < kDevices) cache[dev] = *out;
+  g.resident = std::max(1, g.sms * per_sm);
+  if (dev < kDevices) cache[dev] = g;
+  *out = g;
   return cudaSuccess;
+}
+
+// tail_runs<V> on the resident grid capped at its chunks, the chunks dealt
+// evenly to its warps
+template <int V>
+void launch_runs_of(const int32_t* cluster_id, int32_t* run_start, int n, int head, int vecs,
+                    int resident, cudaStream_t s) {
+  constexpr int kWarps = kRunThreads / 32;
+  const int chunks = (vecs + 32 * V - 1) / (32 * V);
+  const int grid = std::max(1, std::min(resident, (chunks + kWarps - 1) / kWarps));
+  const int per_warp = (chunks + grid * kWarps - 1) / (grid * kWarps);
+  tail_runs<V><<<grid, kRunThreads, 0, s>>>(cluster_id, run_start, n, head, vecs, per_warp);
 }
 
 // the run pass on stream s (run_start: n + 1 int32; cluster_id 4-byte
@@ -271,13 +291,19 @@ cudaError_t launch_runs(const int32_t* cluster_id, int32_t* run_start, int n, cu
   if (at % 4 != 0) return cudaErrorMisalignedAddress;
   const int head = std::min(static_cast<int>((16 - at % 16) % 16 / 4), n);
   const int vecs = (n - head) / 4;
-  int resident = 0;
-  const cudaError_t err = resident_runs(&resident);
+  RunGrid g;
+  const cudaError_t err = run_grid(&g);
   if (err != cudaSuccess) return err;
-  const long long chunks = (vecs + kRunChunk - 1) / kRunChunk;
-  const long long wanted = (chunks + kRunThreads / 32 - 1) / (kRunThreads / 32);
-  const int grid = static_cast<int>(std::max(1LL, std::min<long long>(resident, wanted)));
-  tail_runs<<<grid, kRunThreads, 0, s>>>(cluster_id, run_start, n, head, vecs);
+  // the most vectors a lane (kRunVecs, 2, 1) whose chunks fill every SM
+  // with a block's warps
+  const int fill = g.sms * (kRunThreads / 32);
+  static_assert(kRunVecs == 4, "the launch picks 4, 2 or 1 vectors a lane");
+  if (vecs / (32 * 4) >= fill)
+    launch_runs_of<4>(cluster_id, run_start, n, head, vecs, g.resident, s);
+  else if (vecs / (32 * 2) >= fill)
+    launch_runs_of<2>(cluster_id, run_start, n, head, vecs, g.resident, s);
+  else
+    launch_runs_of<1>(cluster_id, run_start, n, head, vecs, g.resident, s);
   return cudaGetLastError();
 }
 

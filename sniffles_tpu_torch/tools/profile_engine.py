@@ -44,7 +44,10 @@ card asleep ahead of the start event) and by torch.profiler (the kernel's
 device us over 10 calls): the empty launch of its grid and its loads alone
 (ops/candidate_tail.RUN_PARTS, a -DTAIL_RUN_PARTS build each), the pass,
 and torch.searchsorted of the ids for 0..clamp(last + 1, 0, n); beside its
-byte bound.
+byte bound. Each is timed twice: warm (the ids in L2 from the call
+before), and each call after a write of 64 MB (more than the card's 50 MB
+of L2: the ids come from device memory past dirty lines, as in the step,
+whose earlier stages leave L2 so).
 """
 import argparse
 import bisect
@@ -199,9 +202,41 @@ def tail_layouts(n: int, device: str, dense_dir: str) -> dict:
             f"chain2^{n.bit_length() - 1}": tail_ids(chain, coverage, default_params())}
 
 
+DIRTY_BYTES = 64 << 20      # more than the H100's 50 MB of L2
+
+
+def after_writes(fn, scratch, match) -> tuple:
+    """(ms by CUDA events, us by torch.profiler of the kernels whose name
+    `match` takes) of fn(), the mean of 10 calls, each after a write of
+    `scratch` (the start event after it; the card asleep ahead of the
+    write, so that the host's launches wait in the queue)."""
+    from sniffles_tpu_torch.tools.time_call_stats import REPS, SLEEP_CYCLES
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    total = 0.0
+    for rep in range(REPS + 1):
+        torch.cuda._sleep(SLEEP_CYCLES)     # the launches queue up behind it
+        scratch.fill_(rep)
+        start.record()
+        fn()
+        stop.record()
+        torch.cuda.synchronize()
+        if rep:
+            total += start.elapsed_time(stop)
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for rep in range(REPS):
+            scratch.fill_(rep)
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA and match(e.name))
+    return total / REPS, us / REPS
+
+
 def tail_split(n: int, device: str, dense_dir: str) -> dict:
-    """{layout: {"parts": {part: (CUDA-event ms, profiler us)}, "bound":
-    (ms, bytes), "n": ids}} of the run pass on each tail_layouts layout (see the
+    """{layout: {"parts": {part: (warm CUDA-event ms, warm profiler us,
+    the same after a 64 MB write)}, "bound": (ms, bytes), "n": ids}} of the
+    run pass on each tail_layouts layout (see the
     module's docstring); held against tail_runs_plain first. On the CPU,
     the layouts and their plain starts only (a dry run)."""
     from sniffles_tpu_torch.ops import _build, candidate_tail as ct
@@ -226,27 +261,33 @@ def tail_split(n: int, device: str, dense_dir: str) -> dict:
         if not torch.equal(got, want):
             raise SystemExit(f"profile_engine: {label}: tail_runs differs from tail_runs_plain")
         slots = torch.arange(want.shape[0], dtype=torch.int32, device=cid.device)
+        scratch = torch.empty(DIRTY_BYTES // 4, dtype=torch.int32, device=cid.device)
         calls = [(part, lambda k=k: ct.launch_tail_runs(cid, run_parts=k))
                  for k, part in enumerate(parts, start=1)]
         calls += [("pass", lambda: ct.launch_tail_runs(cid)),
                   ("torch.searchsorted", lambda: torch.searchsorted(cid, slots, out_int32=True))]
         for part, fn in calls:
-            kernels = by_kernel(fn)
-            us = sum(v[0] for k, v in kernels.items()
-                     if part == "torch.searchsorted" or "tail_runs" in k)
-            row["parts"][part] = (queued_ms(fn), us)
+            def match(name, part=part):
+                return "FillFunctor" not in name if part == "torch.searchsorted" else (
+                    "tail_runs" in name)
+            us = sum(v[0] for k, v in by_kernel(fn).items() if match(k))
+            row["parts"][part] = (queued_ms(fn), us, *after_writes(fn, scratch, match))
+        del scratch
     return out
 
 
 def print_tail_split(split: dict) -> None:
-    print(f"the tail's run pass (tail_runs) by part, ms by CUDA events (the mean of 10) and "
-          f"us by torch.profiler; each layout held against tail_runs_plain first:")
+    print("the tail's run pass (tail_runs) by part, ms by CUDA events (the mean of 10) and "
+          "us by torch.profiler, warm / after a 64 MB write; each layout held against "
+          "tail_runs_plain first:")
     for label, row in split.items():
         bound_ms, runs_bytes = row["bound"]
-        parts = "; ".join(f"{part} {ms:.4f} ms, {us:.1f} us"
-                          for part, (ms, us) in row["parts"].items())
-        pass_us = row["parts"].get("pass", (0.0, 0.0))[1]
-        share = f", the pass {bound_ms * 1e3 / pass_us:.1%} of it (profiler)" if pass_us else ""
+        parts = "; ".join(f"{part} {ms:.4f} ms, {us:.1f} us / {d_ms:.4f} ms, {d_us:.1f} us"
+                          for part, (ms, us, d_ms, d_us) in row["parts"].items())
+        pass_us = row["parts"]["pass"][1::2] if "pass" in row["parts"] else ()
+        share = (f", the pass {bound_ms * 1e3 / pass_us[0]:.1%} / "
+                 f"{bound_ms * 1e3 / pass_us[1]:.1%} of it (profiler)" if all(pass_us) and
+                 pass_us else "")
         print(f"  {label} (n={row['n']}): {parts or 'not measured (no card)'}; bound "
               f"{bound_ms:.5f} ms ({runs_bytes} bytes at {HBM_BYTES_PER_S / 1e12:.2f} TB/s)"
               f"{share}")

@@ -352,18 +352,31 @@ TAIL_THREADS = const("candidate_tail.cu", "kRunThreads")
 TAIL_VECS = const("candidate_tail.cu", "kRunVecs")
 
 
-def tail_run_pass(cid, offset=0, resident=132 * 8, threads=TAIL_THREADS, vecs_a_lane=TAIL_VECS):
+def lane_vectors(vecs, sms, threads=TAIL_THREADS, most_vecs=TAIL_VECS):
+    """The launch's vectors a lane: the most (4, 2, 1) whose chunks of 32
+    give each of `sms` SMs a block's warps."""
+    v = most_vecs
+    while v > 1 and vecs // (32 * v) < sms * (threads // 32):
+        v //= 2
+    return v
+
+
+def tail_run_pass(cid, offset=0, resident=132 * 8, sms=132, threads=TAIL_THREADS,
+                  most_vecs=TAIL_VECS):
     """tail_runs on the ids `cid` (a list) whose element 0 lies `offset`
-    int32 past a 16-byte boundary, on a resident grid of `resident`
-    blocks: run_start [n + 1] (None where unwritten); every element j in
-    [0, n] visited once and every start written once."""
+    int32 past a 16-byte boundary, on a card of `sms` SMs that holds
+    `resident` blocks: run_start [n + 1] (None where unwritten); every
+    element j in [0, n] visited once and every start written once."""
     n = len(cid)
     head = min((4 - offset % 4) % 4, n)
     vecs = (n - head) // 4
-    chunk = 32 * vecs_a_lane
-    chunks = -(-vecs // chunk)
     per_block = threads // 32
-    warps = max(1, min(resident, -(-chunks // per_block))) * per_block
+    v = lane_vectors(vecs, sms, threads, most_vecs)
+    chunk = 32 * v
+    chunks = -(-vecs // chunk)
+    grid = max(1, min(resident, -(-chunks // per_block)))
+    warps = grid * per_block
+    per_warp = -(-chunks // warps)
     starts, seen = [None] * (n + 1), [0] * (n + 1)
 
     def write(prev, cur, j):
@@ -374,10 +387,11 @@ def tail_run_pass(cid, offset=0, resident=132 * 8, threads=TAIL_THREADS, vecs_a_
             starts[c] = j
 
     for w in range(warps):
-        c0, c1 = chunks * w // warps, chunks * (w + 1) // warps
+        c0 = min(w * per_warp, chunks)
+        c1 = min(c0 + per_warp, chunks)
         carry = cid[head + 4 * c0 * chunk - 1] if c0 < c1 and (c0 > 0 or head > 0) else -1
         for c in range(c0, c1):
-            ks = [[c * chunk + u * 32 + lane for lane in range(32)] for u in range(vecs_a_lane)]
+            ks = [[c * chunk + u * 32 + lane for lane in range(32)] for u in range(v)]
             x = [[cid[head + 4 * k:head + 4 * k + 4] if k < vecs else [0] * 4 for k in row]
                  for row in ks]
             for u, row in enumerate(ks):
@@ -392,7 +406,7 @@ def tail_run_pass(cid, offset=0, resident=132 * 8, threads=TAIL_THREADS, vecs_a_
     last = cid[-1]
     write(last, max(last + 1, 0) if last < n else -1, n)
     assert seen == [1] * (n + 1)
-    return starts
+    return starts, v
 
 
 def searchsorted_starts(cid):
@@ -424,33 +438,49 @@ def test_tail_run_layouts(label, offset):
     plain = ct.tail_runs_plain(torch.tensor(cid, dtype=torch.int32))
     assert plain.dtype == torch.int32 and plain.tolist() == want
     assert ct.written_runs(torch.tensor(cid, dtype=torch.int32)) == len(want)
-    starts = tail_run_pass(cid, offset)
+    starts, _ = tail_run_pass(cid, offset)
     assert starts[:len(want)] == want
     assert all(v is None for v in starts[len(want):])
 
 
-@pytest.mark.parametrize("resident", [1, 2, 3])
-def test_tail_run_pass_on_a_small_grid(resident):
-    """Grids of 1-3 blocks: a warp takes several chunks in turn, its carry
-    from round to round; views at every offset."""
+@pytest.mark.parametrize("resident,sms,vecs", [(1, 1, 4), (2, 3, 2), (3, 132, 1), (5, 2, 4)])
+def test_tail_run_pass_on_a_small_grid(resident, sms, vecs):
+    """Grids of 1-5 blocks: a warp takes several chunks in turn, its carry
+    from round to round, at 4, 2 and 1 vectors a lane; views at every
+    offset."""
     for label, ids in tail_run_layouts(9000, seed=2).items():
         cid = ids.tolist()
         want = searchsorted_starts(cid)
         for offset in range(4):
-            assert tail_run_pass(cid, offset, resident)[:len(want)] == want, (label, offset)
+            starts, v = tail_run_pass(cid, offset, resident, sms)
+            assert starts[:len(want)] == want, (label, offset)
+            assert v == vecs or len(cid) < 9000
+
+
+def test_tail_run_vectors_a_lane_by_size():
+    """4 vectors a lane where the chunks fill 132 SMs with a block's warps
+    each (the engine's 2^21 ids), 2 and 1 below them: dense3-chr1's 65,536
+    ids take 1."""
+    fill = 132 * (TAIL_THREADS // 32)
+    for n, want in ((1 << 21, 4), (4 * 32 * 4 * fill, 4), (4 * 32 * 4 * fill - 4, 2),
+                    (4 * 32 * 2 * fill, 2), (4 * 32 * 2 * fill - 4, 1), (65536, 1), (1, 1)):
+        assert lane_vectors(n // 4, 132) == want, n
+    assert tail_run_pass(list(range(600)), 0, 1, 132)[1] == 1
 
 
 def test_tail_run_source_rules():
     """The rules the mirror copies, as the source writes them: the head
-    from the pointer's 16-byte offset, the grid no wider than the chunks,
-    a warp's chunks."""
+    from the pointer's 16-byte offset, a warp's chunks, the left
+    neighbours and the vectors a lane."""
     src = open(os.path.join(CSRC, "candidate_tail.cu")).read()
     for rule in ("const int head = std::min(static_cast<int>((16 - at % 16) % 16 / 4), n);",
                  "const int vecs = (n - head) / 4;",
-                 "constexpr int kRunChunk = 32 * kRunVecs;",
-                 "const int c0 = static_cast<int>(chunks * warp / warps);",
-                 "const int k = c * kRunChunk + u * 32 + lane;",
-                 "const int prev = lane == 0 ? carry : up;"):
+                 "const int c0 = min(warp * per_warp, chunks), c1 = min(c0 + per_warp, chunks);",
+                 "const int per_warp = (chunks + grid * kWarps - 1) / (grid * kWarps);",
+                 "const int k = c * kChunk + u * 32 + lane;",
+                 "const int prev = lane == 0 ? carry : up;",
+                 "if (vecs / (32 * 4) >= fill)",
+                 "else if (vecs / (32 * 2) >= fill)"):
         assert rule in src, rule
 
 
