@@ -2602,22 +2602,6 @@ def engine_step_pair(sig, coverage, params, what, region_offset=0):
     return got, int(info["merge_rounds"]), cpu_s, card_s
 
 
-def dense_chr1(bam, contig="chr1"):
-    """The port's lead provider over one contig of a BAM: its leads with a
-    length (sorted by position) and its coverage as int32."""
-    from sniffles_tpu_torch.config import SnifflesConfig
-    from sniffles_tpu_torch.io.bam import AlignmentFile
-    from sniffles_tpu_torch.leads import LeadProvider
-    from sniffles_tpu_torch.region import Region
-    config = SnifflesConfig("--input", bam, "--vcf", "out.vcf")
-    f = AlignmentFile(bam, "rb", require_index=True)
-    provider = LeadProvider(config, 0, contig)
-    provider.build_leadtab([Region(contig, 0, f.get_reference_length(contig))], f)
-    leads = sorted((ld for tab in provider.leadtab.values() for binned in tab.values()
-                    for ld in binned if ld.svlen is not None), key=lambda ld: ld.ref_start)
-    return leads, provider.coverage.astype(np.int32), provider.average_regional_nm
-
-
 def engine_flag_params(flags, coverage, nm_threshold):
     """default_params of the CLI's flag set, with the contig's mean coverage
     and regional NM as a call task has them."""
@@ -2660,6 +2644,7 @@ def dryrun_shards(tmp):
            for i in range(2 * ENGINE_SHARDS)]
     os.makedirs(tmp, exist_ok=True)
     bam, _ = write_dataset(tmp, ref_len=ref_len, depth=10, read_len=6000, seed=5, svs=svs)
+    from sniffles_tpu_torch.tools.profile_engine import dense_chr1
     leads, coverage, _ = dense_chr1(bam)
     sig = {}
     for s in range(ENGINE_SHARDS):
@@ -3209,6 +3194,7 @@ def run_engine(tmp, dense_bam, ptxas_log, stats_ptxas_log):
     header("[10b] dense3's chr1 signatures (the port's lead provider) under three flag sets",
           flush=True)
     t0 = time.perf_counter()
+    from sniffles_tpu_torch.tools.profile_engine import dense_chr1
     leads, chr1_cov, nm = dense_chr1(dense_bam)
     sig = from_leads(leads).as_dict()
     print(f"    {len(leads)} leads in {sig['pos'].shape[0]} slots, coverage mean "

@@ -166,11 +166,6 @@ __device__ __forceinline__ void write_starts(int32_t* __restrict__ run_start, in
   for (int c = from; c <= to; ++c) run_start[c] = j;  // more than one only at a gap
 }
 
-// The end (j = n): the slot after the last id, where it is at most n.
-__device__ __forceinline__ void write_end(int32_t* __restrict__ run_start, int last, int n) {
-  write_starts(run_start, last, last < n ? max(last + 1, 0) : -1, n, n);
-}
-
 // run_start[c] = the first element j with cluster_id[j] >= c, for every c
 // up to clamp(cluster_id[n - 1] + 1, 0, n) (cluster ids ascend along the
 // array): element j writes the ids in (cluster_id[j - 1], cluster_id[j]],
@@ -237,7 +232,8 @@ __global__ void __launch_bounds__(kRunThreads) tail_runs(const int32_t* __restri
       write_starts(run_start, j == 0 ? -1 : cluster_id[j - 1], cluster_id[j], j, n);
     for (int j = head + 4 * vecs; j < n; ++j)
       write_starts(run_start, j == 0 ? -1 : cluster_id[j - 1], cluster_id[j], j, n);
-    write_end(run_start, cluster_id[n - 1], n);
+    const int last = cluster_id[n - 1];  // the end: the slot after it, where at most n
+    write_starts(run_start, last, last < n ? max(last + 1, 0) : -1, n, n);
   }
 }
 

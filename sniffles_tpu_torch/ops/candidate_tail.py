@@ -40,9 +40,9 @@ COUNTS = {"launches": 0}
 # The run pass's timing variants (csrc/candidate_tail.cu, -DTAIL_RUN_PARTS=k):
 # the k-th stops after this part. Only a timing tool builds them.
 RUN_PARTS = ("empty launch", "loads")
-# The run pass's ids a lane a round and a warp's chunk (csrc/candidate_tail.cu:
-# 4 * kRunVecs and 4 * kRunChunk; the edge layouts of sim.tail_run_layouts
-# straddle them)
+# The run pass's most ids a lane a round and a warp's chunk of them
+# (csrc/candidate_tail.cu: 4 * kRunVecs, 32 lanes of 4 * kRunVecs); the edge
+# layouts of sim.tail_run_layouts straddle them
 RUN_LANE_IDS = 16
 RUN_CHUNK_IDS = 512
 

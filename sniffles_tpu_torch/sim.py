@@ -940,7 +940,7 @@ def tail_run_layouts(n: int, seed: int = 7) -> dict[str, np.ndarray]:
                                      np.sort(rng.integers(0, n // 8, n - 40))]),
         "all negative": full(300, -2),
         "ids at and past n": cat([np.sort(rng.integers(0, n // 4, n - 60)), full(20, n),
-                                  full(20, n + 3), full(20, 2 ** 31 - 1)]),
+                                  full(20, n + 3), full(20, _I32_MAX)]),
         "first id past n": full(n, n + 1),
         "one huge gap": cat([np.zeros(10), full(n - 10, n - 5)]),
     }

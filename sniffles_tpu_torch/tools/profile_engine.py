@@ -164,14 +164,27 @@ def tail_ids(sig, coverage, params) -> torch.Tensor:
     return kept[0].to(torch.int32).contiguous()
 
 
-def dense_chr1_inputs(dense_dir: str, device: str):
-    """dense3's chr1 as chip_smoke.py phase 10b steps it: the port's lead
-    provider's leads with a length (by position) and its coverage."""
+def dense_chr1(bam, contig="chr1"):
+    """The port's lead provider over one contig of a BAM: its leads with a
+    length (sorted by position), its coverage as int32 and its regional NM
+    (chip_smoke.py phases 10b and 10c)."""
     from sniffles_tpu_torch.config import SnifflesConfig
     from sniffles_tpu_torch.io.bam import AlignmentFile
     from sniffles_tpu_torch.leads import LeadProvider
-    from sniffles_tpu_torch.parallel.engine import default_params, to_device
     from sniffles_tpu_torch.region import Region
+    config = SnifflesConfig("--input", bam, "--vcf", "out.vcf")
+    f = AlignmentFile(bam, "rb", require_index=True)
+    provider = LeadProvider(config, 0, contig)
+    provider.build_leadtab([Region(contig, 0, f.get_reference_length(contig))], f)
+    leads = sorted((ld for tab in provider.leadtab.values() for binned in tab.values()
+                    for ld in binned if ld.svlen is not None), key=lambda ld: ld.ref_start)
+    return leads, provider.coverage.astype(np.int32), provider.average_regional_nm
+
+
+def dense_chr1_inputs(dense_dir: str, device: str):
+    """dense3's chr1 as chip_smoke.py phase 10b steps it (dense_chr1 of
+    bench.py's dense leg, written to dense_dir unless it is there)."""
+    from sniffles_tpu_torch.parallel.engine import default_params, to_device
     from sniffles_tpu_torch.signatures import from_leads
     from sniffles_tpu_torch.sim import dense_layout, write_dataset
     from sniffles_tpu_torch.tools.profile_call_task import DENSE
@@ -179,14 +192,8 @@ def dense_chr1_inputs(dense_dir: str, device: str):
     if not os.path.exists(bam):
         os.makedirs(dense_dir, exist_ok=True)
         bam, _ = write_dataset(dense_dir, svs=dense_layout(DENSE["ref_len"]), **DENSE)
-    config = SnifflesConfig("--input", bam, "--vcf", "out.vcf")
-    f = AlignmentFile(bam, "rb", require_index=True)
-    provider = LeadProvider(config, 0, "chr1")
-    provider.build_leadtab([Region("chr1", 0, f.get_reference_length("chr1"))], f)
-    leads = sorted((ld for tab in provider.leadtab.values() for binned in tab.values()
-                    for ld in binned if ld.svlen is not None), key=lambda ld: ld.ref_start)
-    sig, coverage = to_device(from_leads(leads).as_dict(),
-                              provider.coverage.astype(np.int32), device)
+    leads, coverage, _ = dense_chr1(bam)
+    sig, coverage = to_device(from_leads(leads).as_dict(), coverage, device)
     return sig, coverage, default_params()
 
 
@@ -286,8 +293,8 @@ def print_tail_split(split: dict) -> None:
                           for part, (ms, us, d_ms, d_us) in row["parts"].items())
         pass_us = row["parts"]["pass"][1::2] if "pass" in row["parts"] else ()
         share = (f", the pass {bound_ms * 1e3 / pass_us[0]:.1%} / "
-                 f"{bound_ms * 1e3 / pass_us[1]:.1%} of it (profiler)" if all(pass_us) and
-                 pass_us else "")
+                 f"{bound_ms * 1e3 / pass_us[1]:.1%} of it (profiler)"
+                 if pass_us and all(pass_us) else "")
         print(f"  {label} (n={row['n']}): {parts or 'not measured (no card)'}; bound "
               f"{bound_ms:.5f} ms ({runs_bytes} bytes at {HBM_BYTES_PER_S / 1e12:.2f} TB/s)"
               f"{share}")

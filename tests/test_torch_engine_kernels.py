@@ -8,7 +8,8 @@ chip_smoke.py phase 10):
     it (cluster_signatures with exact_sweep=False, jitted; tolerance 0);
   * the relaxation wrapper's column and stamp checks (ops/merge_relax.py,
     relax_columns) and the round split of tools/time_merge_relax.py;
-  * tools/profile_engine.py's stage wrapping on the CPU;
+  * tools/profile_engine.py's stage wrapping on the CPU, and the cluster
+    ids its --tail-split takes from the step;
   * --dev-debug PORT with nothing listening: the JAX package's warning in
     the log, exit 0, and the records of a run without the flag.
 """
@@ -167,6 +168,27 @@ def test_profile_engine_wraps_every_stage_once_a_step():
     assert fig["step_ms"] is None and not fig["interval_ms"]
     # the module functions are restored afterwards
     assert all(getattr(mod, attr) is fn for (mod, attr), fn in targets.items())
+
+
+def test_tail_split_takes_the_ids_the_step_hands_its_tail():
+    """--tail-split's layouts are the cluster ids of the step's own
+    clustering (cluster_signatures at the step's parameters), ascending,
+    and the engine's module is restored afterwards; on the CPU it times
+    nothing."""
+    from sniffles_tpu_torch.ops import candidate_tail as ct
+    from sniffles_tpu_torch.parallel import engine
+    tail = engine.candidate_tail
+    sig, coverage, params = profile_engine.engine_inputs(4096, "cpu")
+    cid = profile_engine.tail_ids(sig, coverage, params)
+    assert engine.candidate_tail is tail
+    want = tcl.cluster_signatures(
+        sig, minsvlen=params["minsvlen"], cluster_merge_len=params["cluster_merge_len"],
+        exact_sweep=False, **{k: params[k] for k in ("cluster_r", "cluster_repeat_h",
+                                                   "cluster_repeat_h_max", "cluster_merge_bnd")}
+    )["cluster_id"]
+    assert cid.dtype == torch.int32 and torch.equal(cid, want.to(torch.int32))
+    assert bool((cid[1:] >= cid[:-1]).all())
+    assert ct.tail_runs_plain(cid).shape[0] == int(cid[-1]) + 2
 
 
 # -- --dev-debug PORT -----------------------------------------------------------
