@@ -3046,6 +3046,7 @@ def time_call_stats(clustered, chain, relax, params, ptxas_log):
     {"call_stats": the wrapper's, kernel: its own}."""
     from sniffles_tpu_torch.ops import call_stats as tcs, clustering as tc
     from sniffles_tpu_torch.sim import call_stats_batch
+    from sniffles_tpu_torch.spans import STATS
     from sniffles_tpu_torch.tools.profile_engine import profile
     from sniffles_tpu_torch.tools.time_call_stats import populations
     n = clustered["pos"].shape[0]
@@ -3096,7 +3097,7 @@ def time_call_stats(clustered, chain, relax, params, ptxas_log):
     where_ms = queued_ms(lambda: torch.where(inputs["valid"], inputs["cluster_id"], 2 ** 31 - 1),
                          10)
     fig = profile(n, 1, "cuda")
-    us, launches, _, _ = fig["split"].get("statistics", (0.0, 0.0, {}, 0.0))
+    us, launches, _, _ = fig["split"].get(STATS, (0.0, 0.0, {}, 0.0))
     print(f"  call_stats n={n} ({int(nc)} clusters): the wrapper (the sort's keys, the sort, the "
           f"run pass, the slot pass, the warp and block tiers; no memset) {ms:.4f} ms on the "
           f"device ({call_ms:.4f} ms a call), the kernels after the sort {kernels_ms:.4f} ms; "
@@ -3109,8 +3110,7 @@ def time_call_stats(clustered, chain, relax, params, ptxas_log):
           f"{kbound * 1e3:.3f} us ({kbound_by}: {CALL_STATS_KERNEL_BYTES * n} bytes), "
           f"{kbound / kernels_ms:.3%} of it", flush=True)
     print(f"  the engine step's statistics stage (tools/profile_engine.py, 1 profiled step): "
-          f"{us / 1e3:.4f} ms of kernels in {launches:.0f} launches, "
-          f"{fig['interval_ms'].get('statistics', float('nan')):.4f} ms between its events; "
+          f"{us / 1e3:.4f} ms of kernels in {launches:.0f} launches; "
           f"the step {fig['step_ms']:.4f} ms between CUDA events", flush=True)
 
     for case, c in populations(n, "cuda").items():

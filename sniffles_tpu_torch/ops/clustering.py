@@ -64,6 +64,7 @@ from sniffles_tpu_torch.ops.segments import (INT32_MAX, lexsort, segment_ids_fro
                                              shift_prev,
                                              seg_sum, seg_sum_f32, seg_max, seg_min,
                                              seg_count, sqrt_f32)
+from sniffles_tpu_torch.spans import RELAX, RESPLIT, SORT_SEED, span
 
 # svtype codes (order matches svcall.ALL_TYPES)
 SVTYPE_INS, SVTYPE_DEL, SVTYPE_DUP, SVTYPE_INV, SVTYPE_BND = 0, 1, 2, 3, 4
@@ -897,7 +898,8 @@ def cluster_signatures(sig: dict, *, cluster_r, cluster_repeat_h, cluster_repeat
     int32 0-d tensor).
     """
     from sniffles_tpu_torch.ops.merge_relax import merge_relax
-    s, boundary, bin_ = sort_and_seed(sig, binsize)
+    with span(SORT_SEED):
+        s, boundary, bin_ = sort_and_seed(sig, binsize)
     sweep = dict(cluster_r=cluster_r, cluster_repeat_h=cluster_repeat_h,
                  cluster_repeat_h_max=cluster_repeat_h_max,
                  cluster_merge_bnd=cluster_merge_bnd, global_repeat=global_repeat,
@@ -906,16 +908,18 @@ def cluster_signatures(sig: dict, *, cluster_r, cluster_repeat_h, cluster_repeat
     if exact_sweep:
         boundary = _exact_merge_sweep(s, boundary, bin_, **sweep)
     else:
-        boundary, rounds = merge_relax(s, boundary, bin_, **sweep)
-    if do_resplit:
-        s, cluster_id = _resplit(s, boundary, resplit_binsize=resplit_binsize,
-                                 minsvlen=minsvlen, cluster_merge_len=cluster_merge_len)
-    else:
-        cluster_id = segment_ids_from_boundaries(boundary)
-    out = dict(s)
-    out["cluster_id"] = cluster_id
-    # invalid (padding) slots sort last; their tail segment is no cluster
-    out["n_clusters"] = (torch.max(torch.where(s["valid"], cluster_id, -1)) + 1).to(torch.int32)
+        with span(RELAX):
+            boundary, rounds = merge_relax(s, boundary, bin_, **sweep)
+    with span(RESPLIT):
+        if do_resplit:
+            s, cluster_id = _resplit(s, boundary, resplit_binsize=resplit_binsize,
+                                     minsvlen=minsvlen, cluster_merge_len=cluster_merge_len)
+        else:
+            cluster_id = segment_ids_from_boundaries(boundary)
+        out = dict(s)
+        out["cluster_id"] = cluster_id
+        # invalid (padding) slots sort last; their tail segment is no cluster
+        out["n_clusters"] = (torch.max(torch.where(s["valid"], cluster_id, -1)) + 1).to(torch.int32)
     if rounds is not None:
         out["merge_rounds"] = rounds
     return out

@@ -25,6 +25,7 @@ from sniffles_tpu_torch.config import torch_device
 from sniffles_tpu_torch.ops.candidate_tail import candidate_tail
 from sniffles_tpu_torch.ops.clustering import call_statistics, cluster_signatures
 from sniffles_tpu_torch.ops.segments import seg_sum
+from sniffles_tpu_torch.spans import STATS, STEP, TAIL, span
 
 
 def default_params(config=None) -> dict:
@@ -128,38 +129,40 @@ def call_pipeline_step(sig: dict, coverage, params: dict, region_offset=0,
     svtype, pos, end, svlen, support, qual, stdev_pos, stdev_len,
     gt_(a,b), gq, dr, dv, af, filter_code, qc, precise, ...
     """
-    sig, coverage = to_device(sig, coverage, device)
-    clustered = cluster_signatures(
-        sig,
-        cluster_r=params["cluster_r"],
-        cluster_repeat_h=params["cluster_repeat_h"],
-        cluster_repeat_h_max=params["cluster_repeat_h_max"],
-        cluster_merge_bnd=params["cluster_merge_bnd"],
-        cluster_merge_len=params["cluster_merge_len"],
-        minsvlen=params["minsvlen"],
-        binsize=binsize,
-        resplit_binsize=resplit_binsize,
-        # the fused path: the parallel relaxation (a documented deviation
-        # of the JAX package); the production call path uses the exact sweep
-        exact_sweep=False,
-    )
-    if info is not None:
-        info["merge_rounds"] = clustered.pop("merge_rounds")
-    else:
-        clustered.pop("merge_rounds")
+    with span(STEP):
+        sig, coverage = to_device(sig, coverage, device)
+        clustered = cluster_signatures(
+            sig,
+            cluster_r=params["cluster_r"],
+            cluster_repeat_h=params["cluster_repeat_h"],
+            cluster_repeat_h_max=params["cluster_repeat_h_max"],
+            cluster_merge_bnd=params["cluster_merge_bnd"],
+            cluster_merge_len=params["cluster_merge_len"],
+            minsvlen=params["minsvlen"],
+            binsize=binsize,
+            resplit_binsize=resplit_binsize,
+            # the fused path: the parallel relaxation (a documented deviation
+            # of the JAX package); the production call path uses the exact sweep
+            exact_sweep=False,
+        )
+        if info is not None:
+            info["merge_rounds"] = clustered.pop("merge_rounds")
+        else:
+            clustered.pop("merge_rounds")
 
-    stats = call_statistics(clustered, fused=True)
-    n = stats["svtype"].shape[0]
+        with span(STATS):
+            stats = call_statistics(clustered, fused=True)
+        n = stats["svtype"].shape[0]
 
-    # split-read support per cluster (reference: sv.py:580-581 counts
-    # source != INLINE leads into SUPPORT_SA for the DEL genotyper)
-    sa = clustered.get("sa")
-    support_sa = (seg_sum((clustered["valid"] & (sa > 0)).to(torch.int32),
-                          clustered["cluster_id"], n)
-                  if sa is not None else torch.zeros_like(stats["support"]))
-
-    tail = candidate_tail(stats, support_sa, coverage, clustered, params,
-                          region_offset=region_offset, binsize=binsize)
-    out = dict(stats)
-    out.update(tail)
-    return out
+        with span(TAIL):
+            # split-read support per cluster (reference: sv.py:580-581 counts
+            # source != INLINE leads into SUPPORT_SA for the DEL genotyper)
+            sa = clustered.get("sa")
+            support_sa = (seg_sum((clustered["valid"] & (sa > 0)).to(torch.int32),
+                                  clustered["cluster_id"], n)
+                          if sa is not None else torch.zeros_like(stats["support"]))
+            tail = candidate_tail(stats, support_sa, coverage, clustered, params,
+                                  region_offset=region_offset, binsize=binsize)
+        out = dict(stats)
+        out.update(tail)
+        return out

@@ -17,7 +17,7 @@ Inputs, each a packed (15, n) batch on the card:
   - "chain 2^21": sim.relax_chain_batch(2^21) (568 tiled 36-link chains)
     packed as a call task.
 Each stage of the task runs inside a record_function range of its own (the
-module functions are wrapped, never edited; profile_engine.py's staged and
+module functions are wrapped, never edited: staged; profile_engine.py's
 stage_split with these stages):
   sort and seed      ops/clustering.sort_and_seed
   sweep_inputs       ops/clustering.sweep_inputs (the seeds' slot state)
@@ -51,6 +51,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)
 sys.path.append(REPO)     # after PYTHONPATH, so that a package there comes first
 
 SLEEP_CYCLES = 2_000_000     # about 1 ms of device sleep ahead of a timed task
+PREFIX = "stage: "
 # bench.py's dense leg (chip_smoke.py DENSE_*)
 DENSE = dict(ref_len=2_000_000, depth=60, read_len=12_000, seed=17, n_contigs=3)
 
@@ -63,6 +64,28 @@ def stage_targets() -> list:
             ("sweep", tc, "merge_sweep"), ("boundaries", tc, "_sweep_boundaries"),
             ("fold", tc, "merge_inner_fold"), ("resplit_child_ids", tc, "resplit_child_ids"),
             ("statistics", tc, "call_statistics"), ("phase_tallies", tc, "phase_tallies")]
+
+
+@contextlib.contextmanager
+def staged():
+    """Wraps every stage of stage_targets in a record_function range named
+    PREFIX + stage for the duration of the block."""
+    saved = []
+
+    def wrap(label, fn):
+        def run(*args, **kwargs):
+            with torch.profiler.record_function(PREFIX + label):
+                return fn(*args, **kwargs)
+        return run
+
+    try:
+        for label, mod, attr in stage_targets():
+            saved.append((mod, attr, getattr(mod, attr)))
+            setattr(mod, attr, wrap(label, getattr(mod, attr)))
+        yield
+    finally:
+        for mod, attr, fn in reversed(saved):
+            setattr(mod, attr, fn)
 
 
 def call_meta() -> dict:
@@ -163,16 +186,12 @@ def profile(packed: np.ndarray, meta: dict, device: str, reps: int) -> dict:
     acts = [torch.profiler.ProfilerActivity.CPU]
     if on_card:
         acts.append(torch.profiler.ProfilerActivity.CUDA)
-    engine_targets = pe.stage_targets
-    pe.stage_targets = stage_targets      # staged() wraps these stages instead
-    try:
-        with pe.staged(), torch.profiler.profile(activities=acts) as prof:
-            for _ in range(reps):
-                tc.call_task_packed(x, **meta)
-            sync()
-    finally:
-        pe.stage_targets = engine_targets
-    return {"split": pe.stage_split(prof.events(), reps),
+    with staged(), torch.profiler.profile(activities=acts) as prof:
+        for _ in range(reps):
+            tc.call_task_packed(x, **meta)
+        sync()
+    stages = [PREFIX + label for label, _, _ in stage_targets()]
+    return {"split": pe.stage_split(prof.events(), reps, stages),
             "task_ms": task_ms(lambda: tc.call_task_packed(x, **meta), timed) if on_card else None}
 
 
@@ -199,7 +218,7 @@ def main() -> int:
               + f", {sum(v[0] for v in split.values()) / 1e3:.4f} ms of kernels, "
               f"{sum(v[1] for v in split.values()):.0f} launches", flush=True)
         for stage in [t[0] for t in stage_targets()] + [None]:
-            us, n, by, _ = split.get(stage, (0.0, 0.0, {}, 0.0))
+            us, n, by, _ = split.get(stage and PREFIX + stage, (0.0, 0.0, {}, 0.0))
             top = sorted(by.items(), key=lambda kv: -kv[1])[:2]
             print(f"  {stage or 'under no stage':18s} {us / 1e3:9.4f} ms {n:6.0f} launches"
                   + "".join(f"; {v / 1e3:.4f} ms {k[:50]}" for k, v in top), flush=True)

@@ -8,8 +8,8 @@ chip_smoke.py phase 10):
     it (cluster_signatures with exact_sweep=False, jitted; tolerance 0);
   * the relaxation wrapper's column and stamp checks (ops/merge_relax.py,
     relax_columns) and the round split of tools/time_merge_relax.py;
-  * tools/profile_engine.py's stage wrapping on the CPU, and the cluster
-    ids its --tail-split takes from the step;
+  * tools/profile_engine.py's stages (the step's spans) on the CPU, and
+    the cluster ids its --tail-split takes from the step;
   * --dev-debug PORT with nothing listening: the JAX package's warning in
     the log, exit 0, and the records of a run without the flag.
 """
@@ -159,15 +159,19 @@ def test_rounds_from_kernels_pairs_each_rounds_two_kernels():
 # -- the engine's profile -----------------------------------------------------
 
 def test_profile_engine_wraps_every_stage_once_a_step():
-    targets = {(mod, attr): getattr(mod, attr)
-               for _, mod, attr in profile_engine.stage_targets()}
+    """The tool's stages are the step's own spans, each once a step, and
+    it wraps no module function."""
+    from sniffles_tpu_torch.ops import clustering, merge_relax
+    from sniffles_tpu_torch.parallel import engine
+    from sniffles_tpu_torch.spans import STAGES, STEP
+    mods = (clustering, merge_relax, engine)
+    before = [dict(vars(mod)) for mod in mods]
     fig = profile_engine.profile(4096, 2, "cpu")
-    assert {label for label in fig["split"] if label is not None} == {
-        label for label, _, _ in profile_engine.stage_targets()}
+    assert {label for label in fig["split"] if label is not None} == {*STAGES, STEP}
     assert all(v[3] == 1 for label, v in fig["split"].items() if label is not None)
-    assert fig["step_ms"] is None and not fig["interval_ms"]
-    # the module functions are restored afterwards
-    assert all(getattr(mod, attr) is fn for (mod, attr), fn in targets.items())
+    assert fig["step_ms"] is None and "interval_ms" not in fig
+    assert not hasattr(profile_engine, "stage_targets")
+    assert all(vars(mod) == b for mod, b in zip(mods, before))
 
 
 def test_tail_split_takes_the_ids_the_step_hands_its_tail():

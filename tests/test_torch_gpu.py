@@ -18,7 +18,8 @@ PyTorch versions (and the host Myers scan), and the combine and
 call_sample device paths on the card against their host paths, the
 native host library beside a CUDA context, the cluster_assign step, the
 combine greedy's grid and flush kernels and the engine's step, whole and
-sharded, on the card against the CPU. They
+sharded, on the card against the CPU, and the engine step's spans (host
+ranges alone, each launch inside the step, 111 launches). They
 skip where no CUDA card is visible. This file imports neither JAX nor
 the JAX package, so on the card it runs without them:
 
@@ -856,6 +857,42 @@ def test_engine_step_on_cuda_matches_the_cpu(card):
             assert g.view(torch.int32).tolist() == v.view(torch.int32).tolist(), k
         else:
             assert g.tolist() == v.tolist(), k
+
+
+def test_engine_step_spans_hold_its_launches(card):
+    """The engine's 2^21 step under CPU and CUDA activity: its spans are
+    host ranges alone (no device event bears a span's name); the launch
+    call of each kernel and copy (the call that shares its correlation id)
+    lies inside the step, so each falls in one of its five stages or its
+    own time; the step makes 111 launch and copy calls."""
+    from sniffles_tpu_torch.parallel.engine import call_pipeline_step
+    from sniffles_tpu_torch.spans import STAGES, STEP
+    from sniffles_tpu_torch.tools.profile_engine import (LAUNCH_CALLS, engine_inputs,
+                                                         launched_by, stage_split)
+    sig, coverage, params = engine_inputs(1 << 21, "cuda")
+    call_pipeline_step(sig, coverage, params)
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        call_pipeline_step(sig, coverage, params)
+        torch.cuda.synchronize()
+    events = prof.events()
+    cuda = torch.autograd.DeviceType.CUDA
+    named = {STEP, *STAGES}
+    assert not [e.name for e in events if e.device_type == cuda and e.name in named]
+    step = [e.time_range for e in events if e.device_type != cuda and e.name == STEP]
+    assert len(step) == 1
+    lo, hi = step[0].start, step[0].end
+    pairs = launched_by(events)
+    assert pairs and all(call is not None for _, call in pairs)
+    for kernel, call in pairs:
+        assert lo <= call.time_range.start <= hi, kernel.name
+    split = stage_split(events, 1)
+    assert set(split) == named
+    assert sum(v[1] for v in split.values()) == len(pairs)
+    launches = [e for e in events if e.device_type != cuda and e.name.startswith(LAUNCH_CALLS)
+                and lo <= e.time_range.start <= hi]
+    assert len(launches) == 111
 
 
 def test_sharded_step_on_cuda_matches_the_cpu(card):
