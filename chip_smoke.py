@@ -2587,7 +2587,7 @@ def engine_outputs_equal(ours, want, what, keys=None):
 def engine_step_pair(sig, coverage, params, what, region_offset=0):
     """The engine's step on the card and on the CPU (the plain versions),
     every key held bit for bit. Returns (the card's output, its relaxation
-    rounds, CPU s, card s)."""
+    rounds, CPU s, card s, the CPU's output)."""
     from sniffles_tpu_torch.parallel.engine import call_pipeline_step
     t0 = time.perf_counter()
     want = call_pipeline_step(sig, coverage, params, region_offset, device="cpu")
@@ -2599,7 +2599,7 @@ def engine_step_pair(sig, coverage, params, what, region_offset=0):
     torch.cuda.synchronize()
     card_s = time.perf_counter() - t0
     engine_outputs_equal(got, want, what)
-    return got, int(info["merge_rounds"]), cpu_s, card_s
+    return got, int(info["merge_rounds"]), cpu_s, card_s, want
 
 
 def engine_flag_params(flags, coverage, nm_threshold):
@@ -2785,11 +2785,14 @@ def ptxas_summary(log, kernel):
     return "not in the build log"
 
 
-def time_engine_kernels(sig, coverage, params, ptxas_log, stats_ptxas_log):
+def time_engine_kernels(sig, coverage, params, ptxas_log, stats_ptxas_log, cpu_step):
     """(d): the two kernels' CUDA-event times on the step's 2^21 inputs, their
-    plain versions on the card, their bounds; the step's device time,
-    signatures a second (bench.py's measure: 3 repeats of 10 steps), peak
-    device memory and host synchronisations. Returns the JSON rows."""
+    plain versions on the card, their bounds; the step replayed as a CUDA
+    graph held against `cpu_step`, the CPU step on those inputs, every key;
+    then the eager body and the replayed step each: device time, the host's
+    launches, signatures a second (bench.py's measure: 3 repeats of 10
+    steps), peak device memory; the host synchronisations of the eager
+    body. Returns the JSON rows."""
     from sniffles_tpu_torch.ops import candidate_tail as ct, clustering as tc
     from sniffles_tpu_torch.ops import merge_relax as tmr
     from sniffles_tpu_torch.ops.segments import seg_sum
@@ -2873,37 +2876,63 @@ def time_engine_kernels(sig, coverage, params, ptxas_log, stats_ptxas_log):
           f"{tail_bound / tail_ms:.3%} of it", flush=True)
     stats_rows = time_call_stats(clustered, chain, relax, params, stats_ptxas_log)
 
+    from sniffles_tpu_torch.parallel import engine
     step = lambda: call_pipeline_step(sig, coverage, params)  # noqa: E731
+    eager = lambda: engine._eager_step(sig, coverage, params, 0, 100, 20, None, None)  # noqa
+    # the replayed step: a first sight (eager) and a capture before any timing
+    engine.clear_graphs()
+    before = dict(engine.COUNTS)
+    torch.cuda.synchronize()
+    reserved = torch.cuda.memory_reserved()
+    step()
     step()
     torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    base = torch.cuda.memory_allocated()
-    step_ms = cuda_ms(step, 10)
-    peak = torch.cuda.max_memory_allocated() - base
-    # the host's side of a step: where it comes near step_ms, the host
-    # bounds the step and the card waits on its launches
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(10):
-        step()
-    enqueue_ms = (time.perf_counter() - t0) / 10 * 1e3
-    torch.cuda.synchronize()
-    rates = []
-    for _ in range(3):
+    pool = torch.cuda.memory_reserved() - reserved
+    engine_outputs_equal(step(), cpu_step, "the replayed step at 2^21 against the CPU step")
+    paths = {k: engine.COUNTS[k] - before[k] for k in ("eager", "captures", "replays")}
+    if paths != {"eager": 1, "captures": 1, "replays": 1}:
+        fail(f"the 2^21 step's first three calls went {paths}, not eager, capture, replay")
+    timed = {}
+    for name, fn in (("eager", eager), ("replayed", step)):
+        fn()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        step_ms = cuda_ms(fn, 10)
+        peak = torch.cuda.max_memory_allocated() - base
+        # the host's side of a step: where it comes near step_ms, the host
+        # bounds the step and the card waits on its launches
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(10):
-            step()
+            fn()
+        enqueue_ms = (time.perf_counter() - t0) / 10 * 1e3
         torch.cuda.synchronize()
-        rates.append(n / ((time.perf_counter() - t0) / 10))
-    sites = sync_sites(step)
+        rates = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(10):
+                fn()
+            torch.cuda.synchronize()
+            rates.append(n / ((time.perf_counter() - t0) / 10))
+        timed[name] = (step_ms, enqueue_ms, rates, peak)
+    replays = engine.COUNTS["replays"] - before["replays"] - 1
+    if replays != 51 or engine.COUNTS["eager"] != before["eager"] + 1:
+        fail(f"the timed replayed steps went {replays} of 51 calls to a replay")
+    sites = sync_sites(eager)
     in_relax = sum(v for k, v in sites.items() if "merge_relax" in k)
-    print(f"  the step n={n}: {step_ms:.3f} ms a step between CUDA events, the host's "
-          f"launches of a step {enqueue_ms:.3f} ms; {np.mean(rates):.4g} signatures/s (bench.py's measure: 3 x 10 steps, host clock; "
-          f"{', '.join(f'{r:.4g}' for r in rates)}); peak device memory of a step "
-          f"{peak / 2**20:.1f} MiB above its inputs; host synchronisations "
-          f"{sum(sites.values())}" + "".join(f"; {k} x{v}" for k, v in sorted(sites.items())),
-          flush=True)
+    print(f"  the step n={n}: replayed as a CUDA graph == the CPU step on every key "
+          f"(graph pool {pool / 2**20:.1f} MiB)", flush=True)
+    for name, (step_ms, enqueue_ms, rates, peak) in timed.items():
+        print(f"  the {name} step n={n}: {step_ms:.3f} ms a step between CUDA events, the "
+              f"host's launches of a step {enqueue_ms:.3f} ms; {np.mean(rates):.4g} "
+              f"signatures/s (bench.py's measure: 3 x 10 steps, host clock; "
+              f"{', '.join(f'{r:.4g}' for r in rates)}); peak device memory of a step "
+              f"{peak / 2**20:.1f} MiB above its inputs", flush=True)
+    print(f"  host synchronisations of the eager step {sum(sites.values())}"
+          + "".join(f"; {k} x{v}" for k, v in sorted(sites.items())), flush=True)
+    engine.clear_graphs()
     if in_relax:
         fail(f"the relaxation synchronised with the host {in_relax} times")
     return ({"ms": relax_ms, "plain_ms": relax_plain_ms, "bound_ms": relax_bound,
@@ -3111,7 +3140,9 @@ def time_call_stats(clustered, chain, relax, params, ptxas_log):
           f"{kbound / kernels_ms:.3%} of it", flush=True)
     print(f"  the engine step's statistics stage (tools/profile_engine.py, 1 profiled step): "
           f"{us / 1e3:.4f} ms of kernels in {launches:.0f} launches; "
-          f"the step {fig['step_ms']:.4f} ms between CUDA events", flush=True)
+          f"the step between CUDA events "
+          + ", ".join(f"{label} {min(w for w, _ in rows):.4f} ms"
+                      for label, rows in fig["turns"].items()), flush=True)
 
     for case, c in populations(n, "cuda").items():
         hold_call_stats(c, tcs.launch_call_statistics(c, True), True, f"population {case}")
@@ -3179,7 +3210,8 @@ def run_engine(tmp, dense_bam, ptxas_log, stats_ptxas_log):
         batch = synthetic_batch(n, ncl, seed=seed, genome_span=900_000, batch_size=n).as_dict()
         kept = []
         with kept_call_stats(kept):
-            out, rounds, cpu_s, card_s = engine_step_pair(batch, coverage, params, label)
+            out, rounds, cpu_s, card_s, want = engine_step_pair(batch, coverage, params,
+                                                                label)
         print(f"    {label}: {int(out['n_clusters'])} clusters, {rounds} relaxation rounds, "
               f"{int(out['cluster_valid'].sum())} valid, {int(out['qc'].sum())} PASS; card == "
               f"CPU on every key (CPU {cpu_s:.2f} s, card {card_s:.3f} s with the copies)",
@@ -3188,7 +3220,7 @@ def run_engine(tmp, dense_bam, ptxas_log, stats_ptxas_log):
         print(f"    [a] {label}: the step's {calls} call-statistics call held: kernels == plain "
               f"version on CPU copies, every key and slot; integer keys == plain on the card, "
               f"float32 keys within {err:.3g} of it", flush=True)
-        big = batch
+        big, big_want = batch, want
     stats_launches["10a"] = cs.COUNTS["launches"]
 
     header("[10b] dense3's chr1 signatures (the port's lead provider) under three flag sets",
@@ -3201,7 +3233,8 @@ def run_engine(tmp, dense_bam, ptxas_log, stats_ptxas_log):
           f"{chr1_cov.mean():.2f} ({time.perf_counter() - t0:.1f} s)", flush=True)
     for flags in ([], ["--mosaic"], ["--minsupport", "auto", "--qc-nm"]):
         p = engine_flag_params(flags, chr1_cov, nm)
-        out, rounds, cpu_s, card_s = engine_step_pair(sig, chr1_cov, p, f"dense3 chr1 {flags}")
+        out, rounds, cpu_s, card_s, _ = engine_step_pair(sig, chr1_cov, p,
+                                                         f"dense3 chr1 {flags}")
         valid = out["cluster_valid"].cpu()
         codes = np.bincount(out["filter_code"].cpu()[valid].numpy(), minlength=len(FILTERS))
         print(f"    {' '.join(flags) or 'default'}: {int(out['n_clusters'])} clusters, "
@@ -3244,7 +3277,7 @@ def run_engine(tmp, dense_bam, ptxas_log, stats_ptxas_log):
           f"{err:.3g} of it", flush=True)
 
     header("[10d] timings at 2^21 signatures", flush=True)
-    rows = time_engine_kernels(big, coverage, params, ptxas_log, stats_ptxas_log)
+    rows = time_engine_kernels(big, coverage, params, ptxas_log, stats_ptxas_log, big_want)
     print(f"    phase 10 took {time.perf_counter() - t_phase:.1f} s", flush=True)
     return launches, rows
 

@@ -29,6 +29,8 @@ RESPLIT = "clustering.resplit"        # ops/clustering._resplit and the cluster 
 STATS = "engine.stats"                # ops/clustering.call_statistics
 TAIL = "engine.tail"                  # the split-read support sum and ops/candidate_tail
 STAGES = (SORT_SEED, RELAX, RESPLIT, STATS, TAIL)
+# inside engine.step, in place of the stages: the replay of a captured step
+REPLAY = "engine.replay"              # parallel/engine.StepGraph.replay
 
 _OFF = contextlib.nullcontext()
 

@@ -5,11 +5,13 @@
     python3 sniffles_tpu_torch/tools/profile_engine.py --tail-split [--dense DIR]
     PYTHONPATH=DIR python3 sniffles_tpu_torch/tools/profile_engine.py --tail-split
 
-Runs `parallel/engine.call_pipeline_step` on chip_smoke.py phase 10d's
-inputs (`signatures.synthetic_batch`, n/40 sites, seed 42, a genome span
-of 900 kb; 1 Mb of coverage at 30; default_params), from tensors on the
-card: two steps to warm up, then STEPS steps under torch.profiler (CPU
-and CUDA activities). The stages are the step's own spans
+Runs the eager body of `parallel/engine.call_pipeline_step` (`eager_step`:
+the stages' spans and launch calls, which a replayed step has not) on
+chip_smoke.py phase 10d's inputs (`signatures.synthetic_batch`, n/40
+sites, seed 42, a genome span of 900 kb; 1 Mb of coverage at 30;
+default_params), from tensors on the card: two steps to warm up, then
+STEPS steps under torch.profiler (CPU and CUDA activities). The stages
+are the step's own spans
 (sniffles_tpu_torch/spans.py), host ranges that the profiler records:
   clustering.sort_seed  ops/clustering.sort_and_seed (3 stable sorts, the seeds)
   clustering.relax      ops/merge_relax.merge_relax (csrc/merge_relax.cu)
@@ -27,8 +29,10 @@ kernels under no span; tail_runs (the
 tail's run pass) beside its byte bound (the cluster ids read, a run start
 a cluster written) and beside torch.searchsorted of the step's cluster ids
 (the library call that computes the same starts; CUDA events, the card
-asleep ahead of the start event); the step's time between CUDA events
-outside the profiler; and the card's nvidia-smi name and power limit.
+asleep ahead of the start event); the step's wall between CUDA events
+outside the profiler, eager (the body) and replayed (call_pipeline_step
+on inputs it has captured), in turns, each with the host's enqueue time
+a step; and the card's nvidia-smi name and power limit.
 With --trace, writes the chrome trace there. Needs a
 CUDA card, unless --device cpu (a dry run of the stages on the CPU).
 
@@ -56,6 +60,7 @@ import os
 import subprocess
 import sys
 import tempfile
+import time
 from collections import defaultdict
 
 import numpy as np
@@ -124,6 +129,15 @@ def engine_inputs(n: int, device: str):
     return sig, coverage, default_params()
 
 
+def eager_step(sig, coverage, params) -> dict:
+    """The engine's step through its eager body, inside the step's span,
+    whatever graphs the engine holds for these inputs."""
+    from sniffles_tpu_torch.parallel import engine
+    from sniffles_tpu_torch.spans import STEP, span
+    with span(STEP):
+        return engine._eager_step(sig, coverage, params, 0, 100, 20, None, None)
+
+
 def tail_ids(sig, coverage, params) -> torch.Tensor:
     """The cluster ids that the engine's step hands its candidate tail."""
     from sniffles_tpu_torch.parallel import engine
@@ -134,7 +148,7 @@ def tail_ids(sig, coverage, params) -> torch.Tensor:
         return tail(stats, support_sa, coverage, elements, params, **kw)
     engine.candidate_tail = keep
     try:
-        engine.call_pipeline_step(sig, coverage, params)
+        eager_step(sig, coverage, params)
     finally:
         engine.candidate_tail = tail
     return kept[0].to(torch.int32).contiguous()
@@ -276,37 +290,59 @@ def print_tail_split(split: dict) -> None:
               f"{share}")
 
 
+def turns_ms(fns: dict, turns: int = 2, reps: int = 10) -> dict:
+    """{label: [(wall ms a step between CUDA events, host ms a step to
+    enqueue)] a turn} of reps back-to-back calls of each fn, the fns in
+    turns."""
+    out = {label: [] for label in fns}
+    for _ in range(turns):
+        for label, fn in fns.items():
+            fn()
+            torch.cuda.synchronize()
+            start, stop = (torch.cuda.Event(enable_timing=True),
+                           torch.cuda.Event(enable_timing=True))
+            t0 = time.perf_counter()
+            start.record()
+            for _ in range(reps):
+                fn()
+            stop.record()
+            host = (time.perf_counter() - t0) / reps * 1e3
+            torch.cuda.synchronize()
+            out[label].append((start.elapsed_time(stop) / reps, host))
+    return out
+
+
 def profile(n: int, steps: int, device: str, trace: str | None = None) -> dict:
-    """Runs the profile and returns its figures: split (stage_split),
-    device_us (all device kernels a step), step_ms (CUDA events, on the
-    card)."""
-    from sniffles_tpu_torch.parallel.engine import call_pipeline_step
+    """Runs the profile and returns its figures: split (stage_split of the
+    eager body), device_us (all device kernels a step), turns (turns_ms of
+    the eager and the replayed step, on the card)."""
+    from sniffles_tpu_torch.parallel import engine
     sig, coverage, params = engine_inputs(n, device)
     on_card = device != "cpu"
     sync = torch.cuda.synchronize if on_card else (lambda: None)
     for _ in range(2):
-        call_pipeline_step(sig, coverage, params)
+        eager_step(sig, coverage, params)
     sync()
     acts = [torch.profiler.ProfilerActivity.CPU]
     if on_card:
         acts.append(torch.profiler.ProfilerActivity.CUDA)
     with torch.profiler.profile(activities=acts) as prof:
         for _ in range(steps):
-            last = call_pipeline_step(sig, coverage, params)
+            last = eager_step(sig, coverage, params)
         sync()
     if trace:
         prof.export_chrome_trace(trace)
     split = stage_split(prof.events(), steps)
-    out = {"split": split, "device_us": sum(v[0] for v in split.values()), "step_ms": None,
+    out = {"split": split, "device_us": sum(v[0] for v in split.values()), "turns": None,
            "n_clusters": int(last["n_clusters"]), "searchsorted_ms": None}
     if on_card:
-        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(10):
-            call_pipeline_step(sig, coverage, params)
-        stop.record()
-        sync()
-        out["step_ms"] = start.elapsed_time(stop) / 10
+        for _ in range(2):      # the inputs' first sight, then their capture
+            engine.call_pipeline_step(sig, coverage, params)
+        replays = engine.COUNTS["replays"]
+        out["turns"] = turns_ms({
+            "eager": lambda: eager_step(sig, coverage, params),
+            "replayed": lambda: engine.call_pipeline_step(sig, coverage, params)})
+        out["replays"] = engine.COUNTS["replays"] - replays
         from sniffles_tpu_torch.ops.candidate_tail import written_runs
         from sniffles_tpu_torch.tools.time_call_stats import queued_ms
         cid = tail_ids(sig, coverage, params)
@@ -360,8 +396,11 @@ def main() -> int:
           + (f", {bound_ms * 1e3 / runs_us:.1%} of it" if runs_us else "")
           + (f"; torch.searchsorted of the step's ids {fig['searchsorted_ms']:.4f} ms (CUDA "
              f"events)" if fig["searchsorted_ms"] is not None else ""))
-    if fig["step_ms"] is not None:
-        print(f"  the step between CUDA events (10 steps, no profiler): {fig['step_ms']:.4f} ms")
+    if fig["turns"] is not None:
+        print(f"  the step's wall between CUDA events, ms a step (10 steps a turn, no "
+              f"profiler; the host's enqueue ms in brackets; {fig['replays']} replays):")
+        for label, rows in fig["turns"].items():
+            print(f"    {label:9s} " + ", ".join(f"{wall:.4f} ({host:.4f})" for wall, host in rows))
     if args.device != "cpu" and fig["device_us"] == 0:
         print("  device time by kernel: not measured (the profiler recorded no device events); "
               "the step between CUDA events above stands")

@@ -159,8 +159,9 @@ def test_rounds_from_kernels_pairs_each_rounds_two_kernels():
 # -- the engine's profile -----------------------------------------------------
 
 def test_profile_engine_wraps_every_stage_once_a_step():
-    """The tool's stages are the step's own spans, each once a step, and
-    it wraps no module function."""
+    """The tool's stages are the step's own spans, each once a step (the
+    eager body's), and it wraps no module function; on the CPU it times
+    no turn."""
     from sniffles_tpu_torch.ops import clustering, merge_relax
     from sniffles_tpu_torch.parallel import engine
     from sniffles_tpu_torch.spans import STAGES, STEP
@@ -169,7 +170,7 @@ def test_profile_engine_wraps_every_stage_once_a_step():
     fig = profile_engine.profile(4096, 2, "cpu")
     assert {label for label in fig["split"] if label is not None} == {*STAGES, STEP}
     assert all(v[3] == 1 for label, v in fig["split"].items() if label is not None)
-    assert fig["step_ms"] is None and "interval_ms" not in fig
+    assert fig["turns"] is None and "step_ms" not in fig and "interval_ms" not in fig
     assert not hasattr(profile_engine, "stage_targets")
     assert all(vars(mod) == b for mod, b in zip(mods, before))
 

@@ -18,8 +18,10 @@ PyTorch versions (and the host Myers scan), and the combine and
 call_sample device paths on the card against their host paths, the
 native host library beside a CUDA context, the cluster_assign step, the
 combine greedy's grid and flush kernels and the engine's step, whole and
-sharded, on the card against the CPU, and the engine step's spans (host
-ranges alone, each launch inside the step, 111 launches). They
+sharded, on the card against the CPU, the engine step's spans (host
+ranges alone, each launch inside the step, 111 launches), and its
+replays as one CUDA graph against its eager body (bit for bit, after a
+refill, beside held outputs, launch counts, a capture that raises). They
 skip where no CUDA card is visible. This file imports neither JAX nor
 the JAX package, so on the card it runs without them:
 
@@ -864,18 +866,25 @@ def test_engine_step_spans_hold_its_launches(card):
     host ranges alone (no device event bears a span's name); the launch
     call of each kernel and copy (the call that shares its correlation id)
     lies inside the step, so each falls in one of its five stages or its
-    own time; the step makes 111 launch and copy calls."""
+    own time; the step makes 111 launch and copy calls. Replayed, the
+    step makes no kernel launch call and opens no stage, one graph launch
+    inside its replay span."""
+    from sniffles_tpu_torch.parallel import engine
     from sniffles_tpu_torch.parallel.engine import call_pipeline_step
-    from sniffles_tpu_torch.spans import STAGES, STEP
+    from sniffles_tpu_torch.spans import REPLAY, STAGES, STEP
     from sniffles_tpu_torch.tools.profile_engine import (LAUNCH_CALLS, engine_inputs,
                                                          launched_by, stage_split)
     sig, coverage, params = engine_inputs(1 << 21, "cuda")
     call_pipeline_step(sig, coverage, params)
     torch.cuda.synchronize()
+    # the profiled call a first sight again: the eager body
+    engine.clear_graphs()
+    eager = engine.COUNTS["eager"]
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         call_pipeline_step(sig, coverage, params)
         torch.cuda.synchronize()
+    assert engine.COUNTS["eager"] == eager + 1
     events = prof.events()
     cuda = torch.autograd.DeviceType.CUDA
     named = {STEP, *STAGES}
@@ -893,6 +902,217 @@ def test_engine_step_spans_hold_its_launches(card):
     launches = [e for e in events if e.device_type != cuda and e.name.startswith(LAUNCH_CALLS)
                 and lo <= e.time_range.start <= hi]
     assert len(launches) == 111
+    # the second sight captures, the third replays: no kernel launch call
+    # inside the replayed step, one graph launch in its replay span
+    call_pipeline_step(sig, coverage, params)
+    torch.cuda.synchronize()
+    replays = engine.COUNTS["replays"]
+    with torch.profiler.profile(activities=acts) as prof:
+        call_pipeline_step(sig, coverage, params)
+        torch.cuda.synchronize()
+    assert engine.COUNTS["replays"] == replays + 1
+    events = prof.events()
+    (step,) = [e.time_range for e in events if e.device_type != cuda and e.name == STEP]
+    (replay,) = [e.time_range for e in events if e.device_type != cuda and e.name == REPLAY]
+    assert step.start <= replay.start <= replay.end <= step.end
+    inside = [e.name for e in events if e.device_type != cuda
+              and step.start <= e.time_range.start <= step.end]
+    assert not [n for n in inside if n.startswith(("cudaLaunch", "cuLaunch"))], inside
+    assert sum(n.startswith(("cudaGraphLaunch", "cuGraphLaunch")) for n in inside) == 1
+    assert not [e.name for e in events if e.device_type != cuda and e.name in STAGES]
+    engine.clear_graphs()
+
+
+def engine_host_batches():
+    """The benchmark cell's four batches of 2^21 slots (its traffic
+    chr1-sites-2m, seed 7, and its coverage and parameters), and a 2^16
+    batch of synthetic sites, on the host: ("label", sig, coverage,
+    params) of numpy arrays."""
+    import json
+    import os
+    import types
+    from benchmark.traffic.generate import coverage, signature_batches
+    from sniffles_tpu_torch.parallel.engine import default_params
+    from sniffles_tpu_torch.signatures import synthetic_batch
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(root, "benchmark", "traffic", "chr1-sites-2m.json")) as f:
+        mix = json.load(f)
+    with open(os.path.join(root, "benchmark", "configs", "hg002-hifi30.json")) as f:
+        conf = json.load(f)["engine"]
+    params = default_params(types.SimpleNamespace(**conf["params"]))
+    params["coverage_global"] = float(conf["coverage_global"])
+    cov = coverage(mix)
+    out = [(f"chr1-sites-2m[{b}]", batch, cov, params)
+           for b, batch in enumerate(signature_batches(mix, 7))]
+    n = 1 << 16
+    sig = synthetic_batch(n, n // 40, seed=42, genome_span=900_000, batch_size=n).as_dict()
+    return out + [("synthetic 2^16", sig, np.full(1_000_000, 30, dtype=np.int32),
+                   default_params())]
+
+
+def engine_graph_batches():
+    """engine_host_batches on the card."""
+    from sniffles_tpu_torch.parallel.engine import to_device
+    return [(label, *to_device(sig, cov, "cuda"), params)
+            for label, sig, cov, params in engine_host_batches()]
+
+
+def bits(t: torch.Tensor) -> torch.Tensor:
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
+def assert_same_step(got: dict, want: dict, label: str) -> None:
+    assert got.keys() == want.keys(), label
+    for k, v in want.items():
+        assert got[k].dtype == v.dtype and got[k].shape == v.shape, (label, k)
+        assert torch.equal(bits(got[k]), bits(v)), (label, k)
+
+
+def test_engine_step_replays_equal_the_eager_step(card):
+    """Each batch: the first sight eager, the second a capture, then
+    replays, every output key and merge_rounds bit for bit equal to the
+    eager body's; after an in-place refill of a batch's inputs with
+    another batch's, its replay equals the eager step on the new inputs;
+    a held output is not overwritten (that call runs eagerly)."""
+    from sniffles_tpu_torch.parallel import engine
+    engine.clear_graphs()
+    batches = engine_graph_batches()
+    counts = dict(engine.COUNTS)
+    for label, sig, coverage, params in batches:
+        want_info = {}
+        want = engine._eager_step(sig, coverage, params, 0, 100, 20, None, want_info)
+        for call in range(4):
+            info = {}
+            got = engine.call_pipeline_step(sig, coverage, params, info=info)
+            assert_same_step(got, want, f"{label} call {call}")
+            assert int(info["merge_rounds"]) == int(want_info["merge_rounds"]), label
+            del got
+    n = len(batches)
+    assert engine.COUNTS["eager"] == counts["eager"] + n
+    assert engine.COUNTS["captures"] == counts["captures"] + n
+    assert engine.COUNTS["replays"] == counts["replays"] + 2 * n
+    assert engine.COUNTS["capture_fallbacks"] == counts["capture_fallbacks"]
+
+    # batch 0's tensors refilled in place with batch 1's contents
+    (_, sig0, coverage, params), (_, sig1, _, _) = batches[:2]
+    for k, v in sig0.items():
+        v.copy_(sig1[k])
+    want = engine._eager_step(sig1, coverage, params, 0, 100, 20, None, None)
+    replays = engine.COUNTS["replays"]
+    got = engine.call_pipeline_step(sig0, coverage, params)
+    assert engine.COUNTS["replays"] == replays + 1
+    assert_same_step(got, want, "refilled batch 0")
+
+    # the refill's outputs are held: the next call runs eagerly and leaves them
+    kept = {k: v.clone() for k, v in got.items()}
+    held = engine.COUNTS["held_outputs"]
+    again = engine.call_pipeline_step(sig0, coverage, params)
+    assert engine.COUNTS["held_outputs"] == held + 1
+    assert again["pos"].data_ptr() != got["pos"].data_ptr()
+    torch.cuda.synchronize()
+    assert_same_step(got, kept, "held outputs")
+    assert_same_step(again, want, "the eager step beside held outputs")
+    del got, again
+    torch.cuda.synchronize()
+    assert_same_step(engine.call_pipeline_step(sig0, coverage, params), want, "replay after")
+    engine.clear_graphs()
+
+
+def test_engine_step_on_batches_moved_anew_each_step(card):
+    """A caller that moves each step's batch from the host anew
+    (to_device), as a loop over contigs does, in two ways: the last batch
+    and its outputs still held while the next is moved (a plain loop's
+    assignment), and both dropped first. Every call equals the eager body
+    on its batch; prints each call's path and the share replayed (only
+    where the caching allocator hands back the storage of an earlier
+    batch does a call replay)."""
+    from sniffles_tpu_torch.parallel import engine
+    host = engine_host_batches()
+    calls = 12
+    for group in (host[:4], host[4:]):
+        want = [{k: v.cpu() for k, v in engine._eager_step(
+                    *engine.to_device(sig, cov, "cuda"), params, 0, 100, 20, None,
+                    None).items()}
+                for _, sig, cov, params in group]
+        for drop in (False, True):
+            engine.clear_graphs()
+            paths, dsig = [], None
+            for i in range(calls):
+                label, sig, cov, params = group[i % len(group)]
+                if drop:
+                    dsig = dcov = out = None
+                before = dict(engine.COUNTS)
+                dsig, dcov = engine.to_device(sig, cov, "cuda")
+                out = engine.call_pipeline_step(dsig, dcov, params)
+                paths.extend(k for k in ("eager", "captures", "replays")
+                             if engine.COUNTS[k] != before[k])
+                assert_same_step({k: v.cpu() for k, v in out.items()},
+                                 want[i % len(group)], f"{label} call {i}")
+            print(f"{group[0][0]} and on, {calls} calls moved anew, "
+                  f"{'dropped' if drop else 'held'} before the next: {paths}; replayed "
+                  f"{paths.count('replays') / calls:.0%}")
+            assert len(paths) == calls, paths
+            del dsig, dcov, out
+    engine.clear_graphs()
+
+
+def test_engine_step_replays_count_the_eager_launches(card):
+    """After N replays, the ops modules' COUNTS have grown by N eager
+    steps' launches."""
+    from sniffles_tpu_torch.parallel import engine
+    from sniffles_tpu_torch.tools.profile_engine import engine_inputs
+    engine.clear_graphs()
+    sig, coverage, params = engine_inputs(1 << 16, "cuda")
+
+    def snapshot():
+        return {mod.__name__: dict(mod.COUNTS) for mod in engine.COUNTED}
+
+    def grown(before, after):
+        return {m: {k: after[m][k] - before[m][k] for k in after[m]} for m in after}
+
+    before = snapshot()
+    engine.call_pipeline_step(sig, coverage, params)
+    one = grown(before, snapshot())
+    assert one["sniffles_tpu_torch.ops.merge_relax"]["launches"] == 1
+    engine.call_pipeline_step(sig, coverage, params)       # the capture
+    before = snapshot()
+    replays = engine.COUNTS["replays"]
+    for _ in range(5):
+        engine.call_pipeline_step(sig, coverage, params)
+    torch.cuda.synchronize()
+    assert engine.COUNTS["replays"] == replays + 5
+    assert grown(before, snapshot()) == {m: {k: 5 * v for k, v in c.items()}
+                                         for m, c in one.items()}
+    engine.clear_graphs()
+
+
+def test_engine_step_capture_that_raises_falls_back(card, monkeypatch):
+    """A launcher rebound to one that waits for the card cannot be
+    captured: that call and the key's later ones run eagerly, counted, and
+    equal the eager step."""
+    from sniffles_tpu_torch.ops import call_stats
+    from sniffles_tpu_torch.parallel import engine
+    from sniffles_tpu_torch.tools.profile_engine import engine_inputs
+    engine.clear_graphs()
+    sig, coverage, params = engine_inputs(1 << 16, "cuda")
+    want = engine._eager_step(sig, coverage, params, 0, 100, 20, None, None)
+    keys = call_stats.sort_keys
+
+    def waiting(clustered):
+        out = keys(clustered)
+        int(out[0])
+        return out
+    monkeypatch.setattr(call_stats, "sort_keys", waiting)
+    fallbacks, captures = engine.COUNTS["capture_fallbacks"], engine.COUNTS["captures"]
+    for _ in range(3):
+        assert_same_step(engine.call_pipeline_step(sig, coverage, params), want, "fallback")
+    assert engine.COUNTS["capture_fallbacks"] == fallbacks + 1
+    assert engine.COUNTS["captures"] == captures
+    monkeypatch.undo()
+    # the launcher restored: a new launcher key, captured at once
+    assert_same_step(engine.call_pipeline_step(sig, coverage, params), want, "restored")
+    assert engine.COUNTS["captures"] == captures + 1
+    engine.clear_graphs()
 
 
 def test_sharded_step_on_cuda_matches_the_cpu(card):
